@@ -1,0 +1,131 @@
+"""Quantization/integerization as a model feature, in PyTorch.
+
+Counterpart of ``repro/core/api.py``.  Modes of :class:`QuantConfig`:
+
+- ``"float"``: full-precision reference;
+- ``"int"``: the paper's integerized serving graph — int8 weight codes,
+  activations quantized at module inputs, integer contractions with the
+  dequantization reordered into a per-channel epilogue (Eq. 2).
+
+``"fake"`` (QAT) belongs to the training slice and raises here.
+
+Param-tree convention (identical to the JAX package): a sub-dict
+``{"w": (in, out) float, ["b": (out,)]}`` is a linear layer;
+:func:`integerize_params` rewrites it to
+``{"w_q": (out, in) int8, "w_scale": (out,), ["b"]}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core import integerize, quant
+from repro_torch.core.integerize import QLinearParams
+from repro_torch.core.quant import QTensor
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    w_bits: int = 4
+    a_bits: int = 8
+    attn_bits: int = 8          # attention-probability grid (unsigned)
+    kv_bits: int = 8            # serving KV-cache storage
+    mode: str = "fake"          # "float" | "int" ("fake": training slice)
+    softmax: str = "base2"      # "base2" (paper Eq.4) | "exact" (ablation)
+    quantize_embeddings: bool = True
+    pack_weights: bool = False  # pack 2x4b per byte (kernels unpack)
+    backend: Optional[str] = None   # "cuda" | "torch" | None (process
+    #                                 default: see kernels.dispatch)
+
+    def replace(self, **kw) -> "QuantConfig":
+        return dataclasses.replace(self, **kw)
+
+
+FLOAT = QuantConfig(mode="float")
+
+
+def is_linear(p: Any) -> bool:
+    return (isinstance(p, dict)
+            and (("w" in p and getattr(p["w"], "ndim", 0) == 2)
+                 or ("w_q" in p)))
+
+
+def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig]) -> torch.Tensor:
+    """The one linear-layer entry point of the models."""
+    b = p.get("b")
+    if cfg is None or cfg.mode == "float":
+        y = torch.matmul(x, p["w"])
+        return y + b if b is not None else y
+    if cfg.mode == "int":
+        from repro_torch.kernels.dispatch import maybe_qlinear
+        y = maybe_qlinear(x, p, cfg)       # cuda backend; None -> plain path
+        if y is not None:
+            return y
+        if x.ndim == 3:
+            # (B, S, K) serving activations calibrate per sequence: one hot
+            # row never coarsens another sequence's grid, and a batched
+            # admission prefill is bit-identical per row to a solo run.
+            dx = quant.absmax_scale(x, cfg.a_bits, axis=(1, 2))
+            xq = quant.quantize_tensor(x, cfg.a_bits, scale=dx)
+        else:
+            xq = quant.quantize_tensor(x, cfg.a_bits)
+        return integerize.int_linear(xq, as_qlinear(p, cfg)).to(x.dtype)
+    raise ValueError(f"unsupported quant mode {cfg.mode!r} in this port "
+                     f"(fake-quant QAT belongs to the training slice)")
+
+
+def as_qlinear(p: dict, cfg: QuantConfig) -> QLinearParams:
+    w_q = p["w_q"]
+    if w_q.dtype == torch.uint8:           # nibble-packed storage
+        w_q = quant.unpack_int4(w_q)
+    return QLinearParams(w_q=w_q, w_scale=p["w_scale"], bias=p.get("b"),
+                         w_bits=cfg.w_bits)
+
+
+def dense_q(x: QTensor, p: dict, cfg: QuantConfig, *,
+            apply_input_scale: bool = True) -> torch.Tensor:
+    """Integer linear on an already-quantized activation."""
+    return integerize.int_linear(x, as_qlinear(p, cfg),
+                                 apply_input_scale=apply_input_scale)
+
+
+FLOAT_PARENTS = frozenset({"router", "w_a", "w_i", "head"})
+
+
+def integerize_params(params: Any, cfg: QuantConfig) -> Any:
+    """Rewrite every linear's float weight into reordered integer form.
+
+    Handles layer-stacked weights ((U, in, out)) by layout.  Embeddings
+    become per-row int8 codes when ``cfg.quantize_embeddings``.  Returns a
+    new tree; float weights of the input are not modified.
+    """
+    def q_linear(w):
+        # (..., in, out) -> codes (..., out, in), scale (..., out)
+        wt = w.to(torch.float32).transpose(-1, -2)
+        dw = quant.absmax_scale(wt, cfg.w_bits, axis=-1)          # (...,out,1)
+        return quant.quantize(wt, dw, cfg.w_bits).contiguous(), dw[..., 0]
+
+    def rewrite(p, parent=""):
+        if not isinstance(p, dict):
+            return p
+        if "w" in p and parent not in FLOAT_PARENTS:
+            new = {k: rewrite(v, k) for k, v in p.items() if k != "w"}
+            wq, dw = q_linear(p["w"])
+            if cfg.pack_weights and cfg.w_bits == 4 and wq.shape[-1] % 2 == 0:
+                new["w_q"] = quant.pack_int4(wq)   # uint8 marks packing
+            else:
+                new["w_q"] = wq
+            new["w_scale"] = dw
+            return new
+        if "emb" in p and cfg.quantize_embeddings:
+            emb = p["emb"].to(torch.float32)
+            de = quant.absmax_scale(emb, 8, axis=1)               # per-row
+            new = {k: rewrite(v, k) for k, v in p.items() if k != "emb"}
+            new["emb_q"] = quant.quantize(emb, de, 8)
+            new["emb_scale"] = de[:, 0]
+            return new
+        return {k: rewrite(v, k) for k, v in p.items()}
+
+    return rewrite(params)

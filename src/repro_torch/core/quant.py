@@ -1,0 +1,131 @@
+"""Uniform low-bit quantization primitives (paper §III), in PyTorch.
+
+Counterpart of ``repro/core/quant.py``.  Symmetric uniform grid with step
+``delta``::
+
+    q = clip(round(x / delta), qmin, qmax),   qmin = -2^(b-1), qmax = 2^(b-1)-1
+
+``torch.round`` rounds half to even, like ``jnp.round``, so codes match the
+reference bit for bit given the same float inputs.  Attention probabilities
+use the unsigned grid ``[0, 2^b - 1]``.
+
+Codes are stored in int8 (uint8 for unsigned grids); 4-bit codes may pack
+two nibbles per byte (:func:`pack_int4` / :func:`unpack_int4`, low nibble =
+even index).  ``fake_quant`` (the QAT path) belongs to the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+STORAGE_DTYPE = torch.int8
+ACC_DTYPE = torch.int32
+
+
+def qrange(bits: int, *, unsigned: bool = False) -> tuple[int, int]:
+    """(qmin, qmax) of the b-bit grid."""
+    if unsigned:
+        return 0, (1 << bits) - 1
+    return -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+
+
+def absmax_scale(x: torch.Tensor, bits: int, *, axis=None,
+                 unsigned: bool = False, eps: float = 1e-8) -> torch.Tensor:
+    """Calibrate step size from the abs-max of ``x`` (keepdims over ``axis``)."""
+    _, qmax = qrange(bits, unsigned=unsigned)
+    if axis is None:
+        amax = x.abs().amax()
+    else:
+        amax = x.abs().amax(dim=axis, keepdim=True)
+    return torch.clamp(amax, min=eps) / qmax
+
+
+def quantize(x: torch.Tensor, delta, bits: int, *,
+             unsigned: bool = False) -> torch.Tensor:
+    """Float -> int8-stored b-bit code (uint8 for unsigned grids)."""
+    qmin, qmax = qrange(bits, unsigned=unsigned)
+    q = torch.clamp(torch.round(x / delta), qmin, qmax)
+    return q.to(torch.uint8 if unsigned else STORAGE_DTYPE)
+
+
+def dequantize(q: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    return q.to(delta.dtype) * delta
+
+
+@dataclasses.dataclass
+class QTensor:
+    """int8-coded tensor plus its dequantization step size."""
+    q: torch.Tensor             # int8 codes (uint8 nibbles when packed)
+    scale: torch.Tensor         # f32 (or compute-dtype) step size
+    bits: int = 8
+    unsigned: bool = False
+
+    def dequant(self) -> torch.Tensor:
+        return dequantize(self.unpacked().q, self.scale)
+
+    @property
+    def is_packed(self) -> bool:
+        """Signed uint8 storage marks 2x4-bit nibble packing."""
+        return self.q.dtype == torch.uint8 and not self.unsigned
+
+    def unpacked(self) -> "QTensor":
+        if self.is_packed:
+            return QTensor(unpack_int4(self.q), self.scale, self.bits,
+                           self.unsigned)
+        return self
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    @property
+    def dtype(self):
+        return self.q.dtype
+
+
+def quantize_tensor(x: torch.Tensor, bits: int, *,
+                    scale: Optional[torch.Tensor] = None,
+                    unsigned: bool = False) -> QTensor:
+    """Quantize an activation (calibrates a per-tensor scale if none)."""
+    if scale is None:
+        scale = absmax_scale(x, bits, unsigned=unsigned)
+    scale = torch.as_tensor(scale, dtype=x.dtype, device=x.device)
+    return QTensor(quantize(x, scale, bits, unsigned=unsigned), scale, bits,
+                   unsigned)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Pack int8-stored 4-bit codes pairwise along the last axis."""
+    if q.shape[-1] % 2:
+        raise ValueError("pack_int4 needs an even trailing dim")
+    lo = q[..., 0::2].to(torch.uint8) & 0xF
+    hi = (q[..., 1::2].to(torch.uint8) & 0xF) << 4
+    return lo | hi
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4` (sign-extends nibbles back to int8)."""
+    lo = (packed & 0xF).to(torch.int8)
+    hi = ((packed >> 4) & 0xF).to(torch.int8)
+    lo = torch.where(lo >= 8, lo - 16, lo)
+    hi = torch.where(hi >= 8, hi - 16, hi)
+    out = torch.stack([lo, hi], dim=-1)
+    return out.reshape(*packed.shape[:-1], packed.shape[-1] * 2)
+
+
+def storage_bits(bits: int) -> int:
+    """Physical bits per value as stored (4-bit packs; 2/3-bit live in int8)."""
+    return 4 if bits == 4 else 8
+
+
+def int_matmul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer ``a @ b`` -> int32 on any device.
+
+    CUDA has no integer GEMM in PyTorch, so the plain versions contract
+    integer codes in float64: every product and partial sum is an integer
+    below 2^53, hence exact, and the cast back to int32 is lossless.
+    """
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(
+        ACC_DTYPE)

@@ -1,0 +1,51 @@
+"""numpy bridge between the JAX package's trees and this port's tensors.
+
+The reference's parameter and paged-cache trees, handed over as numpy
+arrays (``jax.tree.map(np.asarray, tree)`` on the JAX side), become the
+port's dicts of tensors with the same keys and layouts (``w_q (out, in)``,
+pools ``(num_pages + 1, Hkv, page_size, hd[/2])``, ``page_table
+(B, max_pages)``, layer-stacked ``units``); :func:`to_numpy` carries
+tensors back for comparison.  Weights therefore cross over as they are and
+are never re-initialised with torch's generator.  bfloat16 crosses as its
+raw 16-bit pattern, so no value is rounded on the way.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _array_to_tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        return t.view(torch.bfloat16).to(device)
+    if a.dtype == np.bool_:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def to_torch(tree, device="cuda"):
+    """Nested dicts / lists / tuples of array-likes -> tensors on ``device``
+    (scalars and None pass through)."""
+    if isinstance(tree, dict):
+        return {k: to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_torch(v, device) for v in tree)
+    if tree is None or isinstance(tree, (bool, int, float, str)):
+        return tree
+    return _array_to_tensor(tree, device)
+
+
+def to_numpy(tree):
+    """Tensors -> numpy (bfloat16 widens to float32, exactly)."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return t.numpy()
+    return tree

@@ -1,0 +1,423 @@
+"""Kernel backend dispatch: route the ``mode="int"`` serving graph onto the
+hand-written CUDA kernels.
+
+Counterpart of ``repro/kernels/dispatch.py``.  The model graph calls
+:func:`maybe_qlinear`, :func:`maybe_attention` and
+:func:`maybe_paged_attention`; each either lowers onto a kernel wrapper
+(ND->2D flattening, packed int4 weights, GQA/batch folding, per-sequence
+activation grids, block choices) or returns ``None``, and the caller runs
+the plain PyTorch path.
+
+Backends (the reference's ``"pallas"`` / ``"xla"``):
+
+- ``"cuda"`` (default): the kernel route.  The wrappers launch the CUDA
+  kernels on CUDA tensors and run the kernels' plain versions on CPU
+  tensors — the CPU counterpart of the reference's interpret mode.
+- ``"torch"``: the plain PyTorch path of the model graph (the reference's
+  XLA path).  On CUDA tensors it runs only when selected explicitly.
+
+Selection: ``QuantConfig.backend`` per model, else the process default
+(``"cuda"``; :func:`use_backend` scopes another); then the shape policy
+(``*_supported``) sends shapes no kernel takes to the plain path, counted
+as such.
+
+:data:`STATS` keeps the reference's counters with ``pallas`` -> ``cuda``
+and ``xla`` -> ``torch`` in the backend keys; the engine's counters
+(preemptions, prefill accounting, ...) keep their names.  It counts
+dispatches; the kernels' own launch counts are ``LAUNCHES`` in
+``kernels/qmatmul.py`` and ``kernels/int_attention.py``.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import quant
+from repro_torch.core.softmax2 import LOG2E
+from repro_torch.kernels import int_attention as _attn_mod
+from repro_torch.kernels import qmatmul as _qmm_mod
+from repro_torch.kernels.int_attention import (MAX_PROB_BITS,
+                                               int_attention_fused,
+                                               int_paged_decode_attention)
+from repro_torch.kernels.qmatmul import qmatmul
+
+_VALID = ("cuda", "torch")
+
+
+def _checked(name: str, source: str) -> str:
+    if name not in _VALID:
+        raise ValueError(f"unknown kernel backend {name!r} from {source}; "
+                         f"expected one of {_VALID}")
+    return name
+
+
+_backend = ["cuda"]
+
+STATS = {"qlinear_cuda": 0, "qlinear_torch": 0,
+         "attention_cuda": 0, "attention_paged_cuda": 0,
+         "attention_paged_torch": 0, "attention_torch": 0,
+         "cow_page_copies": 0,
+         # failure-handling counters, bumped by launch/engine.py
+         "preemptions": 0, "resumes": 0, "cancelled": 0, "expired": 0,
+         "watchdog_fires": 0, "audit_failures": 0, "forced_xla_steps": 0,
+         "quarantined": 0,
+         # admission-prefill accounting, bumped by launch/engine.py
+         "prefill_calls": 0, "prefill_chunks": 0, "prefill_tokens": 0,
+         # chosen tile sizes per (op, shape)
+         "blocks": {}}
+
+
+def reset_stats():
+    for k in STATS:
+        STATS[k] = {} if k == "blocks" else 0
+
+
+def snapshot() -> dict:
+    """JSON-serializable copy of STATS (the blocks dict copied)."""
+    return {k: (dict(v) if isinstance(v, dict) else v)
+            for k, v in STATS.items()}
+
+
+def launch_counts() -> dict:
+    """Every CUDA kernel's launch count (the wrappers' own counters)."""
+    return {**_qmm_mod.LAUNCHES, **_attn_mod.LAUNCHES}
+
+
+def reset_launches():
+    for counts in (_qmm_mod.LAUNCHES, _attn_mod.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _record_blocks(op: str, key: str, *choice: int):
+    STATS["blocks"][f"{op}:{key}"] = list(choice)
+
+
+def get_backend() -> str:
+    return _backend[-1]
+
+
+@contextlib.contextmanager
+def use_backend(name: str):
+    _backend.append(_checked(name, "use_backend"))
+    try:
+        yield
+    finally:
+        _backend.pop()
+
+
+def resolve_backend(cfg) -> str:
+    b = getattr(cfg, "backend", None)
+    if b is None:
+        return get_backend()
+    return _checked(b, "QuantConfig.backend")
+
+
+# ---------------------------------------------------------------------------
+# Block choices for the H100: 227 KB of shared memory per block
+# ---------------------------------------------------------------------------
+
+SMEM_BUDGET = 232_448
+
+
+def _round_up(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+def qmatmul_blocks(m: int, n: int, k: int) -> tuple[int, int, int]:
+    """(bm, bn, bk) output tile and K slab of the qmatmul kernel.
+
+    The tile lives in registers (a 16x16 thread grid, each thread a
+    bm/16 x bn/16 int32 accumulator block) and two int8 slabs of 64 bytes
+    per row in shared memory (< 13 KB, far under the budget).  Decode
+    (M <= 16 rows) takes the 16 x 64 tile so enough blocks stream W;
+    prefill the 64 x 128 tile for operand reuse.
+    """
+    bm, bn = (16, 64) if m <= 16 else (64, 128)
+    _record_blocks("qmatmul", f"m{m}_n{n}_k{k}", bm, bn, 64)
+    return bm, bn, 64
+
+
+def fused_smem(bq: int, bk: int, d: int) -> int:
+    """Dynamic shared memory of the fused attention kernel (bytes): q and
+    k tiles, transposed v tile, f32 logits, u8 codes (word-padded rows),
+    and three f32 row vectors."""
+    qs, ps = d // 4 + 1, bk // 4 + 1
+    return 4 * (bq * qs + bk * qs + d * ps + bq * bk + bq * ps + 3 * bq)
+
+
+def paged_smem(g: int, page_size: int, d: int) -> int:
+    """Dynamic shared memory of the paged decode kernel (bytes)."""
+    qs, ps = d // 4 + 1, page_size // 4 + 1
+    return 4 * (g * qs + page_size * qs + d * ps + g * page_size + g * ps
+                + 3 * g)
+
+
+def attention_blocks(sq: int, sk: int, d: int, *,
+                     window: Optional[int] = None,
+                     chunk: Optional[int] = None,
+                     budget: int = SMEM_BUDGET) -> tuple[int, int]:
+    """(bq, bk) for the fused attention kernel.
+
+    ``bq * d <= 8192`` (each of the 256 threads keeps at most 32 f32 output
+    accumulators in registers), at most 64 rows.  ``bk`` prefers covering
+    the whole key row (then the online grid equals the full-row grid of
+    the plain ``torch`` path) up to 512 keys, and halves until the tiles
+    fit the shared-memory budget (256 keys at d = 128).  Narrow local
+    windows over long keys cap ``bk`` near the ``bq + window`` live span.
+    ``chunk`` caps ``bq`` to a divisor of the query-recalibration chunk so
+    one q tile never straddles two activation grids.
+    """
+    bq = min(_round_up(sq, 16), 64, max(1, 8192 // d))
+    narrow = window is not None and sk > 2 * window
+    cap = 512
+    if narrow:
+        cap = min(cap, _round_up(bq + window, 32))
+    bk = min(_round_up(sk, 32), cap)
+    while fused_smem(bq, bk, d) > budget and bk > 32:
+        bk = max(32, _round_up(bk // 2, 32))
+    while fused_smem(bq, bk, d) > budget and bq > 16:
+        bq //= 2
+    if chunk is not None:
+        bq = next(x for x in range(min(bq, chunk), 0, -1) if chunk % x == 0)
+    _record_blocks("attention", f"sq{sq}_sk{sk}_d{d}_w{window}_c{chunk}",
+                   bq, bk)
+    return bq, bk
+
+
+def paged_decode_blocks(page_size: int, d: int, g: int, *,
+                        budget: int = SMEM_BUDGET) -> int:
+    """Key-block size of the paged decode kernel: one page per block (pages
+    are physically scattered).  0 when the page does not fit the kernel
+    (page_size % 4, G * D > 2048, or shared memory) — the shape policy then
+    routes to the plain path."""
+    ok = (page_size % 4 == 0 and d % 4 == 0 and g * d <= 2048
+          and paged_smem(g, page_size, d) <= budget)
+    bk = page_size if ok else 0
+    _record_blocks("paged_decode", f"ps{page_size}_d{d}_g{g}", bk)
+    return bk
+
+
+# ---------------------------------------------------------------------------
+# Linear: ND activation x integerized weight -> qmatmul
+# ---------------------------------------------------------------------------
+
+def qlinear_supported(x, p) -> bool:
+    """Shape policy: can this dense() call lower onto the qmatmul kernel?"""
+    w_q = p.get("w_q")
+    if w_q is None or w_q.ndim != 2:
+        return False
+    if x.ndim < 1 or x.shape[-1] == 0 or x.numel() == 0:
+        return False
+    return x.shape[-1] % 4 == 0             # int8 words (and nibble pairs)
+
+
+def maybe_qlinear(x, p: dict, cfg):
+    """Kernel-backed dense() body; ``None`` -> caller's plain path.
+
+    Flattens leading dims to 2D, quantizes the activation on the plain
+    path's grid — per sequence for (B, S, K) through the kernel's per-row
+    epilogue scale — keeps nibble-packed weights packed, and folds
+    ``dx * dw`` plus bias into the epilogue.
+    """
+    if resolve_backend(cfg) != "cuda" or not qlinear_supported(x, p):
+        STATS["qlinear_torch"] += 1
+        return None
+    STATS["qlinear_cuda"] += 1
+    w_q = p["w_q"]
+    packed = w_q.dtype == torch.uint8
+    kdim = x.shape[-1]
+    n = w_q.shape[0]
+    if x.ndim == 3:
+        codes, row_scale = quantize_rows(x, cfg.a_bits)
+        x2 = codes.reshape(-1, kdim)
+        scale = p["w_scale"].to(torch.float32)
+        row_scale = torch.repeat_interleave(row_scale.to(torch.float32),
+                                            x.shape[1])
+    else:
+        xq = quant.quantize_tensor(x, cfg.a_bits)
+        x2 = xq.q.reshape(-1, kdim)
+        scale = (p["w_scale"] * xq.scale).to(torch.float32)
+        row_scale = None
+    bias = p.get("b")
+    bm, bn, _ = qmatmul_blocks(x2.shape[0], n, kdim)
+    out = qmatmul(x2.contiguous(), w_q, scale.contiguous(),
+                  None if bias is None else bias.to(torch.float32),
+                  row_scale, bm=bm, bn=bn, packed=packed)
+    return out.reshape(*x.shape[:-1], n).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention: (B, H, S, D) GQA -> folded (B*Hkv, ...) kernels
+# ---------------------------------------------------------------------------
+
+def attention_supported(q, k, spec, cfg, q_offset, k_offset,
+                        k_positions) -> bool:
+    """Shape policy for the fused (prefill) attention kernel: fresh float
+    operands from position 0 (ring caches and cached codes take the plain
+    path), base-2 softmax, <= 8-bit prob codes, D % 4 == 0."""
+    if cfg.attn_bits > MAX_PROB_BITS:
+        return False
+    if getattr(cfg, "softmax", "base2") != "base2":
+        return False
+    if k_positions is not None:
+        return False
+    if not (isinstance(q_offset, int) and q_offset == 0
+            and isinstance(k_offset, int) and k_offset == 0):
+        return False
+    if any(isinstance(t, quant.QTensor) for t in (q, k)):
+        return False
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    return (sq > 0 and k.shape[2] > 0 and hq % hkv == 0 and 0 < d <= 8192
+            and d % 4 == 0)
+
+
+def maybe_attention(q, k, v, spec, cfg, *, q_offset=0, k_offset=0,
+                    k_positions=None):
+    """Kernel-backed attention() body; ``None`` -> caller's plain path."""
+    if resolve_backend(cfg) == "cuda" and attention_supported(
+            q, k, spec, cfg, q_offset, k_offset, k_positions):
+        STATS["attention_cuda"] += 1
+        return _fused_call(q, k, v, spec, cfg)
+    STATS["attention_torch"] += 1
+    return None
+
+
+def chunk_len(sq: int, q_chunk: int) -> int:
+    """The plain path's query-recalibration chunk: largest c <= q_chunk
+    dividing Sq."""
+    if sq <= q_chunk:
+        return sq
+    return next(c for c in range(q_chunk, 0, -1) if sq % c == 0)
+
+
+def _fused_call(q, k, v, spec, cfg):
+    """Fold batch into the kernel's head axis and GQA groups along the query
+    rows (row r at position ``r % Sq`` via ``sq_mod``).
+
+    Float inputs quantize on per-sequence grids exactly like the plain
+    path — k/v per batch row, q per (batch row, query chunk) — and the
+    resulting (B*Hkv, nq) logit-scale matrix gives each bq tile its own
+    scale.
+    """
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = spec.softmax_scale or (1.0 / d ** 0.5)
+    c = chunk_len(sq, spec.q_chunk)
+    n_ch = sq // c
+    qr = q.reshape(b, hkv, g, n_ch, c, d)
+    qsc = quant.absmax_scale(qr, cfg.a_bits, axis=(1, 2, 4, 5))
+    qf = quant.quantize(qr, qsc, cfg.a_bits) \
+        .reshape(b * hkv, g * sq, d).contiguous()
+    ksc = quant.absmax_scale(k, cfg.a_bits, axis=(1, 2, 3))
+    vsc = quant.absmax_scale(v, cfg.a_bits, axis=(1, 2, 3))
+    kf = quant.quantize(k, ksc, cfg.a_bits).reshape(b * hkv, sk, d)
+    vf = quant.quantize(v, vsc, cfg.a_bits).reshape(b * hkv, sk, d)
+    bq, bk = attention_blocks(g * sq, sk, d, window=spec.window, chunk=c)
+    nq = (g * sq) // bq
+    # Tile i covers positions [(i*bq) % sq, +bq) of group (i*bq) // sq —
+    # inside one chunk because bq divides c.
+    tile_chunk = torch.as_tensor((np.arange(nq) * bq % sq) // c,
+                                 device=q.device)
+    qs_b = qsc.reshape(b, n_ch)
+    sc = scale * LOG2E * qs_b[:, tile_chunk] * ksc.reshape(b, 1)
+    sc = torch.repeat_interleave(sc, hkv, dim=0)         # (b*hkv, nq)
+    vs = torch.repeat_interleave(vsc.reshape(b), hkv)    # (b*hkv,)
+    out = int_attention_fused(qf, kf.contiguous(), vf.contiguous(), sc, vs,
+                              attn_bits=cfg.attn_bits, causal=spec.causal,
+                              window=spec.window, bq=bq, bk=bk, sq_mod=sq)
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged attention: shared page pools + per-sequence page tables
+# ---------------------------------------------------------------------------
+
+def quantize_rows(x, bits):
+    """Per-sequence (leading-axis) activation quantization -> (codes int8,
+    scale (B,))."""
+    scale = quant.absmax_scale(x, bits, axis=tuple(range(1, x.ndim)))
+    return quant.quantize(x, scale, bits), scale.reshape(x.shape[0])
+
+
+def paged_query_grid(q, spec, cfg, k_scale=None):
+    """Per-sequence query codes + folded per-row softmax scale: the ONE
+    derivation both backends consume, so their codes agree by
+    construction.  ``k_scale=None`` leaves the key step out of the fold
+    (per-physical-page scale pools)."""
+    qq, qscale = quantize_rows(q, cfg.a_bits)
+    scale = spec.softmax_scale or (1.0 / q.shape[-1] ** 0.5)
+    sc = scale * LOG2E * qscale.to(torch.float32)
+    if k_scale is not None:
+        sc = sc * torch.as_tensor(k_scale, dtype=torch.float32,
+                                  device=q.device).reshape(-1)
+    return qq, sc
+
+
+def paged_read_grid(q, spec, cfg, k_scale, v_scale, page_scaled: bool):
+    """(query codes, per-row logit scale, per-row v scale) for a paged
+    read, for both scale layouts."""
+    if page_scaled:
+        qq, sc = paged_query_grid(q, spec, cfg)
+        return qq, sc, torch.ones((q.shape[0],), dtype=torch.float32,
+                                  device=q.device)
+    qq, sc = paged_query_grid(q, spec, cfg, k_scale)
+    return qq, sc, v_scale
+
+
+def paged_decode_supported(q, k_pages, spec, cfg, page_table, pos) -> bool:
+    """Shape policy for the paged decode kernel."""
+    if cfg.attn_bits > MAX_PROB_BITS:
+        return False
+    if getattr(cfg, "softmax", "base2") != "base2":
+        return False
+    if k_pages.ndim != 4 or page_table.ndim != 2:
+        return False
+    b, hq, sq, d = q.shape
+    num_phys, hkv, page_size, dk = k_pages.shape
+    if sq != 1 or d == 0 or hq % hkv:
+        return False
+    if k_pages.dtype == torch.uint8 and (dk * 2 != d or d % 2):
+        return False
+    if k_pages.dtype == torch.int8 and dk != d:
+        return False
+    if k_pages.dtype not in (torch.int8, torch.uint8):
+        return False
+    return paged_decode_blocks(page_size, d, hq // hkv) > 0
+
+
+def maybe_paged_attention(q, k_pages, v_pages, k_scale, v_scale, spec, cfg,
+                          *, page_table, pos, k_page_scale=None,
+                          v_page_scale=None):
+    """Kernel-backed paged decode; ``None`` -> caller's plain gather path."""
+    if resolve_backend(cfg) == "cuda" and \
+            paged_decode_supported(q, k_pages, spec, cfg, page_table, pos):
+        STATS["attention_paged_cuda"] += 1
+        return _paged_call(q, k_pages, v_pages, k_scale, v_scale, spec, cfg,
+                           page_table, pos, k_page_scale, v_page_scale)
+    STATS["attention_paged_torch"] += 1
+    return None
+
+
+def _paged_call(q, k_pages, v_pages, k_scale, v_scale, spec, cfg,
+                page_table, pos, k_page_scale=None, v_page_scale=None):
+    """One continuous-batching decode step on the paged kernel: pools as
+    stored (int8 codes or int4 nibbles), every sequence on its own grid;
+    with per-physical-page scale pools each page dequantizes on the grid
+    it was prefilled with."""
+    b, hq, _, d = q.shape
+    hkv = k_pages.shape[1]
+    g = hq // hkv
+    qq, sc, vs = paged_read_grid(q, spec, cfg, k_scale, v_scale,
+                                 k_page_scale is not None)
+    out = int_paged_decode_attention(
+        qq.reshape(b, hkv, g, d), k_pages, v_pages, sc, vs,
+        page_table, pos, k_page_scale=k_page_scale,
+        v_page_scale=v_page_scale, attn_bits=cfg.attn_bits,
+        window=spec.window, packed=k_pages.dtype == torch.uint8)
+    return out.reshape(b, hq, 1, d).to(q.dtype)

@@ -1,0 +1,282 @@
+"""Plain PyTorch oracles for the kernels: exact intended semantics, no tiling.
+
+Counterpart of ``repro/kernels/ref.py``.  Probability codes live on the
+power-of-two Sigma-scaled grid::
+
+    e    = (1+r) * 2^(x - m),  m = floor(row max)  =>  e in [0, 2)
+    p_q  = clip(round(e * qmax / 2), 0, qmax)
+    out  = (sum_j p_q[j] v[j]) * dattn * dv,   dattn = (2/qmax) / Sigma
+
+- :func:`int_attention_ref` — full-row semantics (``m`` is the final row
+  max): what the plain ``torch`` backend serves for prefill.
+- :func:`int_attention_ref_streamed` — keys consumed in ``bk`` blocks,
+  each block's codes on the running ``m``: the fused kernel's semantics.
+- :func:`int_paged_decode_attention_ref` — one query position against a
+  paged KV cache; ``bk=None`` is the full-row grid, ``bk = page_size`` the
+  paged kernel's streamed grid.  Its streamed core (:func:`_decode_stream`)
+  is the reference's ring oracle ``int_decode_attention_ref``, whose own
+  port comes with the ring-cache slice.
+
+Integer contractions run through ``quant.int_matmul_exact`` (float64,
+exact), so these run unchanged on CPU and CUDA tensors.  ``return_codes``
+additionally returns the prob codes (uint8, one per (row, key)), which is
+how the kernels' codes are held against these oracles exactly.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.quant import int_matmul_exact, unpack_int4
+from repro_torch.core.softmax2 import exp2_shift, exp2i
+
+NEG = -1e30
+
+
+def qmatmul_ref(x_q, w_q, scale, bias=None, row_scale=None):
+    """int8 (M,K) @ int8 (N,K)^T * (scale[n] * row_scale[m]) + bias[n].
+
+    ``w_q`` may be (N, K/2) uint8 nibbles (low nibble = even k).  Returns
+    f32 (M, N), with the epilogue's products in the kernel's order.
+    """
+    if w_q.dtype == torch.uint8:
+        w_q = unpack_int4(w_q)
+    acc = int_matmul_exact(x_q, w_q.T)
+    s = scale.to(torch.float32)[None, :]
+    if row_scale is not None:
+        s = s * row_scale.to(torch.float32)[:, None]
+    out = acc.to(torch.float32) * s
+    if bias is not None:
+        out = out + bias.to(torch.float32)[None, :]
+    return out
+
+
+def _row_sc(sc, h, sq):
+    """Broadcast a logit scale (scalar, (sq,) or (h, sq)) to (h, sq, 1)."""
+    sc = torch.as_tensor(sc, dtype=torch.float32)
+    if sc.ndim == 0:
+        return sc
+    if sc.ndim == 1:
+        return sc[None, :, None].expand(h, sq, 1)
+    return sc[:, :, None].expand(h, sq, 1)
+
+
+def _head_sc(s, h, device=None):
+    """Broadcast a per-head-fold scale (scalar or (h,)) to (h, 1, 1)."""
+    s = torch.as_tensor(s, dtype=torch.float32, device=device)
+    if s.ndim == 0:
+        return s
+    return s.reshape(h, 1, 1)
+
+
+def _attn_mask(sq, sk, sq_mod, causal, window, device):
+    q_pos = (torch.arange(sq, device=device) % sq_mod)[:, None]
+    k_pos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def _codes(e, qmax):
+    return torch.clamp(torch.round(e * (qmax / 2.0)), 0, qmax)
+
+
+def int_attention_ref(q_q, k_q, v_q, sc, v_scale, *, attn_bits=7,
+                      causal=True, window=None, sq_mod=None):
+    """Full-row integer attention with base-2 softmax (paper semantics).
+
+    q_q (H, Sq, D) int8 (GQA groups stacked along Sq: row r has position
+    ``r % sq_mod``), k_q, v_q (H, Sk, D) int8; ``sc`` scalar, (sq,) or
+    (h, sq); ``v_scale`` scalar or (h,).  Returns (H, Sq, D) f32.
+    """
+    h, sq, d = q_q.shape
+    sk = k_q.shape[1]
+    dev = q_q.device
+    qmax = (1 << attn_bits) - 1
+    acc = int_matmul_exact(q_q, k_q.transpose(1, 2))
+    x = acc.to(torch.float32) * _row_sc(sc, h, sq).to(dev)
+    mask = _attn_mask(sq, sk, sq_mod or sq, causal, window, dev)
+    x = torch.clamp(torch.where(mask, x, NEG), min=-120.0)
+    m = torch.floor(x.amax(dim=-1, keepdim=True))
+    e = torch.where(x <= -120.0, 0.0, exp2_shift(x - m))
+    s = torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+    dattn = (2.0 / qmax) / s
+    pv = int_matmul_exact(_codes(e, qmax), v_q)
+    return pv.to(torch.float32) * (dattn * _head_sc(v_scale, h, dev))
+
+
+def int_attention_ref_streamed(q_q, k_q, v_q, sc, v_scale, *, bk,
+                               attn_bits=7, causal=True, window=None,
+                               sq_mod=None, return_codes=False):
+    """Block-streamed oracle: each ``bk`` key block quantized on the
+    running grid, the PV carry rescaled by the exact ``2^(m_old - m_new)``.
+    Same contract as :func:`int_attention_ref`; with ``return_codes`` also
+    returns the (H, Sq, Sk) uint8 prob codes."""
+    h, sq, d = q_q.shape
+    sk = k_q.shape[1]
+    dev = q_q.device
+    qmax = (1 << attn_bits) - 1
+    mask = _attn_mask(sq, sk, sq_mod or sq, causal, window, dev)
+    acc_all = int_matmul_exact(q_q, k_q.transpose(1, 2))
+    x_all = acc_all.to(torch.float32) * _row_sc(sc, h, sq).to(dev)
+    x_all = torch.clamp(torch.where(mask[None], x_all, NEG), min=-120.0)
+    m = torch.full((h, sq, 1), NEG, device=dev)
+    s = torch.zeros((h, sq, 1), device=dev)
+    pv = torch.zeros((h, sq, d), device=dev)
+    codes = []
+    for t in range(0, sk, bk):
+        x = x_all[:, :, t:t + bk]
+        m_new = torch.maximum(m, torch.floor(x.amax(dim=-1, keepdim=True)))
+        e = torch.where(x <= -120.0, 0.0, exp2_shift(x - m_new))
+        p = _codes(e, qmax)
+        r = torch.where(m <= NEG, 0.0, exp2i(m - m_new))
+        blk = int_matmul_exact(p, v_q[:, t:t + bk]).to(torch.float32)
+        s = s * r + e.sum(dim=-1, keepdim=True)
+        pv = pv * r + blk
+        m = m_new
+        codes.append(p)
+    dattn = (2.0 / qmax) / torch.clamp(s, min=1e-30)
+    out = pv * (dattn * _head_sc(v_scale, h, dev))
+    if return_codes:
+        return out, torch.cat(codes, dim=-1).to(torch.uint8)
+    return out
+
+
+def gather_pages(pages, page_table):
+    """(num_pages, H, ps, d) pool + (B, max_pages) table -> (B, H,
+    max_pages * ps, d) rows in position order (negative ids clamp; callers
+    mask them through positions)."""
+    num_phys = pages.shape[0]
+    g = pages[page_table.long().clamp(0, num_phys - 1)]   # (B, P, H, ps, d)
+    b, p, h, ps, d = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(b, h, p * ps, d)
+
+
+def _decode_stream(x, v, qmax, bk, vf_blk=None, v_scale=None,
+                   return_codes=False):
+    """Shared streamed core of the decode oracles, batched over leading
+    dims: x (..., G, T) masked+clamped logits, v (..., T, D) int codes.
+    With ``vf_blk`` (..., nblk) per-block v factors (page scales), each
+    block's integer PV is scaled by ``v_scale * vf`` before accumulation."""
+    *lead, g, span = x.shape
+    d = v.shape[-1]
+    dev = x.device
+    m = torch.full((*lead, g, 1), NEG, device=dev)
+    s = torch.zeros((*lead, g, 1), device=dev)
+    pv = torch.zeros((*lead, g, d), device=dev)
+    codes = []
+    for i, t in enumerate(range(0, span, bk)):
+        xb = x[..., t:t + bk]
+        m_new = torch.maximum(m, torch.floor(xb.amax(dim=-1, keepdim=True)))
+        e = torch.where(xb <= -120.0, 0.0, exp2_shift(xb - m_new))
+        p = _codes(e, qmax)
+        r = torch.where(m <= NEG, 0.0, exp2i(m - m_new))
+        blk = int_matmul_exact(p, v[..., t:t + bk, :]).to(torch.float32)
+        if vf_blk is not None:
+            blk = blk * (v_scale * vf_blk[..., i])[..., None, None]
+        s = s * r + e.sum(dim=-1, keepdim=True)
+        pv = pv * r + blk
+        m = m_new
+        codes.append(p)
+    s = torch.clamp(s, min=1e-30)
+    return pv, s, (torch.cat(codes, dim=-1) if return_codes else None)
+
+
+def int_paged_decode_attention_ref(q_q, k_pages, v_pages, sc, v_scale,
+                                   page_table, pos, *, attn_bits=7,
+                                   window=None, bk=None, k_page_scale=None,
+                                   v_page_scale=None, return_codes=False):
+    """Paged decode oracle: (B, Hkv, G, D) queries vs shared page pools.
+
+    uint8 pools are nibble-packed and unpack to int8 codes (never float).
+    Each row gathers its pages into a position-contiguous key row
+    (unallocated pages masked) and attends at its own ``pos``/``sc``/
+    ``v_scale``.  ``bk=None``: full-row grid.  ``bk = page_size``: pages
+    stream in logical order on the running grid — the paged kernel's
+    semantics.  ``k_page_scale``/``v_page_scale`` (num_pages,) resolve
+    scales per PHYSICAL page: logit scale ``sc[b] * kps[phys]``, and each
+    page's integer PV scaled by ``v_scale[b] * vps[phys]``.  Returns
+    (B, Hkv, G, D) f32 (and the (B, Hkv, G, max_pages * ps) uint8 codes
+    with ``return_codes``; streamed grid only).
+    """
+    b, hkv, g, d = q_q.shape
+    dev = q_q.device
+    num_phys = k_pages.shape[0]
+    ps = k_pages.shape[2]
+    qmax = (1 << attn_bits) - 1
+    k = gather_pages(k_pages, page_table)
+    v = gather_pages(v_pages, page_table)
+    if k.dtype == torch.uint8:
+        k, v = unpack_int4(k), unpack_int4(v)
+    total = page_table.shape[1] * ps
+    alloc = torch.repeat_interleave(page_table >= 0, ps, dim=1)
+    kpos = torch.where(alloc, torch.arange(total, device=dev)[None, :], -1)
+    sc = torch.as_tensor(sc, dtype=torch.float32, device=dev).reshape(-1)
+    sc = sc.expand(b) if sc.numel() == 1 else sc
+    vs = torch.as_tensor(v_scale, dtype=torch.float32,
+                         device=dev).reshape(-1)
+    vs = vs.expand(b) if vs.numel() == 1 else vs
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).reshape(b)
+    mask = (kpos >= 0) & (kpos <= pos[:, None])
+    if window is not None:
+        mask &= kpos > pos[:, None] - window
+    acc = int_matmul_exact(q_q, k.transpose(-1, -2))        # (B,H,G,T)
+    page_scaled = k_page_scale is not None
+    if page_scaled:
+        phys = page_table.long().clamp(0, num_phys - 1)
+        kfac = torch.repeat_interleave(
+            k_page_scale.to(torch.float32)[phys], ps, dim=1)   # (B, T)
+        vf_blk = v_page_scale.to(torch.float32)[phys]          # (B, P)
+        x = acc.to(torch.float32) * (sc[:, None] * kfac)[:, None, None, :]
+    else:
+        x = acc.to(torch.float32) * sc[:, None, None, None]
+    x = torch.clamp(torch.where(mask[:, None, None, :], x, NEG), min=-120.0)
+    if bk is None:
+        m = torch.floor(x.amax(dim=-1, keepdim=True))
+        e = torch.where(x <= -120.0, 0.0, exp2_shift(x - m))
+        s = torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+        p = _codes(e, qmax)
+        if page_scaled:
+            vfac = torch.repeat_interleave(vf_blk, ps, dim=1)
+            pv = torch.matmul(p * vfac[:, None, None, :], v.to(torch.float32))
+            return pv * ((2.0 / qmax) / s * vs[:, None, None, None])
+        pv = int_matmul_exact(p, v).to(torch.float32)
+        return pv * ((2.0 / qmax) / s * vs[:, None, None, None])
+    if page_scaled:
+        pv, s, codes = _decode_stream(x, v, qmax, bk, vf_blk[:, None, :],
+                                      vs[:, None], return_codes)
+        out = pv * ((2.0 / qmax) / s)
+    else:
+        pv, s, codes = _decode_stream(x, v, qmax, bk,
+                                      return_codes=return_codes)
+        out = pv * ((2.0 / qmax) / s * vs[:, None, None, None])
+    if return_codes:
+        return out, codes.to(torch.uint8)
+    return out
+
+
+def ragged_write_ref(pages, codes, lengths, page_table):
+    """Loop oracle for the ragged paged-prefill scatter (models.lm).
+
+    pages (num_pages + 1, H, ps, d) as stored (last = TRASH); codes
+    (B, H, S, d); lengths (B,); page_table (B, max_pages).  Row b's
+    position p < lengths[b] lands at ``pages[page_table[b, p // ps], :,
+    p % ps]``; pad / unallocated positions land in the trash page.
+    """
+    out = np.array(pages)
+    b, _, s, _ = codes.shape
+    ps = out.shape[2]
+    trash = out.shape[0] - 1
+    pt = np.asarray(page_table)
+    codes_np = np.asarray(codes)
+    lens = np.asarray(lengths)
+    for i in range(b):
+        for p in range(s):
+            phys = pt[i, min(p // ps, pt.shape[1] - 1)]
+            if p >= lens[i] or phys < 0:
+                phys = trash
+            out[phys, :, p % ps] = codes_np[i, :, p]
+    return out

@@ -1,0 +1,1 @@
+"""layers of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,591 @@
+"""Decoder-only LM, attention-only subset, with the paged KV cache — in
+PyTorch.
+
+Counterpart of ``repro/models/lm.py`` for the serving main path:
+:class:`LMConfig`, :func:`init_params`, :func:`forward`, :func:`logits_fn`,
+:func:`init_paged_cache`, :func:`paged_prefill`, :func:`admission_prefill`,
+:func:`decode_step`, :func:`copy_page` and :func:`page_scale_pools`.  The
+ring cache, recurrent / SSM / MoE blocks and training belong to later
+slices and raise here.
+
+Parameters and caches are plain dicts of tensors with the JAX package's
+keys and layouts: linear weights ``(in, out)`` float or ``w_q (out, in)``
+int8 codes, layer-stacked ``units`` subtrees (leading layer axis; the
+reference's scan over units is a Python loop here), pools
+``(num_pages + 1, Hkv, page_size, hd[/2])`` whose last page is the TRASH
+page (masked writes land there, it is never read), ``pos (B,)`` (negative
+= inactive row) and ``page_table (B, max_pages)`` (negative =
+unallocated).  Scales calibrate per sequence ``(B,)`` and are read per
+PHYSICAL page (``page_k_scale``/``page_v_scale``), so a page aliased from
+a shared prefix dequantizes with its owner's grid.
+
+Where JAX returned updated copies, this port writes in place:
+
+- :func:`decode_step` writes each row's new key/value into its page of the
+  pools, and advances ``cache["pos"]``, in place;
+- :func:`paged_prefill` writes the prompt's codes into the pools, the
+  per-sequence scales, the per-page scale registrations and ``pos`` in
+  place;
+- :func:`admission_prefill` writes codes and page scales straight into the
+  serving cache's shared pools and installs per-row leaves at ``rows``;
+- :func:`copy_page` copies one physical page into another in place.
+
+Each returns the cache it was given, so callers read like the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.api import QuantConfig, dense
+from repro_torch.core.quant import pack_int4, qrange, unpack_int4
+from repro_torch.kernels.ref import gather_pages
+from repro_torch.layers.attention import (AttnSpec, attention,
+                                          paged_attention,
+                                          prefix_prefill_attention)
+from repro_torch.layers.embed import embed_lookup, init_embed
+from repro_torch.layers.mlp import mlp
+from repro_torch.layers.norms import apply_norm, init_norm
+from repro_torch.layers.rope import apply_rope
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None
+    block_pattern: tuple = ("attn",)          # cycled; "attn" | "local"
+    attn_window: Optional[int] = None
+    rope_theta: float = 10000.0
+    rotary_frac: float = 1.0
+    qkv_bias: bool = False
+    norm: str = "rmsnorm"
+    act: str = "swiglu"
+    dtype: str = "bfloat16"
+    quant: Optional[QuantConfig] = None
+    q_chunk: int = 128
+    causal: bool = True
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def tdtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    def replace(self, **kw) -> "LMConfig":
+        return dataclasses.replace(self, **kw)
+
+
+ATTN_KINDS = ("attn", "local")
+
+
+def block_kinds(cfg: LMConfig) -> list[str]:
+    pat = cfg.block_pattern
+    return [pat[i % len(pat)] for i in range(cfg.n_layers)]
+
+
+def unit_structure(cfg: LMConfig):
+    """(unit kinds, n_units, remainder kinds)."""
+    unit = tuple(cfg.block_pattern)
+    n_units = cfg.n_layers // len(unit)
+    rem = tuple(block_kinds(cfg)[n_units * len(unit):])
+    for kind in unit + rem:
+        if kind not in ATTN_KINDS:
+            raise NotImplementedError(
+                f"block kind {kind!r} is not ported yet (attention-only "
+                f"stacks in this slice)")
+    return unit, n_units, rem
+
+
+# ---------------------------------------------------------------------------
+# Init (random weights from an explicit generator, on the given device)
+# ---------------------------------------------------------------------------
+
+def _lin(gen, lead, din, dout, dtype, device, bias=False):
+    w = torch.randn((*lead, din, dout), generator=gen, device=device)
+    p = {"w": (w * din ** -0.5).to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((*lead, dout), dtype=dtype, device=device)
+    return p
+
+
+def _init_block(gen, cfg: LMConfig, lead, device) -> dict:
+    d, hd, dt = cfg.d_model, cfg.hd, cfg.tdtype
+    p = {"ln1": _stack(init_norm(d, cfg.norm, device=device), lead),
+         "attn": {
+             "wq": _lin(gen, lead, d, cfg.n_heads * hd, dt, device,
+                        cfg.qkv_bias),
+             "wk": _lin(gen, lead, d, cfg.kv_heads * hd, dt, device,
+                        cfg.qkv_bias),
+             "wv": _lin(gen, lead, d, cfg.kv_heads * hd, dt, device,
+                        cfg.qkv_bias),
+             "wo": _lin(gen, lead, cfg.n_heads * hd, d, dt, device)}}
+    if cfg.d_ff > 0:
+        ff = cfg.d_ff
+        p["ln2"] = _stack(init_norm(d, cfg.norm, device=device), lead)
+        p["ffn"] = {"up": _lin(gen, lead, d, ff, dt, device),
+                    "down": _lin(gen, lead, ff, d, dt, device)}
+        if cfg.act == "swiglu":
+            p["ffn"]["gate"] = _lin(gen, lead, d, ff, dt, device)
+    return p
+
+
+def _stack(tree: dict, lead) -> dict:
+    return {k: v.expand(*lead, *v.shape).clone() for k, v in tree.items()}
+
+
+def init_params(cfg: LMConfig, *, seed: int = 0, device="cuda") -> dict:
+    """Random weights (torch generator seeded with ``seed``) on ``device``,
+    in the JAX package's tree layout (``units`` stacked along layers)."""
+    unit, n_units, rem = unit_structure(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = {"embed": init_embed(gen, cfg.vocab, cfg.d_model, cfg.tdtype,
+                                  device=device),
+              "final_norm": init_norm(cfg.d_model, cfg.norm, device=device),
+              "lm_head": _lin(gen, (), cfg.d_model, cfg.vocab, cfg.tdtype,
+                              device)}
+    if n_units:
+        params["units"] = {f"b{j}": _init_block(gen, cfg, (n_units,), device)
+                           for j in range(len(unit))}
+    for i in range(len(rem)):
+        params[f"rem{i}"] = _init_block(gen, cfg, (), device)
+    return params
+
+
+def _index(tree, u: int):
+    """Layer ``u`` of a layer-stacked subtree, as views."""
+    return {k: (_index(v, u) if isinstance(v, dict) else v[u])
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache
+# ---------------------------------------------------------------------------
+
+def _paged_attn_cache(cfg: LMConfig, batch: int, num_pages: int,
+                      page_size: int, lead, device) -> dict:
+    mode = cfg.quant.mode if cfg.quant else "float"
+    kv4 = mode == "int" and cfg.quant.kv_bits == 4
+    dk = cfg.hd // 2 if kv4 else cfg.hd
+    dt = torch.uint8 if kv4 else (torch.int8 if mode == "int"
+                                  else cfg.tdtype)
+    shape = (*lead, num_pages + 1, cfg.kv_heads, page_size, dk)
+    c = {"k_pages": torch.zeros(shape, dtype=dt, device=device),
+         "v_pages": torch.zeros(shape, dtype=dt, device=device)}
+    if mode == "int":
+        f32 = dict(dtype=torch.float32, device=device)
+        c["k_scale"] = torch.ones((*lead, batch), **f32)
+        c["v_scale"] = torch.ones((*lead, batch), **f32)
+        c["page_k_scale"] = torch.ones((*lead, num_pages + 1), **f32)
+        c["page_v_scale"] = torch.ones((*lead, num_pages + 1), **f32)
+    return c
+
+
+def init_paged_cache(cfg: LMConfig, batch: int, max_len: int, *,
+                     page_size: int = 32, num_pages: Optional[int] = None,
+                     device="cuda") -> dict:
+    """Paged serving cache: page pools per attention layer, shared tables.
+
+    ``max_len`` bounds one sequence (``max_pages`` = table width);
+    ``num_pages`` sizes the shared pool (default ``batch * max_pages``).
+    All rows start inactive (``pos = -1``) with empty page tables.
+    """
+    unit, n_units, rem = unit_structure(cfg)
+    max_pages = -(-max_len // page_size)
+    if num_pages is None:
+        num_pages = batch * max_pages
+    i32 = dict(dtype=torch.int32, device=device)
+    cache = {"pos": torch.full((batch,), -1, **i32),
+             "page_table": torch.full((batch, max_pages), -1, **i32)}
+    if n_units:
+        cache["units"] = {f"b{j}": _paged_attn_cache(
+            cfg, batch, num_pages, page_size, (n_units,), device)
+            for j in range(len(unit))}
+    for i in range(len(rem)):
+        cache[f"rem{i}"] = _paged_attn_cache(cfg, batch, num_pages,
+                                             page_size, (), device)
+    return cache
+
+
+def _sat_int8(x):
+    """Float -> int8 saturating (NaN -> 0), as XLA converts."""
+    return torch.nan_to_num(x, nan=0.0).clamp(-128, 127).to(torch.int8)
+
+
+def _paged_write_decode(cache, k1, v1, positions, page_table, mode, qcfg):
+    """Write one decoded key/value per sequence into its own page, in place.
+
+    k1, v1 (B, Hkv, hd).  Row b goes to physical page
+    ``page_table[b, pos_b // page_size]`` at row ``pos_b % page_size``;
+    unallocated / inactive rows land in the trash page.  Codes use the
+    TARGET page's registered scale (``page_k_scale[phys]``).
+    """
+    pos = positions[:, 0]
+    num_phys = cache["k_pages"].shape[0] - 1          # last page = trash
+    ps = cache["k_pages"].shape[2]
+    logical = torch.div(pos, ps, rounding_mode="floor").clamp(
+        0, page_table.shape[1] - 1)
+    phys = torch.gather(page_table, 1, logical[:, None].long())[:, 0]
+    phys = torch.where((phys >= 0) & (pos >= 0), phys, num_phys).long()
+    row = torch.remainder(pos, ps).long()
+    if mode == "int":
+        ks = cache["page_k_scale"][phys][:, None, None]
+        vs = cache["page_v_scale"][phys][:, None, None]
+        if qcfg.kv_bits == 4:
+            qmin, qmax = qrange(4)
+            kq = pack_int4(torch.clamp(torch.round(k1 / ks), qmin, qmax)
+                           .to(torch.int8))
+            vq = pack_int4(torch.clamp(torch.round(v1 / vs), qmin, qmax)
+                           .to(torch.int8))
+        else:
+            kq = _sat_int8(torch.round(k1 / ks))
+            vq = _sat_int8(torch.round(v1 / vs))
+    else:
+        kq = k1.to(cache["k_pages"].dtype)
+        vq = v1.to(cache["v_pages"].dtype)
+    cache["k_pages"][phys, :, row] = kq
+    cache["v_pages"][phys, :, row] = vq
+    return cache
+
+
+def _paged_write_prefill(cache, k, v, positions, lengths, page_table, mode,
+                         qcfg, prefix_len: int = 0):
+    """Scatter a (ragged) prompt's keys/values into per-row pages, in place.
+
+    k, v (B, Hkv, S, hd) at positions ``prefix_len + i``; positions
+    ``>= prefix_len + lengths[b]`` are pad: excluded from the per-sequence
+    scale calibration, written to the trash page.  int mode registers the
+    row's fresh scale on every fully owned allocated page (logical id
+    ``>= ceil(prefix_len / page_size)``) and emits each position's codes on
+    its TARGET page's registered scale.
+    """
+    b, _, s, _ = k.shape
+    dev = k.device
+    num_phys = cache["k_pages"].shape[0] - 1
+    ps = cache["k_pages"].shape[2]
+    lens = torch.full((b,), s, dtype=torch.int32, device=dev) \
+        if lengths is None else torch.as_tensor(lengths, dtype=torch.int32,
+                                                device=dev)
+    valid = positions < (prefix_len + lens)[:, None]          # (B, S)
+    logical = torch.div(positions, ps, rounding_mode="floor").clamp(
+        0, page_table.shape[1] - 1)
+    phys = torch.gather(page_table, 1, logical.long())        # (B, S)
+    phys = torch.where(valid & (phys >= 0), phys, num_phys).long()
+    row = torch.remainder(positions, ps).long()
+    if mode == "int":
+        kv4 = qcfg.kv_bits == 4
+        qmin, qmax = qrange(4) if kv4 else qrange(8)
+        vmask = valid[:, None, :, None]
+
+        def rowscale(t):
+            amax = (t.abs() * vmask).amax(dim=(1, 2, 3))
+            return torch.clamp(amax.to(torch.float32), min=1e-8) / qmax
+
+        ksc, vsc = rowscale(k), rowscale(v)
+        cache["k_scale"].copy_(ksc)
+        cache["v_scale"].copy_(vsc)
+        own_from = -(-prefix_len // ps)
+        maxp = page_table.shape[1]
+        ownable = (torch.arange(maxp, device=dev)[None, :] >= own_from) & \
+            (page_table >= 0)
+        tgt = torch.where(ownable, page_table, num_phys).long()
+        pks, pvs = cache["page_k_scale"], cache["page_v_scale"]
+        pks[tgt] = ksc[:, None].expand(b, maxp)
+        pvs[tgt] = vsc[:, None].expand(b, maxp)
+        kstep = pks[phys][:, None, :, None]                   # (B,1,S,1)
+        vstep = pvs[phys][:, None, :, None]
+        kq = torch.clamp(torch.round(k / kstep), qmin, qmax).to(torch.int8)
+        vq = torch.clamp(torch.round(v / vstep), qmin, qmax).to(torch.int8)
+        if kv4:
+            kq, vq = pack_int4(kq), pack_int4(vq)
+    else:
+        kq = k.to(cache["k_pages"].dtype)
+        vq = v.to(cache["v_pages"].dtype)
+    cache["k_pages"][phys, :, row] = kq.transpose(1, 2)        # (B,S,Hkv,dk)
+    cache["v_pages"][phys, :, row] = vq.transpose(1, 2)
+    return cache
+
+
+def _attn_mixer(x, p, cfg: LMConfig, kind: str, positions, cache, decode,
+                page_table=None, lengths=None, prefix_len: int = 0):
+    b, s, _ = x.shape
+    hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.kv_heads
+    qcfg = cfg.quant
+
+    def split(y, h):
+        return y.reshape(b, s, h, hd).transpose(1, 2)
+
+    q = split(dense(x, p["wq"], qcfg), hq)
+    k = split(dense(x, p["wk"], qcfg), hkv)
+    v = split(dense(x, p["wv"], qcfg), hkv)
+    q = apply_rope(q, positions, theta=cfg.rope_theta,
+                   rotary_frac=cfg.rotary_frac)
+    k = apply_rope(k, positions, theta=cfg.rope_theta,
+                   rotary_frac=cfg.rotary_frac)
+
+    window = cfg.attn_window if kind == "local" else None
+    spec = AttnSpec(causal=cfg.causal, window=window, q_chunk=cfg.q_chunk)
+    mode = qcfg.mode if qcfg else "float"
+    paged = cache is not None and "k_pages" in cache
+
+    if paged and decode:
+        _paged_write_decode(cache, k[:, :, 0], v[:, :, 0], positions,
+                            page_table, mode, qcfg)
+        ones = torch.ones((b,), dtype=torch.float32, device=x.device)
+        out = paged_attention(q, cache["k_pages"], cache["v_pages"],
+                              cache.get("k_scale", ones),
+                              cache.get("v_scale", ones),
+                              page_table, positions[:, 0], spec, qcfg,
+                              k_page_scale=cache.get("page_k_scale"),
+                              v_page_scale=cache.get("page_v_scale"))
+    elif paged and prefix_len:
+        # Tail chunk over an already-cached prefix: the tail attends the
+        # prefix through its stored codes on the pages' own grids.
+        ps_ = cache["k_pages"].shape[2]
+        npre = -(-prefix_len // ps_)
+        num_phys = cache["k_pages"].shape[0] - 1
+        k_pre = gather_pages(cache["k_pages"], page_table[:, :npre])
+        v_pre = gather_pages(cache["v_pages"], page_table[:, :npre])
+        if mode == "int":
+            if k_pre.dtype == torch.uint8:
+                k_pre, v_pre = unpack_int4(k_pre), unpack_int4(v_pre)
+            idx = page_table[:, :npre].long().clamp(0, num_phys)
+            pks = cache["page_k_scale"][idx]
+            pvs = cache["page_v_scale"][idx]
+        else:
+            pks = pvs = None
+        out = prefix_prefill_attention(q, k, v, k_pre, v_pre, pks, pvs,
+                                       prefix_len, lengths, spec, qcfg)
+        _paged_write_prefill(cache, k, v, positions, lengths, page_table,
+                             mode, qcfg, prefix_len=prefix_len)
+    elif paged:
+        out = attention(q, k, v, spec, qcfg, q_offset=0)
+        _paged_write_prefill(cache, k, v, positions, lengths, page_table,
+                             mode, qcfg)
+    elif cache is None and not decode:
+        out = attention(q, k, v, spec, qcfg, q_offset=0)
+    else:
+        raise NotImplementedError("ring KV caches are not ported yet; use "
+                                  "init_paged_cache")
+    out = out.transpose(1, 2).reshape(b, s, hq * hd)
+    return dense(out, p["wo"], qcfg)
+
+
+def apply_block(x, p, cfg: LMConfig, kind: str, *, positions, cache=None,
+                decode=False, page_table=None, lengths=None,
+                prefix_len: int = 0):
+    h = apply_norm(x, p["ln1"], cfg.norm)
+    out = _attn_mixer(h, p["attn"], cfg, kind, positions, cache, decode,
+                      page_table, lengths, prefix_len)
+    x = x + out.to(x.dtype)
+    if cfg.d_ff > 0:
+        h2 = apply_norm(x, p["ln2"], cfg.norm)
+        x = x + mlp(h2, p["ffn"], cfg.quant, act=cfg.act).to(x.dtype)
+    return x
+
+
+def stack_forward(x, params, cfg: LMConfig, *, positions, cache=None,
+                  decode=False, page_table=None, lengths=None,
+                  prefix_len: int = 0):
+    unit, n_units, rem = unit_structure(cfg)
+    kw = dict(positions=positions, decode=decode, page_table=page_table,
+              lengths=lengths, prefix_len=prefix_len)
+    for u in range(n_units):
+        up = _index(params["units"], u)
+        uc = _index(cache["units"], u) if cache is not None else None
+        for j, kind in enumerate(unit):
+            x = apply_block(x, up[f"b{j}"], cfg, kind,
+                            cache=None if uc is None else uc[f"b{j}"], **kw)
+    for i, kind in enumerate(rem):
+        x = apply_block(x, params[f"rem{i}"], cfg, kind,
+                        cache=None if cache is None else cache[f"rem{i}"],
+                        **kw)
+    return x
+
+
+def forward(params, batch, cfg: LMConfig, *, cache=None, decode=False,
+            prefix_len: int = 0):
+    """Returns (pre-head hidden states, cache).
+
+    With a paged cache, ``cache["pos"]`` is per sequence (B,): each row
+    decodes at its own position and inactive rows (``pos < 0``) stay
+    frozen; ragged prefill takes ``batch["lengths"]`` and leaves
+    ``pos = prefix_len + lengths``.  ``prefix_len``: ``batch["tokens"]``
+    is the tail of a prompt whose first ``prefix_len`` positions are
+    already cached (prefix sharing / chunked prefill).  Cache writes
+    happen in place (module docstring).
+    """
+    x = embed_lookup(batch["tokens"], params["embed"], cfg.tdtype)
+    paged = cache is not None and "page_table" in cache
+    if cache is not None and not paged:
+        raise NotImplementedError("ring KV caches are not ported yet")
+    page_table = cache["page_table"] if paged else None
+    lengths = batch.get("lengths") if paged and not decode else None
+    b, s = x.shape[0], x.shape[1]
+    if decode:
+        positions = cache["pos"][:, None]
+    else:
+        positions = (prefix_len + torch.arange(s, device=x.device,
+                                               dtype=torch.int32)
+                     )[None, :].expand(b, s)
+    x = stack_forward(x, params, cfg, positions=positions, cache=cache,
+                      decode=decode, page_table=page_table, lengths=lengths,
+                      prefix_len=0 if decode else prefix_len)
+    x = apply_norm(x, params["final_norm"], cfg.norm)
+    if paged:
+        pos = cache["pos"]
+        if decode:           # inactive rows (pos < 0) do not advance
+            pos.copy_(torch.where(pos >= 0, pos + 1, pos))
+        elif lengths is None:
+            pos.fill_(prefix_len + s)
+        else:
+            pos.copy_(prefix_len + torch.as_tensor(lengths, dtype=torch.int32,
+                                                   device=pos.device))
+    return x, cache
+
+
+def logits_fn(params, x, cfg: LMConfig):
+    return dense(x, params["lm_head"], cfg.quant)
+
+
+def paged_prefill(params, batch, cfg: LMConfig, cache, *,
+                  prefix_len: int = 0):
+    """Ragged prompt prefill into an existing paged cache (in place).
+
+    ``batch["tokens"]`` (B, S) right-padded, ``batch["lengths"]`` (B,).
+    Pages named by ``cache["page_table"]`` must be allocated for every
+    row's prompt; pad positions write to the trash page.  Returns
+    (last-real-position logits (B, 1, V), cache).
+    """
+    x, cache = forward(params, batch, cfg, cache=cache, decode=False,
+                       prefix_len=prefix_len)
+    lengths = batch.get("lengths")
+    if lengths is None:
+        last = x[:, -1:]
+    else:
+        idx = (torch.as_tensor(lengths, device=x.device).long() - 1).clamp(
+            0, x.shape[1] - 1)
+        last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+    return logits_fn(params, last, cfg), cache
+
+
+# Cache leaves indexed by PHYSICAL page id (shared across sequences).
+POOL_KEYS = ("k_pages", "v_pages", "page_k_scale", "page_v_scale")
+
+
+def copy_page(cache, src: int, dst: int):
+    """Duplicate physical page ``src`` into ``dst`` across every pool leaf
+    (codes and per-page scales, every attention layer), in place: the
+    device half of the engine's copy-on-write."""
+    def walk(c, stacked):
+        for key, leaf in c.items():
+            if isinstance(leaf, dict):
+                walk(leaf, stacked or key == "units")
+            elif key in POOL_KEYS:
+                if stacked:
+                    leaf[:, dst] = leaf[:, src]
+                else:
+                    leaf[dst] = leaf[src]
+
+    walk(cache, False)
+    return cache
+
+
+def page_scale_pools(cache):
+    """Yield ``(path, page_k_scale, page_v_scale)`` for every attention
+    layer's per-physical-page scale pools (``units`` leaves carry a leading
+    layer axis; the trash page is included)."""
+    def walk(c, path):
+        if "page_k_scale" in c:
+            yield path, c["page_k_scale"], c["page_v_scale"]
+        for key, leaf in c.items():
+            if isinstance(leaf, dict):
+                yield from walk(leaf, f"{path}/{key}" if path else key)
+
+    yield from walk(cache, "")
+
+
+def _admission_view(cache, w: int, page_table):
+    """W-row prefill view over a B-row paged cache: pool leaves are the
+    serving cache's own tensors (writes land there), per-row leaves are
+    fresh zeros (prefill overwrites them before anything reads them)."""
+    def walk(c, stacked):
+        out = {}
+        for key, leaf in c.items():
+            if isinstance(leaf, dict):
+                out[key] = walk(leaf, stacked or key == "units")
+            elif key in POOL_KEYS:
+                out[key] = leaf
+            elif stacked:
+                out[key] = torch.zeros((leaf.shape[0], w) + leaf.shape[2:],
+                                       dtype=leaf.dtype, device=leaf.device)
+            else:
+                out[key] = torch.zeros((w,) + leaf.shape[1:],
+                                       dtype=leaf.dtype, device=leaf.device)
+        return out
+
+    view = walk({k: v for k, v in cache.items()
+                 if k not in ("pos", "page_table")}, False)
+    dev = cache["pos"].device
+    view["pos"] = torch.zeros((w,), dtype=torch.int32, device=dev)
+    view["page_table"] = torch.as_tensor(page_table, dtype=torch.int32,
+                                         device=dev)
+    return view
+
+
+def _install_rows(cache, view, rows):
+    """Scatter a W-row admission view's per-row leaves into the B-row cache
+    at ``rows`` (pools are shared already; ``pos``/``page_table`` stay the
+    host-owned values of the big cache)."""
+    def walk(big, small, stacked):
+        for key, bleaf in big.items():
+            if isinstance(bleaf, dict):
+                walk(bleaf, small[key], stacked or key == "units")
+            elif key in POOL_KEYS:
+                continue
+            elif stacked:
+                bleaf[:, rows] = small[key]
+            else:
+                bleaf[rows] = small[key]
+
+    walk({k: v for k, v in cache.items() if k not in ("pos", "page_table")},
+         view, False)
+    return cache
+
+
+def admission_prefill(params, batch, cfg: LMConfig, cache, rows, page_table,
+                      *, prefix_len: int = 0):
+    """Batched ragged admission prefill straight into the shared pools.
+
+    ``batch["tokens"]`` (W, S) right-padded to one bucket with
+    ``batch["lengths"]`` (W,); ``page_table`` (W, max_pages) holds each
+    admission's reserved physical pages; ``rows`` (W,) names the decode
+    rows they occupy.  Codes land at the reserved pages, per-row leaves at
+    ``rows``; per-sequence activation grids make each row bit-identical to
+    a solo prefill.  ``prefix_len``: the tokens are prompt tails whose first
+    ``prefix_len`` positions are already cached (prefix sharing, resumable
+    chunks).  Returns (last-real-position logits (W, 1, V), cache).
+    """
+    w = batch["tokens"].shape[0]
+    view = _admission_view(cache, w, page_table)
+    logits, view = paged_prefill(params, batch, cfg, view,
+                                 prefix_len=prefix_len)
+    rows = torch.as_tensor(rows, dtype=torch.long, device=cache["pos"].device)
+    return logits, _install_rows(cache, view, rows)
+
+
+def decode_step(params, token, cache, cfg: LMConfig):
+    """One serving step: token (B, 1) + cache -> logits (B, 1, V); the
+    cache is updated in place."""
+    x, cache = forward(params, {"tokens": token}, cfg, cache=cache,
+                       decode=True)
+    return logits_fn(params, x, cfg), cache

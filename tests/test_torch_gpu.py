@@ -1,0 +1,124 @@
+"""The CUDA kernels held against their plain versions on the card.
+
+Needs an NVIDIA GPU with the CUDA toolkit (``nvcc``): every test carries
+the ``gpu`` marker and skips, from a fixture, when
+``torch.cuda.is_available()`` is false.  On the card:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+``python3 chip_smoke.py`` runs the same comparisons at the main path's
+full widths, plus serving and timing.
+"""
+import pytest
+import torch
+
+from repro_torch.core.quant import pack_int4
+from repro_torch.kernels import dispatch, ref
+from repro_torch.kernels import int_attention as ia
+from repro_torch.kernels import qmatmul as qm
+
+pytestmark = pytest.mark.gpu
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rel(a, b):
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+@pytest.mark.parametrize("m,n,k", [(4, 1000, 512), (77, 300, 1028)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_qmatmul_kernel_equals_plain(gen, m, n, k, packed):
+    x = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w = torch.randint(-8, 8, (n, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w = pack_int4(w) if packed else w
+    s = torch.rand((n,), generator=gen, device="cuda") * 1e-3
+    b = torch.randn((n,), generator=gen, device="cuda")
+    rs = torch.rand((m,), generator=gen, device="cuda")
+    bm, bn, _ = dispatch.qmatmul_blocks(m, n, k)
+    before = qm.LAUNCHES["qmatmul"]
+    got = qm.qmatmul(x, w, s, b, rs, bm=bm, bn=bn, packed=packed)
+    torch.cuda.synchronize()
+    assert qm.LAUNCHES["qmatmul"] == before + 1
+    assert torch.equal(got, ref.qmatmul_ref(x, w, s, b, rs))
+
+
+@pytest.mark.parametrize("sq,sk,window,bits", [(64, 64, None, 7),
+                                               (100, 100, 24, 8)])
+def test_fused_attention_kernel_codes_exact(gen, sq, sk, window, bits):
+    h, g, d = 6, 5, 128
+    bq, bk = dispatch.attention_blocks(g * sq, sk, d, window=window)
+    nq = -(-(g * sq) // bq)
+    mk = lambda *shape: torch.randint(-127, 128, shape, generator=gen,
+                                      device="cuda", dtype=torch.int8)
+    q, k, v = mk(h, g * sq, d), mk(h, sk, d), mk(h, sk, d)
+    sc = (torch.rand((h, nq), generator=gen, device="cuda") + 0.5) * 1e-4
+    vs = torch.rand((h,), generator=gen, device="cuda") + 0.5
+    kw = dict(attn_bits=bits, causal=True, window=window, bq=bq, bk=bk,
+              sq_mod=sq, return_codes=True)
+    out, codes = ia.int_attention_fused(q, k, v, sc, vs, **kw)
+    torch.cuda.synchronize()
+    want, wcodes = ia.int_attention_fused_plain(q, k, v, sc, vs, **kw)
+    assert torch.equal(codes, wcodes)
+    assert _rel(out, want) <= 1e-5        # Sigma: f32 sum in another order
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_paged_decode_kernel_codes_exact(gen, kv_bits):
+    b, hkv, g, d, ps, maxp = 5, 8, 5, 128, 16, 6
+    num = b * maxp + 1
+    lo, hi = (-8, 8) if kv_bits == 4 else (-127, 128)
+    mk = lambda *shape: torch.randint(lo, hi, shape, generator=gen,
+                                      device="cuda", dtype=torch.int8)
+    kp, vp = mk(num, hkv, ps, d), mk(num, hkv, ps, d)
+    if kv_bits == 4:
+        kp, vp = pack_int4(kp), pack_int4(vp)
+    q = torch.randint(-127, 128, (b, hkv, g, d), generator=gen,
+                      device="cuda", dtype=torch.int8)
+    pt = torch.randperm(b * maxp, generator=gen, device="cuda") \
+        .reshape(b, maxp).to(torch.int32)
+    pt[1, 4:] = -1
+    pos = torch.tensor([95, 50, -1, 0, 17], dtype=torch.int32, device="cuda")
+    sc = torch.rand((b,), generator=gen, device="cuda") * 1e-2
+    vs = torch.ones((b,), device="cuda")
+    kps = torch.rand((num,), generator=gen, device="cuda") + 0.5
+    vps = torch.rand((num,), generator=gen, device="cuda") * 1e-2
+    for window in (None, 40):
+        out, codes = ia.int_paged_decode_attention(
+            q, kp, vp, sc, vs, pt, pos, k_page_scale=kps, v_page_scale=vps,
+            window=window, packed=kv_bits == 4, return_codes=True)
+        torch.cuda.synchronize()
+        want, wcodes = ref.int_paged_decode_attention_ref(
+            q, kp, vp, sc, vs, pt, pos, window=window, bk=ps,
+            k_page_scale=kps, v_page_scale=vps, return_codes=True)
+        assert torch.equal(codes, wcodes.to(torch.uint8))
+        assert _rel(out, want) <= 1e-5
+        assert out[2].abs().max().item() == 0
+
+
+def test_serve_on_the_card_runs_every_kernel(gen):
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.api import QuantConfig, integerize_params
+    from repro_torch.launch.serve import serve, staggered_prompts
+    from repro_torch.models import lm
+    qc = QuantConfig(w_bits=4, a_bits=8, attn_bits=7, kv_bits=8, mode="int",
+                     backend="cuda")
+    cfg = smoke_config("qwen2.5-32b").replace(quant=qc)
+    params = integerize_params(lm.init_params(cfg, seed=0, device="cuda"), qc)
+    dispatch.reset_stats()
+    dispatch.reset_launches()
+    gen_toks, stats = serve(cfg, params, staggered_prompts(6, 24, cfg.vocab),
+                            gen_tokens=6, page_size=8, batch_size=3,
+                            audit_every=1)
+    assert [s["status"] for s in stats["per_seq"]] == ["done"] * 6
+    assert stats["audit_violations"] == []
+    assert min(dispatch.launch_counts().values()) > 0
+    assert stats["dispatch"]["qlinear_torch"] == 0
