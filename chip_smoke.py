@@ -11,15 +11,25 @@ Phases, in order; any failure exits non-zero before the result line:
    once), printing ``-Xptxas -v``;
 3. check: each kernel against its plain version on the card at main-path
    shapes — qmatmul exactly (int8 and packed bodies, M = 4 and 256, every
-   (N, K) of one Qwen2.5-32B layer and its lm_head), fused attention and
-   paged decode with codes exact and outputs within a stated tolerance;
+   (N, K) of one Qwen2.5-32B layer and its lm_head), fused attention,
+   paged decode and ring decode (32 head-folds, G 5, kv8 and packed kv4,
+   rings of 1024 and 8192 slots, partly written, wrapped and windowed)
+   with codes exact and outputs within a stated tolerance;
 4. serve: ``repro_torch.launch.serve.serve`` at Qwen2.5-32B widths
    (4 of 64 layers, random weights from a seed, made on the card) on the
-   ``cuda`` backend; every request DONE, a clean audit, every kernel
-   launched and no plain-path dispatch; first-step logits against the
-   ``torch`` backend on the same inputs; greedy agreement printed;
-5. time: each kernel with CUDA events beside its bound, its plain version
-   and, where one PyTorch call computes the same product, that call.
+   ``cuda`` backend; every request DONE, a clean audit, every kernel of
+   the paged path launched and no plain-path dispatch; first-step logits
+   against the ``torch`` backend on the same inputs; greedy agreement
+   printed;
+5. ring: ``lm.prefill`` + 16 ``lm.decode_step``s over the ring cache at
+   the same widths, batch 4, 64-token prompts, rings of 1024 and 8192
+   slots, on the ``cuda`` backend: 4 ring-kernel launches per step and no
+   plain decode dispatch; the ``torch`` backend teacher-forced step by
+   step (the ``cuda`` run's token and a copy of its cache) within a
+   stated tolerance; free-running greedy agreement printed;
+6. quickstart: ``python -m repro_torch.examples.quickstart`` on the card;
+7. time: each kernel with CUDA events beside its bound, its plain version
+   and, where one PyTorch call computes the same function, that call.
 
 Prints a ``{"kernels": [...]}`` JSON line, then the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -42,6 +52,9 @@ ATTN_RTOL = 1e-5                  # Sigma is an f32 sum in another order
 # order moves a bf16-rounded attention output by one ulp (2^-8) now and
 # then, and such flips cascade through the layers' activation codes.
 LOGITS_RTOL = 5e-2
+RING_STEPS = 16
+RING_MAX_LENS = (1024, 8192)
+RING_PROMPT = 64
 
 
 def log(*a):
@@ -141,6 +154,29 @@ def paged_inputs(g, kv_bits):
         packed=kv_bits == 4)
 
 
+def ring_inputs(g, kv_bits, span, pos):
+    """One ring decode step as dispatch folds it: B=4 x Hkv=8 head-folds,
+    G=5, D=128; the ring written up to ``pos`` (slot p % span)."""
+    import torch
+    from repro_torch.core.quant import pack_int4
+    h, grp, d = 32, 5, 128
+    lo, hi = (-8, 8) if kv_bits == 4 else (-127, 128)
+    mk = lambda *shape: torch.randint(lo, hi, shape, generator=g,
+                                      device="cuda", dtype=torch.int8)
+    k, v = mk(h, span, d), mk(h, span, d)
+    if kv_bits == 4:
+        k, v = pack_int4(k), pack_int4(v)
+    q = torch.randint(-127, 128, (h, grp, d), generator=g, device="cuda",
+                      dtype=torch.int8)
+    slot = pos % span
+    kpos = (pos - torch.remainder(slot - torch.arange(span, device="cuda"),
+                                  span)).to(torch.int32)
+    sc = (torch.rand((h,), generator=g, device="cuda") + 0.5) * 1e-3
+    vs = (torch.rand((h,), generator=g, device="cuda") + 0.5) * 1e-2
+    posd = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    return (q, k, v, sc, vs, kpos, posd)
+
+
 def rel_err(a, b):
     import torch
     err = (a - b).abs().max().item()
@@ -224,7 +260,36 @@ def phase_check(g):
             raise AssertionError("paged decode differs from its plain version")
         worst = max(worst, abs_e)
     errs["int_paged_decode_attention"] = worst
+
+    worst = 0.0
+    for kv_bits, span, pos, window in RING_CHECKS:
+        args = ring_inputs(g, kv_bits, span, pos)
+        kw = dict(attn_bits=7, window=window, packed=kv_bits == 4,
+                  bk=dispatch.decode_blocks(span, 128), return_codes=True)
+        out, codes = ia.int_decode_attention(*args, **kw)
+        torch.cuda.synchronize()
+        want, wcodes = ia.int_decode_attention_plain(*args, **kw)
+        abs_e, rel_e = rel_err(out, want)
+        same = torch.equal(codes, wcodes)
+        log(f"[check] ring decode kv_bits={kv_bits} span={span} pos={pos} "
+            f"window={window} bk={kw['bk']}: codes "
+            f"{'exact' if same else 'MISMATCH'}, out max abs {abs_e:.3e} "
+            f"rel {rel_e:.3e} (tol rel {ATTN_RTOL})")
+        if not same or rel_e > ATTN_RTOL:
+            raise AssertionError("ring decode differs from its plain version")
+        worst = max(worst, abs_e)
+    errs["int_decode_attention"] = worst
     return errs
+
+
+# (kv_bits, span, pos, window): partly written (pos < span), wrapped
+# (pos > span) and windowed rings of 1024 slots (bk 1024) and 8192 slots
+# (bk 4096, two blocks).
+RING_CHECKS = [(8, 1024, 79, None), (4, 1024, 79, None),
+               (8, 1024, 5000, None), (4, 1024, 5000, None),
+               (8, 8192, 79, None), (4, 8192, 79, None),
+               (8, 8192, 20000, None), (4, 8192, 20000, None),
+               (8, 8192, 9000, 3000), (4, 1024, 3000, 200)]
 
 
 def model_config(backend):
@@ -278,8 +343,11 @@ def phase_serve():
         raise AssertionError(f"not every request is DONE: {statuses}")
     if stats["audit_violations"] or stats["failures"]["audit_failures"]:
         raise AssertionError(f"audit: {stats['audit_violations']}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never launched: {launches}")
+    serve_kernels = ("qmatmul", "int_attention_fused",
+                     "int_paged_decode_attention")
+    if min(launches[k] for k in serve_kernels) <= 0:
+        raise AssertionError(f"a kernel of the paged path never launched: "
+                             f"{launches}")
     plain = {k: snap[k] for k in ("qlinear_torch", "attention_torch",
                                   "attention_paged_torch")}
     if any(plain.values()):
@@ -312,6 +380,149 @@ def phase_serve():
     agree = int((tgen == gen).sum())
     log(f"[serve] greedy tokens equal between backends: {agree}/{gen.size}")
     return stats, launches, params
+
+
+def phase_ring(params):
+    """Ring-cache generation at Qwen2.5-32B widths on the cuda backend, the
+    torch backend teacher-forced beside it."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+    cfg, tcfg = model_config("cuda"), model_config("torch")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (4, RING_PROMPT), generator=g,
+                         device="cuda", dtype=torch.int32)
+    worst = {"prefill": 0.0, "forced": 0.0}
+    free, step_ms = {}, {}
+    dispatch.reset_stats()
+    dispatch.reset_launches()
+    torch.cuda.synchronize()
+    for max_len in RING_MAX_LENS:
+        t0 = time.perf_counter()
+        lc, cache = lm.prefill(params, {"tokens": toks}, cfg, max_len=max_len)
+        lt, _ = lm.prefill(params, {"tokens": toks}, tcfg, max_len=max_len)
+        worst["prefill"] = max(worst["prefill"],
+                               rel_err(lt.float(), lc.float())[1])
+        fed, step_s = [], 0.0
+        for _ in range(RING_STEPS):
+            tok = torch.argmax(lc[:, 0], -1).to(torch.int32)[:, None]
+            fed.append(tok)
+            forced = clone_tree(cache)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lc, cache = lm.decode_step(params, tok, cache, cfg)
+            torch.cuda.synchronize()
+            step_s += time.perf_counter() - t1
+            # teacher-forced: the cuda run's token and (a copy of) its cache
+            lf, _ = lm.decode_step(params, tok, forced, tcfg)
+            worst["forced"] = max(worst["forced"],
+                                  rel_err(lf.float(), lc.float())[1])
+            del forced
+        torch.cuda.synchronize()
+        step_ms[max_len] = step_s / RING_STEPS * 1e3
+        log(f"[ring] max_len {max_len}: prefill + {RING_STEPS} decode steps "
+            f"in {time.perf_counter() - t0:.2f}s (both backends); cuda "
+            f"decode step {step_ms[max_len]:.2f} ms "
+            f"({4e3 / step_ms[max_len]:.1f} tok/s at batch 4), pos "
+            f"{int(cache['pos'])}")
+        cuda_toks = torch.cat(fed, dim=1)
+        lt, tcache = lm.prefill(params, {"tokens": toks}, tcfg,
+                                max_len=max_len)
+        own = []
+        for _ in range(RING_STEPS):
+            tok = torch.argmax(lt[:, 0], -1).to(torch.int32)[:, None]
+            own.append(tok)
+            lt, tcache = lm.decode_step(params, tok, tcache, tcfg)
+        free[max_len] = int((torch.cat(own, dim=1) == cuda_toks).sum())
+        del cache, tcache
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    snap = dispatch.snapshot()
+    n_steps = RING_STEPS * len(RING_MAX_LENS)
+    log(f"[ring] Qwen2.5-32B widths, {cfg.n_layers} layers, batch 4, "
+        f"{RING_PROMPT}-token prompts, rings {RING_MAX_LENS}: launches "
+        f"{launches}; decode dispatch cuda "
+        f"{snap['attention_decode_cuda']} torch "
+        f"{snap['attention_decode_torch']} (torch-backend steps included)")
+    for what, err in worst.items():
+        log(f"[ring] {what} logits, torch vs cuda backend: max rel "
+            f"{err:.3e} over every step (tol rel {LOGITS_RTOL})")
+    for max_len, n in free.items():
+        log(f"[ring] free-running greedy tokens equal between backends, "
+            f"ring {max_len}: {n}/{4 * RING_STEPS} (printed only)")
+    if launches["int_decode_attention"] != cfg.n_layers * n_steps:
+        raise AssertionError(f"ring kernel launches "
+                             f"{launches['int_decode_attention']}, expected "
+                             f"{cfg.n_layers} per decode step")
+    if launches["qmatmul"] <= 0 or launches["int_attention_fused"] <= 0:
+        raise AssertionError(f"a kernel of the ring path never launched: "
+                             f"{launches}")
+    # the cuda run's decode steps all went to the kernel; the torch-backend
+    # steps beside them are the only plain decode dispatches
+    if snap["attention_decode_cuda"] != cfg.n_layers * n_steps or \
+            snap["attention_decode_torch"] != 2 * cfg.n_layers * n_steps:
+        raise AssertionError(f"ring decode dispatch: {snap}")
+    if worst["prefill"] > LOGITS_RTOL or worst["forced"] > LOGITS_RTOL:
+        raise AssertionError(f"ring logits: cuda and torch differ {worst}")
+    profile_decode(params, cfg, toks, step_ms[RING_MAX_LENS[-1]])
+    return launches
+
+
+def profile_decode(params, cfg, toks, step_ms, steps=4):
+    """Where a ring decode step's time goes: torch.profiler over a few
+    steps (after the counted run), device kernel time by name.  The busy
+    share divides it by ``step_ms``, the step time of the counted run
+    with the profiler off (the profiler's own host cost would inflate the
+    wall)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import lm
+    lg, cache = lm.prefill(params, {"tokens": toks}, cfg,
+                           max_len=RING_MAX_LENS[-1])
+    tok = torch.argmax(lg[:, 0], -1).to(torch.int32)[:, None]
+    lm.decode_step(params, tok, cache, cfg)                  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            lm.decode_step(params, tok, cache, cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.key] = by_name.get(e.key, 0.0) + \
+                e.self_device_time_total / 1e3 / steps
+    busy = sum(by_name.values())
+    if busy <= 0:
+        log(f"[profile] ring decode step {wall:.2f} ms wall; device time "
+            f"not measured (the profiler saw no kernel)")
+        return
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[profile] ring decode step (ring {RING_MAX_LENS[-1]}): device "
+        f"busy {busy:.3f} ms of {step_ms:.2f} ms unprofiled "
+        f"({100 * busy / step_ms:.1f}%; {wall:.2f} ms wall with the "
+        f"profiler on); per step: "
+        + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
+
+
+def clone_tree(tree):
+    return {k: (clone_tree(v) if isinstance(v, dict) else v.clone())
+            for k, v in tree.items()}
+
+
+def phase_quickstart():
+    import torch
+    from repro_torch.examples import quickstart
+    out = quickstart.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    ran = {k: out["launches"][k] for k in
+           ("qmatmul", "int_attention_fused", "int_decode_attention")}
+    log(f"[quickstart] launches {ran}")
+    if out["eq_err"] > 1e-5 or out["corr"] < 0.95 or min(ran.values()) <= 0 \
+            or out["kv_dtype"] != "torch.int8":
+        raise AssertionError(f"quickstart on the card: {out}")
 
 
 def phase_time(g, launches, errs, stats):
@@ -396,18 +607,101 @@ def phase_time(g, launches, errs, stats):
             4 * (2 * b + 2 * pages) + 4 * pt.numel() + 4 * b
         ops = 4 * d * grp * hkv * sum(live)
         bnd, by = bound_ms(nbytes, ops)
+        lib = paged_sdpa_ms(g, q, pt, pos, ps)
         log(f"[time] paged decode kv_bits={kv_bits} B={b} live keys {live}: "
-            f"{ms:.4f} ms, bound {bnd:.4f} ms ({by}), plain {pms:.4f} ms")
-        paged[kv_bits] = (ms, pms, bnd, by)
-    ms, pms, bnd, by = paged[8]
+            f"{ms:.4f} ms, bound {bnd:.4f} ms ({by}), plain {pms:.4f} ms, "
+            f"bf16 SDPA over the gathered pages, masked {lib:.4f} ms")
+        paged[kv_bits] = (ms, pms, bnd, by, lib)
+    ms, pms, bnd, by, lib = paged[8]
     kernels.append({"name": "int_paged_decode_attention", "route": "cuda",
                     "source": "src/repro_torch/csrc/int_attention.cu",
                     "replaces": "src/repro/kernels/int_attention.py:752",
                     "launches": launches["int_paged_decode_attention"],
                     "max_abs_err": errs["int_paged_decode_attention"],
                     "ms": ms, "plain_ms": pms, "bound_ms": bnd,
-                    "bound_by": by, "library_ms": None})
+                    "bound_by": by, "library_ms": lib})
+
+    ring = {}
+    for kv_bits, span, pos in RING_TIMES:
+        args = ring_inputs(g, kv_bits, span, pos)
+        q, k, v, sc, vs, kpos, posd = args
+        kw = dict(attn_bits=7, packed=kv_bits == 4,
+                  bk=dispatch.decode_blocks(span, 128))
+        ms = cuda_ms(lambda: ia.int_decode_attention(*args, **kw))
+        pms = cuda_ms(lambda: ia.int_decode_attention_plain(*args, **kw),
+                      iters=3, warmup=1)
+        h, grp, d = q.shape
+        dk = k.shape[2]
+        live = (kpos >= 0) & (kpos <= pos)
+        n_live = int(live.sum())
+        bk = kw["bk"]
+        live_blocks = int(live.reshape(-1, bk).any(dim=1).sum()) \
+            if span % bk == 0 else -(-span // bk)
+        # least bytes: q, the slot map, pos, scales, live K/V rows, out
+        nbytes = q.numel() + 4 * span + 4 + 8 * h + 2 * h * n_live * dk + \
+            4 * h * grp * d
+        ops = 4 * d * grp * h * n_live
+        bnd, by = bound_ms(nbytes, ops)
+        blk_bnd, _ = bound_ms(nbytes + 2 * h * (live_blocks * bk - n_live)
+                              * dk, ops)
+        lib = ring_sdpa_ms(g, span, live)
+        log(f"[time] ring decode kv_bits={kv_bits} H={h} G={grp} D={d} "
+            f"span={span} bk={bk} pos={pos} (live keys {n_live}, live blocks "
+            f"{live_blocks}): {ms:.4f} ms, bound {bnd:.4f} ms ({by}; "
+            f"{blk_bnd:.4f} ms over the whole live blocks), plain "
+            f"{pms:.4f} ms, bf16 SDPA over the live keys {lib:.4f} ms")
+        ring[(kv_bits, span, pos)] = (ms, pms, bnd, by, lib)
+    ms, pms, bnd, by, lib = ring[RING_TIMES[0]]
+    kernels.append({"name": "int_decode_attention", "route": "cuda",
+                    "source": "src/repro_torch/csrc/int_attention.cu",
+                    "replaces": "src/repro/kernels/int_attention.py:649",
+                    "launches": launches["int_decode_attention"],
+                    "max_abs_err": errs["int_decode_attention"], "ms": ms,
+                    "plain_ms": pms, "bound_ms": bnd, "bound_by": by,
+                    "library_ms": lib})
     return kernels
+
+
+# (kv_bits, span, pos): the ring phase's shapes (64-token prompts, so the
+# last decode step reads positions 0..79) first, then full rings.
+RING_TIMES = [(8, 1024, 79), (4, 1024, 79), (8, 8192, 79),
+              (8, 4096, 4095), (8, 8192, 8191), (4, 8192, 8191)]
+
+
+def ring_sdpa_ms(g, span, live):
+    """Yardstick the port never calls: one bf16 SDPA over the ring's live
+    keys, dequantized and gathered (B=4, 40 query heads on 8 kv heads)."""
+    import torch
+    import torch.nn.functional as F
+    n = int(live.sum())
+    qb = torch.randn((4, 40, 1, 128), generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    kb = torch.randn((4, 8, n, 128), generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    vb = torch.randn((4, 8, n, 128), generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        qb, kb, vb, enable_gqa=True))
+
+
+def paged_sdpa_ms(g, q, pt, pos, ps):
+    """Yardstick the port never calls: one bf16 SDPA per decode step over
+    every row's pages gathered into a dense (B, Hkv, max_pages * ps, D)
+    cache, masked to each row's positions."""
+    import torch
+    import torch.nn.functional as F
+    b, hkv, grp, d = q.shape
+    total = pt.shape[1] * ps
+    qb = torch.randn((b, hkv * grp, 1, d), generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    kb = torch.randn((b, hkv, total, d), generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    vb = torch.randn((b, hkv, total, d), generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    mask = (torch.arange(total, device="cuda")[None, :] <=
+            pos.clamp(min=0)[:, None])[:, None, None, :]
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        qb, kb, vb, attn_mask=mask, enable_gqa=True))
 
 
 def main() -> int:
@@ -433,8 +727,12 @@ def main() -> int:
         g = torch.Generator(device="cuda").manual_seed(0)
         errs = phase_check(g)
         stats, launches, params = phase_serve()
+        ring_launches = phase_ring(params)
+        launches["int_decode_attention"] = \
+            ring_launches["int_decode_attention"]
         del params
         torch.cuda.empty_cache()
+        phase_quickstart()
         kernels = phase_time(g, launches, errs, stats)
     except Exception:                 # report the failing phase, exit non-0
         traceback.print_exc()

@@ -129,3 +129,34 @@ def integerize_params(params: Any, cfg: QuantConfig) -> Any:
         return {k: rewrite(v, k) for k, v in p.items()}
 
     return rewrite(params)
+
+
+def _leaves(tree, name=""):
+    """(key, tensor) for every tensor leaf of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, str(k))
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v, name)
+    elif isinstance(tree, torch.Tensor):
+        yield name, tree
+
+
+def count_params(params: Any) -> int:
+    return sum(leaf.numel() for _, leaf in _leaves(params))
+
+
+def model_bytes(params: Any, cfg: Optional[QuantConfig]) -> int:
+    """Storage accounting with *logical* bit widths (paper Table II), by
+    the reference's rule on each leaf's key."""
+    total_bits = 0
+    for name, leaf in _leaves(params):
+        if "w_q" in name or ("w" in name and leaf.ndim in (2, 3)):
+            bits = cfg.w_bits if cfg else 32
+        elif "emb" in name:
+            bits = 8 if (cfg and cfg.quantize_embeddings) else 32
+        else:
+            bits = 32
+        total_bits += leaf.numel() * bits
+    return total_bits // 8

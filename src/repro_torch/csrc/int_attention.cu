@@ -1,6 +1,6 @@
 // Integer attention with the embedded base-2 softmax, for Hopper (sm_90a).
 //
-// Two kernels share one online quantizer (kernels/ref.py):
+// Three kernels share one online quantizer (kernels/ref.py):
 //   x = acc * sc (masked -> -1e30, clamped at -120); running integer
 //   m = floor(max); e = (1 + r) * 2^(x - m); codes p = clip(rint(e*qmax/2),
 //   0, qmax); int32 PV; the f32 carries (Sigma, PV) rescaled by the exact
@@ -27,6 +27,25 @@
 //   against a partial running max and emit different codes.  int4 pools
 //   are unpacked in shared memory.  Bound: the live KV bytes.
 //
+// ring_decode_kernel replaces
+//   src/repro/kernels/int_attention.py::int_decode_attention
+//   (_decode_kernel, _decode_meta): every decode step over the KV ring
+//   cache of models/lm.py.  One block per head-fold h loads the query
+//   position from device memory and walks the ring's bk-blocks in slot
+//   order; a block none of whose slots holds a live key (k_positions
+//   negative, after pos, or outside the window) is skipped, which is
+//   bit-exact (it cannot raise the running m and adds e = 0): this replaces
+//   the TPU's scalar-prefetched live-block map.  Per live block the G x bk
+//   f32 logits stay in shared memory (80 KB at G = 5, bk = 4096) until the
+//   block's floor(max) is known; then the codes, Sigma, and the int32 PV
+//   over 128-key sub-tiles of V (transposed into shared memory, sub-tiles
+//   without a live key skipped).  Keys whose slot is dead skip their
+//   logits' dot products.  The TPU's padding of G to 8 rows is not carried
+//   over.  Bound: the live KV bytes.  A simple kernel: at the main path's
+//   32 head-folds it fills 32 of the 132 SMs and reads each key row with
+//   4-byte loads; splitting the ring across blocks needs a second pass
+//   that merges running grids, left to later work.
+//
 // Sigma is an f32 sum over a tile taken in another order than the plain
 // versions take it, so outputs agree within a tolerance; codes, m and the
 // int32 partials agree exactly.
@@ -38,6 +57,10 @@ constexpr int NTA = 256;     // fused prefill block
 constexpr int MAXJA = 32;    // accumulators per thread: bq * D <= 8192
 constexpr int NTP = 128;     // paged decode block
 constexpr int MAXJP = 16;    // accumulators per thread: G * D <= 2048
+constexpr int NTR = 256;     // ring decode block
+constexpr int MAXJR = 8;     // accumulators per thread: G * D <= 2048
+constexpr int MAXGR = 8;     // query rows per pass over a key row
+constexpr int RSUB = 128;    // keys per V sub-tile
 
 __global__ void __launch_bounds__(NTA)
 fused_attention_kernel(const int8_t* __restrict__ q,
@@ -336,6 +359,202 @@ paged_decode_kernel(const int8_t* __restrict__ q,
   }
 }
 
+__device__ __forceinline__ bool ring_live(const int* __restrict__ kpos,
+                                          int j, int span, int pos,
+                                          int causal, int window) {
+  if (j >= span) return false;
+  const int kp = kpos[j];
+  bool ok = kp >= 0;
+  if (causal) ok &= kp <= pos;
+  if (window >= 0) ok &= kp > pos - window;
+  return ok;
+}
+
+__global__ void __launch_bounds__(NTR)
+ring_decode_kernel(const int8_t* __restrict__ q,
+                   const uint8_t* __restrict__ k,
+                   const uint8_t* __restrict__ v,
+                   const int* __restrict__ kpos, const int* __restrict__ posp,
+                   const float* __restrict__ sc, const float* __restrict__ vs,
+                   float* __restrict__ out, uint8_t* __restrict__ codes,
+                   int G, int D, int span, int bk, int causal, int window,
+                   int packed, float qmax, float two_over_qmax) {
+  extern __shared__ __align__(16) int smem[];
+  const int h = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, nwarps = NTR / 32;
+  const int DW = D / 4, PSW = bk / 4 + 1, VS = RSUB / 4 + 1;
+  const int dk = packed ? D / 2 : D;
+  int* qs = smem;                                        // G x DW
+  float* xs = reinterpret_cast<float*>(qs + G * DW);     // G x bk
+  int* pc = reinterpret_cast<int*>(xs + (size_t)G * bk); // G x PSW
+  int* vt = pc + G * PSW;                                // D x VS: vT[d][key]
+  float* mrow = reinterpret_cast<float*>(vt + D * VS);   // G
+  float* srow = mrow + G;
+  float* arow = srow + G;
+  uint8_t* vtb = reinterpret_cast<uint8_t*>(vt);
+  uint8_t* pcb = reinterpret_cast<uint8_t*>(pc);
+  const float qmax_half = qmax * 0.5f;
+
+  for (int idx = tid; idx < G * DW; idx += NTR) {
+    const int g = idx / DW, c = idx % DW;
+    qs[g * DW + c] = ld32(q + ((size_t)h * G + g) * D + 4 * c);
+  }
+  for (int g = tid; g < G; g += NTR) {
+    mrow[g] = NEG_BIG;
+    srow[g] = 0.0f;
+  }
+  float acc[MAXJR];
+#pragma unroll
+  for (int j = 0; j < MAXJR; ++j) acc[j] = 0.0f;
+  const int pos = posp[0];
+  const float sct = sc[h], vsh = vs[h];
+  const size_t ring = (size_t)h * span * dk;
+  __syncthreads();
+
+  const int nk = (span + bk - 1) / bk;
+  for (int kb = 0; kb < nk; ++kb) {
+    const int k0 = kb * bk;
+    int live = 0;
+    for (int c = tid; c < bk && !live; c += NTR)
+      live = ring_live(kpos, k0 + c, span, pos, causal, window);
+    if (!__syncthreads_or(live)) continue;   // no live key: bit-exact skip
+
+    // Logits of the block: one key row per thread, up to MAXGR query rows
+    // per pass over it; dead slots skip the dot products.
+    for (int c = tid; c < bk; c += NTR) {
+      const int j = k0 + c;
+      if (!ring_live(kpos, j, span, pos, causal, window)) {
+        for (int g = 0; g < G; ++g) xs[(size_t)g * bk + c] = -120.0f;
+        continue;
+      }
+      const uint8_t* krow = k + ring + (size_t)j * dk;
+      for (int g0 = 0; g0 < G; g0 += MAXGR) {
+        int a[MAXGR];
+#pragma unroll
+        for (int r = 0; r < MAXGR; ++r) a[r] = 0;
+        for (int w = 0; w < DW; w += 2) {
+          int k0w, k1w;
+          if (packed) {
+            const unsigned u =
+                *reinterpret_cast<const unsigned*>(krow + 2 * w);
+            k0w = unpack4(u & 0xFFFFu);
+            k1w = unpack4(u >> 16);
+          } else {
+            k0w = *reinterpret_cast<const int*>(krow + 4 * w);
+            k1w = *reinterpret_cast<const int*>(krow + 4 * w + 4);
+          }
+#pragma unroll
+          for (int r = 0; r < MAXGR; ++r) {
+            if (g0 + r < G) {
+              a[r] = __dp4a(qs[(g0 + r) * DW + w], k0w, a[r]);
+              a[r] = __dp4a(qs[(g0 + r) * DW + w + 1], k1w, a[r]);
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < MAXGR; ++r) {
+          if (g0 + r < G)
+            xs[(size_t)(g0 + r) * bk + c] =
+                fmaxf(__fmul_rn(__int2float_rn(a[r]), sct), -120.0f);
+        }
+      }
+    }
+    __syncthreads();
+
+    for (int g = warp; g < G; g += nwarps) {
+      float mx = -INFINITY;
+      for (int c = lane; c < bk; c += 32)
+        mx = fmaxf(mx, xs[(size_t)g * bk + c]);
+      mx = warp_max(mx);
+      if (lane == 0) {
+        const float mo = mrow[g];
+        const float mn = fmaxf(mo, floorf(mx));
+        arow[g] = carry_scale(mo, mn);
+        mrow[g] = mn;
+      }
+    }
+    __syncthreads();
+
+    for (int idx = tid; idx < G * bk; idx += NTR) {
+      const int g = idx / bk, c = idx % bk;
+      const float x = xs[idx];
+      const float e = x <= -120.0f ? 0.0f : exp2_shift(__fsub_rn(x, mrow[g]));
+      const float p =
+          fminf(fmaxf(rintf(__fmul_rn(e, qmax_half)), 0.0f), qmax);
+      xs[idx] = e;
+      pcb[(size_t)g * PSW * 4 + c] = static_cast<uint8_t>(p);
+      if (codes && k0 + c < span)
+        codes[((size_t)h * G + g) * span + k0 + c] = static_cast<uint8_t>(p);
+    }
+    __syncthreads();
+
+    for (int g = warp; g < G; g += nwarps) {
+      float sum = 0.0f;
+      for (int c = lane; c < bk; c += 32)
+        sum = __fadd_rn(sum, xs[(size_t)g * bk + c]);
+      sum = warp_sum(sum);
+      if (lane == 0) srow[g] = __fadd_rn(__fmul_rn(srow[g], arow[g]), sum);
+    }
+
+    // Integer PV over the block, 128 keys of V at a time.
+    int ia[MAXJR];
+#pragma unroll
+    for (int j = 0; j < MAXJR; ++j) ia[j] = 0;
+    for (int s0 = 0; s0 < bk; s0 += RSUB) {
+      int sub = 0;
+      for (int c = tid; c < RSUB && !sub; c += NTR)
+        sub = ring_live(kpos, k0 + s0 + c, span, pos, causal, window);
+      if (!__syncthreads_or(sub)) continue;  // all codes 0: exact skip
+      for (int idx = tid; idx < RSUB * DW; idx += NTR) {
+        const int r = idx / DW, c = idx % DW, j = k0 + s0 + r;
+        int vw = 0;
+        if (j < span) {
+          const uint8_t* vrow = v + ring + (size_t)j * dk;
+          vw = packed ? unpack4(*reinterpret_cast<const unsigned short*>(
+                            vrow + 2 * c))
+                      : *reinterpret_cast<const int*>(vrow + 4 * c);
+        }
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          vtb[(4 * c + b) * (VS * 4) + r] = (vw >> (8 * b)) & 0xFF;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < MAXJR; ++j) {
+        const int o = tid + NTR * j;
+        if (o < G * D) {
+          const int g = o / D, col = o % D;
+          const int* pw = pc + g * PSW + s0 / 4;
+          int a = ia[j];
+          for (int w = 0; w < RSUB / 4; ++w)
+            a = dp4a_us(static_cast<unsigned>(pw[w]), vt[col * VS + w], a);
+          ia[j] = a;
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int j = 0; j < MAXJR; ++j) {
+      const int o = tid + NTR * j;
+      if (o < G * D)
+        acc[j] = __fadd_rn(__fmul_rn(acc[j], arow[o / D]),
+                           __int2float_rn(ia[j]));
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int j = 0; j < MAXJR; ++j) {
+    const int o = tid + NTR * j;
+    if (o < G * D) {
+      const int g = o / D, col = o % D;
+      const float f = __fmul_rn(
+          __fdiv_rn(two_over_qmax, fmaxf(srow[g], 1e-30f)), vsh);
+      out[((size_t)h * G + g) * D + col] = __fmul_rn(acc[j], f);
+    }
+  }
+}
+
 size_t fused_smem(int bq, int bk, int D) {
   const int QS = D / 4 + 1, PS = bk / 4 + 1;
   return 4 * ((size_t)bq * QS + (size_t)bk * QS + (size_t)D * PS +
@@ -346,6 +565,11 @@ size_t paged_smem(int G, int ps, int D) {
   const int QS = D / 4 + 1, PS = ps / 4 + 1;
   return 4 * ((size_t)G * QS + (size_t)ps * QS + (size_t)D * PS +
               (size_t)G * ps + (size_t)G * PS + 3 * (size_t)G);
+}
+
+size_t ring_smem(int G, int bk, int D) {
+  return 4 * ((size_t)G * (D / 4) + (size_t)G * bk + (size_t)G * (bk / 4 + 1) +
+              (size_t)D * (RSUB / 4 + 1) + 3 * (size_t)G);
 }
 
 }  // namespace
@@ -412,5 +636,36 @@ extern "C" int paged_decode_launch(const void* q, const void* kpool,
       static_cast<const int*>(pos), static_cast<float*>(out),
       static_cast<uint8_t*>(codes), HKV, G, D, ps, maxp, num_phys, window,
       packed, qmax, two_over_qmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q (H, G, D) int8; k, v (H, span, D) int8 or (H, span, D/2) uint8
+// nibbles (packed); kpos (span,) int32 slot -> position (negative =
+// unwritten); pos (1,) int32 on the device; sc, vs (H,) f32; out
+// (H, G, D) f32; codes (H, G, span) uint8 (zero-filled by the caller) or
+// null.  window < 0 means none.  Constraints (checked in Python):
+// D % 8 == 0, bk % 128 == 0, G * D <= 2048, ring_smem <= 227 KB.
+extern "C" int ring_decode_launch(const void* q, const void* k, const void* v,
+                                  const void* kpos, const void* pos,
+                                  const void* sc, const void* vs, void* out,
+                                  void* codes, int H, int G, int D, int span,
+                                  int bk, int causal, int window, int packed,
+                                  float qmax, float two_over_qmax,
+                                  void* stream) {
+  if (D % 8 || bk % RSUB || G * D > NTR * MAXJR)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = ring_smem(G, bk, D);
+  cudaError_t err = cudaFuncSetAttribute(
+      ring_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ring_decode_kernel<<<dim3(H), NTR, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const uint8_t*>(k),
+      static_cast<const uint8_t*>(v), static_cast<const int*>(kpos),
+      static_cast<const int*>(pos), static_cast<const float*>(sc),
+      static_cast<const float*>(vs), static_cast<float*>(out),
+      static_cast<uint8_t*>(codes), G, D, span, bk, causal, window, packed,
+      qmax, two_over_qmax);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,10 +4,13 @@ The reference's parameter and paged-cache trees, handed over as numpy
 arrays (``jax.tree.map(np.asarray, tree)`` on the JAX side), become the
 port's dicts of tensors with the same keys and layouts (``w_q (out, in)``,
 pools ``(num_pages + 1, Hkv, page_size, hd[/2])``, ``page_table
-(B, max_pages)``, layer-stacked ``units``); :func:`to_numpy` carries
-tensors back for comparison.  Weights therefore cross over as they are and
-are never re-initialised with torch's generator.  bfloat16 crosses as its
-raw 16-bit pattern, so no value is rounded on the way.
+(B, max_pages)``, layer-stacked ``units``), and so does a ring cache
+(codes ``(B, Hkv, span, hd[/2])``, 0-d per-layer scales and the 0-d
+``pos``, shapes kept), so both packages can start from one cache;
+:func:`to_numpy` carries tensors back for comparison.  Weights therefore
+cross over as they are and are never re-initialised with torch's
+generator.  bfloat16 crosses as its raw 16-bit pattern, so no value is
+rounded on the way.
 """
 from __future__ import annotations
 
@@ -16,13 +19,13 @@ import torch
 
 
 def _array_to_tensor(a, device) -> torch.Tensor:
-    a = np.asarray(a)
+    # np.array(..., order="C") copies and keeps 0-d arrays 0-d (a 0-d
+    # scale or ring position must not become shape (1,)).
+    a = np.array(a, order="C")
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        t = torch.from_numpy(a.view(np.int16))
         return t.view(torch.bfloat16).to(device)
-    if a.dtype == np.bool_:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def to_torch(tree, device="cuda"):

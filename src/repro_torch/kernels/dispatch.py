@@ -2,8 +2,9 @@
 hand-written CUDA kernels.
 
 Counterpart of ``repro/kernels/dispatch.py``.  The model graph calls
-:func:`maybe_qlinear`, :func:`maybe_attention` and
-:func:`maybe_paged_attention`; each either lowers onto a kernel wrapper
+:func:`maybe_qlinear`, :func:`maybe_attention` (prompt prefill, and ring
+decode steps) and :func:`maybe_paged_attention`; each either lowers onto a
+kernel wrapper
 (ND->2D flattening, packed int4 weights, GQA/batch folding, per-sequence
 activation grids, block choices) or returns ``None``, and the caller runs
 the plain PyTorch path.
@@ -41,6 +42,7 @@ from repro_torch.kernels import int_attention as _attn_mod
 from repro_torch.kernels import qmatmul as _qmm_mod
 from repro_torch.kernels.int_attention import (MAX_PROB_BITS,
                                                int_attention_fused,
+                                               int_decode_attention,
                                                int_paged_decode_attention)
 from repro_torch.kernels.qmatmul import qmatmul
 
@@ -59,6 +61,7 @@ _backend = ["cuda"]
 STATS = {"qlinear_cuda": 0, "qlinear_torch": 0,
          "attention_cuda": 0, "attention_paged_cuda": 0,
          "attention_paged_torch": 0, "attention_torch": 0,
+         "attention_decode_cuda": 0, "attention_decode_torch": 0,
          "cow_page_copies": 0,
          # failure-handling counters, bumped by launch/engine.py
          "preemptions": 0, "resumes": 0, "cancelled": 0, "expired": 0,
@@ -201,6 +204,27 @@ def paged_decode_blocks(page_size: int, d: int, g: int, *,
     return bk
 
 
+# The reference's decode tile budget (TPU VMEM) and lane width: ``bk`` of
+# the ring decode kernel is semantics (each block quantizes at the running
+# max), so the port keeps the reference's choice rather than one derived
+# from shared memory, and matches it block for block.
+DECODE_VMEM_BUDGET = 6 * 2 ** 20
+_LANE = 128
+
+
+def decode_blocks(span: int, d: int) -> int:
+    """``bk`` of the ring decode kernel over a ``span``-slot ring, as the
+    reference chooses it: one block over the whole ring (then the running
+    grid is the full-row grid of the plain path, bit for bit) up to 4096
+    keys; longer rings stream in 4096-key blocks."""
+    bk = min(_round_up(span, _LANE), 4096)
+    while 2 * bk * d + 4 * bk + 17 * 8 * d > DECODE_VMEM_BUDGET \
+            and bk > _LANE:
+        bk = max(_LANE, _round_up(bk // 2, _LANE))
+    _record_blocks("decode", f"span{span}_d{d}", bk)
+    return bk
+
+
 # ---------------------------------------------------------------------------
 # Linear: ND activation x integerized weight -> qmatmul
 # ---------------------------------------------------------------------------
@@ -276,14 +300,50 @@ def attention_supported(q, k, spec, cfg, q_offset, k_offset,
             and d % 4 == 0)
 
 
+def _is_packed(x) -> bool:
+    return isinstance(x, quant.QTensor) and x.is_packed
+
+
+def decode_supported(q, k, spec, cfg, k_positions) -> bool:
+    """Shape policy for the ring decode kernel, the reference's: Sq == 1
+    (the G GQA groups become the kernel's rows), one shared (span,) slot ->
+    position map, int4 only as nibble pairs.  A shape the card's kernel
+    cannot take is not sent to the plain path: its wrapper raises."""
+    if cfg.attn_bits > MAX_PROB_BITS:
+        return False
+    if getattr(cfg, "softmax", "base2") != "base2":
+        return False
+    if k_positions is None or getattr(k_positions, "ndim", None) != 1:
+        return False
+    b, hq, sq, d = q.shape
+    if sq != 1 or d == 0 or k.shape[2] == 0:
+        return False
+    hkv = k.shape[1]
+    if hq % hkv:
+        return False
+    if _is_packed(k) and (k.bits != 4 or d % 2):
+        return False
+    return True
+
+
 def maybe_attention(q, k, v, spec, cfg, *, q_offset=0, k_offset=0,
                     k_positions=None):
-    """Kernel-backed attention() body; ``None`` -> caller's plain path."""
-    if resolve_backend(cfg) == "cuda" and attention_supported(
-            q, k, spec, cfg, q_offset, k_offset, k_positions):
-        STATS["attention_cuda"] += 1
-        return _fused_call(q, k, v, spec, cfg)
-    STATS["attention_torch"] += 1
+    """Kernel-backed attention() body; ``None`` -> caller's plain path.
+
+    Decode steps over the ring cache (Sq == 1 with ``k_positions``) go to
+    the ring decode kernel, prompt prefill to the fused kernel."""
+    if resolve_backend(cfg) == "cuda":
+        if decode_supported(q, k, spec, cfg, k_positions):
+            STATS["attention_decode_cuda"] += 1
+            return _decode_call(q, k, v, spec, cfg, q_offset, k_positions)
+        if attention_supported(q, k, spec, cfg, q_offset, k_offset,
+                               k_positions):
+            STATS["attention_cuda"] += 1
+            return _fused_call(q, k, v, spec, cfg)
+    if k_positions is not None and q.shape[2] == 1:
+        STATS["attention_decode_torch"] += 1
+    else:
+        STATS["attention_torch"] += 1
     return None
 
 
@@ -332,6 +392,37 @@ def _fused_call(q, k, v, spec, cfg):
                               attn_bits=cfg.attn_bits, causal=spec.causal,
                               window=spec.window, bq=bq, bk=bk, sq_mod=sq)
     return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def _as_q(x, bits):
+    return x if isinstance(x, quant.QTensor) \
+        else quant.quantize_tensor(x, bits)
+
+
+def _decode_call(q, k, v, spec, cfg, q_offset, k_positions):
+    """One decode step on the ring kernel: the cache's codes as stored
+    (int8, or int4 nibbles read in place), and the query on the plain
+    path's PER-TENSOR grid (the whole batch shares one ring and one
+    scale), with the plain path's association ``scale*LOG2E*dq*dk``.
+    ``q_offset`` is the query position as a device tensor."""
+    b, hq, _, d = q.shape
+    hkv, span = k.shape[1], k.shape[2]
+    g = hq // hkv
+    out_dtype = q.dtype if not isinstance(q, quant.QTensor) \
+        else torch.float32
+    qq, kq, vq = (_as_q(x, cfg.a_bits) for x in (q, k, v))
+    scale = spec.softmax_scale or (1.0 / d ** 0.5)
+    sc = scale * LOG2E * qq.scale * kq.scale
+    qf = qq.q.reshape(b * hkv, g, d).contiguous()
+    kf = kq.q.reshape(b * hkv, span, -1)
+    vf = vq.q.reshape(b * hkv, span, -1)
+    out = int_decode_attention(
+        qf, kf, vf, sc, vq.scale,
+        torch.as_tensor(k_positions, dtype=torch.int32, device=q.device),
+        q_offset, attn_bits=cfg.attn_bits, causal=spec.causal,
+        window=spec.window, bk=decode_blocks(span, d),
+        packed=_is_packed(kq))
+    return out.reshape(b, hq, 1, d).to(out_dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Integer attention with the embedded base-2 softmax: CUDA kernels + plain
 versions.
 
-Both kernels live in ``csrc/int_attention.cu`` and share the online
+The three kernels live in ``csrc/int_attention.cu`` and share the online
 quantizer of ``kernels/ref.py`` (running integer ``m``, codes on the
 power-of-two Sigma grid, PV carries rescaled by exact powers of two):
 
@@ -21,6 +21,14 @@ power-of-two Sigma grid, PV carries rescaled by exact powers of two):
   split across blocks (a split would quantize against a partial running
   max).  Plain version: the paged oracle at ``bk = page_size``.  Bound:
   the live KV bytes.
+- :func:`int_decode_attention` replaces
+  ``repro/kernels/int_attention.py::int_decode_attention`` (``:582``,
+  ``pl.pallas_call`` at ``:649``): every decode step over the ring KV
+  cache.  One block per head-fold walks the ring's ``bk``-blocks in slot
+  order, decides from ``k_positions`` and the device-resident ``pos``
+  which hold a live key, and skips the rest (the TPU's scalar-prefetched
+  live-block map).  Plain version: :func:`int_decode_attention_plain`, the
+  ring oracle at the same ``bk``.  Bound: the live KV bytes.
 
 Each wrapper runs its kernel on CUDA tensors and its plain version on CPU
 tensors, and nowhere else.  ``return_codes`` also returns the prob codes,
@@ -33,11 +41,14 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.core.quant import unpack_int4
 from repro_torch.kernels import build, ref
 
 MAX_PROB_BITS = 8
+RING_MAX_GD = 2048        # ring decode: G * D output accumulators a block
 # Kernel launches (one per launch, bumped nowhere else).
-LAUNCHES = {"int_attention_fused": 0, "int_paged_decode_attention": 0}
+LAUNCHES = {"int_attention_fused": 0, "int_paged_decode_attention": 0,
+            "int_decode_attention": 0}
 
 
 def _f32(x):
@@ -190,6 +201,81 @@ def int_paged_decode_attention(q_q, k_pages, v_pages, sc, v_scale,
             _f32(2.0 / qmax), build.stream_ptr(q_q))
     build.check(lib, rc, "int_paged_decode_attention")
     LAUNCHES["int_paged_decode_attention"] += 1
+    return (out, codes) if return_codes else out
+
+
+def int_decode_attention_plain(q_q, k_q, v_q, sc, v_scale, k_positions,
+                               pos, *, attn_bits=7, causal=True, window=None,
+                               bk, packed=False, return_codes=False):
+    """Plain version of the ring decode kernel: nibbles unpacked to int8
+    codes (never to floats), then the ring oracle at the kernel's ``bk``."""
+    if packed:
+        k_q, v_q = unpack_int4(k_q), unpack_int4(v_q)
+    return ref.int_decode_attention_ref(
+        q_q, k_q, v_q, sc, v_scale, k_positions, pos, attn_bits=attn_bits,
+        causal=causal, window=window, bk=bk, return_codes=return_codes)
+
+
+def int_decode_attention(q_q, k_q, v_q, sc, v_scale, k_positions, pos, *,
+                         attn_bits=7, causal=True, window=None, bk,
+                         packed=False, return_codes=False):
+    """Single-query integer decode attention over a KV ring cache, in place.
+
+    q_q (H, G, D) int8 — the G GQA rows of one decode step, all at query
+    position ``pos``; k_q, v_q the ring as stored: (H, span, D) int8, or
+    (H, span, D/2) uint8 nibbles with ``packed``; ``k_positions`` (span,)
+    int32, ring slot -> absolute position (negative = unwritten);
+    ``pos`` a 0-d or (1,) int32 tensor on the device, read by the kernel
+    (no host sync); ``sc`` = softmax_scale * log2(e) * dq * dk and
+    ``v_scale`` scalars or (H,).  Returns (H, G, D) f32 (and the
+    (H, G, span) uint8 codes).
+    """
+    if attn_bits > MAX_PROB_BITS:
+        raise ValueError(f"prob codes are <= {MAX_PROB_BITS}-bit")
+    h, g, d = q_q.shape
+    span, dk = k_q.shape[1], k_q.shape[2]
+    if dk * (2 if packed else 1) != d:
+        raise ValueError(f"ring decode: q {tuple(q_q.shape)} vs ring "
+                         f"{tuple(k_q.shape)} (packed={packed})")
+    if q_q.device.type == "cpu":
+        return int_decode_attention_plain(
+            q_q, k_q, v_q, sc, v_scale, k_positions, pos,
+            attn_bits=attn_bits, causal=causal, window=window, bk=bk,
+            packed=packed, return_codes=return_codes)
+    dev = q_q.device
+    sc = torch.as_tensor(sc, dtype=torch.float32, device=dev).reshape(-1)
+    sc = sc.expand(h).contiguous()
+    vs = torch.as_tensor(v_scale, dtype=torch.float32,
+                         device=dev).reshape(-1).expand(h).contiguous()
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).reshape(1)
+    _check(q_q, torch.int8, (h, g, d), "q_q")
+    ring_dt = torch.uint8 if packed else torch.int8
+    _check(k_q, ring_dt, (h, span, dk), "k_q")
+    _check(v_q, ring_dt, (h, span, dk), "v_q")
+    _check(k_positions, torch.int32, (span,), "k_positions")
+    _check(pos, torch.int32, (1,), "pos")
+    if d % 8 or bk % 128 or g * d > RING_MAX_GD:
+        raise ValueError(f"ring decode kernel: needs D % 8 == 0, "
+                         f"bk % 128 == 0, G * D <= {RING_MAX_GD} (D={d}, "
+                         f"bk={bk}, G={g})")
+    qmax = (1 << attn_bits) - 1
+    out = torch.empty((h, g, d), dtype=torch.float32, device=dev)
+    codes = torch.zeros((h, g, span), dtype=torch.uint8, device=dev) \
+        if return_codes else None
+    lib = build.load("int_attention")
+    fn = lib.ring_decode_launch
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + \
+        [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(q_q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(),
+            k_positions.data_ptr(), pos.data_ptr(), sc.data_ptr(),
+            vs.data_ptr(), out.data_ptr(),
+            None if codes is None else codes.data_ptr(),
+            h, g, d, span, bk, int(causal),
+            -1 if window is None else int(window), int(packed), float(qmax),
+            _f32(2.0 / qmax), build.stream_ptr(q_q))
+    build.check(lib, rc, "int_decode_attention")
+    LAUNCHES["int_decode_attention"] += 1
     return (out, codes) if return_codes else out
 
 

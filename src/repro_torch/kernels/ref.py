@@ -11,11 +11,13 @@ power-of-two Sigma-scaled grid::
   max): what the plain ``torch`` backend serves for prefill.
 - :func:`int_attention_ref_streamed` — keys consumed in ``bk`` blocks,
   each block's codes on the running ``m``: the fused kernel's semantics.
+- :func:`int_decode_attention_ref` — one query position against a KV ring
+  with a slot -> position map; ``bk=None`` is the full-row grid, integer
+  ``bk`` the ring decode kernel's streamed grid.
 - :func:`int_paged_decode_attention_ref` — one query position against a
   paged KV cache; ``bk=None`` is the full-row grid, ``bk = page_size`` the
-  paged kernel's streamed grid.  Its streamed core (:func:`_decode_stream`)
-  is the reference's ring oracle ``int_decode_attention_ref``, whose own
-  port comes with the ring-cache slice.
+  paged kernel's streamed grid.  Both decode oracles share one streamed
+  core (:func:`_decode_stream`).
 
 Integer contractions run through ``quant.int_matmul_exact`` (float64,
 exact), so these run unchanged on CPU and CUDA tensors.  ``return_codes``
@@ -183,6 +185,49 @@ def _decode_stream(x, v, qmax, bk, vf_blk=None, v_scale=None,
         codes.append(p)
     s = torch.clamp(s, min=1e-30)
     return pv, s, (torch.cat(codes, dim=-1) if return_codes else None)
+
+
+def int_decode_attention_ref(q_q, k_q, v_q, sc, v_scale, k_positions, pos,
+                             *, attn_bits=7, causal=True, window=None,
+                             bk=None, return_codes=False):
+    """Ring decode oracle: (H, G, D) query rows vs an (H, span, D) ring.
+
+    ``k_positions`` (span,) maps ring slot -> absolute position (negative =
+    unwritten, masked); all G rows share query position ``pos`` (a 0-d or
+    (1,) tensor, never read on the host).  ``bk=None``: full-row grid (the
+    plain ``torch`` backend's).  Integer ``bk``: ring blocks stream in slot
+    order on the running grid — the ring decode kernel's semantics (a
+    block with no live key is bit-neutral, so the kernel may skip it).
+    ``sc``/``v_scale`` scalars or (H,).  Returns (H, G, D) f32 (and the
+    (H, G, span) uint8 codes with ``return_codes``).
+    """
+    h, g, d = q_q.shape
+    dev = q_q.device
+    qmax = (1 << attn_bits) - 1
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).reshape(())
+    kp = k_positions.to(torch.int32)
+    mask = kp >= 0
+    if causal:
+        mask &= kp <= pos
+    if window is not None:
+        mask &= kp > pos - window
+    acc = int_matmul_exact(q_q, k_q.transpose(1, 2))          # (H, G, span)
+    x = acc.to(torch.float32) * _head_sc(sc, h, dev)
+    x = torch.clamp(torch.where(mask[None, None, :], x, NEG), min=-120.0)
+    vs = _head_sc(v_scale, h, dev)
+    if bk is None:
+        m = torch.floor(x.amax(dim=-1, keepdim=True))
+        e = torch.where(x <= -120.0, 0.0, exp2_shift(x - m))
+        s = torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+        p = _codes(e, qmax)
+        pv = int_matmul_exact(p, v_q).to(torch.float32)
+        out = pv * ((2.0 / qmax) / s * vs)
+    else:
+        pv, s, p = _decode_stream(x, v_q, qmax, bk, return_codes=True)
+        out = pv * ((2.0 / qmax) / s * vs)
+    if return_codes:
+        return out, p.to(torch.uint8)
+    return out
 
 
 def int_paged_decode_attention_ref(q_q, k_pages, v_pages, sc, v_scale,

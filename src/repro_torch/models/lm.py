@@ -1,28 +1,39 @@
-"""Decoder-only LM, attention-only subset, with the paged KV cache — in
-PyTorch.
+"""Decoder-only LM, attention-only subset, with the ring and the paged KV
+caches — in PyTorch.
 
-Counterpart of ``repro/models/lm.py`` for the serving main path:
+Counterpart of ``repro/models/lm.py`` for the serving paths:
 :class:`LMConfig`, :func:`init_params`, :func:`forward`, :func:`logits_fn`,
-:func:`init_paged_cache`, :func:`paged_prefill`, :func:`admission_prefill`,
-:func:`decode_step`, :func:`copy_page` and :func:`page_scale_pools`.  The
-ring cache, recurrent / SSM / MoE blocks and training belong to later
-slices and raise here.
+the ring cache (:func:`init_cache`, :func:`prefill`, :func:`decode_step`)
+and the paged cache (:func:`init_paged_cache`, :func:`paged_prefill`,
+:func:`admission_prefill`, :func:`decode_step`, :func:`copy_page`,
+:func:`page_scale_pools`).  Recurrent / SSM / MoE blocks and training
+belong to later slices and raise here.
 
 Parameters and caches are plain dicts of tensors with the JAX package's
 keys and layouts: linear weights ``(in, out)`` float or ``w_q (out, in)``
 int8 codes, layer-stacked ``units`` subtrees (leading layer axis; the
-reference's scan over units is a Python loop here), pools
-``(num_pages + 1, Hkv, page_size, hd[/2])`` whose last page is the TRASH
-page (masked writes land there, it is never read), ``pos (B,)`` (negative
-= inactive row) and ``page_table (B, max_pages)`` (negative =
-unallocated).  Scales calibrate per sequence ``(B,)`` and are read per
-PHYSICAL page (``page_k_scale``/``page_v_scale``), so a page aliased from
-a shared prefix dequantizes with its owner's grid.
+reference's scan over units is a Python loop here).
+
+- Ring cache: ``k``/``v`` ``(B, Hkv, span, hd)`` int8 codes (``hd/2``
+  uint8 nibbles at ``kv_bits=4``, floats in float mode), one per-tensor
+  ``k_scale``/``v_scale`` per layer calibrated at prefill, and a 0-d
+  ``pos`` shared by the batch; position ``p`` lives in slot
+  ``p % span`` (``span = max_len``, or ``window + q_chunk`` for
+  ``local`` layers).  ``pos`` stays on the device: a decode step never
+  reads it on the host.
+- Paged cache: pools ``(num_pages + 1, Hkv, page_size, hd[/2])`` whose
+  last page is the TRASH page (masked writes land there, it is never
+  read), ``pos (B,)`` (negative = inactive row) and ``page_table
+  (B, max_pages)`` (negative = unallocated).  Scales calibrate per
+  sequence ``(B,)`` and are read per PHYSICAL page
+  (``page_k_scale``/``page_v_scale``), so a page aliased from a shared
+  prefix dequantizes with its owner's grid.
 
 Where JAX returned updated copies, this port writes in place:
 
-- :func:`decode_step` writes each row's new key/value into its page of the
-  pools, and advances ``cache["pos"]``, in place;
+- :func:`decode_step` writes the new key/value into the ring slot (or
+  each row's page of the pools), and advances ``cache["pos"]``, in place;
+- :func:`prefill` fills the ring it creates (codes, scales, ``pos``);
 - :func:`paged_prefill` writes the prompt's codes into the pools, the
   per-sequence scales, the per-page scale registrations and ``pos`` in
   place;
@@ -31,6 +42,9 @@ Where JAX returned updated copies, this port writes in place:
 - :func:`copy_page` copies one physical page into another in place.
 
 Each returns the cache it was given, so callers read like the reference.
+Ring writes compute in f32 (XLA promotes a bf16 tensor divided by a 0-d
+f32 scale to f32; torch would stay in bf16) and saturate int8 codes as
+XLA converts (torch's cast wraps).
 """
 from __future__ import annotations
 
@@ -40,7 +54,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.api import QuantConfig, dense
-from repro_torch.core.quant import pack_int4, qrange, unpack_int4
+from repro_torch.core.quant import QTensor, pack_int4, qrange, unpack_int4
 from repro_torch.kernels.ref import gather_pages
 from repro_torch.layers.attention import (AttnSpec, attention,
                                           paged_attention,
@@ -165,6 +179,118 @@ def _index(tree, u: int):
     """Layer ``u`` of a layer-stacked subtree, as views."""
     return {k: (_index(v, u) if isinstance(v, dict) else v[u])
             for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Ring KV cache
+# ---------------------------------------------------------------------------
+
+def _attn_cache(cfg: LMConfig, batch: int, max_len: int, lead,
+                device) -> dict:
+    mode = cfg.quant.mode if cfg.quant else "float"
+    if mode == "int" and cfg.quant.kv_bits == 4:
+        # nibble-packed int4 ring: half the bytes read per decode step
+        shape = (*lead, batch, cfg.kv_heads, max_len, cfg.hd // 2)
+        dt = torch.uint8
+    else:
+        shape = (*lead, batch, cfg.kv_heads, max_len, cfg.hd)
+        dt = torch.int8 if mode == "int" else cfg.tdtype
+    c = {"k": torch.zeros(shape, dtype=dt, device=device),
+         "v": torch.zeros(shape, dtype=dt, device=device)}
+    if mode == "int":
+        c["k_scale"] = torch.ones(lead, dtype=torch.float32, device=device)
+        c["v_scale"] = torch.ones(lead, dtype=torch.float32, device=device)
+    return c
+
+
+def init_block_cache(cfg: LMConfig, kind: str, batch: int, max_len: int, *,
+                     lead=(), device="cuda") -> dict:
+    """One attention layer's ring (``lead``: stacked layer axes)."""
+    if kind in ATTN_KINDS:
+        span = max_len if (kind == "attn" or cfg.attn_window is None) \
+            else min(max_len, cfg.attn_window + cfg.q_chunk)
+        return _attn_cache(cfg, batch, span, lead, device)
+    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int, *,
+               device="cuda") -> dict:
+    """Ring KV cache for ``batch`` sequences of up to ``max_len`` positions
+    (longer runs wrap: position p lives in slot p % span)."""
+    unit, n_units, rem = unit_structure(cfg)
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if n_units:
+        cache["units"] = {f"b{j}": init_block_cache(
+            cfg, kind, batch, max_len, lead=(n_units,), device=device)
+            for j, kind in enumerate(unit)}
+    for i, kind in enumerate(rem):
+        cache[f"rem{i}"] = init_block_cache(cfg, kind, batch, max_len,
+                                            device=device)
+    return cache
+
+
+def _ring_codes(t, scale, kv4):
+    """Codes of ``t`` on a per-tensor ``scale``, computed in f32 (``t`` may
+    be bf16): int4 clipped then nibble-packed, int8 saturated (no clip in
+    the reference: XLA's conversion saturates)."""
+    x = torch.round(t.to(torch.float32) / scale)
+    if kv4:
+        qmin, qmax = qrange(4)
+        return pack_int4(torch.clamp(x, qmin, qmax).to(torch.int8))
+    return _sat_int8(x)
+
+
+def _ring_write_prefill(cache, k, v, mode, qcfg):
+    """Fill a ring from a prompt's keys/values (B, Hkv, S, hd), in place.
+
+    Position p lands in slot p % span: a prompt longer than the ring keeps
+    its last ``span`` positions, rolled into place; a shorter one is
+    zero-padded.  int mode calibrates one per-tensor scale per layer on
+    what the ring holds (pads included, as in the reference).
+    """
+    span = cache["k"].shape[2]
+    s_in = k.shape[2]
+    if s_in >= span:
+        shift = (s_in - span) % span
+        ks_ = torch.roll(k[:, :, -span:], shift, dims=2)
+        vs_ = torch.roll(v[:, :, -span:], shift, dims=2)
+    else:
+        pad = (0, 0, 0, span - s_in)
+        ks_ = torch.nn.functional.pad(k, pad)
+        vs_ = torch.nn.functional.pad(v, pad)
+    if mode == "int":
+        kv4 = qcfg.kv_bits == 4
+        qmax = 7.0 if kv4 else 127.0
+        ksc = ks_.abs().amax().to(torch.float32) / qmax
+        vsc = vs_.abs().amax().to(torch.float32) / qmax
+        cache["k"].copy_(_ring_codes(ks_, ksc, kv4))
+        cache["v"].copy_(_ring_codes(vs_, vsc, kv4))
+        cache["k_scale"].copy_(ksc)
+        cache["v_scale"].copy_(vsc)
+    else:
+        cache["k"].copy_(ks_)
+        cache["v"].copy_(vs_)
+    return cache
+
+
+def _ring_write_decode(cache, k1, v1, pos, mode, qcfg):
+    """Write one decoded key/value (B, Hkv, hd) into slot ``pos % span`` on
+    the ring's prefill scale, in place (``pos`` a 0-d device tensor).
+    Returns the slot -> position map of the written ring (negative =
+    unwritten): ``pos - ((slot - j) mod span)``, a floor-mod."""
+    span = cache["k"].shape[2]
+    slot = torch.remainder(pos, span)
+    if mode == "int":
+        kv4 = qcfg.kv_bits == 4
+        kq = _ring_codes(k1, cache["k_scale"], kv4)
+        vq = _ring_codes(v1, cache["v_scale"], kv4)
+    else:
+        kq, vq = k1, v1
+    idx = slot.reshape(1).long()
+    cache["k"].index_copy_(2, idx, kq[:, :, None].to(cache["k"].dtype))
+    cache["v"].index_copy_(2, idx, vq[:, :, None].to(cache["v"].dtype))
+    j = torch.arange(span, dtype=torch.int32, device=pos.device)
+    return pos - torch.remainder(slot - j, span)
 
 
 # ---------------------------------------------------------------------------
@@ -371,11 +497,26 @@ def _attn_mixer(x, p, cfg: LMConfig, kind: str, positions, cache, decode,
         out = attention(q, k, v, spec, qcfg, q_offset=0)
         _paged_write_prefill(cache, k, v, positions, lengths, page_table,
                              mode, qcfg)
-    elif cache is None and not decode:
-        out = attention(q, k, v, spec, qcfg, q_offset=0)
+    elif cache is not None and decode:
+        # Ring decode: write slot pos % span, then attend the ring as
+        # stored (int4 nibbles stay packed for the kernel).
+        pos = positions[0, 0]
+        k_positions = _ring_write_decode(cache, k[:, :, 0], v[:, :, 0], pos,
+                                         mode, qcfg)
+        if mode == "int":
+            k_all = QTensor(cache["k"], cache["k_scale"], qcfg.kv_bits)
+            v_all = QTensor(cache["v"], cache["v_scale"], qcfg.kv_bits)
+        else:
+            k_all, v_all = cache["k"], cache["v"]
+        out = attention(q, k_all, v_all, spec, qcfg, q_offset=pos,
+                        k_positions=k_positions)
     else:
-        raise NotImplementedError("ring KV caches are not ported yet; use "
-                                  "init_paged_cache")
+        # Prompt positions are arange(S): a static zero offset, so prompt
+        # prefill can take the fused kernel.
+        out = attention(q, k, v, spec, qcfg,
+                        q_offset=positions[0, 0] if decode else 0)
+        if cache is not None:
+            _ring_write_prefill(cache, k, v, mode, qcfg)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
     return dense(out, p["wo"], qcfg)
 
@@ -416,23 +557,25 @@ def forward(params, batch, cfg: LMConfig, *, cache=None, decode=False,
             prefix_len: int = 0):
     """Returns (pre-head hidden states, cache).
 
-    With a paged cache, ``cache["pos"]`` is per sequence (B,): each row
-    decodes at its own position and inactive rows (``pos < 0``) stay
-    frozen; ragged prefill takes ``batch["lengths"]`` and leaves
-    ``pos = prefix_len + lengths``.  ``prefix_len``: ``batch["tokens"]``
-    is the tail of a prompt whose first ``prefix_len`` positions are
-    already cached (prefix sharing / chunked prefill).  Cache writes
+    With a ring cache, ``cache["pos"]`` is one 0-d position for the whole
+    batch (prompt positions start at 0; ``pos`` advances by S at prefill
+    and by 1 per decode step).  With a paged cache, ``cache["pos"]`` is
+    per sequence (B,): each row decodes at its own position and inactive
+    rows (``pos < 0``) stay frozen; ragged prefill takes
+    ``batch["lengths"]`` and leaves ``pos = prefix_len + lengths``.
+    ``prefix_len``: ``batch["tokens"]`` is the tail of a prompt whose
+    first ``prefix_len`` positions are already cached (prefix sharing /
+    chunked prefill).  Cache writes
     happen in place (module docstring).
     """
     x = embed_lookup(batch["tokens"], params["embed"], cfg.tdtype)
     paged = cache is not None and "page_table" in cache
-    if cache is not None and not paged:
-        raise NotImplementedError("ring KV caches are not ported yet")
     page_table = cache["page_table"] if paged else None
     lengths = batch.get("lengths") if paged and not decode else None
     b, s = x.shape[0], x.shape[1]
     if decode:
-        positions = cache["pos"][:, None]
+        positions = cache["pos"][:, None] if paged else \
+            cache["pos"].expand(b, 1)
     else:
         positions = (prefix_len + torch.arange(s, device=x.device,
                                                dtype=torch.int32)
@@ -450,11 +593,25 @@ def forward(params, batch, cfg: LMConfig, *, cache=None, decode=False,
         else:
             pos.copy_(prefix_len + torch.as_tensor(lengths, dtype=torch.int32,
                                                    device=pos.device))
+    elif cache is not None:                    # ring: one shared position
+        cache["pos"].add_(1 if decode else s)
     return x, cache
 
 
 def logits_fn(params, x, cfg: LMConfig):
     return dense(x, params["lm_head"], cfg.quant)
+
+
+def prefill(params, batch, cfg: LMConfig, max_len: Optional[int] = None):
+    """Run the whole prompt into a new ring cache (on the tokens' device).
+
+    ``batch["tokens"]`` (B, S); the ring holds ``max_len`` positions
+    (default S).  Returns (last-position logits (B, 1, V), cache)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max_len or s, device=tokens.device)
+    x, cache = forward(params, batch, cfg, cache=cache, decode=False)
+    return logits_fn(params, x[:, -1:], cfg), cache
 
 
 def paged_prefill(params, batch, cfg: LMConfig, cache, *,
@@ -584,8 +741,8 @@ def admission_prefill(params, batch, cfg: LMConfig, cache, rows, page_table,
 
 
 def decode_step(params, token, cache, cfg: LMConfig):
-    """One serving step: token (B, 1) + cache -> logits (B, 1, V); the
-    cache is updated in place."""
+    """One serving step: token (B, 1) + ring or paged cache -> logits
+    (B, 1, V); the cache is updated in place."""
     x, cache = forward(params, {"tokens": token}, cfg, cache=cache,
                        decode=True)
     return logits_fn(params, x, cfg), cache

@@ -120,5 +120,87 @@ def test_serve_on_the_card_runs_every_kernel(gen):
                             audit_every=1)
     assert [s["status"] for s in stats["per_seq"]] == ["done"] * 6
     assert stats["audit_violations"] == []
-    assert min(dispatch.launch_counts().values()) > 0
+    launches = dispatch.launch_counts()
+    for name in ("qmatmul", "int_attention_fused",
+                 "int_paged_decode_attention"):          # the serve path's
+        assert launches[name] > 0, launches
     assert stats["dispatch"]["qlinear_torch"] == 0
+
+
+# (kv_bits, span, pos, window): partly written, wrapped over two 4096-key
+# blocks, windowed.
+RING_GPU_CASES = [(8, 1024, 100, None), (4, 1024, 100, None),
+                  (8, 8192, 20000, None), (4, 8192, 5000, None),
+                  (8, 1024, 3000, 200)]
+
+
+@pytest.mark.parametrize("kv_bits,span,pos,window", RING_GPU_CASES)
+def test_ring_decode_kernel_codes_exact(gen, kv_bits, span, pos, window):
+    h, g, d = 32, 5, 128
+    lo, hi = (-8, 8) if kv_bits == 4 else (-127, 128)
+    mk = lambda *shape: torch.randint(lo, hi, shape, generator=gen,
+                                      device="cuda", dtype=torch.int8)
+    k, v = mk(h, span, d), mk(h, span, d)
+    if kv_bits == 4:
+        k, v = pack_int4(k), pack_int4(v)
+    q = torch.randint(-127, 128, (h, g, d), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    slot = pos % span
+    kpos = (pos - torch.remainder(slot - torch.arange(span, device="cuda"),
+                                  span)).to(torch.int32)
+    sc = (torch.rand((h,), generator=gen, device="cuda") + 0.5) * 1e-3
+    vs = (torch.rand((h,), generator=gen, device="cuda") + 0.5) * 1e-2
+    posd = torch.tensor([pos], dtype=torch.int32, device="cuda")
+    kw = dict(attn_bits=7, window=window, bk=dispatch.decode_blocks(span, d),
+              packed=kv_bits == 4, return_codes=True)
+    before = ia.LAUNCHES["int_decode_attention"]
+    out, codes = ia.int_decode_attention(q, k, v, sc, vs, kpos, posd, **kw)
+    torch.cuda.synchronize()
+    assert ia.LAUNCHES["int_decode_attention"] == before + 1
+    want, wcodes = ia.int_decode_attention_plain(q, k, v, sc, vs, kpos, posd,
+                                                 **kw)
+    assert torch.equal(codes, wcodes)
+    assert _rel(out, want) <= 1e-5        # Sigma: f32 sum in another order
+
+
+def test_ring_generation_on_the_card_runs_the_ring_kernel(gen):
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.api import QuantConfig, integerize_params
+    from repro_torch.models import lm
+    qc = QuantConfig(w_bits=4, a_bits=8, attn_bits=7, kv_bits=4, mode="int",
+                     backend="cuda")
+    cfg = smoke_config("qwen2.5-32b").replace(quant=qc)
+    params = integerize_params(lm.init_params(cfg, seed=0, device="cuda"), qc)
+    toks = torch.randint(0, cfg.vocab, (2, 12), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    dispatch.reset_stats()
+    before = ia.LAUNCHES["int_decode_attention"]
+    logits, cache = lm.prefill(params, {"tokens": toks}, cfg, max_len=16)
+    for _ in range(6):                                  # wraps the ring
+        tok = torch.argmax(logits[:, 0], -1).to(torch.int32)[:, None]
+        logits, cache = lm.decode_step(params, tok, cache, cfg)
+    torch.cuda.synchronize()
+    assert ia.LAUNCHES["int_decode_attention"] == before + 6 * cfg.n_layers
+    assert dispatch.STATS["attention_decode_torch"] == 0
+    assert int(cache["pos"]) == 18 and bool(torch.isfinite(logits).all())
+
+
+# (G, D, span): D not a multiple of 8 (the wrapper's check), and G = 11 at
+# bk 4096, whose logits exceed shared memory (the launcher's error)
+RING_REFUSED_CASES = [(5, 12, 1024, ValueError),
+                      (11, 128, 8192, RuntimeError)]
+
+
+@pytest.mark.parametrize("g,d,span,err", RING_REFUSED_CASES)
+def test_ring_decode_kernel_refuses_what_it_cannot_take(gen, g, d, span, err):
+    h, pos = 2, 100
+    q = torch.zeros((h, g, d), dtype=torch.int8, device="cuda")
+    k = torch.zeros((h, span, d), dtype=torch.int8, device="cuda")
+    kpos = torch.full((span,), -1, dtype=torch.int32, device="cuda")
+    kpos[:pos] = torch.arange(pos, dtype=torch.int32, device="cuda")
+    posd = torch.tensor([pos - 1], dtype=torch.int32, device="cuda")
+    before = ia.LAUNCHES["int_decode_attention"]
+    with pytest.raises(err):
+        ia.int_decode_attention(q, k, k, 1e-3, 1e-2, kpos, posd,
+                                bk=dispatch.decode_blocks(span, d))
+    assert ia.LAUNCHES["int_decode_attention"] == before
