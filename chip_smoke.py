@@ -11,10 +11,14 @@ Phases, in order; any failure exits non-zero before the result line:
    once), printing ``-Xptxas -v``;
 3. check: each kernel against its plain version on the card at main-path
    shapes — qmatmul exactly (int8 and packed bodies, M = 4 and 256, every
-   (N, K) of one Qwen2.5-32B layer and its lm_head), fused attention,
-   paged decode and ring decode (32 head-folds, G 5, kv8 and packed kv4,
-   rings of 1024 and 8192 slots, partly written, wrapped and windowed)
-   with codes exact and outputs within a stated tolerance;
+   (N, K) of one Qwen2.5-32B layer and its lm_head), fused attention (also
+   at the DeiT-S dispatch shape, bq 33, bk 224), paged decode and ring
+   decode (32 head-folds, G 5, kv8 and packed kv4, rings of 1024 and 8192
+   slots, partly written, wrapped and windowed) with codes exact and
+   outputs within a stated tolerance; PQ-LayerNorm codes exactly at the
+   DeiT-S block, the reference's benchmark shape and Qwen2.5-32B's width;
+   two-pass attention codes exact, outputs within the tolerance of its
+   plain version and of the fused kernel at the same bq / bk;
 4. serve: ``repro_torch.launch.serve.serve`` at Qwen2.5-32B widths
    (4 of 64 layers, random weights from a seed, made on the card) on the
    ``cuda`` backend; every request DONE, a clean audit, every kernel of
@@ -23,12 +27,23 @@ Phases, in order; any failure exits non-zero before the result line:
    printed;
 5. ring: ``lm.prefill`` + 16 ``lm.decode_step``s over the ring cache at
    the same widths, batch 4, 64-token prompts, rings of 1024 and 8192
-   slots, on the ``cuda`` backend: 4 ring-kernel launches per step and no
-   plain decode dispatch; the ``torch`` backend teacher-forced step by
-   step (the ``cuda`` run's token and a copy of its cache) within a
-   stated tolerance; free-running greedy agreement printed;
+   slots, on the ``cuda`` backend: one ring-kernel launch per layer and
+   step and no plain decode dispatch; the ``torch`` backend
+   teacher-forced step by step (the ``cuda`` run's token and a copy of its
+   cache) within a stated tolerance; free-running greedy agreement
+   printed;
 6. quickstart: ``python -m repro_torch.examples.quickstart`` on the card;
-7. time: each kernel with CUDA events beside its bound, its plain version
+7. vit: ``models.vit.forward`` at the full DeiT-S config (12 layers,
+   224 px, patch 16; random weights from a seed, made on the card), batch
+   64, on the ``cuda`` backend: 73 qmatmul and 12 fused-attention launches
+   and no plain dispatch; logits against the ``torch`` backend; ms per
+   batch;
+8. ops: the paper's integerized self-attention module through the kernel
+   entry points (``kernels/ops.py``) at DeiT-S widths, on layer 0 of the
+   same weights and the model's own residual stream (64 x 198 rows):
+   PQ-LayerNorm -> q/k/v -> fused and two-pass attention -> wo, every
+   kernel against its plain version on the same inputs;
+9. time: each kernel with CUDA events beside its bound, its plain version
    and, where one PyTorch call computes the same function, that call.
 
 Prints a ``{"kernels": [...]}`` JSON line, then the result line
@@ -46,6 +61,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 N_LAYERS = 4                      # of Qwen2.5-32B's 64, for the time limit
 PEAK_INT8_OPS = 1979e12           # H100 SXM dense int8 tensor-core rate
+PEAK_F32_OPS = 67e12              # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
 ATTN_RTOL = 1e-5                  # Sigma is an f32 sum in another order
 # cuda vs torch backend, whole model, bf16 activations: Sigma's f32 sum
@@ -84,8 +100,8 @@ def cuda_ms(fn, iters=20, warmup=3):
     return t0.elapsed_time(t1) / iters
 
 
-def bound_ms(nbytes, ops):
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT8_OPS * 1e3
+def bound_ms(nbytes, ops, peak=PEAK_INT8_OPS):
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
 
 
@@ -206,6 +222,7 @@ def phase_check(g):
     import torch
     from repro_torch.kernels import int_attention as ia
     from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels.pq_layernorm import pq_layernorm
     from repro_torch.kernels.qmatmul import qmatmul
     errs = {}
     for m in (4, 256):
@@ -279,7 +296,96 @@ def phase_check(g):
             raise AssertionError("ring decode differs from its plain version")
         worst = max(worst, abs_e)
     errs["int_decode_attention"] = worst
+
+    for case in PQLN_CASES:
+        args, kw = pqln_inputs(g, *case)
+        got = pq_layernorm(*args, **kw)
+        torch.cuda.synchronize()
+        want = ref.pq_layernorm_ref(*args, **kw)
+        diff = int((got.int() - want.int()).abs().max())
+        log(f"[check] pq_layernorm rows={case[0]} d={case[1]} {case[2]} "
+            f"bits={kw['bits']} rms_only={kw['rms_only']}: codes "
+            f"{'exact' if diff == 0 else f'MISMATCH (max step {diff})'}")
+        if diff:
+            raise AssertionError("pq_layernorm differs from its plain version")
+    errs["pq_layernorm"] = 0.0
+
+    worst = 0.0
+    for case in TWO_PASS_CASES:
+        args, kw = attention_inputs(g, *case)
+        two, codes = ia.int_attention(*args, return_codes=True, **kw)
+        one, fcodes = ia.int_attention_fused(*args, return_codes=True, **kw)
+        torch.cuda.synchronize()
+        want, wcodes = ia.int_attention_plain(*args, return_codes=True,
+                                              **kw)
+        abs_e, rel_e = rel_err(two, want)
+        f_abs, f_rel = rel_err(two, one)
+        same = torch.equal(codes, wcodes) and torch.equal(fcodes, wcodes)
+        log(f"[check] two-pass attention H={case[0]} Sq={case[1]} "
+            f"Sk={case[2]} D={case[3]} causal={case[4]} bq={kw['bq']} "
+            f"bk={kw['bk']}: codes {'exact' if same else 'MISMATCH'}, out "
+            f"max abs {abs_e:.3e} rel {rel_e:.3e} against the plain version, "
+            f"max abs {f_abs:.3e} rel {f_rel:.3e} against the fused kernel "
+            f"(tol rel {ATTN_RTOL})")
+        if not same or rel_e > ATTN_RTOL or f_rel > ATTN_RTOL:
+            raise AssertionError("two-pass attention differs")
+        worst = max(worst, abs_e)
+    errs["int_attention"] = worst
+
+    # the fused kernel at the shape dispatch gives it in DeiT-S
+    args, kw = attention_inputs(g, *DEIT_ATTN)
+    out, codes = ia.int_attention_fused(*args, return_codes=True, **kw)
+    torch.cuda.synchronize()
+    want, wcodes = ia.int_attention_fused_plain(*args, return_codes=True,
+                                                **kw)
+    abs_e, rel_e = rel_err(out, want)
+    same = torch.equal(codes, wcodes)
+    log(f"[check] fused attention at the DeiT-S dispatch shape H="
+        f"{DEIT_ATTN[0]} S={DEIT_ATTN[1]} D={DEIT_ATTN[3]} non-causal "
+        f"bq={kw['bq']} bk={kw['bk']}: codes "
+        f"{'exact' if same else 'MISMATCH'}, out max abs {abs_e:.3e} rel "
+        f"{rel_e:.3e} (tol rel {ATTN_RTOL})")
+    if not same or rel_e > ATTN_RTOL:
+        raise AssertionError("fused attention differs at the DeiT-S shape")
+    errs["int_attention_fused"] = max(errs["int_attention_fused"], abs_e)
     return errs
+
+
+# (rows, d, dtype, bits, rms_only, beta): the DeiT-S block (64 x 198 rows),
+# the reference's kernel_bench shape, Qwen2.5-32B's width in bf16
+PQLN_CASES = [(64 * 198, 384, "float32", 8, False, True),
+              (4096, 1024, "float32", 4, False, True),
+              (256, 5120, "bfloat16", 8, True, False)]
+# (H, Sq, Sk, D, causal, bq, bk, sq_mod): DeiT-S through kernels/ops.py (64
+# images x 6 heads, the reference kernel's bq = bk = 128), and the causal
+# fused check's shape (B4 x Hkv8, G 5 x 64 rows, 64 keys, D 128)
+TWO_PASS_CASES = [(384, 198, 198, 64, False, 128, 128, None),
+                  (32, 320, 64, 128, True, 64, 64, 64)]
+DEIT_ATTN = (384, 198, 198, 64, False, 33, 224, None)  # dispatch's blocks
+
+
+def pqln_inputs(g, rows, d, dtype, bits, rms_only, beta):
+    import torch
+    x = torch.randn((rows, d), generator=g, device="cuda") * 3 + \
+        torch.randn((rows, 1), generator=g, device="cuda")
+    gamma = torch.rand((d,), generator=g, device="cuda") + 0.5
+    b = torch.randn((d,), generator=g, device="cuda") * 0.1 if beta \
+        else None
+    delta = 4.0 / ((1 << (bits - 1)) - 1)            # |y| up to about 4
+    return (x.to(getattr(torch, dtype)), gamma, b, delta), dict(
+        bits=bits, rms_only=rms_only)
+
+
+def attention_inputs(g, h, sq, sk, d, causal, bq, bk, sq_mod):
+    """Random int8 operands; one logit scale per (head-fold, q block)."""
+    import torch
+    mk = lambda *shape: torch.randint(-127, 128, shape, generator=g,
+                                      device="cuda", dtype=torch.int8)
+    nq = -(-sq // bq)
+    sc = (torch.rand((h, nq), generator=g, device="cuda") + 0.5) * 1e-4
+    vs = (torch.rand((h,), generator=g, device="cuda") + 0.5) * 1e-2
+    return (mk(h, sq, d), mk(h, sk, d), mk(h, sk, d), sc, vs), dict(
+        attn_bits=7, causal=causal, bq=bq, bk=bk, sq_mod=sq_mod)
 
 
 # (kv_bits, span, pos, window): partly written (pos < span), wrapped
@@ -475,36 +581,51 @@ def profile_decode(params, cfg, toks, step_ms, steps=4):
     with the profiler off (the profiler's own host cost would inflate the
     wall)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import lm
     lg, cache = lm.prefill(params, {"tokens": toks}, cfg,
                            max_len=RING_MAX_LENS[-1])
     tok = torch.argmax(lg[:, 0], -1).to(torch.int32)[:, None]
     lm.decode_step(params, tok, cache, cfg)                  # warm
+    log_profile(f"ring decode step (ring {RING_MAX_LENS[-1]})",
+                lambda: lm.decode_step(params, tok, cache, cfg), steps,
+                step_ms)
+
+
+def log_profile(what, fn, calls, ref_ms):
+    """torch.profiler over ``calls`` calls of ``fn``: device kernel time
+    by name per call, and the busy share against ``ref_ms``, the time of
+    one call with the profiler off (the profiler's own host cost would
+    inflate the wall)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            lm.decode_step(params, tok, cache, cfg)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps * 1e3
+        wall = (time.perf_counter() - t0) / calls * 1e3
     by_name = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.key] = by_name.get(e.key, 0.0) + \
-                e.self_device_time_total / 1e3 / steps
+                e.self_device_time_total / 1e3 / calls
     busy = sum(by_name.values())
     if busy <= 0:
-        log(f"[profile] ring decode step {wall:.2f} ms wall; device time "
-            f"not measured (the profiler saw no kernel)")
+        log(f"[profile] {what}: {wall:.2f} ms wall; device time not "
+            f"measured (the profiler saw no kernel)")
         return
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"[profile] ring decode step (ring {RING_MAX_LENS[-1]}): device "
-        f"busy {busy:.3f} ms of {step_ms:.2f} ms unprofiled "
-        f"({100 * busy / step_ms:.1f}%; {wall:.2f} ms wall with the "
-        f"profiler on); per step: "
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[profile] {what}: device busy {busy:.3f} ms of {ref_ms:.2f} ms "
+        f"unprofiled ({100 * busy / ref_ms:.1f}%; {wall:.2f} ms wall with "
+        f"the profiler on); per call: "
         + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
+
+
+def layer0(tree):
+    return {k: (layer0(v) if isinstance(v, dict) else v[0])
+            for k, v in tree.items()}
 
 
 def clone_tree(tree):
@@ -523,6 +644,159 @@ def phase_quickstart():
     if out["eq_err"] > 1e-5 or out["corr"] < 0.95 or min(ran.values()) <= 0 \
             or out["kv_dtype"] != "torch.int8":
         raise AssertionError(f"quickstart on the card: {out}")
+
+
+VIT_BATCH = 64
+
+
+def vit_config(backend):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import QuantConfig
+    qc = QuantConfig(w_bits=4, a_bits=8, attn_bits=7, mode="int",
+                     backend=backend)
+    return get_config("deit-s").replace(quant=qc)
+
+
+def phase_vit():
+    """DeiT-S at full width on the cuda backend; the torch backend on the
+    same inputs beside it."""
+    import torch
+    from repro_torch.core.api import integerize_params
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import vit
+    cfg, tcfg = vit_config("cuda"), vit_config("torch")
+    log(f"[vit] DeiT-S: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, {cfg.img_size} px / patch "
+        f"{cfg.patch} ({cfg.n_tokens} tokens), batch {VIT_BATCH}, "
+        f"w4/a8/attn7, {cfg.dtype}, random weights from seed 0")
+    params = integerize_params(vit.init_params(cfg, seed=0, device="cuda"),
+                               cfg.quant)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    imgs = torch.randn((VIT_BATCH, cfg.img_size, cfg.img_size,
+                        cfg.channels), generator=g, device="cuda")
+    torch.cuda.synchronize()
+    dispatch.reset_stats()
+    dispatch.reset_launches()
+    logits = vit.forward(params, imgs, cfg)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    snap = dispatch.snapshot()
+    tlogits = vit.forward(params, imgs, tcfg)
+    abs_e, rel_e = rel_err(logits, tlogits)
+    agree = int((logits.argmax(-1) == tlogits.argmax(-1)).sum())
+    ms = cuda_ms(lambda: vit.forward(params, imgs, cfg), iters=10, warmup=2)
+    log(f"[vit] launches {launches}; dispatch qlinear cuda "
+        f"{snap['qlinear_cuda']} torch {snap['qlinear_torch']}, attention "
+        f"cuda {snap['attention_cuda']} torch {snap['attention_torch']}; "
+        f"blocks {snap['blocks']}")
+    log(f"[vit] logits cuda vs torch backend: max abs {abs_e:.3e} rel "
+        f"{rel_e:.3e} (tol rel {LOGITS_RTOL}); argmax equal {agree}/"
+        f"{VIT_BATCH} (printed only); finite "
+        f"{bool(torch.isfinite(logits).all())}")
+    log(f"[vit] forward {ms:.3f} ms per batch of {VIT_BATCH} "
+        f"({VIT_BATCH / ms * 1e3:.1f} images/s; CUDA events, after warm-up)")
+    log_profile(f"DeiT-S forward (batch {VIT_BATCH})",
+                lambda: vit.forward(params, imgs, cfg), 2, ms)
+    want_q = 1 + 6 * cfg.n_layers
+    if launches["qmatmul"] != want_q or \
+            launches["int_attention_fused"] != cfg.n_layers:
+        raise AssertionError(f"DeiT-S launches {launches}, expected "
+                             f"{want_q} qmatmul and {cfg.n_layers} fused")
+    if snap["qlinear_torch"] or snap["attention_torch"]:
+        raise AssertionError(f"plain-path dispatches on the cuda run: {snap}")
+    if tuple(logits.shape) != (VIT_BATCH, cfg.n_classes) or \
+            not bool(torch.isfinite(logits).all()) or rel_e > LOGITS_RTOL:
+        raise AssertionError("DeiT-S logits: cuda and torch differ")
+    return params, imgs
+
+
+def phase_ops(params, imgs):
+    """The paper's integerized self-attention module through the kernel
+    entry points, on layer 0 of DeiT-S and the model's residual stream."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.core.api import dense
+    from repro_torch.core.integerize import QLinearParams
+    from repro_torch.core.softmax2 import LOG2E
+    from repro_torch.kernels import dispatch, ops, ref
+    from repro_torch.kernels import int_attention as ia
+    from repro_torch.layers.norms import layernorm
+    from repro_torch.models import vit
+    cfg = vit_config("cuda")
+    lay = layer0(params["layers"])
+    b, heads, hd = imgs.shape[0], cfg.n_heads, cfg.hd
+    x = dense(vit.patchify(imgs, cfg), params["patch"], cfg.quant)
+    x = torch.cat([params["cls"].expand(b, *params["cls"].shape), x],
+                  dim=1) + params["pos_emb"]
+    x = x.reshape(-1, cfg.d_model).contiguous()          # (64 * 198, 384)
+    ln = lay["ln1"]
+    delta = float(quant.absmax_scale(layernorm(x, ln["gamma"], ln["beta"]),
+                                     8))
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    codes = ops.pq_layernorm_op(x, ln["gamma"], ln["beta"], delta, bits=8)
+    torch.cuda.synchronize()
+    same = torch.equal(codes, ref.pq_layernorm_ref(x, ln["gamma"],
+                                                   ln["beta"], delta, bits=8))
+    log(f"[ops] pq_layernorm_op rows={x.shape[0]} d={x.shape[1]} delta "
+        f"{delta:.4e} (8-bit, from the float LayerNorm): codes "
+        f"{'exact' if same else 'MISMATCH'} against the plain version")
+    if not same:
+        raise AssertionError("[ops] pq_layernorm differs")
+    xq = quant.QTensor(codes, torch.tensor(delta, device="cuda"), 8)
+
+    def lin(name, a):
+        p = lay["attn"][name]
+        y = ops.qlinear_op(a, QLinearParams(p["w_q"], p["w_scale"], p["b"]))
+        torch.cuda.synchronize()
+        want = ref.qmatmul_ref(a.q, p["w_q"], (p["w_scale"] * a.scale)
+                               .to(torch.float32), p["b"].to(torch.float32))
+        if not torch.equal(y, want):
+            raise AssertionError(f"[ops] qlinear_op {name} differs")
+        return y
+
+    def fold(y):                          # (B*N, d) -> (B*H, N, hd) codes
+        y = y.reshape(b, -1, heads, hd).permute(0, 2, 1, 3)
+        return quant.quantize_tensor(y.reshape(b * heads, -1, hd)
+                                     .contiguous(), 8)
+
+    qq, kq, vq = (fold(lin(n, xq)) for n in ("wq", "wk", "wv"))
+    kw = dict(softmax_scale=hd ** -0.5, attn_bits=7, causal=False,
+              return_codes=True)
+    att = {f: ops.int_attention_op(qq, kq, vq, fused=f, **kw)
+           for f in (True, False)}
+    torch.cuda.synchronize()
+    sc = hd ** -0.5 * qq.scale * kq.scale * LOG2E
+    want, wcodes = ia.int_attention_plain(qq.q, kq.q, vq.q, sc, vq.scale,
+                                          attn_bits=7, causal=False, bq=128,
+                                          bk=128, return_codes=True)
+    errs = {}
+    for f, (out, c) in att.items():
+        abs_e, rel_e = rel_err(out, want)
+        errs[f] = abs_e
+        ok = torch.equal(c, wcodes) and rel_e <= ATTN_RTOL
+        log(f"[ops] int_attention_op fused={f} H={qq.q.shape[0]} "
+            f"S={qq.q.shape[1]} D={hd} bq=bk=128: codes "
+            f"{'exact' if torch.equal(c, wcodes) else 'MISMATCH'}, out max "
+            f"abs {abs_e:.3e} rel {rel_e:.3e} (tol rel {ATTN_RTOL})")
+        if not ok:
+            raise AssertionError("[ops] int_attention_op differs")
+    f_abs, f_rel = rel_err(att[False][0], att[True][0])
+    log(f"[ops] two-pass vs fused: max abs {f_abs:.3e} rel {f_rel:.3e} "
+        f"(bitwise equal: {torch.equal(att[False][0], att[True][0])})")
+    if f_rel > ATTN_RTOL:
+        raise AssertionError("[ops] two-pass and fused differ")
+    o = att[True][0].reshape(b, heads, -1, hd).permute(0, 2, 1, 3)
+    out = lin("wo", quant.quantize_tensor(o.reshape(x.shape[0], -1)
+                                          .contiguous(), 8))
+    launches = dispatch.launch_counts()
+    log(f"[ops] out {tuple(out.shape)} finite "
+        f"{bool(torch.isfinite(out).all())}; launches {launches}")
+    if launches["pq_layernorm"] != 1 or launches["int_attention"] != 1 or \
+            launches["int_attention_fused"] != 1 or \
+            launches["qmatmul"] != 4 or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"[ops] launches {launches}")
+    return launches, max(errs.values())
 
 
 def phase_time(g, launches, errs, stats):
@@ -662,6 +936,108 @@ def phase_time(g, launches, errs, stats):
     return kernels
 
 
+def time_slice3(g, ops_launches, errs):
+    """Kernels 5 and 6 at the check shapes, and the DeiT-S rows (qmatmul at
+    the model's linear shapes, the fused kernel at its dispatch shape)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import int_attention as ia
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pq_layernorm import pq_layernorm
+    from repro_torch.kernels.qmatmul import qmatmul
+    kernels = []
+    for i, case in enumerate(PQLN_CASES):
+        args, kw = pqln_inputs(g, *case)
+        x, gamma, beta, delta = args
+        ms = cuda_ms(lambda: pq_layernorm(*args, **kw))
+        pms = cuda_ms(lambda: ref.pq_layernorm_ref(*args, **kw), iters=3,
+                      warmup=1)
+        rows, d = x.shape
+        if kw["rms_only"]:
+            gx = gamma.to(x.dtype)
+            lib = cuda_ms(lambda: F.rms_norm(x, (d,), gx, 1e-6))
+        else:
+            lib = cuda_ms(lambda: F.layer_norm(x, (d,), gamma, beta, 1e-6))
+        # x once, gamma/beta, one byte a code; ~11 f32 operations an element
+        nbytes = x.numel() * x.element_size() + 8 * d + rows * d
+        bnd, by = bound_ms(nbytes, 11 * rows * d, PEAK_F32_OPS)
+        log(f"[time] pq_layernorm rows={rows} d={d} {x.dtype} "
+            f"bits={kw['bits']} rms_only={kw['rms_only']}: {ms:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}), plain {pms:.4f} ms, "
+            f"F.{'rms_norm' if kw['rms_only'] else 'layer_norm'} (LN only, "
+            f"no quantizer) {lib:.4f} ms")
+        if i == 0:
+            kernels.append({
+                "name": "pq_layernorm", "route": "cuda",
+                "source": "src/repro_torch/csrc/pq_layernorm.cu",
+                "replaces": "src/repro/kernels/pq_layernorm.py:48",
+                "launches": ops_launches["pq_layernorm"],
+                "max_abs_err": errs["pq_layernorm"], "ms": ms,
+                "plain_ms": pms, "bound_ms": bnd, "bound_by": by,
+                "library_ms": lib})
+    for i, case in enumerate(TWO_PASS_CASES + [DEIT_ATTN]):
+        args, kw = attention_inputs(g, *case)
+        q, k, v, sc, vs = args
+        two = case is not DEIT_ATTN
+        kern = ia.int_attention if two else ia.int_attention_fused
+        ms = cuda_ms(lambda: kern(*args, **kw))
+        pms = cuda_ms(lambda: ia.int_attention_plain(*args, **kw), iters=3,
+                      warmup=1)
+        h, sq, d = q.shape
+        sk = k.shape[1]
+        qpos = torch.arange(sq) % (kw["sq_mod"] or sq)
+        pairs = h * (int((torch.arange(sk)[None, :] <= qpos[:, None]).sum())
+                     if kw["causal"] else sq * sk)
+        nbytes = q.numel() + k.numel() + v.numel() + 4 * sc.numel() + \
+            4 * vs.numel() + 4 * h * sq * d
+        bnd, by = bound_ms(nbytes, 4 * d * pairs)      # QK^T and PV
+        lib = sdpa_ms(g, h, sq, sk, d, kw["causal"], kw["sq_mod"])
+        log(f"[time] {'two-pass' if two else 'fused'} attention H={h} "
+            f"Sq={sq} Sk={sk} D={d} causal={kw['causal']} bq={kw['bq']} "
+            f"bk={kw['bk']}: {ms:.4f} ms, bound {bnd:.4f} ms ({by}), plain "
+            f"{pms:.4f} ms, bf16 SDPA {lib:.4f} ms")
+        if i == 0:
+            kernels.append({
+                "name": "int_attention", "route": "cuda",
+                "source": "src/repro_torch/csrc/int_attention.cu",
+                "replaces": "src/repro/kernels/int_attention.py:496",
+                "launches": ops_launches["int_attention"],
+                "max_abs_err": errs["int_attention"], "ms": ms,
+                "plain_ms": pms, "bound_ms": bnd, "bound_by": by,
+                "library_ms": lib})
+    for m, n, k in DEIT_QMM:
+        x, w, s, b, _ = qmatmul_inputs(g, m, n, k, False)
+        ms = cuda_ms(lambda: qmatmul(x, w, s, b, bm=64, bn=128))
+        pms = cuda_ms(lambda: ref.qmatmul_ref(x, w, s, b), iters=3,
+                      warmup=1)
+        lib = cuda_ms(lambda: torch._int_mm(x, w.t()))
+        bnd, by = bound_ms(x.numel() + w.numel() + 8 * n + 4 * m * n,
+                           2 * m * n * k)
+        log(f"[time] qmatmul DeiT-S M={m} N={n} K={k}: {ms:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}), plain {pms:.4f} ms, _int_mm {lib:.4f} ms")
+    return kernels
+
+
+# DeiT-S's linears at batch 64: the patch embedding (64 x 196 rows, K 768),
+# wq/wk/wv/wo, the MLP's up and down (64 x 198 rows)
+DEIT_QMM = [(64 * 196, 384, 768), (64 * 198, 384, 384),
+            (64 * 198, 1536, 384), (64 * 198, 384, 1536)]
+
+
+def sdpa_ms(g, h, sq, sk, d, causal, sq_mod):
+    """Yardstick the port never calls: bf16 SDPA on the same attention —
+    GQA groups stacked along Sq (sq_mod) become query heads."""
+    import torch
+    import torch.nn.functional as F
+    grp = sq // (sq_mod or sq)
+    s = sq // grp
+    mk = lambda *shape: torch.randn(shape, generator=g, device="cuda",
+                                    dtype=torch.bfloat16)
+    qb, kb, vb = mk(1, h * grp, s, d), mk(1, h, sk, d), mk(1, h, sk, d)
+    return cuda_ms(lambda: F.scaled_dot_product_attention(
+        qb, kb, vb, is_causal=causal, enable_gqa=grp > 1))
+
+
 # (kv_bits, span, pos): the ring phase's shapes (64-token prompts, so the
 # last decode step reads positions 0..79) first, then full rings.
 RING_TIMES = [(8, 1024, 79), (4, 1024, 79), (8, 8192, 79),
@@ -733,7 +1109,13 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
         phase_quickstart()
+        vparams, imgs = phase_vit()
+        ops_launches, ops_err = phase_ops(vparams, imgs)
+        errs["int_attention"] = max(errs["int_attention"], ops_err)
+        del vparams, imgs
+        torch.cuda.empty_cache()
         kernels = phase_time(g, launches, errs, stats)
+        kernels += time_slice3(g, ops_launches, errs)
     except Exception:                 # report the failing phase, exit non-0
         traceback.print_exc()
         return 1

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = {"qwen2.5-32b": "qwen2_5_32b"}
+ARCHS = {"qwen2.5-32b": "qwen2_5_32b", "deit-s": "deit_s"}
 
 
 def get_config(arch: str):

@@ -1,12 +1,12 @@
 // Integer attention with the embedded base-2 softmax, for Hopper (sm_90a).
 //
-// Three kernels share one online quantizer (kernels/ref.py):
+// Four kernels share one online quantizer (kernels/ref.py):
 //   x = acc * sc (masked -> -1e30, clamped at -120); running integer
 //   m = floor(max); e = (1 + r) * 2^(x - m); codes p = clip(rint(e*qmax/2),
 //   0, qmax); int32 PV; the f32 carries (Sigma, PV) rescaled by the exact
 //   2^(m_old - m_new); out = acc * ((2/qmax) / Sigma * dv).
 //
-// fused_attention_kernel replaces the Pallas TPU kernel
+// attention_kernel<FUSED> replaces the Pallas TPU kernel
 //   src/repro/kernels/int_attention.py::int_attention_fused
 //   (_fused_kernel, _live_kblock_meta, _tile_logits, _online_update,
 //   _pv_dot, _grid_scales): prompt-prefill attention.
@@ -17,6 +17,16 @@
 //   is bit-exact).  Codes are unsigned bytes multiplied with the signed
 //   value codes by dp4a.u32.s32, so 8-bit grids need no -128 bias.
 //   Bound: int8 operations (Sq*Sk*D*2 per head-fold, halved by causality).
+//
+// The two-pass kernel replaces
+//   src/repro/kernels/int_attention.py::int_attention (_stats_kernel,
+//   _pv_kernel), the reference's baseline: the same device code as the
+//   fused kernel (attention_kernel<MODE>), run as a Sigma pass (STATS:
+//   no V, no PV; writes max(Sigma, 1e-30) per row) and a PV pass (PV:
+//   recomputes QK^T and the same running-m codes, reads Sigma).  Both
+//   passes keep the fused kernel's order of every sum, so the two-pass
+//   output equals the fused output bit for bit.  Bound: int8 operations,
+//   QK^T twice.
 //
 // paged_decode_kernel replaces
 //   src/repro/kernels/int_attention.py::int_paged_decode_attention
@@ -62,15 +72,22 @@ constexpr int MAXJR = 8;     // accumulators per thread: G * D <= 2048
 constexpr int MAXGR = 8;     // query rows per pass over a key row
 constexpr int RSUB = 128;    // keys per V sub-tile
 
+enum { FUSED = 0, STATS = 1, PV = 2 };
+
+// Query rows i*bq + r of head-fold h against the key tiles of one row;
+// MODE FUSED does everything in one sweep, STATS only Sigma (into sums),
+// PV only the codes and PV (Sigma from sums).  The validity of a (row,
+// key) pair is the reference's _mask: key < SK, key <= row position when
+// causal, key > row position - window; a tile where no pair is valid is
+// skipped, which is bit-exact (e = 0, the carries keep their values).
+template <int MODE>
 __global__ void __launch_bounds__(NTA)
-fused_attention_kernel(const int8_t* __restrict__ q,
-                       const int8_t* __restrict__ k,
-                       const int8_t* __restrict__ v,
-                       const float* __restrict__ sc,
-                       const float* __restrict__ vs, float* __restrict__ out,
-                       uint8_t* __restrict__ codes, int SQ, int SK, int D,
-                       int bq, int bk, int nq, int sq_mod, int causal,
-                       int window, float qmax, float two_over_qmax) {
+attention_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
+                 const int8_t* __restrict__ v, const float* __restrict__ sc,
+                 const float* __restrict__ vs, float* __restrict__ out,
+                 uint8_t* __restrict__ codes, float* __restrict__ sums,
+                 int SQ, int SK, int D, int bq, int bk, int nq, int sq_mod,
+                 int causal, int window, float qmax, float two_over_qmax) {
   extern __shared__ __align__(16) int smem[];
   const int i = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, nwarps = NTA / 32;
@@ -104,6 +121,7 @@ fused_attention_kernel(const int8_t* __restrict__ q,
   const int nk = (SK + bk - 1) / bk;
   for (int kb = 0; kb < nk; ++kb) {
     const int k0 = kb * bk;
+    // Row r's valid keys under _mask are the interval [lo, hi].
     int live = 0;
     for (int r = tid; r < bq; r += NTA) {
       const int qp = (q0 + r) % sq_mod;
@@ -117,10 +135,12 @@ fused_attention_kernel(const int8_t* __restrict__ q,
       const int r = idx / DW, c = idx % DW, gk = k0 + r;
       const size_t off = ((size_t)h * SK + gk) * D + 4 * c;
       ks[r * QS + c] = gk < SK ? ld32(k + off) : 0;
-      const int vv = gk < SK ? ld32(v + off) : 0;
+      if (MODE != STATS) {
+        const int vv = gk < SK ? ld32(v + off) : 0;
 #pragma unroll
-      for (int b = 0; b < 4; ++b)
-        vtb[(4 * c + b) * (PS * 4) + r] = (vv >> (8 * b)) & 0xFF;
+        for (int b = 0; b < 4; ++b)
+          vtb[(4 * c + b) * (PS * 4) + r] = (vv >> (8 * b)) & 0xFF;
+      }
     }
     __syncthreads();
 
@@ -154,37 +174,49 @@ fused_attention_kernel(const int8_t* __restrict__ q,
       const int r = idx / bk, c = idx % bk;
       const float x = xs[idx];
       const float e = x <= -120.0f ? 0.0f : exp2_shift(__fsub_rn(x, mrow[r]));
-      const float p =
-          fminf(fmaxf(rintf(__fmul_rn(e, qmax_half)), 0.0f), qmax);
       xs[idx] = e;
-      pcb[r * PS * 4 + c] = static_cast<uint8_t>(p);
-      if (codes && q0 + r < SQ && k0 + c < SK)
-        codes[((size_t)h * SQ + q0 + r) * SK + k0 + c] =
-            static_cast<uint8_t>(p);
+      if (MODE != STATS) {
+        const float p =
+            fminf(fmaxf(rintf(__fmul_rn(e, qmax_half)), 0.0f), qmax);
+        pcb[r * PS * 4 + c] = static_cast<uint8_t>(p);
+        if (codes && q0 + r < SQ && k0 + c < SK)
+          codes[((size_t)h * SQ + q0 + r) * SK + k0 + c] =
+              static_cast<uint8_t>(p);
+      }
     }
     __syncthreads();
 
-    for (int r = warp; r < bq; r += nwarps) {
-      float sum = 0.0f;
-      for (int c = lane; c < bk; c += 32) sum = __fadd_rn(sum, xs[r * bk + c]);
-      sum = warp_sum(sum);
-      if (lane == 0) srow[r] = __fadd_rn(__fmul_rn(srow[r], arow[r]), sum);
+    if (MODE != PV) {
+      for (int r = warp; r < bq; r += nwarps) {
+        float sum = 0.0f;
+        for (int c = lane; c < bk; c += 32)
+          sum = __fadd_rn(sum, xs[r * bk + c]);
+        sum = warp_sum(sum);
+        if (lane == 0) srow[r] = __fadd_rn(__fmul_rn(srow[r], arow[r]), sum);
+      }
     }
+    if (MODE != STATS) {
 #pragma unroll
-    for (int j = 0; j < MAXJA; ++j) {
-      const int o = tid + NTA * j;
-      if (o < bq * D) {
-        const int r = o / D, col = o % D;
-        int a = 0;
-        for (int w = 0; w < KWD; ++w)
-          a = dp4a_us(static_cast<unsigned>(pc[r * PS + w]), vt[col * PS + w],
-                      a);
-        acc[j] = __fadd_rn(__fmul_rn(acc[j], arow[r]), __int2float_rn(a));
+      for (int j = 0; j < MAXJA; ++j) {
+        const int o = tid + NTA * j;
+        if (o < bq * D) {
+          const int r = o / D, col = o % D;
+          int a = 0;
+          for (int w = 0; w < KWD; ++w)
+            a = dp4a_us(static_cast<unsigned>(pc[r * PS + w]),
+                        vt[col * PS + w], a);
+          acc[j] = __fadd_rn(__fmul_rn(acc[j], arow[r]), __int2float_rn(a));
+        }
       }
     }
     __syncthreads();
   }
 
+  if (MODE == STATS) {
+    for (int r = tid; r < bq; r += NTA)
+      sums[(size_t)h * nq * bq + q0 + r] = fmaxf(srow[r], 1e-30f);
+    return;
+  }
   const float dv = vs[h];
 #pragma unroll
   for (int j = 0; j < MAXJA; ++j) {
@@ -192,7 +224,9 @@ fused_attention_kernel(const int8_t* __restrict__ q,
     if (o < bq * D) {
       const int r = o / D, col = o % D, gr = q0 + r;
       if (gr < SQ) {
-        const float dattn = __fdiv_rn(two_over_qmax, fmaxf(srow[r], 1e-30f));
+        const float s = MODE == PV ? sums[(size_t)h * nq * bq + gr]
+                                   : fmaxf(srow[r], 1e-30f);
+        const float dattn = __fdiv_rn(two_over_qmax, s);
         out[((size_t)h * SQ + gr) * D + col] =
             __fmul_rn(acc[j], __fmul_rn(dattn, dv));
       }
@@ -572,13 +606,42 @@ size_t ring_smem(int G, int bk, int D) {
               (size_t)D * (RSUB / 4 + 1) + 3 * (size_t)G);
 }
 
+template <int MODE>
+cudaError_t launch_attention(const void* q, const void* k, const void* v,
+                             const void* sc, const void* vs, void* out,
+                             void* codes, void* sums, int H, int SQ, int SK,
+                             int D, int bq, int bk, int sq_mod, int causal,
+                             int window, float qmax, float two_over_qmax,
+                             cudaStream_t stream) {
+  const size_t smem = fused_smem(bq, bk, D);
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int nq = (SQ + bq - 1) / bq;
+  attention_kernel<MODE><<<dim3(nq, H), NTA, smem, stream>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(k),
+      static_cast<const int8_t*>(v), static_cast<const float*>(sc),
+      static_cast<const float*>(vs), static_cast<float*>(out),
+      static_cast<uint8_t*>(codes), static_cast<float*>(sums), SQ, SK, D, bq,
+      bk, nq, sq_mod, causal, window, qmax, two_over_qmax);
+  return cudaGetLastError();
+}
+
+// What the fused and two-pass kernels take (also stated in
+// kernels/int_attention.py): D % 4 == 0 and bk % 4 == 0 (int8 words),
+// bq * D <= 8192 (32 f32 output accumulators a thread), fused_smem within
+// the card's 227 KB.
+bool attention_fits(int D, int bq, int bk) {
+  return D % 4 == 0 && bk % 4 == 0 && bq * D <= NTA * MAXJA;
+}
+
 }  // namespace
 
 // q (H, SQ, D) int8 with GQA groups stacked along SQ (row r at position
 // r % sq_mod); k, v (H, SK, D) int8; sc (H, nq) f32 per (head-fold, query
 // block); vs (H,) f32; out (H, SQ, D) f32; codes (H, SQ, SK) uint8 or
-// null.  window < 0 means none.  Constraints (checked in Python):
-// D % 4 == 0, bk % 4 == 0, bq * D <= 8192.
+// null.  window < 0 means none.
 extern "C" int fused_attention_launch(const void* q, const void* k,
                                       const void* v, const void* sc,
                                       const void* vs, void* out, void* codes,
@@ -586,31 +649,54 @@ extern "C" int fused_attention_launch(const void* q, const void* k,
                                       int bk, int sq_mod, int causal,
                                       int window, float qmax,
                                       float two_over_qmax, void* stream) {
-  if (D % 4 || bk % 4 || bq * D > NTA * MAXJA)
+  if (!attention_fits(D, bq, bk))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = fused_smem(bq, bk, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int nq = (SQ + bq - 1) / bq;
-  fused_attention_kernel<<<dim3(nq, H), NTA, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const int8_t*>(k),
-      static_cast<const int8_t*>(v), static_cast<const float*>(sc),
-      static_cast<const float*>(vs), static_cast<float*>(out),
-      static_cast<uint8_t*>(codes), SQ, SK, D, bq, bk, nq, sq_mod, causal,
-      window, qmax, two_over_qmax);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_attention<FUSED>(
+      q, k, v, sc, vs, out, codes, nullptr, H, SQ, SK, D, bq, bk, sq_mod,
+      causal, window, qmax, two_over_qmax,
+      static_cast<cudaStream_t>(stream)));
 }
+
+// The two-pass kernel: same operands as fused_attention_launch, plus sums
+// (H, nq * bq) f32 scratch, written by the Sigma pass and read by the PV
+// pass on the same stream.
+extern "C" int two_pass_attention_launch(const void* q, const void* k,
+                                         const void* v, const void* sc,
+                                         const void* vs, void* out,
+                                         void* codes, void* sums, int H,
+                                         int SQ, int SK, int D, int bq,
+                                         int bk, int sq_mod, int causal,
+                                         int window, float qmax,
+                                         float two_over_qmax, void* stream) {
+  if (!attention_fits(D, bq, bk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_attention<STATS>(
+      q, k, v, sc, vs, out, nullptr, sums, H, SQ, SK, D, bq, bk, sq_mod,
+      causal, window, qmax, two_over_qmax, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_attention<PV>(
+      q, k, v, sc, vs, out, codes, sums, H, SQ, SK, D, bq, bk, sq_mod,
+      causal, window, qmax, two_over_qmax, st));
+}
+
+namespace {
+
+// Paged decode takes D % 4 == 0, ps % 4 == 0 (int8 words), G * D <= 2048
+// (16 f32 output accumulators a thread) and paged_smem within 227 KB (also
+// stated in kernels/int_attention.py).
+bool paged_fits(int G, int D, int ps) {
+  return D % 4 == 0 && ps % 4 == 0 && G * D <= NTP * MAXJP;
+}
+
+}  // namespace
 
 // q (B, HKV, G, D) int8; pools (num_phys, HKV, ps, D) int8 or
 // (..., D/2) uint8 nibbles (packed); sc, vs (B,) f32; kps, vps
 // (num_phys,) f32 per physical page, or both null; page_table
 // (B, maxp) int32 (negative = unallocated); pos (B,) int32 (negative =
 // inactive row -> zero output); out (B, HKV, G, D) f32; codes
-// (B, HKV, G, maxp * ps) uint8 or null.  Constraints (checked in Python):
-// D % 4 == 0, ps % 4 == 0, G * D <= 2048.
+// (B, HKV, G, maxp * ps) uint8 or null.
 extern "C" int paged_decode_launch(const void* q, const void* kpool,
                                    const void* vpool, const void* sc,
                                    const void* vs, const void* kps,
@@ -620,8 +706,7 @@ extern "C" int paged_decode_launch(const void* q, const void* kpool,
                                    int maxp, int num_phys, int window,
                                    int packed, float qmax,
                                    float two_over_qmax, void* stream) {
-  if (D % 4 || ps % 4 || G * D > NTP * MAXJP)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!paged_fits(G, D, ps)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = paged_smem(G, ps, D);
   cudaError_t err = cudaFuncSetAttribute(
       paged_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

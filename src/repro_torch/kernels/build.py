@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 REPO = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO / "build" / "kernels"
-SOURCES = ("qmatmul", "int_attention")
+SOURCES = ("qmatmul", "int_attention", "pq_layernorm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")

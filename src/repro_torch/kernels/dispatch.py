@@ -26,7 +26,8 @@ as such.
 and ``xla`` -> ``torch`` in the backend keys; the engine's counters
 (preemptions, prefill accounting, ...) keep their names.  It counts
 dispatches; the kernels' own launch counts are ``LAUNCHES`` in
-``kernels/qmatmul.py`` and ``kernels/int_attention.py``.
+``kernels/qmatmul.py``, ``kernels/int_attention.py`` and
+``kernels/pq_layernorm.py`` (:func:`launch_counts`).
 """
 from __future__ import annotations
 
@@ -39,8 +40,10 @@ import torch
 from repro_torch.core import quant
 from repro_torch.core.softmax2 import LOG2E
 from repro_torch.kernels import int_attention as _attn_mod
+from repro_torch.kernels import pq_layernorm as _pqln_mod
 from repro_torch.kernels import qmatmul as _qmm_mod
-from repro_torch.kernels.int_attention import (MAX_PROB_BITS,
+from repro_torch.kernels.int_attention import (FUSED_MAX_BQD, MAX_PROB_BITS,
+                                               SMEM_BUDGET, fused_smem,
                                                int_attention_fused,
                                                int_decode_attention,
                                                int_paged_decode_attention)
@@ -86,11 +89,12 @@ def snapshot() -> dict:
 
 def launch_counts() -> dict:
     """Every CUDA kernel's launch count (the wrappers' own counters)."""
-    return {**_qmm_mod.LAUNCHES, **_attn_mod.LAUNCHES}
+    return {**_qmm_mod.LAUNCHES, **_attn_mod.LAUNCHES, **_pqln_mod.LAUNCHES}
 
 
 def reset_launches():
-    for counts in (_qmm_mod.LAUNCHES, _attn_mod.LAUNCHES):
+    for counts in (_qmm_mod.LAUNCHES, _attn_mod.LAUNCHES,
+                   _pqln_mod.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -120,10 +124,16 @@ def resolve_backend(cfg) -> str:
 
 
 # ---------------------------------------------------------------------------
-# Block choices for the H100: 227 KB of shared memory per block
+# Block choices for the H100 (the kernels' own limits live in their modules:
+# ``int_attention.FUSED_MAX_BQD``, ``fused_smem``, ``SMEM_BUDGET``)
 # ---------------------------------------------------------------------------
 
-SMEM_BUDGET = 232_448
+# The reference's tile budget (TPU VMEM) and lane width.  ``bk`` of the
+# decode kernels is semantics (each block quantizes at the running max), so
+# the port keeps the reference's choices and budget checks rather than ones
+# derived from shared memory, and matches them block for block.
+VMEM_BUDGET = 6 * 2 ** 20
+_LANE = 128
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -144,45 +154,31 @@ def qmatmul_blocks(m: int, n: int, k: int) -> tuple[int, int, int]:
     return bm, bn, 64
 
 
-def fused_smem(bq: int, bk: int, d: int) -> int:
-    """Dynamic shared memory of the fused attention kernel (bytes): q and
-    k tiles, transposed v tile, f32 logits, u8 codes (word-padded rows),
-    and three f32 row vectors."""
-    qs, ps = d // 4 + 1, bk // 4 + 1
-    return 4 * (bq * qs + bk * qs + d * ps + bq * bk + bq * ps + 3 * bq)
-
-
-def paged_smem(g: int, page_size: int, d: int) -> int:
-    """Dynamic shared memory of the paged decode kernel (bytes)."""
-    qs, ps = d // 4 + 1, page_size // 4 + 1
-    return 4 * (g * qs + page_size * qs + d * ps + g * page_size + g * ps
-                + 3 * g)
-
-
 def attention_blocks(sq: int, sk: int, d: int, *,
                      window: Optional[int] = None,
-                     chunk: Optional[int] = None,
-                     budget: int = SMEM_BUDGET) -> tuple[int, int]:
+                     chunk: Optional[int] = None) -> tuple[int, int]:
     """(bq, bk) for the fused attention kernel.
 
-    ``bq * d <= 8192`` (each of the 256 threads keeps at most 32 f32 output
-    accumulators in registers), at most 64 rows.  ``bk`` prefers covering
-    the whole key row (then the online grid equals the full-row grid of
-    the plain ``torch`` path) up to 512 keys, and halves until the tiles
-    fit the shared-memory budget (256 keys at d = 128).  Narrow local
-    windows over long keys cap ``bk`` near the ``bq + window`` live span.
-    ``chunk`` caps ``bq`` to a divisor of the query-recalibration chunk so
-    one q tile never straddles two activation grids.
+    ``bq * d <= FUSED_MAX_BQD`` (the output accumulators a block keeps in
+    registers), at most 64 rows.  ``bk`` prefers covering the whole key
+    row (then the online grid equals the full-row grid of the plain
+    ``torch`` path) up to 512 keys, and halves until the tiles fit the
+    card's shared memory (256 keys at d = 128).  Narrow local windows over
+    long keys cap ``bk`` near the ``bq + window`` live span.  ``chunk``
+    caps ``bq`` to a divisor of the query-recalibration chunk so one q
+    tile never straddles two activation grids.  The kernel's limits are
+    taken at ``d`` rounded up to int8 words, as the wrapper pads it.
     """
-    bq = min(_round_up(sq, 16), 64, max(1, 8192 // d))
+    dw = _round_up(d, 4)
+    bq = min(_round_up(sq, 16), 64, max(1, FUSED_MAX_BQD // dw))
     narrow = window is not None and sk > 2 * window
     cap = 512
     if narrow:
         cap = min(cap, _round_up(bq + window, 32))
     bk = min(_round_up(sk, 32), cap)
-    while fused_smem(bq, bk, d) > budget and bk > 32:
+    while fused_smem(bq, bk, dw) > SMEM_BUDGET and bk > 32:
         bk = max(32, _round_up(bk // 2, 32))
-    while fused_smem(bq, bk, d) > budget and bq > 16:
+    while fused_smem(bq, bk, dw) > SMEM_BUDGET and bq > 16:
         bq //= 2
     if chunk is not None:
         bq = next(x for x in range(min(bq, chunk), 0, -1) if chunk % x == 0)
@@ -191,25 +187,15 @@ def attention_blocks(sq: int, sk: int, d: int, *,
     return bq, bk
 
 
-def paged_decode_blocks(page_size: int, d: int, g: int, *,
-                        budget: int = SMEM_BUDGET) -> int:
+def paged_decode_blocks(page_size: int, d: int) -> int:
     """Key-block size of the paged decode kernel: one page per block (pages
-    are physically scattered).  0 when the page does not fit the kernel
-    (page_size % 4, G * D > 2048, or shared memory) — the shape policy then
-    routes to the plain path."""
-    ok = (page_size % 4 == 0 and d % 4 == 0 and g * d <= 2048
-          and paged_smem(g, page_size, d) <= budget)
-    bk = page_size if ok else 0
-    _record_blocks("paged_decode", f"ps{page_size}_d{d}_g{g}", bk)
+    are physically scattered), as the reference chooses it — 0 (plain path)
+    only when a page overflows the reference's tile budget.  A page the
+    card's kernel cannot take is the wrapper's error, not a plain-path
+    route."""
+    bk = 0 if 2 * page_size * d + 17 * 8 * d > VMEM_BUDGET else page_size
+    _record_blocks("paged_decode", f"ps{page_size}_d{d}", bk)
     return bk
-
-
-# The reference's decode tile budget (TPU VMEM) and lane width: ``bk`` of
-# the ring decode kernel is semantics (each block quantizes at the running
-# max), so the port keeps the reference's choice rather than one derived
-# from shared memory, and matches it block for block.
-DECODE_VMEM_BUDGET = 6 * 2 ** 20
-_LANE = 128
 
 
 def decode_blocks(span: int, d: int) -> int:
@@ -218,8 +204,7 @@ def decode_blocks(span: int, d: int) -> int:
     grid is the full-row grid of the plain path, bit for bit) up to 4096
     keys; longer rings stream in 4096-key blocks."""
     bk = min(_round_up(span, _LANE), 4096)
-    while 2 * bk * d + 4 * bk + 17 * 8 * d > DECODE_VMEM_BUDGET \
-            and bk > _LANE:
+    while 2 * bk * d + 4 * bk + 17 * 8 * d > VMEM_BUDGET and bk > _LANE:
         bk = max(_LANE, _round_up(bk // 2, _LANE))
     _record_blocks("decode", f"span{span}_d{d}", bk)
     return bk
@@ -230,13 +215,17 @@ def decode_blocks(span: int, d: int) -> int:
 # ---------------------------------------------------------------------------
 
 def qlinear_supported(x, p) -> bool:
-    """Shape policy: can this dense() call lower onto the qmatmul kernel?"""
+    """Shape policy: can this dense() call lower onto the qmatmul kernel?
+    The reference's; a K the kernel's int8 words do not divide is padded
+    by the wrapper."""
     w_q = p.get("w_q")
     if w_q is None or w_q.ndim != 2:
         return False
     if x.ndim < 1 or x.shape[-1] == 0 or x.numel() == 0:
         return False
-    return x.shape[-1] % 4 == 0             # int8 words (and nibble pairs)
+    if w_q.dtype == torch.uint8 and x.shape[-1] % 2:
+        return False                          # packed nibbles need even K
+    return True
 
 
 def maybe_qlinear(x, p: dict, cfg):
@@ -280,9 +269,11 @@ def maybe_qlinear(x, p: dict, cfg):
 
 def attention_supported(q, k, spec, cfg, q_offset, k_offset,
                         k_positions) -> bool:
-    """Shape policy for the fused (prefill) attention kernel: fresh float
-    operands from position 0 (ring caches and cached codes take the plain
-    path), base-2 softmax, <= 8-bit prob codes, D % 4 == 0."""
+    """Shape policy for the fused (prefill) attention kernel, the
+    reference's: keys from position 0 (ring caches go to the decode
+    kernel or the plain path), base-2 softmax, <= 8-bit prob codes, no
+    nibble-packed q/k.  A D the kernel's int8 words do not divide is padded
+    by the wrapper."""
     if cfg.attn_bits > MAX_PROB_BITS:
         return False
     if getattr(cfg, "softmax", "base2") != "base2":
@@ -292,12 +283,11 @@ def attention_supported(q, k, spec, cfg, q_offset, k_offset,
     if not (isinstance(q_offset, int) and q_offset == 0
             and isinstance(k_offset, int) and k_offset == 0):
         return False
-    if any(isinstance(t, quant.QTensor) for t in (q, k)):
+    if _is_packed(q) or _is_packed(k):
         return False
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
-    return (sq > 0 and k.shape[2] > 0 and hq % hkv == 0 and 0 < d <= 8192
-            and d % 4 == 0)
+    return sq > 0 and k.shape[2] > 0 and hq % hkv == 0 and d > 0
 
 
 def _is_packed(x) -> bool:
@@ -362,36 +352,49 @@ def _fused_call(q, k, v, spec, cfg):
     Float inputs quantize on per-sequence grids exactly like the plain
     path — k/v per batch row, q per (batch row, query chunk) — and the
     resulting (B*Hkv, nq) logit-scale matrix gives each bq tile its own
-    scale.
+    scale.  Pre-quantized QTensor operands keep their own single grid, with
+    the plain path's association ``scale*LOG2E*dq*dk``.
     """
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
+    out_dtype = q.dtype if not isinstance(q, quant.QTensor) \
+        else torch.float32
     scale = spec.softmax_scale or (1.0 / d ** 0.5)
-    c = chunk_len(sq, spec.q_chunk)
-    n_ch = sq // c
-    qr = q.reshape(b, hkv, g, n_ch, c, d)
-    qsc = quant.absmax_scale(qr, cfg.a_bits, axis=(1, 2, 4, 5))
-    qf = quant.quantize(qr, qsc, cfg.a_bits) \
-        .reshape(b * hkv, g * sq, d).contiguous()
-    ksc = quant.absmax_scale(k, cfg.a_bits, axis=(1, 2, 3))
-    vsc = quant.absmax_scale(v, cfg.a_bits, axis=(1, 2, 3))
-    kf = quant.quantize(k, ksc, cfg.a_bits).reshape(b * hkv, sk, d)
-    vf = quant.quantize(v, vsc, cfg.a_bits).reshape(b * hkv, sk, d)
-    bq, bk = attention_blocks(g * sq, sk, d, window=spec.window, chunk=c)
-    nq = (g * sq) // bq
-    # Tile i covers positions [(i*bq) % sq, +bq) of group (i*bq) // sq —
-    # inside one chunk because bq divides c.
-    tile_chunk = torch.as_tensor((np.arange(nq) * bq % sq) // c,
-                                 device=q.device)
-    qs_b = qsc.reshape(b, n_ch)
-    sc = scale * LOG2E * qs_b[:, tile_chunk] * ksc.reshape(b, 1)
-    sc = torch.repeat_interleave(sc, hkv, dim=0)         # (b*hkv, nq)
-    vs = torch.repeat_interleave(vsc.reshape(b), hkv)    # (b*hkv,)
-    out = int_attention_fused(qf, kf.contiguous(), vf.contiguous(), sc, vs,
+    if any(isinstance(x, quant.QTensor) for x in (q, k, v)):
+        qq, kq, vq = (_as_q(x, cfg.a_bits) for x in (q, k, v))
+        sc = scale * LOG2E * qq.scale * kq.scale
+        vs = vq.scale
+        qf = qq.q.reshape(b * hkv, g * sq, d)
+        kf, vf = kq.q, vq.q
+        bq, bk = attention_blocks(g * sq, sk, d, window=spec.window)
+    else:
+        c = chunk_len(sq, spec.q_chunk)
+        n_ch = sq // c
+        qr = q.reshape(b, hkv, g, n_ch, c, d)
+        qsc = quant.absmax_scale(qr, cfg.a_bits, axis=(1, 2, 4, 5))
+        qf = quant.quantize(qr, qsc, cfg.a_bits).reshape(b * hkv, g * sq, d)
+        ksc = quant.absmax_scale(k, cfg.a_bits, axis=(1, 2, 3))
+        vsc = quant.absmax_scale(v, cfg.a_bits, axis=(1, 2, 3))
+        kf = quant.quantize(k, ksc, cfg.a_bits)
+        vf = quant.quantize(v, vsc, cfg.a_bits)
+        bq, bk = attention_blocks(g * sq, sk, d, window=spec.window, chunk=c)
+        nq = (g * sq) // bq
+        # Tile i covers positions [(i*bq) % sq, +bq) of group (i*bq) // sq
+        # — inside one chunk because bq divides c.
+        tile_chunk = torch.as_tensor((np.arange(nq) * bq % sq) // c,
+                                     device=q.device)
+        qs_b = qsc.reshape(b, n_ch)
+        sc = scale * LOG2E * qs_b[:, tile_chunk] * ksc.reshape(b, 1)
+        sc = torch.repeat_interleave(sc, hkv, dim=0)         # (b*hkv, nq)
+        vs = torch.repeat_interleave(vsc.reshape(b), hkv)    # (b*hkv,)
+    kf = kf.reshape(b * hkv, sk, d)
+    vf = vf.reshape(b * hkv, sk, d)
+    out = int_attention_fused(qf.contiguous(), kf.contiguous(),
+                              vf.contiguous(), sc, vs,
                               attn_bits=cfg.attn_bits, causal=spec.causal,
                               window=spec.window, bq=bq, bk=bk, sq_mod=sq)
-    return out.reshape(b, hq, sq, d).to(q.dtype)
+    return out.reshape(b, hq, sq, d).to(out_dtype)
 
 
 def _as_q(x, bits):
@@ -462,7 +465,8 @@ def paged_read_grid(q, spec, cfg, k_scale, v_scale, page_scaled: bool):
 
 
 def paged_decode_supported(q, k_pages, spec, cfg, page_table, pos) -> bool:
-    """Shape policy for the paged decode kernel."""
+    """Shape policy for the paged decode kernel, the reference's: one page
+    per block within the reference's tile budget."""
     if cfg.attn_bits > MAX_PROB_BITS:
         return False
     if getattr(cfg, "softmax", "base2") != "base2":
@@ -475,11 +479,9 @@ def paged_decode_supported(q, k_pages, spec, cfg, page_table, pos) -> bool:
         return False
     if k_pages.dtype == torch.uint8 and (dk * 2 != d or d % 2):
         return False
-    if k_pages.dtype == torch.int8 and dk != d:
+    if k_pages.dtype != torch.uint8 and dk != d:
         return False
-    if k_pages.dtype not in (torch.int8, torch.uint8):
-        return False
-    return paged_decode_blocks(page_size, d, hq // hkv) > 0
+    return paged_decode_blocks(page_size, d) > 0
 
 
 def maybe_paged_attention(q, k_pages, v_pages, k_scale, v_scale, spec, cfg,

@@ -1,7 +1,7 @@
 """Integer attention with the embedded base-2 softmax: CUDA kernels + plain
 versions.
 
-The three kernels live in ``csrc/int_attention.cu`` and share the online
+The four kernels live in ``csrc/int_attention.cu`` and share the online
 quantizer of ``kernels/ref.py`` (running integer ``m``, codes on the
 power-of-two Sigma grid, PV carries rescaled by exact powers of two):
 
@@ -14,6 +14,11 @@ power-of-two Sigma grid, PV carries rescaled by exact powers of two):
   a time, so the plain version runs at the same ``bk``
   (:func:`repro_torch.kernels.ref.int_attention_ref_streamed`).  Bound:
   int8 operations.
+- :func:`int_attention` replaces the two-pass baseline
+  ``repro/kernels/int_attention.py::int_attention`` (``:469``, calls at
+  ``:496`` and ``:506``): a Sigma pass, then a PV pass that recomputes the
+  codes — the fused kernel's device code run twice, so it equals the
+  fused kernel bit for bit.
 - :func:`int_paged_decode_attention` replaces
   ``repro/kernels/int_attention.py::int_paged_decode_attention``
   (``:661``): every engine decode step.  One block per (kv head, sequence)
@@ -38,22 +43,37 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.quant import unpack_int4
 from repro_torch.kernels import build, ref
 
 MAX_PROB_BITS = 8
+# What the kernels take, stated here and in the C launchers' error returns
+# (``csrc/int_attention.cu``); dispatch picks its blocks from these.
+SMEM_BUDGET = 232_448     # dynamic shared memory a block may use (227 KB)
+FUSED_MAX_BQD = 8192      # fused / two-pass: bq * D output accumulators
+PAGED_MAX_GD = 2048       # paged decode: G * D output accumulators a block
 RING_MAX_GD = 2048        # ring decode: G * D output accumulators a block
-# Kernel launches (one per launch, bumped nowhere else).
-LAUNCHES = {"int_attention_fused": 0, "int_paged_decode_attention": 0,
-            "int_decode_attention": 0}
+# Kernel launches (one per wrapper call that launches, bumped nowhere else).
+LAUNCHES = {"int_attention_fused": 0, "int_attention": 0,
+            "int_paged_decode_attention": 0, "int_decode_attention": 0}
 
 
-def _f32(x):
-    """A Python float as the f32 the reference's weak-typed constants use."""
-    return float(np.float32(x))
+def fused_smem(bq: int, bk: int, d: int) -> int:
+    """Dynamic shared memory of the fused and two-pass kernels (bytes): q
+    and k tiles, transposed v tile, f32 logits, u8 codes (word-padded
+    rows), and three f32 row vectors."""
+    qs, ps = d // 4 + 1, bk // 4 + 1
+    return 4 * (bq * qs + bk * qs + d * ps + bq * bk + bq * ps + 3 * bq)
+
+
+def paged_smem(g: int, page_size: int, d: int) -> int:
+    """Dynamic shared memory of the paged decode kernel (bytes)."""
+    qs, ps = d // 4 + 1, page_size // 4 + 1
+    return 4 * (g * qs + page_size * qs + d * ps + g * page_size + g * ps
+                + 3 * g)
 
 
 def grid_scales(sc, v_scale, h, nq, device):
@@ -101,35 +121,117 @@ def int_attention_fused(q_q, k_q, v_q, sc, v_scale, *, attn_bits=7,
             q_q, k_q, v_q, sc, v_scale, attn_bits=attn_bits, causal=causal,
             window=window, bq=bq, bk=bk, sq_mod=sq_mod,
             return_codes=return_codes)
+    out, codes = _launch_prefill("int_attention_fused", q_q, k_q, v_q, sc,
+                                 v_scale, attn_bits, causal, window, bq, bk,
+                                 sq_mod, return_codes)
+    return (out, codes) if return_codes else out
+
+
+# The two-pass kernel's plain version is the fused kernel's: both passes
+# make the running-m code sequence of ``ref.int_attention_ref_streamed``.
+int_attention_plain = int_attention_fused_plain
+
+
+def int_attention(q_q, k_q, v_q, sc, v_scale, *, attn_bits=7, causal=True,
+                  window=None, bq=128, bk=128, sq_mod=None,
+                  return_codes=False):
+    """Two-pass integer attention (the reference's baseline design), same
+    contract as :func:`int_attention_fused`.
+
+    Replaces ``repro/kernels/int_attention.py::int_attention`` (``:469``;
+    ``_stats_kernel`` at ``:496``, ``_pv_kernel`` at ``:506``).  Pass 1
+    sweeps K once for Sigma per row and writes ``max(Sigma, 1e-30)`` to an
+    (H, nq * bq) f32 buffer; pass 2 re-sweeps K, recomputes QK^T and the
+    same running-m codes, accumulates integer PV and writes
+    ``acc * ((2/qmax) / Sigma * dv)``.  Both are the fused kernel's device
+    code (``csrc/int_attention.cu``, one template), so the codes, Sigma's
+    summation order and the output equal the fused kernel's bit for bit.
+    QK^T runs twice: 3/2 of the fused kernel's int8 operations.  One
+    launch is counted per call (its two kernels).
+    """
+    if attn_bits > MAX_PROB_BITS:
+        raise ValueError(f"prob codes are <= {MAX_PROB_BITS}-bit")
+    if q_q.device.type == "cpu":
+        return int_attention_plain(
+            q_q, k_q, v_q, sc, v_scale, attn_bits=attn_bits, causal=causal,
+            window=window, bq=bq, bk=bk, sq_mod=sq_mod,
+            return_codes=return_codes)
+    out, codes = _launch_prefill("int_attention", q_q, k_q, v_q, sc, v_scale,
+                                 attn_bits, causal, window, bq, bk, sq_mod,
+                                 return_codes)
+    return (out, codes) if return_codes else out
+
+
+def _tile_rows(bq: int, d: int) -> int:
+    """Rows of one kernel tile for a requested q block of ``bq`` rows at
+    head dim ``d`` (already a multiple of 4): the largest divisor of ``bq``
+    with ``rows * d <= FUSED_MAX_BQD``.  ``bq`` is not semantics — each
+    kernel tile takes its q block's scale — so a block too tall for the
+    kernel's accumulators runs as several tiles; 0 when even one row is
+    too wide (D > FUSED_MAX_BQD)."""
+    return next((x for x in range(min(bq, FUSED_MAX_BQD // d), 0, -1)
+                 if bq % x == 0), 0)
+
+
+def _launch_prefill(name, q_q, k_q, v_q, sc, v_scale, attn_bits, causal,
+                    window, bq, bk, sq_mod, return_codes):
+    """Launch the fused kernel, or the two passes, on CUDA tensors.
+
+    Handled exactly here: D not a multiple of 4 is padded with zero codes
+    (exact for the int32 dot products; the padded output columns are
+    dropped) and a q block taller than the accumulators allow runs as
+    several kernel tiles.  What remains that the kernel cannot take
+    (``bk % 4``, D > FUSED_MAX_BQD, tiles over shared memory) raises."""
     h, sq, d = q_q.shape
     sk = k_q.shape[1]
     nq = -(-sq // bq)
     sc2, vs = grid_scales(sc, v_scale, h, nq, q_q.device)
-    for name, t, shape in (("q_q", q_q, (h, sq, d)), ("k_q", k_q, (h, sk, d)),
-                           ("v_q", v_q, (h, sk, d))):
-        _check(t, torch.int8, shape, name)
-    if d % 4 or bk % 4 or bq * d > 8192:
-        raise ValueError(f"fused attention kernel: needs D % 4 == 0, "
-                         f"bk % 4 == 0, bq * D <= 8192 (D={d}, bq={bq}, "
-                         f"bk={bk})")
+    for nm, t, shape in (("q_q", q_q, (h, sq, d)), ("k_q", k_q, (h, sk, d)),
+                         ("v_q", v_q, (h, sk, d))):
+        _check(t, torch.int8, shape, nm)
+    d4 = -(-d // 4) * 4
+    rows = _tile_rows(bq, d4)
+    smem = fused_smem(rows, bk, d4) if rows else 0
+    if bk % 4 or not rows or smem > SMEM_BUDGET:
+        raise ValueError(
+            f"{name} kernel: needs bk % 4 == 0, D <= {FUSED_MAX_BQD} and "
+            f"tiles within {SMEM_BUDGET} bytes of shared memory (H={h}, "
+            f"Sq={sq}, Sk={sk}, D={d}, bq={bq}, bk={bk}: {smem} bytes)")
+    if d4 != d:
+        pad = (0, d4 - d)
+        q_q, k_q, v_q = (F.pad(t, pad) for t in (q_q, k_q, v_q))
+    if rows != bq:
+        nk_t = -(-sq // rows)
+        sc2 = torch.repeat_interleave(sc2, bq // rows,
+                                      dim=1)[:, :nk_t].contiguous()
     qmax = (1 << attn_bits) - 1
-    out = torch.empty((h, sq, d), dtype=torch.float32, device=q_q.device)
+    out = torch.empty((h, sq, d4), dtype=torch.float32, device=q_q.device)
     codes = torch.zeros((h, sq, sk), dtype=torch.uint8, device=q_q.device) \
         if return_codes else None
     lib = build.load("int_attention")
-    fn = lib.fused_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + \
+    ptrs = [q_q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), sc2.data_ptr(),
+            vs.data_ptr(), out.data_ptr(),
+            None if codes is None else codes.data_ptr()]
+    tail = [h, sq, sk, d4, rows, bk, sq_mod or sq, int(causal),
+            -1 if window is None else int(window), float(qmax),
+            ref.f32(2.0 / qmax), build.stream_ptr(q_q)]
+    if name == "int_attention":
+        sums = torch.empty((h, sc2.shape[1] * rows), dtype=torch.float32,
+                           device=q_q.device)
+        fn = lib.two_pass_attention_launch
+        ptrs.append(sums.data_ptr())
+    else:
+        fn = lib.fused_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 9 + \
         [ctypes.c_float] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(q_q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), sc2.data_ptr(),
-            vs.data_ptr(), out.data_ptr(),
-            None if codes is None else codes.data_ptr(),
-            h, sq, sk, d, bq, bk, sq_mod or sq, int(causal),
-            -1 if window is None else int(window), float(qmax),
-            _f32(2.0 / qmax), build.stream_ptr(q_q))
-    build.check(lib, rc, "int_attention_fused")
-    LAUNCHES["int_attention_fused"] += 1
-    return (out, codes) if return_codes else out
+    rc = fn(*ptrs, *tail)
+    build.check(lib, rc, f"{name} (H={h}, Sq={sq}, Sk={sk}, D={d}, "
+                         f"bq={bq} as {rows}-row tiles, bk={bk})")
+    LAUNCHES[name] += 1
+    if d4 != d:
+        out = out[..., :d].contiguous()
+    return out, codes
 
 
 def int_paged_decode_attention(q_q, k_pages, v_pages, sc, v_scale,
@@ -177,10 +279,13 @@ def int_paged_decode_attention(q_q, k_pages, v_pages, sc, v_scale,
     if k_page_scale is not None:
         _check(k_page_scale, torch.float32, (num_phys,), "k_page_scale")
         _check(v_page_scale, torch.float32, (num_phys,), "v_page_scale")
-    if d % 4 or ps % 4 or g * d > 2048:
+    smem = paged_smem(g, ps, d)
+    if d % 4 or ps % 4 or g * d > PAGED_MAX_GD or smem > SMEM_BUDGET:
         raise ValueError(f"paged decode kernel: needs D % 4 == 0, "
-                         f"page_size % 4 == 0, G * D <= 2048 (D={d}, "
-                         f"ps={ps}, G={g})")
+                         f"page_size % 4 == 0, G * D <= {PAGED_MAX_GD} and "
+                         f"a page within {SMEM_BUDGET} bytes of shared "
+                         f"memory (D={d}, page_size={ps}, G={g}: {smem} "
+                         f"bytes)")
     qmax = (1 << attn_bits) - 1
     out = torch.empty((b, hkv, g, d), dtype=torch.float32, device=dev)
     codes = torch.zeros((b, hkv, g, maxp * ps), dtype=torch.uint8,
@@ -198,7 +303,7 @@ def int_paged_decode_attention(q_q, k_pages, v_pages, sc, v_scale,
             None if codes is None else codes.data_ptr(),
             b, hkv, g, d, ps, maxp, num_phys,
             -1 if window is None else int(window), int(packed), float(qmax),
-            _f32(2.0 / qmax), build.stream_ptr(q_q))
+            ref.f32(2.0 / qmax), build.stream_ptr(q_q))
     build.check(lib, rc, "int_paged_decode_attention")
     LAUNCHES["int_paged_decode_attention"] += 1
     return (out, codes) if return_codes else out
@@ -273,7 +378,7 @@ def int_decode_attention(q_q, k_q, v_q, sc, v_scale, k_positions, pos, *,
             None if codes is None else codes.data_ptr(),
             h, g, d, span, bk, int(causal),
             -1 if window is None else int(window), int(packed), float(qmax),
-            _f32(2.0 / qmax), build.stream_ptr(q_q))
+            ref.f32(2.0 / qmax), build.stream_ptr(q_q))
     build.check(lib, rc, "int_decode_attention")
     LAUNCHES["int_decode_attention"] += 1
     return (out, codes) if return_codes else out

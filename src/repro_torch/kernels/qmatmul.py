@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build, ref
 
@@ -52,7 +53,12 @@ def qmatmul(x_q, w_q, scale, bias=None, row_scale=None, *, bm=16, bn=64,
     if row_scale is not None:
         _check(row_scale, torch.float32, (m,), "row_scale")
     if k % 4:
-        raise ValueError(f"qmatmul kernel needs K % 4 == 0, got K={k}")
+        # The kernel reads K in int8 words (K % 4 == 0, also the C
+        # launcher's check): pad with zero codes, exact for the int32 sums.
+        k4 = -(-k // 4) * 4
+        x_q = F.pad(x_q, (0, k4 - k))
+        w_q = F.pad(w_q, (0, (k4 - k) // 2 if packed else k4 - k))
+        k = k4
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     lib = build.load("qmatmul")
     fn = lib.qmatmul_launch

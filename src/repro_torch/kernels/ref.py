@@ -18,6 +18,9 @@ power-of-two Sigma-scaled grid::
   paged KV cache; ``bk=None`` is the full-row grid, ``bk = page_size`` the
   paged kernel's streamed grid.  Both decode oracles share one streamed
   core (:func:`_decode_stream`).
+- :func:`pq_layernorm_ref` — LayerNorm (or RMS) -> affine -> quantizer,
+  every step correctly rounded and the row sums in the pq_layernorm
+  kernel's order.
 
 Integer contractions run through ``quant.int_matmul_exact`` (float64,
 exact), so these run unchanged on CPU and CUDA tensors.  ``return_codes``
@@ -28,6 +31,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.quant import int_matmul_exact, unpack_int4
 from repro_torch.core.softmax2 import exp2_shift, exp2i
@@ -325,3 +329,58 @@ def ragged_write_ref(pages, codes, lengths, page_table):
                 phys = trash
             out[phys, :, p % ps] = codes_np[i, :, p]
     return out
+
+
+def _lane_sums(v):
+    """Row sums of ``v`` (rows, d) f32 in the pq_layernorm kernel's order:
+    lane l of a warp adds elements l, l + 32, ... in order (a zero-padded
+    (rows, ceil(d/32), 32) view, summed over the middle axis), then the
+    lanes add in five halving steps (the kernel's __shfl_down_sync tree).
+    Returns (rows, 1)."""
+    rows, d = v.shape
+    n = -(-d // 32)
+    vp = F.pad(v, (0, n * 32 - d)).reshape(rows, n, 32)
+    s = torch.zeros((rows, 32), dtype=torch.float32, device=v.device)
+    for j in range(n):
+        s = s + vp[:, j]
+    w = 16
+    while w:
+        s = s[:, :w] + s[:, w:2 * w]
+        w //= 2
+    return s
+
+
+def pq_layernorm_ref(x, gamma, beta, delta, *, bits=8, eps=1e-6,
+                     rms_only=False):
+    """Plain version of the pq_layernorm kernel: (rows, d) f32/bf16 ->
+    (rows, d) int8 codes on the signed ``bits`` grid.
+
+    The reference's ``ref.pq_layernorm_ref`` with every step correctly
+    rounded in f32 and the row sums in the kernel's order
+    (:func:`_lane_sums`), so the kernel's codes equal these exactly:
+    ``inv = 1 / sqrt(var + eps)`` (not rsqrt), ``y = (x - mean) * inv *
+    gamma + beta`` rounded step by step, ``clip(round(y / delta))``.
+    ``delta`` is a number (or a 0-d tensor).  Every division is by a
+    tensor on ``x``'s device: PyTorch's CUDA division by a host scalar
+    multiplies by its reciprocal instead."""
+    xf = x.to(torch.float32)
+
+    def dev(v):
+        return torch.tensor(f32(v), dtype=torch.float32, device=xf.device)
+
+    d = dev(xf.shape[-1])
+    t = xf if rms_only else xf - _lane_sums(xf) / d
+    var = _lane_sums(t * t) / d
+    inv = dev(1.0) / torch.sqrt(var + f32(eps))
+    y = t * inv * gamma.to(torch.float32)
+    if beta is not None:
+        y = y + beta.to(torch.float32)
+    qmin, qmax = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+    return torch.clamp(torch.round(y / dev(delta)), qmin,
+                       qmax).to(torch.int8)
+
+
+def f32(v) -> float:
+    """A number (or 0-d tensor) as the f32 value a kernel receives (and the
+    reference's weak-typed constants round to)."""
+    return float(np.float32(float(v)))

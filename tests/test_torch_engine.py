@@ -172,8 +172,10 @@ def test_serve_cli_json_on_cpu_plain_backend():
     assert rep["backend"] == "torch"
     assert [s["status"] for s in rep["per_seq"]] == ["done"] * 3
     assert rep["kernel_launches"] == {"qmatmul": 0, "int_attention_fused": 0,
+                                      "int_attention": 0,
                                       "int_paged_decode_attention": 0,
-                                      "int_decode_attention": 0}
+                                      "int_decode_attention": 0,
+                                      "pq_layernorm": 0}
     d = rep["dispatch"]
     assert d["qlinear_torch"] > 0 and d["qlinear_cuda"] == 0
     assert d["attention_paged_torch"] > 0 and d["attention_torch"] > 0

@@ -204,3 +204,120 @@ def test_ring_decode_kernel_refuses_what_it_cannot_take(gen, g, d, span, err):
         ia.int_decode_attention(q, k, k, 1e-3, 1e-2, kpos, posd,
                                 bk=dispatch.decode_blocks(span, d))
     assert ia.LAUNCHES["int_decode_attention"] == before
+
+
+# (rows, d, dtype, bits, rms_only): the DeiT-S block, Qwen2.5-32B's width
+PQLN_GPU_CASES = [(2000, 384, torch.float32, 8, False),
+                  (64, 5120, torch.bfloat16, 8, True),
+                  (33, 100, torch.float32, 3, False)]
+
+
+@pytest.mark.parametrize("rows,d,dtype,bits,rms_only", PQLN_GPU_CASES)
+def test_pq_layernorm_kernel_codes_exact(gen, rows, d, dtype, bits,
+                                         rms_only):
+    from repro_torch.kernels import pq_layernorm as kpl
+    x = (torch.randn((rows, d), generator=gen, device="cuda") * 3 + 0.5) \
+        .to(dtype)
+    g = torch.rand((d,), generator=gen, device="cuda") + 0.5
+    b = None if rms_only else torch.randn((d,), generator=gen,
+                                          device="cuda") * 0.1
+    before = kpl.LAUNCHES["pq_layernorm"]
+    got = kpl.pq_layernorm(x, g, b, 0.05, bits=bits, rms_only=rms_only)
+    torch.cuda.synchronize()
+    assert kpl.LAUNCHES["pq_layernorm"] == before + 1
+    assert torch.equal(got, ref.pq_layernorm_ref(x, g, b, 0.05, bits=bits,
+                                                 rms_only=rms_only))
+
+
+# (H, Sq, Sk, D, causal, window, bq, bk): DeiT-S through ops (bq*D at the
+# accumulators' limit), a windowed causal case at D 128 whose q block of
+# 128 runs as two 64-row tiles, and D 30 padded to 32
+TWO_PASS_GPU_CASES = [(384, 198, 198, 64, False, None, 128, 128),
+                      (8, 100, 100, 128, True, 24, 128, 128),
+                      (6, 50, 50, 30, True, None, 16, 32)]
+
+
+@pytest.mark.parametrize("h,sq,sk,d,causal,window,bq,bk",
+                         TWO_PASS_GPU_CASES)
+def test_two_pass_kernel_equals_fused_and_plain(gen, h, sq, sk, d, causal,
+                                                window, bq, bk):
+    mk = lambda *shape: torch.randint(-127, 128, shape, generator=gen,
+                                      device="cuda", dtype=torch.int8)
+    q, k, v = mk(h, sq, d), mk(h, sk, d), mk(h, sk, d)
+    nq = -(-sq // bq)
+    sc = (torch.rand((h, nq), generator=gen, device="cuda") + 0.5) * 2e-4
+    vs = torch.rand((h,), generator=gen, device="cuda") + 0.5
+    kw = dict(attn_bits=7, causal=causal, window=window, bq=bq, bk=bk,
+              return_codes=True)
+    before = dict(ia.LAUNCHES)
+    two, codes = ia.int_attention(q, k, v, sc, vs, **kw)
+    one, fcodes = ia.int_attention_fused(q, k, v, sc, vs, **kw)
+    torch.cuda.synchronize()
+    assert ia.LAUNCHES["int_attention"] == before["int_attention"] + 1
+    want, wcodes = ia.int_attention_plain(q, k, v, sc, vs, **kw)
+    assert torch.equal(codes, wcodes) and torch.equal(fcodes, wcodes)
+    assert torch.equal(two, one)          # the same sums in the same order
+    assert _rel(two, want) <= 1e-5        # Sigma: f32 sum in another order
+
+
+def test_qmatmul_pads_k_exactly(gen):
+    x = torch.randint(-128, 128, (70, 130), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    w = pack_int4(torch.randint(-8, 8, (33, 130), generator=gen,
+                                device="cuda", dtype=torch.int8))
+    s = torch.rand((33,), generator=gen, device="cuda") * 1e-3
+    got = qm.qmatmul(x, w, s, packed=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.qmatmul_ref(x, w, s))
+
+
+# What no padding can fix raises from the wrapper, with the shape, and
+# never runs a plain version: a page of 6 keys (the paged kernel's int8
+# words), a key block of 6, and a head dim above the accumulators.
+def _paged_refused(g):
+    q = torch.zeros((2, 2, 3, 16), dtype=torch.int8, device="cuda")
+    pool = torch.zeros((5, 2, 6, 16), dtype=torch.int8, device="cuda")
+    pt = torch.zeros((2, 2), dtype=torch.int32, device="cuda")
+    pos = torch.zeros((2,), dtype=torch.int32, device="cuda")
+    return lambda: ia.int_paged_decode_attention(q, pool, pool, 0.1, 1.0,
+                                                 pt, pos)
+
+
+def _fused_refused(d, bk):
+    def run():
+        q = torch.zeros((2, 8, d), dtype=torch.int8, device="cuda")
+        return ia.int_attention_fused(q, q, q, 0.1, 1.0, bq=8, bk=bk)
+    return lambda g: run
+
+
+@pytest.mark.parametrize("make", [_paged_refused, _fused_refused(16, 6),
+                                  _fused_refused(8200, 8)])
+def test_kernels_refuse_what_they_cannot_take(gen, make):
+    before = dict(ia.LAUNCHES)
+    with pytest.raises(ValueError, match="D="):
+        make(gen)()
+    assert ia.LAUNCHES == before
+
+
+def test_vit_on_the_card_runs_every_kernel(gen):
+    from repro_torch.configs.deit_s import SMOKE
+    from repro_torch.core.api import QuantConfig, integerize_params
+    from repro_torch.models import vit
+    qc = QuantConfig(w_bits=4, a_bits=8, attn_bits=7, mode="int",
+                     pack_weights=True, backend="cuda")
+    cfg = SMOKE.replace(quant=qc)
+    params = integerize_params(vit.init_params(cfg, seed=0, device="cuda"),
+                               qc)
+    imgs = torch.randn((4, 32, 32, 3), generator=gen, device="cuda")
+    dispatch.reset_stats()
+    dispatch.reset_launches()
+    got = vit.forward(params, imgs, cfg)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    assert launches["qmatmul"] == 1 + 6 * cfg.n_layers
+    assert launches["int_attention_fused"] == cfg.n_layers
+    assert dispatch.STATS["qlinear_torch"] == 0
+    assert dispatch.STATS["attention_torch"] == 0
+    want = vit.forward(params, imgs, cfg.replace(
+        quant=qc.replace(backend="torch")))
+    assert _rel(got, want) <= 5e-2        # the model gate of chip_smoke.py

@@ -23,6 +23,7 @@ from repro.kernels.qmatmul import qmatmul as j_qmatmul
 from repro.layers import attention as jattn
 from repro.core.api import QuantConfig as JQuantConfig
 from repro_torch.core.api import QuantConfig
+from repro_torch.core import quant
 from repro_torch.core.quant import pack_int4
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import int_attention as ia
@@ -242,8 +243,11 @@ def test_block_choices_fit_the_card():
     assert (bq, bk) == (64, 256)
     assert dispatch.fused_smem(bq, bk, 128) <= dispatch.SMEM_BUDGET
     assert dispatch.fused_smem(64, 512, 128) > dispatch.SMEM_BUDGET
-    assert dispatch.paged_decode_blocks(16, 128, 5) == 16
-    assert dispatch.paged_decode_blocks(6, 128, 5) == 0     # not % 4
+    # one page per block, the reference's choice; a page the card's kernel
+    # cannot take (page_size % 4) is the wrapper's error, not a plain route
+    assert dispatch.paged_decode_blocks(16, 128) == 16
+    assert dispatch.paged_decode_blocks(6, 128) == 6 == \
+        jdispatch.paged_decode_blocks(6, 128)
     assert dispatch.qmatmul_blocks(4, 5120, 5120) == (16, 64, 64)
     assert dispatch.qmatmul_blocks(256, 27648, 5120) == (64, 128, 64)
     assert dispatch.chunk_len(48, 16) == jdispatch.chunk_len(48, 16) == 16
@@ -278,3 +282,80 @@ def test_cuda_tensor_never_falls_back_to_plain(monkeypatch):
     with pytest.raises(ValueError):
         qm.qmatmul(x, w, s)
     assert qm.LAUNCHES["qmatmul"] == 0
+
+
+def _policy_grid():
+    """(name, numpy inputs) for the three shape policies: K and D that are
+    2 mod 4, packed and odd-K weights, stacked weights, fresh and
+    pre-quantized (int8 and packed) q/k, ring positions, offsets, GQA
+    misfits, page sizes 6 and 16, int8 and packed pools, a page over the
+    reference's tile budget."""
+    z = lambda *s, dt=np.float32: np.zeros(s, dt)
+    lin = []
+    for k in (6, 8, 10, 7):
+        for packed in (False, True):
+            w = z(12, -(-k // 2), dt=np.uint8) if packed else \
+                z(12, k, dt=np.int8)
+            lin.append((z(3, k), w))
+            lin.append((z(2, 5, k), w))
+    lin.append((z(2, 8), z(4, 12, 8, dt=np.int8)))          # stacked
+    lin.append((z(0, 8), z(12, 8, dt=np.int8)))             # empty
+    att = []
+    for d in (6, 8, 10):
+        for kind in ("float", "q8", "k8", "k4"):
+            att.append((kind, (1, 4, 5, d), (1, 2, 5, d), None, 0))
+    att += [("float", (1, 4, 5, 8), (1, 2, 5, 8), np.arange(5), 0),
+            ("float", (1, 4, 5, 8), (1, 2, 5, 8), None, 3),
+            ("float", (1, 3, 5, 8), (1, 2, 5, 8), None, 0),
+            ("float", (1, 4, 0, 8), (1, 2, 5, 8), None, 0)]
+    paged = []
+    for ps in (6, 16):
+        for d in (10, 128):
+            paged.append((ps, d, np.int8, d))
+            paged.append((ps, d, np.uint8, d // 2))
+    paged += [(16, 128, np.uint8, 128), (32768, 128, np.int8, 128),
+              (16, 5, np.uint8, 2)]
+    return lin, att, paged
+
+
+def test_shape_policies_are_the_references():
+    """qlinear_supported, attention_supported and paged_decode_supported
+    give the reference's answer on one grid of shapes (the card's limits
+    are the wrappers' business: they pad K and D, or raise)."""
+    lin, att, paged = _policy_grid()
+    J = jnp.asarray
+    for x, w in lin:
+        assert dispatch.qlinear_supported(t(x), {"w_q": t(w)}) == \
+            jdispatch.qlinear_supported(J(x), {"w_q": J(w)}), \
+            (x.shape, w.shape, w.dtype)
+    spec_j, spec_t = jattn.AttnSpec(), tattn.AttnSpec()
+    qj = JQuantConfig(a_bits=8, attn_bits=7, mode="int")
+    qt = QuantConfig(a_bits=8, attn_bits=7, mode="int")
+    for kind, qs, ks, kpos, off in att:
+        q, k = np.zeros(qs, np.float32), np.zeros(ks, np.float32)
+        jq_, jk_, tq_, tk_ = J(q), J(k), t(q), t(k)
+        if kind == "q8":
+            jq_ = jquant.QTensor(J(q.astype(np.int8)), jnp.float32(0.1))
+            tq_ = quant.QTensor(t(q.astype(np.int8)), torch.tensor(0.1))
+        if kind in ("k8", "k4"):
+            kk = k.astype(np.int8) if kind == "k8" else \
+                np.zeros(ks[:-1] + (ks[-1] // 2,), np.uint8)
+            jk_ = jquant.QTensor(J(kk), jnp.float32(0.1), 8 if kind ==
+                                 "k8" else 4)
+            tk_ = quant.QTensor(t(kk), torch.tensor(0.1), 8 if kind ==
+                                "k8" else 4)
+        kp = None if kpos is None else (J(kpos), t(kpos))
+        assert dispatch.attention_supported(
+            tq_, tk_, spec_t, qt, off, 0, None if kp is None else kp[1]) == \
+            jdispatch.attention_supported(
+                jq_, jk_, spec_j, qj, off, 0, None if kp is None else kp[0]), \
+            (kind, qs, ks, kpos is not None, off)
+    for ps, d, dt, dk in paged:
+        q = np.zeros((2, 4, 1, d), np.float32)
+        pool = np.zeros((5, 2, ps, dk), dt)
+        pt = np.zeros((2, 3), np.int32)
+        pos = np.zeros((2,), np.int32)
+        assert dispatch.paged_decode_supported(
+            t(q), t(pool), spec_t, qt, t(pt), t(pos)) == \
+            jdispatch.paged_decode_supported(
+                J(q), J(pool), spec_j, qj, J(pt), J(pos)), (ps, d, dt, dk)
