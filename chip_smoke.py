@@ -125,24 +125,6 @@ def qmatmul_inputs(g, m, n, k, packed):
     return x, w, scale, bias, rs
 
 
-def fused_inputs(g):
-    """B=4, Hkv=8, G=5, Sq=Sk=64, D=128 folded as dispatch folds them."""
-    import torch
-    from repro_torch.kernels import dispatch
-    b, hkv, grp, s, d = 4, 8, 5, 64, 128
-    h = b * hkv
-    bq, bk = dispatch.attention_blocks(grp * s, s, d,
-                                       chunk=dispatch.chunk_len(s, 128))
-    nq = -(-(grp * s) // bq)
-    mk = lambda *shape: torch.randint(-127, 128, shape, generator=g,
-                                      device="cuda", dtype=torch.int8)
-    q, k, v = mk(h, grp * s, d), mk(h, s, d), mk(h, s, d)
-    sc = (torch.rand((h, nq), generator=g, device="cuda") + 0.5) * 1e-4
-    vs = (torch.rand((h,), generator=g, device="cuda") + 0.5) * 1e-2
-    return (q, k, v, sc, vs), dict(attn_bits=7, causal=True, bq=bq, bk=bk,
-                                   sq_mod=s)
-
-
 def paged_inputs(g, kv_bits):
     """B=4, Hkv=8, G=5, D=128, page 16, 5 pages a row, page-scaled, row 2
     inactive."""
@@ -194,7 +176,6 @@ def ring_inputs(g, kv_bits, span, pos):
 
 
 def rel_err(a, b):
-    import torch
     err = (a - b).abs().max().item()
     return err, err / max(b.abs().max().item(), 1e-30)
 
@@ -225,36 +206,54 @@ def phase_check(g):
     from repro_torch.kernels.pq_layernorm import pq_layernorm
     from repro_torch.kernels.qmatmul import qmatmul
     errs = {}
+    worst = 0.0
     for m in (4, 256):
-        bm, bn, _ = dispatch.qmatmul_blocks(m, 1, 1)
         for n, k in QMM_NK:
             for packed in (False, True):
                 args = qmatmul_inputs(g, m, n, k, packed)
-                got = qmatmul(*args, bm=bm, bn=bn, packed=packed)
+                got = qmatmul(*args, packed=packed)
                 torch.cuda.synchronize()
                 want = ref.qmatmul_ref(*args)
-                eq = torch.equal(got, want)
+                diff = (got - want).abs().max().item()
                 log(f"[check] qmatmul M={m} N={n} K={k} packed={packed}: "
-                    f"{'exact' if eq else 'MISMATCH'}")
-                if not eq:
-                    raise AssertionError(
-                        f"qmatmul differs: max abs "
-                        f"{(got - want).abs().max().item()}")
+                    f"{'exact' if diff == 0 else f'MISMATCH (max abs {diff})'}")
+                if diff != 0:
+                    raise AssertionError("qmatmul differs from its plain version")
+                worst = max(worst, diff)
                 del args, got, want
-    errs["qmatmul"] = 0.0
+    errs["qmatmul"] = worst
 
-    args, kw = fused_inputs(g)
-    out, codes = ia.int_attention_fused(*args, return_codes=True, **kw)
-    torch.cuda.synchronize()
-    want, wcodes = ia.int_attention_fused_plain(*args, return_codes=True,
-                                                **kw)
-    abs_e, rel_e = rel_err(out, want)
-    log(f"[check] fused attention bq={kw['bq']} bk={kw['bk']}: codes "
-        f"{'exact' if torch.equal(codes, wcodes) else 'MISMATCH'}, "
-        f"out max abs {abs_e:.3e} rel {rel_e:.3e} (tol rel {ATTN_RTOL})")
-    if not torch.equal(codes, wcodes) or rel_e > ATTN_RTOL:
-        raise AssertionError("fused attention differs from its plain version")
-    errs["int_attention_fused"] = abs_e
+    # the shapes dispatch gives the fused kernel on the main paths
+    for name, q_chunk in (("qwen", 128), ("deit", 256)):
+        _, sq, sk, d, _, bq, bk, sq_mod = ATTN_CASES[name]
+        blocks = dispatch.attention_blocks(
+            sq, sk, d, chunk=dispatch.chunk_len(sq_mod or sq, q_chunk))
+        if blocks != (bq, bk):
+            raise AssertionError(f"attention case {name}: dispatch picks "
+                                 f"{blocks}, the table ({bq}, {bk})")
+    fused = two = 0.0
+    for name, case in ATTN_CASES.items():
+        args, kw = attention_inputs(g, *case)
+        one, fcodes = ia.int_attention_fused(*args, return_codes=True, **kw)
+        out, codes = ia.int_attention(*args, return_codes=True, **kw)
+        torch.cuda.synchronize()
+        want, wcodes = ia.int_attention_plain(*args, return_codes=True,
+                                              **kw)
+        f_abs, f_rel = rel_err(one, want)
+        t_abs, t_rel = rel_err(out, want)
+        x_abs, x_rel = rel_err(out, one)
+        same = torch.equal(fcodes, wcodes) and torch.equal(codes, wcodes)
+        log(f"[check] attention {name} H={case[0]} Sq={case[1]} Sk={case[2]} "
+            f"D={case[3]} causal={case[4]} bq={kw['bq']} bk={kw['bk']}: "
+            f"codes of both kernels {'exact' if same else 'MISMATCH'}; "
+            f"against the plain version, fused max abs {f_abs:.3e} rel "
+            f"{f_rel:.3e}, two-pass max abs {t_abs:.3e} rel {t_rel:.3e}; "
+            f"two-pass against fused max abs {x_abs:.3e} rel {x_rel:.3e} "
+            f"(tol rel {ATTN_RTOL})")
+        if not same or max(f_rel, t_rel, x_rel) > ATTN_RTOL:
+            raise AssertionError(f"attention {name}: a kernel differs")
+        fused, two = max(fused, f_abs), max(two, t_abs)
+    errs["int_attention_fused"], errs["int_attention"] = fused, two
 
     worst = 0.0
     for kv_bits in (8, 4):
@@ -297,6 +296,7 @@ def phase_check(g):
         worst = max(worst, abs_e)
     errs["int_decode_attention"] = worst
 
+    worst = 0
     for case in PQLN_CASES:
         args, kw = pqln_inputs(g, *case)
         got = pq_layernorm(*args, **kw)
@@ -308,46 +308,8 @@ def phase_check(g):
             f"{'exact' if diff == 0 else f'MISMATCH (max step {diff})'}")
         if diff:
             raise AssertionError("pq_layernorm differs from its plain version")
-    errs["pq_layernorm"] = 0.0
-
-    worst = 0.0
-    for case in TWO_PASS_CASES:
-        args, kw = attention_inputs(g, *case)
-        two, codes = ia.int_attention(*args, return_codes=True, **kw)
-        one, fcodes = ia.int_attention_fused(*args, return_codes=True, **kw)
-        torch.cuda.synchronize()
-        want, wcodes = ia.int_attention_plain(*args, return_codes=True,
-                                              **kw)
-        abs_e, rel_e = rel_err(two, want)
-        f_abs, f_rel = rel_err(two, one)
-        same = torch.equal(codes, wcodes) and torch.equal(fcodes, wcodes)
-        log(f"[check] two-pass attention H={case[0]} Sq={case[1]} "
-            f"Sk={case[2]} D={case[3]} causal={case[4]} bq={kw['bq']} "
-            f"bk={kw['bk']}: codes {'exact' if same else 'MISMATCH'}, out "
-            f"max abs {abs_e:.3e} rel {rel_e:.3e} against the plain version, "
-            f"max abs {f_abs:.3e} rel {f_rel:.3e} against the fused kernel "
-            f"(tol rel {ATTN_RTOL})")
-        if not same or rel_e > ATTN_RTOL or f_rel > ATTN_RTOL:
-            raise AssertionError("two-pass attention differs")
-        worst = max(worst, abs_e)
-    errs["int_attention"] = worst
-
-    # the fused kernel at the shape dispatch gives it in DeiT-S
-    args, kw = attention_inputs(g, *DEIT_ATTN)
-    out, codes = ia.int_attention_fused(*args, return_codes=True, **kw)
-    torch.cuda.synchronize()
-    want, wcodes = ia.int_attention_fused_plain(*args, return_codes=True,
-                                                **kw)
-    abs_e, rel_e = rel_err(out, want)
-    same = torch.equal(codes, wcodes)
-    log(f"[check] fused attention at the DeiT-S dispatch shape H="
-        f"{DEIT_ATTN[0]} S={DEIT_ATTN[1]} D={DEIT_ATTN[3]} non-causal "
-        f"bq={kw['bq']} bk={kw['bk']}: codes "
-        f"{'exact' if same else 'MISMATCH'}, out max abs {abs_e:.3e} rel "
-        f"{rel_e:.3e} (tol rel {ATTN_RTOL})")
-    if not same or rel_e > ATTN_RTOL:
-        raise AssertionError("fused attention differs at the DeiT-S shape")
-    errs["int_attention_fused"] = max(errs["int_attention_fused"], abs_e)
+        worst = max(worst, diff)
+    errs["pq_layernorm"] = float(worst)         # in code steps
     return errs
 
 
@@ -356,12 +318,18 @@ def phase_check(g):
 PQLN_CASES = [(64 * 198, 384, "float32", 8, False, True),
               (4096, 1024, "float32", 4, False, True),
               (256, 5120, "bfloat16", 8, True, False)]
-# (H, Sq, Sk, D, causal, bq, bk, sq_mod): DeiT-S through kernels/ops.py (64
-# images x 6 heads, the reference kernel's bq = bk = 128), and the causal
-# fused check's shape (B4 x Hkv8, G 5 x 64 rows, 64 keys, D 128)
-TWO_PASS_CASES = [(384, 198, 198, 64, False, 128, 128, None),
-                  (32, 320, 64, 128, True, 64, 64, 64)]
-DEIT_ATTN = (384, 198, 198, 64, False, 33, 224, None)  # dispatch's blocks
+# (H, Sq, Sk, D, causal, bq, bk, sq_mod) of prefill attention, checked and
+# timed on both the fused and the two-pass kernel.
+ATTN_CASES = {
+    # Qwen2.5-32B prefill as dispatch folds it: B 4 x Hkv 8 head-folds,
+    # G 5 x 64 rows, 64 keys, causal; dispatch's blocks
+    "qwen": (32, 320, 64, 128, True, 64, 64, 64),
+    # DeiT-S through kernels/ops.py: 64 images x 6 heads, 198 tokens, the
+    # reference kernel's bq = bk = 128
+    "deit-ops": (384, 198, 198, 64, False, 128, 128, None),
+    # DeiT-S through dispatch: one chunk of 198 rows, bq 33, bk 224
+    "deit": (384, 198, 198, 64, False, 33, 224, None),
+}
 
 
 def pqln_inputs(g, rows, d, dtype, bits, rms_only, beta):
@@ -485,7 +453,7 @@ def phase_serve():
     tgen, _ = serve(tcfg, params, prompts, **kw)
     agree = int((tgen == gen).sum())
     log(f"[serve] greedy tokens equal between backends: {agree}/{gen.size}")
-    return stats, launches, params
+    return launches, params
 
 
 def phase_ring(params):
@@ -736,12 +704,13 @@ def phase_ops(params, imgs):
     dispatch.reset_launches()
     codes = ops.pq_layernorm_op(x, ln["gamma"], ln["beta"], delta, bits=8)
     torch.cuda.synchronize()
-    same = torch.equal(codes, ref.pq_layernorm_ref(x, ln["gamma"],
-                                                   ln["beta"], delta, bits=8))
+    want = ref.pq_layernorm_ref(x, ln["gamma"], ln["beta"], delta, bits=8)
+    pq_diff = int((codes.int() - want.int()).abs().max())
     log(f"[ops] pq_layernorm_op rows={x.shape[0]} d={x.shape[1]} delta "
         f"{delta:.4e} (8-bit, from the float LayerNorm): codes "
-        f"{'exact' if same else 'MISMATCH'} against the plain version")
-    if not same:
+        f"{'exact' if pq_diff == 0 else f'MISMATCH (max step {pq_diff})'} "
+        f"against the plain version")
+    if pq_diff:
         raise AssertionError("[ops] pq_layernorm differs")
     xq = quant.QTensor(codes, torch.tensor(delta, device="cuda"), 8)
 
@@ -796,75 +765,93 @@ def phase_ops(params, imgs):
             launches["int_attention_fused"] != 1 or \
             launches["qmatmul"] != 4 or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"[ops] launches {launches}")
-    return launches, max(errs.values())
+    return launches, {"int_attention": errs[False],
+                      "int_attention_fused": errs[True],
+                      "pq_layernorm": float(pq_diff)}
 
 
-def phase_time(g, launches, errs, stats):
+# Each kernel of the kernels line: its source and the TPU kernel it replaces.
+KERNELS = {
+    "qmatmul": ("qmatmul.cu", "qmatmul.py:119"),
+    "int_attention_fused": ("int_attention.cu", "int_attention.py:569"),
+    "int_paged_decode_attention": ("int_attention.cu", "int_attention.py:752"),
+    "int_decode_attention": ("int_attention.cu", "int_attention.py:649"),
+    "pq_layernorm": ("pq_layernorm.cu", "pq_layernorm.py:48"),
+    "int_attention": ("int_attention.cu", "int_attention.py:496"),
+}
+# qmatmul timed at every (M, N, K) of the check (one Qwen2.5-32B layer and
+# its lm_head at decode and prefill rows), then DeiT-S's linears at batch
+# 64: the patch embedding (64 x 196 rows, K 768), wq/wk/wv/wo, the MLP's up
+# and down (64 x 198 rows).
+QMM_TIMES = [(m, n, k, packed) for m in (4, 256) for n, k in QMM_NK
+             for packed in (False, True)] + \
+    [(64 * 196, 384, 768, False), (64 * 198, 384, 384, False),
+     (64 * 198, 1536, 384, False), (64 * 198, 384, 1536, False)]
+# (kv_bits, span, pos): the ring phase's shapes (64-token prompts, so the
+# last decode step reads positions 0..79) first, then full rings.
+RING_TIMES = [(8, 1024, 79), (4, 1024, 79), (8, 8192, 79),
+              (8, 4096, 4095), (8, 8192, 8191), (4, 8192, 8191)]
+# the shape of each kernel's row in the kernels line
+ROW_OF = {"qmatmul": (256, 27648, 5120, False), "int_attention_fused": "qwen",
+          "int_paged_decode_attention": 8,
+          "int_decode_attention": RING_TIMES[0],
+          "pq_layernorm": PQLN_CASES[0], "int_attention": "deit-ops"}
+
+
+def phase_time(g, launches, errs):
+    """Every kernel with CUDA events beside its bound, its plain version and
+    the nearest PyTorch call; returns the kernels line's rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import int_attention as ia
     from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels.pq_layernorm import pq_layernorm
     from repro_torch.kernels.qmatmul import qmatmul
-    rows = {}
-    for m in (4, 256):
-        bm, bn, _ = dispatch.qmatmul_blocks(m, 1, 1)
-        for n, k in QMM_NK:
-            for packed in (False, True):
-                x, w, s, b, rs = qmatmul_inputs(g, m, n, k, packed)
-                ms = cuda_ms(lambda: qmatmul(x, w, s, b, rs, bm=bm, bn=bn,
-                                             packed=packed))
-                pms = cuda_ms(lambda: ref.qmatmul_ref(x, w, s, b, rs),
-                              iters=3, warmup=1)
-                lib = None
-                if m > 16 and not packed:
-                    lib = cuda_ms(lambda: torch._int_mm(x, w.t()))
-                nbytes = x.numel() + w.numel() + 8 * n + 4 * m + 4 * m * n
-                bnd, by = bound_ms(nbytes, 2 * m * n * k)
-                log(f"[time] qmatmul M={m} N={n} K={k} packed={packed}: "
-                    f"{ms:.4f} ms, bound {bnd:.4f} ms ({by}), plain "
-                    f"{pms:.4f} ms, _int_mm "
-                    f"{'n/a' if lib is None else f'{lib:.4f} ms'}")
-                rows[(m, n, k, packed)] = (ms, pms, lib, bnd, by)
-                del x, w, s, b, rs
-    head = rows[(256, 27648, 5120, False)]
-    kernels = [{"name": "qmatmul", "route": "cuda",
-                "source": "src/repro_torch/csrc/qmatmul.cu",
-                "replaces": "src/repro/kernels/qmatmul.py:119",
-                "launches": launches["qmatmul"],
-                "max_abs_err": errs["qmatmul"], "ms": head[0],
-                "plain_ms": head[1], "bound_ms": head[3],
-                "bound_by": head[4], "library_ms": head[2]}]
+    rows = {}                    # name -> (ms, plain ms, bound, by, library)
 
-    args, kw = fused_inputs(g)
-    q, k, v, sc, vs = args
-    ms = cuda_ms(lambda: ia.int_attention_fused(*args, **kw))
-    pms = cuda_ms(lambda: ia.int_attention_fused_plain(*args, **kw),
-                  iters=3, warmup=1)
-    h, sq, d = q.shape
-    s = k.shape[1]
-    grp = sq // s
-    qb = torch.randn((4, 40, s, d), generator=g, device="cuda",
-                     dtype=torch.bfloat16)
-    kb = torch.randn((4, 8, s, d), generator=g, device="cuda",
-                     dtype=torch.bfloat16)
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qb, kb, kb, is_causal=True, enable_gqa=True))
-    nbytes = q.numel() + k.numel() + v.numel() + 4 * sc.numel() + \
-        4 * vs.numel() + 4 * h * sq * d
-    ops = 4 * d * h * grp * s * (s + 1) // 2
-    bnd, by = bound_ms(nbytes, ops)
-    log(f"[time] fused attention H={h} Sq={sq} Sk={s} D={d}: {ms:.4f} ms, "
-        f"bound {bnd:.4f} ms ({by}), plain {pms:.4f} ms, bf16 SDPA "
-        f"{lib:.4f} ms")
-    kernels.append({"name": "int_attention_fused", "route": "cuda",
-                    "source": "src/repro_torch/csrc/int_attention.cu",
-                    "replaces": "src/repro/kernels/int_attention.py:569",
-                    "launches": launches["int_attention_fused"],
-                    "max_abs_err": errs["int_attention_fused"], "ms": ms,
-                    "plain_ms": pms, "bound_ms": bnd, "bound_by": by,
-                    "library_ms": lib})
+    def keep(name, key, t):
+        if ROW_OF[name] == key:
+            rows[name] = t
 
-    paged = {}
+    for m, n, k, packed in QMM_TIMES:
+        x, w, s, b, rs = qmatmul_inputs(g, m, n, k, packed)
+        ms = cuda_ms(lambda: qmatmul(x, w, s, b, rs, packed=packed))
+        pms = cuda_ms(lambda: ref.qmatmul_ref(x, w, s, b, rs), iters=3,
+                      warmup=1)
+        lib = None
+        if m > 16 and not packed:
+            lib = cuda_ms(lambda: torch._int_mm(x, w.t()))
+        nbytes = x.numel() + w.numel() + 8 * n + 4 * m + 4 * m * n
+        bnd, by = bound_ms(nbytes, 2 * m * n * k)
+        log(f"[time] qmatmul M={m} N={n} K={k} packed={packed}: {ms:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}), plain {pms:.4f} ms, _int_mm "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}")
+        keep("qmatmul", (m, n, k, packed), (ms, pms, bnd, by, lib))
+        del x, w, s, b, rs
+
+    for name, case in ATTN_CASES.items():
+        args, kw = attention_inputs(g, *case)
+        q, k, v, sc, vs = args
+        h, sq, d = q.shape
+        sk = k.shape[1]
+        pms = cuda_ms(lambda: ia.int_attention_plain(*args, **kw), iters=3,
+                      warmup=1)
+        qpos = torch.arange(sq) % (kw["sq_mod"] or sq)
+        pairs = h * (int((torch.arange(sk)[None, :] <= qpos[:, None]).sum())
+                     if kw["causal"] else sq * sk)
+        nbytes = q.numel() + k.numel() + v.numel() + 4 * sc.numel() + \
+            4 * vs.numel() + 4 * h * sq * d
+        bnd, by = bound_ms(nbytes, 4 * d * pairs)      # QK^T and PV
+        lib = sdpa_ms(g, h, sq, sk, d, kw["causal"], kw["sq_mod"])
+        for kname, kern in (("int_attention_fused", ia.int_attention_fused),
+                            ("int_attention", ia.int_attention)):
+            ms = cuda_ms(lambda: kern(*args, **kw))
+            log(f"[time] {kname} {name} H={h} Sq={sq} Sk={sk} D={d} causal="
+                f"{kw['causal']} bq={kw['bq']} bk={kw['bk']}: {ms:.4f} ms, "
+                f"bound {bnd:.4f} ms ({by}), plain {pms:.4f} ms, bf16 SDPA "
+                f"{lib:.4f} ms")
+            keep(kname, name, (ms, pms, bnd, by, lib))
+
     for kv_bits in (8, 4):
         args, kw = paged_inputs(g, kv_bits)
         q, kp, vp, sc, vs, pt, pos = args
@@ -879,23 +866,13 @@ def phase_time(g, launches, errs, stats):
         pages = sum(-(-n // ps) for n in live)
         nbytes = hkv * pages * ps * dk * 2 + q.numel() + 4 * q.numel() + \
             4 * (2 * b + 2 * pages) + 4 * pt.numel() + 4 * b
-        ops = 4 * d * grp * hkv * sum(live)
-        bnd, by = bound_ms(nbytes, ops)
+        bnd, by = bound_ms(nbytes, 4 * d * grp * hkv * sum(live))
         lib = paged_sdpa_ms(g, q, pt, pos, ps)
         log(f"[time] paged decode kv_bits={kv_bits} B={b} live keys {live}: "
             f"{ms:.4f} ms, bound {bnd:.4f} ms ({by}), plain {pms:.4f} ms, "
             f"bf16 SDPA over the gathered pages, masked {lib:.4f} ms")
-        paged[kv_bits] = (ms, pms, bnd, by, lib)
-    ms, pms, bnd, by, lib = paged[8]
-    kernels.append({"name": "int_paged_decode_attention", "route": "cuda",
-                    "source": "src/repro_torch/csrc/int_attention.cu",
-                    "replaces": "src/repro/kernels/int_attention.py:752",
-                    "launches": launches["int_paged_decode_attention"],
-                    "max_abs_err": errs["int_paged_decode_attention"],
-                    "ms": ms, "plain_ms": pms, "bound_ms": bnd,
-                    "bound_by": by, "library_ms": lib})
+        keep("int_paged_decode_attention", kv_bits, (ms, pms, bnd, by, lib))
 
-    ring = {}
     for kv_bits, span, pos in RING_TIMES:
         args = ring_inputs(g, kv_bits, span, pos)
         q, k, v, sc, vs, kpos, posd = args
@@ -924,104 +901,41 @@ def phase_time(g, launches, errs, stats):
             f"{live_blocks}): {ms:.4f} ms, bound {bnd:.4f} ms ({by}; "
             f"{blk_bnd:.4f} ms over the whole live blocks), plain "
             f"{pms:.4f} ms, bf16 SDPA over the live keys {lib:.4f} ms")
-        ring[(kv_bits, span, pos)] = (ms, pms, bnd, by, lib)
-    ms, pms, bnd, by, lib = ring[RING_TIMES[0]]
-    kernels.append({"name": "int_decode_attention", "route": "cuda",
-                    "source": "src/repro_torch/csrc/int_attention.cu",
-                    "replaces": "src/repro/kernels/int_attention.py:649",
-                    "launches": launches["int_decode_attention"],
-                    "max_abs_err": errs["int_decode_attention"], "ms": ms,
-                    "plain_ms": pms, "bound_ms": bnd, "bound_by": by,
-                    "library_ms": lib})
-    return kernels
+        keep("int_decode_attention", (kv_bits, span, pos),
+             (ms, pms, bnd, by, lib))
 
-
-def time_slice3(g, ops_launches, errs):
-    """Kernels 5 and 6 at the check shapes, and the DeiT-S rows (qmatmul at
-    the model's linear shapes, the fused kernel at its dispatch shape)."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import int_attention as ia
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.pq_layernorm import pq_layernorm
-    from repro_torch.kernels.qmatmul import qmatmul
-    kernels = []
-    for i, case in enumerate(PQLN_CASES):
+    for case in PQLN_CASES:
         args, kw = pqln_inputs(g, *case)
         x, gamma, beta, delta = args
         ms = cuda_ms(lambda: pq_layernorm(*args, **kw))
         pms = cuda_ms(lambda: ref.pq_layernorm_ref(*args, **kw), iters=3,
                       warmup=1)
-        rows, d = x.shape
+        n_rows, d = x.shape
         if kw["rms_only"]:
             gx = gamma.to(x.dtype)
             lib = cuda_ms(lambda: F.rms_norm(x, (d,), gx, 1e-6))
         else:
             lib = cuda_ms(lambda: F.layer_norm(x, (d,), gamma, beta, 1e-6))
         # x once, gamma/beta, one byte a code; ~11 f32 operations an element
-        nbytes = x.numel() * x.element_size() + 8 * d + rows * d
-        bnd, by = bound_ms(nbytes, 11 * rows * d, PEAK_F32_OPS)
-        log(f"[time] pq_layernorm rows={rows} d={d} {x.dtype} "
+        nbytes = x.numel() * x.element_size() + 8 * d + n_rows * d
+        bnd, by = bound_ms(nbytes, 11 * n_rows * d, PEAK_F32_OPS)
+        log(f"[time] pq_layernorm rows={n_rows} d={d} {x.dtype} "
             f"bits={kw['bits']} rms_only={kw['rms_only']}: {ms:.4f} ms, "
             f"bound {bnd:.4f} ms ({by}), plain {pms:.4f} ms, "
             f"F.{'rms_norm' if kw['rms_only'] else 'layer_norm'} (LN only, "
             f"no quantizer) {lib:.4f} ms")
-        if i == 0:
-            kernels.append({
-                "name": "pq_layernorm", "route": "cuda",
-                "source": "src/repro_torch/csrc/pq_layernorm.cu",
-                "replaces": "src/repro/kernels/pq_layernorm.py:48",
-                "launches": ops_launches["pq_layernorm"],
-                "max_abs_err": errs["pq_layernorm"], "ms": ms,
-                "plain_ms": pms, "bound_ms": bnd, "bound_by": by,
-                "library_ms": lib})
-    for i, case in enumerate(TWO_PASS_CASES + [DEIT_ATTN]):
-        args, kw = attention_inputs(g, *case)
-        q, k, v, sc, vs = args
-        two = case is not DEIT_ATTN
-        kern = ia.int_attention if two else ia.int_attention_fused
-        ms = cuda_ms(lambda: kern(*args, **kw))
-        pms = cuda_ms(lambda: ia.int_attention_plain(*args, **kw), iters=3,
-                      warmup=1)
-        h, sq, d = q.shape
-        sk = k.shape[1]
-        qpos = torch.arange(sq) % (kw["sq_mod"] or sq)
-        pairs = h * (int((torch.arange(sk)[None, :] <= qpos[:, None]).sum())
-                     if kw["causal"] else sq * sk)
-        nbytes = q.numel() + k.numel() + v.numel() + 4 * sc.numel() + \
-            4 * vs.numel() + 4 * h * sq * d
-        bnd, by = bound_ms(nbytes, 4 * d * pairs)      # QK^T and PV
-        lib = sdpa_ms(g, h, sq, sk, d, kw["causal"], kw["sq_mod"])
-        log(f"[time] {'two-pass' if two else 'fused'} attention H={h} "
-            f"Sq={sq} Sk={sk} D={d} causal={kw['causal']} bq={kw['bq']} "
-            f"bk={kw['bk']}: {ms:.4f} ms, bound {bnd:.4f} ms ({by}), plain "
-            f"{pms:.4f} ms, bf16 SDPA {lib:.4f} ms")
-        if i == 0:
-            kernels.append({
-                "name": "int_attention", "route": "cuda",
-                "source": "src/repro_torch/csrc/int_attention.cu",
-                "replaces": "src/repro/kernels/int_attention.py:496",
-                "launches": ops_launches["int_attention"],
-                "max_abs_err": errs["int_attention"], "ms": ms,
-                "plain_ms": pms, "bound_ms": bnd, "bound_by": by,
-                "library_ms": lib})
-    for m, n, k in DEIT_QMM:
-        x, w, s, b, _ = qmatmul_inputs(g, m, n, k, False)
-        ms = cuda_ms(lambda: qmatmul(x, w, s, b, bm=64, bn=128))
-        pms = cuda_ms(lambda: ref.qmatmul_ref(x, w, s, b), iters=3,
-                      warmup=1)
-        lib = cuda_ms(lambda: torch._int_mm(x, w.t()))
-        bnd, by = bound_ms(x.numel() + w.numel() + 8 * n + 4 * m * n,
-                           2 * m * n * k)
-        log(f"[time] qmatmul DeiT-S M={m} N={n} K={k}: {ms:.4f} ms, bound "
-            f"{bnd:.4f} ms ({by}), plain {pms:.4f} ms, _int_mm {lib:.4f} ms")
-    return kernels
+        keep("pq_layernorm", case, (ms, pms, bnd, by, lib))
 
-
-# DeiT-S's linears at batch 64: the patch embedding (64 x 196 rows, K 768),
-# wq/wk/wv/wo, the MLP's up and down (64 x 198 rows)
-DEIT_QMM = [(64 * 196, 384, 768), (64 * 198, 384, 384),
-            (64 * 198, 1536, 384), (64 * 198, 384, 1536)]
+    line = []
+    for name, (src, replaces) in KERNELS.items():
+        ms, pms, bnd, by, lib = rows[name]
+        line.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/csrc/{src}",
+                     "replaces": f"src/repro/kernels/{replaces}",
+                     "launches": launches[name], "max_abs_err": errs[name],
+                     "ms": ms, "plain_ms": pms, "bound_ms": bnd,
+                     "bound_by": by, "library_ms": lib})
+    return line
 
 
 def sdpa_ms(g, h, sq, sk, d, causal, sq_mod):
@@ -1036,12 +950,6 @@ def sdpa_ms(g, h, sq, sk, d, causal, sq_mod):
     qb, kb, vb = mk(1, h * grp, s, d), mk(1, h, sk, d), mk(1, h, sk, d)
     return cuda_ms(lambda: F.scaled_dot_product_attention(
         qb, kb, vb, is_causal=causal, enable_gqa=grp > 1))
-
-
-# (kv_bits, span, pos): the ring phase's shapes (64-token prompts, so the
-# last decode step reads positions 0..79) first, then full rings.
-RING_TIMES = [(8, 1024, 79), (4, 1024, 79), (8, 8192, 79),
-              (8, 4096, 4095), (8, 8192, 8191), (4, 8192, 8191)]
 
 
 def ring_sdpa_ms(g, span, live):
@@ -1102,7 +1010,7 @@ def main() -> int:
         phase_build()
         g = torch.Generator(device="cuda").manual_seed(0)
         errs = phase_check(g)
-        stats, launches, params = phase_serve()
+        launches, params = phase_serve()
         ring_launches = phase_ring(params)
         launches["int_decode_attention"] = \
             ring_launches["int_decode_attention"]
@@ -1110,12 +1018,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_quickstart()
         vparams, imgs = phase_vit()
-        ops_launches, ops_err = phase_ops(vparams, imgs)
-        errs["int_attention"] = max(errs["int_attention"], ops_err)
+        ops_launches, ops_errs = phase_ops(vparams, imgs)
+        for name, err in ops_errs.items():
+            errs[name] = max(errs[name], err)
+        for name in ("pq_layernorm", "int_attention"):
+            launches[name] = ops_launches[name]
         del vparams, imgs
         torch.cuda.empty_cache()
-        kernels = phase_time(g, launches, errs, stats)
-        kernels += time_slice3(g, ops_launches, errs)
+        kernels = phase_time(g, launches, errs)
     except Exception:                 # report the failing phase, exit non-0
         traceback.print_exc()
         return 1

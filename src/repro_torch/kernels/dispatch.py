@@ -47,7 +47,7 @@ from repro_torch.kernels.int_attention import (FUSED_MAX_BQD, MAX_PROB_BITS,
                                                int_attention_fused,
                                                int_decode_attention,
                                                int_paged_decode_attention)
-from repro_torch.kernels.qmatmul import qmatmul
+from repro_torch.kernels.qmatmul import qmatmul, tile as qmatmul_tile
 
 _VALID = ("cuda", "torch")
 
@@ -141,15 +141,11 @@ def _round_up(x: int, mult: int) -> int:
 
 
 def qmatmul_blocks(m: int, n: int, k: int) -> tuple[int, int, int]:
-    """(bm, bn, bk) output tile and K slab of the qmatmul kernel.
-
-    The tile lives in registers (a 16x16 thread grid, each thread a
-    bm/16 x bn/16 int32 accumulator block) and two int8 slabs of 64 bytes
-    per row in shared memory (< 13 KB, far under the budget).  Decode
-    (M <= 16 rows) takes the 16 x 64 tile so enough blocks stream W;
-    prefill the 64 x 128 tile for operand reuse.
-    """
-    bm, bn = (16, 64) if m <= 16 else (64, 128)
+    """(bm, bn, bk) output tile and K slab of the qmatmul kernel: the
+    kernel's own :func:`repro_torch.kernels.qmatmul.tile`, and two int8
+    slabs of 64 bytes per row in shared memory (< 13 KB, far under the
+    budget)."""
+    bm, bn = qmatmul_tile(m)
     _record_blocks("qmatmul", f"m{m}_n{n}_k{k}", bm, bn, 64)
     return bm, bn, 64
 

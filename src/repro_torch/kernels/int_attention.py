@@ -133,8 +133,7 @@ int_attention_plain = int_attention_fused_plain
 
 
 def int_attention(q_q, k_q, v_q, sc, v_scale, *, attn_bits=7, causal=True,
-                  window=None, bq=128, bk=128, sq_mod=None,
-                  return_codes=False):
+                  window=None, bq, bk, sq_mod=None, return_codes=False):
     """Two-pass integer attention (the reference's baseline design), same
     contract as :func:`int_attention_fused`.
 

@@ -23,29 +23,22 @@ from repro_torch.kernels.qmatmul import qmatmul
 def qlinear_op(x: QTensor, p: QLinearParams, **kw):
     """Kernel-backed ``core.integerize.int_linear`` on a 2-D QTensor:
     ``(x.q @ w_q.T) * (w_scale * x.scale) + bias``.  Nibble-packed (uint8)
-    weights pass ``packed=True``; the output tile defaults to
-    :func:`repro_torch.kernels.dispatch.qmatmul_blocks`'."""
-    from repro_torch.kernels.dispatch import qmatmul_blocks
+    weights pass ``packed=True``."""
     scale = (p.w_scale * x.scale).to(torch.float32).contiguous()
     bias = None if p.bias is None else p.bias.to(torch.float32).contiguous()
-    if "bm" not in kw:
-        kw["bm"], kw["bn"], _ = qmatmul_blocks(x.q.shape[0], p.w_q.shape[0],
-                                               x.q.shape[1])
     return qmatmul(x.q, p.w_q, scale, bias, **kw)
 
 
 def int_attention_op(q: QTensor, k: QTensor, v: QTensor, *, softmax_scale,
                      attn_bits=7, causal=True, window=None, fused=True,
-                     **kw):
+                     bq=128, bk=128, **kw):
     """Integer attention on (H, S, D) QTensors: ``fused=True`` the
     single-pass kernel, ``fused=False`` the two-pass baseline — the same
-    output.  ``bq``/``bk`` default to the reference kernel's 128."""
+    output.  ``bq``/``bk`` are the reference kernel's defaults."""
     sc = softmax_scale * q.scale * k.scale * LOG2E
-    kw.setdefault("bq", 128)
-    kw.setdefault("bk", 128)
     kern = int_attention_fused if fused else int_attention
     return kern(q.q, k.q, v.q, sc, v.scale, attn_bits=attn_bits,
-                causal=causal, window=window, **kw)
+                causal=causal, window=window, bq=bq, bk=bk, **kw)
 
 
 def pq_layernorm_op(x, gamma, beta, delta, **kw):

@@ -26,16 +26,26 @@ from repro_torch.kernels import build, ref
 LAUNCHES = {"qmatmul": 0}
 
 
-def qmatmul(x_q, w_q, scale, bias=None, row_scale=None, *, bm=16, bn=64,
+def tile(m: int) -> tuple[int, int]:
+    """(bm, bn) output tile for M rows.  The tile lives in registers (a
+    16x16 thread grid, each thread a bm/16 x bn/16 int32 accumulator
+    block).  Decode (M <= 16 rows) takes the 16 x 64 tile so enough blocks
+    stream W; prefill the 64 x 128 tile for operand reuse."""
+    return (16, 64) if m <= 16 else (64, 128)
+
+
+def qmatmul(x_q, w_q, scale, bias=None, row_scale=None, *, bm=None, bn=None,
             packed=False):
     """x_q (M, K) int8 @ w_q (N, K) int8 -> (M, N) f32, fused epilogue.
 
     ``scale`` (N,) f32; ``row_scale`` (M,) f32 refines the input step per
     row (``scale[n] * row_scale[m]``); ``bias`` (N,) f32.  ``packed=True``
     takes w_q as (N, K/2) uint8 nibbles (low nibble = even k).  ``(bm, bn)``
-    is the output tile of :func:`repro_torch.kernels.dispatch.qmatmul_blocks`.
+    is the output tile, :func:`tile` of M unless given.
     """
     m, k = x_q.shape
+    if bm is None:
+        bm, bn = tile(m)
     n = w_q.shape[0]
     if w_q.shape[1] * (2 if packed else 1) != k:
         raise ValueError(f"qmatmul: x {tuple(x_q.shape)} vs w "
