@@ -8,15 +8,16 @@ Phases, in order; any failure exits non-zero before the result line:
 1. device: the card's name and power limit (``nvidia-smi``), the device
    name and count seen by torch;
 2. build: every ``src/repro_torch/csrc/*.cu`` with ``nvcc`` (all started at
-   once), printing ``-Xptxas -v``;
+   once), printing each kernel's registers and spills (``-Xptxas -v``);
 3. check: each kernel against its plain version on the card at main-path
    shapes — qmatmul exactly (int8 and packed bodies, M = 4 and 256, every
    (N, K) of one Qwen2.5-32B layer and its lm_head), fused attention (also
-   at the DeiT-S dispatch shape, bq 33, bk 224), paged decode and ring
-   decode (32 head-folds, G 5, kv8 and packed kv4, rings of 1024 and 8192
-   slots, partly written, wrapped and windowed) with codes exact and
-   outputs within a stated tolerance; PQ-LayerNorm codes exactly at the
-   DeiT-S block, the reference's benchmark shape and Qwen2.5-32B's width;
+   at the DeiT-S dispatch shape, bq 33, bk 224), paged decode (the serve
+   shape, and G 16 at D 256) and ring decode (32 head-folds, G 5, kv8 and
+   packed kv4, rings of 1024 and 8192 slots, partly written, wrapped and
+   windowed; G 16 at D 128 and 256, D 12) with codes exact and outputs
+   within a stated tolerance; PQ-LayerNorm codes exactly at the DeiT-S
+   block, the reference's benchmark shape and Qwen2.5-32B's width;
    two-pass attention codes exact, outputs within the tolerance of its
    plain version and of the fused kernel at the same bq / bk;
 4. serve: ``repro_torch.launch.serve.serve`` at Qwen2.5-32B widths
@@ -44,7 +45,9 @@ Phases, in order; any failure exits non-zero before the result line:
    PQ-LayerNorm -> q/k/v -> fused and two-pass attention -> wo, every
    kernel against its plain version on the same inputs;
 9. time: each kernel with CUDA events beside its bound, its plain version
-   and, where one PyTorch call computes the same function, that call.
+   and, where one PyTorch call computes the same function, that call; the
+   attention kernels also with their device time alone (``torch.profiler``),
+   since CUDA events count the host's launch overhead at small shapes.
 
 Prints a ``{"kernels": [...]}`` JSON line, then the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -100,6 +103,28 @@ def cuda_ms(fn, iters=20, warmup=3):
     return t0.elapsed_time(t1) / iters
 
 
+def device_ms(fn, calls=10):
+    """Device time of one call of ``fn`` (torch.profiler, every kernel it
+    launches), where ``cuda_ms`` also counts the host's launch overhead
+    whenever the host enqueues more slowly than the card runs.  Traced
+    twice, the larger read: a trace can miss every kernel (0.0 when both
+    did)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    totals = []
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        totals.append(sum(e.self_device_time_total
+                          for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA))
+    return max(totals) / 1e3 / calls
+
+
 def bound_ms(nbytes, ops, peak=PEAK_INT8_OPS):
     tb, to = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
@@ -125,12 +150,12 @@ def qmatmul_inputs(g, m, n, k, packed):
     return x, w, scale, bias, rs
 
 
-def paged_inputs(g, kv_bits):
-    """B=4, Hkv=8, G=5, D=128, page 16, 5 pages a row, page-scaled, row 2
-    inactive."""
+def paged_inputs(g, kv_bits, grp=5, d=128):
+    """B=4, Hkv=8, G=5, D=128 (or the given G, D), page 16, 5 pages a row,
+    page-scaled, row 2 inactive."""
     import torch
     from repro_torch.core.quant import pack_int4
-    b, hkv, grp, d, ps, maxp = 4, 8, 5, 128, 16, 5
+    b, hkv, ps, maxp = 4, 8, 16, 5
     num = b * maxp + 1                               # + trash page
     lo, hi = (-8, 8) if kv_bits == 4 else (-127, 128)
     mk = lambda *shape: torch.randint(lo, hi, shape, generator=g,
@@ -152,12 +177,13 @@ def paged_inputs(g, kv_bits):
         packed=kv_bits == 4)
 
 
-def ring_inputs(g, kv_bits, span, pos):
+def ring_inputs(g, kv_bits, span, pos, grp=5, d=128):
     """One ring decode step as dispatch folds it: B=4 x Hkv=8 head-folds,
-    G=5, D=128; the ring written up to ``pos`` (slot p % span)."""
+    G=5, D=128 (or the given G, D); the ring written up to ``pos`` (slot
+    p % span)."""
     import torch
     from repro_torch.core.quant import pack_int4
-    h, grp, d = 32, 5, 128
+    h = 32
     lo, hi = (-8, 8) if kv_bits == 4 else (-127, 128)
     mk = lambda *shape: torch.randint(lo, hi, shape, generator=g,
                                       device="cuda", dtype=torch.int8)
@@ -191,8 +217,37 @@ def phase_build():
     log(f"[build] {len(logs)} sources in {time.perf_counter() - t0:.1f}s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "ptxas" in line or "error" in line.lower():
+            if "error" in line.lower():
                 log(f"[build:{name}] {line.strip()}")
+        for kernel, regs, spills in ptxas_summary(text):
+            log(f"[build:{name}] {kernel}: {regs} registers, {spills}")
+
+
+def ptxas_summary(text):
+    """(kernel, registers, spills) for each entry function in an
+    ``-Xptxas -v`` log; the kernel as name<template arguments>."""
+    import re
+    out, kernel, spills = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            n = re.search(r"\d+([a-z_]+_kernel)(I.*?E(?=Ev))?", mangled)
+            kernel = n.group(1) if n else mangled
+            if n and n.group(2):            # template arguments, as mangled
+                args = re.findall(r"L[ib](\d+)E", n.group(2)) or \
+                    [n.group(2)[1:-1]]
+                kernel += "<" + ",".join(args) + ">"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and kernel:
+            spills = f"{m.group(1)} bytes spill stores, {m.group(2)} loads"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out.append((kernel, int(m.group(1)), spills))
+            kernel, spills = None, ""
+    return out
 
 
 QMM_NK = [(5120, 5120), (1024, 5120), (27648, 5120), (5120, 27648),
@@ -256,8 +311,8 @@ def phase_check(g):
     errs["int_attention_fused"], errs["int_attention"] = fused, two
 
     worst = 0.0
-    for kv_bits in (8, 4):
-        args, kw = paged_inputs(g, kv_bits)
+    for kv_bits, grp, d in PAGED_CHECKS:
+        args, kw = paged_inputs(g, kv_bits, grp, d)
         out, codes = ia.int_paged_decode_attention(*args, return_codes=True,
                                                    **kw)
         torch.cuda.synchronize()
@@ -268,7 +323,7 @@ def phase_check(g):
             return_codes=True)
         abs_e, rel_e = rel_err(out, want)
         same = torch.equal(codes, wcodes)
-        log(f"[check] paged decode kv_bits={kv_bits}: codes "
+        log(f"[check] paged decode kv_bits={kv_bits} G={grp} D={d}: codes "
             f"{'exact' if same else 'MISMATCH'}, out max abs {abs_e:.3e} "
             f"rel {rel_e:.3e} (tol rel {ATTN_RTOL}); inactive row max "
             f"{out[2].abs().max().item():.1e}")
@@ -278,17 +333,17 @@ def phase_check(g):
     errs["int_paged_decode_attention"] = worst
 
     worst = 0.0
-    for kv_bits, span, pos, window in RING_CHECKS:
-        args = ring_inputs(g, kv_bits, span, pos)
+    for kv_bits, span, pos, window, grp, d in RING_CHECKS:
+        args = ring_inputs(g, kv_bits, span, pos, grp, d)
         kw = dict(attn_bits=7, window=window, packed=kv_bits == 4,
-                  bk=dispatch.decode_blocks(span, 128), return_codes=True)
+                  bk=dispatch.decode_blocks(span, d), return_codes=True)
         out, codes = ia.int_decode_attention(*args, **kw)
         torch.cuda.synchronize()
         want, wcodes = ia.int_decode_attention_plain(*args, **kw)
         abs_e, rel_e = rel_err(out, want)
         same = torch.equal(codes, wcodes)
-        log(f"[check] ring decode kv_bits={kv_bits} span={span} pos={pos} "
-            f"window={window} bk={kw['bk']}: codes "
+        log(f"[check] ring decode kv_bits={kv_bits} G={grp} D={d} "
+            f"span={span} pos={pos} window={window} bk={kw['bk']}: codes "
             f"{'exact' if same else 'MISMATCH'}, out max abs {abs_e:.3e} "
             f"rel {rel_e:.3e} (tol rel {ATTN_RTOL})")
         if not same or rel_e > ATTN_RTOL:
@@ -356,14 +411,22 @@ def attention_inputs(g, h, sq, sk, d, causal, bq, bk, sq_mod):
         attn_bits=7, causal=causal, bq=bq, bk=bk, sq_mod=sq_mod)
 
 
-# (kv_bits, span, pos, window): partly written (pos < span), wrapped
+# (kv_bits, span, pos, window, G, D): partly written (pos < span), wrapped
 # (pos > span) and windowed rings of 1024 slots (bk 1024) and 8192 slots
-# (bk 4096, two blocks).
-RING_CHECKS = [(8, 1024, 79, None), (4, 1024, 79, None),
-               (8, 1024, 5000, None), (4, 1024, 5000, None),
-               (8, 8192, 79, None), (4, 8192, 79, None),
-               (8, 8192, 20000, None), (4, 8192, 20000, None),
-               (8, 8192, 9000, 3000), (4, 1024, 3000, 200)]
+# (bk 4096, two blocks) at the main path's G 5, D 128; then the widths the
+# ring kernel refused before it was split across the card: chatglm3-6b's
+# G 16 at D 128 over the full ring, RecurrentGemma-9B's local layers (G 16,
+# D 256), and D 12 (byte loads).
+RING_CHECKS = [(8, 1024, 79, None, 5, 128), (4, 1024, 79, None, 5, 128),
+               (8, 1024, 5000, None, 5, 128), (4, 1024, 5000, None, 5, 128),
+               (8, 8192, 79, None, 5, 128), (4, 8192, 79, None, 5, 128),
+               (8, 8192, 20000, None, 5, 128), (4, 8192, 20000, None, 5, 128),
+               (8, 8192, 9000, 3000, 5, 128), (4, 1024, 3000, 200, 5, 128),
+               (8, 8192, 20000, None, 16, 128), (4, 8192, 9000, 3000, 16, 128),
+               (8, 2048, 5000, None, 16, 256), (8, 1024, 3000, None, 5, 12)]
+# (kv_bits, G, D): the serve path's shape, then G 16 at D 256 (the f32
+# output carries in shared memory)
+PAGED_CHECKS = [(8, 5, 128), (4, 5, 128), (8, 16, 256), (4, 16, 256)]
 
 
 def model_config(backend):
@@ -787,13 +850,16 @@ QMM_TIMES = [(m, n, k, packed) for m in (4, 256) for n, k in QMM_NK
              for packed in (False, True)] + \
     [(64 * 196, 384, 768, False), (64 * 198, 384, 384, False),
      (64 * 198, 1536, 384, False), (64 * 198, 384, 1536, False)]
-# (kv_bits, span, pos): the ring phase's shapes (64-token prompts, so the
-# last decode step reads positions 0..79) first, then full rings.
-RING_TIMES = [(8, 1024, 79), (4, 1024, 79), (8, 8192, 79),
-              (8, 4096, 4095), (8, 8192, 8191), (4, 8192, 8191)]
+# (kv_bits, span, pos, G, D): the ring phase's shapes (64-token prompts, so
+# the last decode step reads positions 0..79) first, then full rings, then
+# a full ring at chatglm3-6b's G 16.
+RING_TIMES = [(8, 1024, 79, 5, 128), (4, 1024, 79, 5, 128),
+              (8, 8192, 79, 5, 128), (8, 4096, 4095, 5, 128),
+              (8, 8192, 8191, 5, 128), (4, 8192, 8191, 5, 128),
+              (8, 8192, 8191, 16, 128)]
 # the shape of each kernel's row in the kernels line
 ROW_OF = {"qmatmul": (256, 27648, 5120, False), "int_attention_fused": "qwen",
-          "int_paged_decode_attention": 8,
+          "int_paged_decode_attention": PAGED_CHECKS[0],
           "int_decode_attention": RING_TIMES[0],
           "pq_layernorm": PQLN_CASES[0], "int_attention": "deit-ops"}
 
@@ -846,16 +912,18 @@ def phase_time(g, launches, errs):
         for kname, kern in (("int_attention_fused", ia.int_attention_fused),
                             ("int_attention", ia.int_attention)):
             ms = cuda_ms(lambda: kern(*args, **kw))
+            dms = device_ms(lambda: kern(*args, **kw))
             log(f"[time] {kname} {name} H={h} Sq={sq} Sk={sk} D={d} causal="
-                f"{kw['causal']} bq={kw['bq']} bk={kw['bk']}: {ms:.4f} ms, "
-                f"bound {bnd:.4f} ms ({by}), plain {pms:.4f} ms, bf16 SDPA "
-                f"{lib:.4f} ms")
+                f"{kw['causal']} bq={kw['bq']} bk={kw['bk']}: {ms:.4f} ms "
+                f"(device {dms:.4f} ms), bound {bnd:.4f} ms ({by}), plain "
+                f"{pms:.4f} ms, bf16 SDPA {lib:.4f} ms")
             keep(kname, name, (ms, pms, bnd, by, lib))
 
-    for kv_bits in (8, 4):
-        args, kw = paged_inputs(g, kv_bits)
+    for kv_bits, grp, d in PAGED_CHECKS:
+        args, kw = paged_inputs(g, kv_bits, grp, d)
         q, kp, vp, sc, vs, pt, pos = args
         ms = cuda_ms(lambda: ia.int_paged_decode_attention(*args, **kw))
+        dms = device_ms(lambda: ia.int_paged_decode_attention(*args, **kw))
         pms = cuda_ms(lambda: ref.int_paged_decode_attention_ref(
             q, kp, vp, sc, vs, pt, pos, attn_bits=7, bk=kp.shape[2],
             k_page_scale=kw["k_page_scale"],
@@ -868,17 +936,20 @@ def phase_time(g, launches, errs):
             4 * (2 * b + 2 * pages) + 4 * pt.numel() + 4 * b
         bnd, by = bound_ms(nbytes, 4 * d * grp * hkv * sum(live))
         lib = paged_sdpa_ms(g, q, pt, pos, ps)
-        log(f"[time] paged decode kv_bits={kv_bits} B={b} live keys {live}: "
-            f"{ms:.4f} ms, bound {bnd:.4f} ms ({by}), plain {pms:.4f} ms, "
-            f"bf16 SDPA over the gathered pages, masked {lib:.4f} ms")
-        keep("int_paged_decode_attention", kv_bits, (ms, pms, bnd, by, lib))
+        log(f"[time] paged decode kv_bits={kv_bits} B={b} G={grp} D={d} "
+            f"live keys {live}: {ms:.4f} ms (device {dms:.4f} ms), bound "
+            f"{bnd:.4f} ms ({by}), plain {pms:.4f} ms, bf16 SDPA over the "
+            f"gathered pages, masked {lib:.4f} ms")
+        keep("int_paged_decode_attention", (kv_bits, grp, d),
+             (ms, pms, bnd, by, lib))
 
-    for kv_bits, span, pos in RING_TIMES:
-        args = ring_inputs(g, kv_bits, span, pos)
+    for kv_bits, span, pos, grp, d in RING_TIMES:
+        args = ring_inputs(g, kv_bits, span, pos, grp, d)
         q, k, v, sc, vs, kpos, posd = args
         kw = dict(attn_bits=7, packed=kv_bits == 4,
-                  bk=dispatch.decode_blocks(span, 128))
+                  bk=dispatch.decode_blocks(span, d))
         ms = cuda_ms(lambda: ia.int_decode_attention(*args, **kw))
+        dms = device_ms(lambda: ia.int_decode_attention(*args, **kw))
         pms = cuda_ms(lambda: ia.int_decode_attention_plain(*args, **kw),
                       iters=3, warmup=1)
         h, grp, d = q.shape
@@ -895,13 +966,14 @@ def phase_time(g, launches, errs):
         bnd, by = bound_ms(nbytes, ops)
         blk_bnd, _ = bound_ms(nbytes + 2 * h * (live_blocks * bk - n_live)
                               * dk, ops)
-        lib = ring_sdpa_ms(g, span, live)
+        lib = ring_sdpa_ms(g, live, grp, d)
         log(f"[time] ring decode kv_bits={kv_bits} H={h} G={grp} D={d} "
             f"span={span} bk={bk} pos={pos} (live keys {n_live}, live blocks "
-            f"{live_blocks}): {ms:.4f} ms, bound {bnd:.4f} ms ({by}; "
+            f"{live_blocks}): {ms:.4f} ms (device {dms:.4f} ms), bound "
+            f"{bnd:.4f} ms ({by}; "
             f"{blk_bnd:.4f} ms over the whole live blocks), plain "
             f"{pms:.4f} ms, bf16 SDPA over the live keys {lib:.4f} ms")
-        keep("int_decode_attention", (kv_bits, span, pos),
+        keep("int_decode_attention", (kv_bits, span, pos, grp, d),
              (ms, pms, bnd, by, lib))
 
     for case in PQLN_CASES:
@@ -952,17 +1024,17 @@ def sdpa_ms(g, h, sq, sk, d, causal, sq_mod):
         qb, kb, vb, is_causal=causal, enable_gqa=grp > 1))
 
 
-def ring_sdpa_ms(g, span, live):
+def ring_sdpa_ms(g, live, grp, d):
     """Yardstick the port never calls: one bf16 SDPA over the ring's live
-    keys, dequantized and gathered (B=4, 40 query heads on 8 kv heads)."""
+    keys, dequantized and gathered (B=4, 8 kv heads, G query heads each)."""
     import torch
     import torch.nn.functional as F
     n = int(live.sum())
-    qb = torch.randn((4, 40, 1, 128), generator=g, device="cuda",
+    qb = torch.randn((4, 8 * grp, 1, d), generator=g, device="cuda",
                      dtype=torch.bfloat16)
-    kb = torch.randn((4, 8, n, 128), generator=g, device="cuda",
+    kb = torch.randn((4, 8, n, d), generator=g, device="cuda",
                      dtype=torch.bfloat16)
-    vb = torch.randn((4, 8, n, 128), generator=g, device="cuda",
+    vb = torch.randn((4, 8, n, d), generator=g, device="cuda",
                      dtype=torch.bfloat16)
     return cuda_ms(lambda: F.scaled_dot_product_attention(
         qb, kb, vb, enable_gqa=True))

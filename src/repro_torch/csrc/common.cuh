@@ -40,11 +40,16 @@ __device__ __forceinline__ int unpack4(unsigned b2) {
 }
 
 // (1 + r) * 2^floor(x): the paper's shift exponential, as
-// repro_torch.core.softmax2.exp2_shift builds it.
+// repro_torch.core.softmax2.exp2_shift builds it.  A normal result is the
+// exponent field of 1 + r moved by floor(x), which is what ldexpf returns;
+// below 2^-126 ldexpf itself gives the exact denormal (or 0).
 __device__ __forceinline__ float exp2_shift(float x) {
   const float f = floorf(x);
-  const float r = __fsub_rn(x, f);
-  return ldexpf(__fadd_rn(1.0f, r), static_cast<int>(f));
+  const float m = __fadd_rn(1.0f, __fsub_rn(x, f));
+  const int fi = static_cast<int>(f);
+  return fi >= -126 && fi <= 126
+             ? __int_as_float(__float_as_int(m) + fi * (1 << 23))
+             : ldexpf(m, fi);
 }
 
 // Exact 2^(m_old - m_new) carry rescale; 0 before the first live block.

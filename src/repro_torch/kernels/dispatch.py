@@ -42,8 +42,7 @@ from repro_torch.core.softmax2 import LOG2E
 from repro_torch.kernels import int_attention as _attn_mod
 from repro_torch.kernels import pq_layernorm as _pqln_mod
 from repro_torch.kernels import qmatmul as _qmm_mod
-from repro_torch.kernels.int_attention import (FUSED_MAX_BQD, MAX_PROB_BITS,
-                                               SMEM_BUDGET, fused_smem,
+from repro_torch.kernels.int_attention import (MAX_PROB_BITS, SMEM_BUDGET,
                                                int_attention_fused,
                                                int_decode_attention,
                                                int_paged_decode_attention)
@@ -125,7 +124,7 @@ def resolve_backend(cfg) -> str:
 
 # ---------------------------------------------------------------------------
 # Block choices for the H100 (the kernels' own limits live in their modules:
-# ``int_attention.FUSED_MAX_BQD``, ``fused_smem``, ``SMEM_BUDGET``)
+# ``int_attention.attention_plan``, ``ring_plan``, ``SMEM_BUDGET``)
 # ---------------------------------------------------------------------------
 
 # The reference's tile budget (TPU VMEM) and lane width.  ``bk`` of the
@@ -150,31 +149,40 @@ def qmatmul_blocks(m: int, n: int, k: int) -> tuple[int, int, int]:
     return bm, bn, 64
 
 
+def block_rule_bytes(bq: int, bk: int, d: int) -> int:
+    """The byte count that fixes the prefill blocks (the first fused
+    kernel's tiles: q, k and transposed v words, f32 logits, code words,
+    three row vectors).  ``bk`` is semantics, so the rule stays as it was
+    set; the kernel's own tiles (``int_attention.attention_plan``) fit
+    every choice it makes."""
+    qs, ps = d // 4 + 1, bk // 4 + 1
+    return 4 * (bq * qs + bk * qs + d * ps + bq * bk + bq * ps + 3 * bq)
+
+
 def attention_blocks(sq: int, sk: int, d: int, *,
                      window: Optional[int] = None,
                      chunk: Optional[int] = None) -> tuple[int, int]:
     """(bq, bk) for the fused attention kernel.
 
-    ``bq * d <= FUSED_MAX_BQD`` (the output accumulators a block keeps in
-    registers), at most 64 rows.  ``bk`` prefers covering the whole key
-    row (then the online grid equals the full-row grid of the plain
-    ``torch`` path) up to 512 keys, and halves until the tiles fit the
-    card's shared memory (256 keys at d = 128).  Narrow local windows over
-    long keys cap ``bk`` near the ``bq + window`` live span.  ``chunk``
-    caps ``bq`` to a divisor of the query-recalibration chunk so one q
-    tile never straddles two activation grids.  The kernel's limits are
-    taken at ``d`` rounded up to int8 words, as the wrapper pads it.
+    ``bq * d <= 8192``, at most 64 rows.  ``bk`` prefers covering the whole
+    key row (then the online grid equals the full-row grid of the plain
+    ``torch`` path) up to 512 keys, and halves until
+    :func:`block_rule_bytes` is within the card's shared memory (256 keys at
+    d = 128).  Narrow local windows over long keys cap ``bk`` near the
+    ``bq + window`` live span.  ``chunk`` caps ``bq`` to a divisor of the
+    query-recalibration chunk so one scale tile never straddles two
+    activation grids.  ``d`` is taken rounded up to int8 words.
     """
     dw = _round_up(d, 4)
-    bq = min(_round_up(sq, 16), 64, max(1, FUSED_MAX_BQD // dw))
+    bq = min(_round_up(sq, 16), 64, max(1, 8192 // dw))
     narrow = window is not None and sk > 2 * window
     cap = 512
     if narrow:
         cap = min(cap, _round_up(bq + window, 32))
     bk = min(_round_up(sk, 32), cap)
-    while fused_smem(bq, bk, dw) > SMEM_BUDGET and bk > 32:
+    while block_rule_bytes(bq, bk, dw) > SMEM_BUDGET and bk > 32:
         bk = max(32, _round_up(bk // 2, 32))
-    while fused_smem(bq, bk, dw) > SMEM_BUDGET and bq > 16:
+    while block_rule_bytes(bq, bk, dw) > SMEM_BUDGET and bq > 16:
         bq //= 2
     if chunk is not None:
         bq = next(x for x in range(min(bq, chunk), 0, -1) if chunk % x == 0)
@@ -268,8 +276,8 @@ def attention_supported(q, k, spec, cfg, q_offset, k_offset,
     """Shape policy for the fused (prefill) attention kernel, the
     reference's: keys from position 0 (ring caches go to the decode
     kernel or the plain path), base-2 softmax, <= 8-bit prob codes, no
-    nibble-packed q/k.  A D the kernel's int8 words do not divide is padded
-    by the wrapper."""
+    nibble-packed q/k.  A D that is not a multiple of 16 is padded by the
+    wrapper."""
     if cfg.attn_bits > MAX_PROB_BITS:
         return False
     if getattr(cfg, "softmax", "base2") != "base2":
@@ -293,8 +301,9 @@ def _is_packed(x) -> bool:
 def decode_supported(q, k, spec, cfg, k_positions) -> bool:
     """Shape policy for the ring decode kernel, the reference's: Sq == 1
     (the G GQA groups become the kernel's rows), one shared (span,) slot ->
-    position map, int4 only as nibble pairs.  A shape the card's kernel
-    cannot take is not sent to the plain path: its wrapper raises."""
+    position map, int4 only as nibble pairs.  The kernel takes any G and D
+    this accepts at the reference's ``bk``; a shape it could not take would
+    raise in its wrapper, never reach the plain path."""
     if cfg.attn_bits > MAX_PROB_BITS:
         return False
     if getattr(cfg, "softmax", "base2") != "base2":

@@ -7,13 +7,15 @@ power-of-two Sigma grid, PV carries rescaled by exact powers of two):
 
 - :func:`int_attention_fused` replaces the Pallas TPU kernel
   ``repro/kernels/int_attention.py::int_attention_fused`` (``:522``): the
-  prompt-prefill kernel.  One CUDA block per (head-fold, query block)
-  loops over its own live key tiles (the TPU walked them as a sequential
-  grid axis through a scalar-prefetched block map).  ``bk`` is part of the
+  prompt-prefill kernel.  One CUDA block per (head-fold, tile of query
+  rows) loops over its own live key blocks (the TPU walked them as a
+  sequential grid axis through a scalar-prefetched block map), with QK^T
+  and PV on the int8 tensor cores (``mma.sync``).  ``bk`` is part of the
   semantics: codes are quantized against the running max one key block at
   a time, so the plain version runs at the same ``bk``
-  (:func:`repro_torch.kernels.ref.int_attention_ref_streamed`).  Bound:
-  int8 operations.
+  (:func:`repro_torch.kernels.ref.int_attention_ref_streamed`).  ``bq``
+  is not: it only says which scale each row takes, and the kernel's row
+  tile is its own (:func:`attention_plan`).  Bound: int8 operations.
 - :func:`int_attention` replaces the two-pass baseline
   ``repro/kernels/int_attention.py::int_attention`` (``:469``, calls at
   ``:496`` and ``:506``): a Sigma pass, then a PV pass that recomputes the
@@ -29,11 +31,14 @@ power-of-two Sigma grid, PV carries rescaled by exact powers of two):
 - :func:`int_decode_attention` replaces
   ``repro/kernels/int_attention.py::int_decode_attention`` (``:582``,
   ``pl.pallas_call`` at ``:649``): every decode step over the ring KV
-  cache.  One block per head-fold walks the ring's ``bk``-blocks in slot
-  order, decides from ``k_positions`` and the device-resident ``pos``
-  which hold a live key, and skips the rest (the TPU's scalar-prefetched
-  live-block map).  Plain version: :func:`int_decode_attention_plain`, the
-  ring oracle at the same ``bk``.  Bound: the live KV bytes.
+  cache.  The ring is split into chunks of up to 256 keys across the card
+  (:func:`ring_plan`), in three launches: chunk logits and maxima, then
+  each live chunk's codes, Sigma and int32 PV against its ``bk`` block's
+  running max, then a merge of the chunks block by block in slot order.
+  Chunks without a live key (from ``k_positions`` and the device-resident
+  ``pos``) read nothing, as the TPU's live-block map skipped them.  Plain
+  version: :func:`int_decode_attention_plain`, the ring oracle at the same
+  ``bk``.  Bound: the live KV bytes.
 
 Each wrapper runs its kernel on CUDA tensors and its plain version on CPU
 tensors, and nowhere else.  ``return_codes`` also returns the prob codes,
@@ -42,6 +47,7 @@ which is how the kernels are held against the plain versions exactly.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -51,41 +57,116 @@ from repro_torch.kernels import build, ref
 
 MAX_PROB_BITS = 8
 # What the kernels take, stated here and in the C launchers' error returns
-# (``csrc/int_attention.cu``); dispatch picks its blocks from these.
+# (``csrc/int_attention.cu``); dispatch picks its blocks independently.
 SMEM_BUDGET = 232_448     # dynamic shared memory a block may use (227 KB)
-FUSED_MAX_BQD = 8192      # fused / two-pass: bq * D output accumulators
-PAGED_MAX_GD = 2048       # paged decode: G * D output accumulators a block
-RING_MAX_GD = 2048        # ring decode: G * D output accumulators a block
 # Kernel launches (one per wrapper call that launches, bumped nowhere else).
 LAUNCHES = {"int_attention_fused": 0, "int_attention": 0,
             "int_paged_decode_attention": 0, "int_decode_attention": 0}
 
 
-def fused_smem(bq: int, bk: int, d: int) -> int:
-    """Dynamic shared memory of the fused and two-pass kernels (bytes): q
-    and k tiles, transposed v tile, f32 logits, u8 codes (word-padded
-    rows), and three f32 row vectors."""
-    qs, ps = d // 4 + 1, bk // 4 + 1
-    return 4 * (bq * qs + bk * qs + d * ps + bq * bk + bq * ps + 3 * bq)
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _launch(name: str, n_ptr: int, n_int: int, what: str, *args) -> None:
+    """Call the C launch function ``name`` of ``csrc/int_attention.cu``
+    (argument types, set once: ``n_ptr`` pointers, ``n_int`` ints, qmax and
+    2/qmax, the stream) and raise with ``what`` if it returns an error."""
+    lib = build.load("int_attention")
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
+            [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    build.check(lib, fn(*args), what)
+
+
+def attention_smem(bm: int, kt: int, bk: int, d: int) -> int:
+    """Dynamic shared memory of the fused and two-pass kernels (bytes;
+    ``AttnLayout`` in the source) for a tile of ``bm`` query rows, key
+    sub-tiles of ``kt`` keys, key block ``bk`` and head dim ``d`` (a
+    multiple of 16): the q tile, two sub-tile buffers and the transposed v
+    sub-tile at 16-byte-skewed strides, the block's f32 logits and u8
+    codes, and five row vectors."""
+    dp, bkp = _round_up(d, 32), _round_up(bk, 32)
+    return (bm * (dp + 16) + 2 * kt * (dp + 16) + dp * (kt + 16)
+            + 4 * bm * (bkp + 8) + bm * (bkp + 16) + 20 * bm)
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plan(bk: int, d: int):
+    """(bm, kt) of the fused and two-pass kernels at key block ``bk`` and
+    head dim ``d`` (a multiple of 16), or None when no tile fits: the
+    tallest row tile (64, 32, 16) with at most 8 PV column pairs a warp
+    (256 threads as bm/16 row warps by 128/bm column warps) and key
+    sub-tiles of up to 128 keys within shared memory.  Neither is
+    semantics: each row keeps its own scale and position."""
+    bkp = _round_up(bk, 32)
+    for bm in (64, 32, 16):
+        if -(-(_round_up(d, 32) // 16) // (128 // bm)) > 8:
+            continue
+        for kt in (min(bkp, 128), 64, 32):
+            if kt <= bkp and attention_smem(bm, kt, bk, d) <= SMEM_BUDGET:
+                return bm, kt
+    return None
 
 
 def paged_smem(g: int, page_size: int, d: int) -> int:
-    """Dynamic shared memory of the paged decode kernel (bytes)."""
-    qs, ps = d // 4 + 1, page_size // 4 + 1
-    return 4 * (g * qs + page_size * qs + d * ps + g * page_size + g * ps
-                + 3 * g)
+    """Dynamic shared memory of the paged decode kernel (bytes): q and key
+    words, transposed values and codes in words (zero-padded to whole
+    words), f32 logits, three row vectors; above G * D = 2048 the f32
+    output carries move from registers into it."""
+    dw = -(-d // 4)
+    qs, ps = dw + 1, -(-page_size // 4) + 1
+    accs = g * d if g * d > 2048 else 0
+    return 4 * (g * qs + page_size * qs + 4 * dw * ps + g * page_size
+                + g * ps + 3 * g + accs)
+
+
+def ring_smem(g: int, chunk: int, ds: int) -> int:
+    """Dynamic shared memory of the ring decode kernels (bytes): the larger
+    of the logits pass (q slice, key rows, int32 logits, warp maxima) and
+    the PV pass (m, codes, e, transposed value slice) for ``g`` query rows,
+    chunks of ``chunk`` keys and D-slices of ``ds`` values."""
+    dsw, pw = ds // 4, chunk // 4 + 1
+    logits = 4 * (g * dsw + chunk * (dsw + 1) + g * chunk + chunk // 32 * g)
+    pv = 4 * (g + g * pw + g * chunk + ds * pw)
+    return max(logits, pv)
+
+
+@functools.lru_cache(maxsize=None)
+def ring_plan(g: int, d: int, bk: int):
+    """(chunk, ds) of the ring decode kernels, or None when nothing fits:
+    the largest chunk of 256, 128, 64 or 32 keys dividing ``bk`` (a chunk
+    never straddles two key blocks) and D-slices of up to 256 values, within
+    shared memory."""
+    ds = min(_round_up(d, 16), 256)
+    for chunk in (256, 128, 64, 32):
+        if bk % chunk == 0 and ring_smem(g, chunk, ds) <= SMEM_BUDGET:
+            return chunk, ds
+    return None
+
+
+def _on(x, dtype, shape, device):
+    """``x`` (a number or a tensor that broadcasts to ``shape``) as a
+    contiguous ``dtype`` tensor of ``shape`` on ``device``; a tensor that
+    already is one is returned as it is (this runs on every launch)."""
+    if isinstance(x, torch.Tensor) and x.dtype == dtype and \
+            x.device == device and x.shape == shape and x.is_contiguous():
+        return x
+    x = torch.as_tensor(x, dtype=dtype, device=device)
+    if len(shape) == 1:
+        x = x.reshape(-1)
+    elif x.ndim == 1:
+        x = x[None, :]
+    return x.expand(shape).contiguous()
 
 
 def grid_scales(sc, v_scale, h, nq, device):
     """Broadcast the epilogue scales to their grid shapes: ``sc`` (scalar,
     (nq,) or (h, nq)) -> (h, nq) f32; ``v_scale`` (scalar or (h,)) -> (h,)."""
-    sc = torch.as_tensor(sc, dtype=torch.float32, device=device)
-    if sc.ndim == 1:
-        sc = sc[None, :]
-    sc = sc.expand(h, nq).contiguous()
-    vs = torch.as_tensor(v_scale, dtype=torch.float32,
-                         device=device).reshape(-1).expand(h).contiguous()
-    return sc, vs
+    return (_on(sc, torch.float32, (h, nq), device),
+            _on(v_scale, torch.float32, (h,), device))
 
 
 def int_attention_fused_plain(q_q, k_q, v_q, sc, v_scale, *, attn_bits=7,
@@ -161,74 +242,53 @@ def int_attention(q_q, k_q, v_q, sc, v_scale, *, attn_bits=7, causal=True,
     return (out, codes) if return_codes else out
 
 
-def _tile_rows(bq: int, d: int) -> int:
-    """Rows of one kernel tile for a requested q block of ``bq`` rows at
-    head dim ``d`` (already a multiple of 4): the largest divisor of ``bq``
-    with ``rows * d <= FUSED_MAX_BQD``.  ``bq`` is not semantics — each
-    kernel tile takes its q block's scale — so a block too tall for the
-    kernel's accumulators runs as several tiles; 0 when even one row is
-    too wide (D > FUSED_MAX_BQD)."""
-    return next((x for x in range(min(bq, FUSED_MAX_BQD // d), 0, -1)
-                 if bq % x == 0), 0)
-
-
 def _launch_prefill(name, q_q, k_q, v_q, sc, v_scale, attn_bits, causal,
                     window, bq, bk, sq_mod, return_codes):
     """Launch the fused kernel, or the two passes, on CUDA tensors.
 
-    Handled exactly here: D not a multiple of 4 is padded with zero codes
+    Handled exactly here: D not a multiple of 16 is padded with zero codes
     (exact for the int32 dot products; the padded output columns are
-    dropped) and a q block taller than the accumulators allow runs as
-    several kernel tiles.  What remains that the kernel cannot take
-    (``bk % 4``, D > FUSED_MAX_BQD, tiles over shared memory) raises."""
+    dropped).  What remains that the kernel cannot take (a head dim or key
+    block whose tiles exceed shared memory) raises with the shape."""
     h, sq, d = q_q.shape
     sk = k_q.shape[1]
     nq = -(-sq // bq)
     sc2, vs = grid_scales(sc, v_scale, h, nq, q_q.device)
+    d16 = _round_up(d, 16)
     for nm, t, shape in (("q_q", q_q, (h, sq, d)), ("k_q", k_q, (h, sk, d)),
                          ("v_q", v_q, (h, sk, d))):
-        _check(t, torch.int8, shape, nm)
-    d4 = -(-d // 4) * 4
-    rows = _tile_rows(bq, d4)
-    smem = fused_smem(rows, bk, d4) if rows else 0
-    if bk % 4 or not rows or smem > SMEM_BUDGET:
+        # 16-byte rows for cp.async; padded operands are fresh copies
+        _check(t, torch.int8, shape, nm, 16 if d16 == d else 1)
+    plan = attention_plan(bk, d16) if bk > 0 else None
+    if plan is None:
         raise ValueError(
-            f"{name} kernel: needs bk % 4 == 0, D <= {FUSED_MAX_BQD} and "
-            f"tiles within {SMEM_BUDGET} bytes of shared memory (H={h}, "
-            f"Sq={sq}, Sk={sk}, D={d}, bq={bq}, bk={bk}: {smem} bytes)")
-    if d4 != d:
-        pad = (0, d4 - d)
+            f"{name} kernel: no tile of its rows fits {SMEM_BUDGET} bytes of "
+            f"shared memory (H={h}, Sq={sq}, Sk={sk}, D={d}, bq={bq}, "
+            f"bk={bk})")
+    bm, kt = plan
+    if d16 != d:
+        pad = (0, d16 - d)
         q_q, k_q, v_q = (F.pad(t, pad) for t in (q_q, k_q, v_q))
-    if rows != bq:
-        nk_t = -(-sq // rows)
-        sc2 = torch.repeat_interleave(sc2, bq // rows,
-                                      dim=1)[:, :nk_t].contiguous()
     qmax = (1 << attn_bits) - 1
-    out = torch.empty((h, sq, d4), dtype=torch.float32, device=q_q.device)
+    out = torch.empty((h, sq, d16), dtype=torch.float32, device=q_q.device)
     codes = torch.zeros((h, sq, sk), dtype=torch.uint8, device=q_q.device) \
         if return_codes else None
-    lib = build.load("int_attention")
     ptrs = [q_q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), sc2.data_ptr(),
             vs.data_ptr(), out.data_ptr(),
             None if codes is None else codes.data_ptr()]
-    tail = [h, sq, sk, d4, rows, bk, sq_mod or sq, int(causal),
-            -1 if window is None else int(window), float(qmax),
+    tail = [h, sq, sk, d16, bq, bk, sq_mod or sq, int(causal),
+            -1 if window is None else int(window), bm, kt, float(qmax),
             ref.f32(2.0 / qmax), build.stream_ptr(q_q)]
+    what = (f"{name} (H={h}, Sq={sq}, Sk={sk}, D={d}, bq={bq}, bk={bk}, "
+            f"{bm}-row tiles)")
     if name == "int_attention":
-        sums = torch.empty((h, sc2.shape[1] * rows), dtype=torch.float32,
-                           device=q_q.device)
-        fn = lib.two_pass_attention_launch
-        ptrs.append(sums.data_ptr())
+        sums = torch.empty((h, sq), dtype=torch.float32, device=q_q.device)
+        _launch("two_pass_attention_launch", 8, 11, what, *ptrs,
+                sums.data_ptr(), *tail)
     else:
-        fn = lib.fused_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 9 + \
-        [ctypes.c_float] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(*ptrs, *tail)
-    build.check(lib, rc, f"{name} (H={h}, Sq={sq}, Sk={sk}, D={d}, "
-                         f"bq={bq} as {rows}-row tiles, bk={bk})")
+        _launch("fused_attention_launch", 7, 11, what, *ptrs, *tail)
     LAUNCHES[name] += 1
-    if d4 != d:
+    if d16 != d:
         out = out[..., :d].contiguous()
     return out, codes
 
@@ -258,10 +318,8 @@ def int_paged_decode_attention(q_q, k_pages, v_pages, sc, v_scale,
         raise ValueError(f"paged decode: q {tuple(q_q.shape)} vs pools "
                          f"{tuple(k_pages.shape)} (packed={packed})")
     dev = q_q.device
-    sc = torch.as_tensor(sc, dtype=torch.float32, device=dev).reshape(-1)
-    sc = sc.expand(b).contiguous()
-    vs = torch.as_tensor(v_scale, dtype=torch.float32,
-                         device=dev).reshape(-1).expand(b).contiguous()
+    sc = _on(sc, torch.float32, (b,), dev)
+    vs = _on(v_scale, torch.float32, (b,), dev)
     if dev.type == "cpu":
         return ref.int_paged_decode_attention_ref(
             q_q, k_pages, v_pages, sc, vs, page_table, pos,
@@ -279,31 +337,25 @@ def int_paged_decode_attention(q_q, k_pages, v_pages, sc, v_scale,
         _check(k_page_scale, torch.float32, (num_phys,), "k_page_scale")
         _check(v_page_scale, torch.float32, (num_phys,), "v_page_scale")
     smem = paged_smem(g, ps, d)
-    if d % 4 or ps % 4 or g * d > PAGED_MAX_GD or smem > SMEM_BUDGET:
-        raise ValueError(f"paged decode kernel: needs D % 4 == 0, "
-                         f"page_size % 4 == 0, G * D <= {PAGED_MAX_GD} and "
-                         f"a page within {SMEM_BUDGET} bytes of shared "
-                         f"memory (D={d}, page_size={ps}, G={g}: {smem} "
-                         f"bytes)")
+    if smem > SMEM_BUDGET:
+        raise ValueError(f"paged decode kernel: needs a page within "
+                         f"{SMEM_BUDGET} bytes of shared memory (D={d}, "
+                         f"page_size={ps}, G={g}: {smem} bytes)")
     qmax = (1 << attn_bits) - 1
     out = torch.empty((b, hkv, g, d), dtype=torch.float32, device=dev)
     codes = torch.zeros((b, hkv, g, maxp * ps), dtype=torch.uint8,
                         device=dev) if return_codes else None
-    lib = build.load("int_attention")
-    fn = lib.paged_decode_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + \
-        [ctypes.c_float] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(q_q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            sc.data_ptr(), vs.data_ptr(),
-            None if k_page_scale is None else k_page_scale.data_ptr(),
-            None if v_page_scale is None else v_page_scale.data_ptr(),
-            page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            None if codes is None else codes.data_ptr(),
-            b, hkv, g, d, ps, maxp, num_phys,
-            -1 if window is None else int(window), int(packed), float(qmax),
-            ref.f32(2.0 / qmax), build.stream_ptr(q_q))
-    build.check(lib, rc, "int_paged_decode_attention")
+    _launch(
+        "paged_decode_launch", 11, 9, "int_paged_decode_attention",
+        q_q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        sc.data_ptr(), vs.data_ptr(),
+        None if k_page_scale is None else k_page_scale.data_ptr(),
+        None if v_page_scale is None else v_page_scale.data_ptr(),
+        page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        None if codes is None else codes.data_ptr(),
+        b, hkv, g, d, ps, maxp, num_phys,
+        -1 if window is None else int(window), int(packed), float(qmax),
+        ref.f32(2.0 / qmax), build.stream_ptr(q_q))
     LAUNCHES["int_paged_decode_attention"] += 1
     return (out, codes) if return_codes else out
 
@@ -347,47 +399,52 @@ def int_decode_attention(q_q, k_q, v_q, sc, v_scale, k_positions, pos, *,
             attn_bits=attn_bits, causal=causal, window=window, bk=bk,
             packed=packed, return_codes=return_codes)
     dev = q_q.device
-    sc = torch.as_tensor(sc, dtype=torch.float32, device=dev).reshape(-1)
-    sc = sc.expand(h).contiguous()
-    vs = torch.as_tensor(v_scale, dtype=torch.float32,
-                         device=dev).reshape(-1).expand(h).contiguous()
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).reshape(1)
+    sc = _on(sc, torch.float32, (h,), dev)
+    vs = _on(v_scale, torch.float32, (h,), dev)
+    pos = _on(pos, torch.int32, (1,), dev)
     _check(q_q, torch.int8, (h, g, d), "q_q")
     ring_dt = torch.uint8 if packed else torch.int8
     _check(k_q, ring_dt, (h, span, dk), "k_q")
     _check(v_q, ring_dt, (h, span, dk), "v_q")
     _check(k_positions, torch.int32, (span,), "k_positions")
     _check(pos, torch.int32, (1,), "pos")
-    if d % 8 or bk % 128 or g * d > RING_MAX_GD:
-        raise ValueError(f"ring decode kernel: needs D % 8 == 0, "
-                         f"bk % 128 == 0, G * D <= {RING_MAX_GD} (D={d}, "
-                         f"bk={bk}, G={g})")
+    plan = ring_plan(g, d, bk) if bk > 0 else None
+    if plan is None:
+        raise ValueError(f"ring decode kernel: needs bk % 32 == 0 and a "
+                         f"chunk within {SMEM_BUDGET} bytes of shared memory "
+                         f"(H={h}, G={g}, D={d}, span={span}, bk={bk})")
+    chunk, ds = plan
+    nch = -(-span // chunk)
     qmax = (1 << attn_bits) - 1
     out = torch.empty((h, g, d), dtype=torch.float32, device=dev)
     codes = torch.zeros((h, g, span), dtype=torch.uint8, device=dev) \
         if return_codes else None
-    lib = build.load("int_attention")
-    fn = lib.ring_decode_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + \
-        [ctypes.c_float] * 2 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(q_q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(),
-            k_positions.data_ptr(), pos.data_ptr(), sc.data_ptr(),
-            vs.data_ptr(), out.data_ptr(),
-            None if codes is None else codes.data_ptr(),
-            h, g, d, span, bk, int(causal),
-            -1 if window is None else int(window), int(packed), float(qmax),
-            ref.f32(2.0 / qmax), build.stream_ptr(q_q))
-    build.check(lib, rc, "int_decode_attention")
+    # one scratch buffer of 4-byte words: the logits xs (H, G, span) f32,
+    # chunk maxima and Sigma partials (H, nch, G) f32, int32 PV partials
+    # (H, nch, G, D)
+    n_x, n_c = h * g * span, h * nch * g
+    scratch = torch.empty((n_x + 2 * n_c + n_c * d,), dtype=torch.int32,
+                          device=dev)
+    base = scratch.data_ptr()
+    _launch(
+        "ring_decode_launch", 13, 10, "int_decode_attention",
+        q_q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(),
+        k_positions.data_ptr(), pos.data_ptr(), sc.data_ptr(),
+        vs.data_ptr(), out.data_ptr(),
+        None if codes is None else codes.data_ptr(), base,
+        base + 4 * n_x, base + 4 * (n_x + n_c), base + 4 * (n_x + 2 * n_c),
+        h, g, d, span, bk, chunk, ds, int(causal),
+        -1 if window is None else int(window), int(packed), float(qmax),
+        ref.f32(2.0 / qmax), build.stream_ptr(q_q))
     LAUNCHES["int_decode_attention"] += 1
     return (out, codes) if return_codes else out
 
 
-def _check(t, dtype, shape, name):
+def _check(t, dtype, shape, name, align=4):
     if t.device.type != "cuda" or t.dtype != dtype or \
             tuple(t.shape) != tuple(shape) or not t.is_contiguous() or \
-            t.data_ptr() % 4:
+            t.data_ptr() % align:
         raise ValueError(f"int attention: {name} must be a contiguous, "
-                         f"4-byte aligned CUDA {dtype} tensor of shape "
+                         f"{align}-byte aligned CUDA {dtype} tensor of shape "
                          f"{shape}; got {t.dtype} {tuple(t.shape)} on "
                          f"{t.device}")

@@ -71,9 +71,16 @@ def test_fused_attention_kernel_codes_exact(gen, sq, sk, window, bits):
     assert _rel(out, want) <= 1e-5        # Sigma: f32 sum in another order
 
 
-@pytest.mark.parametrize("kv_bits", [8, 4])
-def test_paged_decode_kernel_codes_exact(gen, kv_bits):
-    b, hkv, g, d, ps, maxp = 5, 8, 5, 128, 16, 6
+# (kv_bits, G, D, page size): the Qwen serve shape (f32 carries in
+# registers), RecurrentGemma-9B's local layers, G 16 at D 256 (carries in
+# shared memory), and pages of 6 and 10 keys at D 12 and 20 (rows and code
+# words that are not whole int8 words)
+@pytest.mark.parametrize("kv_bits,g,d,ps", [(8, 5, 128, 16), (4, 5, 128, 16),
+                                            (8, 16, 256, 16),
+                                            (4, 16, 256, 16), (8, 3, 12, 6),
+                                            (4, 3, 12, 6), (8, 4, 20, 10)])
+def test_paged_decode_kernel_codes_exact(gen, kv_bits, g, d, ps):
+    b, hkv, maxp = 5, 8, 6
     num = b * maxp + 1
     lo, hi = (-8, 8) if kv_bits == 4 else (-127, 128)
     mk = lambda *shape: torch.randint(lo, hi, shape, generator=gen,
@@ -86,12 +93,13 @@ def test_paged_decode_kernel_codes_exact(gen, kv_bits):
     pt = torch.randperm(b * maxp, generator=gen, device="cuda") \
         .reshape(b, maxp).to(torch.int32)
     pt[1, 4:] = -1
-    pos = torch.tensor([95, 50, -1, 0, 17], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([95, 50, -1, 0, 17], dtype=torch.int32,
+                       device="cuda") * ps // 16
     sc = torch.rand((b,), generator=gen, device="cuda") * 1e-2
     vs = torch.ones((b,), device="cuda")
     kps = torch.rand((num,), generator=gen, device="cuda") + 0.5
     vps = torch.rand((num,), generator=gen, device="cuda") * 1e-2
-    for window in (None, 40):
+    for window in (None, 40 * ps // 16):
         out, codes = ia.int_paged_decode_attention(
             q, kp, vp, sc, vs, pt, pos, k_page_scale=kps, v_page_scale=vps,
             window=window, packed=kv_bits == 4, return_codes=True)
@@ -134,9 +142,7 @@ RING_GPU_CASES = [(8, 1024, 100, None), (4, 1024, 100, None),
                   (8, 1024, 3000, 200)]
 
 
-@pytest.mark.parametrize("kv_bits,span,pos,window", RING_GPU_CASES)
-def test_ring_decode_kernel_codes_exact(gen, kv_bits, span, pos, window):
-    h, g, d = 32, 5, 128
+def _ring_case(gen, h, g, d, kv_bits, span, pos):
     lo, hi = (-8, 8) if kv_bits == 4 else (-127, 128)
     mk = lambda *shape: torch.randint(lo, hi, shape, generator=gen,
                                       device="cuda", dtype=torch.int8)
@@ -151,16 +157,25 @@ def test_ring_decode_kernel_codes_exact(gen, kv_bits, span, pos, window):
     sc = (torch.rand((h,), generator=gen, device="cuda") + 0.5) * 1e-3
     vs = (torch.rand((h,), generator=gen, device="cuda") + 0.5) * 1e-2
     posd = torch.tensor([pos], dtype=torch.int32, device="cuda")
-    kw = dict(attn_bits=7, window=window, bk=dispatch.decode_blocks(span, d),
-              packed=kv_bits == 4, return_codes=True)
+    return q, k, v, sc, vs, kpos, posd
+
+
+def _ring_exact(args, **kw):
     before = ia.LAUNCHES["int_decode_attention"]
-    out, codes = ia.int_decode_attention(q, k, v, sc, vs, kpos, posd, **kw)
+    out, codes = ia.int_decode_attention(*args, return_codes=True, **kw)
     torch.cuda.synchronize()
     assert ia.LAUNCHES["int_decode_attention"] == before + 1
-    want, wcodes = ia.int_decode_attention_plain(q, k, v, sc, vs, kpos, posd,
+    want, wcodes = ia.int_decode_attention_plain(*args, return_codes=True,
                                                  **kw)
     assert torch.equal(codes, wcodes)
     assert _rel(out, want) <= 1e-5        # Sigma: f32 sum in another order
+
+
+@pytest.mark.parametrize("kv_bits,span,pos,window", RING_GPU_CASES)
+def test_ring_decode_kernel_codes_exact(gen, kv_bits, span, pos, window):
+    args = _ring_case(gen, 32, 5, 128, kv_bits, span, pos)
+    _ring_exact(args, attn_bits=7, window=window,
+                bk=dispatch.decode_blocks(span, 128), packed=kv_bits == 4)
 
 
 def test_ring_generation_on_the_card_runs_the_ring_kernel(gen):
@@ -185,14 +200,35 @@ def test_ring_generation_on_the_card_runs_the_ring_kernel(gen):
     assert int(cache["pos"]) == 18 and bool(torch.isfinite(logits).all())
 
 
-# (G, D, span): D not a multiple of 8 (the wrapper's check), and G = 11 at
-# bk 4096, whose logits exceed shared memory (the launcher's error)
-RING_REFUSED_CASES = [(5, 12, 1024, ValueError),
-                      (11, 128, 8192, RuntimeError)]
+# (G, D, span, kv_bits, pos, window): the shapes the ring kernel refused
+# before it was split across the card, now code-exact at the reference's
+# bk — G 11 and 16 (chatglm3-6b) at D 128 over two 4096-key blocks, G 16 at
+# D 256 (RecurrentGemma-9B's local layers), D 12 (byte loads, and nibbles
+# at an odd word count), an 8-bit grid and a window
+RING_WIDE_CASES = [(11, 128, 8192, 8, 20000, None),
+                   (16, 128, 8192, 8, 8191, None),
+                   (16, 128, 8192, 4, 9000, 3000),
+                   (16, 256, 2048, 8, 5000, None),
+                   (16, 256, 2048, 4, 1500, None),
+                   (5, 12, 1024, 8, 3000, None),
+                   (5, 12, 1024, 4, 700, 200)]
 
 
-@pytest.mark.parametrize("g,d,span,err", RING_REFUSED_CASES)
-def test_ring_decode_kernel_refuses_what_it_cannot_take(gen, g, d, span, err):
+@pytest.mark.parametrize("g,d,span,kv_bits,pos,window", RING_WIDE_CASES)
+def test_ring_decode_kernel_takes_every_supported_shape(gen, g, d, span,
+                                                        kv_bits, pos, window):
+    args = _ring_case(gen, 4, g, d, kv_bits, span, pos)
+    _ring_exact(args, attn_bits=8 if d == 12 else 7, window=window,
+                bk=dispatch.decode_blocks(span, d), packed=kv_bits == 4)
+
+
+# (G, D, span, bk): a key block no chunk divides, and G query rows whose
+# logits exceed shared memory at any chunk
+RING_REFUSED_CASES = [(5, 128, 1024, 100), (4000, 16, 256, 256)]
+
+
+@pytest.mark.parametrize("g,d,span,bk", RING_REFUSED_CASES)
+def test_ring_decode_kernel_refuses_what_it_cannot_take(gen, g, d, span, bk):
     h, pos = 2, 100
     q = torch.zeros((h, g, d), dtype=torch.int8, device="cuda")
     k = torch.zeros((h, span, d), dtype=torch.int8, device="cuda")
@@ -200,9 +236,8 @@ def test_ring_decode_kernel_refuses_what_it_cannot_take(gen, g, d, span, err):
     kpos[:pos] = torch.arange(pos, dtype=torch.int32, device="cuda")
     posd = torch.tensor([pos - 1], dtype=torch.int32, device="cuda")
     before = ia.LAUNCHES["int_decode_attention"]
-    with pytest.raises(err):
-        ia.int_decode_attention(q, k, k, 1e-3, 1e-2, kpos, posd,
-                                bk=dispatch.decode_blocks(span, d))
+    with pytest.raises(ValueError, match="D="):
+        ia.int_decode_attention(q, k, k, 1e-3, 1e-2, kpos, posd, bk=bk)
     assert ia.LAUNCHES["int_decode_attention"] == before
 
 
@@ -229,25 +264,35 @@ def test_pq_layernorm_kernel_codes_exact(gen, rows, d, dtype, bits,
                                                  rms_only=rms_only))
 
 
-# (H, Sq, Sk, D, causal, window, bq, bk): DeiT-S through ops (bq*D at the
-# accumulators' limit), a windowed causal case at D 128 whose q block of
-# 128 runs as two 64-row tiles, and D 30 padded to 32
-TWO_PASS_GPU_CASES = [(384, 198, 198, 64, False, None, 128, 128),
-                      (8, 100, 100, 128, True, 24, 128, 128),
-                      (6, 50, 50, 30, True, None, 16, 32)]
+# (H, Sq, Sk, D, causal, window, bq, bk, attn_bits): DeiT-S through ops, a
+# windowed causal case at D 128, D 30 padded to 32, and cases for the
+# tensor-core tiles: bq 1, 17, 33, 64 and 128 against the kernel's own row
+# tiles, D 12 (padded to 16), 64 and 128, key blocks that are not a
+# multiple of 32 (40, 100), two and three key blocks, 64-row tiles that do
+# not fit beside a 256-key block (32-row tiles), and 2-, 7- and 8-bit
+# grids (8-bit codes above 127 go through the u8 x s8 products)
+TWO_PASS_GPU_CASES = [(384, 198, 198, 64, False, None, 128, 128, 7),
+                      (8, 100, 100, 128, True, 24, 128, 128, 7),
+                      (6, 50, 50, 30, True, None, 16, 32, 7),
+                      (4, 100, 100, 64, True, None, 1, 64, 7),
+                      (4, 70, 90, 12, True, 24, 17, 40, 2),
+                      (6, 198, 198, 64, False, None, 33, 224, 8),
+                      (3, 300, 300, 128, True, None, 64, 256, 8),
+                      (5, 130, 130, 12, False, None, 64, 100, 8),
+                      (2, 96, 96, 128, False, 40, 128, 32, 2)]
 
 
-@pytest.mark.parametrize("h,sq,sk,d,causal,window,bq,bk",
+@pytest.mark.parametrize("h,sq,sk,d,causal,window,bq,bk,bits",
                          TWO_PASS_GPU_CASES)
 def test_two_pass_kernel_equals_fused_and_plain(gen, h, sq, sk, d, causal,
-                                                window, bq, bk):
+                                                window, bq, bk, bits):
     mk = lambda *shape: torch.randint(-127, 128, shape, generator=gen,
                                       device="cuda", dtype=torch.int8)
     q, k, v = mk(h, sq, d), mk(h, sk, d), mk(h, sk, d)
     nq = -(-sq // bq)
     sc = (torch.rand((h, nq), generator=gen, device="cuda") + 0.5) * 2e-4
     vs = torch.rand((h,), generator=gen, device="cuda") + 0.5
-    kw = dict(attn_bits=7, causal=causal, window=window, bq=bq, bk=bk,
+    kw = dict(attn_bits=bits, causal=causal, window=window, bq=bq, bk=bk,
               return_codes=True)
     before = dict(ia.LAUNCHES)
     two, codes = ia.int_attention(q, k, v, sc, vs, **kw)
@@ -256,6 +301,8 @@ def test_two_pass_kernel_equals_fused_and_plain(gen, h, sq, sk, d, causal,
     assert ia.LAUNCHES["int_attention"] == before["int_attention"] + 1
     want, wcodes = ia.int_attention_plain(q, k, v, sc, vs, **kw)
     assert torch.equal(codes, wcodes) and torch.equal(fcodes, wcodes)
+    if bits == 8:     # each row's top key codes >= 128: the u8 operand
+        assert int(wcodes.max()) >= 128
     assert torch.equal(two, one)          # the same sums in the same order
     assert _rel(two, want) <= 1e-5        # Sigma: f32 sum in another order
 
@@ -272,11 +319,12 @@ def test_qmatmul_pads_k_exactly(gen):
 
 
 # What no padding can fix raises from the wrapper, with the shape, and
-# never runs a plain version: a page of 6 keys (the paged kernel's int8
-# words), a key block of 6, and a head dim above the accumulators.
+# never runs a plain version: a page of 8192 keys (over shared memory), a
+# key block whose logits exceed shared memory at any row tile, and a head
+# dim above the PV column pairs a warp can hold.
 def _paged_refused(g):
     q = torch.zeros((2, 2, 3, 16), dtype=torch.int8, device="cuda")
-    pool = torch.zeros((5, 2, 6, 16), dtype=torch.int8, device="cuda")
+    pool = torch.zeros((5, 2, 8192, 16), dtype=torch.int8, device="cuda")
     pt = torch.zeros((2, 2), dtype=torch.int32, device="cuda")
     pos = torch.zeros((2,), dtype=torch.int32, device="cuda")
     return lambda: ia.int_paged_decode_attention(q, pool, pool, 0.1, 1.0,
@@ -290,7 +338,7 @@ def _fused_refused(d, bk):
     return lambda g: run
 
 
-@pytest.mark.parametrize("make", [_paged_refused, _fused_refused(16, 6),
+@pytest.mark.parametrize("make", [_paged_refused, _fused_refused(16, 8192),
                                   _fused_refused(8200, 8)])
 def test_kernels_refuse_what_they_cannot_take(gen, make):
     before = dict(ia.LAUNCHES)

@@ -241,10 +241,41 @@ def test_block_choices_fit_the_card():
     assert dispatch.attention_blocks(5 * 64, 64, 128, chunk=64) == (64, 64)
     bq, bk = dispatch.attention_blocks(5 * 1024, 1024, 128, chunk=128)
     assert (bq, bk) == (64, 256)
-    assert dispatch.fused_smem(bq, bk, 128) <= dispatch.SMEM_BUDGET
-    assert dispatch.fused_smem(64, 512, 128) > dispatch.SMEM_BUDGET
-    # one page per block, the reference's choice; a page the card's kernel
-    # cannot take (page_size % 4) is the wrapper's error, not a plain route
+    assert dispatch.block_rule_bytes(bq, bk, 128) <= dispatch.SMEM_BUDGET
+    assert dispatch.block_rule_bytes(64, 512, 128) > dispatch.SMEM_BUDGET
+    # the kernel's own tiles fit every block choice the rule makes: head
+    # dims padded to 16, key rows up to 4096, windows, recalibration chunks
+    for d in (12, 16, 30, 64, 80, 128, 256):
+        for sq, sk in ((1, 1), (198, 198), (320, 64), (5 * 1024, 1024),
+                       (64, 4096), (4096, 4096)):
+            for window in (None, 100):
+                for chunk in (None, 64):
+                    _, bk = dispatch.attention_blocks(sq, sk, d, window=window,
+                                                      chunk=chunk)
+                    d16 = -(-d // 16) * 16
+                    bm, kt = ia.attention_plan(bk, d16)
+                    assert ia.attention_smem(bm, kt, bk, d16) <= \
+                        ia.SMEM_BUDGET, (d, sq, sk, window, chunk)
+    # DeiT-S through dispatch keeps 64-row tiles and 128-key sub-tiles
+    assert ia.attention_plan(224, 64) == (64, 128)
+    # ring decode at the reference's bk, every registry width up to G 16
+    # (chatglm3-6b, RecurrentGemma-9B's local layers) and beyond
+    for g in (1, 4, 5, 7, 8, 11, 16, 64):
+        for d in (12, 64, 80, 128, 256, 1024):
+            for span in (1, 80, 1024, 2560, 4097, 8192, 32768):
+                bk = dispatch.decode_blocks(span, d)
+                chunk, ds = ia.ring_plan(g, d, bk)
+                assert bk % chunk == 0 and ds % 16 == 0
+                assert ia.ring_smem(g, chunk, ds) <= ia.SMEM_BUDGET
+    assert ia.ring_plan(5, 128, 4096) == (256, 128)
+    # paged decode: the serve shape keeps its register carries; G 16 at
+    # D 256 carries in shared memory, within the budget
+    assert ia.paged_smem(5, 16, 128) == 5812
+    assert ia.paged_smem(16, 16, 256) == 14976 + 4 * 16 * 256 <= \
+        ia.SMEM_BUDGET
+    # one page per block, the reference's choice, any page size (a page
+    # over the card's shared memory is the wrapper's error, not a plain
+    # route)
     assert dispatch.paged_decode_blocks(16, 128) == 16
     assert dispatch.paged_decode_blocks(6, 128) == 6 == \
         jdispatch.paged_decode_blocks(6, 128)
