@@ -10,8 +10,11 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build: every ``src/repro_torch/csrc/*.cu`` with ``nvcc`` (all started at
    once), printing each kernel's registers and spills (``-Xptxas -v``);
 3. check: each kernel against its plain version on the card at main-path
-   shapes — qmatmul exactly (int8 and packed bodies, M = 4 and 256, every
-   (N, K) of one Qwen2.5-32B layer and its lm_head), fused attention (also
+   shapes — qmatmul exactly, each row with its plan (the dp4a body at
+   M = 4, the tensor-core body at M = 256 — every (N, K) of one
+   Qwen2.5-32B layer and its lm_head, three of them splitting K — at
+   DeiT-S's four shapes, and at M 17 and 129, N 300, K 1028; int8 and
+   packed), fused attention (also
    at the DeiT-S dispatch shape, bq 33, bk 224), paged decode (the serve
    shape, and G 16 at D 256) and ring decode (32 head-folds, G 5, kv8 and
    packed kv4, rings of 1024 and 8192 slots, partly written, wrapped and
@@ -45,9 +48,11 @@ Phases, in order; any failure exits non-zero before the result line:
    PQ-LayerNorm -> q/k/v -> fused and two-pass attention -> wo, every
    kernel against its plain version on the same inputs;
 9. time: each kernel with CUDA events beside its bound, its plain version
-   and, where one PyTorch call computes the same function, that call; the
-   attention kernels also with their device time alone (``torch.profiler``),
-   since CUDA events count the host's launch overhead at small shapes.
+   and, where one PyTorch call computes the same function, that call
+   (``torch._int_mm`` for qmatmul, over x zero-padded to 32 rows at decode
+   rows); qmatmul and the attention kernels also with their device time
+   alone (``torch.profiler``), since CUDA events count the host's launch
+   overhead at small shapes.
 
 Prints a ``{"kernels": [...]}`` JSON line, then the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -252,6 +257,18 @@ def ptxas_summary(text):
 
 QMM_NK = [(5120, 5120), (1024, 5120), (27648, 5120), (5120, 27648),
           (152064, 5120)]
+# DeiT-S's linears at batch 64: the patch embedding (64 x 196 rows, K 768),
+# wq/wk/wv/wo, the MLP's up and down (64 x 198 rows)
+QMM_DEIT = [(64 * 196, 384, 768), (64 * 198, 384, 384),
+            (64 * 198, 1536, 384), (64 * 198, 384, 1536)]
+# qmatmul checked at decode and prefill rows of every Qwen2.5-32B (N, K)
+# (at 256 rows three of them split K), DeiT-S's shapes, and rows, columns
+# and K off the tiles (K 1028 is padded to 16 or 32); int8 and packed
+QMM_CHECKS = [(m, n, k, packed) for m in (4, 256) for n, k in QMM_NK
+              for packed in (False, True)] + \
+    [(m, n, k, packed) for m, n, k in QMM_DEIT + [(17, 300, 1028),
+                                                  (129, 300, 1028)]
+     for packed in (False, True)]
 
 
 def phase_check(g):
@@ -262,20 +279,22 @@ def phase_check(g):
     from repro_torch.kernels.qmatmul import qmatmul
     errs = {}
     worst = 0.0
-    for m in (4, 256):
-        for n, k in QMM_NK:
-            for packed in (False, True):
-                args = qmatmul_inputs(g, m, n, k, packed)
-                got = qmatmul(*args, packed=packed)
-                torch.cuda.synchronize()
-                want = ref.qmatmul_ref(*args)
-                diff = (got - want).abs().max().item()
-                log(f"[check] qmatmul M={m} N={n} K={k} packed={packed}: "
-                    f"{'exact' if diff == 0 else f'MISMATCH (max abs {diff})'}")
-                if diff != 0:
-                    raise AssertionError("qmatmul differs from its plain version")
-                worst = max(worst, diff)
-                del args, got, want
+    for m, n, k, packed in QMM_CHECKS:
+        args = qmatmul_inputs(g, m, n, k, packed)
+        blocks = dispatch.qmatmul_blocks(m, n, k)
+        got = qmatmul(*args, blocks=blocks, packed=packed)
+        torch.cuda.synchronize()
+        want = ref.qmatmul_ref(*args)
+        diff = (got - want).abs().max().item()
+        log(f"[check] qmatmul M={m} N={n} K={k} packed={packed} plan "
+            f"{blocks}: "
+            f"{'exact' if diff == 0 else f'MISMATCH (max abs {diff})'}")
+        if diff != 0:
+            raise AssertionError("qmatmul differs from its plain version")
+        if blocks[0] != ("dp4a" if m <= 16 else "mma"):
+            raise AssertionError(f"qmatmul plan {blocks} at M={m}")
+        worst = max(worst, diff)
+        del args, got, want
     errs["qmatmul"] = worst
 
     # the shapes dispatch gives the fused kernel on the main paths
@@ -842,14 +861,12 @@ KERNELS = {
     "pq_layernorm": ("pq_layernorm.cu", "pq_layernorm.py:48"),
     "int_attention": ("int_attention.cu", "int_attention.py:496"),
 }
-# qmatmul timed at every (M, N, K) of the check (one Qwen2.5-32B layer and
-# its lm_head at decode and prefill rows), then DeiT-S's linears at batch
-# 64: the patch embedding (64 x 196 rows, K 768), wq/wk/wv/wo, the MLP's up
-# and down (64 x 198 rows).
+# qmatmul timed at every (M, N, K) of one Qwen2.5-32B layer and its
+# lm_head at decode and prefill rows, int8 and packed, then DeiT-S's
+# linears (int8, as the model runs them)
 QMM_TIMES = [(m, n, k, packed) for m in (4, 256) for n, k in QMM_NK
              for packed in (False, True)] + \
-    [(64 * 196, 384, 768, False), (64 * 198, 384, 384, False),
-     (64 * 198, 1536, 384, False), (64 * 198, 384, 1536, False)]
+    [(m, n, k, False) for m, n, k in QMM_DEIT]
 # (kv_bits, span, pos, G, D): the ring phase's shapes (64-token prompts, so
 # the last decode step reads positions 0..79) first, then full rings, then
 # a full ring at chatglm3-6b's G 16.
@@ -869,6 +886,7 @@ def phase_time(g, launches, errs):
     the nearest PyTorch call; returns the kernels line's rows."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.core.quant import unpack_int4
     from repro_torch.kernels import int_attention as ia
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels.pq_layernorm import pq_layernorm
@@ -881,17 +899,27 @@ def phase_time(g, launches, errs):
 
     for m, n, k, packed in QMM_TIMES:
         x, w, s, b, rs = qmatmul_inputs(g, m, n, k, packed)
-        ms = cuda_ms(lambda: qmatmul(x, w, s, b, rs, packed=packed))
+        blocks = dispatch.qmatmul_blocks(m, n, k)
+        call = lambda: qmatmul(x, w, s, b, rs, blocks=blocks, packed=packed)
+        ms = cuda_ms(call)
+        dms = device_ms(call)
         pms = cuda_ms(lambda: ref.qmatmul_ref(x, w, s, b, rs), iters=3,
                       warmup=1)
-        lib = None
-        if m > 16 and not packed:
-            lib = cuda_ms(lambda: torch._int_mm(x, w.t()))
+        # Yardstick the port never calls: torch._int_mm (int8 x int8 ->
+        # int32, no epilogue) on the same codes (W unpacked when packed);
+        # it takes M > 16 only, so decode rows time it over x zero-padded
+        # to 32 rows.
+        xi = F.pad(x, (0, 0, 0, 32 - m)) if m <= 16 else x
+        wi = unpack_int4(w) if packed else w
+        lib = cuda_ms(lambda: torch._int_mm(xi, wi.t()))
+        del wi
         nbytes = x.numel() + w.numel() + 8 * n + 4 * m + 4 * m * n
         bnd, by = bound_ms(nbytes, 2 * m * n * k)
-        log(f"[time] qmatmul M={m} N={n} K={k} packed={packed}: {ms:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by}), plain {pms:.4f} ms, _int_mm "
-            f"{'n/a' if lib is None else f'{lib:.4f} ms'}")
+        how = (" (x padded to 32 rows)" if m <= 16 else "") + \
+            (" (W unpacked)" if packed else "")
+        log(f"[time] qmatmul M={m} N={n} K={k} packed={packed} plan "
+            f"{blocks}: {ms:.4f} ms (device {dms:.4f} ms), bound {bnd:.4f} "
+            f"ms ({by}), plain {pms:.4f} ms, _int_mm{how} {lib:.4f} ms")
         keep("qmatmul", (m, n, k, packed), (ms, pms, bnd, by, lib))
         del x, w, s, b, rs
 

@@ -46,7 +46,7 @@ from repro_torch.kernels.int_attention import (MAX_PROB_BITS, SMEM_BUDGET,
                                                int_attention_fused,
                                                int_decode_attention,
                                                int_paged_decode_attention)
-from repro_torch.kernels.qmatmul import qmatmul, tile as qmatmul_tile
+from repro_torch.kernels.qmatmul import plan as qmatmul_plan, qmatmul
 
 _VALID = ("cuda", "torch")
 
@@ -98,7 +98,7 @@ def reset_launches():
             counts[k] = 0
 
 
-def _record_blocks(op: str, key: str, *choice: int):
+def _record_blocks(op: str, key: str, *choice):
     STATS["blocks"][f"{op}:{key}"] = list(choice)
 
 
@@ -139,14 +139,12 @@ def _round_up(x: int, mult: int) -> int:
     return -(-x // mult) * mult
 
 
-def qmatmul_blocks(m: int, n: int, k: int) -> tuple[int, int, int]:
-    """(bm, bn, bk) output tile and K slab of the qmatmul kernel: the
-    kernel's own :func:`repro_torch.kernels.qmatmul.tile`, and two int8
-    slabs of 64 bytes per row in shared memory (< 13 KB, far under the
-    budget)."""
-    bm, bn = qmatmul_tile(m)
-    _record_blocks("qmatmul", f"m{m}_n{n}_k{k}", bm, bn, 64)
-    return bm, bn, 64
+def qmatmul_blocks(m: int, n: int, k: int) -> tuple[str, int, int, int]:
+    """``(body, bm, bn, splits)``: the kernel's own
+    :func:`repro_torch.kernels.qmatmul.plan`, recorded in ``STATS``."""
+    choice = qmatmul_plan(m, n, k)
+    _record_blocks("qmatmul", f"m{m}_n{n}_k{k}", *choice)
+    return choice
 
 
 def block_rule_bytes(bq: int, bk: int, d: int) -> int:
@@ -260,10 +258,10 @@ def maybe_qlinear(x, p: dict, cfg):
         scale = (p["w_scale"] * xq.scale).to(torch.float32)
         row_scale = None
     bias = p.get("b")
-    bm, bn, _ = qmatmul_blocks(x2.shape[0], n, kdim)
+    blocks = qmatmul_blocks(x2.shape[0], n, kdim)
     out = qmatmul(x2.contiguous(), w_q, scale.contiguous(),
                   None if bias is None else bias.to(torch.float32),
-                  row_scale, bm=bm, bn=bn, packed=packed)
+                  row_scale, blocks=blocks, packed=packed)
     return out.reshape(*x.shape[:-1], n).to(x.dtype)
 
 

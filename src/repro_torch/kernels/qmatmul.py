@@ -3,11 +3,14 @@
     out[m, n] = f32(sum_k Xq[m, k] * Wq[n, k]) * (scale[n] * row_scale[m]) + bias[n]
 
 Replaces the Pallas TPU kernel ``repro/kernels/qmatmul.py::qmatmul``
-(``:80``, bodies ``_qmatmul_kernel`` and ``_qmatmul_packed_kernel``).  The
-kernel is ``csrc/qmatmul.cu``: dp4a over 64-byte K slabs in shared memory,
-int32 accumulators in registers, the f32 epilogue rounded op by op.  In
-decode M is the batch (4 rows), so reading W bounds it (packed int4 halves
-those bytes); prefill is bound by operations.
+(``:119``, bodies ``_qmatmul_kernel`` and ``_qmatmul_packed_kernel``).  The
+kernel is ``csrc/qmatmul.cu``, with two bodies that :func:`plan` picks
+from the shape: decode (M <= 16 rows, bound by reading W) runs dp4a over
+16 x 64 output tiles; prefill and DeiT-S (M > 16) run the int8 tensor
+cores (``mma.sync``) over 128 x 128 or 64 x 128 tiles fed by a
+``cp.async`` ring, splitting K across blocks where the tiles alone leave
+SMs idle.  Both keep the int32 sums exact and round the f32 epilogue op
+by op, so every output bit equals the plain version's.
 
 :func:`qmatmul` runs the kernel on CUDA tensors and the plain version
 (:func:`repro_torch.kernels.ref.qmatmul_ref`) on CPU tensors, and nowhere
@@ -22,30 +25,67 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build, ref
 
-# Kernel launches (one per launch, bumped nowhere else).
+# Kernel launches (one per call that launches, bumped nowhere else).
 LAUNCHES = {"qmatmul": 0}
 
-
-def tile(m: int) -> tuple[int, int]:
-    """(bm, bn) output tile for M rows.  The tile lives in registers (a
-    16x16 thread grid, each thread a bm/16 x bn/16 int32 accumulator
-    block).  Decode (M <= 16 rows) takes the 16 x 64 tile so enough blocks
-    stream W; prefill the 64 x 128 tile for operand reuse."""
-    return (16, 64) if m <= 16 else (64, 128)
+SMS = 132             # H100 SXM streaming multiprocessors
+MIN_SPLIT_K = 1024    # least K bytes a split of K
 
 
-def qmatmul(x_q, w_q, scale, bias=None, row_scale=None, *, bm=None, bn=None,
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(m: int, n: int, k: int) -> tuple[str, int, int, int]:
+    """``(body, bm, bn, splits)`` of the kernel for an (m, k) x (n, k)^T
+    product: a pure function of the shape, and the one place where the
+    tiles are chosen.  The packed body takes the same plan as the int8 one
+    (its slab holds the same K in half the bytes).
+
+    - M <= 16 rows (decode): ``("dp4a", 16, 64, 1)``.  Reading W bounds
+      it, and 16 x 64 tiles give N / 64 blocks (80 to 2376 on the Qwen
+      shapes), each streaming its own rows of W once.
+    - M > 16: ``"mma"`` over tiles of 128 columns.  The first of these
+      that gives at least one block an SM (:data:`SMS`):
+      1. 128-row tiles (M > 64 only: a 128-row tile over fewer rows
+         multiplies rows of zeros), so each byte of W brought into shared
+         memory serves 128 rows and two blocks fit an SM;
+      2. the same tiles with K split into the fewest splits that make
+         :data:`SMS` blocks, each at least :data:`MIN_SPLIT_K` bytes of K
+         deep: a split writes its int32 sums and the second launch reads
+         them back (8 bytes an output), at 1 KB of K at most half the
+         bytes of x and W the split streams;
+      3. and 4. the same with 64-row tiles, twice the blocks;
+      else, with K too short to split, the 64-row tiles alone (the most
+      blocks).  Blocks walk M tiles fastest, so those that share a column
+      slab of W run together and W is read from device memory once.
+    """
+    if m <= 16:
+        return "dp4a", 16, 64, 1
+    rows = (128, 64) if m > 64 else (64,)
+    for bm in rows:
+        tiles = _cdiv(m, bm) * _cdiv(n, 128)
+        if tiles >= SMS:
+            return "mma", bm, 128, 1
+        splits = _cdiv(SMS, tiles)
+        if k >= splits * MIN_SPLIT_K:
+            return "mma", bm, 128, splits
+    return "mma", rows[-1], 128, 1
+
+
+def qmatmul(x_q, w_q, scale, bias=None, row_scale=None, *, blocks=None,
             packed=False):
     """x_q (M, K) int8 @ w_q (N, K) int8 -> (M, N) f32, fused epilogue.
 
     ``scale`` (N,) f32; ``row_scale`` (M,) f32 refines the input step per
     row (``scale[n] * row_scale[m]``); ``bias`` (N,) f32.  ``packed=True``
-    takes w_q as (N, K/2) uint8 nibbles (low nibble = even k).  ``(bm, bn)``
-    is the output tile, :func:`tile` of M unless given.
+    takes w_q as (N, K/2) uint8 nibbles (low nibble = even k).  ``blocks``
+    is the plan, :func:`plan` of the shape unless given; a plan the kernel
+    was not built for raises.  One call counts one launch in
+    :data:`LAUNCHES`, though a plan that splits K is two kernel launches
+    (the partial sums, then their sum and the epilogue).
     """
     m, k = x_q.shape
-    if bm is None:
-        bm, bn = tile(m)
     n = w_q.shape[0]
     if w_q.shape[1] * (2 if packed else 1) != k:
         raise ValueError(f"qmatmul: x {tuple(x_q.shape)} vs w "
@@ -54,41 +94,50 @@ def qmatmul(x_q, w_q, scale, bias=None, row_scale=None, *, bm=None, bn=None,
         return ref.qmatmul_ref(x_q, w_q, scale, bias, row_scale)
     if x_q.device.type != "cuda":
         raise ValueError(f"qmatmul: unsupported device {x_q.device}")
-    _check(x_q, torch.int8, (m, k), "x_q")
+    body, bm, bn, splits = blocks or plan(m, n, k)
+    # The copies' alignment: dp4a reads int8 words, the mma body 16-byte
+    # runs of x and of W (nibbles: 32 codes).
+    unit = 4 if body == "dp4a" else 32 if packed else 16
+    align = 4 if body == "dp4a" else 16
+    _check(x_q, torch.int8, (m, k), "x_q", align)
     _check(w_q, torch.uint8 if packed else torch.int8,
-           (n, k // 2 if packed else k), "w_q")
+           (n, k // 2 if packed else k), "w_q", align)
     _check(scale, torch.float32, (n,), "scale")
     if bias is not None:
         _check(bias, torch.float32, (n,), "bias")
     if row_scale is not None:
         _check(row_scale, torch.float32, (m,), "row_scale")
-    if k % 4:
-        # The kernel reads K in int8 words (K % 4 == 0, also the C
-        # launcher's check): pad with zero codes, exact for the int32 sums.
-        k4 = -(-k // 4) * 4
-        x_q = F.pad(x_q, (0, k4 - k))
-        w_q = F.pad(w_q, (0, (k4 - k) // 2 if packed else k4 - k))
-        k = k4
+    if k % unit:
+        # Pad K with zero codes (exact for the int32 sums); the main-path
+        # shapes never need it.
+        ku = _cdiv(k, unit) * unit
+        x_q = F.pad(x_q, (0, ku - k))
+        w_q = F.pad(w_q, (0, (ku - k) // 2 if packed else ku - k))
+        k = ku
     out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
+    part = torch.empty((splits, m, n), dtype=torch.int32,
+                       device=x_q.device) if splits > 1 else None
     lib = build.load("qmatmul")
     fn = lib.qmatmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
             None if bias is None else bias.data_ptr(),
             None if row_scale is None else row_scale.data_ptr(),
-            out.data_ptr(), m, n, k, int(packed), bm, bn,
-            build.stream_ptr(x_q))
-    build.check(lib, rc, "qmatmul")
+            out.data_ptr(), None if part is None else part.data_ptr(),
+            m, n, k, int(packed), {"dp4a": 0, "mma": 1}.get(body, -1), bm,
+            bn, splits, build.stream_ptr(x_q))
+    build.check(lib, rc, f"qmatmul (plan {(body, bm, bn, splits)})")
     LAUNCHES["qmatmul"] += 1
     return out
 
 
-def _check(t, dtype, shape, name):
+def _check(t, dtype, shape, name, align=4):
     if t.device.type != "cuda" or t.dtype != dtype or \
             tuple(t.shape) != tuple(shape) or not t.is_contiguous() or \
-            t.data_ptr() % 4:
-        raise ValueError(f"qmatmul: {name} must be a contiguous, 4-byte "
-                         f"aligned CUDA {dtype} tensor of shape {shape}; got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+            t.data_ptr() % align:
+        raise ValueError(f"qmatmul: {name} must be a contiguous, "
+                         f"{align}-byte aligned CUDA {dtype} tensor of shape "
+                         f"{shape}; got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")

@@ -32,9 +32,7 @@ def _rel(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
 
 
-@pytest.mark.parametrize("m,n,k", [(4, 1000, 512), (77, 300, 1028)])
-@pytest.mark.parametrize("packed", [False, True])
-def test_qmatmul_kernel_equals_plain(gen, m, n, k, packed):
+def _qmm_inputs(gen, m, n, k, packed):
     x = torch.randint(-128, 128, (m, k), generator=gen, device="cuda",
                       dtype=torch.int8)
     w = torch.randint(-8, 8, (n, k), generator=gen, device="cuda",
@@ -43,12 +41,57 @@ def test_qmatmul_kernel_equals_plain(gen, m, n, k, packed):
     s = torch.rand((n,), generator=gen, device="cuda") * 1e-3
     b = torch.randn((n,), generator=gen, device="cuda")
     rs = torch.rand((m,), generator=gen, device="cuda")
-    bm, bn, _ = dispatch.qmatmul_blocks(m, n, k)
+    return x, w, s, b, rs
+
+
+# decode rows (dp4a), then the tensor-core body at 64- and 128-row tiles
+# with rows, columns and K off the tile (K 1028: padded to 16 or 32)
+@pytest.mark.parametrize("m", [4, 17, 77, 129, 256])
+@pytest.mark.parametrize("n,k", [(1000, 512), (300, 1028)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_qmatmul_kernel_equals_plain(gen, m, n, k, packed):
+    x, w, s, b, rs = _qmm_inputs(gen, m, n, k, packed)
+    blocks = dispatch.qmatmul_blocks(m, n, k)
+    assert blocks[0] == ("dp4a" if m <= 16 else "mma")
     before = qm.LAUNCHES["qmatmul"]
-    got = qm.qmatmul(x, w, s, b, rs, bm=bm, bn=bn, packed=packed)
+    got = qm.qmatmul(x, w, s, b, rs, blocks=blocks, packed=packed)
     torch.cuda.synchronize()
     assert qm.LAUNCHES["qmatmul"] == before + 1
     assert torch.equal(got, ref.qmatmul_ref(x, w, s, b, rs))
+
+
+# K split across blocks (the Qwen wq and wk/wv shapes at 256 rows, on
+# 128- and 64-row tiles; 200 rows and 1001 columns, whose output rows are
+# not 16-byte aligned; 71 slabs in six uneven splits), each epilogue
+@pytest.mark.parametrize("m,n,k", [(256, 5120, 5120), (256, 1024, 5120),
+                                   (200, 1001, 8320), (300, 1000, 9000)])
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("epilogue", ["scale", "row_scale", "bias", "both"])
+def test_qmatmul_split_k_equals_plain(gen, m, n, k, packed, epilogue):
+    x, w, s, b, rs = _qmm_inputs(gen, m, n, k, packed)
+    b = b if epilogue in ("bias", "both") else None
+    rs = rs if epilogue in ("row_scale", "both") else None
+    blocks = qm.plan(m, n, k)
+    assert blocks[0] == "mma" and blocks[3] > 1
+    before = qm.LAUNCHES["qmatmul"]
+    got = qm.qmatmul(x, w, s, b, rs, packed=packed)
+    torch.cuda.synchronize()
+    assert qm.LAUNCHES["qmatmul"] == before + 1     # two kernels, one call
+    assert torch.equal(got, ref.qmatmul_ref(x, w, s, b, rs))
+
+
+# (the last: five splits of K 512, which has four 128-byte slabs)
+@pytest.mark.parametrize("blocks", [("mma", 32, 128, 1), ("mma", 64, 64, 1),
+                                    ("dp4a", 64, 128, 1), ("dp4a", 16, 64, 2),
+                                    ("wgmma", 128, 128, 1),
+                                    ("mma", 128, 128, 0),
+                                    ("mma", 128, 128, 5)])
+def test_qmatmul_refuses_a_plan_it_was_not_built_for(gen, blocks):
+    x, w, s, b, rs = _qmm_inputs(gen, 64, 256, 512, False)
+    before = qm.LAUNCHES["qmatmul"]
+    with pytest.raises(RuntimeError, match="qmatmul"):
+        qm.qmatmul(x, w, s, b, rs, blocks=blocks)
+    assert qm.LAUNCHES["qmatmul"] == before
 
 
 @pytest.mark.parametrize("sq,sk,window,bits", [(64, 64, None, 7),
