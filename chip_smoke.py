@@ -10,11 +10,12 @@ Phases, in order; any failure exits non-zero before the result line:
 2. build: every ``src/repro_torch/csrc/*.cu`` with ``nvcc`` (all started at
    once), printing each kernel's registers and spills (``-Xptxas -v``);
 3. check: each kernel against its plain version on the card at main-path
-   shapes — qmatmul exactly, each row with its plan (the dp4a body at
-   M = 4, the tensor-core body at M = 256 — every (N, K) of one
-   Qwen2.5-32B layer and its lm_head, three of them splitting K — at
-   DeiT-S's four shapes, and at M 17 and 129, N 300, K 1028; int8 and
-   packed), fused attention (also
+   shapes — qmatmul exactly, each row with its plan (the stream body at
+   M = 4 and the tensor-core body at M = 256 at every (N, K) of one
+   Qwen2.5-32B layer and its lm_head, three of them splitting K; the
+   stream body also at M 1, 8, 9 and 16, the edges of its n8 tiles, at
+   two of them; DeiT-S's four shapes, and M 17 and 129, N 300, K 1028;
+   int8 and packed), fused attention (also
    at the DeiT-S dispatch shape, bq 33, bk 224), paged decode (the serve
    shape, and G 16 at D 256) and ring decode (32 head-folds, G 5, kv8 and
    packed kv4, rings of 1024 and 8192 slots, partly written, wrapped and
@@ -262,10 +263,14 @@ QMM_NK = [(5120, 5120), (1024, 5120), (27648, 5120), (5120, 27648),
 QMM_DEIT = [(64 * 196, 384, 768), (64 * 198, 384, 384),
             (64 * 198, 1536, 384), (64 * 198, 384, 1536)]
 # qmatmul checked at decode and prefill rows of every Qwen2.5-32B (N, K)
-# (at 256 rows three of them split K), DeiT-S's shapes, and rows, columns
-# and K off the tiles (K 1028 is padded to 16 or 32); int8 and packed
+# (at 256 rows three of them split K), the decode body's n8-tile edges
+# (M 1, 8, 9, 16) at the MLP down and wk/wv shapes, DeiT-S's shapes, and
+# rows, columns and K off the tiles (K 1028 is padded to 16 or 32); int8
+# and packed
 QMM_CHECKS = [(m, n, k, packed) for m in (4, 256) for n, k in QMM_NK
               for packed in (False, True)] + \
+    [(m, n, k, packed) for m in (1, 8, 9, 16)
+     for n, k in ((5120, 27648), (1024, 5120)) for packed in (False, True)] + \
     [(m, n, k, packed) for m, n, k in QMM_DEIT + [(17, 300, 1028),
                                                   (129, 300, 1028)]
      for packed in (False, True)]
@@ -291,7 +296,7 @@ def phase_check(g):
             f"{'exact' if diff == 0 else f'MISMATCH (max abs {diff})'}")
         if diff != 0:
             raise AssertionError("qmatmul differs from its plain version")
-        if blocks[0] != ("dp4a" if m <= 16 else "mma"):
+        if blocks[0] != ("stream" if m <= 16 else "mma"):
             raise AssertionError(f"qmatmul plan {blocks} at M={m}")
         worst = max(worst, diff)
         del args, got, want

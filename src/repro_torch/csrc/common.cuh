@@ -22,10 +22,6 @@ __device__ __forceinline__ int dp4a_us(unsigned a, int b, int c) {
   return d;
 }
 
-__device__ __forceinline__ int ld32(const int8_t* p) {
-  return *reinterpret_cast<const int*>(p);
-}
-
 // Sign-extend the 4-bit two's complement value in the low nibble.
 __device__ __forceinline__ int sx4(unsigned v) {
   return static_cast<int>(v << 28) >> 28;

@@ -7,13 +7,27 @@
 // Two bodies; kernels/qmatmul.py::plan picks one from the shape, and
 // qmatmul_launch refuses any plan it was not built for.
 //
-// Decode, M <= 16 rows (qmatmul_kernel<16, 64, *>): every weight byte is
-// read once for 2*M operations, so the bytes of W bound it.  One block per
-// 16 x 64 output tile, 256 threads, dp4a (four int8 MACs an instruction,
-// exact int32) over 64-byte K slabs staged through shared memory, so many
-// blocks stream W at once.  Packed weights ((N, K/2) uint8, low nibble =
-// even k) are unpacked to int8 words on their way into shared memory, so
-// device-memory reads of W stay halved.
+// Decode, M <= 16 rows (qmatmul_stream_kernel<R, T8, *>): every weight
+// byte is read once for 2*M operations, so the bytes of W bound it, and
+// the body streams W from device memory straight into the tensor cores'
+// registers.  The operands are swapped: W is the m16 side of
+// mma.sync.m16n8k32 s8.s8 and x^T the n8 side (T8 = 1 n8 tile for M <= 8,
+// 2 for M <= 16), so no product row multiplies padding beyond the n8
+// tile.  An int32 dot product is exact in any order of k, so the fragment's
+// logical k may be any bijection onto the bytes of a chunk, applied alike
+// to W and x: lane (g, t) loads 16 bytes of W rows g and g + 8 at byte 16t
+// of a 64-byte chunk, words 0-1 feeding the a0/a2 (a1/a3) words of one mma
+// and words 2-3 those of the next, and 16 bytes of x row g at the same
+// offset as the matching b0/b1 words.  W thus goes from 128-bit
+// ld.global.nc (no L1 allocation) to registers, with no shared memory and
+// no ldmatrix; each lane keeps SLOADS such loads in flight.  A block's
+// eight warps take contiguous K ranges of the same 16R rows of W (R row
+// groups share each x chunk in registers) and add their int32 partials in
+// warp order through shared memory (StreamLayout) before the epilogue:
+// one launch, no atomics.  Packed weights load 16 bytes of nibbles (32
+// codes) and unpack them in registers (unpack8); x then comes as 32
+// contiguous bytes a lane, in the same k order.  Ragged N and K are
+// predicated (zero-filled) loads; the output is stored element by element.
 //
 // Prefill and DeiT-S, M > 16 (qmatmul_mma_kernel<BM, BN, *>): the int8
 // tensor cores, mma.sync m16n8k32 s8.s8 with exact int32 accumulators in
@@ -30,7 +44,7 @@
 // M tiles fastest, so the blocks that share a column slab of W run
 // together and W comes from device memory about once.
 //
-// What bounds each regime: at M = 256 the bytes of W (a 27648 x 5120 W is
+// What bounds each regime: at M <= 16 and at M = 256 the bytes of W (a 27648 x 5120 W is
 // 141.6 MB against a 50 MB L2), hence W read once; at DeiT-S's shapes the
 // f32 output (77.9 of 83 MB at 12672 x 1536 x 384), so the epilogue
 // stages the tile through shared memory and each warp writes 16-byte
@@ -45,81 +59,7 @@
 
 namespace {
 
-constexpr int BK = 64;          // k bytes per slab
-constexpr int KW = BK / 4;      // 32-bit words per slab row
 constexpr int NT = 256;
-
-template <int BM, int BN, bool PACKED>
-__global__ void __launch_bounds__(NT)
-qmatmul_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
-               const float* __restrict__ scale, const float* __restrict__ bias,
-               const float* __restrict__ row_scale, float* __restrict__ out,
-               int M, int N, int K) {
-  constexpr int TM = BM / 16, TN = BN / 16;
-  __shared__ int As[BM][KW + 1];
-  __shared__ int Bs[BN][KW + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  int acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * KW; i += NT) {
-      const int r = i / KW, c = i % KW;
-      const int gm = m0 + r, gk = k0 + 4 * c;
-      As[r][c] = (gm < M && gk < K) ? ld32(x + (size_t)gm * K + gk) : 0;
-    }
-    for (int i = tid; i < BN * KW; i += NT) {
-      const int r = i / KW, c = i % KW;
-      const int gn = n0 + r, gk = k0 + 4 * c;
-      int v = 0;
-      if (gn < N && gk < K) {
-        if (PACKED) {
-          const unsigned b2 = *reinterpret_cast<const unsigned short*>(
-              w + (size_t)gn * (K / 2) + gk / 2);
-          v = unpack4(b2);
-        } else {
-          v = ld32(reinterpret_cast<const int8_t*>(w) + (size_t)gn * K + gk);
-        }
-      }
-      Bs[r][c] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < KW; ++c) {
-      int a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[ty + 16 * i][c];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[tx + 16 * j][c];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn >= N) continue;
-      const float s = row_scale ? __fmul_rn(scale[gn], row_scale[gm])
-                                : scale[gn];
-      float o = __fmul_rn(__int2float_rn(acc[i][j]), s);
-      if (bias) o = __fadd_rn(o, bias[gn]);
-      out[(size_t)gm * N + gn] = o;
-    }
-  }
-}
 
 constexpr int MK = 128;         // mma body: k bytes per slab
 constexpr int STAGES = 3;       // slabs in the cp.async ring
@@ -337,6 +277,187 @@ qmatmul_splitk_kernel(const int* __restrict__ part,
                     static_cast<int>(i % N));
 }
 
+constexpr int SK = 64;           // stream body: bytes of a W row a chunk
+constexpr int SWARPS = NT / 32;  // its warps, each over its own K range
+constexpr int SLOADS = 8;        // 16-byte loads of W a lane has in flight
+
+// Static shared memory of qmatmul_stream_kernel: each warp's int32
+// partial sums of the block's (8 T8) x (16 R) output tile, an x row padded
+// by 4 words so a fragment's stores (x rows 2t apart, W rows g) hit 32
+// distinct banks.
+template <int R, int T8>
+struct StreamLayout {
+  static constexpr int ROWS = 16 * R;        // W rows (output columns)
+  static constexpr int CS = ROWS + 4;        // int32 stride of an x row
+  static constexpr int PART = 8 * T8 * CS;   // one warp's partials
+  static constexpr int TOTAL = 4 * SWARPS * PART;
+  // Static shared memory, so two blocks an SM fit as well.
+  static_assert(TOTAL <= 48 * 1024, "static shared memory");
+};
+
+// 16 bytes of W, or zeros when !ok (nothing is read): the non-coherent
+// path without allocating in L1 (each byte is read once), with a 128-byte
+// L2 prefetch, so a row's two 64-byte chunks come from device memory as
+// one line.
+__device__ __forceinline__ uint4 ld_w16(const void* p, bool ok) {
+  uint4 v;
+  asm("{\n .reg .pred q;\n setp.ne.b32 q, %5, 0;\n"
+      " mov.b32 %0, 0;\n mov.b32 %1, 0;\n mov.b32 %2, 0;\n mov.b32 %3, 0;\n"
+      " @q ld.global.nc.L1::no_allocate.L2::128B.v4.u32 {%0, %1, %2, %3}, "
+      "[%4];\n}\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "r"(static_cast<int>(ok)));
+  return v;
+}
+
+// 16 bytes of x, or zeros when !ok: cached in L1, where the blocks on an
+// SM read the same x chunks.
+__device__ __forceinline__ uint4 ld_x16(const void* p, bool ok) {
+  uint4 v;
+  asm("{\n .reg .pred q;\n setp.ne.b32 q, %5, 0;\n"
+      " mov.b32 %0, 0;\n mov.b32 %1, 0;\n mov.b32 %2, 0;\n mov.b32 %3, 0;\n"
+      " @q ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n}\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "r"(static_cast<int>(ok)));
+  return v;
+}
+
+// A lane's 16 bytes of W as the words of its fragments in k order: four
+// int8 words, or eight words of codes unpacked from 32 nibbles.
+template <bool PACKED>
+__device__ __forceinline__ void w_words(const uint4& v,
+                                        unsigned (&o)[PACKED ? 8 : 4]) {
+  if constexpr (PACKED) {
+    unpack8(v.x, o[0], o[1]);
+    unpack8(v.y, o[2], o[3]);
+    unpack8(v.z, o[4], o[5]);
+    unpack8(v.w, o[6], o[7]);
+  } else {
+    o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+  }
+}
+
+// Output columns n0 .. n0 + 16R of every row m < M <= 8 T8: the 16R rows
+// of W of block blockIdx.x, each warp over its contiguous share of the
+// K chunks (none when the chunks are fewer than the warps).
+template <int R, int T8, bool PACKED>
+__global__ void __launch_bounds__(NT, 2)
+qmatmul_stream_kernel(const int8_t* __restrict__ x,
+                      const uint8_t* __restrict__ w,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ row_scale,
+                      float* __restrict__ out, int M, int N, int K) {
+  using L = StreamLayout<R, T8>;
+  constexpr int U = SLOADS / (2 * R);  // chunks a step
+  constexpr int XL = PACKED ? 2 : 1;   // 16-byte x loads a chunk and row
+  constexpr int S = 2 * XL;            // mma (k32 steps) a chunk
+  __shared__ int red[SWARPS][L::PART];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int n0 = blockIdx.x * L::ROWS;
+  const int KB = PACKED ? K / 2 : K;   // bytes of a W row
+  const int chunks = (KB + SK - 1) / SK;
+  const int c0 = warp * chunks / SWARPS;
+  const int c1 = (warp + 1) * chunks / SWARPS;
+
+  // This lane's rows: W rows n0 + 16i + 8h + g at byte 16t of a chunk, x
+  // rows 8j + g at the same k (byte 16t, or 32t beside nibbles).
+  const uint8_t* wr[R][2];
+  bool wok[R][2];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + 16 * i + 8 * h + g;
+      wok[i][h] = n < N;
+      wr[i][h] = w + (size_t)(wok[i][h] ? n : 0) * KB + 16 * t;
+    }
+  const int8_t* xr[T8];
+  bool xok[T8];
+#pragma unroll
+  for (int j = 0; j < T8; ++j) {
+    const int m = 8 * j + g;
+    xok[j] = m < M;
+    xr[j] = x + (size_t)(xok[j] ? m : 0) * K + 16 * XL * t;
+  }
+
+  int acc[R][T8][4];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < T8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  for (int c = c0; c < c1; c += U) {
+    uint4 wv[U][R][2], xv[U][T8][XL];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int cc = c + u;
+      const bool ok = cc < c1 && cc * SK + 16 * t < KB;
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          wv[u][i][h] = ld_w16(wr[i][h] + (size_t)cc * SK, ok && wok[i][h]);
+#pragma unroll
+      for (int j = 0; j < T8; ++j)
+#pragma unroll
+        for (int p = 0; p < XL; ++p)
+          xv[u][j][p] = ld_x16(xr[j] + (size_t)cc * XL * SK + 16 * p,
+                               ok && xok[j]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      unsigned b[T8][2 * S];           // x words in the same k order
+#pragma unroll
+      for (int j = 0; j < T8; ++j)
+#pragma unroll
+        for (int p = 0; p < XL; ++p) {
+          b[j][4 * p] = xv[u][j][p].x, b[j][4 * p + 1] = xv[u][j][p].y;
+          b[j][4 * p + 2] = xv[u][j][p].z, b[j][4 * p + 3] = xv[u][j][p].w;
+        }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        unsigned lo[2 * S], hi[2 * S];  // W rows g and g + 8
+        w_words<PACKED>(wv[u][i][0], lo);
+        w_words<PACKED>(wv[u][i][1], hi);
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const unsigned a[4] = {lo[2 * s], hi[2 * s], lo[2 * s + 1],
+                                 hi[2 * s + 1]};
+#pragma unroll
+          for (int j = 0; j < T8; ++j)
+            mma_s8(acc[i][j], a, b[j][2 * s], b[j][2 * s + 1]);
+        }
+      }
+    }
+  }
+
+  // D rows are W rows, D columns x rows: c0, c1 at (g, 2t), (g, 2t + 1),
+  // c2, c3 eight W rows on.
+  int* part = red[warp];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < T8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          part[(8 * j + 2 * t + e) * L::CS + 16 * i + 8 * h + g] =
+              acc[i][j][2 * h + e];
+  __syncthreads();
+  for (int e = threadIdx.x; e < 8 * T8 * L::ROWS; e += NT) {
+    const int m = e / L::ROWS, r = e % L::ROWS, n = n0 + r;
+    if (m >= M || n >= N) continue;
+    int sum = 0;
+    for (int v = 0; v < SWARPS; ++v) sum += red[v][m * L::CS + r];
+    out[(size_t)m * N + n] = epilogue(sum, scale, bias, row_scale, m, n);
+  }
+}
+
 struct Args {
   const int8_t* x;
   const uint8_t* w;
@@ -347,15 +468,21 @@ struct Args {
   cudaStream_t stream;
 };
 
-cudaError_t launch_dp4a(const Args& a, bool packed) {
-  const dim3 grid((a.N + 63) / 64, (a.M + 15) / 16);
+template <int R, int T8>
+cudaError_t stream_body(const Args& a, bool packed) {
+  const dim3 grid((a.N + 16 * R - 1) / (16 * R));
   if (packed)
-    qmatmul_kernel<16, 64, true><<<grid, NT, 0, a.stream>>>(
+    qmatmul_stream_kernel<R, T8, true><<<grid, NT, 0, a.stream>>>(
         a.x, a.w, a.scale, a.bias, a.row_scale, a.out, a.M, a.N, a.K);
   else
-    qmatmul_kernel<16, 64, false><<<grid, NT, 0, a.stream>>>(
+    qmatmul_stream_kernel<R, T8, false><<<grid, NT, 0, a.stream>>>(
         a.x, a.w, a.scale, a.bias, a.row_scale, a.out, a.M, a.N, a.K);
   return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch_stream(const Args& a, bool packed, int bm) {
+  return bm == 8 ? stream_body<R, 1>(a, packed) : stream_body<R, 2>(a, packed);
 }
 
 template <int BM, int BN, bool PACKED>
@@ -389,11 +516,12 @@ cudaError_t launch_mma(const Args& a, bool packed, int splits) {
 
 // x (M, K) int8; w (N, K) int8 or (N, K/2) uint8 nibbles; scale (N,) f32;
 // bias (N,) f32 or null; row_scale (M,) f32 or null; out (M, N) f32; rows
-// 16-byte aligned.  (body, bm, bn, splits) is kernels/qmatmul.py::plan:
-// body 0 is dp4a with (16, 64, 1) and K % 4 == 0; body 1 is mma with
-// (128, 128) or (64, 128), K % 16 == 0 (K % 32 packed), splits no more
-// than K's slabs and, for splits > 1, part: (splits, M, N) int32 scratch.
-// Anything else returns cudaErrorInvalidValue and launches nothing.
+// 16-byte aligned; K % 16 == 0 (K % 32 packed).  (body, bm, bn, splits)
+// is kernels/qmatmul.py::plan: body 0 is the stream body with M <= 16, bm
+// 8 (M <= 8) or 16, bn 16 or 32 and one split; body 1 is mma with
+// (128, 128) or (64, 128), splits no more than K's slabs and, for
+// splits > 1, part: (splits, M, N) int32 scratch.  Anything else returns
+// cudaErrorInvalidValue and launches nothing.
 extern "C" int qmatmul_launch(const void* x, const void* w, const void* scale,
                               const void* bias, const void* row_scale,
                               void* out, void* part, int M, int N, int K,
@@ -407,10 +535,15 @@ extern "C" int qmatmul_launch(const void* x, const void* w, const void* scale,
                static_cast<cudaStream_t>(stream)};
   const cudaError_t bad = cudaErrorInvalidValue;
   cudaError_t err = bad;
-  if (body == 0 && bm == 16 && bn == 64 && splits == 1 && K % 4 == 0)
-    err = launch_dp4a(a, packed);
-  else if (body == 1 && splits >= 1 && splits <= (K + MK - 1) / MK &&
-           K % (packed ? 32 : 16) == 0 && (splits == 1 || part)) {
+  if (K % (packed ? 32 : 16) != 0) return static_cast<int>(bad);
+  if (body == 0 && M >= 1 && M <= 16 && bm == (M <= 8 ? 8 : 16) &&
+      splits == 1) {
+    if (bn == 16)
+      err = launch_stream<1>(a, packed, bm);
+    else if (bn == 32)
+      err = launch_stream<2>(a, packed, bm);
+  } else if (body == 1 && splits >= 1 && splits <= (K + MK - 1) / MK &&
+             (splits == 1 || part)) {
     if (bm == 128 && bn == 128)
       err = launch_mma<128, 128>(a, packed, splits);
     else if (bm == 64 && bn == 128)

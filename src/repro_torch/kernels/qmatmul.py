@@ -5,12 +5,14 @@
 Replaces the Pallas TPU kernel ``repro/kernels/qmatmul.py::qmatmul``
 (``:119``, bodies ``_qmatmul_kernel`` and ``_qmatmul_packed_kernel``).  The
 kernel is ``csrc/qmatmul.cu``, with two bodies that :func:`plan` picks
-from the shape: decode (M <= 16 rows, bound by reading W) runs dp4a over
-16 x 64 output tiles; prefill and DeiT-S (M > 16) run the int8 tensor
-cores (``mma.sync``) over 128 x 128 or 64 x 128 tiles fed by a
-``cp.async`` ring, splitting K across blocks where the tiles alone leave
-SMs idle.  Both keep the int32 sums exact and round the f32 epilogue op
-by op, so every output bit equals the plain version's.
+from the shape, both on the int8 tensor cores (``mma.sync``): decode
+(M <= 16 rows, bound by reading W) streams W from device memory straight
+into registers as the wide operand, the eight warps of a block taking
+contiguous K ranges of the same rows of W; prefill and DeiT-S (M > 16) run
+128 x 128 or 64 x 128 tiles fed by a ``cp.async`` ring, splitting K across
+blocks where the tiles alone leave SMs idle.  Both keep the int32 sums
+exact and round the f32 epilogue op by op, so every output bit equals the
+plain version's.
 
 :func:`qmatmul` runs the kernel on CUDA tensors and the plain version
 (:func:`repro_torch.kernels.ref.qmatmul_ref`) on CPU tensors, and nowhere
@@ -42,9 +44,16 @@ def plan(m: int, n: int, k: int) -> tuple[str, int, int, int]:
     tiles are chosen.  The packed body takes the same plan as the int8 one
     (its slab holds the same K in half the bytes).
 
-    - M <= 16 rows (decode): ``("dp4a", 16, 64, 1)``.  Reading W bounds
-      it, and 16 x 64 tiles give N / 64 blocks (80 to 2376 on the Qwen
-      shapes), each streaming its own rows of W once.
+    - M <= 16 rows (decode): ``("stream", bm, bn, 1)``.  Reading W once
+      bounds it.  ``bm`` is the x rows the tensor cores take, 8 for
+      M <= 8 and 16 above, so no product multiplies more padding than the
+      n8 tile's.  ``bn`` is the rows of W a block streams, all of K
+      between its warps: 32 where that still gives every SM a block
+      (:data:`SMS`), as a warp then reads 128 contiguous bytes of each row
+      a step and each x chunk serves twice the rows; else 16, twice the
+      blocks (N 1024).  ``qmatmul_split_ab.py`` times each decode shape's
+      width against the other.  One launch: K is split only between a
+      block's warps.
     - M > 16: ``"mma"`` over tiles of 128 columns.  The first of these
       that gives at least one block an SM (:data:`SMS`):
       1. 128-row tiles (M > 64 only: a 128-row tile over fewer rows
@@ -61,7 +70,8 @@ def plan(m: int, n: int, k: int) -> tuple[str, int, int, int]:
       slab of W run together and W is read from device memory once.
     """
     if m <= 16:
-        return "dp4a", 16, 64, 1
+        bn = 32 if _cdiv(n, 32) >= SMS else 16
+        return "stream", 8 if m <= 8 else 16, bn, 1
     rows = (128, 64) if m > 64 else (64,)
     for bm in rows:
         tiles = _cdiv(m, bm) * _cdiv(n, 128)
@@ -95,13 +105,11 @@ def qmatmul(x_q, w_q, scale, bias=None, row_scale=None, *, blocks=None,
     if x_q.device.type != "cuda":
         raise ValueError(f"qmatmul: unsupported device {x_q.device}")
     body, bm, bn, splits = blocks or plan(m, n, k)
-    # The copies' alignment: dp4a reads int8 words, the mma body 16-byte
-    # runs of x and of W (nibbles: 32 codes).
-    unit = 4 if body == "dp4a" else 32 if packed else 16
-    align = 4 if body == "dp4a" else 16
-    _check(x_q, torch.int8, (m, k), "x_q", align)
+    # Both bodies read 16-byte runs of x and of W (nibbles: 32 codes).
+    unit = 32 if packed else 16
+    _check(x_q, torch.int8, (m, k), "x_q", 16)
     _check(w_q, torch.uint8 if packed else torch.int8,
-           (n, k // 2 if packed else k), "w_q", align)
+           (n, k // 2 if packed else k), "w_q", 16)
     _check(scale, torch.float32, (n,), "scale")
     if bias is not None:
         _check(bias, torch.float32, (n,), "bias")
@@ -126,7 +134,7 @@ def qmatmul(x_q, w_q, scale, bias=None, row_scale=None, *, blocks=None,
             None if bias is None else bias.data_ptr(),
             None if row_scale is None else row_scale.data_ptr(),
             out.data_ptr(), None if part is None else part.data_ptr(),
-            m, n, k, int(packed), {"dp4a": 0, "mma": 1}.get(body, -1), bm,
+            m, n, k, int(packed), {"stream": 0, "mma": 1}.get(body, -1), bm,
             bn, splits, build.stream_ptr(x_q))
     build.check(lib, rc, f"qmatmul (plan {(body, bm, bn, splits)})")
     LAUNCHES["qmatmul"] += 1

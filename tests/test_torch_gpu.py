@@ -44,15 +44,16 @@ def _qmm_inputs(gen, m, n, k, packed):
     return x, w, s, b, rs
 
 
-# decode rows (dp4a), then the tensor-core body at 64- and 128-row tiles
-# with rows, columns and K off the tile (K 1028: padded to 16 or 32)
-@pytest.mark.parametrize("m", [4, 17, 77, 129, 256])
+# decode rows (the stream body: one n8 tile of x rows up to M 8, two up
+# to 16), then the tensor-core body at 64- and 128-row tiles with rows,
+# columns and K off the tile (K 1028: padded to 16 or 32)
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 16, 17, 77, 129, 256])
 @pytest.mark.parametrize("n,k", [(1000, 512), (300, 1028)])
 @pytest.mark.parametrize("packed", [False, True])
 def test_qmatmul_kernel_equals_plain(gen, m, n, k, packed):
     x, w, s, b, rs = _qmm_inputs(gen, m, n, k, packed)
     blocks = dispatch.qmatmul_blocks(m, n, k)
-    assert blocks[0] == ("dp4a" if m <= 16 else "mma")
+    assert blocks[0] == ("stream" if m <= 16 else "mma")
     before = qm.LAUNCHES["qmatmul"]
     got = qm.qmatmul(x, w, s, b, rs, blocks=blocks, packed=packed)
     torch.cuda.synchronize()
@@ -80,9 +81,12 @@ def test_qmatmul_split_k_equals_plain(gen, m, n, k, packed, epilogue):
     assert torch.equal(got, ref.qmatmul_ref(x, w, s, b, rs))
 
 
-# (the last: five splits of K 512, which has four 128-byte slabs)
+# (at 64 rows, where the stream body takes none; the last: five splits
+# of K 512, which has four 128-byte slabs)
 @pytest.mark.parametrize("blocks", [("mma", 32, 128, 1), ("mma", 64, 64, 1),
                                     ("dp4a", 64, 128, 1), ("dp4a", 16, 64, 2),
+                                    ("dp4a", 16, 64, 1),
+                                    ("stream", 16, 64, 1),
                                     ("wgmma", 128, 128, 1),
                                     ("mma", 128, 128, 0),
                                     ("mma", 128, 128, 5)])

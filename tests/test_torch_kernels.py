@@ -279,7 +279,7 @@ def test_block_choices_fit_the_card():
     assert dispatch.paged_decode_blocks(16, 128) == 16
     assert dispatch.paged_decode_blocks(6, 128) == 6 == \
         jdispatch.paged_decode_blocks(6, 128)
-    assert dispatch.qmatmul_blocks(4, 5120, 5120) == ("dp4a", 16, 64, 1)
+    assert dispatch.qmatmul_blocks(4, 5120, 5120) == ("stream", 8, 32, 1)
     assert dispatch.qmatmul_blocks(256, 27648, 5120) == ("mma", 128, 128, 1)
     assert dispatch.chunk_len(48, 16) == jdispatch.chunk_len(48, 16) == 16
     assert dispatch.chunk_len(40, 16) == jdispatch.chunk_len(40, 16)
