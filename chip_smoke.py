@@ -17,7 +17,8 @@ Phases, in order; any failure exits non-zero before the result line:
    two of them; DeiT-S's four shapes, and M 17 and 129, N 300, K 1028;
    int8 and packed), fused attention (also
    at the DeiT-S dispatch shape, bq 33, bk 224), paged decode (the serve
-   shape, and G 16 at D 256) and ring decode (32 head-folds, G 5, kv8 and
+   shape, and G 16 at D 256; tables of 512 pages at 8192 tokens, kv8 and
+   kv4, and G 16 at D 256 over a 2048-token window) and ring decode (32 head-folds, G 5, kv8 and
    packed kv4, rings of 1024 and 8192 slots, partly written, wrapped and
    windowed; G 16 at D 128 and 256, D 12) with codes exact and outputs
    within a stated tolerance; PQ-LayerNorm codes exactly at the DeiT-S
@@ -156,12 +157,14 @@ def qmatmul_inputs(g, m, n, k, packed):
     return x, w, scale, bias, rs
 
 
-def paged_inputs(g, kv_bits, grp=5, d=128):
-    """B=4, Hkv=8, G=5, D=128 (or the given G, D), page 16, 5 pages a row,
-    page-scaled, row 2 inactive."""
+def paged_inputs(g, kv_bits, grp=5, d=128, maxp=5, pos=(79, 35, -1, 63),
+                 window=None):
+    """B=4, Hkv=8, G=5, D=128 (or the given G, D), page 16, a table of 5
+    pages a row (or maxp) in a random permutation of the pool, page-scaled,
+    at the given positions (row 2 inactive by default) and window."""
     import torch
     from repro_torch.core.quant import pack_int4
-    b, hkv, ps, maxp = 4, 8, 16, 5
+    b, hkv, ps = 4, 8, 16
     num = b * maxp + 1                               # + trash page
     lo, hi = (-8, 8) if kv_bits == 4 else (-127, 128)
     mk = lambda *shape: torch.randint(lo, hi, shape, generator=g,
@@ -173,13 +176,13 @@ def paged_inputs(g, kv_bits, grp=5, d=128):
                       device="cuda", dtype=torch.int8)
     perm = torch.randperm(b * maxp, generator=g, device="cuda")
     pt = perm.reshape(b, maxp).to(torch.int32).contiguous()
-    pos = torch.tensor([79, 35, -1, 63], dtype=torch.int32, device="cuda")
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
     sc = (torch.rand((b,), generator=g, device="cuda") + 0.5) * 1e-2
     vs = torch.ones((b,), device="cuda")
     kps = (torch.rand((num,), generator=g, device="cuda") + 0.5) * 1e-2
     vps = (torch.rand((num,), generator=g, device="cuda") + 0.5) * 1e-2
     return (q, kp, vp, sc, vs, pt, pos), dict(
-        k_page_scale=kps, v_page_scale=vps, attn_bits=7,
+        k_page_scale=kps, v_page_scale=vps, attn_bits=7, window=window,
         packed=kv_bits == 4)
 
 
@@ -335,23 +338,26 @@ def phase_check(g):
     errs["int_attention_fused"], errs["int_attention"] = fused, two
 
     worst = 0.0
-    for kv_bits, grp, d in PAGED_CHECKS:
-        args, kw = paged_inputs(g, kv_bits, grp, d)
+    for row in PAGED_CHECKS + PAGED_LONG:
+        args, kw = paged_inputs(g, *row)
         out, codes = ia.int_paged_decode_attention(*args, return_codes=True,
                                                    **kw)
         torch.cuda.synchronize()
         q, kp, vp, sc, vs, pt, pos = args
         want, wcodes = ref.int_paged_decode_attention_ref(
             q, kp, vp, sc, vs, pt, pos, attn_bits=7, bk=kp.shape[2],
-            k_page_scale=kw["k_page_scale"], v_page_scale=kw["v_page_scale"],
-            return_codes=True)
+            window=kw["window"], k_page_scale=kw["k_page_scale"],
+            v_page_scale=kw["v_page_scale"], return_codes=True)
         abs_e, rel_e = rel_err(out, want)
         same = torch.equal(codes, wcodes)
-        log(f"[check] paged decode kv_bits={kv_bits} G={grp} D={d}: codes "
-            f"{'exact' if same else 'MISMATCH'}, out max abs {abs_e:.3e} "
-            f"rel {rel_e:.3e} (tol rel {ATTN_RTOL}); inactive row max "
-            f"{out[2].abs().max().item():.1e}")
-        if not same or rel_e > ATTN_RTOL or out[2].abs().max().item() != 0:
+        idle = pos < 0
+        idle_max = out[idle].abs().max().item() if bool(idle.any()) else 0.0
+        log(f"[check] paged decode kv_bits={row[0]} G={row[1]} D={row[2]} "
+            f"pages {pt.shape[1]} pos {pos.tolist()} window {kw['window']}: "
+            f"codes {'exact' if same else 'MISMATCH'}, out max abs "
+            f"{abs_e:.3e} rel {rel_e:.3e} (tol rel {ATTN_RTOL}); inactive "
+            f"rows {int(idle.sum())}, their max {idle_max:.1e}")
+        if not same or rel_e > ATTN_RTOL or idle_max != 0:
             raise AssertionError("paged decode differs from its plain version")
         worst = max(worst, abs_e)
     errs["int_paged_decode_attention"] = worst
@@ -451,6 +457,13 @@ RING_CHECKS = [(8, 1024, 79, None, 5, 128), (4, 1024, 79, None, 5, 128),
 # (kv_bits, G, D): the serve path's shape, then G 16 at D 256 (the f32
 # output carries in shared memory)
 PAGED_CHECKS = [(8, 5, 128), (4, 5, 128), (8, 16, 256), (4, 16, 256)]
+# (kv_bits, G, D, maxp, pos, window) at real context lengths, tables of
+# 512 pages of 16: three rows of 8192 tokens and one of 5001 at the serve
+# path's G 5 (kv8: 60.6 MB of live K and V, above the 50 MB L2; kv4), and
+# G 16 at D 256 over a 2048-token window (RecurrentGemma-9B's local layers)
+PAGED_LONG = [(8, 5, 128, 512, (8191, 8191, 5000, 8191), None),
+              (4, 5, 128, 512, (8191, 8191, 5000, 8191), None),
+              (8, 16, 256, 512, (8191, 8191, 8191, 8191), 2048)]
 
 
 def model_config(backend):
@@ -952,29 +965,35 @@ def phase_time(g, launches, errs):
                 f"{pms:.4f} ms, bf16 SDPA {lib:.4f} ms")
             keep(kname, name, (ms, pms, bnd, by, lib))
 
-    for kv_bits, grp, d in PAGED_CHECKS:
-        args, kw = paged_inputs(g, kv_bits, grp, d)
+    for row in PAGED_CHECKS + PAGED_LONG:
+        args, kw = paged_inputs(g, *row)
         q, kp, vp, sc, vs, pt, pos = args
+        window = kw["window"]
         ms = cuda_ms(lambda: ia.int_paged_decode_attention(*args, **kw))
         dms = device_ms(lambda: ia.int_paged_decode_attention(*args, **kw))
         pms = cuda_ms(lambda: ref.int_paged_decode_attention_ref(
             q, kp, vp, sc, vs, pt, pos, attn_bits=7, bk=kp.shape[2],
-            k_page_scale=kw["k_page_scale"],
+            window=window, k_page_scale=kw["k_page_scale"],
             v_page_scale=kw["v_page_scale"]), iters=3, warmup=1)
         b, hkv, grp, d = q.shape
         ps, dk = kp.shape[2], kp.shape[3]
-        live = [int(p) + 1 for p in pos.tolist() if p >= 0]     # keys
-        pages = sum(-(-n // ps) for n in live)
+        # the live keys (and pages holding them) of this run's rows
+        live, pages = [], 0
+        for p in pos.tolist():
+            if p >= 0:
+                lo = 0 if window is None else max(p - window + 1, 0)
+                live.append(p - lo + 1)
+                pages += p // ps - lo // ps + 1
         nbytes = hkv * pages * ps * dk * 2 + q.numel() + 4 * q.numel() + \
             4 * (2 * b + 2 * pages) + 4 * pt.numel() + 4 * b
         bnd, by = bound_ms(nbytes, 4 * d * grp * hkv * sum(live))
-        lib = paged_sdpa_ms(g, q, pt, pos, ps)
-        log(f"[time] paged decode kv_bits={kv_bits} B={b} G={grp} D={d} "
-            f"live keys {live}: {ms:.4f} ms (device {dms:.4f} ms), bound "
-            f"{bnd:.4f} ms ({by}), plain {pms:.4f} ms, bf16 SDPA over the "
-            f"gathered pages, masked {lib:.4f} ms")
-        keep("int_paged_decode_attention", (kv_bits, grp, d),
-             (ms, pms, bnd, by, lib))
+        lib = paged_sdpa_ms(g, q, pt, pos, ps, window)
+        log(f"[time] paged decode kv_bits={row[0]} B={b} G={grp} D={d} "
+            f"pages {pt.shape[1]} window {window} live keys {live}: "
+            f"{ms:.4f} ms (device {dms:.4f} ms), bound {bnd:.4f} ms ({by}), "
+            f"plain {pms:.4f} ms, bf16 SDPA over the gathered pages, masked "
+            f"{lib:.4f} ms")
+        keep("int_paged_decode_attention", row, (ms, pms, bnd, by, lib))
 
     for kv_bits, span, pos, grp, d in RING_TIMES:
         args = ring_inputs(g, kv_bits, span, pos, grp, d)
@@ -1073,10 +1092,10 @@ def ring_sdpa_ms(g, live, grp, d):
         qb, kb, vb, enable_gqa=True))
 
 
-def paged_sdpa_ms(g, q, pt, pos, ps):
+def paged_sdpa_ms(g, q, pt, pos, ps, window=None):
     """Yardstick the port never calls: one bf16 SDPA per decode step over
     every row's pages gathered into a dense (B, Hkv, max_pages * ps, D)
-    cache, masked to each row's positions."""
+    cache, masked to each row's positions (and window)."""
     import torch
     import torch.nn.functional as F
     b, hkv, grp, d = q.shape
@@ -1087,8 +1106,11 @@ def paged_sdpa_ms(g, q, pt, pos, ps):
                      dtype=torch.bfloat16)
     vb = torch.randn((b, hkv, total, d), generator=g, device="cuda",
                      dtype=torch.bfloat16)
-    mask = (torch.arange(total, device="cuda")[None, :] <=
-            pos.clamp(min=0)[:, None])[:, None, None, :]
+    kpos = torch.arange(total, device="cuda")[None, :]
+    mask = kpos <= pos.clamp(min=0)[:, None]
+    if window is not None:
+        mask &= kpos > pos[:, None] - window
+    mask = mask[:, None, None, :]
     return cuda_ms(lambda: F.scaled_dot_product_attention(
         qb, kb, vb, attn_mask=mask, enable_gqa=True))
 

@@ -41,16 +41,44 @@
 //   output equals the fused output bit for bit.  Bound: int8 operations,
 //   QK^T twice.
 //
-// paged_decode_kernel replaces
+// The paged decode kernels replace
 //   src/repro/kernels/int_attention.py::int_paged_decode_attention
-//   (_paged_decode_kernel, _paged_meta): every engine decode step.
-//   One block per (kv head h, sequence b) loads its own pos and page ids
-//   (the TPU's scalar prefetch) and walks its live pages in logical order.
-//   A row's pages are never split across blocks: a split would quantize
-//   against a partial running max and emit different codes.  int4 pools
-//   are unpacked in shared memory.  The f32 output carries sit in
-//   registers up to G * D = 2048 and in shared memory above.  Bound: the
-//   live KV bytes.
+//   (_paged_decode_kernel, _paged_meta): every engine decode step.  A
+//   sequence's page table is cut into chunks of P whole pages, P from
+//   kernels/int_attention.py::paged_plan (G, D, the page size and the
+//   packing only: never the batch, the table's width or another row), one
+//   block of 256 threads per (chunk, kv head h, sequence b).  A block reads
+//   pos and its page ids on the device (the TPU's scalar prefetch); a page
+//   none of whose keys is live (unallocated, past pos, before the window)
+//   is never read, a chunk without a live page marks itself dead, and the
+//   steps after the logits walk a list of the chunk's live pages.  A
+//   block puts the cp.async copies of all its live pages in flight at once,
+//   a warp a page (16-byte pieces into rows skewed by 16 bytes; byte loads
+//   where the rows are not 16-byte aligned).  QK^T takes one key on 1 to 32
+//   lanes, the key's words in registers (int4 nibbles unpacked there)
+//   against q words broadcast from shared memory, by dp4a; page maxima and
+//   each page's Sigma are trees over a page's lanes; PV takes a column quad
+//   and a group of pages a thread, the values of four keys transposed into
+//   a word a column by byte permutes, against the code words by dp4a.
+//   A row's pages are split across blocks and the codes stay exact: the
+//   running max at page t is the floor of a maximum over page maxima,
+//   which is the same in any order.
+//   1. paged_chunk_kernel<PG_LOGITS>: a chunk's logits to scratch and, per
+//      query row, the chunk maximum (NEG_BIG when the chunk is dead).
+//   2. paged_chunk_kernel<PG_PV>: m_t from the earlier chunks' maxima and
+//      this chunk's page maxima up to page t; the codes; each page's Sigma
+//      and int32 PV, scaled by the exact 2^(m_t - m_c) to the chunk's last
+//      m (m_c) and added in page order; the chunk's Sigma and PV to
+//      scratch.
+//   3. paged_merge_kernel: per (row, column), the live chunks in order,
+//      folded by the exact power-of-two rescale (merge_chunk).
+//   When the whole table is one chunk (maxp <= P), one launch of
+//   paged_chunk_kernel<PG_SHORT> does all three in a block: it folds its
+//   only chunk into the empty state with merge_chunk, so it gives the bits
+//   of the split path.  Codes, m and the int32 page PVs are exact; Sigma
+//   and PV are f32 sums in another association than the plain version's.
+//   No atomics.  Shared memory holds one chunk (PagedLayout, whose fit the
+//   launcher checks).  Bound: the live KV bytes.
 //
 // The ring decode kernels replace
 //   src/repro/kernels/int_attention.py::int_decode_attention
@@ -92,8 +120,8 @@ namespace {
 
 constexpr int NTA = 256;     // prefill block: 8 warps
 constexpr int MAXNP = 8;     // prefill: PV column pairs (16 columns) a warp
-constexpr int NTP = 128;     // paged decode block
-constexpr int MAXJP = 16;    // paged: register carries a thread (G*D <= 2048)
+constexpr int NTG = 256;     // paged decode chunk block: 8 warps
+constexpr int NTPM = 128;    // paged merge block
 constexpr int NTM = 256;     // ring merge block
 
 enum { FUSED = 0, STATS = 1, PV = 2 };
@@ -463,182 +491,557 @@ __device__ __forceinline__ void load_rows(const uint8_t* __restrict__ src,
   }
 }
 
-// Integer PV of one (row, column) over a page: unsigned codes by signed
-// values, four keys a dp4a.
-__device__ __forceinline__ int page_pv(const int* pc, const int* vt, int g,
-                                       int col, int KWD, int PS) {
-  int a = 0;
-  for (int w = 0; w < KWD; ++w)
-    a = dp4a_us(static_cast<unsigned>(pc[g * PS + w]), vt[col * PS + w], a);
-  return a;
+// ---------------------------------------------------------------------------
+// Paged decode
+// ---------------------------------------------------------------------------
+
+enum { PG_SHORT = 0, PG_LOGITS = 1, PG_PV = 2 };
+
+// Shared-memory layout of paged_chunk_kernel<MODE> for chunks of P pages of
+// ps keys, G query rows and head dim D (dk bytes a stored row).  Staged K
+// and V rows keep a stride of a 16-byte multiple plus 16, so lanes on
+// neighbouring keys read different banks; each buffer ends in 64 spare
+// bytes that a key's last 64-value segment may run into (the q words there
+// are zero, so whatever lies there adds nothing).  The PV partial sums of
+// the page groups (pg x G x 4nq f32) share the K rows' space, which the PV
+// phase no longer reads.  This is the kernel's fit: the launcher refuses a
+// layout over the card's 227 KB.
+struct PagedLayout {
+  int gp, nk, rs, qw, pw, nq, pg, kpl;
+  size_t k, v, q, x, pc, rows, pages, total;
+  __host__ __device__ PagedLayout(int mode, int G, int P, int ps, int D,
+                                  int packed, int mg) {
+    const int dk = packed ? D / 2 : D;
+    gp = round_up(G, mg);                  // q and code rows, zero-padded
+    nk = P * ps;                           // keys of a chunk
+    rs = round_up(dk, 16) + 16;            // staged row stride, bytes
+    qw = round_up((D + 3) / 4, 16);        // q words a row, zero-padded
+    pw = (ps + 3) / 4;                     // code words a page
+    nq = (D + 3) / 4;                      // column quads of a row
+    pg = 1;                                // PV page groups (a power of 2)
+    while (2 * pg * nq <= NTG && 2 * pg <= P) pg *= 2;
+    kpl = 1;                               // lanes a (row, page) reduction
+    while (kpl < ps && kpl < 4) kpl *= 2;
+    const size_t kv = (size_t)nk * rs + 64;
+    const size_t red = mode == PG_LOGITS ? 0 : 16 * (size_t)pg * G * nq;
+    k = 0;                                 // K rows, then the PV partials
+    v = k + (mode == PG_PV ? red : (kv > red ? kv : red));
+    q = v + (mode == PG_LOGITS ? 0 : kv);  // V rows (PV passes)
+    x = q + (mode == PG_PV ? 0 : 4 * (size_t)gp * qw);
+    pc = x + 4 * (size_t)G * nk;           // G x nk f32 logits
+    rows = pc + 4 * (size_t)gp * P * pw;   // gp x P x pw code words
+    pages = rows + 16 * (size_t)G * P;     // G x P: max, m, rescale, Sigma
+    // per page: id, scales, live list; per row: m before, Sigma; count
+    total = pages + 16 * (size_t)P + 8 * (size_t)G + 16;
+  }
+};
+
+// What every paged decode launch reads and writes (paged_decode_launch).
+struct PagedArgs {
+  const int8_t* q;
+  const uint8_t* kpool;
+  const uint8_t* vpool;
+  const float *sc, *vs, *kps, *vps;
+  const int *page_table, *pos;
+  float* out;
+  uint8_t* codes;
+  float *xg, *cm, *sp, *pvp;                // split-path scratch
+  int HKV, G, D, ps, P, maxp, num_phys, window, packed;
+  float qmax, two_over_qmax;
+};
+
+// Fold one chunk (its maximum, and its Sigma and PV relative to its own
+// last m) into a row's running (m, Sigma, PV) by the exact power-of-two
+// rescale.  The short path folds its only chunk into the empty state.
+__device__ __forceinline__ void merge_chunk(float& m, float& s, float& acc,
+                                            float cmax, float cs, float cpv) {
+  const float mn = fmaxf(m, floorf(cmax));
+  const float r = carry_scale(m, mn);
+  m = mn;
+  s = __fadd_rn(__fmul_rn(s, r), cs);
+  acc = __fadd_rn(__fmul_rn(acc, r), cpv);
 }
 
-// SMEM_ACC: the f32 output carries live in shared memory (G * D > 2048);
-// otherwise MAXJP registers a thread.
-template <bool SMEM_ACC>
-__global__ void __launch_bounds__(NTP)
-paged_decode_kernel(const int8_t* __restrict__ q,
-                    const uint8_t* __restrict__ kpool,
-                    const uint8_t* __restrict__ vpool,
-                    const float* __restrict__ sc, const float* __restrict__ vs,
-                    const float* __restrict__ kps,
-                    const float* __restrict__ vps,
-                    const int* __restrict__ page_table,
-                    const int* __restrict__ pos, float* __restrict__ out,
-                    uint8_t* __restrict__ codes, int HKV, int G, int D, int ps,
-                    int maxp, int num_phys, int window, int packed, float qmax,
-                    float two_over_qmax) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  int* const words = reinterpret_cast<int*>(smem);
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32, nwarps = NTP / 32;
-  const int DW = (D + 3) / 4, QS = DW + 1, KWD = (ps + 3) / 4, PS = KWD + 1;
-  const int dk = packed ? D / 2 : D;
-  int* qs = words;                         // G x QS
-  int* ks = qs + G * QS;                   // ps x QS
-  int* vt = ks + ps * QS;                  // 4*DW x PS: vT[d][key]
-  float* xs = reinterpret_cast<float*>(vt + 4 * DW * PS);   // G x ps
-  int* pc = reinterpret_cast<int*>(xs + G * ps);         // G x PS
-  float* mrow = reinterpret_cast<float*>(pc + G * PS);   // G
-  float* srow = mrow + G;
-  float* arow = srow + G;
-  float* accs = arow + G;                  // G x D when SMEM_ACC
-  uint8_t* vtb = reinterpret_cast<uint8_t*>(vt);
-  uint8_t* pcb = reinterpret_cast<uint8_t*>(pc);
-  const float qmax_half = qmax * 0.5f;
-  const bool page_scaled = kps != nullptr;
+__device__ __forceinline__ float paged_out(float s, float acc,
+                                           float two_over_qmax,
+                                           bool page_scaled, float vsb) {
+  float f = __fdiv_rn(two_over_qmax, fmaxf(s, 1e-30f));
+  if (!page_scaled) f = __fmul_rn(f, vsb);
+  return __fmul_rn(acc, f);
+}
 
-  const size_t qrow = ((size_t)b * HKV + h) * G;
-  load_rows(reinterpret_cast<const uint8_t*>(q) + qrow * D, D, G, 0, D, D, 0,
-            tid, NTP, [&](int g, int w, int bits) { qs[g * QS + w] = bits; });
-  const int tail = 4 * KWD - ps;           // codes past the page stay 0
-  for (int idx = tid; idx < G * tail; idx += NTP)
-    pcb[(idx / tail) * PS * 4 + ps + idx % tail] = 0;
-  for (int g = tid; g < G; g += NTP) {
-    mrow[g] = NEG_BIG;
-    srow[g] = 0.0f;
-  }
-  float acc[SMEM_ACC ? 1 : MAXJP];
-  if constexpr (SMEM_ACC) {
-    for (int o = tid; o < G * D; o += NTP) accs[o] = 0.0f;
-  } else {
+// Values 64s .. 64s+63 of a staged key row as 16 words of int8 codes
+// (nibbles unpacked in registers, low nibble first).
+__device__ __forceinline__ void key_segment(const uint8_t* row, int s,
+                                            int packed, int (&kw)[16]) {
+  if (packed) {
+    const uint4* p = reinterpret_cast<const uint4*>(row + 32 * s);
 #pragma unroll
-    for (int j = 0; j < MAXJP; ++j) acc[j] = 0.0f;
-  }
-
-  const int pb = pos[b];
-  const int hi = pb >= 0 ? pb / ps : -1;
-  int lo = 0;
-  if (window >= 0 && pb >= 0) {
-    const int w0 = pb - window + 1;
-    lo = w0 > 0 ? w0 / ps : 0;
-  }
-  const int n_live = pb >= 0 ? min(max(hi - lo + 1, 0), maxp) : 0;
-  const float scb = sc[b], vsb = vs[b];
-  __syncthreads();
-
-  for (int t = 0; t < n_live; ++t) {
-    const int logical = min(max(min(lo + t, hi), 0), maxp - 1);
-    const int raw = page_table[(size_t)b * maxp + logical];
-    if (raw < 0) continue;                      // unallocated: all masked
-    const int phys = min(raw, num_phys - 1);
-    const int first = logical * ps;
-    const int wlo = window >= 0 ? max(pb - window + 1, 0) : 0;
-    if (max(first, wlo) > min(first + ps - 1, pb)) continue;  // no live key
-
-    const size_t page = ((size_t)phys * HKV + h) * ps * dk;
-    load_rows(kpool + page, dk, ps, 0, D, D, packed, tid, NTP,
-              [&](int r, int w, int bits) { ks[r * QS + w] = bits; });
-    load_rows(vpool + page, dk, ps, 0, D, D, packed, tid, NTP,
-              [&](int r, int w, int bits) {
+    for (int i = 0; i < 2; ++i) {
+      const uint4 u = p[i];
+      const unsigned w4[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-                for (int bb = 0; bb < 4; ++bb)
-                  vtb[(4 * w + bb) * (PS * 4) + r] = (bits >> (8 * bb)) & 0xFF;
-              });
-    __syncthreads();
-
-    const float xscale = page_scaled ? __fmul_rn(scb, kps[phys]) : scb;
-    for (int idx = tid; idx < G * ps; idx += NTP) {
-      const int g = idx / ps, c = idx % ps;
-      int a = 0;
-      for (int w = 0; w < DW; ++w) a = __dp4a(qs[g * QS + w], ks[c * QS + w], a);
-      const int kp = first + c;
-      bool valid = kp <= pb;
-      if (window >= 0) valid &= kp > pb - window;
-      const float x = valid ? __fmul_rn(__int2float_rn(a), xscale) : NEG_BIG;
-      xs[idx] = fmaxf(x, -120.0f);
-    }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += nwarps) {
-      float mx = -INFINITY;
-      for (int c = lane; c < ps; c += 32) mx = fmaxf(mx, xs[g * ps + c]);
-      mx = warp_max(mx);
-      if (lane == 0) {
-        const float mo = mrow[g];
-        const float mn = fmaxf(mo, floorf(mx));
-        arow[g] = carry_scale(mo, mn);
-        mrow[g] = mn;
+      for (int j = 0; j < 4; ++j) {
+        kw[8 * i + 2 * j] = unpack4(w4[j] & 0xFFFFu);
+        kw[8 * i + 2 * j + 1] = unpack4(w4[j] >> 16);
       }
     }
-    __syncthreads();
-
-    for (int idx = tid; idx < G * ps; idx += NTP) {
-      const int g = idx / ps, c = idx % ps;
-      const float x = xs[idx];
-      const float e = x <= -120.0f ? 0.0f : exp2_shift(__fsub_rn(x, mrow[g]));
-      const float p =
-          fminf(fmaxf(rintf(__fmul_rn(e, qmax_half)), 0.0f), qmax);
-      xs[idx] = e;
-      pcb[g * PS * 4 + c] = static_cast<uint8_t>(p);
-      if (codes)
-        codes[(qrow + g) * ((size_t)maxp * ps) + first + c] =
-            static_cast<uint8_t>(p);
+  } else {
+    const int4* p = reinterpret_cast<const int4*>(row + 64 * s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int4 u = p[i];
+      kw[4 * i] = u.x;
+      kw[4 * i + 1] = u.y;
+      kw[4 * i + 2] = u.z;
+      kw[4 * i + 3] = u.w;
     }
-    __syncthreads();
+  }
+}
 
-    for (int g = warp; g < G; g += nwarps) {
-      float sum = 0.0f;
-      for (int c = lane; c < ps; c += 32) sum = __fadd_rn(sum, xs[g * ps + c]);
-      sum = warp_sum(sum);
-      if (lane == 0) srow[g] = __fadd_rn(__fmul_rn(srow[g], arow[g]), sum);
+// Copy the ps rows (dk bytes each) of kv head h of every live page of the
+// chunk (pphys[t] >= 0) into dst at stride rs, a warp a page: a page is
+// ps * dk contiguous bytes of the pool, moved as cp.async 16-byte pieces
+// (committed as one group), or by byte loads where the pool's rows are not
+// 16-byte aligned.
+__device__ __forceinline__ void stage_pages(uint8_t* dst,
+                                            const uint8_t* __restrict__ pool,
+                                            const int* pphys, int P, int ps,
+                                            int dk, int rs, int HKV, int h,
+                                            int warp, int lane) {
+  const bool vec = reinterpret_cast<size_t>(pool) % 16 == 0 && dk % 16 == 0;
+  const int unit = vec ? 16 : 1, nv = dk / unit;   // pieces a row
+  const int sh = __ffs(nv) - 1;                    // nv = 2^sh, or -1
+  const bool pow2 = (nv & (nv - 1)) == 0;
+  for (int t = warp; t < P; t += NTG / 32) {
+    const int phys = pphys[t];
+    if (phys < 0) continue;
+    const uint8_t* src = pool + ((size_t)phys * HKV + h) * ps * dk;
+    uint8_t* d = dst + (size_t)t * ps * rs;
+    for (int i = lane; i < ps * nv; i += 32) {
+      const int row = pow2 ? i >> sh : i / nv;
+      const int j = i - row * nv;
+      if (vec)
+        cp_async16(d + row * rs + 16 * j, src + 16 * (size_t)i);
+      else
+        d[row * rs + j] = src[i];
     }
-    const float vfac = page_scaled ? __fmul_rn(vsb, vps[phys]) : 1.0f;
-    if constexpr (SMEM_ACC) {
-      for (int o = tid; o < G * D; o += NTP) {
-        const int g = o / D;
-        float pv = __int2float_rn(page_pv(pc, vt, g, o % D, KWD, PS));
-        if (page_scaled) pv = __fmul_rn(pv, vfac);
-        accs[o] = __fadd_rn(__fmul_rn(accs[o], arow[g]), pv);
+  }
+  cp_commit();
+}
+
+// Four int8 codes of columns 4cq .. 4cq+3 of a staged value row.
+__device__ __forceinline__ unsigned value_quad(const uint8_t* row, int cq,
+                                               int packed) {
+  return packed ? static_cast<unsigned>(unpack4(
+                      *reinterpret_cast<const unsigned short*>(row + 2 * cq)))
+                : *reinterpret_cast<const unsigned*>(row + 4 * cq);
+}
+
+// One chunk of P pages of sequence b, kv head h, against its G query rows.
+// MODE PG_SHORT: the whole table is this chunk; logits, codes, PV and the
+// output in one block.  PG_LOGITS: pass 1 (logits and chunk maxima to
+// scratch).  PG_PV: pass 2 (codes, and Sigma and PV partials to scratch).
+// MG: query rows a thread carries at once (G is walked in tiles of MG).
+template <int MODE, int MG>
+__global__ void __launch_bounds__(NTG) paged_chunk_kernel(const PagedArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int G = a.G, D = a.D, ps = a.ps, P = a.P, packed = a.packed;
+  const PagedLayout L(MODE, G, P, ps, D, packed, MG);
+  const int ci = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int nch = gridDim.x, tid = threadIdx.x, nk = L.nk;
+  const int warp = tid / 32, lane = tid % 32;
+  uint8_t* const kb = smem + L.k;
+  float* const red = reinterpret_cast<float*>(smem + L.k);
+  uint8_t* const vb = smem + L.v;
+  int* const qs = reinterpret_cast<int*>(smem + L.q);
+  float* const xs = reinterpret_cast<float*>(smem + L.x);
+  int* const pc = reinterpret_cast<int*>(smem + L.pc);
+  float* const pm = reinterpret_cast<float*>(smem + L.rows);  // page max
+  float* const mt = pm + G * P;            // m at page t
+  float* const st = mt + G * P;            // 2^(m_t - the chunk's last m)
+  float* const pz = st + G * P;            // page Sigma
+  int* const pphys = reinterpret_cast<int*>(smem + L.pages);
+  float* const pxs = reinterpret_cast<float*>(pphys + P);    // logit scale
+  float* const pvf = pxs + P;              // page's PV factor
+  int* const lt = reinterpret_cast<int*>(pvf + P);  // live pages, in order
+  float* const mprev = reinterpret_cast<float*>(lt + P);  // m before, per row
+  float* const srow = mprev + G;           // chunk Sigma, per row
+  int* const nlive = reinterpret_cast<int*>(srow + G);
+
+  const size_t bh = (size_t)b * a.HKV + h;
+  const size_t span = (size_t)a.maxp * ps;  // a row's keys (codes, xg)
+  const size_t key0 = (size_t)ci * nk;      // the chunk's first position
+  const bool page_scaled = a.kps != nullptr;
+  // pos and the page ids are read together (neither address depends on
+  // the other), the page scales only once the copies are in flight.
+  const int pb = a.pos[b];
+  const int wlo = a.window >= 0 ? max(pb - a.window + 1, 0) : 0;
+  const float scb = a.sc[b], vsb = a.vs[b];
+  bool any = false;
+  for (int t = tid; t < P; t += NTG) {
+    const int logical = ci * P + t, first = logical * ps;
+    const int raw =
+        logical < a.maxp ? a.page_table[(size_t)b * a.maxp + logical] : -1;
+    const bool live = pb >= 0 && raw >= 0 &&
+                      max(first, wlo) <= min(first + ps - 1, pb);
+    pphys[t] = live ? min(raw, a.num_phys - 1) : -1;
+    any |= live;
+  }
+  if (!__syncthreads_or(any)) {            // dead chunk: nothing is read
+    if (MODE == PG_LOGITS)
+      for (int g = tid; g < G; g += NTG)
+        a.cm[(bh * nch + ci) * G + g] = NEG_BIG;
+    if (MODE == PG_SHORT)                  // the merge of no live chunk
+      for (int o = tid; o < G * D; o += NTG)
+        a.out[bh * G * D + o] =
+            paged_out(0.0f, 0.0f, a.two_over_qmax, page_scaled, vsb);
+    return;
+  }
+
+  if (MODE != PG_LOGITS && warp == 0) {   // the live pages, in order
+    int n = 0;
+    for (int t0 = 0; t0 < P; t0 += 32) {
+      const bool live = t0 + lane < P && pphys[t0 + lane] >= 0;
+      const unsigned m = __ballot_sync(0xffffffffu, live);
+      if (live) lt[n + __popc(m & ((1u << lane) - 1))] = t0 + lane;
+      n += __popc(m);
+    }
+    if (lane == 0) *nlive = n;
+  }
+
+  // Every load of the block in flight at once: the logits pass 1 wrote
+  // (a group of its own, first, so it can be waited for alone), the K and
+  // V rows, q, and the earlier chunks' maxima.
+  const int dk = packed ? D / 2 : D;
+  if (MODE == PG_PV) {
+    const bool vec = ps % 4 == 0 && reinterpret_cast<size_t>(a.xg) % 16 == 0;
+    const int nv = vec ? ps / 4 : ps;      // pieces a (row, page)
+    for (int idx = tid; idx < G * P * nv; idx += NTG) {
+      const int pair = idx / nv, j = idx - pair * nv;
+      const int g = pair / P, t = pair - g * P;
+      if (pphys[t] < 0) continue;
+      float* d = xs + (size_t)g * nk + (size_t)t * ps;
+      const float* src = a.xg + (bh * G + g) * span + key0 + (size_t)t * ps;
+      if (vec)
+        cp_async16(d + 4 * j, src + 4 * j);
+      else
+        d[j] = src[j];
+    }
+    cp_commit();
+  }
+  if (MODE != PG_PV)
+    stage_pages(kb, a.kpool, pphys, P, ps, dk, L.rs, a.HKV, h, warp, lane);
+  if (MODE != PG_LOGITS)
+    stage_pages(vb, a.vpool, pphys, P, ps, dk, L.rs, a.HKV, h, warp, lane);
+  if (MODE != PG_PV) {
+    const uint8_t* qb = reinterpret_cast<const uint8_t*>(a.q) + bh * G * D;
+    if (D % 16 == 0 && reinterpret_cast<size_t>(a.q) % 16 == 0) {
+      const int nv = L.qw / 4;             // 16-byte pieces a q row
+      for (int idx = tid; idx < L.gp * nv; idx += NTG) {
+        const int g = idx / nv, j = idx % nv;
+        reinterpret_cast<int4*>(qs)[idx] =
+            g < G && 16 * j < D
+                ? *reinterpret_cast<const int4*>(qb + (size_t)g * D + 16 * j)
+                : make_int4(0, 0, 0, 0);
       }
     } else {
+      for (int idx = tid; idx < L.gp * L.qw; idx += NTG) {
+        const int g = idx / L.qw, d0 = 4 * (idx % L.qw);
+        unsigned word = 0;
 #pragma unroll
-      for (int j = 0; j < MAXJP; ++j) {
-        const int o = tid + NTP * j;
-        if (o < G * D) {
-          const int g = o / D;
-          float pv = __int2float_rn(page_pv(pc, vt, g, o % D, KWD, PS));
-          if (page_scaled) pv = __fmul_rn(pv, vfac);
-          acc[j] = __fadd_rn(__fmul_rn(acc[j], arow[g]), pv);
+        for (int i = 0; i < 4; ++i)
+          if (g < G && d0 + i < D)
+            word |= static_cast<unsigned>(qb[(size_t)g * D + d0 + i])
+                    << (8 * i);
+        qs[idx] = static_cast<int>(word);
+      }
+    }
+  }
+  for (int t = tid; t < P; t += NTG) {
+    const int phys = pphys[t];
+    if (phys >= 0) {
+      pxs[t] = page_scaled ? __fmul_rn(scb, a.kps[phys]) : scb;
+      pvf[t] = page_scaled ? __fmul_rn(vsb, a.vps[phys]) : 1.0f;
+    }
+  }
+  if (MODE != PG_LOGITS) {
+    for (int g = warp; g < G; g += NTG / 32) {
+      float m = NEG_BIG;
+      if (MODE == PG_PV)
+        for (int c = lane; c < ci; c += 32)
+          m = fmaxf(m, a.cm[(bh * nch + c) * G + g]);
+      m = warp_max(m);
+      if (lane == 0) mprev[g] = floorf(m);
+    }
+    for (int i = tid; i < L.gp * P * L.pw; i += NTG) pc[i] = 0;  // tails
+  }
+
+  if (MODE != PG_PV) {
+    // Logits: key kk on `lanes` lanes, each over 64-value segments of D.
+    if (MODE == PG_SHORT) cp_wait<1>(); else cp_wait<0>();
+    __syncthreads();
+    const int nseg = ((D + 3) / 4 + 15) / 16;
+    int lanes = 1;
+    while (lanes < nseg && lanes < 32) lanes *= 2;
+    const int part = tid % lanes;
+    for (int k0 = 0; k0 < nk; k0 += NTG / lanes) {
+      const int kk = k0 + tid / lanes;
+      const int t = min(kk, nk - 1) / ps;
+      const bool act = kk < nk && pphys[t] >= 0;
+      const uint8_t* krow = kb + (size_t)min(kk, nk - 1) * L.rs;
+      for (int g0 = 0; g0 < G; g0 += MG) {
+        int acc[MG];
+#pragma unroll
+        for (int r = 0; r < MG; ++r) acc[r] = 0;
+        if (act) {                         // rows past G: zero q words
+          for (int s = part; s < nseg; s += lanes) {
+            int kw[16];
+            key_segment(krow, s, packed, kw);
+            const int4* qv =
+                reinterpret_cast<const int4*>(qs + g0 * L.qw + 16 * s);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+#pragma unroll
+              for (int r = 0; r < MG; ++r) {
+                const int4 u = qv[r * (L.qw / 4) + i];
+                acc[r] = __dp4a(u.x, kw[4 * i], acc[r]);
+                acc[r] = __dp4a(u.y, kw[4 * i + 1], acc[r]);
+                acc[r] = __dp4a(u.z, kw[4 * i + 2], acc[r]);
+                acc[r] = __dp4a(u.w, kw[4 * i + 3], acc[r]);
+              }
+            }
+          }
+        }
+        for (int o = lanes / 2; o > 0; o /= 2) {
+#pragma unroll
+          for (int r = 0; r < MG; ++r)
+            acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
+        }
+        if (act && part == 0) {
+          const int kp = static_cast<int>(key0) + kk;
+          const bool valid = kp <= pb && kp >= wlo;
+#pragma unroll
+          for (int r = 0; r < MG; ++r) {
+            if (g0 + r >= G) break;
+            const float x = fmaxf(
+                valid ? __fmul_rn(__int2float_rn(acc[r]), pxs[t]) : NEG_BIG,
+                -120.0f);
+            xs[(g0 + r) * nk + kk] = x;
+            if (MODE == PG_LOGITS)
+              a.xg[(bh * G + g0 + r) * span + key0 + kk] = x;
+          }
         }
       }
     }
-    __syncthreads();
-  }
-
-  auto store = [&](int o, float a) {
-    const int g = o / D;
-    float f = __fdiv_rn(two_over_qmax, fmaxf(srow[g], 1e-30f));
-    if (!page_scaled) f = __fmul_rn(f, vsb);
-    out[(qrow + g) * D + o % D] = __fmul_rn(a, f);
-  };
-  if constexpr (SMEM_ACC) {
-    for (int o = tid; o < G * D; o += NTP) store(o, accs[o]);
   } else {
-#pragma unroll
-    for (int j = 0; j < MAXJP; ++j)
-      if (tid + NTP * j < G * D) store(tid + NTP * j, acc[j]);
+    cp_wait<1>();                          // the logits, not V
   }
+  __syncthreads();
+
+  // (row, page) pairs, kpl lanes a pair, a lane its keys in order: pass 1
+  // over all P pages, the other passes over the live ones only.
+  const int nl = MODE == PG_LOGITS ? P : *nlive;
+  const int kpl = L.kpl, sub = lane / kpl, c0 = lane % kpl;
+  const int pairs = (NTG / 32) * (32 / kpl);   // pairs a pass
+  // Each page's maximum (NEG_BIG for a dead page).
+  for (int base = warp * (32 / kpl); base < G * nl; base += pairs) {
+    const int idx = base + sub, g = idx / max(nl, 1), i = idx - g * nl;
+    const int t = idx >= G * nl ? 0 : MODE == PG_LOGITS ? i : lt[i];
+    const bool live = idx < G * nl && pphys[t] >= 0;
+    const float* xr = xs + g * nk + t * ps;
+    float mx = -INFINITY;
+    if (live)
+      for (int c = c0; c < ps; c += kpl) mx = fmaxf(mx, xr[c]);
+    for (int o = kpl / 2; o > 0; o /= 2)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (idx < G * nl && c0 == 0) pm[g * P + t] = live ? mx : NEG_BIG;
+  }
+  __syncthreads();
+
+  if constexpr (MODE == PG_LOGITS) {
+    for (int g = tid; g < G; g += NTG) {
+      float mx = NEG_BIG;
+      for (int t = 0; t < P; ++t) mx = fmaxf(mx, pm[g * P + t]);
+      a.cm[(bh * nch + ci) * G + g] = mx;
+    }
+  } else {
+    // m_t: the floor of the maximum over the earlier chunks and this
+    // chunk's pages up to t; each page's carries are rescaled exactly to
+    // the chunk's last m (m_c) before they are added.
+    for (int idx = tid; idx < G * nl; idx += NTG) {
+      const int g = idx / nl, i = idx - g * nl;
+      float m = mprev[g], mc = m;
+      for (int i2 = 0; i2 < nl; ++i2) {
+        const float f = floorf(pm[g * P + lt[i2]]);
+        if (i2 <= i) m = fmaxf(m, f);
+        mc = fmaxf(mc, f);
+      }
+      mt[g * P + lt[i]] = m;
+      st[g * P + lt[i]] = carry_scale(m, mc);
+    }
+    __syncthreads();
+
+    // Codes on the running grid and each page's Sigma (a tree over kpl
+    // lanes, the page's keys in lane order first).
+    const float qmax = a.qmax, qmax_half = qmax * 0.5f;
+    uint8_t* const pcb = reinterpret_cast<uint8_t*>(pc);
+    for (int base = warp * (32 / kpl); base < G * nl; base += pairs) {
+      const int pair = base + sub, g = pair / max(nl, 1);
+      const bool live = pair < G * nl;
+      const int t = live ? lt[pair - g * nl] : 0, idx = g * P + t;
+      float z = 0.0f;
+      if (live) {
+        const float m = mt[idx];
+        for (int c = c0; c < ps; c += kpl) {
+          const float x = xs[g * nk + t * ps + c];
+          const float e = x <= -120.0f ? 0.0f : exp2_shift(__fsub_rn(x, m));
+          const float p =
+              fminf(fmaxf(rintf(__fmul_rn(e, qmax_half)), 0.0f), qmax);
+          z = __fadd_rn(z, e);
+          pcb[(size_t)idx * L.pw * 4 + c] = static_cast<uint8_t>(p);
+          if (a.codes)
+            a.codes[(bh * G + g) * span + key0 + t * ps + c] =
+                static_cast<uint8_t>(p);
+        }
+      }
+      for (int o = kpl / 2; o > 0; o /= 2)
+        z = __fadd_rn(z, __shfl_xor_sync(0xffffffffu, z, o));
+      if (live && c0 == 0) pz[idx] = z;
+    }
+    __syncthreads();
+
+    for (int g = tid; g < G; g += NTG) {   // the chunk's Sigma, page order
+      float s = 0.0f;
+      for (int i = 0; i < nl; ++i)
+        s = __fadd_rn(s, __fmul_rn(pz[g * P + lt[i]], st[g * P + lt[i]]));
+      srow[g] = s;
+      if (MODE == PG_PV) a.sp[(bh * nch + ci) * G + g] = s;
+    }
+    cp_wait<0>();                          // V
+    __syncthreads();
+
+    // PV: thread (column quad cq, page group pgi) over the group's pages,
+    // the values of four keys transposed into a word a column by byte
+    // permutes; each page's int32 sums, scaled and rescaled, added in page
+    // order into the group's partials (red).
+    const int nq = L.nq, ppg = (nl + L.pg - 1) / L.pg;
+    float4* const red4 = reinterpret_cast<float4*>(red);
+    for (int item = tid; item < nq * L.pg; item += NTG) {
+      const int cq = item % nq, pgi = item / nq;
+      const int i0 = pgi * ppg, i1 = min(i0 + ppg, nl);
+      for (int g0 = 0; g0 < G; g0 += 8) {
+        bool started = false;
+        for (int i = i0; i < i1; ++i) {
+          const int t = lt[i];
+          const uint8_t* vrow = vb + (size_t)t * ps * L.rs;
+          int pv[8][4];
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) pv[r][j] = 0;
+          for (int kg = 0; kg < L.pw; ++kg) {
+            unsigned w[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int c = 4 * kg + i;
+              w[i] = c < ps ? value_quad(vrow + (size_t)c * L.rs, cq, packed)
+                            : 0u;
+            }
+            const unsigned t01 = __byte_perm(w[0], w[1], 0x5140);
+            const unsigned t23 = __byte_perm(w[2], w[3], 0x5140);
+            const unsigned u01 = __byte_perm(w[0], w[1], 0x7362);
+            const unsigned u23 = __byte_perm(w[2], w[3], 0x7362);
+            const int col[4] = {
+                static_cast<int>(__byte_perm(t01, t23, 0x5410)),
+                static_cast<int>(__byte_perm(t01, t23, 0x7632)),
+                static_cast<int>(__byte_perm(u01, u23, 0x5410)),
+                static_cast<int>(__byte_perm(u01, u23, 0x7632))};
+#pragma unroll
+            for (int r = 0; r < 8; ++r) {      // rows past G: zero codes
+              const unsigned cw = static_cast<unsigned>(
+                  pc[((g0 + r) * P + t) * L.pw + kg]);
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                pv[r][j] = dp4a_us(cw, col[j], pv[r][j]);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const int g = g0 + r;
+            if (g >= G) break;
+            const float sg = st[g * P + t];
+            float f[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              float v = __int2float_rn(pv[r][j]);
+              if (page_scaled) v = __fmul_rn(v, pvf[t]);
+              f[j] = __fmul_rn(v, sg);
+            }
+            float4& dst = red4[((size_t)pgi * G + g) * nq + cq];
+            dst = started ? make_float4(__fadd_rn(dst.x, f[0]),
+                                        __fadd_rn(dst.y, f[1]),
+                                        __fadd_rn(dst.z, f[2]),
+                                        __fadd_rn(dst.w, f[3]))
+                          : make_float4(f[0], f[1], f[2], f[3]);
+          }
+          started = true;
+        }
+        if (!started)
+          for (int g = g0; g < min(g0 + 8, G); ++g)
+            red4[((size_t)pgi * G + g) * nq + cq] = make_float4(0, 0, 0, 0);
+      }
+    }
+    __syncthreads();
+
+    // The chunk's PV: the page groups in order.
+    for (int o = tid; o < G * D; o += NTG) {
+      const int g = o / D, d = o % D;
+      float acc = red[(size_t)g * 4 * nq + d];
+      for (int pgi = 1; pgi < L.pg; ++pgi)
+        acc = __fadd_rn(acc, red[((size_t)pgi * G + g) * 4 * nq + d]);
+      if (MODE == PG_PV) {
+        a.pvp[(bh * nch + ci) * G * D + o] = acc;
+      } else {
+        float m = NEG_BIG, s = 0.0f, out = 0.0f;
+        merge_chunk(m, s, out, mt[g * P + P - 1], srow[g], acc);
+        a.out[bh * G * D + o] =
+            paged_out(s, out, a.two_over_qmax, page_scaled, vsb);
+      }
+    }
+  }
+}
+
+// Pass 3: one thread per (row g, column d) of (sequence b, kv head h)
+// folds the live chunks in order: the chunk maxima first, 16 at a time,
+// then the partials of the live ones (a dead chunk's were never written).
+__global__ void __launch_bounds__(NTPM) paged_merge_kernel(const PagedArgs a) {
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int o = blockIdx.x * NTPM + threadIdx.x, G = a.G, D = a.D;
+  if (o >= G * D) return;
+  const int nch = (a.maxp + a.P - 1) / a.P;
+  const size_t bh = (size_t)b * a.HKV + h;
+  const float* cmh = a.cm + bh * nch * G + o / D;
+  const float* sph = a.sp + bh * nch * G + o / D;
+  const float* pvh = a.pvp + bh * nch * G * D + o;
+  float m = NEG_BIG, s = 0.0f, acc = 0.0f;
+  for (int c0 = 0; c0 < nch; c0 += 16) {
+    float cv[16], sv[16], pv[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      cv[i] = c0 + i < nch ? cmh[(size_t)(c0 + i) * G] : NEG_BIG;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const size_t c = c0 + i;
+      sv[i] = cv[i] > NEG_BIG ? sph[c * G] : 0.0f;
+      pv[i] = cv[i] > NEG_BIG ? pvh[c * G * D] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      if (cv[i] > NEG_BIG) merge_chunk(m, s, acc, cv[i], sv[i], pv[i]);
+  }
+  a.out[bh * G * D + o] =
+      paged_out(s, acc, a.two_over_qmax, a.kps != nullptr, a.vs[b]);
 }
 
 __device__ __forceinline__ bool ring_live(const int* __restrict__ kpos,
@@ -967,34 +1370,30 @@ extern "C" int two_pass_attention_launch(const void* q, const void* k,
 
 namespace {
 
-size_t paged_smem(int G, int ps, int D) {
-  const int DW = (D + 3) / 4, QS = DW + 1, PS = (ps + 3) / 4 + 1;
-  const size_t accs = G * D > NTP * MAXJP ? (size_t)G * D : 0;
-  return 4 * ((size_t)G * QS + (size_t)ps * QS + (size_t)4 * DW * PS +
-              (size_t)G * ps + (size_t)G * PS + 3 * (size_t)G + accs);
-}
-
-template <bool SMEM_ACC>
-cudaError_t launch_paged(const void* q, const void* kpool, const void* vpool,
-                         const void* sc, const void* vs, const void* kps,
-                         const void* vps, const void* page_table,
-                         const void* pos, void* out, void* codes, int B,
-                         int HKV, int G, int D, int ps, int maxp,
-                         int num_phys, int window, int packed, float qmax,
-                         float two_over_qmax, cudaStream_t stream) {
-  const size_t smem = paged_smem(G, ps, D);
+template <int MODE, int MG>
+cudaError_t launch_chunks(const PagedArgs& a, dim3 grid, cudaStream_t st) {
+  const size_t smem =
+      PagedLayout(MODE, a.G, a.P, a.ps, a.D, a.packed, MG).total;
   static size_t done[16];
   const cudaError_t err = allow_smem(
-      reinterpret_cast<const void*>(paged_decode_kernel<SMEM_ACC>), smem, done);
+      reinterpret_cast<const void*>(paged_chunk_kernel<MODE, MG>), smem,
+      done);
   if (err != cudaSuccess) return err;
-  paged_decode_kernel<SMEM_ACC><<<dim3(HKV, B), NTP, smem, stream>>>(
-      static_cast<const int8_t*>(q), static_cast<const uint8_t*>(kpool),
-      static_cast<const uint8_t*>(vpool), static_cast<const float*>(sc),
-      static_cast<const float*>(vs), static_cast<const float*>(kps),
-      static_cast<const float*>(vps), static_cast<const int*>(page_table),
-      static_cast<const int*>(pos), static_cast<float*>(out),
-      static_cast<uint8_t*>(codes), HKV, G, D, ps, maxp, num_phys, window,
-      packed, qmax, two_over_qmax);
+  paged_chunk_kernel<MODE, MG><<<grid, NTG, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int MG>
+cudaError_t launch_paged(const PagedArgs& a, int B, cudaStream_t st) {
+  const int nch = (a.maxp + a.P - 1) / a.P;
+  if (nch <= 1) return launch_chunks<PG_SHORT, MG>(a, dim3(1, a.HKV, B), st);
+  const dim3 grid(nch, a.HKV, B);
+  cudaError_t err = launch_chunks<PG_LOGITS, MG>(a, grid, st);
+  if (err != cudaSuccess) return err;
+  err = launch_chunks<PG_PV, MG>(a, grid, st);
+  if (err != cudaSuccess) return err;
+  paged_merge_kernel<<<dim3((a.G * a.D + NTPM - 1) / NTPM, a.HKV, B), NTPM,
+                       0, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -1003,30 +1402,46 @@ cudaError_t launch_paged(const void* q, const void* kpool, const void* vpool,
 // q (B, HKV, G, D) int8; pools (num_phys, HKV, ps, D) int8 or
 // (..., D/2) uint8 nibbles (packed); sc, vs (B,) f32; kps, vps
 // (num_phys,) f32 per physical page, or both null; page_table
-// (B, maxp) int32 (negative = unallocated); pos (B,) int32 (negative =
-// inactive row -> zero output); out (B, HKV, G, D) f32; codes
-// (B, HKV, G, maxp * ps) uint8 or null.  Takes any D and page size whose
-// paged_smem is within 227 KB (also stated in kernels/int_attention.py).
-extern "C" int paged_decode_launch(const void* q, const void* kpool,
-                                   const void* vpool, const void* sc,
-                                   const void* vs, const void* kps,
-                                   const void* vps, const void* page_table,
-                                   const void* pos, void* out, void* codes,
-                                   int B, int HKV, int G, int D, int ps,
-                                   int maxp, int num_phys, int window,
-                                   int packed, float qmax,
-                                   float two_over_qmax, void* stream) {
-  if (paged_smem(G, ps, D) > 232448)
+// (B, maxp) int32 (negative = unallocated); pos (B,) int32 on the device
+// (negative = inactive row -> zero output); out (B, HKV, G, D) f32; codes
+// (B, HKV, G, maxp * ps) uint8 (zero-filled by the caller) or null;
+// window < 0 means none.  P: pages a chunk (paged_plan).  When maxp > P,
+// scratch from the caller: xg (B, HKV, G, maxp * ps) f32, cm and sp
+// (B, HKV, nch, G) f32, pvp (B, HKV, nch, G, D) f32, nch = ceil(maxp / P);
+// null otherwise.
+// Refuses (cudaErrorInvalidValue, before any launch) a chunk whose
+// PagedLayout exceeds 227 KB.
+extern "C" int paged_decode_launch(
+    const void* q, const void* kpool, const void* vpool, const void* sc,
+    const void* vs, const void* kps, const void* vps, const void* page_table,
+    const void* pos, void* out, void* codes, void* xg, void* cm, void* sp,
+    void* pvp, int B, int HKV, int G, int D, int ps, int P, int maxp,
+    int num_phys, int window, int packed, float qmax, float two_over_qmax,
+    void* stream) {
+  const int nch = P > 0 ? (maxp + P - 1) / P : 0;
+  const bool split = nch > 1;
+  const int mg = G <= 8 ? 8 : 16;          // launch_paged's row tile
+  auto fit = [&](int mode) {
+    return PagedLayout(mode, G, P, ps, D, packed, mg).total <= 232448;
+  };
+  const bool fits = split ? fit(PG_LOGITS) && fit(PG_PV) : fit(PG_SHORT);
+  if (B <= 0 || HKV <= 0 || G <= 0 || D <= 0 || ps <= 0 || P <= 0 ||
+      maxp < 0 || num_phys <= 0 || B > 65535 || HKV > 65535 ||
+      (packed && D % 2) || !fits || (split && !(xg && cm && sp && pvp)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const PagedArgs a{
+      static_cast<const int8_t*>(q), static_cast<const uint8_t*>(kpool),
+      static_cast<const uint8_t*>(vpool), static_cast<const float*>(sc),
+      static_cast<const float*>(vs), static_cast<const float*>(kps),
+      static_cast<const float*>(vps), static_cast<const int*>(page_table),
+      static_cast<const int*>(pos), static_cast<float*>(out),
+      static_cast<uint8_t*>(codes), static_cast<float*>(xg),
+      static_cast<float*>(cm), static_cast<float*>(sp),
+      static_cast<float*>(pvp), HKV, G, D, ps, P, maxp, num_phys, window,
+      packed, qmax, two_over_qmax};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G * D > NTP * MAXJP)
-    return static_cast<int>(launch_paged<true>(
-        q, kpool, vpool, sc, vs, kps, vps, page_table, pos, out, codes, B,
-        HKV, G, D, ps, maxp, num_phys, window, packed, qmax, two_over_qmax,
-        st));
-  return static_cast<int>(launch_paged<false>(
-      q, kpool, vpool, sc, vs, kps, vps, page_table, pos, out, codes, B, HKV,
-      G, D, ps, maxp, num_phys, window, packed, qmax, two_over_qmax, st));
+  return static_cast<int>(mg == 8 ? launch_paged<8>(a, B, st)
+                                  : launch_paged<16>(a, B, st));
 }
 
 // q (H, G, D) int8; k, v (H, span, D) int8 or (H, span, D/2) uint8

@@ -23,11 +23,18 @@ power-of-two Sigma grid, PV carries rescaled by exact powers of two):
   fused kernel bit for bit.
 - :func:`int_paged_decode_attention` replaces
   ``repro/kernels/int_attention.py::int_paged_decode_attention``
-  (``:661``): every engine decode step.  One block per (kv head, sequence)
-  walks that sequence's live pages in logical order; pages are never
-  split across blocks (a split would quantize against a partial running
-  max).  Plain version: the paged oracle at ``bk = page_size``.  Bound:
-  the live KV bytes.
+  (``:661``, ``pl.pallas_call`` at ``:752``): every engine decode step.  A
+  sequence's pages are split across the card in chunks of
+  :func:`paged_plan` whole pages, one block per (chunk, kv head,
+  sequence), and the codes stay exact: a page's running max is the floor
+  of a maximum over page maxima, the same in any order.  Three launches:
+  each chunk's logits and maxima; each live chunk's codes, and its Sigma
+  and PV with each page's sums rescaled exactly to the chunk's last max;
+  a merge of the chunks in order by the exact power-of-two rescale.  A
+  table of one chunk takes one launch that does all three in a block and
+  gives the same bits.  Pages without a live key are never read.  Plain
+  version: the paged oracle at ``bk = page_size``.  Bound: the live KV
+  bytes.
 - :func:`int_decode_attention` replaces
   ``repro/kernels/int_attention.py::int_decode_attention`` (``:582``,
   ``pl.pallas_call`` at ``:649``): every decode step over the ring KV
@@ -59,6 +66,7 @@ MAX_PROB_BITS = 8
 # What the kernels take, stated here and in the C launchers' error returns
 # (``csrc/int_attention.cu``); dispatch picks its blocks independently.
 SMEM_BUDGET = 232_448     # dynamic shared memory a block may use (227 KB)
+CUDA_INVALID_VALUE = 1     # cudaErrorInvalidValue: a launcher's refusal
 # Kernel launches (one per wrapper call that launches, bumped nowhere else).
 LAUNCHES = {"int_attention_fused": 0, "int_attention": 0,
             "int_paged_decode_attention": 0, "int_decode_attention": 0}
@@ -68,17 +76,22 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _launch(name: str, n_ptr: int, n_int: int, what: str, *args) -> None:
+def _launch(name: str, n_ptr: int, n_int: int, what: str, *args,
+            refused: str | None = None) -> None:
     """Call the C launch function ``name`` of ``csrc/int_attention.cu``
     (argument types, set once: ``n_ptr`` pointers, ``n_int`` ints, qmax and
-    2/qmax, the stream) and raise with ``what`` if it returns an error."""
+    2/qmax, the stream) and raise with ``what`` if it returns an error;
+    with ``refused``, a shape the launcher refuses raises ValueError."""
     lib = build.load("int_attention")
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
             [ctypes.c_float] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    build.check(lib, fn(*args), what)
+    rc = fn(*args)
+    if refused is not None and rc == CUDA_INVALID_VALUE:
+        raise ValueError(refused)
+    build.check(lib, rc, what)
 
 
 def attention_smem(bm: int, kt: int, bk: int, d: int) -> int:
@@ -111,16 +124,17 @@ def attention_plan(bk: int, d: int):
     return None
 
 
-def paged_smem(g: int, page_size: int, d: int) -> int:
-    """Dynamic shared memory of the paged decode kernel (bytes): q and key
-    words, transposed values and codes in words (zero-padded to whole
-    words), f32 logits, three row vectors; above G * D = 2048 the f32
-    output carries move from registers into it."""
-    dw = -(-d // 4)
-    qs, ps = dw + 1, -(-page_size // 4) + 1
-    accs = g * d if g * d > 2048 else 0
-    return 4 * (g * qs + page_size * qs + 4 * dw * ps + g * page_size
-                + g * ps + 3 * g + accs)
+@functools.lru_cache(maxsize=None)
+def paged_plan(g: int, d: int, page_size: int, packed: bool) -> int:
+    """Pages a chunk of the paged decode kernel: as many whole pages as
+    keep a chunk within 256 keys, 64 KB of staged key rows and 64 KB of f32
+    logits, and at least one.  It depends on these four values only, never
+    on the batch, the table's width or a row's length, so a row is cut into
+    the same chunks, merged in the same order, whatever else is in the
+    batch (the kernel's launcher checks that the chunk fits the card)."""
+    dk = d // 2 if packed else d
+    return max(1, min(256 // page_size, 65536 // (page_size * dk),
+                      16384 // (g * page_size)))
 
 
 def ring_smem(g: int, chunk: int, ds: int) -> int:
@@ -336,26 +350,35 @@ def int_paged_decode_attention(q_q, k_pages, v_pages, sc, v_scale,
     if k_page_scale is not None:
         _check(k_page_scale, torch.float32, (num_phys,), "k_page_scale")
         _check(v_page_scale, torch.float32, (num_phys,), "v_page_scale")
-    smem = paged_smem(g, ps, d)
-    if smem > SMEM_BUDGET:
-        raise ValueError(f"paged decode kernel: needs a page within "
-                         f"{SMEM_BUDGET} bytes of shared memory (D={d}, "
-                         f"page_size={ps}, G={g}: {smem} bytes)")
+    p = paged_plan(g, d, ps, packed)
+    nch = -(-maxp // p)
     qmax = (1 << attn_bits) - 1
     out = torch.empty((b, hkv, g, d), dtype=torch.float32, device=dev)
     codes = torch.zeros((b, hkv, g, maxp * ps), dtype=torch.uint8,
                         device=dev) if return_codes else None
+    scratch = [None] * 4
+    if nch > 1:
+        # one buffer of f32 words: the logits (B, Hkv, G, maxp * ps), chunk
+        # maxima and Sigma partials (B, Hkv, nch, G), PV partials
+        # (B, Hkv, nch, G, D)
+        n_x, n_c = b * hkv * g * maxp * ps, b * hkv * nch * g
+        sizes = [n_x, n_c, n_c, n_c * d]
+        buf = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+        scratch = [buf.data_ptr() + 4 * sum(sizes[:i]) for i in range(4)]
+    shape = f"B={b}, Hkv={hkv}, G={g}, D={d}, page_size={ps}, maxp={maxp}"
     _launch(
-        "paged_decode_launch", 11, 9, "int_paged_decode_attention",
+        "paged_decode_launch", 15, 10, f"int_paged_decode_attention ({shape})",
         q_q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         sc.data_ptr(), vs.data_ptr(),
         None if k_page_scale is None else k_page_scale.data_ptr(),
         None if v_page_scale is None else v_page_scale.data_ptr(),
         page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        None if codes is None else codes.data_ptr(),
-        b, hkv, g, d, ps, maxp, num_phys,
+        None if codes is None else codes.data_ptr(), *scratch,
+        b, hkv, g, d, ps, p, maxp, num_phys,
         -1 if window is None else int(window), int(packed), float(qmax),
-        ref.f32(2.0 / qmax), build.stream_ptr(q_q))
+        ref.f32(2.0 / qmax), build.stream_ptr(q_q),
+        refused=f"paged decode kernel: a chunk of {p} pages does not fit "
+                f"{SMEM_BUDGET} bytes of shared memory ({shape})")
     LAUNCHES["int_paged_decode_attention"] += 1
     return (out, codes) if return_codes else out
 

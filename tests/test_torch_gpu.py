@@ -118,16 +118,10 @@ def test_fused_attention_kernel_codes_exact(gen, sq, sk, window, bits):
     assert _rel(out, want) <= 1e-5        # Sigma: f32 sum in another order
 
 
-# (kv_bits, G, D, page size): the Qwen serve shape (f32 carries in
-# registers), RecurrentGemma-9B's local layers, G 16 at D 256 (carries in
-# shared memory), and pages of 6 and 10 keys at D 12 and 20 (rows and code
-# words that are not whole int8 words)
-@pytest.mark.parametrize("kv_bits,g,d,ps", [(8, 5, 128, 16), (4, 5, 128, 16),
-                                            (8, 16, 256, 16),
-                                            (4, 16, 256, 16), (8, 3, 12, 6),
-                                            (4, 3, 12, 6), (8, 4, 20, 10)])
-def test_paged_decode_kernel_codes_exact(gen, kv_bits, g, d, ps):
-    b, hkv, maxp = 5, 8, 6
+def _paged_case(gen, kv_bits, g, d, ps, maxp):
+    """B 5, Hkv 8, a random page permutation, row 2 inactive; at tables
+    wider than 6 pages, rows that span several chunks and a hole in row 0."""
+    b, hkv = 5, 8
     num = b * maxp + 1
     lo, hi = (-8, 8) if kv_bits == 4 else (-127, 128)
     mk = lambda *shape: torch.randint(lo, hi, shape, generator=gen,
@@ -140,23 +134,69 @@ def test_paged_decode_kernel_codes_exact(gen, kv_bits, g, d, ps):
     pt = torch.randperm(b * maxp, generator=gen, device="cuda") \
         .reshape(b, maxp).to(torch.int32)
     pt[1, 4:] = -1
+    if maxp > 6:
+        pt[0, maxp // 2] = -1
     pos = torch.tensor([95, 50, -1, 0, 17], dtype=torch.int32,
-                       device="cuda") * ps // 16
+                       device="cuda") * ps // 16 * maxp // 6
     sc = torch.rand((b,), generator=gen, device="cuda") * 1e-2
     vs = torch.ones((b,), device="cuda")
     kps = torch.rand((num,), generator=gen, device="cuda") + 0.5
     vps = torch.rand((num,), generator=gen, device="cuda") * 1e-2
-    for window in (None, 40 * ps // 16):
+    return q, kp, vp, sc, vs, pt, pos, kps, vps
+
+
+# (kv_bits, G, D, page size, table width): the Qwen serve shape (one chunk,
+# one launch), RecurrentGemma-9B's local layers, G 16 at D 256, and pages
+# of 6 and 10 keys at D 12 and 20 (rows and code words that are not whole
+# int8 words); then tables of 40 pages, whose rows span up to five chunks
+# (the three launches), at pages of 16 and 10
+@pytest.mark.parametrize("kv_bits,g,d,ps,maxp", [
+    (8, 5, 128, 16, 6), (4, 5, 128, 16, 6), (8, 16, 256, 16, 6),
+    (4, 16, 256, 16, 6), (8, 3, 12, 6, 6), (4, 3, 12, 6, 6),
+    (8, 4, 20, 10, 6), (8, 5, 128, 16, 40), (4, 5, 128, 16, 40),
+    (8, 16, 256, 16, 40), (8, 4, 20, 10, 60), (4, 5, 128, 10, 60)])
+def test_paged_decode_kernel_codes_exact(gen, kv_bits, g, d, ps, maxp):
+    q, kp, vp, sc, vs, pt, pos, kps, vps = _paged_case(gen, kv_bits, g, d,
+                                                       ps, maxp)
+    for window in (None, 40 * ps // 16 * maxp // 6):
+        before = ia.LAUNCHES["int_paged_decode_attention"]
         out, codes = ia.int_paged_decode_attention(
             q, kp, vp, sc, vs, pt, pos, k_page_scale=kps, v_page_scale=vps,
             window=window, packed=kv_bits == 4, return_codes=True)
         torch.cuda.synchronize()
+        assert ia.LAUNCHES["int_paged_decode_attention"] == before + 1
         want, wcodes = ref.int_paged_decode_attention_ref(
             q, kp, vp, sc, vs, pt, pos, window=window, bk=ps,
             k_page_scale=kps, v_page_scale=vps, return_codes=True)
         assert torch.equal(codes, wcodes.to(torch.uint8))
         assert _rel(out, want) <= 1e-5
         assert out[2].abs().max().item() == 0
+
+
+# A batch row equals the same sequence run solo, bit for bit, at the
+# table's width and at a wider one (the one-launch path of a 6-page table
+# against the split path of a 30-page one).
+@pytest.mark.parametrize("kv_bits,g,d,ps,maxp", [
+    (8, 5, 128, 16, 6), (8, 5, 128, 16, 40), (4, 16, 256, 16, 40),
+    (4, 4, 20, 10, 60)])
+def test_paged_decode_kernel_row_equals_the_row_solo(gen, kv_bits, g, d, ps,
+                                                     maxp):
+    q, kp, vp, sc, vs, pt, pos, kps, vps = _paged_case(gen, kv_bits, g, d,
+                                                       ps, maxp)
+    kw = dict(k_page_scale=kps, v_page_scale=vps, packed=kv_bits == 4,
+              return_codes=True)
+    out, codes = ia.int_paged_decode_attention(q, kp, vp, sc, vs, pt, pos,
+                                               **kw)
+    for i in range(q.shape[0]):
+        for extra in (0, 24):
+            pti = torch.cat([pt[i:i + 1], torch.full(
+                (1, extra), -1, dtype=torch.int32, device="cuda")], 1)
+            one, ocodes = ia.int_paged_decode_attention(
+                q[i:i + 1], kp, vp, sc[i:i + 1], vs[i:i + 1], pti,
+                pos[i:i + 1], **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(one[0], out[i])
+            assert torch.equal(ocodes[0, ..., :codes.shape[-1]], codes[i])
 
 
 def test_serve_on_the_card_runs_every_kernel(gen):

@@ -268,11 +268,11 @@ def test_block_choices_fit_the_card():
                 assert bk % chunk == 0 and ds % 16 == 0
                 assert ia.ring_smem(g, chunk, ds) <= ia.SMEM_BUDGET
     assert ia.ring_plan(5, 128, 4096) == (256, 128)
-    # paged decode: the serve shape keeps its register carries; G 16 at
-    # D 256 carries in shared memory, within the budget
-    assert ia.paged_smem(5, 16, 128) == 5812
-    assert ia.paged_smem(16, 16, 256) == 14976 + 4 * 16 * 256 <= \
-        ia.SMEM_BUDGET
+    # paged decode: chunks of 256 keys at the serve shape and at G 16,
+    # D 256 (the launcher checks the fit); small pages take more of them
+    assert ia.paged_plan(5, 128, 16, False) == 16 == \
+        ia.paged_plan(16, 256, 16, False) == ia.paged_plan(5, 128, 16, True)
+    assert ia.paged_plan(5, 12, 6, False) == 42
     # one page per block, the reference's choice, any page size (a page
     # over the card's shared memory is the wrapper's error, not a plain
     # route)
