@@ -22,7 +22,10 @@ Phases, in order; any failure exits non-zero before the result line:
    packed kv4, rings of 1024 and 8192 slots, partly written, wrapped and
    windowed; G 16 at D 128 and 256, D 12) with codes exact and outputs
    within a stated tolerance; PQ-LayerNorm codes exactly at the DeiT-S
-   block, the reference's benchmark shape and Qwen2.5-32B's width;
+   block, the reference's benchmark shape and Qwen2.5-32B's width, and at
+   ragged widths (100 f32, 77 bf16), x one element into its buffer,
+   without beta, 4 rows of 5120, and the first widths above the kernel's
+   register plan;
    two-pass attention codes exact, outputs within the tolerance of its
    plain version and of the fused kernel at the same bq / bk;
 4. serve: ``repro_torch.launch.serve.serve`` at Qwen2.5-32B widths
@@ -52,15 +55,17 @@ Phases, in order; any failure exits non-zero before the result line:
 9. time: each kernel with CUDA events beside its bound, its plain version
    and, where one PyTorch call computes the same function, that call
    (``torch._int_mm`` for qmatmul, over x zero-padded to 32 rows at decode
-   rows); qmatmul and the attention kernels also with their device time
-   alone (``torch.profiler``), since CUDA events count the host's launch
-   overhead at small shapes.
+   rows, ``F.layer_norm`` / ``F.rms_norm`` for PQ-LayerNorm); every kernel
+   also with its device time alone (``torch.profiler``), since CUDA events
+   count the host's launch overhead at small shapes.  PQ-LayerNorm and its
+   library call take x from copies cycled past the 50 MB L2.
 
 Prints a ``{"kernels": [...]}`` JSON line, then the result line
 ``{"ok": true, "device": {...}}`` last.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -73,6 +78,7 @@ N_LAYERS = 4                      # of Qwen2.5-32B's 64, for the time limit
 PEAK_INT8_OPS = 1979e12           # H100 SXM dense int8 tensor-core rate
 PEAK_F32_OPS = 67e12              # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3
+L2_PAST = 64 * 10**6              # bytes of inputs cycled past the 50 MB L2
 ATTN_RTOL = 1e-5                  # Sigma is an f32 sum in another order
 # cuda vs torch backend, whole model, bf16 activations: Sigma's f32 sum
 # order moves a bf16-rounded attention output by one ulp (2^-8) now and
@@ -232,6 +238,9 @@ def phase_build():
             log(f"[build:{name}] {kernel}: {regs} registers, {spills}")
 
 
+TYPE_ARGS = {"f": "float", "13__nv_bfloat16": "bf16"}   # mangled names
+
+
 def ptxas_summary(text):
     """(kernel, registers, spills) for each entry function in an
     ``-Xptxas -v`` log; the kernel as name<template arguments>."""
@@ -244,7 +253,9 @@ def ptxas_summary(text):
             n = re.search(r"\d+([a-z_]+_kernel)(I.*?E(?=Ev))?", mangled)
             kernel = n.group(1) if n else mangled
             if n and n.group(2):            # template arguments, as mangled
-                args = re.findall(r"L[ib](\d+)E", n.group(2)) or \
+                found = re.findall(r"13__nv_bfloat16|(?<=^I)f|L[ib]\d+E",
+                                   n.group(2))
+                args = [TYPE_ARGS.get(a, a[2:-1]) for a in found] or \
                     [n.group(2)[1:-1]]
                 kernel += "<" + ",".join(args) + ">"
             continue
@@ -382,14 +393,15 @@ def phase_check(g):
     errs["int_decode_attention"] = worst
 
     worst = 0
-    for case in PQLN_CASES:
+    for case in PQLN_CHECKS:
         args, kw = pqln_inputs(g, *case)
         got = pq_layernorm(*args, **kw)
         torch.cuda.synchronize()
         want = ref.pq_layernorm_ref(*args, **kw)
         diff = int((got.int() - want.int()).abs().max())
         log(f"[check] pq_layernorm rows={case[0]} d={case[1]} {case[2]} "
-            f"bits={kw['bits']} rms_only={kw['rms_only']}: codes "
+            f"bits={kw['bits']} rms_only={kw['rms_only']} beta={case[5]} "
+            f"x offset {case[6]}: codes "
             f"{'exact' if diff == 0 else f'MISMATCH (max step {diff})'}")
         if diff:
             raise AssertionError("pq_layernorm differs from its plain version")
@@ -398,11 +410,24 @@ def phase_check(g):
     return errs
 
 
-# (rows, d, dtype, bits, rms_only, beta): the DeiT-S block (64 x 198 rows),
-# the reference's kernel_bench shape, Qwen2.5-32B's width in bf16
-PQLN_CASES = [(64 * 198, 384, "float32", 8, False, True),
-              (4096, 1024, "float32", 4, False, True),
-              (256, 5120, "bfloat16", 8, True, False)]
+# (rows, d, dtype, bits, rms_only, beta, offset), checked and timed: the
+# DeiT-S block (64 x 198 rows), the reference's kernel_bench shape,
+# Qwen2.5-32B's width in bf16
+PQLN_CASES = [(64 * 198, 384, "float32", 8, False, True, 0),
+              (4096, 1024, "float32", 4, False, True, 0),
+              (256, 5120, "bfloat16", 8, True, False, 0)]
+# checked only: ragged widths (tail vectors; bf16 rows off 16 bytes), x
+# starting one element into its buffer (every row takes element loads),
+# LayerNorm without beta, 4 rows at Qwen2.5-32B's width, and the first
+# widths above the kernel's register plan (rows re-read from global)
+PQLN_CHECKS = PQLN_CASES + [(1000, 100, "float32", 8, False, True, 0),
+                            (1000, 77, "bfloat16", 4, False, True, 0),
+                            (64 * 198, 384, "float32", 8, False, True, 1),
+                            (256, 5120, "bfloat16", 8, False, True, 1),
+                            (64 * 198, 384, "float32", 8, False, False, 0),
+                            (4, 5120, "bfloat16", 8, True, False, 0),
+                            (16, 16385, "float32", 8, False, True, 0),
+                            (8, 32769, "bfloat16", 8, True, False, 0)]
 # (H, Sq, Sk, D, causal, bq, bk, sq_mod) of prefill attention, checked and
 # timed on both the fused and the two-pass kernel.
 ATTN_CASES = {
@@ -417,16 +442,20 @@ ATTN_CASES = {
 }
 
 
-def pqln_inputs(g, rows, d, dtype, bits, rms_only, beta):
+def pqln_inputs(g, rows, d, dtype, bits, rms_only, beta, offset):
+    """x (rows, d), ``offset`` elements into its buffer, gamma, beta (or
+    None) and a delta that puts |y| up to about 4 at the grid's edge."""
     import torch
     x = torch.randn((rows, d), generator=g, device="cuda") * 3 + \
         torch.randn((rows, 1), generator=g, device="cuda")
+    buf = torch.empty((rows * d + offset,), dtype=getattr(torch, dtype),
+                      device="cuda")
+    x = buf[offset:].view(rows, d).copy_(x)
     gamma = torch.rand((d,), generator=g, device="cuda") + 0.5
     b = torch.randn((d,), generator=g, device="cuda") * 0.1 if beta \
         else None
-    delta = 4.0 / ((1 << (bits - 1)) - 1)            # |y| up to about 4
-    return (x.to(getattr(torch, dtype)), gamma, b, delta), dict(
-        bits=bits, rms_only=rms_only)
+    delta = 4.0 / ((1 << (bits - 1)) - 1)
+    return (x, gamma, b, delta), dict(bits=bits, rms_only=rms_only)
 
 
 def attention_inputs(g, h, sq, sk, d, causal, bq, bk, sq_mod):
@@ -1031,24 +1060,35 @@ def phase_time(g, launches, errs):
     for case in PQLN_CASES:
         args, kw = pqln_inputs(g, *case)
         x, gamma, beta, delta = args
-        ms = cuda_ms(lambda: pq_layernorm(*args, **kw))
-        pms = cuda_ms(lambda: ref.pq_layernorm_ref(*args, **kw), iters=3,
-                      warmup=1)
         n_rows, d = x.shape
+        # copies of x cycled through, together above the 50 MB L2, so each
+        # call reads its x from device memory, as a model's layer would
+        nbytes_x = x.numel() * x.element_size()
+        xs = [x] + [x.clone() for _ in range(-(-L2_PAST // nbytes_x) - 1)]
+        nxt = itertools.cycle(xs).__next__
+        call = lambda: pq_layernorm(nxt(), gamma, beta, delta, **kw)
+        ms, dms = cuda_ms(call), device_ms(call)
+        pms = cuda_ms(lambda: ref.pq_layernorm_ref(nxt(), gamma, beta, delta,
+                                                   **kw), iters=3, warmup=1)
         if kw["rms_only"]:
             gx = gamma.to(x.dtype)
-            lib = cuda_ms(lambda: F.rms_norm(x, (d,), gx, 1e-6))
+            lib_call = lambda: F.rms_norm(nxt(), (d,), gx, 1e-6)
         else:
-            lib = cuda_ms(lambda: F.layer_norm(x, (d,), gamma, beta, 1e-6))
-        # x once, gamma/beta, one byte a code; ~11 f32 operations an element
-        nbytes = x.numel() * x.element_size() + 8 * d + n_rows * d
+            lib_call = lambda: F.layer_norm(nxt(), (d,), gamma, beta, 1e-6)
+        lib, lib_dms = cuda_ms(lib_call), device_ms(lib_call)
+        # x once, gamma (and beta), one byte a code; ~11 f32 operations an
+        # element
+        nbytes = nbytes_x + 4 * d * (1 + (beta is not None)) + n_rows * d
         bnd, by = bound_ms(nbytes, 11 * n_rows * d, PEAK_F32_OPS)
         log(f"[time] pq_layernorm rows={n_rows} d={d} {x.dtype} "
-            f"bits={kw['bits']} rms_only={kw['rms_only']}: {ms:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by}), plain {pms:.4f} ms, "
-            f"F.{'rms_norm' if kw['rms_only'] else 'layer_norm'} (LN only, "
-            f"no quantizer) {lib:.4f} ms")
+            f"bits={kw['bits']} rms_only={kw['rms_only']} (x from {len(xs)} "
+            f"copies, {len(xs) * nbytes_x / 1e6:.1f} MB): {ms:.4f} ms "
+            f"(device {dms:.4f} ms), bound {bnd:.4f} ms ({by}), plain "
+            f"{pms:.4f} ms, F.{'rms_norm' if kw['rms_only'] else 'layer_norm'}"
+            f" (LN only, no quantizer) {lib:.4f} ms (device {lib_dms:.4f} "
+            f"ms)")
         keep("pq_layernorm", case, (ms, pms, bnd, by, lib))
+        del xs
 
     line = []
     for name, (src, replaces) in KERNELS.items():

@@ -331,23 +331,58 @@ def ragged_write_ref(pages, codes, lengths, page_table):
     return out
 
 
-def _lane_sums(v):
-    """Row sums of ``v`` (rows, d) f32 in the pq_layernorm kernel's order:
-    lane l of a warp adds elements l, l + 32, ... in order (a zero-padded
-    (rows, ceil(d/32), 32) view, summed over the middle axis), then the
-    lanes add in five halving steps (the kernel's __shfl_down_sync tree).
-    Returns (rows, 1)."""
+# pq_layernorm's plan (``csrc/pq_layernorm.cu::plan``, which refuses any
+# other): a warp per row while a lane holds at most PQLN_WARP_VECS 16-byte
+# vectors, else the fewest of 128 .. 1024 threads that leave a lane at most
+# PQLN_ROW_VECS; the kernel re-reads rows past 1024 x PQLN_ROW_VECS vectors
+# from global, in the same order.
+PQLN_WARP_VECS = 8
+PQLN_ROW_VECS = 4
+PQLN_MAX_TPR = 1024
+
+
+def pq_layernorm_plan(d: int, dtype) -> tuple[int, int, int]:
+    """``(threads per row, vector width, elements per thread)`` of the
+    pq_layernorm kernel for rows of ``d`` elements of ``dtype`` (f32:
+    vectors of 4, bf16: 8): a function of ``(d, dtype)`` alone, so a row's
+    codes are the same whatever the rows beside it.  Thread ``t`` of a row
+    takes vectors ``j * tpr + t`` for ``j`` below ``ept / vec``."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    chunks = -(-d // vec)
+    if chunks <= 32 * PQLN_WARP_VECS:
+        tpr = 32
+    else:
+        tpr = 128
+        while tpr < PQLN_MAX_TPR and -(-chunks // tpr) > PQLN_ROW_VECS:
+            tpr *= 2
+    return tpr, vec, -(-chunks // tpr) * vec
+
+
+def _plan_sums(v, tpr, vec):
+    """Row sums of ``v`` (rows, d) f32 in the pq_layernorm kernel's order
+    under the plan ``(tpr, vec, ...)``: thread t of a row adds the elements
+    of its vectors t, t + tpr, ... in element order (a zero-padded (rows,
+    nv, tpr, vec) view; +0 adds nothing to a sum that starts at +0), each
+    warp adds its 32 lanes in five halving steps (the kernel's xor tree),
+    then the row's warps add in warp order.  Returns (rows, 1)."""
     rows, d = v.shape
-    n = -(-d // 32)
-    vp = F.pad(v, (0, n * 32 - d)).reshape(rows, n, 32)
-    s = torch.zeros((rows, 32), dtype=torch.float32, device=v.device)
-    for j in range(n):
-        s = s + vp[:, j]
+    chunks = -(-d // vec)
+    nv = -(-chunks // tpr)
+    vp = F.pad(v, (0, nv * tpr * vec - d)).reshape(rows, nv, tpr, vec)
+    s = torch.zeros((rows, tpr), dtype=torch.float32, device=v.device)
+    for j in range(nv):
+        for i in range(vec):
+            s = s + vp[:, j, :, i]
+    s = s.reshape(rows, tpr // 32, 32)
     w = 16
     while w:
-        s = s[:, :w] + s[:, w:2 * w]
+        s = s[..., :w] + s[..., w:2 * w]
         w //= 2
-    return s
+    s = s[..., 0]                                # (rows, warps)
+    total = s[:, 0]
+    for k in range(1, tpr // 32):
+        total = total + s[:, k]
+    return total[:, None]
 
 
 def pq_layernorm_ref(x, gamma, beta, delta, *, bits=8, eps=1e-6,
@@ -356,8 +391,9 @@ def pq_layernorm_ref(x, gamma, beta, delta, *, bits=8, eps=1e-6,
     (rows, d) int8 codes on the signed ``bits`` grid.
 
     The reference's ``ref.pq_layernorm_ref`` with every step correctly
-    rounded in f32 and the row sums in the kernel's order
-    (:func:`_lane_sums`), so the kernel's codes equal these exactly:
+    rounded in f32 and the row sums in the kernel's order under
+    :func:`pq_layernorm_plan` (:func:`_plan_sums`), so the kernel's codes
+    equal these exactly:
     ``inv = 1 / sqrt(var + eps)`` (not rsqrt), ``y = (x - mean) * inv *
     gamma + beta`` rounded step by step, ``clip(round(y / delta))``.
     ``delta`` is a number (or a 0-d tensor).  Every division is by a
@@ -368,9 +404,10 @@ def pq_layernorm_ref(x, gamma, beta, delta, *, bits=8, eps=1e-6,
     def dev(v):
         return torch.tensor(f32(v), dtype=torch.float32, device=xf.device)
 
+    tpr, vec, _ = pq_layernorm_plan(xf.shape[-1], x.dtype)
     d = dev(xf.shape[-1])
-    t = xf if rms_only else xf - _lane_sums(xf) / d
-    var = _lane_sums(t * t) / d
+    t = xf if rms_only else xf - _plan_sums(xf, tpr, vec) / d
+    var = _plan_sums(t * t, tpr, vec) / d
     inv = dev(1.0) / torch.sqrt(var + f32(eps))
     y = t * inv * gamma.to(torch.float32)
     if beta is not None:

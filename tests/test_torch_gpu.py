@@ -328,27 +328,63 @@ def test_ring_decode_kernel_refuses_what_it_cannot_take(gen, g, d, span, bk):
     assert ia.LAUNCHES["int_decode_attention"] == before
 
 
-# (rows, d, dtype, bits, rms_only): the DeiT-S block, Qwen2.5-32B's width
-PQLN_GPU_CASES = [(2000, 384, torch.float32, 8, False),
-                  (64, 5120, torch.bfloat16, 8, True),
-                  (33, 100, torch.float32, 3, False)]
+# (rows, d, dtype, bits, rms_only, beta, offset): the DeiT-S block,
+# Qwen2.5-32B's width (64 rows and 4), ragged widths (100 f32, 77 bf16:
+# tail vectors, bf16 rows off 16 bytes), x starting ``offset`` elements
+# into its buffer (4 bytes f32, 2 bytes bf16: every row takes element
+# loads), LayerNorm without beta, and the first rows above the register
+# plan (16385 f32, 32769 bf16: re-read from global)
+PQLN_GPU_CASES = [(2000, 384, torch.float32, 8, False, True, 0),
+                  (64, 5120, torch.bfloat16, 8, True, False, 0),
+                  (33, 100, torch.float32, 3, False, True, 0),
+                  (45, 77, torch.bfloat16, 4, False, True, 0),
+                  (300, 384, torch.float32, 8, False, True, 1),
+                  (40, 5120, torch.bfloat16, 8, False, True, 1),
+                  (300, 384, torch.float32, 8, False, False, 0),
+                  (4, 5120, torch.bfloat16, 8, True, False, 0),
+                  (5, 16385, torch.float32, 8, False, True, 0),
+                  (3, 32769, torch.bfloat16, 8, True, False, 0)]
 
 
-@pytest.mark.parametrize("rows,d,dtype,bits,rms_only", PQLN_GPU_CASES)
+@pytest.mark.parametrize("rows,d,dtype,bits,rms_only,beta,offset",
+                         PQLN_GPU_CASES)
 def test_pq_layernorm_kernel_codes_exact(gen, rows, d, dtype, bits,
-                                         rms_only):
+                                         rms_only, beta, offset):
     from repro_torch.kernels import pq_layernorm as kpl
-    x = (torch.randn((rows, d), generator=gen, device="cuda") * 3 + 0.5) \
-        .to(dtype)
+    buf = (torch.randn((rows * d + offset,), generator=gen, device="cuda")
+           * 3 + 0.5).to(dtype)
+    x = buf[offset:].view(rows, d)
+    assert x.is_contiguous() and x.data_ptr() % 16 == \
+        offset * buf.element_size()
     g = torch.rand((d,), generator=gen, device="cuda") + 0.5
-    b = None if rms_only else torch.randn((d,), generator=gen,
-                                          device="cuda") * 0.1
+    b = torch.randn((d,), generator=gen, device="cuda") * 0.1 if beta \
+        else None
     before = kpl.LAUNCHES["pq_layernorm"]
     got = kpl.pq_layernorm(x, g, b, 0.05, bits=bits, rms_only=rms_only)
     torch.cuda.synchronize()
     assert kpl.LAUNCHES["pq_layernorm"] == before + 1
     assert torch.equal(got, ref.pq_layernorm_ref(x, g, b, 0.05, bits=bits,
                                                  rms_only=rms_only))
+
+
+@pytest.mark.parametrize("d,dtype,blocks", [
+    (384, torch.float32, (64, 4, 8)), (384, torch.float32, (32, 8, 16)),
+    (5120, torch.bfloat16, (128, 8, 40)), (5120, torch.bfloat16,
+                                           (256, 8, 32))])
+def test_pq_layernorm_refuses_a_plan_it_was_not_built_for(gen, d, dtype,
+                                                          blocks):
+    from repro_torch.kernels import pq_layernorm as kpl
+    x = torch.randn((4, d), generator=gen, device="cuda").to(dtype)
+    g = torch.ones((d,), device="cuda")
+    out = torch.zeros((4, d), dtype=torch.int8, device="cuda")
+    assert blocks != kpl.plan(d, dtype)
+    with pytest.raises(RuntimeError, match="CUDA error 1 "):
+        kpl._launch(x, g, None, out, blocks, bits=8, eps=1e-6, delta=0.05,
+                    rms_only=False)
+    kpl._launch(x, g, None, out, kpl.plan(d, dtype), bits=8, eps=1e-6,
+                delta=0.05, rms_only=False)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.pq_layernorm_ref(x, g, None, 0.05, bits=8))
 
 
 # (H, Sq, Sk, D, causal, window, bq, bk, attn_bits): DeiT-S through ops, a

@@ -8,13 +8,19 @@
   and under 0.1% of codes differ — JAX computes ``rsqrt`` and sums in
   XLA's order, the port ``1 / sqrt`` with the row sums in the CUDA
   kernel's order, so a code at a rounding edge may move by one step.
-- The plain version's row sums are the kernel's order (lanes, then a
-  halving tree), checked against a float64 sum.
+- The plain version's row sums are the kernel's order under
+  ``pq_layernorm_plan`` (each thread's elements in order, a warp's lanes
+  in a halving tree, a row's warps in warp order), modelled thread by
+  thread and checked against a float64 sum; the plan is a function of
+  ``(d, dtype)`` alone, so a row's codes do not depend on the rows beside
+  it.
 - ``core/pqln`` against the reference's module: the comparator (Fig. 5b)
   equals the rsqrt form away from ties, Welford moments match the
   two-pass moments, ``rmsnorm``/``pq_rmsnorm`` match JAX's, and a
   per-tensor scale cancels at fixed seeds up to rounding edges.
 """
+import inspect
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -58,10 +64,16 @@ def _xt(x):
     return t(x)
 
 
+# One width per regime of the kernel's plan: a warp per row (160, 384,
+# 1024 f32), several warps per row (5120), and rows above the register
+# plan (32769, re-read from global).
+@pytest.mark.parametrize("rows,d", [(40, 160), (16, 384), (8, 1024),
+                                    (4, 5120), (2, 32769)])
 @pytest.mark.parametrize("bf16,rms_only", [(False, False), (False, True),
                                            (True, False), (True, True)])
-def test_kernel_plain_version_matches_pallas_and_ref(bf16, rms_only):
-    x, g, b = _case(40, 160, 3 + 2 * bf16 + rms_only, bf16)
+def test_kernel_plain_version_matches_pallas_and_ref(bf16, rms_only, rows,
+                                                     d):
+    x, g, b = _case(rows, d, 3 + 2 * bf16 + rms_only, bf16)
     beta = None if rms_only else b
     for bits, delta in ((3, 0.5), (4, 0.25), (8, 0.02)):
         want = np.asarray(j_pqln(jnp.asarray(x), jnp.asarray(g),
@@ -82,22 +94,98 @@ def test_kernel_plain_version_matches_pallas_and_ref(bf16, rms_only):
         flip_aware(got.numpy(), oracle)
 
 
-def test_plain_version_sums_in_the_kernel_order():
-    """Row sums: 32 lanes each adding its strided elements in order, then
-    five halving adds — the kernel's shfl_down tree — at a width that is
-    not a multiple of 32 (lanes past d add nothing)."""
-    rng = np.random.RandomState(1)
-    v = rng.randn(5, 77).astype(np.float32)
-    got = ref._lane_sums(t(v)).numpy()[:, 0]
-    lanes = np.zeros((5, 32), np.float32)
-    for c in range(77):
-        lanes[:, c % 32] = lanes[:, c % 32] + v[:, c]
-    w = 16
-    while w:
-        lanes = lanes[:, :w] + lanes[:, w:2 * w]
-        w //= 2
-    np.testing.assert_array_equal(got, lanes[:, 0])
+def _thread_model_sums(v, tpr, vec):
+    """The kernel's row sums, thread by thread: thread t adds the elements
+    of its vectors t, t + tpr, ... (``vec`` elements each, cut at d) in
+    order; each warp's lanes add by the xor butterfly (lane i takes lane
+    i ^ o's value, o = 16 .. 1), read at lane 0; the row's warps add in
+    warp order.  f32 throughout."""
+    rows, d = v.shape
+    lanes = np.zeros((rows, tpr), np.float32)
+    for th in range(tpr):
+        for c in range(th, -(-d // vec), tpr):
+            for e in range(c * vec, min(c * vec + vec, d)):
+                lanes[:, th] = lanes[:, th] + v[:, e]
+    total = None
+    for w in range(tpr // 32):
+        lane = lanes[:, 32 * w:32 * w + 32]
+        for o in (16, 8, 4, 2, 1):
+            lane = lane + lane[:, [i ^ o for i in range(32)]]
+        total = lane[:, 0] if total is None else total + lane[:, 0]
+    return total
+
+
+# (d, dtype): ragged widths (77 bf16, 100 f32), DeiT-S's 384, the
+# reference's 1024 (a warp per row), Qwen2.5-32B's 5120 (256 threads a row
+# in bf16, 512 in f32), and the first widths above the register plan
+# (16385 f32, 32769 bf16: 1024 threads re-reading the row)
+@pytest.mark.parametrize("d,dtype", [(77, torch.bfloat16),
+                                     (100, torch.float32),
+                                     (384, torch.float32),
+                                     (1024, torch.float32),
+                                     (5120, torch.bfloat16),
+                                     (5120, torch.float32),
+                                     (16385, torch.float32),
+                                     (32769, torch.bfloat16)])
+def test_plain_version_sums_in_the_kernel_order(d, dtype):
+    """The plain version's row sums equal the thread-by-thread model of the
+    kernel's plan bit for bit, and a float64 sum within rtol 1e-5 (the
+    rows' mean of 0.5 keeps their sums near 0.5 d; no f32 chain here is
+    longer than 40 + 5 + 31 adds)."""
+    rng = np.random.RandomState(d)
+    v = (rng.randn(3, d) + 0.5).astype(np.float32)
+    tpr, vec, ept = ref.pq_layernorm_plan(d, dtype)
+    assert ept % vec == 0 and tpr * ept >= d > tpr * (ept - vec)
+    got = ref._plan_sums(t(v), tpr, vec).numpy()[:, 0]
+    np.testing.assert_array_equal(got, _thread_model_sums(v, tpr, vec))
     np.testing.assert_allclose(got, v.astype(np.float64).sum(1), rtol=1e-5)
+
+
+def test_plan_depends_on_d_and_dtype_only():
+    """``pq_layernorm_plan`` takes ``(d, dtype)`` and nothing else: a warp
+    per row while a lane holds at most 8 16-byte vectors, else the fewest
+    of 128 .. 1024 threads that leave a lane at most 4, and above 1024 x 4
+    vectors 1024 threads (the kernel re-reads such rows)."""
+    assert list(inspect.signature(ref.pq_layernorm_plan).parameters) == \
+        ["d", "dtype"]
+    assert kpl.plan is ref.pq_layernorm_plan
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert ref.pq_layernorm_plan(384, f32) == (32, 4, 12)
+    assert ref.pq_layernorm_plan(1024, f32) == (32, 4, 32)
+    assert ref.pq_layernorm_plan(1025, f32) == (128, 4, 12)
+    assert ref.pq_layernorm_plan(5120, bf16) == (256, 8, 24)
+    assert ref.pq_layernorm_plan(7168, bf16) == (256, 8, 32)
+    assert ref.pq_layernorm_plan(16384, f32) == (1024, 4, 16)
+    assert ref.pq_layernorm_plan(16385, f32) == (1024, 4, 20)
+    assert ref.pq_layernorm_plan(32769, bf16) == (1024, 8, 40)
+    for dtype, vec in ((f32, 4), (bf16, 8)):
+        for d in list(range(1, 2100)) + list(range(2100, 70000, 97)):
+            tpr, v, ept = ref.pq_layernorm_plan(d, dtype)
+            nv, chunks = ept // vec, -(-d // vec)
+            assert v == vec and nv == -(-chunks // tpr)
+            if tpr == 32:
+                assert nv <= 8
+            else:
+                assert chunks > 32 * 8 and tpr in (128, 256, 512, 1024)
+                assert nv <= 4 or tpr == 1024
+                assert tpr == 128 or -(-chunks // (tpr // 2)) > 4
+
+
+@pytest.mark.parametrize("d,bf16,rms_only", [(384, False, False),
+                                             (5120, True, True),
+                                             (1100, False, False)])
+def test_plain_version_row_codes_do_not_depend_on_the_batch(d, bf16,
+                                                            rms_only):
+    """A row's codes are the same alone and inside a 1000-row batch (the
+    plan and the order of every sum depend on (d, dtype) only)."""
+    x, g, b = _case(1000, d, 17, bf16)
+    beta = None if rms_only else t(b)
+    whole = ref.pq_layernorm_ref(_xt(x), t(g), beta, 0.02, bits=8,
+                                 rms_only=rms_only)
+    for r in (0, 517, 999):
+        alone = ref.pq_layernorm_ref(_xt(x[r:r + 1]), t(g), beta, 0.02,
+                                     bits=8, rms_only=rms_only)
+        assert torch.equal(alone[0], whole[r])
 
 
 def test_kernel_plain_version_against_core_rsqrt_form():
