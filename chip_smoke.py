@@ -21,7 +21,10 @@ Phases, in order; any failure exits non-zero before the result line:
    kv4, and G 16 at D 256 over a 2048-token window) and ring decode (32 head-folds, G 5, kv8 and
    packed kv4, rings of 1024 and 8192 slots, partly written, wrapped and
    windowed; G 16 at D 128 and 256, D 12) with codes exact and outputs
-   within a stated tolerance; PQ-LayerNorm codes exactly at the DeiT-S
+   within a stated tolerance; the attention kernels also at the paper's
+   2-, 3- and 4-bit prob grids (both prefill kernels at every prefill
+   shape, the paged kernel at the serve shape, kv8 and kv4, the ring
+   kernel at the ring phase's shape); PQ-LayerNorm codes exactly at the DeiT-S
    block, the reference's benchmark shape and Qwen2.5-32B's width, and at
    ragged widths (100 f32, 77 bf16), x one element into its buffer,
    without beta, 4 rows of 5120, and the first widths above the kernel's
@@ -41,24 +44,37 @@ Phases, in order; any failure exits non-zero before the result line:
    teacher-forced step by step (the ``cuda`` run's token and a copy of its
    cache) within a stated tolerance; free-running greedy agreement
    printed;
-6. quickstart: ``python -m repro_torch.examples.quickstart`` on the card;
-7. vit: ``models.vit.forward`` at the full DeiT-S config (12 layers,
+6. faults: the paged engine (``launch/engine.py``) at the same widths,
+   six staggered requests on 4 rows over a pool that holds four, audited
+   after every step, against a fault-free run of the same script: drill 1
+   (a page steal that forces a victim, two stalls under the watchdog, a
+   NaN row) bitwise equal to it with every recovery counted and no plain
+   dispatch; drill 2 (two forced fallback steps) runs exactly two decode
+   steps on the plain path, token agreement printed;
+7. quickstart: ``python -m repro_torch.examples.quickstart`` on the card;
+8. vit: ``models.vit.forward`` at the full DeiT-S config (12 layers,
    224 px, patch 16; random weights from a seed, made on the card), batch
    64, on the ``cuda`` backend: 73 qmatmul and 12 fused-attention launches
    and no plain dispatch; logits against the ``torch`` backend; ms per
    batch;
-8. ops: the paper's integerized self-attention module through the kernel
+9. ops: the paper's integerized self-attention module through the kernel
    entry points (``kernels/ops.py``) at DeiT-S widths, on layer 0 of the
    same weights and the model's own residual stream (64 x 198 rows):
    PQ-LayerNorm -> q/k/v -> fused and two-pass attention -> wo, every
    kernel against its plain version on the same inputs;
-9. time: each kernel with CUDA events beside its bound, its plain version
-   and, where one PyTorch call computes the same function, that call
-   (``torch._int_mm`` for qmatmul, over x zero-padded to 32 rows at decode
-   rows, ``F.layer_norm`` / ``F.rms_norm`` for PQ-LayerNorm); every kernel
-   also with its device time alone (``torch.profiler``), since CUDA events
-   count the host's launch overhead at small shapes.  PQ-LayerNorm and its
-   library call take x from copies cycled past the 50 MB L2.
+10. lowbit: DeiT-S at the paper's 3- and 2-bit points (w3/attn3,
+    w2/attn2; Table II) on the ``cuda`` backend, gated like ``vit``; then
+    ``benchmarks/fig_softmax_error.py``'s attention through
+    ``layers.attention.attention`` at prob grids of 2, 3, 4 and 7 bits,
+    each through the fused kernel, its error not growing with bits;
+11. time: each kernel with CUDA events beside its bound, its plain
+    version and, where one PyTorch call computes the same function, that
+    call (``torch._int_mm`` for qmatmul, over x zero-padded to 32 rows at
+    decode rows, ``F.layer_norm`` / ``F.rms_norm`` for PQ-LayerNorm); every
+    kernel also with its device time alone (``torch.profiler``), since
+    CUDA events count the host's launch overhead at small shapes.
+    PQ-LayerNorm and its library call take x from copies cycled past the
+    50 MB L2.
 
 Prints a ``{"kernels": [...]}`` JSON line, then the result line
 ``{"ok": true, "device": {...}}`` last.
@@ -164,10 +180,11 @@ def qmatmul_inputs(g, m, n, k, packed):
 
 
 def paged_inputs(g, kv_bits, grp=5, d=128, maxp=5, pos=(79, 35, -1, 63),
-                 window=None):
+                 window=None, bits=7):
     """B=4, Hkv=8, G=5, D=128 (or the given G, D), page 16, a table of 5
     pages a row (or maxp) in a random permutation of the pool, page-scaled,
-    at the given positions (row 2 inactive by default) and window."""
+    at the given positions (row 2 inactive by default), window and prob
+    grid bits."""
     import torch
     from repro_torch.core.quant import pack_int4
     b, hkv, ps = 4, 8, 16
@@ -188,7 +205,7 @@ def paged_inputs(g, kv_bits, grp=5, d=128, maxp=5, pos=(79, 35, -1, 63),
     kps = (torch.rand((num,), generator=g, device="cuda") + 0.5) * 1e-2
     vps = (torch.rand((num,), generator=g, device="cuda") + 0.5) * 1e-2
     return (q, kp, vp, sc, vs, pt, pos), dict(
-        k_page_scale=kps, v_page_scale=vps, attn_bits=7, window=window,
+        k_page_scale=kps, v_page_scale=vps, attn_bits=bits, window=window,
         packed=kv_bits == 4)
 
 
@@ -292,7 +309,6 @@ QMM_CHECKS = [(m, n, k, packed) for m in (4, 256) for n, k in QMM_NK
 
 def phase_check(g):
     import torch
-    from repro_torch.kernels import int_attention as ia
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels.pq_layernorm import pq_layernorm
     from repro_torch.kernels.qmatmul import qmatmul
@@ -325,72 +341,19 @@ def phase_check(g):
             raise AssertionError(f"attention case {name}: dispatch picks "
                                  f"{blocks}, the table ({bq}, {bk})")
     fused = two = 0.0
-    for name, case in ATTN_CASES.items():
-        args, kw = attention_inputs(g, *case)
-        one, fcodes = ia.int_attention_fused(*args, return_codes=True, **kw)
-        out, codes = ia.int_attention(*args, return_codes=True, **kw)
-        torch.cuda.synchronize()
-        want, wcodes = ia.int_attention_plain(*args, return_codes=True,
-                                              **kw)
-        f_abs, f_rel = rel_err(one, want)
-        t_abs, t_rel = rel_err(out, want)
-        x_abs, x_rel = rel_err(out, one)
-        same = torch.equal(fcodes, wcodes) and torch.equal(codes, wcodes)
-        log(f"[check] attention {name} H={case[0]} Sq={case[1]} Sk={case[2]} "
-            f"D={case[3]} causal={case[4]} bq={kw['bq']} bk={kw['bk']}: "
-            f"codes of both kernels {'exact' if same else 'MISMATCH'}; "
-            f"against the plain version, fused max abs {f_abs:.3e} rel "
-            f"{f_rel:.3e}, two-pass max abs {t_abs:.3e} rel {t_rel:.3e}; "
-            f"two-pass against fused max abs {x_abs:.3e} rel {x_rel:.3e} "
-            f"(tol rel {ATTN_RTOL})")
-        if not same or max(f_rel, t_rel, x_rel) > ATTN_RTOL:
-            raise AssertionError(f"attention {name}: a kernel differs")
-        fused, two = max(fused, f_abs), max(two, t_abs)
+    for bits in (7,) + LOW_BITS:
+        for name, case in ATTN_CASES.items():
+            f_abs, t_abs = check_attention(g, name, case, bits)
+            fused, two = max(fused, f_abs), max(two, t_abs)
     errs["int_attention_fused"], errs["int_attention"] = fused, two
-
-    worst = 0.0
-    for row in PAGED_CHECKS + PAGED_LONG:
-        args, kw = paged_inputs(g, *row)
-        out, codes = ia.int_paged_decode_attention(*args, return_codes=True,
-                                                   **kw)
-        torch.cuda.synchronize()
-        q, kp, vp, sc, vs, pt, pos = args
-        want, wcodes = ref.int_paged_decode_attention_ref(
-            q, kp, vp, sc, vs, pt, pos, attn_bits=7, bk=kp.shape[2],
-            window=kw["window"], k_page_scale=kw["k_page_scale"],
-            v_page_scale=kw["v_page_scale"], return_codes=True)
-        abs_e, rel_e = rel_err(out, want)
-        same = torch.equal(codes, wcodes)
-        idle = pos < 0
-        idle_max = out[idle].abs().max().item() if bool(idle.any()) else 0.0
-        log(f"[check] paged decode kv_bits={row[0]} G={row[1]} D={row[2]} "
-            f"pages {pt.shape[1]} pos {pos.tolist()} window {kw['window']}: "
-            f"codes {'exact' if same else 'MISMATCH'}, out max abs "
-            f"{abs_e:.3e} rel {rel_e:.3e} (tol rel {ATTN_RTOL}); inactive "
-            f"rows {int(idle.sum())}, their max {idle_max:.1e}")
-        if not same or rel_e > ATTN_RTOL or idle_max != 0:
-            raise AssertionError("paged decode differs from its plain version")
-        worst = max(worst, abs_e)
-    errs["int_paged_decode_attention"] = worst
-
-    worst = 0.0
-    for kv_bits, span, pos, window, grp, d in RING_CHECKS:
-        args = ring_inputs(g, kv_bits, span, pos, grp, d)
-        kw = dict(attn_bits=7, window=window, packed=kv_bits == 4,
-                  bk=dispatch.decode_blocks(span, d), return_codes=True)
-        out, codes = ia.int_decode_attention(*args, **kw)
-        torch.cuda.synchronize()
-        want, wcodes = ia.int_decode_attention_plain(*args, **kw)
-        abs_e, rel_e = rel_err(out, want)
-        same = torch.equal(codes, wcodes)
-        log(f"[check] ring decode kv_bits={kv_bits} G={grp} D={d} "
-            f"span={span} pos={pos} window={window} bk={kw['bk']}: codes "
-            f"{'exact' if same else 'MISMATCH'}, out max abs {abs_e:.3e} "
-            f"rel {rel_e:.3e} (tol rel {ATTN_RTOL})")
-        if not same or rel_e > ATTN_RTOL:
-            raise AssertionError("ring decode differs from its plain version")
-        worst = max(worst, abs_e)
-    errs["int_decode_attention"] = worst
+    rows = [(row, 7) for row in PAGED_CHECKS + PAGED_LONG] + \
+        [(row, bits) for bits in LOW_BITS for row in PAGED_CHECKS[:2]]
+    errs["int_paged_decode_attention"] = max(check_paged(g, row, bits)
+                                             for row, bits in rows)
+    rows = [(row, 7) for row in RING_CHECKS] + \
+        [(RING_CHECKS[0], bits) for bits in LOW_BITS]
+    errs["int_decode_attention"] = max(check_ring(g, row, bits)
+                                       for row, bits in rows)
 
     worst = 0
     for case in PQLN_CHECKS:
@@ -410,6 +373,92 @@ def phase_check(g):
     return errs
 
 
+def check_attention(g, name, case, bits):
+    """Both prefill kernels at one ``ATTN_CASES`` shape and prob grid:
+    codes exact against the plain version, outputs within ATTN_RTOL; the
+    max abs error of each."""
+    import torch
+    from repro_torch.kernels import int_attention as ia
+    args, kw = attention_inputs(g, *case, bits=bits)
+    one, fcodes = ia.int_attention_fused(*args, return_codes=True, **kw)
+    out, codes = ia.int_attention(*args, return_codes=True, **kw)
+    torch.cuda.synchronize()
+    want, wcodes = ia.int_attention_plain(*args, return_codes=True, **kw)
+    f_abs, f_rel = rel_err(one, want)
+    t_abs, t_rel = rel_err(out, want)
+    x_abs, x_rel = rel_err(out, one)
+    same = torch.equal(fcodes, wcodes) and torch.equal(codes, wcodes)
+    log(f"[check] attention {name} H={case[0]} Sq={case[1]} Sk={case[2]} "
+        f"D={case[3]} causal={case[4]} bq={kw['bq']} bk={kw['bk']} "
+        f"attn_bits={bits}: codes of both kernels "
+        f"{'exact' if same else 'MISMATCH'}; against the plain version, "
+        f"fused max abs {f_abs:.3e} rel {f_rel:.3e}, two-pass max abs "
+        f"{t_abs:.3e} rel {t_rel:.3e}; two-pass against fused max abs "
+        f"{x_abs:.3e} rel {x_rel:.3e} (tol rel {ATTN_RTOL})")
+    if not same or max(f_rel, t_rel, x_rel) > ATTN_RTOL:
+        raise AssertionError(f"attention {name} at {bits} bits: a kernel "
+                             f"differs")
+    return f_abs, t_abs
+
+
+def check_paged(g, row, bits):
+    """The paged kernel at one ``PAGED_CHECKS`` / ``PAGED_LONG`` row and
+    prob grid against its plain version; its max abs error."""
+    import torch
+    from repro_torch.kernels import int_attention as ia
+    from repro_torch.kernels import ref
+    args, kw = paged_inputs(g, *row, bits=bits)
+    out, codes = ia.int_paged_decode_attention(*args, return_codes=True,
+                                               **kw)
+    torch.cuda.synchronize()
+    q, kp, vp, sc, vs, pt, pos = args
+    want, wcodes = ref.int_paged_decode_attention_ref(
+        q, kp, vp, sc, vs, pt, pos, attn_bits=bits, bk=kp.shape[2],
+        window=kw["window"], k_page_scale=kw["k_page_scale"],
+        v_page_scale=kw["v_page_scale"], return_codes=True)
+    abs_e, rel_e = rel_err(out, want)
+    same = torch.equal(codes, wcodes)
+    idle = pos < 0
+    idle_max = out[idle].abs().max().item() if bool(idle.any()) else 0.0
+    log(f"[check] paged decode kv_bits={row[0]} G={row[1]} D={row[2]} "
+        f"pages {pt.shape[1]} pos {pos.tolist()} window {kw['window']} "
+        f"attn_bits={bits}: codes {'exact' if same else 'MISMATCH'}, out "
+        f"max abs {abs_e:.3e} rel {rel_e:.3e} (tol rel {ATTN_RTOL}); "
+        f"inactive rows {int(idle.sum())}, their max {idle_max:.1e}")
+    if not same or rel_e > ATTN_RTOL or idle_max != 0:
+        raise AssertionError("paged decode differs from its plain version")
+    return abs_e
+
+
+def check_ring(g, row, bits):
+    """The ring kernel at one ``RING_CHECKS`` row and prob grid against its
+    plain version; its max abs error."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import int_attention as ia
+    kv_bits, span, pos, window, grp, d = row
+    args = ring_inputs(g, kv_bits, span, pos, grp, d)
+    kw = dict(attn_bits=bits, window=window, packed=kv_bits == 4,
+              bk=dispatch.decode_blocks(span, d), return_codes=True)
+    out, codes = ia.int_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    want, wcodes = ia.int_decode_attention_plain(*args, **kw)
+    abs_e, rel_e = rel_err(out, want)
+    same = torch.equal(codes, wcodes)
+    log(f"[check] ring decode kv_bits={kv_bits} G={grp} D={d} "
+        f"span={span} pos={pos} window={window} bk={kw['bk']} "
+        f"attn_bits={bits}: codes {'exact' if same else 'MISMATCH'}, out max "
+        f"abs {abs_e:.3e} rel {rel_e:.3e} (tol rel {ATTN_RTOL})")
+    if not same or rel_e > ATTN_RTOL:
+        raise AssertionError("ring decode differs from its plain version")
+    return abs_e
+
+
+# The paper's low-bit prob grids (Table II's 2- and 3-bit models, and 4),
+# checked beside 7 on every attention kernel: both prefill kernels at every
+# ATTN_CASES shape, the paged kernel at the serve shape (kv8, kv4), the ring
+# kernel at the ring phase's shape.
+LOW_BITS = (2, 3, 4)
 # (rows, d, dtype, bits, rms_only, beta, offset), checked and timed: the
 # DeiT-S block (64 x 198 rows), the reference's kernel_bench shape,
 # Qwen2.5-32B's width in bf16
@@ -458,8 +507,9 @@ def pqln_inputs(g, rows, d, dtype, bits, rms_only, beta, offset):
     return (x, gamma, b, delta), dict(bits=bits, rms_only=rms_only)
 
 
-def attention_inputs(g, h, sq, sk, d, causal, bq, bk, sq_mod):
-    """Random int8 operands; one logit scale per (head-fold, q block)."""
+def attention_inputs(g, h, sq, sk, d, causal, bq, bk, sq_mod, bits=7):
+    """Random int8 operands; one logit scale per (head-fold, q block);
+    a ``bits``-bit prob grid."""
     import torch
     mk = lambda *shape: torch.randint(-127, 128, shape, generator=g,
                                       device="cuda", dtype=torch.int8)
@@ -467,7 +517,7 @@ def attention_inputs(g, h, sq, sk, d, causal, bq, bk, sq_mod):
     sc = (torch.rand((h, nq), generator=g, device="cuda") + 0.5) * 1e-4
     vs = (torch.rand((h,), generator=g, device="cuda") + 0.5) * 1e-2
     return (mk(h, sq, d), mk(h, sk, d), mk(h, sk, d), sc, vs), dict(
-        attn_bits=7, causal=causal, bq=bq, bk=bk, sq_mod=sq_mod)
+        attn_bits=bits, causal=causal, bq=bq, bk=bk, sq_mod=sq_mod)
 
 
 # (kv_bits, span, pos, window, G, D): partly written (pos < span), wrapped
@@ -671,6 +721,138 @@ def phase_ring(params):
     return launches
 
 
+FAULT_GEN = 12
+FAULT_LATE = 3            # the step at which requests 3-5 arrive
+
+
+def fault_script(cfg, params, plan=None, watchdog=None):
+    """Six staggered requests (64 to 38 prompt tokens, 12 generated) on 4
+    rows and pages of 16, audited after every step.  Requests 0-2 arrive
+    first; at step 3 request 3 arrives at priority 1, with 4 and 5 behind
+    it.  The pool holds exactly requests 0-3, so a page stolen at step 3
+    forces a victim.  Returns the engine and its requests."""
+    from repro_torch.launch.engine import PagedEngine, Request
+    from repro_torch.launch.serve import staggered_prompts
+    prompts = staggered_prompts(6, 64, cfg.vocab)
+    pages = [-(-(len(p) + FAULT_GEN) // 16) for p in prompts]
+    eng = PagedEngine(cfg, params, batch_size=4, max_len=80, page_size=16,
+                      num_pages=sum(pages[:4]), audit_every=1,
+                      preempt_after_steps=64, watchdog=watchdog,
+                      fault_plan=plan)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=FAULT_GEN,
+                    priority=int(i == 3)) for i, p in enumerate(prompts)]
+    for r in reqs[:3]:
+        eng.submit(r)
+    while eng.step_count < FAULT_LATE:
+        eng.step()
+    for r in reqs[3:]:
+        eng.submit(r)
+    while eng.step():
+        pass
+    return eng, reqs
+
+
+def phase_faults(params):
+    """The paged engine's recovery paths through the CUDA kernels at
+    Qwen2.5-32B widths: a fault-free run, then drill 1 (a page steal held
+    3 steps, two 0.25 s stalls, one NaN row) and drill 2 (two forced
+    fallback steps on the plain backend), each against the fault-free
+    run."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.runtime.faults import FaultEvent, FaultPlan
+    from repro_torch.runtime.watchdog import Watchdog
+    # no pinned backend: the process default (cuda) runs the kernels and a
+    # forced step's use_backend("torch") takes effect
+    cfg = model_config(None)
+    n_layers = cfg.n_layers
+
+    def run(plan=None, watchdog=None):
+        torch.cuda.synchronize()
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        with dispatch.use_backend("cuda"):
+            eng, reqs = fault_script(cfg, params, plan, watchdog)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out = dict(eng=eng, reqs=reqs, stats=dispatch.snapshot(),
+                   launches=dispatch.launch_counts(), s=secs)
+        statuses = [r.status for r in reqs]
+        log(f"[faults] {'fault-free' if plan is None else plan.summary()}: "
+            f"{eng.step_count} steps in {secs:.2f}s, statuses {statuses}, "
+            f"preemptions {eng.preempt_count}, resumes {eng.resume_count}, "
+            f"quarantined {out['stats']['quarantined']}, forced steps "
+            f"{out['stats']['forced_xla_steps']}, watchdog fires "
+            f"{out['stats']['watchdog_fires']}, violations "
+            f"{eng.violations}; launches {out['launches']}; plain dispatch "
+            f"qlinear {out['stats']['qlinear_torch']} paged "
+            f"{out['stats']['attention_paged_torch']} prefill "
+            f"{out['stats']['attention_torch']}")
+        if any(s != "done" for s in statuses) or eng.violations or \
+                eng.audit():
+            raise AssertionError(f"[faults] statuses {statuses}, "
+                                 f"violations {eng.violations}")
+        return out
+
+    base = run()
+    if base["eng"].preempt_count or base["stats"]["attention_paged_torch"]:
+        raise AssertionError("[faults] the fault-free run preempted or ran "
+                             "the plain path")
+
+    plan = FaultPlan(at=[FaultEvent(step=FAULT_LATE, steal_pages=3,
+                                    steal_hold=3),
+                         FaultEvent(step=5, stall_s=0.25),
+                         FaultEvent(step=6, stall_s=0.25),
+                         FaultEvent(step=9, nan_row=1)])
+    d1 = run(plan, Watchdog(threshold=4.0, patience=1))
+    eng, st, ln = d1["eng"], d1["stats"], d1["launches"]
+    same = [r.tokens == b.tokens for r, b in zip(d1["reqs"], base["reqs"])]
+    eng.shutdown()
+    while eng._reclaim_one():
+        pass
+    log(f"[faults] drill 1 (steal, stalls, NaN): tokens bitwise equal to "
+        f"the fault-free run {sum(same)}/{len(same)}; after shutdown fault "
+        f"holds {eng._fault_held}, free pages {eng.alloc.free_count}/"
+        f"{eng.num_pages}")
+    plain = st["qlinear_torch"] + st["attention_torch"] + \
+        st["attention_paged_torch"]
+    if not all(same) or eng.preempt_count < 1 or eng.resume_count < 1 or \
+            st["quarantined"] != 1 or st["watchdog_fires"] < 1 or plain or \
+            eng._fault_held or eng.alloc.free_count != eng.num_pages or \
+            min(ln[k] for k in ("qmatmul", "int_attention_fused",
+                                "int_paged_decode_attention")) <= 0:
+        raise AssertionError("[faults] drill 1 failed its gates")
+
+    plan = FaultPlan(at=[FaultEvent(step=s, force_xla=True) for s in (4, 8)])
+    d2 = run(plan)
+    st, ln = d2["stats"], d2["launches"]
+    bst, bln = base["stats"], base["launches"]
+    agree = sum(int(t == b) for r, rb in zip(d2["reqs"], base["reqs"])
+                for t, b in zip(r.tokens, rb.tokens))
+    per_dispatch = bln["int_paged_decode_attention"] / \
+        bst["attention_paged_cuda"]
+    log(f"[faults] drill 2 (two forced steps): greedy tokens equal to the "
+        f"fault-free run {agree}/{FAULT_GEN * len(d2['reqs'])} (printed "
+        f"only); qmatmul launches {ln['qmatmul']} against "
+        f"{bln['qmatmul']}, paged {ln['int_paged_decode_attention']} "
+        f"against {bln['int_paged_decode_attention']}")
+    # each forced step moves one decode step's linears (q, k, v, o, gate,
+    # up, down a layer, then the lm_head) and attention layers to the plain
+    # path, and nothing else
+    step_q = 7 * n_layers + 1
+    if st["forced_xla_steps"] != 2 or st["qlinear_torch"] != 2 * step_q or \
+            st["attention_paged_torch"] != 2 * n_layers or \
+            st["attention_torch"] or \
+            bln["qmatmul"] - ln["qmatmul"] != 2 * step_q or \
+            bst["attention_paged_cuda"] - st["attention_paged_cuda"] != \
+            2 * n_layers or \
+            bln["int_paged_decode_attention"] - \
+            ln["int_paged_decode_attention"] != \
+            2 * n_layers * per_dispatch:
+        raise AssertionError("[faults] drill 2 failed its gates")
+
+
 def profile_decode(params, cfg, toks, step_ms, steps=4):
     """Where a ring decode step's time goes: torch.profiler over a few
     steps (after the counted run), device kernel time by name.  The busy
@@ -720,8 +902,9 @@ def log_profile(what, fn, calls, ref_ms):
         + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
 
 
-def layer0(tree):
-    return {k: (layer0(v) if isinstance(v, dict) else v[0])
+def layer_at(tree, i):
+    """Layer ``i``'s slice of a layer-stacked parameter tree."""
+    return {k: (layer_at(v, i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
 
 
@@ -746,11 +929,11 @@ def phase_quickstart():
 VIT_BATCH = 64
 
 
-def vit_config(backend):
+def vit_config(backend, w_bits=4, attn_bits=7):
     from repro_torch.configs.registry import get_config
     from repro_torch.core.api import QuantConfig
-    qc = QuantConfig(w_bits=4, a_bits=8, attn_bits=7, mode="int",
-                     backend=backend)
+    qc = QuantConfig(w_bits=w_bits, a_bits=8, attn_bits=attn_bits,
+                     mode="int", backend=backend)
     return get_config("deit-s").replace(quant=qc)
 
 
@@ -807,12 +990,133 @@ def phase_vit():
     return params, imgs
 
 
+# Table II's "Ours 3-bit" and "Ours 2-bit" (benchmarks/table2_comparison.py):
+# (w_bits, attn_bits), 8-bit activations
+LOWBIT_VIT = ((3, 3), (2, 2))
+# benchmarks/fig_softmax_error.py's prob grid sweep
+EQ4_BITS = (2, 3, 4, 7)
+
+
+def phase_lowbit(imgs):
+    """DeiT-S at the paper's 3- and 2-bit points on the cuda backend, with
+    the torch backend beside it teacher-forced layer by layer (each layer
+    on the cuda run's residual stream; the ring phase's method) and
+    free-running; then Eq. 4's attention error against the prob grid's
+    bits, through the fused kernel."""
+    import torch
+    from repro_torch.core.api import integerize_params
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import vit
+    fparams = vit.init_params(vit_config("cuda"), seed=0, device="cuda")
+    for w_bits, attn_bits in LOWBIT_VIT:
+        cfg = vit_config("cuda", w_bits, attn_bits)
+        tcfg = vit_config("torch", w_bits, attn_bits)
+        params = integerize_params(fparams, cfg.quant)
+        torch.cuda.synchronize()
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        logits = vit.forward(params, imgs, cfg)
+        torch.cuda.synchronize()
+        launches = dispatch.launch_counts()
+        snap = dispatch.snapshot()
+        tlogits = vit.forward(params, imgs, tcfg)
+        free_abs, free_rel = rel_err(logits, tlogits)
+        agree = int((logits.argmax(-1) == tlogits.argmax(-1)).sum())
+        # layer by layer: x is the cuda run's residual stream, xt the torch
+        # backend's own; each layer's update (its output less its input)
+        # compared on the same input, and the streams compared free-running
+        x = vit.embed(params, imgs, cfg)
+        xt = vit.embed(params, imgs, tcfg)
+        forced, free = [], []
+        for i in range(cfg.n_layers):
+            p = layer_at(params["layers"], i)
+            y, yf = vit.block(x, p, cfg), vit.block(x, p, tcfg)
+            forced.append(rel_err(yf - x, y - x)[1])
+            xt = vit.block(xt, p, tcfg)
+            free.append(rel_err(xt, y)[1])
+            x = y
+        same = torch.equal(vit.head(params, x, cfg), logits)
+        f_abs, f_rel = rel_err(vit.head(params, yf, tcfg), logits)
+        finite = bool(torch.isfinite(logits).all())
+        log(f"[lowbit] DeiT-S w{w_bits}/a8/attn{attn_bits}, batch "
+            f"{imgs.shape[0]}, random weights from seed 0: launches qmatmul "
+            f"{launches['qmatmul']} fused {launches['int_attention_fused']}; "
+            f"dispatch qlinear torch {snap['qlinear_torch']}, attention "
+            f"torch {snap['attention_torch']}; finite {finite}; layer by "
+            f"layer equal to the forward {same}")
+        log(f"[lowbit] w{w_bits}/attn{attn_bits} torch vs cuda backend, "
+            f"teacher-forced: logits max abs {f_abs:.3e} rel {f_rel:.3e}, "
+            f"each layer's update max rel "
+            f"{' '.join(f'{e:.2e}' for e in forced)} (tol rel "
+            f"{LOGITS_RTOL})")
+        log(f"[lowbit] w{w_bits}/attn{attn_bits} torch vs cuda backend, "
+            f"free-running (printed only): logits max abs {free_abs:.3e} rel "
+            f"{free_rel:.3e}, argmax equal {agree}/{imgs.shape[0]}; residual "
+            f"stream after each layer max rel "
+            f"{' '.join(f'{e:.2e}' for e in free)}")
+        want_q = 1 + 6 * cfg.n_layers
+        if launches["qmatmul"] != want_q or \
+                launches["int_attention_fused"] != cfg.n_layers:
+            raise AssertionError(f"[lowbit] launches {launches}, expected "
+                                 f"{want_q} qmatmul, {cfg.n_layers} fused")
+        if snap["qlinear_torch"] or snap["attention_torch"]:
+            raise AssertionError(f"[lowbit] plain dispatches: {snap}")
+        if not finite or not same or f_rel > LOGITS_RTOL or \
+                max(forced) > LOGITS_RTOL:
+            raise AssertionError(f"[lowbit] w{w_bits}/attn{attn_bits}: cuda "
+                                 f"and torch differ on the same inputs")
+        del params, x, xt, y, yf
+    del fparams
+    eq4_sweep()
+
+
+def eq4_sweep():
+    """``benchmarks/fig_softmax_error.py``'s attention (1 x 4 heads x 64
+    tokens x 32, causal, float inputs from numpy seed 0) through the port's
+    ``layers.attention.attention`` at each prob grid: the output's max abs
+    error against the float path over the float output's max.  The kernel
+    route must take the fused kernel; the error must not grow with bits
+    (``tests/test_paper_tables.py::test_eq4_error_bound``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.api import QuantConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.layers.attention import AttnSpec, attention
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(1, 4, 64, 32).astype(np.float32))
+               .to("cuda") for _ in range(3))
+    spec = AttnSpec(q_chunk=64)
+    ref = attention(q, k, v, spec)
+    scale = ref.abs().max().item()
+    errs, plain = [], []
+    for bits in EQ4_BITS:
+        qc = QuantConfig(w_bits=8, a_bits=8, attn_bits=bits, mode="int",
+                         backend="cuda")
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        out = attention(q, k, v, spec, qc)
+        torch.cuda.synchronize()
+        fused = dispatch.launch_counts()["int_attention_fused"]
+        snap = dispatch.snapshot()
+        errs.append((out - ref).abs().max().item() / scale)
+        tout = attention(q, k, v, spec, qc.replace(backend="torch"))
+        plain.append((tout - ref).abs().max().item() / scale)
+        if fused != 1 or snap["attention_cuda"] != 1 or \
+                snap["attention_torch"]:
+            raise AssertionError(f"[lowbit] Eq. 4 at {bits} bits: fused "
+                                 f"launches {fused}, dispatch {snap}")
+    log(f"[lowbit] Eq. 4 attention output error against the float path, "
+        f"prob bits {EQ4_BITS}: fused kernel {[f'{e:.6f}' for e in errs]}; "
+        f"plain path {[f'{e:.6f}' for e in plain]} (printed only)")
+    if errs != sorted(errs, reverse=True):
+        raise AssertionError(f"[lowbit] Eq. 4 error grows with bits: {errs}")
+
+
 def phase_ops(params, imgs):
     """The paper's integerized self-attention module through the kernel
     entry points, on layer 0 of DeiT-S and the model's residual stream."""
     import torch
     from repro_torch.core import quant
-    from repro_torch.core.api import dense
     from repro_torch.core.integerize import QLinearParams
     from repro_torch.core.softmax2 import LOG2E
     from repro_torch.kernels import dispatch, ops, ref
@@ -820,11 +1124,9 @@ def phase_ops(params, imgs):
     from repro_torch.layers.norms import layernorm
     from repro_torch.models import vit
     cfg = vit_config("cuda")
-    lay = layer0(params["layers"])
+    lay = layer_at(params["layers"], 0)
     b, heads, hd = imgs.shape[0], cfg.n_heads, cfg.hd
-    x = dense(vit.patchify(imgs, cfg), params["patch"], cfg.quant)
-    x = torch.cat([params["cls"].expand(b, *params["cls"].shape), x],
-                  dim=1) + params["pos_emb"]
+    x = vit.embed(params, imgs, cfg)
     x = x.reshape(-1, cfg.d_model).contiguous()          # (64 * 198, 384)
     ln = lay["ln1"]
     delta = float(quant.absmax_scale(layernorm(x, ln["gamma"], ln["beta"]),
@@ -1181,11 +1483,13 @@ def main() -> int:
         ring_launches = phase_ring(params)
         launches["int_decode_attention"] = \
             ring_launches["int_decode_attention"]
+        phase_faults(params)
         del params
         torch.cuda.empty_cache()
         phase_quickstart()
         vparams, imgs = phase_vit()
         ops_launches, ops_errs = phase_ops(vparams, imgs)
+        phase_lowbit(imgs)
         for name, err in ops_errs.items():
             errs[name] = max(errs[name], err)
         for name in ("pq_layernorm", "int_attention"):

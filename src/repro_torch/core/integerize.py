@@ -50,6 +50,14 @@ def int_linear(x: QTensor, p: QLinearParams, *,
     return y
 
 
+def int_linear_requant(x: QTensor, p: QLinearParams, out_bits: int,
+                       out_scale: torch.Tensor) -> QTensor:
+    """Integer linear, then re-quantization to the next block's grid:
+    Fig. 2's activation-to-activation path."""
+    y = int_linear(x, p)
+    return quant.quantize_tensor(y, out_bits, scale=out_scale)
+
+
 def int_matmul(a: QTensor, b: QTensor) -> torch.Tensor:
     """Integer A @ B with both per-tensor scales applied post-hoc."""
     acc = int_matmul_exact(a.q, b.q)

@@ -57,9 +57,32 @@ def softmax2(logits: torch.Tensor, *, dim: int = -1, scale=1.0,
     return e / e.sum(dim=dim, keepdim=True)
 
 
+def softmax_ref(logits: torch.Tensor, *, dim: int = -1,
+                scale=1.0) -> torch.Tensor:
+    """Exact softmax oracle."""
+    return torch.softmax(logits * scale, dim=dim)
+
+
 def quantize_probs(e: torch.Tensor, sigma: torch.Tensor, bits: int,
                    delta_attn) -> torch.Tensor:
     """Paper §IV-B quantizer with Sigma-scaled thresholds (division form)."""
     qmax = (1 << bits) - 1
     q = torch.clamp(torch.round(e / (sigma * delta_attn)), 0, qmax)
+    return q.to(torch.uint8)
+
+
+def quantize_probs_comparator(e: torch.Tensor, sigma: torch.Tensor,
+                              bits: int, delta_attn) -> torch.Tensor:
+    """Threshold-comparator form of :func:`quantize_probs` (Fig. 4).
+
+    ``p_q = sum_k [e > (k - 1/2) * delta * Sigma]`` over k = 1 .. 2^bits - 1:
+    the paper's parallel comparator array, O(2^bits) comparisons an
+    element.  ``sigma`` has one entry per row of ``e`` (no trailing axis).
+    At an exact tie the division form rounds half to even and the strict
+    comparison does not, as in the reference.
+    """
+    qmax = (1 << bits) - 1
+    ks = torch.arange(1, qmax + 1, dtype=e.dtype, device=e.device)
+    thr = (ks - 0.5) * delta_attn * sigma[..., None, None]   # (..., 1, K)
+    q = (e[..., None] > thr).sum(dim=-1)
     return q.to(torch.uint8)

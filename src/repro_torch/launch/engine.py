@@ -37,9 +37,12 @@ prefix pages with copy-on-write at a partial boundary page; a preempted
 request resumes bit-exactly; :meth:`PagedEngine.audit` cross-checks page
 conservation, refcounts, host mirrors and the per-page scale pools.
 
-Fault injection (``repro/runtime/faults.py``: allocator exhaustion,
-forced backend fallback steps, stalls, NaN injection) is a later slice;
-this engine takes no fault plan.
+Fault injection (:mod:`repro_torch.runtime.faults`): a ``fault_plan``
+is polled once a step.  Stolen pages are held out of the allocator for a
+few steps (admission then reclaims registry pins and preempts victims),
+a forced-fallback step runs the plain ``torch`` backend in place of the
+kernels, a stall sleeps inside the watchdog window, and a NaN row is
+written into one active row's logits, which the engine quarantines.
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ import torch
 
 from repro_torch.kernels import dispatch
 from repro_torch.models import lm
+from repro_torch.runtime import faults as faults_mod
 from repro_torch.runtime.watchdog import Watchdog
 
 
@@ -228,7 +232,8 @@ class PagedEngine:
                  max_preemptions: int = 3, preempt_after_steps: int = 8,
                  backoff_cap: int = 8, audit_every: int = 0,
                  audit_raises: bool = True,
-                 watchdog: Optional[Watchdog] = None):
+                 watchdog: Optional[Watchdog] = None,
+                 fault_plan: Optional["faults_mod.FaultPlan"] = None):
         self.cfg, self.params = cfg, params
         self.batch_size, self.page_size = batch_size, page_size
         self.max_pages = -(-max_len // page_size)
@@ -282,6 +287,8 @@ class PagedEngine:
         self.backoff_cap = backoff_cap
         self.audit_every = audit_every
         self.audit_raises = audit_raises
+        self.faults = fault_plan
+        self._fault_held: list[tuple[int, list]] = []   # (release_step, pgs)
         self.watchdog = watchdog if watchdog is not None else Watchdog()
         self._wd_user_cb = self.watchdog.on_straggler
         self.watchdog.on_straggler = self._on_straggler
@@ -599,6 +606,23 @@ class PagedEngine:
                 pass
         return True
 
+    def _apply_faults_pre(self):
+        """Release expired fault holds; apply this step's injected
+        allocator exhaustion (pages stolen out of the free list)."""
+        due = [(s, p) for s, p in self._fault_held if s <= self.step_count]
+        self._fault_held = [(s, p) for s, p in self._fault_held
+                            if s > self.step_count]
+        for _, pages in due:
+            self.alloc.release(pages)
+        ev = self.faults.at_step(self.step_count) if self.faults else None
+        if ev is not None and ev.steal_pages:
+            pages = self.alloc.alloc(min(ev.steal_pages,
+                                         self.alloc.free_count))
+            if pages:
+                self._fault_held.append(
+                    (self.step_count + max(1, ev.steal_hold), pages))
+        return ev
+
     def _process_lifecycle(self):
         """Cancellation (queued + mid-flight) and queued-state expiry."""
         now = time.monotonic()
@@ -632,6 +656,14 @@ class PagedEngine:
         dispatch.STATS["watchdog_fires"] += 1
         if self._wd_user_cb is not None:
             self._wd_user_cb(dt, ema)
+
+    def _step_fallback(self, tok):
+        """The decode step on the plain ``torch`` backend, for forced
+        fallback fault steps.  It is selected explicitly, also when the
+        engine already runs that backend; a model whose
+        ``QuantConfig.backend`` is set keeps it, as in the reference."""
+        with dispatch.use_backend("torch"):
+            return lm.decode_step(self.params, tok, self.cache, self.cfg)
 
     # -- drain / prefill ---------------------------------------------------
 
@@ -885,7 +917,7 @@ class PagedEngine:
 
         - every physical page's refcount equals its independently counted
           holders: rows' page lists + registry pins + CoW pendency refs +
-          (the reference also counts fault-injection holds; none here);
+          fault-injection holds;
         - host mirrors are consistent: ``page_table`` rows mirror
           ``row_pages`` exactly (-1 beyond), inactive rows are fully
           cleared (``pos == -1``), and an active row's ``pos`` sits inside
@@ -904,12 +936,14 @@ class PagedEngine:
         pins = Counter(p for e in self.prefix_registry.values()
                        for p in e.pages)
         pend = Counter(src for src, _ in self._pending_cow)
+        held = Counter(p for _, pages in self._fault_held for p in pages)
         for p in range(self.num_pages):
-            expect = holders[p] + pins[p] + pend[p]
+            expect = holders[p] + pins[p] + pend[p] + held[p]
             if self.alloc.refs[p] != expect:
                 v.append(f"page {p}: refcount {self.alloc.refs[p]} != "
                          f"{holders[p]} row holders + {pins[p]} registry "
-                         f"pins + {pend[p]} CoW pendency")
+                         f"pins + {pend[p]} CoW pendency + {held[p]} fault "
+                         f"holds")
         for row in range(self.batch_size):
             req, pages = self.row_req[row], self.row_pages[row]
             if req is None:
@@ -977,14 +1011,15 @@ class PagedEngine:
             self._dirty = False
 
     def step(self) -> bool:
-        """One engine step: lifecycle (cancel/expire) -> drain admissions
-        (one batched prefill per group, preempting victims under pressure)
-        -> advance chunked prefills -> decode one token for every active
-        row (replaying recorded tokens for resumed rows) -> quarantine
-        non-finite rows -> periodic audit.
+        """One engine step: fault injection -> lifecycle (cancel/expire) ->
+        drain admissions (one batched prefill per group, preempting victims
+        under pressure) -> advance chunked prefills -> decode one token for
+        every active row (replaying recorded tokens for resumed rows) ->
+        quarantine non-finite rows -> periodic audit.
 
         Returns False when there is nothing left to do.
         """
+        ev = self._apply_faults_pre()
         self._process_lifecycle()
         self._drain_queue()
         self._advance_prefills()
@@ -992,18 +1027,29 @@ class PagedEngine:
                   if req is not None and req.status is Status.RUNNING]
         if not active:
             if self.queue or any(req is not None for req in self.row_req):
-                # Everything queued is gated on preemption backoff: tick
-                # time forward so the gates expire.
+                # Everything queued is gated on preemption backoff or on
+                # fault-held pages: tick time forward so the gates expire.
                 self.step_count += 1
                 self._audit_maybe()
                 return True
             return False
         self._push_tables()
+        forced = ev is not None and ev.force_xla
+        if forced:
+            dispatch.STATS["forced_xla_steps"] += 1
         self.watchdog.start()
+        if ev is not None and ev.stall_s:
+            time.sleep(ev.stall_s)              # straggler, seen by the EMA
         t0 = time.perf_counter()
-        logits, self.cache = lm.decode_step(
-            self.params, self._tensor(self.next_tok)[:, None], self.cache,
-            self.cfg)
+        tok = self._tensor(self.next_tok)[:, None]
+        if forced:
+            logits, self.cache = self._step_fallback(tok)
+        else:
+            logits, self.cache = lm.decode_step(self.params, tok, self.cache,
+                                                self.cfg)
+        if ev is not None and ev.nan_row is not None:
+            logits = faults_mod.corrupt_rows(
+                logits, [active[ev.nan_row % len(active)]])
         last = logits[:, 0]
         nxt = torch.argmax(last, dim=-1).to(torch.int32).cpu().numpy()
         finite = torch.isfinite(last).all(dim=-1).cpu().numpy()
@@ -1055,6 +1101,9 @@ class PagedEngine:
             if req is not None:
                 self._release_row(row)
                 self._terminal(req, Status.PREEMPTED, None)
+        for _, pages in self._fault_held:
+            self.alloc.release(pages)
+        self._fault_held.clear()
 
     def run(self, requests=None) -> list:
         """Serve ``requests`` (plus anything already queued) to completion."""

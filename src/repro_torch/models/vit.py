@@ -102,37 +102,49 @@ def patchify(images, cfg: ViTConfig):
     return x.reshape(b, (h // p) * (w // p), p * p * c)
 
 
-def forward(params, images, cfg: ViTConfig):
-    """-> (B, n_classes) f32 logits (cls/distill-token average, DeiT
-    eval)."""
+def embed(params, images, cfg: ViTConfig):
+    """Patch embedding, then the cls (and distillation) tokens and the
+    position embedding: the residual stream entering layer 0."""
     x = dense(patchify(images.to(cfg.tdtype), cfg), params["patch"],
               cfg.quant)
     b = x.shape[0]
     extra = params["cls"].expand(b, *params["cls"].shape)
-    x = torch.cat([extra, x], dim=1) + params["pos_emb"]
+    return torch.cat([extra, x], dim=1) + params["pos_emb"]
+
+
+def block(x, p, cfg: ViTConfig):
+    """One encoder layer (``p``: that layer's slice of ``params["layers"]``)
+    on the residual stream ``x`` (B, tokens, d_model)."""
     spec = AttnSpec(causal=False, q_chunk=cfg.q_chunk)
+    h = apply_norm(x, p["ln1"], "layernorm")
+    bb, s, d = h.shape
 
-    def layer(x, p):
-        h = apply_norm(x, p["ln1"], "layernorm")
-        bb, s, d = h.shape
+    def proj(pp):
+        return dense(h, pp, cfg.quant).reshape(
+            bb, s, cfg.n_heads, cfg.hd).transpose(1, 2)
 
-        def proj(pp):
-            return dense(h, pp, cfg.quant).reshape(
-                bb, s, cfg.n_heads, cfg.hd).transpose(1, 2)
+    out = attention(proj(p["attn"]["wq"]), proj(p["attn"]["wk"]),
+                    proj(p["attn"]["wv"]), spec, cfg.quant)
+    out = out.transpose(1, 2).reshape(bb, s, d)
+    x = x + dense(out, p["attn"]["wo"], cfg.quant)
+    return x + mlp(apply_norm(x, p["ln2"], "layernorm"), p["mlp"],
+                   cfg.quant, act="gelu")
 
-        out = attention(proj(p["attn"]["wq"]), proj(p["attn"]["wk"]),
-                        proj(p["attn"]["wv"]), spec, cfg.quant)
-        out = out.transpose(1, 2).reshape(bb, s, d)
-        x = x + dense(out, p["attn"]["wo"], cfg.quant)
-        x = x + mlp(apply_norm(x, p["ln2"], "layernorm"), p["mlp"],
-                    cfg.quant, act="gelu")
-        return x, None
 
-    x, _ = scan(layer, x, params["layers"])
+def head(params, x, cfg: ViTConfig):
+    """Final LayerNorm, the cls/distill-token average, the float head."""
     x = apply_norm(x, params["final_ln"], "layernorm")
     n_extra = 1 + int(cfg.distill_token)
     pooled = x[:, :n_extra].mean(dim=1)
     return dense(pooled, params["head"], None).to(torch.float32)
+
+
+def forward(params, images, cfg: ViTConfig):
+    """-> (B, n_classes) f32 logits (cls/distill-token average, DeiT
+    eval)."""
+    x, _ = scan(lambda x, p: (block(x, p, cfg), None),
+                embed(params, images, cfg), params["layers"])
+    return head(params, x, cfg)
 
 
 def loss_fn(params, batch, cfg: ViTConfig):

@@ -492,3 +492,95 @@ def test_vit_on_the_card_runs_every_kernel(gen):
     want = vit.forward(params, imgs, cfg.replace(
         quant=qc.replace(backend="torch")))
     assert _rel(got, want) <= 5e-2        # the model gate of chip_smoke.py
+
+
+# The paper's 2-, 3- and 4-bit prob grids (Table II's models, and 4) on
+# the fused, ring and paged kernels: codes exact against the plain versions.
+@pytest.mark.parametrize("bits", [2, 3, 4])
+def test_fused_kernel_low_bit_grids_codes_exact(gen, bits):
+    h, g, d, sq, sk = 6, 5, 128, 64, 90
+    for window in (None, 24):
+        bq, bk = dispatch.attention_blocks(g * sq, sk, d, window=window)
+        nq = -(-(g * sq) // bq)
+        mk = lambda *shape: torch.randint(-127, 128, shape, generator=gen,
+                                          device="cuda", dtype=torch.int8)
+        q, k, v = mk(h, g * sq, d), mk(h, sk, d), mk(h, sk, d)
+        sc = (torch.rand((h, nq), generator=gen, device="cuda") + 0.5) * 1e-4
+        vs = torch.rand((h,), generator=gen, device="cuda") + 0.5
+        kw = dict(attn_bits=bits, causal=True, window=window, bq=bq, bk=bk,
+                  sq_mod=sq, return_codes=True)
+        out, codes = ia.int_attention_fused(q, k, v, sc, vs, **kw)
+        torch.cuda.synchronize()
+        want, wcodes = ia.int_attention_fused_plain(q, k, v, sc, vs, **kw)
+        assert torch.equal(codes, wcodes)
+        assert _rel(out, want) <= 1e-5    # Sigma: f32 sum in another order
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_ring_kernel_low_bit_grids_codes_exact(gen, bits, kv_bits):
+    for span, pos, window in ((1024, 100, None), (8192, 20000, 3000)):
+        args = _ring_case(gen, 32, 5, 128, kv_bits, span, pos)
+        _ring_exact(args, attn_bits=bits, window=window,
+                    bk=dispatch.decode_blocks(span, 128),
+                    packed=kv_bits == 4)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("kv_bits,maxp", [(8, 6), (4, 6), (8, 40)])
+def test_paged_kernel_low_bit_grids_codes_exact(gen, bits, kv_bits, maxp):
+    q, kp, vp, sc, vs, pt, pos, kps, vps = _paged_case(gen, kv_bits, 5, 128,
+                                                       16, maxp)
+    out, codes = ia.int_paged_decode_attention(
+        q, kp, vp, sc, vs, pt, pos, k_page_scale=kps, v_page_scale=vps,
+        attn_bits=bits, packed=kv_bits == 4, return_codes=True)
+    torch.cuda.synchronize()
+    want, wcodes = ref.int_paged_decode_attention_ref(
+        q, kp, vp, sc, vs, pt, pos, attn_bits=bits, bk=16, k_page_scale=kps,
+        v_page_scale=vps, return_codes=True)
+    assert torch.equal(codes, wcodes.to(torch.uint8))
+    assert _rel(out, want) <= 1e-5
+    assert out[2].abs().max().item() == 0
+
+
+def test_fault_drill_on_the_card(gen):
+    """The SMOKE model on the card through ``chip_smoke.py``'s fault script
+    (six staggered requests on 4 rows over a pool that holds four) with a
+    page steal that forces a victim, a NaN row and one forced fallback
+    step: every request DONE, the audit clean after every step, and every
+    request the forced step did not touch (the steal victim and the
+    quarantined request among them) bitwise equal to the fault-free run."""
+    from chip_smoke import fault_script
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.api import QuantConfig, integerize_params
+    from repro_torch.models import lm
+    from repro_torch.runtime.faults import FaultEvent, FaultPlan
+    qc = QuantConfig(w_bits=4, a_bits=8, attn_bits=7, kv_bits=8, mode="int")
+    cfg = smoke_config("qwen2.5-32b").replace(quant=qc)
+    params = integerize_params(lm.init_params(cfg, seed=0, device="cuda"), qc)
+    forced = 24                       # late: only request 5 still runs
+    with dispatch.use_backend("cuda"):
+        _, base = fault_script(cfg, params)
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        eng, reqs = fault_script(cfg, params, FaultPlan(at=[
+            FaultEvent(step=3, steal_pages=3, steal_hold=3),
+            FaultEvent(step=9, nan_row=1),
+            FaultEvent(step=forced, force_xla=True)]))
+    torch.cuda.synchronize()
+    assert all(r.status == "done" for r in reqs)
+    assert eng.violations == [] and eng.audit() == []
+    assert eng.preempt_count >= 2 and eng.resume_count >= 2
+    assert dispatch.STATS["quarantined"] == 1
+    assert dispatch.STATS["forced_xla_steps"] == 1
+    assert dispatch.STATS["attention_paged_torch"] == cfg.n_layers
+    assert dispatch.launch_counts()["int_paged_decode_attention"] > 0
+    untouched = [r.rid for r in reqs
+                 if not r.admitted_step <= forced < r.finished_step]
+    assert {r.rid for r in reqs if r.preemptions} <= set(untouched)
+    for i in untouched:
+        assert reqs[i].tokens == base[i].tokens, i
+    eng.shutdown()
+    while eng._reclaim_one():
+        pass
+    assert eng._fault_held == [] and eng.alloc.free_count == eng.num_pages
