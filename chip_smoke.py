@@ -15,10 +15,14 @@ Phases, in order; any failure exits non-zero before the result line:
    Qwen2.5-32B layer and its lm_head, three of them splitting K; the
    stream body also at M 1, 8, 9 and 16, the edges of its n8 tiles, at
    two of them; DeiT-S's four shapes, and M 17 and 129, N 300, K 1028;
-   int8 and packed), fused attention (also
-   at the DeiT-S dispatch shape, bq 33, bk 224), paged decode (the serve
-   shape, and G 16 at D 256; tables of 512 pages at 8192 tokens, kv8 and
-   kv4, and G 16 at D 256 over a 2048-token window) and ring decode (32 head-folds, G 5, kv8 and
+   int8 and packed; the [archs] lm_heads N 202048, 92553 and 32064 at M 4
+   and 256), the Llama-4-Scout expert product (16 experts, capacity 20,
+   one launch an expert) bitwise against ``dense_expert``'s plain version,
+   fused attention (also at the DeiT-S dispatch shape, bq 33, bk 224, and
+   at G 7 and 6), paged decode (the serve shape, and G 16 at D 256; the
+   [archs] head groups (Hkv, G) (2, 16), (8, 7), (10, 4), (8, 6); tables
+   of 512 pages at 8192 tokens, kv8 and kv4, and G 16 at D 256 over a
+   2048-token window) and ring decode (32 head-folds, G 5, kv8 and
    packed kv4, rings of 1024 and 8192 slots, partly written, wrapped and
    windowed; G 16 at D 128 and 256, D 12) with codes exact and outputs
    within a stated tolerance; the attention kernels also at the paper's
@@ -51,33 +55,47 @@ Phases, in order; any failure exits non-zero before the result line:
    NaN row) bitwise equal to it with every recovery counted and no plain
    dispatch; drill 2 (two forced fallback steps) runs exactly two decode
    steps on the plain path, token agreement printed;
-7. quickstart: ``python -m repro_torch.examples.quickstart`` on the card;
-8. vit: ``models.vit.forward`` at the full DeiT-S config (12 layers,
+7. archs: ChatGLM3-6B, Yi-34B, Phi-3-medium, InternVL2-26B, Llama-4-Scout
+   and Phi-3.5-MoE at their published widths with 2 layers (random
+   weights from a seed, made on the card, the float tree freed after
+   integerization), each through ``serve`` (4 staggered requests of up to
+   64 tokens, 8 generated, pages of 16) on the ``cuda`` backend: every
+   request DONE, a clean audit, every kernel of the paged path launched
+   (and the expert product for MoE), no plain dispatch; first-step logits
+   against the ``torch`` backend within the stated tolerance (for MoE, a
+   miss is allowed only where a route flip explains it: the prefill layer
+   by layer, teacher-forced, then gates); InternVL2 also on the ring path
+   with its 256 patch embeddings, gated like ``ring``;
+8. quickstart: ``python -m repro_torch.examples.quickstart`` on the card;
+9. vit: ``models.vit.forward`` at the full DeiT-S config (12 layers,
    224 px, patch 16; random weights from a seed, made on the card), batch
    64, on the ``cuda`` backend: 73 qmatmul and 12 fused-attention launches
    and no plain dispatch; logits against the ``torch`` backend; ms per
    batch;
-9. ops: the paper's integerized self-attention module through the kernel
+10. ops: the paper's integerized self-attention module through the kernel
    entry points (``kernels/ops.py``) at DeiT-S widths, on layer 0 of the
    same weights and the model's own residual stream (64 x 198 rows):
    PQ-LayerNorm -> q/k/v -> fused and two-pass attention -> wo, every
    kernel against its plain version on the same inputs;
-10. lowbit: DeiT-S at the paper's 3- and 2-bit points (w3/attn3,
+11. lowbit: DeiT-S at the paper's 3- and 2-bit points (w3/attn3,
     w2/attn2; Table II) on the ``cuda`` backend, gated like ``vit``; then
     ``benchmarks/fig_softmax_error.py``'s attention through
     ``layers.attention.attention`` at prob grids of 2, 3, 4 and 7 bits,
     each through the fused kernel, its error not growing with bits;
-11. time: each kernel with CUDA events beside its bound, its plain
+12. time: each kernel with CUDA events beside its bound, its plain
     version and, where one PyTorch call computes the same function, that
     call (``torch._int_mm`` for qmatmul, over x zero-padded to 32 rows at
     decode rows, ``F.layer_norm`` / ``F.rms_norm`` for PQ-LayerNorm); every
     kernel also with its device time alone (``torch.profiler``), since
     CUDA events count the host's launch overhead at small shapes.
     PQ-LayerNorm and its library call take x from copies cycled past the
-    50 MB L2.
+    50 MB L2.  The expert product is timed at Llama-4-Scout's prefill and
+    decode capacities (printed only: its launches are qmatmul's).
 
-Prints a ``{"kernels": [...]}`` JSON line, then the result line
-``{"ok": true, "device": {...}}`` last.
+Prints a ``{"kernels": [...]}`` JSON line (``launches``: the counted
+runs of each kernel's main paths, summed, and by path in
+``launches_by_path``), then the result line ``{"ok": true, "device":
+{...}}`` last.
 """
 from __future__ import annotations
 
@@ -180,14 +198,14 @@ def qmatmul_inputs(g, m, n, k, packed):
 
 
 def paged_inputs(g, kv_bits, grp=5, d=128, maxp=5, pos=(79, 35, -1, 63),
-                 window=None, bits=7):
-    """B=4, Hkv=8, G=5, D=128 (or the given G, D), page 16, a table of 5
-    pages a row (or maxp) in a random permutation of the pool, page-scaled,
-    at the given positions (row 2 inactive by default), window and prob
-    grid bits."""
+                 window=None, bits=7, hkv=8):
+    """B=4, Hkv=8, G=5, D=128 (or the given Hkv, G, D), page 16, a table of
+    5 pages a row (or maxp) in a random permutation of the pool,
+    page-scaled, at the given positions (row 2 inactive by default), window
+    and prob grid bits."""
     import torch
     from repro_torch.core.quant import pack_int4
-    b, hkv, ps = 4, 8, 16
+    b, ps = 4, 16
     num = b * maxp + 1                               # + trash page
     lo, hi = (-8, 8) if kv_bits == 4 else (-127, 128)
     mk = lambda *shape: torch.randint(lo, hi, shape, generator=g,
@@ -289,6 +307,9 @@ def ptxas_summary(text):
 
 QMM_NK = [(5120, 5120), (1024, 5120), (27648, 5120), (5120, 27648),
           (152064, 5120)]
+# the [archs] lm_heads whose N is not a multiple of 128: Llama-4-Scout,
+# InternVL2-26B, Phi-3.5-MoE
+QMM_HEADS = [(202048, 5120), (92553, 6144), (32064, 4096)]
 # DeiT-S's linears at batch 64: the patch embedding (64 x 196 rows, K 768),
 # wq/wk/wv/wo, the MLP's up and down (64 x 198 rows)
 QMM_DEIT = [(64 * 196, 384, 768), (64 * 198, 384, 384),
@@ -304,7 +325,8 @@ QMM_CHECKS = [(m, n, k, packed) for m in (4, 256) for n, k in QMM_NK
      for n, k in ((5120, 27648), (1024, 5120)) for packed in (False, True)] + \
     [(m, n, k, packed) for m, n, k in QMM_DEIT + [(17, 300, 1028),
                                                   (129, 300, 1028)]
-     for packed in (False, True)]
+     for packed in (False, True)] + \
+    [(m, n, k, False) for m in (4, 256) for n, k in QMM_HEADS]
 
 
 def phase_check(g):
@@ -330,10 +352,12 @@ def phase_check(g):
             raise AssertionError(f"qmatmul plan {blocks} at M={m}")
         worst = max(worst, diff)
         del args, got, want
-    errs["qmatmul"] = worst
+
+    errs["qmatmul"] = max(worst, check_expert(g))
 
     # the shapes dispatch gives the fused kernel on the main paths
-    for name, q_chunk in (("qwen", 128), ("deit", 256)):
+    for name, q_chunk in (("qwen", 128), ("deit", 256), ("yi", 128),
+                          ("internvl2", 128)):
         _, sq, sk, d, _, bq, bk, sq_mod = ATTN_CASES[name]
         blocks = dispatch.attention_blocks(
             sq, sk, d, chunk=dispatch.chunk_len(sq_mod or sq, q_chunk))
@@ -346,10 +370,11 @@ def phase_check(g):
             f_abs, t_abs = check_attention(g, name, case, bits)
             fused, two = max(fused, f_abs), max(two, t_abs)
     errs["int_attention_fused"], errs["int_attention"] = fused, two
-    rows = [(row, 7) for row in PAGED_CHECKS + PAGED_LONG] + \
-        [(row, bits) for bits in LOW_BITS for row in PAGED_CHECKS[:2]]
-    errs["int_paged_decode_attention"] = max(check_paged(g, row, bits)
-                                             for row, bits in rows)
+    rows = [(row, 7, 8) for row in PAGED_CHECKS + PAGED_LONG] + \
+        [(row, bits, 8) for bits in LOW_BITS for row in PAGED_CHECKS[:2]] + \
+        [(row[:3], 7, row[3]) for row in PAGED_ARCHS]
+    errs["int_paged_decode_attention"] = max(check_paged(g, row, bits, hkv)
+                                             for row, bits, hkv in rows)
     rows = [(row, 7) for row in RING_CHECKS] + \
         [(RING_CHECKS[0], bits) for bits in LOW_BITS]
     errs["int_decode_attention"] = max(check_ring(g, row, bits)
@@ -401,13 +426,49 @@ def check_attention(g, name, case, bits):
     return f_abs, t_abs
 
 
-def check_paged(g, row, bits):
-    """The paged kernel at one ``PAGED_CHECKS`` / ``PAGED_LONG`` row and
-    prob grid against its plain version; its max abs error."""
+def check_expert(g):
+    """One Llama-4-Scout expert product at its prefill shape (16 experts,
+    capacity 20, din 5120, dout 8192; bf16 activations, w4 codes) through
+    ``dense_expert``'s kernel route (one qmatmul launch an expert) against
+    its plain version, bitwise; its max abs error (0)."""
+    import torch
+    from repro_torch.core.api import QuantConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.layers.moe import dense_expert
+    e, cap, din, dout = 16, 20, 5120, 8192
+    p = {"w_q": torch.randint(-8, 8, (e, din, dout), generator=g,
+                              device="cuda", dtype=torch.int8),
+         "w_scale": torch.rand((e, 1, dout), generator=g, device="cuda")
+         * 1e-2 + 1e-3}
+    x = torch.randn((e, cap, din), generator=g, device="cuda").to(
+        torch.bfloat16)
+    qc = QuantConfig(w_bits=4, a_bits=8, mode="int", backend="cuda")
+    before = dispatch.launch_counts()["qmatmul"]
+    got = dense_expert(x, p, qc)
+    torch.cuda.synchronize()
+    n = dispatch.launch_counts()["qmatmul"] - before
+    want = dense_expert(x, p, qc.replace(backend="torch"))
+    same = torch.equal(got, want)
+    diff = (got.float() - want.float()).abs().max().item()
+    log(f"[check] expert product E={e} capacity={cap} din={din} dout={dout} "
+        f"bf16 through qmatmul ({n} launches, plan "
+        f"{dispatch.qmatmul_blocks(cap, dout, din)}) against dense_expert's "
+        f"plain version: {'exact' if same else f'MISMATCH (max abs {diff})'}"
+        f"; the transposed codes {e * din * dout / 1e9:.2f} GB")
+    if not same or n != e:
+        raise AssertionError("the expert product differs from its plain "
+                             "version")
+    return diff
+
+
+def check_paged(g, row, bits, hkv=8):
+    """The paged kernel at one ``PAGED_CHECKS`` / ``PAGED_LONG`` /
+    ``PAGED_ARCHS`` row and prob grid against its plain version; its max
+    abs error."""
     import torch
     from repro_torch.kernels import int_attention as ia
     from repro_torch.kernels import ref
-    args, kw = paged_inputs(g, *row, bits=bits)
+    args, kw = paged_inputs(g, *row, bits=bits, hkv=hkv)
     out, codes = ia.int_paged_decode_attention(*args, return_codes=True,
                                                **kw)
     torch.cuda.synchronize()
@@ -420,8 +481,9 @@ def check_paged(g, row, bits):
     same = torch.equal(codes, wcodes)
     idle = pos < 0
     idle_max = out[idle].abs().max().item() if bool(idle.any()) else 0.0
-    log(f"[check] paged decode kv_bits={row[0]} G={row[1]} D={row[2]} "
-        f"pages {pt.shape[1]} pos {pos.tolist()} window {kw['window']} "
+    log(f"[check] paged decode kv_bits={row[0]} Hkv={hkv} G={row[1]} "
+        f"D={row[2]} pages {pt.shape[1]} pos {pos.tolist()} window "
+        f"{kw['window']} "
         f"attn_bits={bits}: codes {'exact' if same else 'MISMATCH'}, out "
         f"max abs {abs_e:.3e} rel {rel_e:.3e} (tol rel {ATTN_RTOL}); "
         f"inactive rows {int(idle.sum())}, their max {idle_max:.1e}")
@@ -488,6 +550,10 @@ ATTN_CASES = {
     "deit-ops": (384, 198, 198, 64, False, 128, 128, None),
     # DeiT-S through dispatch: one chunk of 198 rows, bq 33, bk 224
     "deit": (384, 198, 198, 64, False, 33, 224, None),
+    # the [archs] prefill's odd and non-power-of-two head groups at 64
+    # tokens: Yi-34B (G 7) and InternVL2-26B (G 6), B 4 x Hkv 8
+    "yi": (32, 448, 64, 128, True, 64, 64, 64),
+    "internvl2": (32, 384, 64, 128, True, 64, 64, 64),
 }
 
 
@@ -543,6 +609,10 @@ PAGED_CHECKS = [(8, 5, 128), (4, 5, 128), (8, 16, 256), (4, 16, 256)]
 PAGED_LONG = [(8, 5, 128, 512, (8191, 8191, 5000, 8191), None),
               (4, 5, 128, 512, (8191, 8191, 5000, 8191), None),
               (8, 16, 256, 512, (8191, 8191, 8191, 8191), 2048)]
+# (kv_bits, G, D, Hkv) at the serve shape: the [archs] head groups of
+# ChatGLM3-6B, Yi-34B, Phi-3-medium (and Phi-3.5-MoE's G) and InternVL2-26B
+PAGED_ARCHS = [(8, 16, 128, 2), (8, 7, 128, 8), (8, 4, 128, 10),
+               (8, 6, 128, 8)]
 
 
 def model_config(backend):
@@ -608,23 +678,8 @@ def phase_serve():
 
     # The torch backend on the same inputs: first-step logits and tokens.
     tcfg = model_config("torch")
-    logits = {}
-    for name, c in (("cuda", cfg), ("torch", tcfg)):
-        cache = lm.init_paged_cache(c, 4, 80, page_size=16, device="cuda")
-        cache["page_table"].copy_(torch.arange(4 * 5, dtype=torch.int32,
-                                               device="cuda").reshape(4, 5))
-        lens = [len(p) for p in prompts[:4]]
-        toks = torch.zeros((4, max(lens)), dtype=torch.int32, device="cuda")
-        for i, p in enumerate(prompts[:4]):
-            toks[i, :len(p)] = torch.as_tensor(p, device="cuda")
-        lg, cache = lm.paged_prefill(
-            params, {"tokens": toks, "lengths": torch.tensor(
-                lens, dtype=torch.int32, device="cuda")}, c, cache)
-        nxt = torch.argmax(lg[:, 0], dim=-1).to(torch.int32)[:, None]
-        lg2, _ = lm.decode_step(params, nxt, cache, c)
-        logits[name] = (lg.float(), lg2.float(), nxt)
-    for i, what in enumerate(("prefill", "first decode step")):
-        abs_e, rel_e = rel_err(logits["cuda"][i], logits["torch"][i])
+    for what, abs_e, rel_e in first_step_gaps(params, cfg, tcfg,
+                                              prompts[:4]):
         log(f"[serve] {what} logits cuda vs torch backend: max abs "
             f"{abs_e:.3e} rel {rel_e:.3e} (tol rel {LOGITS_RTOL})")
         if rel_e > LOGITS_RTOL:
@@ -633,6 +688,45 @@ def phase_serve():
     agree = int((tgen == gen).sum())
     log(f"[serve] greedy tokens equal between backends: {agree}/{gen.size}")
     return launches, params
+
+
+def padded_prompts(prompts):
+    """Prompts right-padded into a (B, S) device batch, and their lengths."""
+    import torch
+    lens = [len(p) for p in prompts]
+    toks = torch.zeros((len(prompts), max(lens)), dtype=torch.int32,
+                       device="cuda")
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.as_tensor(p, device="cuda")
+    return toks, torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
+def first_step_gaps(params, cfg, tcfg, prompts):
+    """The paged path's first step on both backends from the same prompts
+    (4 rows, pages of 16): prefill logits, then the first decode step's
+    on each backend's own cache and the cuda run's token; ``(what, max
+    abs, max rel)`` of each."""
+    import torch
+    from repro_torch.models import lm
+    toks, lens = padded_prompts(prompts)
+    maxp = -(-(toks.shape[1] + 16) // 16)
+    logits = {}
+    nxt = None
+    for name, c in (("cuda", cfg), ("torch", tcfg)):
+        cache = lm.init_paged_cache(c, len(prompts), maxp * 16, page_size=16,
+                                    device="cuda")
+        cache["page_table"].copy_(torch.arange(
+            len(prompts) * maxp, dtype=torch.int32,
+            device="cuda").reshape(len(prompts), maxp))
+        lg, cache = lm.paged_prefill(params, {"tokens": toks,
+                                              "lengths": lens}, c, cache)
+        if nxt is None:
+            nxt = torch.argmax(lg[:, 0], dim=-1).to(torch.int32)[:, None]
+        lg2, _ = lm.decode_step(params, nxt, cache, c)
+        logits[name] = (lg.float(), lg2.float())
+        del cache
+    return [(what, *rel_err(logits["cuda"][i], logits["torch"][i]))
+            for i, what in enumerate(("prefill", "first decode step"))]
 
 
 def phase_ring(params):
@@ -718,6 +812,213 @@ def phase_ring(params):
     if worst["prefill"] > LOGITS_RTOL or worst["forced"] > LOGITS_RTOL:
         raise AssertionError(f"ring logits: cuda and torch differ {worst}")
     profile_decode(params, cfg, toks, step_ms[RING_MAX_LENS[-1]])
+    return launches
+
+
+# [archs]: every other decoder-only attention family the port serves, at
+# its published widths with n_layers cut to ARCH_LAYERS
+ARCHS = ("chatglm3-6b", "yi-34b", "phi3-medium-14b", "internvl2-26b",
+         "llama4-scout-17b-a16e", "phi3.5-moe-42b-a6.6b")
+ARCH_LAYERS = 2
+ARCH_GEN = 8
+ARCH_RING = 1024          # InternVL2's ring: 256 patches + 64 tokens + 8
+
+
+def arch_config(arch, backend):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import QuantConfig
+    qc = QuantConfig(w_bits=4, a_bits=8, attn_bits=7, kv_bits=8, mode="int",
+                     backend=backend)
+    return get_config(arch).replace(n_layers=ARCH_LAYERS, quant=qc)
+
+
+def phase_archs():
+    """ChatGLM3-6B, Yi-34B, Phi-3-medium, InternVL2-26B, Llama-4-Scout and
+    Phi-3.5-MoE at their published widths (2 layers), each served on the
+    cuda backend and held against the torch backend; InternVL2 also on the
+    ring path with its 256 patch embeddings.  Returns the launches of every
+    run, summed."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import integerize_params
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import serve, staggered_prompts
+    from repro_torch.models import lm
+    total = {}
+    for arch in ARCHS:
+        cfg, tcfg = arch_config(arch, "cuda"), arch_config(arch, "torch")
+        moe = cfg.moe
+        log(f"[archs] {arch}: published widths, n_layers cut "
+            f"{get_config(arch).n_layers} -> {cfg.n_layers}; d_model "
+            f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.kv_heads} (G "
+            f"{cfg.n_heads // cfg.kv_heads}), head dim {cfg.hd}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab}"
+            + (f", {moe.n_experts} experts top-{moe.top_k}"
+               f"{' + shared' if moe.shared_expert else ''}" if moe else "")
+            + (f", rotary_frac {cfg.rotary_frac}" if cfg.rotary_frac < 1
+               else "") + (", QKV bias" if cfg.qkv_bias else "")
+            + (f", patch frontend ({cfg.n_patches})" if cfg.frontend else "")
+            + f"; {cfg.dtype}, w4/a8/attn7/kv8, random weights from seed 0")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = integerize_params(
+            lm.init_params(cfg.replace(quant=None), seed=0, device="cuda"),
+            cfg.quant)                   # the float tree is freed here
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        prompts = staggered_prompts(4, 64, cfg.vocab)
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        torch.cuda.synchronize()
+        gen, stats = serve(cfg, params, prompts, gen_tokens=ARCH_GEN,
+                           page_size=16, batch_size=4, audit_every=1)
+        torch.cuda.synchronize()
+        launches = dispatch.launch_counts()
+        snap = stats["dispatch"]
+        statuses = [s["status"] for s in stats["per_seq"]]
+        copies = sum(t.numel() for t in expert_copies(params))
+        log(f"[archs] {arch} serve: 4 requests (prompts "
+            f"{[len(p) for p in prompts]}), batch 4, {ARCH_GEN} tokens, "
+            f"pages of 16: statuses {statuses}; {stats['engine_steps']} "
+            f"engine steps in {stats['total_s']:.2f}s; weights made and "
+            f"integerized in {t_init:.1f}s; launches {launches}; dispatch "
+            f"qlinear {snap['qlinear_cuda']}/{snap['qlinear_torch']} qexpert "
+            f"{snap['qexpert_cuda']}/{snap['qexpert_torch']} (cuda/torch); "
+            f"transposed expert codes {copies / 1e9:.2f} GB; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+        if any(s != "done" for s in statuses):
+            raise AssertionError(f"[archs] {arch}: not every request is "
+                                 f"DONE: {statuses}")
+        if stats["audit_violations"] or stats["failures"]["audit_failures"]:
+            raise AssertionError(f"[archs] {arch}: audit "
+                                 f"{stats['audit_violations']}")
+        ran = ("qmatmul", "int_attention_fused", "int_paged_decode_attention")
+        plain = ("qlinear_torch", "qexpert_torch", "attention_torch",
+                 "attention_paged_torch", "attention_decode_torch")
+        if min(launches[k] for k in ran) <= 0 or \
+                (moe and snap["qexpert_cuda"] <= 0) or \
+                any(snap[k] for k in plain):
+            raise AssertionError(f"[archs] {arch}: launches {launches}, "
+                                 f"dispatch {snap}")
+        add_launches(total, launches)
+        gaps = first_step_gaps(params, cfg, tcfg, prompts)
+        for what, abs_e, rel_e in gaps:
+            log(f"[archs] {arch} {what} logits cuda vs torch backend: max "
+                f"abs {abs_e:.3e} rel {rel_e:.3e} (tol rel {LOGITS_RTOL})")
+        flips = moe_attribution(arch, params, cfg, tcfg, prompts) \
+            if moe else 0
+        if max(rel_e for _, _, rel_e in gaps) > LOGITS_RTOL and not flips:
+            raise AssertionError(f"[archs] {arch}: cuda and torch differ")
+        if cfg.frontend == "patch":
+            add_launches(total, arch_ring(params, cfg, tcfg))
+        del params
+        torch.cuda.empty_cache()
+    log(f"[archs] launches over the six configurations: {total}")
+    return total
+
+
+def add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def expert_copies(params):
+    """The transposed expert codes the kernel route made for ``params``."""
+    for key, leaf in params.items():
+        if isinstance(leaf, dict):
+            yield from expert_copies(leaf)
+        elif key == "w_q":
+            yield from leaf.__dict__.get("_codes_t", {}).values()
+
+
+def moe_attribution(arch, params, cfg, tcfg, prompts):
+    """The first step's prefill, layer by layer, the torch backend beside
+    the cuda run (teacher-forced: each half block on the cuda run's
+    stream, the ring phase's method): the attention half's update gap,
+    the tokens whose expert choice differs between the two backends' own
+    normed streams, and the FFN half on the same input (bitwise: the route
+    is float, the expert products exact).  Returns the route flips."""
+    import torch
+    from repro_torch.layers import moe
+    from repro_torch.layers.embed import embed_lookup
+    from repro_torch.layers.norms import apply_norm
+    from repro_torch.models import lm
+    toks, _ = padded_prompts(prompts)
+    b, s = toks.shape
+    pos = torch.arange(s, dtype=torch.int32, device="cuda")[None].expand(b, s)
+    x = embed_lookup(toks, params["embed"], cfg.tdtype)
+    attn, flips, same = [], [], []
+    for u in range(cfg.n_layers):
+        p = layer_at(params["units"], u)["b0"]
+        x1 = lm.mixer_block(x, p, cfg, "attn", positions=pos)
+        x1t = lm.mixer_block(x, p, tcfg, "attn", positions=pos)
+        attn.append(rel_err(x1t - x, x1 - x)[1])
+        h2 = apply_norm(x1, p["ln2"], cfg.norm)
+        h2t = apply_norm(x1t, p["ln2"], cfg.norm)
+        idx = moe.route(h2.reshape(b * s, -1), p["ffn"], cfg.moe)[2]
+        idxt = moe.route(h2t.reshape(b * s, -1), p["ffn"], cfg.moe)[2]
+        flips.append(int((idx != idxt).any(dim=-1).sum()))
+        same.append(torch.equal(lm.ffn(h2, p, cfg), lm.ffn(h2, p, tcfg)))
+        x = lm.ffn_block(x1, p, cfg)
+    log(f"[archs] {arch} prefill layer by layer, teacher-forced: attention "
+        f"update max rel {' '.join(f'{e:.2e}' for e in attn)} (tol rel "
+        f"{LOGITS_RTOL}); tokens routed differently by the two backends' "
+        f"own streams {flips} of {b * s}; FFN on the same input bitwise "
+        f"equal {same}")
+    if max(attn) > LOGITS_RTOL or not all(same):
+        raise AssertionError(f"[archs] {arch}: teacher-forced layers differ")
+    return sum(flips)
+
+
+def arch_ring(params, cfg, tcfg):
+    """InternVL2 on the ring path: ``lm.prefill`` of 256 patch embeddings
+    (numpy seed 0) and 64 tokens into a ring of ARCH_RING slots, then
+    ARCH_GEN greedy ``decode_step``s on the cuda backend, the torch backend
+    teacher-forced beside it (the cuda run's token and a copy of its
+    cache), gated like ``[ring]``.  Returns the run's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+    g = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (4, RING_PROMPT), generator=g,
+                         device="cuda", dtype=torch.int32)
+    patches = torch.from_numpy(np.random.RandomState(0).randn(
+        4, cfg.n_patches, cfg.d_model).astype(np.float32)).to("cuda")
+    batch = {"tokens": toks, "patches": patches}
+    dispatch.reset_stats()
+    dispatch.reset_launches()
+    torch.cuda.synchronize()
+    lc, cache = lm.prefill(params, batch, cfg, max_len=ARCH_RING)
+    lt, _ = lm.prefill(params, batch, tcfg, max_len=ARCH_RING)
+    worst = {"prefill": rel_err(lt.float(), lc.float())[1], "forced": 0.0}
+    for _ in range(ARCH_GEN):
+        tok = torch.argmax(lc[:, 0], -1).to(torch.int32)[:, None]
+        forced = clone_tree(cache)
+        lc, cache = lm.decode_step(params, tok, cache, cfg)
+        lf, _ = lm.decode_step(params, tok, forced, tcfg)
+        worst["forced"] = max(worst["forced"],
+                              rel_err(lf.float(), lc.float())[1])
+        del forced
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    snap = dispatch.snapshot()
+    n = cfg.n_layers * ARCH_GEN
+    log(f"[archs] internvl2-26b ring: {cfg.n_patches} patches + "
+        f"{RING_PROMPT} tokens, ring {ARCH_RING}, {ARCH_GEN} decode steps, "
+        f"batch 4: pos {int(cache['pos'])}; launches {launches}; decode "
+        f"dispatch cuda {snap['attention_decode_cuda']} torch "
+        f"{snap['attention_decode_torch']} (teacher-forced steps); torch vs "
+        f"cuda backend max rel: prefill {worst['prefill']:.3e}, each step "
+        f"teacher-forced {worst['forced']:.3e} (tol rel {LOGITS_RTOL})")
+    if launches["int_decode_attention"] != n or \
+            snap["attention_decode_cuda"] != n or \
+            snap["attention_decode_torch"] != n or \
+            launches["qmatmul"] <= 0 or launches["int_attention_fused"] <= 0 \
+            or int(cache["pos"]) != cfg.n_patches + RING_PROMPT + ARCH_GEN \
+            or max(worst.values()) > LOGITS_RTOL:
+        raise AssertionError("[archs] internvl2-26b ring failed its gates")
     return launches
 
 
@@ -1210,12 +1511,23 @@ KERNELS = {
     "pq_layernorm": ("pq_layernorm.cu", "pq_layernorm.py:48"),
     "int_attention": ("int_attention.cu", "int_attention.py:496"),
 }
+# the counted runs of each kernel's main paths (the kernels line's
+# launches: their sum, and each path's count)
+MAIN_PATHS = {"qmatmul": ("serve", "archs"),
+              "int_attention_fused": ("serve", "archs"),
+              "int_paged_decode_attention": ("serve", "archs"),
+              "int_decode_attention": ("ring", "archs"),
+              "pq_layernorm": ("ops",), "int_attention": ("ops",)}
 # qmatmul timed at every (M, N, K) of one Qwen2.5-32B layer and its
 # lm_head at decode and prefill rows, int8 and packed, then DeiT-S's
 # linears (int8, as the model runs them)
 QMM_TIMES = [(m, n, k, packed) for m in (4, 256) for n, k in QMM_NK
              for packed in (False, True)] + \
-    [(m, n, k, False) for m, n, k in QMM_DEIT]
+    [(m, n, k, False) for m, n, k in QMM_DEIT] + \
+    [(m, n, k, False) for m in (4, 256) for n, k in QMM_HEADS]
+# Llama-4-Scout's expert product (16 experts, din 5120, dout 8192) at the
+# [archs] prefill's capacity (20) and a decode step's (1)
+EXPERT_TIMES = (20, 1)
 # (kv_bits, span, pos, G, D): the ring phase's shapes (64-token prompts, so
 # the last decode step reads positions 0..79) first, then full rings, then
 # a full ring at chatglm3-6b's G 16.
@@ -1232,7 +1544,8 @@ ROW_OF = {"qmatmul": (256, 27648, 5120, False), "int_attention_fused": "qwen",
 
 def phase_time(g, launches, errs):
     """Every kernel with CUDA events beside its bound, its plain version and
-    the nearest PyTorch call; returns the kernels line's rows."""
+    the nearest PyTorch call; returns the kernels line's rows (``launches``:
+    each kernel's counts by main path)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.quant import unpack_int4
@@ -1260,17 +1573,23 @@ def phase_time(g, launches, errs):
         # to 32 rows.
         xi = F.pad(x, (0, 0, 0, 32 - m)) if m <= 16 else x
         wi = unpack_int4(w) if packed else w
+        # _int_mm takes N in multiples of 8: W padded with rows of zeros
+        wi = F.pad(wi, (0, 0, 0, -n % 8))
         lib = cuda_ms(lambda: torch._int_mm(xi, wi.t()))
         del wi
         nbytes = x.numel() + w.numel() + 8 * n + 4 * m + 4 * m * n
         bnd, by = bound_ms(nbytes, 2 * m * n * k)
         how = (" (x padded to 32 rows)" if m <= 16 else "") + \
-            (" (W unpacked)" if packed else "")
+            (" (W unpacked)" if packed else "") + \
+            (f" (W padded to {n + -n % 8} rows)" if n % 8 else "")
         log(f"[time] qmatmul M={m} N={n} K={k} packed={packed} plan "
             f"{blocks}: {ms:.4f} ms (device {dms:.4f} ms), bound {bnd:.4f} "
             f"ms ({by}), plain {pms:.4f} ms, _int_mm{how} {lib:.4f} ms")
         keep("qmatmul", (m, n, k, packed), (ms, pms, bnd, by, lib))
         del x, w, s, b, rs
+
+    for cap in EXPERT_TIMES:
+        time_expert(g, cap)
 
     for name, case in ATTN_CASES.items():
         args, kw = attention_inputs(g, *case)
@@ -1398,10 +1717,37 @@ def phase_time(g, launches, errs):
         line.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
                      "replaces": f"src/repro/kernels/{replaces}",
-                     "launches": launches[name], "max_abs_err": errs[name],
+                     "launches": sum(launches[name].values()),
+                     "launches_by_path": launches[name],
+                     "max_abs_err": errs[name],
                      "ms": ms, "plain_ms": pms, "bound_ms": bnd,
                      "bound_by": by, "library_ms": lib})
     return line
+
+
+def time_expert(g, cap, e=16, din=5120, dout=8192):
+    """``dense_expert``'s kernel route (the activation quantizer, one
+    qmatmul launch an expert, the stack) beside its bound and its plain
+    version; printed only (its launches are qmatmul's)."""
+    import torch
+    from repro_torch.core.api import QuantConfig
+    from repro_torch.layers.moe import dense_expert
+    p = {"w_q": torch.randint(-8, 8, (e, din, dout), generator=g,
+                              device="cuda", dtype=torch.int8),
+         "w_scale": torch.rand((e, 1, dout), generator=g, device="cuda")}
+    x = torch.randn((e, cap, din), generator=g, device="cuda").to(
+        torch.bfloat16)
+    qc = QuantConfig(w_bits=4, a_bits=8, mode="int", backend="cuda")
+    call = lambda: dense_expert(x, p, qc)
+    ms, dms = cuda_ms(call), device_ms(call)
+    pms = cuda_ms(lambda: dense_expert(x, p, qc.replace(backend="torch")),
+                  iters=3, warmup=1)
+    # x (bf16), the codes, the scales, the bf16 output; int8 products
+    nbytes = 2 * x.numel() + e * din * dout + 4 * e * dout + 2 * e * cap * dout
+    bnd, by = bound_ms(nbytes, 2 * e * cap * din * dout)
+    log(f"[time] expert product E={e} capacity={cap} din={din} dout={dout} "
+        f"(bf16, {e} qmatmul launches): {ms:.4f} ms (device {dms:.4f} ms), "
+        f"bound {bnd:.4f} ms ({by}), plain {pms:.4f} ms")
 
 
 def sdpa_ms(g, h, sq, sk, d, causal, sq_mod):
@@ -1479,21 +1825,22 @@ def main() -> int:
         phase_build()
         g = torch.Generator(device="cuda").manual_seed(0)
         errs = phase_check(g)
-        launches, params = phase_serve()
-        ring_launches = phase_ring(params)
-        launches["int_decode_attention"] = \
-            ring_launches["int_decode_attention"]
+        paths = {}
+        paths["serve"], params = phase_serve()
+        paths["ring"] = phase_ring(params)
         phase_faults(params)
         del params
         torch.cuda.empty_cache()
+        paths["archs"] = phase_archs()
         phase_quickstart()
         vparams, imgs = phase_vit()
-        ops_launches, ops_errs = phase_ops(vparams, imgs)
+        paths["ops"], ops_errs = phase_ops(vparams, imgs)
         phase_lowbit(imgs)
         for name, err in ops_errs.items():
             errs[name] = max(errs[name], err)
-        for name in ("pq_layernorm", "int_attention"):
-            launches[name] = ops_launches[name]
+        launches = {name: {path: paths[path][name]
+                           for path in MAIN_PATHS[name]}
+                    for name in KERNELS}
         del vparams, imgs
         torch.cuda.empty_cache()
         kernels = phase_time(g, launches, errs)

@@ -91,15 +91,19 @@ def dense_q(x: QTensor, p: dict, cfg: QuantConfig, *,
                                  apply_input_scale=apply_input_scale)
 
 
+# Expert-batched weights keep their (E, din, dout) layout; these parents
+# stay float (router precision, rglru gates: the paper's "cheap ops" rule).
+EXPERT_PARENTS = frozenset({"experts_up", "experts_gate", "experts_down"})
 FLOAT_PARENTS = frozenset({"router", "w_a", "w_i", "head"})
 
 
 def integerize_params(params: Any, cfg: QuantConfig) -> Any:
     """Rewrite every linear's float weight into reordered integer form.
 
-    Handles layer-stacked weights ((U, in, out)) by layout.  Embeddings
-    become per-row int8 codes when ``cfg.quantize_embeddings``.  Returns a
-    new tree; float weights of the input are not modified.
+    Handles layer-stacked weights ((U, in, out)) and expert-batched weights
+    ((E, din, dout), possibly stacked) by layout.  Embeddings become
+    per-row int8 codes when ``cfg.quantize_embeddings``.  Returns a new
+    tree; float weights of the input are not modified.
     """
     def q_linear(w):
         # (..., in, out) -> codes (..., out, in), scale (..., out)
@@ -107,11 +111,21 @@ def integerize_params(params: Any, cfg: QuantConfig) -> Any:
         dw = quant.absmax_scale(wt, cfg.w_bits, axis=-1)          # (...,out,1)
         return quant.quantize(wt, dw, cfg.w_bits).contiguous(), dw[..., 0]
 
+    def q_expert(w):
+        # (..., E, din, dout) -> codes same layout, scale (..., E, 1, dout);
+        # never nibble-packed
+        w = w.to(torch.float32)
+        dw = quant.absmax_scale(w, cfg.w_bits, axis=-2)
+        return quant.quantize(w, dw, cfg.w_bits), dw
+
     def rewrite(p, parent=""):
         if not isinstance(p, dict):
             return p
         if "w" in p and parent not in FLOAT_PARENTS:
             new = {k: rewrite(v, k) for k, v in p.items() if k != "w"}
+            if parent in EXPERT_PARENTS:
+                new["w_q"], new["w_scale"] = q_expert(p["w"])
+                return new
             wq, dw = q_linear(p["w"])
             if cfg.pack_weights and cfg.w_bits == 4 and wq.shape[-1] % 2 == 0:
                 new["w_q"] = quant.pack_int4(wq)   # uint8 marks packing

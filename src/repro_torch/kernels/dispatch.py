@@ -2,9 +2,9 @@
 hand-written CUDA kernels.
 
 Counterpart of ``repro/kernels/dispatch.py``.  The model graph calls
-:func:`maybe_qlinear`, :func:`maybe_attention` (prompt prefill, and ring
-decode steps) and :func:`maybe_paged_attention`; each either lowers onto a
-kernel wrapper
+:func:`maybe_qlinear`, :func:`maybe_qexpert` (the MoE expert products),
+:func:`maybe_attention` (prompt prefill, and ring decode steps) and
+:func:`maybe_paged_attention`; each either lowers onto a kernel wrapper
 (ND->2D flattening, packed int4 weights, GQA/batch folding, per-sequence
 activation grids, block choices) or returns ``None``, and the caller runs
 the plain PyTorch path.
@@ -61,6 +61,7 @@ def _checked(name: str, source: str) -> str:
 _backend = ["cuda"]
 
 STATS = {"qlinear_cuda": 0, "qlinear_torch": 0,
+         "qexpert_cuda": 0, "qexpert_torch": 0,
          "attention_cuda": 0, "attention_paged_cuda": 0,
          "attention_paged_torch": 0, "attention_torch": 0,
          "attention_decode_cuda": 0, "attention_decode_torch": 0,
@@ -263,6 +264,63 @@ def maybe_qlinear(x, p: dict, cfg):
                   None if bias is None else bias.to(torch.float32),
                   row_scale, blocks=blocks, packed=packed)
     return out.reshape(*x.shape[:-1], n).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Expert product: (E, C, din) activations x (E, din, dout) codes -> qmatmul
+# ---------------------------------------------------------------------------
+
+def qexpert_supported(x, p) -> bool:
+    """Shape policy: can this dense_expert() call lower onto qmatmul?
+    int8 expert codes (never nibble-packed) and a non-empty buffer."""
+    w_q = p.get("w_q")
+    return (w_q is not None and w_q.ndim == 3 and w_q.dtype == torch.int8
+            and x.ndim == 3 and x.numel() > 0)
+
+
+def expert_codes_t(w_q):
+    """The ``(E, dout, din)`` contiguous copy of expert codes ``w_q``
+    ``(E, din, dout)``, as qmatmul takes W (rows of K).  Made once per
+    parameter tree: kept on the tensor that owns the codes (a
+    layer-stacked tree's per-layer views share it, one copy a layer), and
+    freed with it.  Serving never writes the codes, so the copy stays
+    theirs; it doubles the bytes the expert codes take on the device."""
+    owner = w_q if w_q._base is None else w_q._base
+    memo = owner.__dict__.setdefault("_codes_t", {})
+    key = (w_q.storage_offset(), tuple(w_q.shape), w_q.stride())
+    if key not in memo:
+        memo[key] = w_q.transpose(-1, -2).contiguous()
+    return memo[key]
+
+
+def _aligned(t):
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def maybe_qexpert(x, p: dict, cfg):
+    """Kernel-backed int dense_expert() body; ``None`` -> caller's plain
+    path.
+
+    Quantizes the whole (E, C, din) buffer on one per-tensor grid, as the
+    plain path does, then runs each expert's slice through the qmatmul
+    kernel (one launch an expert) against :func:`expert_codes_t`, with the
+    epilogue scale ``(xq.scale * w_scale)[e, 0]`` in the reference's
+    order: ``f32(acc) * scale[n]``, the plain path's product bit for bit.
+    """
+    if resolve_backend(cfg) != "cuda" or not qexpert_supported(x, p):
+        STATS["qexpert_torch"] += 1
+        return None
+    STATS["qexpert_cuda"] += 1
+    xq = quant.quantize_tensor(x, cfg.a_bits)
+    w_t = expert_codes_t(p["w_q"])
+    scale = (xq.scale * p["w_scale"]).to(torch.float32)     # (E, 1, dout)
+    e, c, din = x.shape
+    dout = w_t.shape[1]
+    blocks = qmatmul_blocks(c, dout, din)
+    out = torch.stack([qmatmul(_aligned(xq.q[i]), _aligned(w_t[i]),
+                               scale[i, 0], blocks=blocks)
+                       for i in range(e)])
+    return out.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,13 @@ Counterpart of ``repro/models/lm.py`` for the serving paths:
 the ring cache (:func:`init_cache`, :func:`prefill`, :func:`decode_step`)
 and the paged cache (:func:`init_paged_cache`, :func:`paged_prefill`,
 :func:`admission_prefill`, :func:`decode_step`, :func:`copy_page`,
-:func:`page_scale_pools`).  Recurrent / SSM / MoE blocks and training
-belong to later slices and raise here.
+:func:`page_scale_pools`), with dense or MoE feed-forwards
+(``cfg.moe``: :func:`repro_torch.layers.moe.moe_ffn` on the flattened
+``(B*S, d)`` tokens) and the patch frontend (``cfg.frontend == "patch"``:
+``batch["patches"]`` (B, n_patches, d) prepended to the token embeddings,
+so positions and ``pos`` count them; the ring path takes them, the paged
+engine serves text).  Recurrent / SSM blocks, the encoder-decoder and
+training belong to later slices and raise here.
 
 Parameters and caches are plain dicts of tensors with the JAX package's
 keys and layouts: linear weights ``(in, out)`` float or ``w_q (out, in)``
@@ -61,6 +66,7 @@ from repro_torch.layers.attention import (AttnSpec, attention,
                                           prefix_prefill_attention)
 from repro_torch.layers.embed import embed_lookup, init_embed
 from repro_torch.layers.mlp import mlp
+from repro_torch.layers.moe import MoEConfig, init_moe, moe_ffn
 from repro_torch.layers.norms import apply_norm, init_norm
 from repro_torch.layers.rope import apply_rope
 
@@ -82,9 +88,12 @@ class LMConfig:
     qkv_bias: bool = False
     norm: str = "rmsnorm"
     act: str = "swiglu"
+    moe: Optional[MoEConfig] = None
     dtype: str = "bfloat16"
     quant: Optional[QuantConfig] = None
     q_chunk: int = 128
+    frontend: Optional[str] = None            # "patch" (VLM stub)
+    n_patches: int = 256
     causal: bool = True
 
     @property
@@ -146,6 +155,10 @@ def _init_block(gen, cfg: LMConfig, lead, device) -> dict:
     if cfg.d_ff > 0:
         ff = cfg.d_ff
         p["ln2"] = _stack(init_norm(d, cfg.norm, device=device), lead)
+        if cfg.moe is not None:
+            p["ffn"] = init_moe(gen, d, ff, cfg.moe, act=cfg.act, dtype=dt,
+                                lead=lead, device=device)
+            return p
         p["ffn"] = {"up": _lin(gen, lead, d, ff, dt, device),
                     "down": _lin(gen, lead, ff, d, dt, device)}
         if cfg.act == "swiglu":
@@ -521,17 +534,38 @@ def _attn_mixer(x, p, cfg: LMConfig, kind: str, positions, cache, decode,
     return dense(out, p["wo"], qcfg)
 
 
-def apply_block(x, p, cfg: LMConfig, kind: str, *, positions, cache=None,
+def mixer_block(x, p, cfg: LMConfig, kind: str, *, positions, cache=None,
                 decode=False, page_table=None, lengths=None,
                 prefix_len: int = 0):
+    """The first half of a block: x + attention(norm(x))."""
     h = apply_norm(x, p["ln1"], cfg.norm)
     out = _attn_mixer(h, p["attn"], cfg, kind, positions, cache, decode,
                       page_table, lengths, prefix_len)
-    x = x + out.to(x.dtype)
-    if cfg.d_ff > 0:
-        h2 = apply_norm(x, p["ln2"], cfg.norm)
-        x = x + mlp(h2, p["ffn"], cfg.quant, act=cfg.act).to(x.dtype)
-    return x
+    return x + out.to(x.dtype)
+
+
+def ffn(h2, p, cfg: LMConfig):
+    """The feed-forward on the normed stream (B, S, d): the MLP, or the MoE
+    FFN on the flattened (B*S, d) tokens (its ``aux`` is the training
+    slice's, and stays inside ``moe_ffn``'s return value)."""
+    if cfg.moe is None:
+        return mlp(h2, p["ffn"], cfg.quant, act=cfg.act)
+    b, s, d = h2.shape
+    out, _ = moe_ffn(h2.reshape(b * s, d), p["ffn"], cfg.moe, cfg.quant,
+                     act=cfg.act)
+    return out.reshape(b, s, d)
+
+
+def ffn_block(x, p, cfg: LMConfig):
+    """The second half of a block: x + ffn(norm(x)) (x itself when the
+    config has no feed-forward)."""
+    if cfg.d_ff <= 0:
+        return x
+    return x + ffn(apply_norm(x, p["ln2"], cfg.norm), p, cfg).to(x.dtype)
+
+
+def apply_block(x, p, cfg: LMConfig, kind: str, **kw):
+    return ffn_block(mixer_block(x, p, cfg, kind, **kw), p, cfg)
 
 
 def stack_forward(x, params, cfg: LMConfig, *, positions, cache=None,
@@ -553,13 +587,21 @@ def stack_forward(x, params, cfg: LMConfig, *, positions, cache=None,
     return x
 
 
+def _inputs_to_x(params, batch, cfg: LMConfig):
+    x = embed_lookup(batch["tokens"], params["embed"], cfg.tdtype)
+    if cfg.frontend == "patch" and "patches" in batch:
+        x = torch.cat([batch["patches"].to(cfg.tdtype), x], dim=1)
+    return x
+
+
 def forward(params, batch, cfg: LMConfig, *, cache=None, decode=False,
             prefix_len: int = 0):
     """Returns (pre-head hidden states, cache).
 
     With a ring cache, ``cache["pos"]`` is one 0-d position for the whole
     batch (prompt positions start at 0; ``pos`` advances by S at prefill
-    and by 1 per decode step).  With a paged cache, ``cache["pos"]`` is
+    and by 1 per decode step; at prefill S counts the patch embeddings of a
+    ``"patch"`` frontend).  With a paged cache, ``cache["pos"]`` is
     per sequence (B,): each row decodes at its own position and inactive
     rows (``pos < 0``) stay frozen; ragged prefill takes
     ``batch["lengths"]`` and leaves ``pos = prefix_len + lengths``.
@@ -568,7 +610,7 @@ def forward(params, batch, cfg: LMConfig, *, cache=None, decode=False,
     chunked prefill).  Cache writes
     happen in place (module docstring).
     """
-    x = embed_lookup(batch["tokens"], params["embed"], cfg.tdtype)
+    x = _inputs_to_x(params, batch, cfg)
     paged = cache is not None and "page_table" in cache
     page_table = cache["page_table"] if paged else None
     lengths = batch.get("lengths") if paged and not decode else None
@@ -605,8 +647,11 @@ def logits_fn(params, x, cfg: LMConfig):
 def prefill(params, batch, cfg: LMConfig, max_len: Optional[int] = None):
     """Run the whole prompt into a new ring cache (on the tokens' device).
 
-    ``batch["tokens"]`` (B, S); the ring holds ``max_len`` positions
-    (default S).  Returns (last-position logits (B, 1, V), cache)."""
+    ``batch["tokens"]`` (B, S), and ``batch["patches"]`` (B, n_patches, d)
+    for a ``"patch"`` frontend (prepended, so the prompt is n_patches + S
+    positions); the ring holds ``max_len`` positions (default S, as in the
+    reference: a prompt with patches then wraps).  Returns (last-position
+    logits (B, 1, V), cache)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     cache = init_cache(cfg, b, max_len or s, device=tokens.device)

@@ -584,3 +584,90 @@ def test_fault_drill_on_the_card(gen):
     while eng._reclaim_one():
         pass
     assert eng._fault_held == [] and eng.alloc.free_count == eng.num_pages
+
+
+# The expert product through qmatmul, one launch an expert: Llama-4's
+# prefill and decode capacities at reduced widths, and a buffer whose
+# expert slices are not 16-byte aligned (K 40, padded by the wrapper).
+@pytest.mark.parametrize("e,cap,din,dout", [(16, 20, 512, 1024),
+                                            (16, 1, 1024, 512),
+                                            (3, 7, 40, 24)])
+def test_expert_product_kernel_route_equals_plain(gen, e, cap, din, dout):
+    from repro_torch.core.api import QuantConfig
+    from repro_torch.layers.moe import dense_expert
+    p = {"w_q": torch.randint(-8, 8, (e, din, dout), generator=gen,
+                              device="cuda", dtype=torch.int8),
+         "w_scale": torch.rand((e, 1, dout), generator=gen, device="cuda")}
+    x = torch.randn((e, cap, din), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    qc = QuantConfig(w_bits=4, mode="int", backend="cuda")
+    dispatch.reset_stats()
+    before = qm.LAUNCHES["qmatmul"]
+    got = dense_expert(x, p, qc)
+    torch.cuda.synchronize()
+    assert qm.LAUNCHES["qmatmul"] == before + e
+    assert dispatch.STATS["qexpert_cuda"] == 1
+    assert torch.equal(got, dense_expert(x, p, qc.replace(backend="torch")))
+
+
+# The head groups of the dense GQA and MoE families: Phi-3-medium and
+# Phi-3.5-MoE (G 4), InternVL2-26B (G 6), Yi-34B (G 7), ChatGLM3-6B (G 16)
+@pytest.mark.parametrize("g", [4, 6, 7, 16])
+def test_paged_decode_kernel_head_groups(gen, g):
+    q, kp, vp, sc, vs, pt, pos, kps, vps = _paged_case(gen, 8, g, 128, 16, 6)
+    out, codes = ia.int_paged_decode_attention(
+        q, kp, vp, sc, vs, pt, pos, k_page_scale=kps, v_page_scale=vps,
+        return_codes=True)
+    torch.cuda.synchronize()
+    want, wcodes = ref.int_paged_decode_attention_ref(
+        q, kp, vp, sc, vs, pt, pos, bk=16, k_page_scale=kps,
+        v_page_scale=vps, return_codes=True)
+    assert torch.equal(codes, wcodes.to(torch.uint8))
+    assert _rel(out, want) <= 1e-5
+
+
+@pytest.mark.parametrize("g", [4, 6, 7, 16])
+def test_fused_kernel_head_groups(gen, g):
+    h, sq, d = 8, 64, 128
+    bq, bk = dispatch.attention_blocks(g * sq, sq, d, chunk=sq)
+    mk = lambda *shape: torch.randint(-127, 128, shape, generator=gen,
+                                      device="cuda", dtype=torch.int8)
+    q, k, v = mk(h, g * sq, d), mk(h, sq, d), mk(h, sq, d)
+    sc = (torch.rand((h, -(-(g * sq) // bq)), generator=gen,
+                     device="cuda") + 0.5) * 1e-4
+    vs = torch.rand((h,), generator=gen, device="cuda") + 0.5
+    kw = dict(attn_bits=7, causal=True, bq=bq, bk=bk, sq_mod=sq,
+              return_codes=True)
+    out, codes = ia.int_attention_fused(q, k, v, sc, vs, **kw)
+    torch.cuda.synchronize()
+    want, wcodes = ia.int_attention_fused_plain(q, k, v, sc, vs, **kw)
+    assert torch.equal(codes, wcodes)
+    assert _rel(out, want) <= 1e-5
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_moe_serve_on_the_card_takes_no_plain_path(gen, arch):
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.api import QuantConfig, integerize_params
+    from repro_torch.launch.serve import serve, staggered_prompts
+    from repro_torch.models import lm
+    qc = QuantConfig(w_bits=4, a_bits=8, attn_bits=7, kv_bits=8, mode="int",
+                     backend="cuda")
+    cfg = smoke_config(arch).replace(quant=qc)
+    params = integerize_params(lm.init_params(cfg, seed=0, device="cuda"), qc)
+    dispatch.reset_stats()
+    dispatch.reset_launches()
+    _, stats = serve(cfg, params, staggered_prompts(4, 24, cfg.vocab),
+                     gen_tokens=6, page_size=8, batch_size=4, audit_every=1)
+    assert [s["status"] for s in stats["per_seq"]] == ["done"] * 4
+    assert stats["audit_violations"] == []
+    launches = dispatch.launch_counts()
+    for name in ("qmatmul", "int_attention_fused",
+                 "int_paged_decode_attention"):
+        assert launches[name] > 0, launches
+    snap = stats["dispatch"]
+    assert snap["qexpert_cuda"] > 0
+    for key in ("qlinear_torch", "qexpert_torch", "attention_torch",
+                "attention_paged_torch"):
+        assert snap[key] == 0, (key, snap)
