@@ -34,13 +34,21 @@ Phases, in order; any failure exits non-zero before the result line:
    without beta, 4 rows of 5120, and the first widths above the kernel's
    register plan;
    two-pass attention codes exact, outputs within the tolerance of its
-   plain version and of the fused kernel at the same bq / bk;
+   plain version and of the fused kernel at the same bq / bk; the
+   [recurrent] / [encdec] shapes: qmatmul at the lm_heads N 256000 (K
+   4096) and N 51866 (K 1280) and Mamba's in_proj N 3352 (K 768), the fused
+   kernel at RecurrentGemma's windowed D 256 prefill and Whisper's encoder,
+   self, cross and one-row decode cross attention, the ring kernel at a
+   2176-slot windowed ring (G 16, D 256) and a 64-slot one (G 1, D 64);
 4. serve: ``repro_torch.launch.serve.serve`` at Qwen2.5-32B widths
    (4 of 64 layers, random weights from a seed, made on the card) on the
    ``cuda`` backend; every request DONE, a clean audit, every kernel of
    the paged path launched and no plain-path dispatch; first-step logits
-   against the ``torch`` backend on the same inputs; greedy agreement
-   printed;
+   against the ``torch`` backend on the same inputs (each backend's
+   route gated: the ``torch`` run launches no kernel, the ``cuda`` run
+   every kernel of the path and no plain dispatch), the same at 2 of the
+   4 layers, and the prefill layer by layer, teacher-forced; greedy
+   agreement printed;
 5. ring: ``lm.prefill`` + 16 ``lm.decode_step``s over the ring cache at
    the same widths, batch 4, 64-token prompts, rings of 1024 and 8192
    slots, on the ``cuda`` backend: one ring-kernel launch per layer and
@@ -66,28 +74,43 @@ Phases, in order; any failure exits non-zero before the result line:
    miss is allowed only where a route flip explains it: the prefill layer
    by layer, teacher-forced, then gates); InternVL2 also on the ring path
    with its 256 patch embeddings, gated like ``ring``;
-8. quickstart: ``python -m repro_torch.examples.quickstart`` on the card;
-9. vit: ``models.vit.forward`` at the full DeiT-S config (12 layers,
+8. recurrent: RecurrentGemma-9B at its published widths with n_layers cut
+   from 38 to 5 (one (rglru, rglru, local) unit and the two remainder
+   rglru layers), batch 2, 2304-token prompts past the 2048 window into a
+   4096 ring (a 2176-slot local ring that wraps at prefill); the Mamba
+   example (``repro_torch.examples.serve_mamba130m``) at its defaults;
+   Mamba2-130M at full size, batch 4, 512-token prompts (four SSD chunks);
+9. encdec: Whisper-large-v3 at its published widths, 4 + 4 of 32 + 32
+   layers, batch 4, 1500 seeded stub frames, 32-token prompts, max_len
+   64; each run of 8 and 9 generates 16 greedy tokens on the ``cuda``
+   backend with the ``torch`` backend teacher-forced beside it: its kernels
+   launched (the ring kernel once a local layer a step), no plain dispatch,
+   the ``torch`` run launching nothing, logits within the tolerance, its
+   peak memory, time and a profiled decode step printed;
+10. quickstart: ``python -m repro_torch.examples.quickstart`` on the card;
+11. vit: ``models.vit.forward`` at the full DeiT-S config (12 layers,
    224 px, patch 16; random weights from a seed, made on the card), batch
    64, on the ``cuda`` backend: 73 qmatmul and 12 fused-attention launches
    and no plain dispatch; logits against the ``torch`` backend; ms per
    batch;
-10. ops: the paper's integerized self-attention module through the kernel
+12. ops: the paper's integerized self-attention module through the kernel
    entry points (``kernels/ops.py``) at DeiT-S widths, on layer 0 of the
    same weights and the model's own residual stream (64 x 198 rows):
    PQ-LayerNorm -> q/k/v -> fused and two-pass attention -> wo, every
    kernel against its plain version on the same inputs;
-11. lowbit: DeiT-S at the paper's 3- and 2-bit points (w3/attn3,
+13. lowbit: DeiT-S at the paper's 3- and 2-bit points (w3/attn3,
     w2/attn2; Table II) on the ``cuda`` backend, gated like ``vit``; then
     ``benchmarks/fig_softmax_error.py``'s attention through
     ``layers.attention.attention`` at prob grids of 2, 3, 4 and 7 bits,
     each through the fused kernel, its error not growing with bits;
-12. time: each kernel with CUDA events beside its bound, its plain
+14. time: each kernel with CUDA events beside its bound, its plain
     version and, where one PyTorch call computes the same function, that
     call (``torch._int_mm`` for qmatmul, over x zero-padded to 32 rows at
     decode rows, ``F.layer_norm`` / ``F.rms_norm`` for PQ-LayerNorm); every
     kernel also with its device time alone (``torch.profiler``), since
-    CUDA events count the host's launch overhead at small shapes.
+    CUDA events count the host's launch overhead at small shapes; a device
+    time, and its share of the bound, is quoted only from traces that saw
+    every kernel event (else "not measured").
     PQ-LayerNorm and its library call take x from copies cycled past the
     50 MB L2.  The expert product is timed at Llama-4-Scout's prefill and
     decode capacities (printed only: its launches are qmatmul's).
@@ -150,26 +173,63 @@ def cuda_ms(fn, iters=20, warmup=3):
     return t0.elapsed_time(t1) / iters
 
 
+# torch.cuda._sleep's kernel, launched first in every trace: a trace can
+# drop its first kernel event (seen on the H100 machine: one event of
+# every trace, in every row of the time phase), and this one is left out
+MARKER = "spin_kernel"
+
+
+def device_events(run, cpu=False):
+    """The device events (``key_averages()``) of ``run()`` under
+    torch.profiler, the marker kernel launched and synchronised first and
+    left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        run()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and MARKER not in e.key]
+
+
 def device_ms(fn, calls=10):
     """Device time of one call of ``fn`` (torch.profiler, every kernel it
     launches), where ``cuda_ms`` also counts the host's launch overhead
-    whenever the host enqueues more slowly than the card runs.  Traced
-    twice, the larger read: a trace can miss every kernel (0.0 when both
-    did)."""
+    whenever the host enqueues more slowly than the card runs.  Two traces
+    of one call give its number of kernel events (the larger count); two
+    traces of ``calls`` calls each are kept only if each saw ``calls`` times
+    that many (a trace that drops events reads short).  Returns (the larger kept read, or
+    None when no trace was complete; the events the traces saw, as "one
+    call / each trace of ``calls``")."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    def trace(n):
+        evs = device_events(lambda: [fn() for _ in range(n)])
+        return (sum(e.count for e in evs),
+                sum(e.self_device_time_total for e in evs))
+
     fn()
     torch.cuda.synchronize()
-    totals = []
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        totals.append(sum(e.self_device_time_total
-                          for e in prof.key_averages()
-                          if e.device_type == torch.autograd.DeviceType.CUDA))
-    return max(totals) / 1e3 / calls
+    per_call = max(trace(1)[0] for _ in range(2))
+    traces = [trace(calls) for _ in range(2)]
+    kept = [us for n, us in traces if per_call and n == calls * per_call]
+    seen = f"{per_call} / {' and '.join(str(n) for n, _ in traces)}"
+    return (max(kept) / 1e3 / calls if kept else None), seen
+
+
+def dev_str(dev, bnd=None):
+    """A ``device_ms`` result as the time lines print it, with its share of
+    the bound when given; a trace that missed kernel events quotes none."""
+    dms, seen = dev
+    if dms is None:
+        return (f"device not measured: kernel events seen {seen} (one call "
+                f"/ each trace)")
+    share = f", {100 * bnd / dms:.1f}% of the bound" if bnd else ""
+    return f"device {dms:.4f} ms{share}"
 
 
 def bound_ms(nbytes, ops, peak=PEAK_INT8_OPS):
@@ -227,13 +287,12 @@ def paged_inputs(g, kv_bits, grp=5, d=128, maxp=5, pos=(79, 35, -1, 63),
         packed=kv_bits == 4)
 
 
-def ring_inputs(g, kv_bits, span, pos, grp=5, d=128):
+def ring_inputs(g, kv_bits, span, pos, grp=5, d=128, h=32):
     """One ring decode step as dispatch folds it: B=4 x Hkv=8 head-folds,
-    G=5, D=128 (or the given G, D); the ring written up to ``pos`` (slot
-    p % span)."""
+    G=5, D=128 (or the given G, D and head-folds); the ring written up to
+    ``pos`` (slot p % span)."""
     import torch
     from repro_torch.core.quant import pack_int4
-    h = 32
     lo, hi = (-8, 8) if kv_bits == 4 else (-127, 128)
     mk = lambda *shape: torch.randint(lo, hi, shape, generator=g,
                                       device="cuda", dtype=torch.int8)
@@ -310,6 +369,12 @@ QMM_NK = [(5120, 5120), (1024, 5120), (27648, 5120), (5120, 27648),
 # the [archs] lm_heads whose N is not a multiple of 128: Llama-4-Scout,
 # InternVL2-26B, Phi-3.5-MoE
 QMM_HEADS = [(202048, 5120), (92553, 6144), (32064, 4096)]
+# the [recurrent] / [encdec] shapes no other row covers: RecurrentGemma-9B's
+# lm_head (N 256000, K 4096) at its 2 rows and at 256, Whisper-large-v3's
+# (N 51866, K 1280) at 4 and 256, Mamba2-130M's in_proj (N 3352, K 768) at
+# 4 rows and its prefill's 2048
+QMM_FAMILIES = [(2, 256000, 4096), (256, 256000, 4096), (4, 51866, 1280),
+                (256, 51866, 1280), (4, 3352, 768), (2048, 3352, 768)]
 # DeiT-S's linears at batch 64: the patch embedding (64 x 196 rows, K 768),
 # wq/wk/wv/wo, the MLP's up and down (64 x 198 rows)
 QMM_DEIT = [(64 * 196, 384, 768), (64 * 198, 384, 384),
@@ -326,7 +391,8 @@ QMM_CHECKS = [(m, n, k, packed) for m in (4, 256) for n, k in QMM_NK
     [(m, n, k, packed) for m, n, k in QMM_DEIT + [(17, 300, 1028),
                                                   (129, 300, 1028)]
      for packed in (False, True)] + \
-    [(m, n, k, False) for m in (4, 256) for n, k in QMM_HEADS]
+    [(m, n, k, False) for m in (4, 256) for n, k in QMM_HEADS] + \
+    [(m, n, k, False) for m, n, k in QMM_FAMILIES]
 
 
 def phase_check(g):
@@ -369,13 +435,15 @@ def phase_check(g):
         for name, case in ATTN_CASES.items():
             f_abs, t_abs = check_attention(g, name, case, bits)
             fused, two = max(fused, f_abs), max(two, t_abs)
+    for name in ATTN_FAMILIES:
+        fused = max(fused, check_family_attention(g, name))
     errs["int_attention_fused"], errs["int_attention"] = fused, two
     rows = [(row, 7, 8) for row in PAGED_CHECKS + PAGED_LONG] + \
         [(row, bits, 8) for bits in LOW_BITS for row in PAGED_CHECKS[:2]] + \
         [(row[:3], 7, row[3]) for row in PAGED_ARCHS]
     errs["int_paged_decode_attention"] = max(check_paged(g, row, bits, hkv)
                                              for row, bits, hkv in rows)
-    rows = [(row, 7) for row in RING_CHECKS] + \
+    rows = [(row, 7) for row in RING_CHECKS + RING_FAMILIES] + \
         [(RING_CHECKS[0], bits) for bits in LOW_BITS]
     errs["int_decode_attention"] = max(check_ring(g, row, bits)
                                        for row, bits in rows)
@@ -498,8 +566,8 @@ def check_ring(g, row, bits):
     import torch
     from repro_torch.kernels import dispatch
     from repro_torch.kernels import int_attention as ia
-    kv_bits, span, pos, window, grp, d = row
-    args = ring_inputs(g, kv_bits, span, pos, grp, d)
+    kv_bits, span, pos, window, grp, d, *h = row
+    args = ring_inputs(g, kv_bits, span, pos, grp, d, *h)
     kw = dict(attn_bits=bits, window=window, packed=kv_bits == 4,
               bk=dispatch.decode_blocks(span, d), return_codes=True)
     out, codes = ia.int_decode_attention(*args, **kw)
@@ -507,7 +575,8 @@ def check_ring(g, row, bits):
     want, wcodes = ia.int_decode_attention_plain(*args, **kw)
     abs_e, rel_e = rel_err(out, want)
     same = torch.equal(codes, wcodes)
-    log(f"[check] ring decode kv_bits={kv_bits} G={grp} D={d} "
+    log(f"[check] ring decode kv_bits={kv_bits} H={args[0].shape[0]} G={grp} "
+        f"D={d} "
         f"span={span} pos={pos} window={window} bk={kw['bk']} "
         f"attn_bits={bits}: codes {'exact' if same else 'MISMATCH'}, out max "
         f"abs {abs_e:.3e} rel {rel_e:.3e} (tol rel {ATTN_RTOL})")
@@ -557,6 +626,59 @@ ATTN_CASES = {
 }
 
 
+# the fused kernel at the [recurrent] / [encdec] shapes, as dispatch folds
+# them: name -> (H, G * Sq, Sk, D, causal, window, sq_mod, the query
+# recalibration chunk; None for pre-quantized keys): RecurrentGemma-9B's
+# local prefill (B 2 x Hkv 1, G 16 x 2304 rows, D 256, window 2048);
+# Whisper-large-v3's encoder (B 4 x 20 heads, 1500 frames), decoder self
+# and cross attention at prefill (32 tokens), and the cross attention of a
+# decode step (one query row over 1500 int8 keys on their stored grid)
+ATTN_FAMILIES = {
+    "rg-local": (2, 16 * 2304, 2304, 256, True, 2048, 2304, 128),
+    "wh-encoder": (80, 1500, 1500, 64, False, None, None, 125),
+    "wh-self": (80, 32, 32, 64, True, None, None, 32),
+    "wh-cross": (80, 32, 1500, 64, False, None, None, 32),
+    "wh-cross-decode": (80, 1, 1500, 64, False, None, None, None),
+}
+# (kv_bits, span, pos, window, G, D, head-folds) of the ring kernel at the
+# last decode step of [recurrent] and [encdec]: RecurrentGemma-9B's local
+# ring of 2176 slots (window 2048 + q_chunk 128; B 2 x Hkv 1, G 16, D 256)
+# and Whisper's self-attention ring of 64 (B 4 x 20 heads, G 1, D 64)
+RING_FAMILIES = [(8, 2176, 2319, 2048, 16, 256, 2),
+                 (8, 64, 47, None, 1, 64, 80)]
+
+
+def family_attention_case(name):
+    """An ``ATTN_FAMILIES`` row as ``attention_inputs`` takes it, with the
+    blocks dispatch picks for it."""
+    from repro_torch.kernels import dispatch
+    h, sq, sk, d, causal, window, sq_mod, chunk = ATTN_FAMILIES[name]
+    bq, bk = dispatch.attention_blocks(sq, sk, d, window=window, chunk=chunk)
+    return h, sq, sk, d, causal, bq, bk, sq_mod, 7, window
+
+
+def check_family_attention(g, name):
+    """The fused kernel at one ``ATTN_FAMILIES`` shape: codes exact against
+    its plain version, outputs within ATTN_RTOL; its max abs error."""
+    import torch
+    from repro_torch.kernels import int_attention as ia
+    args, kw = attention_inputs(g, *family_attention_case(name))
+    out, codes = ia.int_attention_fused(*args, return_codes=True, **kw)
+    torch.cuda.synchronize()
+    want, wcodes = ia.int_attention_fused_plain(*args, return_codes=True,
+                                                **kw)
+    abs_e, rel_e = rel_err(out, want)
+    same = torch.equal(codes, wcodes)
+    h, sq, d = args[0].shape
+    log(f"[check] attention {name} H={h} Sq={sq} Sk={args[1].shape[1]} "
+        f"D={d} causal={kw['causal']} window={kw['window']} bq={kw['bq']} "
+        f"bk={kw['bk']}: fused codes {'exact' if same else 'MISMATCH'}, out "
+        f"max abs {abs_e:.3e} rel {rel_e:.3e} (tol rel {ATTN_RTOL})")
+    if not same or rel_e > ATTN_RTOL:
+        raise AssertionError(f"attention {name}: the fused kernel differs")
+    return abs_e
+
+
 def pqln_inputs(g, rows, d, dtype, bits, rms_only, beta, offset):
     """x (rows, d), ``offset`` elements into its buffer, gamma, beta (or
     None) and a delta that puts |y| up to about 4 at the grid's edge."""
@@ -573,9 +695,10 @@ def pqln_inputs(g, rows, d, dtype, bits, rms_only, beta, offset):
     return (x, gamma, b, delta), dict(bits=bits, rms_only=rms_only)
 
 
-def attention_inputs(g, h, sq, sk, d, causal, bq, bk, sq_mod, bits=7):
+def attention_inputs(g, h, sq, sk, d, causal, bq, bk, sq_mod, bits=7,
+                     window=None):
     """Random int8 operands; one logit scale per (head-fold, q block);
-    a ``bits``-bit prob grid."""
+    a ``bits``-bit prob grid; a local window."""
     import torch
     mk = lambda *shape: torch.randint(-127, 128, shape, generator=g,
                                       device="cuda", dtype=torch.int8)
@@ -583,7 +706,8 @@ def attention_inputs(g, h, sq, sk, d, causal, bq, bk, sq_mod, bits=7):
     sc = (torch.rand((h, nq), generator=g, device="cuda") + 0.5) * 1e-4
     vs = (torch.rand((h,), generator=g, device="cuda") + 0.5) * 1e-2
     return (mk(h, sq, d), mk(h, sk, d), mk(h, sk, d), sc, vs), dict(
-        attn_bits=bits, causal=causal, bq=bq, bk=bk, sq_mod=sq_mod)
+        attn_bits=bits, causal=causal, bq=bq, bk=bk, sq_mod=sq_mod,
+        window=window)
 
 
 # (kv_bits, span, pos, window, G, D): partly written (pos < span), wrapped
@@ -621,6 +745,9 @@ def model_config(backend):
     qc = QuantConfig(w_bits=4, a_bits=8, attn_bits=7, kv_bits=8, mode="int",
                      backend=backend)
     return get_config("qwen2.5-32b").replace(n_layers=N_LAYERS, quant=qc)
+
+
+SERVE_KERNELS = ("qmatmul", "int_attention_fused", "int_paged_decode_attention")
 
 
 def phase_serve():
@@ -666,9 +793,7 @@ def phase_serve():
         raise AssertionError(f"not every request is DONE: {statuses}")
     if stats["audit_violations"] or stats["failures"]["audit_failures"]:
         raise AssertionError(f"audit: {stats['audit_violations']}")
-    serve_kernels = ("qmatmul", "int_attention_fused",
-                     "int_paged_decode_attention")
-    if min(launches[k] for k in serve_kernels) <= 0:
+    if min(launches[k] for k in SERVE_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the paged path never launched: "
                              f"{launches}")
     plain = {k: snap[k] for k in ("qlinear_torch", "attention_torch",
@@ -678,12 +803,20 @@ def phase_serve():
 
     # The torch backend on the same inputs: first-step logits and tokens.
     tcfg = model_config("torch")
-    for what, abs_e, rel_e in first_step_gaps(params, cfg, tcfg,
-                                              prompts[:4]):
+    for what, abs_e, rel_e in first_step_gaps(params, cfg, tcfg, prompts[:4],
+                                              SERVE_KERNELS):
         log(f"[serve] {what} logits cuda vs torch backend: max abs "
             f"{abs_e:.3e} rel {rel_e:.3e} (tol rel {LOGITS_RTOL})")
         if rel_e > LOGITS_RTOL:
             raise AssertionError(f"{what} logits: cuda and torch differ")
+    # where the gap comes from: the same first step at 2 of the 4 layers,
+    # then the prefill layer by layer
+    for what, abs_e, rel_e in first_step_gaps(
+            params, cfg.replace(n_layers=2), tcfg.replace(n_layers=2),
+            prompts[:4], SERVE_KERNELS):
+        log(f"[serve] at 2 layers, {what} logits cuda vs torch backend: max "
+            f"abs {abs_e:.3e} rel {rel_e:.3e} (printed only)")
+    layer_attribution("[serve]", params, cfg, tcfg, prompts[:4])
     tgen, _ = serve(tcfg, params, prompts, **kw)
     agree = int((tgen == gen).sum())
     log(f"[serve] greedy tokens equal between backends: {agree}/{gen.size}")
@@ -701,12 +834,23 @@ def padded_prompts(prompts):
     return toks, torch.tensor(lens, dtype=torch.int32, device="cuda")
 
 
-def first_step_gaps(params, cfg, tcfg, prompts):
+# the dispatch counters of each backend's kernel route and plain path
+CUDA_DISPATCH = ("qlinear_cuda", "qexpert_cuda", "attention_cuda",
+                 "attention_paged_cuda", "attention_decode_cuda")
+PLAIN_DISPATCH = ("qlinear_torch", "qexpert_torch", "attention_torch",
+                  "attention_paged_torch", "attention_decode_torch")
+
+
+def first_step_gaps(params, cfg, tcfg, prompts, ran):
     """The paged path's first step on both backends from the same prompts
     (4 rows, pages of 16): prefill logits, then the first decode step's
     on each backend's own cache and the cuda run's token; ``(what, max
-    abs, max rel)`` of each."""
+    abs, max rel)`` of each.  Gates that each backend took its own path:
+    the ``torch`` run launched no kernel and dispatched nothing to one, the
+    ``cuda`` run launched every kernel in ``ran`` and dispatched nothing to
+    the plain path."""
     import torch
+    from repro_torch.kernels import dispatch
     from repro_torch.models import lm
     toks, lens = padded_prompts(prompts)
     maxp = -(-(toks.shape[1] + 16) // 16)
@@ -718,15 +862,37 @@ def first_step_gaps(params, cfg, tcfg, prompts):
         cache["page_table"].copy_(torch.arange(
             len(prompts) * maxp, dtype=torch.int32,
             device="cuda").reshape(len(prompts), maxp))
+        torch.cuda.synchronize()
+        dispatch.reset_stats()
+        dispatch.reset_launches()
         lg, cache = lm.paged_prefill(params, {"tokens": toks,
                                               "lengths": lens}, c, cache)
         if nxt is None:
             nxt = torch.argmax(lg[:, 0], dim=-1).to(torch.int32)[:, None]
         lg2, _ = lm.decode_step(params, nxt, cache, c)
+        torch.cuda.synchronize()
+        check_route(f"first step, {name} backend", name,
+                    dispatch.launch_counts(), dispatch.snapshot(), ran)
         logits[name] = (lg.float(), lg2.float())
         del cache
     return [(what, *rel_err(logits["cuda"][i], logits["torch"][i]))
             for i, what in enumerate(("prefill", "first decode step"))]
+
+
+def check_route(what, backend, launches, snap, ran):
+    """Gate one run's path: on ``cuda`` every kernel in ``ran`` launched
+    and no plain dispatch; on ``torch`` no launch and no kernel dispatch."""
+    if backend == "cuda":
+        bad = [k for k in ran if launches[k] <= 0] + \
+            [k for k in PLAIN_DISPATCH if snap[k]]
+    else:
+        bad = [k for k, n in launches.items() if n] + \
+            [k for k in CUDA_DISPATCH if snap[k]]
+    log(f"[route] {what}: launches "
+        f"{ {k: n for k, n in launches.items() if n} }; dispatch "
+        f"{ {k: snap[k] for k in CUDA_DISPATCH + PLAIN_DISPATCH if snap[k]} }")
+    if bad:
+        raise AssertionError(f"{what} did not take its path: {bad}")
 
 
 def phase_ring(params):
@@ -893,21 +1059,18 @@ def phase_archs():
         if stats["audit_violations"] or stats["failures"]["audit_failures"]:
             raise AssertionError(f"[archs] {arch}: audit "
                                  f"{stats['audit_violations']}")
-        ran = ("qmatmul", "int_attention_fused", "int_paged_decode_attention")
-        plain = ("qlinear_torch", "qexpert_torch", "attention_torch",
-                 "attention_paged_torch", "attention_decode_torch")
-        if min(launches[k] for k in ran) <= 0 or \
+        if min(launches[k] for k in SERVE_KERNELS) <= 0 or \
                 (moe and snap["qexpert_cuda"] <= 0) or \
-                any(snap[k] for k in plain):
+                any(snap[k] for k in PLAIN_DISPATCH):
             raise AssertionError(f"[archs] {arch}: launches {launches}, "
                                  f"dispatch {snap}")
         add_launches(total, launches)
-        gaps = first_step_gaps(params, cfg, tcfg, prompts)
+        gaps = first_step_gaps(params, cfg, tcfg, prompts, SERVE_KERNELS)
         for what, abs_e, rel_e in gaps:
             log(f"[archs] {arch} {what} logits cuda vs torch backend: max "
                 f"abs {abs_e:.3e} rel {rel_e:.3e} (tol rel {LOGITS_RTOL})")
-        flips = moe_attribution(arch, params, cfg, tcfg, prompts) \
-            if moe else 0
+        flips = layer_attribution(f"[archs] {arch}", params, cfg, tcfg,
+                                  prompts)
         if max(rel_e for _, _, rel_e in gaps) > LOGITS_RTOL and not flips:
             raise AssertionError(f"[archs] {arch}: cuda and torch differ")
         if cfg.frontend == "patch":
@@ -932,13 +1095,15 @@ def expert_copies(params):
             yield from leaf.__dict__.get("_codes_t", {}).values()
 
 
-def moe_attribution(arch, params, cfg, tcfg, prompts):
+def layer_attribution(tag, params, cfg, tcfg, prompts):
     """The first step's prefill, layer by layer, the torch backend beside
     the cuda run (teacher-forced: each half block on the cuda run's
-    stream, the ring phase's method): the attention half's update gap,
-    the tokens whose expert choice differs between the two backends' own
-    normed streams, and the FFN half on the same input (bitwise: the route
-    is float, the expert products exact).  Returns the route flips."""
+    stream, the ring phase's method): the attention half's update gap, the
+    FFN half on the same input (bitwise: the expert route is float, the
+    integer products exact), for MoE the tokens whose expert choice
+    differs between the two backends' own normed streams; then the torch
+    backend's own residual stream against the cuda run's after each layer
+    (free-running), which shows how a gap grows.  Returns the route flips."""
     import torch
     from repro_torch.layers import moe
     from repro_torch.layers.embed import embed_lookup
@@ -948,77 +1113,271 @@ def moe_attribution(arch, params, cfg, tcfg, prompts):
     b, s = toks.shape
     pos = torch.arange(s, dtype=torch.int32, device="cuda")[None].expand(b, s)
     x = embed_lookup(toks, params["embed"], cfg.tdtype)
-    attn, flips, same = [], [], []
+    xt = x
+    attn, flips, same, free = [], [], [], []
     for u in range(cfg.n_layers):
         p = layer_at(params["units"], u)["b0"]
         x1 = lm.mixer_block(x, p, cfg, "attn", positions=pos)
         x1t = lm.mixer_block(x, p, tcfg, "attn", positions=pos)
         attn.append(rel_err(x1t - x, x1 - x)[1])
         h2 = apply_norm(x1, p["ln2"], cfg.norm)
-        h2t = apply_norm(x1t, p["ln2"], cfg.norm)
-        idx = moe.route(h2.reshape(b * s, -1), p["ffn"], cfg.moe)[2]
-        idxt = moe.route(h2t.reshape(b * s, -1), p["ffn"], cfg.moe)[2]
-        flips.append(int((idx != idxt).any(dim=-1).sum()))
+        if cfg.moe is not None:
+            h2t = apply_norm(x1t, p["ln2"], cfg.norm)
+            idx = moe.route(h2.reshape(b * s, -1), p["ffn"], cfg.moe)[2]
+            idxt = moe.route(h2t.reshape(b * s, -1), p["ffn"], cfg.moe)[2]
+            flips.append(int((idx != idxt).any(dim=-1).sum()))
         same.append(torch.equal(lm.ffn(h2, p, cfg), lm.ffn(h2, p, tcfg)))
         x = lm.ffn_block(x1, p, cfg)
-    log(f"[archs] {arch} prefill layer by layer, teacher-forced: attention "
-        f"update max rel {' '.join(f'{e:.2e}' for e in attn)} (tol rel "
-        f"{LOGITS_RTOL}); tokens routed differently by the two backends' "
-        f"own streams {flips} of {b * s}; FFN on the same input bitwise "
-        f"equal {same}")
+        xt = lm.apply_block(xt, p, tcfg, "attn", positions=pos)
+        free.append(rel_err(xt, x)[1])
+    log(f"{tag} prefill layer by layer, teacher-forced: attention update "
+        f"max rel {' '.join(f'{e:.2e}' for e in attn)} (tol rel "
+        f"{LOGITS_RTOL}); FFN on the same input bitwise equal {same}"
+        + (f"; tokens routed differently by the two backends' own streams "
+           f"{flips} of {b * s}" if cfg.moe is not None else "")
+        + f"; free-running residual stream after each layer max rel "
+        f"{' '.join(f'{e:.2e}' for e in free)}")
     if max(attn) > LOGITS_RTOL or not all(same):
-        raise AssertionError(f"[archs] {arch}: teacher-forced layers differ")
+        raise AssertionError(f"{tag}: teacher-forced layers differ")
     return sum(flips)
 
 
 def arch_ring(params, cfg, tcfg):
     """InternVL2 on the ring path: ``lm.prefill`` of 256 patch embeddings
     (numpy seed 0) and 64 tokens into a ring of ARCH_RING slots, then
-    ARCH_GEN greedy ``decode_step``s on the cuda backend, the torch backend
-    teacher-forced beside it (the cuda run's token and a copy of its
-    cache), gated like ``[ring]``.  Returns the run's launches."""
+    ARCH_GEN greedy ``decode_step``s, held like ``[recurrent]``.  Returns
+    the run's launches."""
     import numpy as np
     import torch
-    from repro_torch.kernels import dispatch
     from repro_torch.models import lm
     g = torch.Generator(device="cuda").manual_seed(1)
     toks = torch.randint(0, cfg.vocab, (4, RING_PROMPT), generator=g,
                          device="cuda", dtype=torch.int32)
     patches = torch.from_numpy(np.random.RandomState(0).randn(
         4, cfg.n_patches, cfg.d_model).astype(np.float32)).to("cuda")
-    batch = {"tokens": toks, "patches": patches}
+    return hold_generation(
+        "[archs] internvl2-26b ring", lm, params,
+        {"tokens": toks, "patches": patches}, cfg, tcfg,
+        ("qmatmul", "int_attention_fused", "int_decode_attention"),
+        ARCH_RING, cfg.n_layers * ARCH_GEN, steps=ARCH_GEN)
+
+
+# [recurrent] and [encdec]: the families whose blocks are not plain
+# attention, at their published widths, w4/a8/attn7/kv8, seed 0
+REC_STEPS = 16
+RG_LAYERS = 5        # one (rglru, rglru, local) unit + the 2 remainder rglru
+RG_BATCH, RG_PROMPT, RG_MAX_LEN = 2, 2304, 4096   # past the 2048 window
+MAMBA_BATCH, MAMBA_PROMPT = 4, 512                # four SSD chunks of 128
+WH_LAYERS = 4        # encoder and decoder layers each, of 32
+WH_BATCH, WH_PROMPT, WH_MAX_LEN = 4, 32, 64
+
+
+def family_config(arch, backend, **kw):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import QuantConfig
+    qc = QuantConfig(w_bits=4, a_bits=8, attn_bits=7, kv_bits=8, mode="int",
+                     backend=backend)
+    return get_config(arch).replace(quant=qc, **kw)
+
+
+def hold_generation(tag, model, params, batch, cfg, tcfg, ran, max_len,
+                    ring_launches, steps=REC_STEPS):
+    """``model.prefill`` + ``steps`` greedy ``decode_step``s on the cuda
+    backend, every count zeroed just before and read just after, a copy of
+    the cache kept before each step; then the torch backend: prefill on the
+    same inputs and each step teacher-forced (the cuda run's token and its
+    cache copy).  Gates: the cuda run launched every kernel in ``ran`` and
+    the ring kernel ``ring_launches`` times, nothing went to the plain
+    path, the torch run launched nothing, ``pos`` the prompt (patches
+    included) plus ``steps``, logits finite and within LOGITS_RTOL.
+    Returns the cuda run's launches."""
+    import torch
+    from repro_torch.kernels import dispatch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     dispatch.reset_stats()
     dispatch.reset_launches()
+    t0 = time.perf_counter()
+    lc, cache = model.prefill(params, batch, cfg, max_len=max_len)
     torch.cuda.synchronize()
-    lc, cache = lm.prefill(params, batch, cfg, max_len=ARCH_RING)
-    lt, _ = lm.prefill(params, batch, tcfg, max_len=ARCH_RING)
-    worst = {"prefill": rel_err(lt.float(), lc.float())[1], "forced": 0.0}
-    for _ in range(ARCH_GEN):
+    t_prefill = time.perf_counter() - t0
+    logits, fed, copies, step_s = [lc], [], [], 0.0
+    for _ in range(steps):
         tok = torch.argmax(lc[:, 0], -1).to(torch.int32)[:, None]
-        forced = clone_tree(cache)
-        lc, cache = lm.decode_step(params, tok, cache, cfg)
-        lf, _ = lm.decode_step(params, tok, forced, tcfg)
-        worst["forced"] = max(worst["forced"],
-                              rel_err(lf.float(), lc.float())[1])
-        del forced
-    torch.cuda.synchronize()
+        fed.append(tok)
+        copies.append(clone_tree(cache))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lc, cache = model.decode_step(params, tok, cache, cfg)
+        torch.cuda.synchronize()
+        step_s += time.perf_counter() - t1
+        logits.append(lc)
     launches = dispatch.launch_counts()
     snap = dispatch.snapshot()
-    n = cfg.n_layers * ARCH_GEN
-    log(f"[archs] internvl2-26b ring: {cfg.n_patches} patches + "
-        f"{RING_PROMPT} tokens, ring {ARCH_RING}, {ARCH_GEN} decode steps, "
-        f"batch 4: pos {int(cache['pos'])}; launches {launches}; decode "
-        f"dispatch cuda {snap['attention_decode_cuda']} torch "
-        f"{snap['attention_decode_torch']} (teacher-forced steps); torch vs "
-        f"cuda backend max rel: prefill {worst['prefill']:.3e}, each step "
-        f"teacher-forced {worst['forced']:.3e} (tol rel {LOGITS_RTOL})")
-    if launches["int_decode_attention"] != n or \
-            snap["attention_decode_cuda"] != n or \
-            snap["attention_decode_torch"] != n or \
-            launches["qmatmul"] <= 0 or launches["int_attention_fused"] <= 0 \
-            or int(cache["pos"]) != cfg.n_patches + RING_PROMPT + ARCH_GEN \
-            or max(worst.values()) > LOGITS_RTOL:
-        raise AssertionError("[archs] internvl2-26b ring failed its gates")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_route(f"{tag} cuda run", "cuda", launches, snap, ran)
+    b, s = batch["tokens"].shape
+    if "patches" in batch:
+        s += batch["patches"].shape[1]
+    pos = int(cache["pos"])
+    dispatch.reset_stats()
+    dispatch.reset_launches()
+    lt, _ = model.prefill(params, batch, tcfg, max_len=max_len)
+    worst = {"prefill": rel_err(lt.float(), logits[0].float())[1],
+             "forced": 0.0}
+    agree = int((torch.argmax(lt, -1) == torch.argmax(logits[0], -1)).sum())
+    for i, (tok, c) in enumerate(zip(fed, copies)):
+        lf, _ = model.decode_step(params, tok, c, tcfg)
+        worst["forced"] = max(worst["forced"],
+                              rel_err(lf.float(), logits[i + 1].float())[1])
+        agree += int((torch.argmax(lf, -1) ==
+                      torch.argmax(logits[i + 1], -1)).sum())
+    torch.cuda.synchronize()
+    check_route(f"{tag} torch run", "torch", dispatch.launch_counts(),
+                dispatch.snapshot(), ())
+    del copies
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    log(f"{tag} batch {b}, {s}-position prompts, max_len {max_len}, "
+        f"{steps} decode steps: prefill {t_prefill:.2f}s, cuda decode step "
+        f"{step_s / steps * 1e3:.2f} ms ({b * steps / step_s:.1f} tok/s), "
+        f"pos {pos}, peak {peak:.2f} GB allocated; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    log(f"{tag} torch vs cuda backend max rel: prefill "
+        f"{worst['prefill']:.3e}, each step teacher-forced "
+        f"{worst['forced']:.3e} (tol rel {LOGITS_RTOL}); greedy tokens of "
+        f"row 0 {torch.cat(fed, 1)[0].tolist()}; argmax equal "
+        f"{agree}/{b * (steps + 1)} (printed only); finite {finite}")
+    tok = torch.argmax(logits[-1][:, 0], -1).to(torch.int32)[:, None]
+    model.decode_step(params, tok, cache, cfg)                 # warm
+    log_profile(f"{tag} decode step", lambda: model.decode_step(
+        params, tok, cache, cfg), 4, step_s / steps * 1e3)
+    if launches["int_decode_attention"] != ring_launches or \
+            pos != s + steps or not finite or \
+            tuple(logits[-1].shape) != (b, 1, cfg.vocab) or \
+            max(worst.values()) > LOGITS_RTOL:
+        raise AssertionError(f"{tag} failed its gates")
+    return launches
+
+
+def phase_recurrent():
+    """RecurrentGemma-9B (5 layers) and Mamba2-130M (all 24) generating on
+    the ring path: RG-LRU / SSD blocks in plain PyTorch, every integer
+    linear on qmatmul, RecurrentGemma's local attention on the fused and the
+    ring kernels.  Returns the launches of every counted run, summed."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import integerize_params
+    from repro_torch.examples import serve_mamba130m
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+    total = {}
+    t0 = time.perf_counter()
+    cfg = family_config("recurrentgemma-9b", "cuda", n_layers=RG_LAYERS)
+    tcfg = family_config("recurrentgemma-9b", "torch", n_layers=RG_LAYERS)
+    unit, n_units, rem = lm.unit_structure(cfg)
+    log(f"[recurrent] recurrentgemma-9b: published widths, n_layers cut "
+        f"{get_config('recurrentgemma-9b').n_layers} -> {cfg.n_layers} "
+        f"({n_units} unit {unit} + remainder {rem}); d_model {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.kv_heads}, head dim {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, d_rnn {cfg.d_rnn}, window {cfg.attn_window} (local "
+        f"ring {min(RG_MAX_LEN, cfg.attn_window + cfg.q_chunk)} slots), vocab "
+        f"{cfg.vocab}, {cfg.dtype}, w4/a8/attn7/kv8, random weights from "
+        f"seed 0")
+    params = integerize_params(
+        lm.init_params(cfg.replace(quant=None), seed=0, device="cuda"),
+        cfg.quant)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (RG_BATCH, RG_PROMPT), generator=g,
+                         device="cuda", dtype=torch.int32)
+    n_local = sum(k == "local" for k in lm.block_kinds(cfg))
+    add_launches(total, hold_generation(
+        "[recurrent] recurrentgemma-9b", lm, params, {"tokens": toks}, cfg,
+        tcfg, ("qmatmul", "int_attention_fused", "int_decode_attention"),
+        RG_MAX_LEN, n_local * REC_STEPS))
+    del params
+    torch.cuda.empty_cache()
+    log(f"[recurrent] recurrentgemma-9b run in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    dispatch.reset_stats()
+    out = serve_mamba130m.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    check_route("[recurrent] examples/serve_mamba130m.py", "cuda",
+                out["launches"], dispatch.snapshot(), ("qmatmul",))
+    if not out["finite"] or out["pos"] != 64 + 12:
+        raise AssertionError(f"[recurrent] the Mamba example: {out}")
+    add_launches(total, out["launches"])
+    log(f"[recurrent] examples/serve_mamba130m.py (defaults: f32, batch 4, "
+        f"64-token prompts, 12 tokens) in {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    cfg = family_config("mamba2-130m", "cuda")
+    tcfg = family_config("mamba2-130m", "torch")
+    log(f"[recurrent] mamba2-130m: full size, {cfg.n_layers} SSD layers, "
+        f"d_model {cfg.d_model}, d_state {cfg.ssd.d_state}, head dim "
+        f"{cfg.ssd.head_dim}, chunk {cfg.ssd.chunk}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}, w4/a8, random weights from seed 0")
+    params = integerize_params(
+        lm.init_params(cfg.replace(quant=None), seed=0, device="cuda"),
+        cfg.quant)
+    toks = torch.randint(0, cfg.vocab, (MAMBA_BATCH, MAMBA_PROMPT),
+                         generator=g, device="cuda", dtype=torch.int32)
+    add_launches(total, hold_generation(
+        "[recurrent] mamba2-130m", lm, params, {"tokens": toks}, cfg, tcfg,
+        ("qmatmul",), MAMBA_PROMPT + REC_STEPS, 0))
+    del params
+    torch.cuda.empty_cache()
+    log(f"[recurrent] mamba2-130m run in {time.perf_counter() - t0:.1f}s; "
+        f"launches over the three runs {total}")
+    return total
+
+
+def phase_encdec():
+    """Whisper-large-v3 (4 + 4 layers) generating: the encoder over seeded
+    stub frames, the decoder's self-attention ring and its cross-attention
+    over the int8 cross K/V; every integer linear on qmatmul, every prefill
+    and cross attention on the fused kernel, each self-attention decode
+    step on the ring kernel.  Returns the run's launches."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import integerize_params
+    from repro_torch.models import encdec
+    t0 = time.perf_counter()
+    cfg = family_config("whisper-large-v3", "cuda", n_enc_layers=WH_LAYERS,
+                        n_dec_layers=WH_LAYERS)
+    tcfg = family_config("whisper-large-v3", "torch", n_enc_layers=WH_LAYERS,
+                         n_dec_layers=WH_LAYERS)
+    full = get_config("whisper-large-v3")
+    log(f"[encdec] whisper-large-v3: published widths, layers cut "
+        f"{full.n_enc_layers} + {full.n_dec_layers} -> {cfg.n_enc_layers} + "
+        f"{cfg.n_dec_layers}; d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"head dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.n_audio_ctx} frames, {cfg.dtype}, w4/a8/attn7/kv8, random "
+        f"weights from seed 0")
+    params = integerize_params(
+        encdec.init_params(cfg.replace(quant=None), seed=0, device="cuda"),
+        cfg.quant)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"frames": torch.randn((WH_BATCH, cfg.n_audio_ctx, cfg.d_model),
+                                   generator=g, device="cuda"),
+             "tokens": torch.randint(0, cfg.vocab, (WH_BATCH, WH_PROMPT),
+                                     generator=g, device="cuda",
+                                     dtype=torch.int32)}
+    launches = hold_generation(
+        "[encdec] whisper-large-v3", encdec, params, batch, cfg, tcfg,
+        ("qmatmul", "int_attention_fused", "int_decode_attention"),
+        WH_MAX_LEN, cfg.n_dec_layers * REC_STEPS)
+    # fused: the encoder's, the decoder's self and cross attention at
+    # prefill, and the cross attention of every decode step
+    want = cfg.n_enc_layers + 2 * cfg.n_dec_layers + \
+        cfg.n_dec_layers * REC_STEPS
+    if launches["int_attention_fused"] != want:
+        raise AssertionError(f"[encdec] fused launches "
+                             f"{launches['int_attention_fused']}, expected "
+                             f"{want}")
+    del params
+    torch.cuda.empty_cache()
+    log(f"[encdec] run in {time.perf_counter() - t0:.1f}s")
     return launches
 
 
@@ -1177,20 +1536,21 @@ def log_profile(what, fn, calls, ref_ms):
     one call with the profiler off (the profiler's own host cost would
     inflate the wall)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    wall = []
+
+    def run():
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / calls * 1e3
+        wall.append((time.perf_counter() - t0) / calls * 1e3)
+
     by_name = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.key] = by_name.get(e.key, 0.0) + \
-                e.self_device_time_total / 1e3 / calls
+    for e in device_events(run, cpu=True):
+        by_name[e.key] = by_name.get(e.key, 0.0) + \
+            e.self_device_time_total / 1e3 / calls
+    wall = wall[0]
     busy = sum(by_name.values())
     if busy <= 0:
         log(f"[profile] {what}: {wall:.2f} ms wall; device time not "
@@ -1513,10 +1873,12 @@ KERNELS = {
 }
 # the counted runs of each kernel's main paths (the kernels line's
 # launches: their sum, and each path's count)
-MAIN_PATHS = {"qmatmul": ("serve", "archs"),
-              "int_attention_fused": ("serve", "archs"),
+MAIN_PATHS = {"qmatmul": ("serve", "archs", "recurrent", "encdec"),
+              "int_attention_fused": ("serve", "archs", "recurrent",
+                                      "encdec"),
               "int_paged_decode_attention": ("serve", "archs"),
-              "int_decode_attention": ("ring", "archs"),
+              "int_decode_attention": ("ring", "archs", "recurrent",
+                                       "encdec"),
               "pq_layernorm": ("ops",), "int_attention": ("ops",)}
 # qmatmul timed at every (M, N, K) of one Qwen2.5-32B layer and its
 # lm_head at decode and prefill rows, int8 and packed, then DeiT-S's
@@ -1524,7 +1886,8 @@ MAIN_PATHS = {"qmatmul": ("serve", "archs"),
 QMM_TIMES = [(m, n, k, packed) for m in (4, 256) for n, k in QMM_NK
              for packed in (False, True)] + \
     [(m, n, k, False) for m, n, k in QMM_DEIT] + \
-    [(m, n, k, False) for m in (4, 256) for n, k in QMM_HEADS]
+    [(m, n, k, False) for m in (4, 256) for n, k in QMM_HEADS] + \
+    [(m, n, k, False) for m, n, k in QMM_FAMILIES]
 # Llama-4-Scout's expert product (16 experts, din 5120, dout 8192) at the
 # [archs] prefill's capacity (20) and a decode step's (1)
 EXPERT_TIMES = (20, 1)
@@ -1583,7 +1946,7 @@ def phase_time(g, launches, errs):
             (" (W unpacked)" if packed else "") + \
             (f" (W padded to {n + -n % 8} rows)" if n % 8 else "")
         log(f"[time] qmatmul M={m} N={n} K={k} packed={packed} plan "
-            f"{blocks}: {ms:.4f} ms (device {dms:.4f} ms), bound {bnd:.4f} "
+            f"{blocks}: {ms:.4f} ms ({dev_str(dms, bnd)}), bound {bnd:.4f} "
             f"ms ({by}), plain {pms:.4f} ms, _int_mm{how} {lib:.4f} ms")
         keep("qmatmul", (m, n, k, packed), (ms, pms, bnd, by, lib))
         del x, w, s, b, rs
@@ -1592,28 +1955,10 @@ def phase_time(g, launches, errs):
         time_expert(g, cap)
 
     for name, case in ATTN_CASES.items():
-        args, kw = attention_inputs(g, *case)
-        q, k, v, sc, vs = args
-        h, sq, d = q.shape
-        sk = k.shape[1]
-        pms = cuda_ms(lambda: ia.int_attention_plain(*args, **kw), iters=3,
-                      warmup=1)
-        qpos = torch.arange(sq) % (kw["sq_mod"] or sq)
-        pairs = h * (int((torch.arange(sk)[None, :] <= qpos[:, None]).sum())
-                     if kw["causal"] else sq * sk)
-        nbytes = q.numel() + k.numel() + v.numel() + 4 * sc.numel() + \
-            4 * vs.numel() + 4 * h * sq * d
-        bnd, by = bound_ms(nbytes, 4 * d * pairs)      # QK^T and PV
-        lib = sdpa_ms(g, h, sq, sk, d, kw["causal"], kw["sq_mod"])
-        for kname, kern in (("int_attention_fused", ia.int_attention_fused),
-                            ("int_attention", ia.int_attention)):
-            ms = cuda_ms(lambda: kern(*args, **kw))
-            dms = device_ms(lambda: kern(*args, **kw))
-            log(f"[time] {kname} {name} H={h} Sq={sq} Sk={sk} D={d} causal="
-                f"{kw['causal']} bq={kw['bq']} bk={kw['bk']}: {ms:.4f} ms "
-                f"(device {dms:.4f} ms), bound {bnd:.4f} ms ({by}), plain "
-                f"{pms:.4f} ms, bf16 SDPA {lib:.4f} ms")
-            keep(kname, name, (ms, pms, bnd, by, lib))
+        for kname, t in time_attention(g, name, case, both=True).items():
+            keep(kname, name, t)
+    for name in ATTN_FAMILIES:
+        time_attention(g, name, family_attention_case(name), both=False)
 
     for row in PAGED_CHECKS + PAGED_LONG:
         args, kw = paged_inputs(g, *row)
@@ -1640,43 +1985,16 @@ def phase_time(g, launches, errs):
         lib = paged_sdpa_ms(g, q, pt, pos, ps, window)
         log(f"[time] paged decode kv_bits={row[0]} B={b} G={grp} D={d} "
             f"pages {pt.shape[1]} window {window} live keys {live}: "
-            f"{ms:.4f} ms (device {dms:.4f} ms), bound {bnd:.4f} ms ({by}), "
+            f"{ms:.4f} ms ({dev_str(dms, bnd)}), bound {bnd:.4f} ms ({by}), "
             f"plain {pms:.4f} ms, bf16 SDPA over the gathered pages, masked "
             f"{lib:.4f} ms")
         keep("int_paged_decode_attention", row, (ms, pms, bnd, by, lib))
 
     for kv_bits, span, pos, grp, d in RING_TIMES:
-        args = ring_inputs(g, kv_bits, span, pos, grp, d)
-        q, k, v, sc, vs, kpos, posd = args
-        kw = dict(attn_bits=7, packed=kv_bits == 4,
-                  bk=dispatch.decode_blocks(span, d))
-        ms = cuda_ms(lambda: ia.int_decode_attention(*args, **kw))
-        dms = device_ms(lambda: ia.int_decode_attention(*args, **kw))
-        pms = cuda_ms(lambda: ia.int_decode_attention_plain(*args, **kw),
-                      iters=3, warmup=1)
-        h, grp, d = q.shape
-        dk = k.shape[2]
-        live = (kpos >= 0) & (kpos <= pos)
-        n_live = int(live.sum())
-        bk = kw["bk"]
-        live_blocks = int(live.reshape(-1, bk).any(dim=1).sum()) \
-            if span % bk == 0 else -(-span // bk)
-        # least bytes: q, the slot map, pos, scales, live K/V rows, out
-        nbytes = q.numel() + 4 * span + 4 + 8 * h + 2 * h * n_live * dk + \
-            4 * h * grp * d
-        ops = 4 * d * grp * h * n_live
-        bnd, by = bound_ms(nbytes, ops)
-        blk_bnd, _ = bound_ms(nbytes + 2 * h * (live_blocks * bk - n_live)
-                              * dk, ops)
-        lib = ring_sdpa_ms(g, live, grp, d)
-        log(f"[time] ring decode kv_bits={kv_bits} H={h} G={grp} D={d} "
-            f"span={span} bk={bk} pos={pos} (live keys {n_live}, live blocks "
-            f"{live_blocks}): {ms:.4f} ms (device {dms:.4f} ms), bound "
-            f"{bnd:.4f} ms ({by}; "
-            f"{blk_bnd:.4f} ms over the whole live blocks), plain "
-            f"{pms:.4f} ms, bf16 SDPA over the live keys {lib:.4f} ms")
         keep("int_decode_attention", (kv_bits, span, pos, grp, d),
-             (ms, pms, bnd, by, lib))
+             time_ring(g, kv_bits, span, pos, None, grp, d))
+    for row in RING_FAMILIES:
+        time_ring(g, *row)
 
     for case in PQLN_CASES:
         args, kw = pqln_inputs(g, *case)
@@ -1704,10 +2022,9 @@ def phase_time(g, launches, errs):
         log(f"[time] pq_layernorm rows={n_rows} d={d} {x.dtype} "
             f"bits={kw['bits']} rms_only={kw['rms_only']} (x from {len(xs)} "
             f"copies, {len(xs) * nbytes_x / 1e6:.1f} MB): {ms:.4f} ms "
-            f"(device {dms:.4f} ms), bound {bnd:.4f} ms ({by}), plain "
+            f"({dev_str(dms, bnd)}), bound {bnd:.4f} ms ({by}), plain "
             f"{pms:.4f} ms, F.{'rms_norm' if kw['rms_only'] else 'layer_norm'}"
-            f" (LN only, no quantizer) {lib:.4f} ms (device {lib_dms:.4f} "
-            f"ms)")
+            f" (LN only, no quantizer) {lib:.4f} ms ({dev_str(lib_dms)})")
         keep("pq_layernorm", case, (ms, pms, bnd, by, lib))
         del xs
 
@@ -1723,6 +2040,89 @@ def phase_time(g, launches, errs):
                      "ms": ms, "plain_ms": pms, "bound_ms": bnd,
                      "bound_by": by, "library_ms": lib})
     return line
+
+
+def attention_pairs(h, sq, sk, sq_mod, causal, window):
+    """The (query, key) pairs a prefill attention must score: per query
+    row at position p (row r at ``r % sq_mod``), keys <= p when causal,
+    and > p - window under a window."""
+    import numpy as np
+    p = np.arange(sq) % (sq_mod or sq)
+    hi = np.minimum(p + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(p - window + 1, 0) if window is not None else 0
+    return h * int(np.maximum(hi - lo, 0).sum())
+
+
+def time_attention(g, name, case, both):
+    """One prefill attention shape: the fused kernel (and the two-pass one
+    when ``both``) with CUDA events and device time, beside its bound, its
+    plain version and bf16 SDPA; returns {kernel: (ms, plain ms, bound, by,
+    library ms)}."""
+    from repro_torch.kernels import int_attention as ia
+    args, kw = attention_inputs(g, *case)
+    q, k, v, sc, vs = args
+    h, sq, d = q.shape
+    sk = k.shape[1]
+    pms = cuda_ms(lambda: ia.int_attention_plain(*args, **kw), iters=3,
+                  warmup=1)
+    pairs = attention_pairs(h, sq, sk, kw["sq_mod"], kw["causal"],
+                            kw["window"])
+    nbytes = q.numel() + k.numel() + v.numel() + 4 * sc.numel() + \
+        4 * vs.numel() + 4 * h * sq * d
+    bnd, by = bound_ms(nbytes, 4 * d * pairs)      # QK^T and PV
+    lib = sdpa_ms(g, h, sq, sk, d, kw["causal"], kw["sq_mod"], kw["window"])
+    kernels = (("int_attention_fused", ia.int_attention_fused),
+               ("int_attention", ia.int_attention))
+    out = {}
+    for kname, kern in kernels[:2 if both else 1]:
+        ms = cuda_ms(lambda: kern(*args, **kw))
+        dms = device_ms(lambda: kern(*args, **kw))
+        log(f"[time] {kname} {name} H={h} Sq={sq} Sk={sk} D={d} causal="
+            f"{kw['causal']} window={kw['window']} bq={kw['bq']} "
+            f"bk={kw['bk']}: {ms:.4f} ms ({dev_str(dms, bnd)}), bound "
+            f"{bnd:.4f} ms ({by}), plain {pms:.4f} ms, bf16 SDPA {lib:.4f} ms")
+        out[kname] = (ms, pms, bnd, by, lib)
+    return out
+
+
+def time_ring(g, kv_bits, span, pos, window, grp, d, h=32):
+    """One ring decode shape: the kernel with CUDA events and device time,
+    beside its bound (the live keys' bytes), its plain version and bf16
+    SDPA over the live keys; returns (ms, plain ms, bound, by, library
+    ms)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import int_attention as ia
+    args = ring_inputs(g, kv_bits, span, pos, grp, d, h)
+    q, k, v, sc, vs, kpos, posd = args
+    kw = dict(attn_bits=7, packed=kv_bits == 4, window=window,
+              bk=dispatch.decode_blocks(span, d))
+    ms = cuda_ms(lambda: ia.int_decode_attention(*args, **kw))
+    dms = device_ms(lambda: ia.int_decode_attention(*args, **kw))
+    pms = cuda_ms(lambda: ia.int_decode_attention_plain(*args, **kw),
+                  iters=3, warmup=1)
+    dk = k.shape[2]
+    live = (kpos >= 0) & (kpos <= pos)
+    if window is not None:
+        live &= kpos > pos - window
+    n_live = int(live.sum())
+    bk = kw["bk"]
+    live_blocks = int(live.reshape(-1, bk).any(dim=1).sum()) \
+        if span % bk == 0 else -(-span // bk)
+    # least bytes: q, the slot map, pos, scales, live K/V rows, out
+    nbytes = q.numel() + 4 * span + 4 + 8 * h + 2 * h * n_live * dk + \
+        4 * h * grp * d
+    ops = 4 * d * grp * h * n_live
+    bnd, by = bound_ms(nbytes, ops)
+    blk_bnd, _ = bound_ms(nbytes + 2 * h * (live_blocks * bk - n_live) * dk,
+                          ops)
+    lib = ring_sdpa_ms(g, h, n_live, grp, d)
+    log(f"[time] ring decode kv_bits={kv_bits} H={h} G={grp} D={d} "
+        f"span={span} bk={bk} pos={pos} window={window} (live keys {n_live}, "
+        f"live blocks {live_blocks}): {ms:.4f} ms ({dev_str(dms, bnd)}), "
+        f"bound {bnd:.4f} ms ({by}; {blk_bnd:.4f} ms over the whole live "
+        f"blocks), plain {pms:.4f} ms, bf16 SDPA over the live keys "
+        f"{lib:.4f} ms")
+    return ms, pms, bnd, by, lib
 
 
 def time_expert(g, cap, e=16, din=5120, dout=8192):
@@ -1746,13 +2146,14 @@ def time_expert(g, cap, e=16, din=5120, dout=8192):
     nbytes = 2 * x.numel() + e * din * dout + 4 * e * dout + 2 * e * cap * dout
     bnd, by = bound_ms(nbytes, 2 * e * cap * din * dout)
     log(f"[time] expert product E={e} capacity={cap} din={din} dout={dout} "
-        f"(bf16, {e} qmatmul launches): {ms:.4f} ms (device {dms:.4f} ms), "
+        f"(bf16, {e} qmatmul launches): {ms:.4f} ms ({dev_str(dms, bnd)}), "
         f"bound {bnd:.4f} ms ({by}), plain {pms:.4f} ms")
 
 
-def sdpa_ms(g, h, sq, sk, d, causal, sq_mod):
+def sdpa_ms(g, h, sq, sk, d, causal, sq_mod, window=None):
     """Yardstick the port never calls: bf16 SDPA on the same attention —
-    GQA groups stacked along Sq (sq_mod) become query heads."""
+    GQA groups stacked along Sq (sq_mod) become query heads; a window
+    becomes a boolean mask."""
     import torch
     import torch.nn.functional as F
     grp = sq // (sq_mod or sq)
@@ -1760,24 +2161,27 @@ def sdpa_ms(g, h, sq, sk, d, causal, sq_mod):
     mk = lambda *shape: torch.randn(shape, generator=g, device="cuda",
                                     dtype=torch.bfloat16)
     qb, kb, vb = mk(1, h * grp, s, d), mk(1, h, sk, d), mk(1, h, sk, d)
+    mask = None
+    if window is not None:
+        qp = torch.arange(s, device="cuda")[:, None]
+        kp = torch.arange(sk, device="cuda")[None, :]
+        mask = (kp > qp - window) & (kp <= qp if causal else True)
     return cuda_ms(lambda: F.scaled_dot_product_attention(
-        qb, kb, vb, is_causal=causal, enable_gqa=grp > 1))
+        qb, kb, vb, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=grp > 1))
 
 
-def ring_sdpa_ms(g, live, grp, d):
-    """Yardstick the port never calls: one bf16 SDPA over the ring's live
-    keys, dequantized and gathered (B=4, 8 kv heads, G query heads each)."""
+def ring_sdpa_ms(g, h, n, grp, d):
+    """Yardstick the port never calls: one bf16 SDPA over the ring's ``n``
+    live keys, dequantized and gathered (``h`` head-folds, G query heads
+    each)."""
     import torch
     import torch.nn.functional as F
-    n = int(live.sum())
-    qb = torch.randn((4, 8 * grp, 1, d), generator=g, device="cuda",
-                     dtype=torch.bfloat16)
-    kb = torch.randn((4, 8, n, d), generator=g, device="cuda",
-                     dtype=torch.bfloat16)
-    vb = torch.randn((4, 8, n, d), generator=g, device="cuda",
-                     dtype=torch.bfloat16)
+    mk = lambda *shape: torch.randn(shape, generator=g, device="cuda",
+                                    dtype=torch.bfloat16)
+    qb, kb, vb = mk(h, grp, 1, d), mk(h, 1, n, d), mk(h, 1, n, d)
     return cuda_ms(lambda: F.scaled_dot_product_attention(
-        qb, kb, vb, enable_gqa=True))
+        qb, kb, vb, enable_gqa=grp > 1))
 
 
 def paged_sdpa_ms(g, q, pt, pos, ps, window=None):
@@ -1832,6 +2236,8 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
         paths["archs"] = phase_archs()
+        paths["recurrent"] = phase_recurrent()
+        paths["encdec"] = phase_encdec()
         phase_quickstart()
         vparams, imgs = phase_vit()
         paths["ops"], ops_errs = phase_ops(vparams, imgs)

@@ -6,7 +6,10 @@ port's dicts of tensors with the same keys and layouts (``w_q (out, in)``,
 pools ``(num_pages + 1, Hkv, page_size, hd[/2])``, ``page_table
 (B, max_pages)``, layer-stacked ``units``), and so does a ring cache
 (codes ``(B, Hkv, span, hd[/2])``, 0-d per-layer scales and the 0-d
-``pos``, shapes kept), so both packages can start from one cache;
+``pos``, shapes kept), with its recurrent layers' f32 states (RG-LRU ``h``
+/ ``conv``, SSD ``h`` / ``convs``), and Whisper's cache (``layers`` stacked
+along the decoder layers: rings, cross K/V codes, scales and ``pos`` of
+shape (L,); a 0-d ``pos``), so both packages can start from one cache;
 :func:`to_numpy` carries tensors back for comparison.  Weights therefore
 cross over as they are and are never re-initialised with torch's
 generator.  bfloat16 crosses as its raw 16-bit pattern, so no value is

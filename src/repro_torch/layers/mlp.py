@@ -1,28 +1,64 @@
 """Feed-forward blocks (SwiGLU / GELU) over the quantized dense entry
-point, in PyTorch.  Counterpart of ``repro/layers/mlp.py``."""
+point, in PyTorch.  Counterpart of ``repro/layers/mlp.py``.
+
+The activations round as XLA rounds them on the CPU: a bf16 expression is
+evaluated op by op, each result rounded to bf16 (``jax.nn.gelu``'s tanh
+formula, ``jax.nn.sigmoid`` expanded to ``1 / (1 + exp(-x))``), where
+torch's fused bf16 kernels compute in f32 and round once.
+"""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.api import QuantConfig, dense
 
+_BF16 = torch.bfloat16
+
+
+def logistic(x):
+    """``jax.nn.sigmoid``: ``1 / (1 + exp(-x))`` rounded op by op in bf16
+    (bit-equal there; ``torch.sigmoid`` differs in 34% of bf16 values),
+    ``torch.sigmoid`` in f32."""
+    if x.dtype == _BF16:
+        return 1 / (1 + torch.exp(-x))
+    return torch.sigmoid(x)
+
 
 def silu(x):
-    """``jax.nn.silu`` as XLA computes it on the CPU: ``x * logistic(x)``,
-    the logistic expanded to ``1 / (1 + exp(-x))`` and rounded op by op in
-    bf16 (bit-equal there; ``F.silu`` rounds once and differs in 39% of
-    bf16 values), ``x * sigmoid(x)`` in f32 (99.7% bit-equal)."""
-    if x.dtype == torch.bfloat16:
-        return x * (1 / (1 + torch.exp(-x)))
-    return x * torch.sigmoid(x)
+    """``jax.nn.silu``: ``x * logistic(x)`` (``F.silu`` rounds once and
+    differs in 39% of bf16 values; ``x * sigmoid(x)`` in f32 is 99.7%
+    bit-equal)."""
+    return x * logistic(x)
+
+
+def gelu(x):
+    """``jax.nn.gelu`` (tanh form).  bf16: JAX's own formula
+    ``x * (0.5 * (1 + tanh(c * (x + 0.044715 * x^3))))`` with its constants
+    rounded to bf16 and each op rounded (``F.gelu`` differs in 43% of bf16
+    values); f32: ``F.gelu(approximate="tanh")``."""
+    if x.dtype != _BF16:
+        return F.gelu(x, approximate="tanh")
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=_BF16, device=x.device)
+    k = torch.tensor(0.044715, dtype=_BF16, device=x.device)
+    inner = c * (x + k * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+def softplus(x):
+    """``jax.nn.softplus`` = ``logaddexp(x, 0)``: ``torch.logaddexp``
+    differs from XLA's in the last bit of 9% of f32 values (``F.softplus``
+    in 15%, JAX's own ``max + log1p(exp(-|x|))`` in torch's ops in 13%)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def mlp(x, p: dict, cfg: QuantConfig | None, *, act: str = "swiglu"):
     if act == "swiglu":
         h = silu(dense(x, p["gate"], cfg)) * dense(x, p["up"], cfg)
     elif act == "gelu":
-        h = F.gelu(dense(x, p["up"], cfg), approximate="tanh")
+        h = gelu(dense(x, p["up"], cfg))
     else:
         raise ValueError(act)
     return dense(h.to(x.dtype), p["down"], cfg)

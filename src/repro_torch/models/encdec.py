@@ -1,0 +1,337 @@
+"""Whisper-style encoder-decoder backbone (conv frontend stubbed), in
+PyTorch.  Counterpart of ``repro/models/encdec.py`` for serving:
+:class:`EncDecConfig`, :func:`init_params`, :func:`encode`,
+:func:`init_cache`, :func:`decoder_embed`, :func:`prefill` and
+:func:`decode_step` (``loss_fn`` belongs to the training slice).
+
+The audio frontend is a stub: the caller gives frame embeddings (B,
+n_audio_ctx, d_model).  Self- and cross-attention run the port's attention
+core; the cross K/V are computed once at prefill and kept as int8 codes.
+Layers are stacked along a leading axis (``enc_layers``, ``dec_layers``)
+and run as a loop over it, as the reference scans them.
+
+Cache (the reference's layout): ``layers`` holds per decoder layer the
+self-attention ring ``k``/``v`` (L, B, H, max_len, hd), the cross K/V
+``ek``/``ev`` (L, B, H, n_audio_ctx, hd), 0-d scales per layer (``(L,)``
+stacked) and a per-layer ``pos`` (L,); the top-level ``pos`` is 0-d.  Int
+mode stores int8 codes on one per-tensor scale.  :func:`prefill` fills
+the cache it creates and :func:`decode_step` writes the new key / value
+into slot ``pos % max_len`` and advances both ``pos`` in place; ``pos``
+stays on the device.  A prompt at least ``max_len`` long keeps its last
+``max_len`` positions unrolled (reference ``_fill_cache``), so the first
+decode step overwrites slot 0, as the reference does.  Int8 casts saturate
+as XLA's do (torch's would wrap).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.api import QuantConfig, dense
+from repro_torch.core.quant import QTensor
+from repro_torch.layers.attention import AttnSpec, attention
+from repro_torch.layers.embed import embed_lookup, init_embed
+from repro_torch.layers.mlp import mlp
+from repro_torch.layers.norms import apply_norm, init_norm
+from repro_torch.models.lm import (_lin, _ring_write_decode, _sat_int8,
+                                    _stack)
+from repro_torch.models.scan_util import _index
+
+_F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    name: str
+    n_enc_layers: int
+    n_dec_layers: int
+    d_model: int
+    n_heads: int
+    d_ff: int
+    vocab: int
+    n_audio_ctx: int = 1500
+    dtype: str = "bfloat16"
+    quant: Optional[QuantConfig] = None
+    q_chunk: int = 128
+
+    @property
+    def hd(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def tdtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    def replace(self, **kw) -> "EncDecConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def _mode(cfg: EncDecConfig) -> str:
+    return cfg.quant.mode if cfg.quant else "float"
+
+
+def _inv_freq(d: int, device) -> torch.Tensor:
+    """``10000 ** (2 * dim / d)`` for dim < d / 2, in f32 as JAX forms it."""
+    dim = torch.arange(d // 2, device=device, dtype=_F32)
+    return torch.pow(torch.tensor(10000.0, device=device), 2 * dim / d)
+
+
+def _sinusoid_rows(pos, d: int) -> torch.Tensor:
+    """Rows ``pos`` (any int tensor) of the reference's ``_sinusoid``
+    table: [sin(p / f), cos(p / f)] -> (..., d) f32."""
+    ang = pos.to(_F32)[..., None] / _inv_freq(d, pos.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _sinusoid(n: int, d: int, device) -> torch.Tensor:
+    return _sinusoid_rows(torch.arange(n, device=device), d)
+
+
+# ---------------------------------------------------------------------------
+# Init (random weights from an explicit generator, layer-stacked)
+# ---------------------------------------------------------------------------
+
+def _init_attn(gen, cfg: EncDecConfig, lead, device) -> dict:
+    # Whisper: q, v and o projections biased, k unbiased.
+    d, dt = cfg.d_model, cfg.tdtype
+    hh = cfg.n_heads * cfg.hd
+    return {"wq": _lin(gen, lead, d, hh, dt, device, True),
+            "wk": _lin(gen, lead, d, hh, dt, device, False),
+            "wv": _lin(gen, lead, d, hh, dt, device, True),
+            "wo": _lin(gen, lead, hh, d, dt, device, True)}
+
+
+def _init_mlp(gen, cfg: EncDecConfig, lead, device) -> dict:
+    d, ff, dt = cfg.d_model, cfg.d_ff, cfg.tdtype
+    return {"up": _lin(gen, lead, d, ff, dt, device, True),
+            "down": _lin(gen, lead, ff, d, dt, device, True)}
+
+
+def _ln(cfg, lead, device):
+    return _stack(init_norm(cfg.d_model, "layernorm", device=device), lead)
+
+
+def init_params(cfg: EncDecConfig, *, seed: int = 0, device="cuda") -> dict:
+    """Random weights (torch generator seeded with ``seed``) on ``device``,
+    in the JAX package's tree layout."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    enc, dec = (cfg.n_enc_layers,), (cfg.n_dec_layers,)
+    return {
+        "embed": init_embed(gen, cfg.vocab, cfg.d_model, cfg.tdtype,
+                            device=device),
+        "enc_layers": {"ln1": _ln(cfg, enc, device),
+                       "attn": _init_attn(gen, cfg, enc, device),
+                       "ln2": _ln(cfg, enc, device),
+                       "mlp": _init_mlp(gen, cfg, enc, device)},
+        "dec_layers": {"ln1": _ln(cfg, dec, device),
+                       "self_attn": _init_attn(gen, cfg, dec, device),
+                       "ln2": _ln(cfg, dec, device),
+                       "cross_attn": _init_attn(gen, cfg, dec, device),
+                       "ln3": _ln(cfg, dec, device),
+                       "mlp": _init_mlp(gen, cfg, dec, device)},
+        "enc_ln": init_norm(cfg.d_model, "layernorm", device=device),
+        "dec_ln": init_norm(cfg.d_model, "layernorm", device=device),
+        "lm_head": _lin(gen, (), cfg.d_model, cfg.vocab, cfg.tdtype, device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
+
+def _proj(x, p, cfg: EncDecConfig):
+    b, s, _ = x.shape
+    y = dense(x, p, cfg.quant)
+    return y.reshape(b, s, cfg.n_heads, cfg.hd).transpose(1, 2)
+
+
+def _merge(x):
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _attn(x, kv_x, p, cfg: EncDecConfig, *, causal, kv_override=None):
+    """Attention of ``x`` over ``kv_x`` (``x`` itself when None), or over
+    ``kv_override``'s stored K/V; returns (out, (k, v))."""
+    q = _proj(x, p["wq"], cfg)
+    if kv_override is not None:
+        k, v = kv_override
+    else:
+        kv_x = x if kv_x is None else kv_x
+        k = _proj(kv_x, p["wk"], cfg)
+        v = _proj(kv_x, p["wv"], cfg)
+    spec = AttnSpec(causal=causal, q_chunk=cfg.q_chunk)
+    out = attention(q, k, v, spec, cfg.quant)
+    return dense(_merge(out), p["wo"], cfg.quant), (k, v)
+
+
+def encode(params, frames, cfg: EncDecConfig):
+    """frames (B, n_audio_ctx, d_model) stub embeddings -> encoder states."""
+    x = frames.to(cfg.tdtype)
+    x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(cfg.tdtype)
+    lay = params["enc_layers"]
+    for i in range(cfg.n_enc_layers):
+        p = _index(lay, i)
+        h, _ = _attn(apply_norm(x, p["ln1"], "layernorm"), None, p["attn"],
+                     cfg, causal=False)
+        x = x + h.to(x.dtype)
+        x = x + mlp(apply_norm(x, p["ln2"], "layernorm"), p["mlp"],
+                    cfg.quant, act="gelu").to(x.dtype)
+    return apply_norm(x, params["enc_ln"], "layernorm")
+
+
+def _quant_pair(k, v):
+    """int8 codes of k and v, each on one per-tensor scale (f32 division,
+    saturating cast)."""
+    def one(t):
+        s = torch.clamp(t.abs().amax(), min=1e-8).to(_F32) / 127.
+        return _sat_int8(torch.round(t.to(_F32) / s)), s
+
+    (kq, ks), (vq, vs) = one(k), one(v)
+    return kq, vq, ks, vs
+
+
+def _fill_cache(c, sk, sv, ek, ev, cfg: EncDecConfig):
+    """Write the prompt's self-attention K/V (the first ``span`` positions
+    zero-padded, or the last ``span``) and the cross K/V into one layer's
+    cache, in place."""
+    span = c["k"].shape[2]
+    s_in = sk.shape[2]
+    if s_in < span:
+        pad = (0, 0, 0, span - s_in)
+        sk = torch.nn.functional.pad(sk, pad)
+        sv = torch.nn.functional.pad(sv, pad)
+    else:
+        sk, sv = sk[:, :, -span:], sv[:, :, -span:]
+    if _mode(cfg) == "int":
+        for (kk, vk, ksk, vsk), (a, b) in (
+                (("k", "v", "k_scale", "v_scale"), (sk, sv)),
+                (("ek", "ev", "ek_scale", "ev_scale"), (ek, ev))):
+            aq, bq, asc, bsc = _quant_pair(a, b)
+            c[kk].copy_(aq)
+            c[vk].copy_(bq)
+            c[ksk].copy_(asc)
+            c[vsk].copy_(bsc)
+    else:
+        for key, t in (("k", sk), ("v", sv), ("ek", ek), ("ev", ev)):
+            c[key].copy_(t)
+
+
+def _self_attn_decode(h_in, p, c, cfg: EncDecConfig):
+    """One decode step of the self-attention over the layer's ring: the new
+    key / value into slot ``pos % span`` (in place; int8 codes on the
+    prefill scale, saturating), then attention over the ring as stored."""
+    qpos = c["pos"]
+    k1 = _proj(h_in, p["wk"], cfg)[:, :, 0]
+    v1 = _proj(h_in, p["wv"], cfg)[:, :, 0]
+    kpos = _ring_write_decode(c, k1, v1, qpos, _mode(cfg))
+    if _mode(cfg) == "int":
+        bits = cfg.quant.kv_bits
+        k_all = QTensor(c["k"], c["k_scale"], bits)
+        v_all = QTensor(c["v"], c["v_scale"], bits)
+    else:
+        k_all, v_all = c["k"], c["v"]
+    q = _proj(h_in, p["wq"], cfg)
+    spec = AttnSpec(causal=True, q_chunk=cfg.q_chunk)
+    h = attention(q, k_all, v_all, spec, cfg.quant, q_offset=qpos,
+                  k_positions=kpos)
+    return dense(_merge(h), p["wo"], cfg.quant)
+
+
+def _cross_kv(c, cfg: EncDecConfig):
+    if _mode(cfg) == "int":
+        bits = cfg.quant.kv_bits
+        return (QTensor(c["ek"], c["ek_scale"], bits),
+                QTensor(c["ev"], c["ev_scale"], bits))
+    return c["ek"], c["ev"]
+
+
+def _dec_stack(params, x, cfg: EncDecConfig, *, enc_x=None, cache=None,
+               decode=False):
+    """The decoder layers over x; at prefill (``enc_x`` given) each layer's
+    self and cross K/V fill ``cache`` when there is one, at decode the
+    layers read and write it."""
+    lay = params["dec_layers"]
+    for i in range(cfg.n_dec_layers):
+        p = _index(lay, i)
+        c = None if cache is None else _index(cache["layers"], i)
+        h_in = apply_norm(x, p["ln1"], "layernorm")
+        if decode:
+            h = _self_attn_decode(h_in, p["self_attn"], c, cfg)
+            x = x + h.to(x.dtype)
+            h2, _ = _attn(apply_norm(x, p["ln2"], "layernorm"), None,
+                          p["cross_attn"], cfg, causal=False,
+                          kv_override=_cross_kv(c, cfg))
+            x = x + h2.to(x.dtype)
+        else:
+            h, (sk, sv) = _attn(h_in, h_in, p["self_attn"], cfg, causal=True)
+            x = x + h.to(x.dtype)
+            h2, (ek, ev) = _attn(apply_norm(x, p["ln2"], "layernorm"), enc_x,
+                                 p["cross_attn"], cfg, causal=False)
+            x = x + h2.to(x.dtype)
+            if c is not None:
+                _fill_cache(c, sk, sv, ek, ev, cfg)
+        x = x + mlp(apply_norm(x, p["ln3"], "layernorm"), p["mlp"],
+                    cfg.quant, act="gelu").to(x.dtype)
+    return x
+
+
+def init_cache(cfg: EncDecConfig, batch: int, max_len: int, *,
+               device="cuda") -> dict:
+    int_mode = _mode(cfg) == "int"
+    dt = torch.int8 if int_mode else cfg.tdtype
+    n, h = cfg.n_dec_layers, cfg.n_heads
+    z = dict(dtype=dt, device=device)
+    lay = {"k": torch.zeros((n, batch, h, max_len, cfg.hd), **z),
+           "v": torch.zeros((n, batch, h, max_len, cfg.hd), **z),
+           "ek": torch.zeros((n, batch, h, cfg.n_audio_ctx, cfg.hd), **z),
+           "ev": torch.zeros((n, batch, h, cfg.n_audio_ctx, cfg.hd), **z),
+           "pos": torch.zeros((n,), dtype=torch.int32, device=device)}
+    if int_mode:
+        for key in ("k_scale", "v_scale", "ek_scale", "ev_scale"):
+            lay[key] = torch.ones((n,), dtype=_F32, device=device)
+    return {"layers": lay,
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def decoder_embed(params, tokens, cfg: EncDecConfig, pos0):
+    """Token embeddings plus the sinusoid rows at positions ``pos0 + i``
+    (``pos0`` an int or a 0-d device tensor); only those rows are
+    computed, each as the reference's 100 000-row table has it."""
+    x = embed_lookup(tokens, params["embed"], cfg.tdtype)
+    pos = pos0 + torch.arange(tokens.shape[1], dtype=torch.int32,
+                              device=x.device)
+    return x + _sinusoid_rows(pos, cfg.d_model).to(cfg.tdtype)
+
+
+def _head(params, x, cfg: EncDecConfig):
+    x = apply_norm(x, params["dec_ln"], "layernorm")
+    return dense(x, params["lm_head"], cfg.quant)
+
+
+def prefill(params, batch, cfg: EncDecConfig, max_len: Optional[int] = None):
+    """Encode ``batch["frames"]`` (B, n_audio_ctx, d) and run the prompt
+    ``batch["tokens"]`` (B, S) into a new cache of ``max_len`` (default S)
+    self-attention slots.  Returns (last-position logits (B, 1, V),
+    cache)."""
+    enc_x = encode(params, batch["frames"], cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max_len or s, device=tokens.device)
+    x = decoder_embed(params, tokens, cfg, 0)
+    x = _dec_stack(params, x, cfg, enc_x=enc_x, cache=cache)
+    cache["pos"].fill_(s)
+    cache["layers"]["pos"].fill_(s)
+    return _head(params, x[:, -1:], cfg), cache
+
+
+def decode_step(params, token, cache, cfg: EncDecConfig):
+    """One step: token (B, 1) -> logits (B, 1, V); the cache is updated in
+    place (the new self-attention key / value, both ``pos``)."""
+    x = decoder_embed(params, token, cfg, cache["pos"])
+    x = _dec_stack(params, x, cfg, cache=cache, decode=True)
+    cache["pos"].add_(1)
+    cache["layers"]["pos"].add_(1)
+    return _head(params, x, cfg), cache

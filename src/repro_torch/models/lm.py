@@ -1,5 +1,5 @@
-"""Decoder-only LM, attention-only subset, with the ring and the paged KV
-caches — in PyTorch.
+"""Decoder-only LM (attention, local attention, RG-LRU and SSD blocks) with
+the ring and the paged KV caches — in PyTorch.
 
 Counterpart of ``repro/models/lm.py`` for the serving paths:
 :class:`LMConfig`, :func:`init_params`, :func:`forward`, :func:`logits_fn`,
@@ -11,21 +11,26 @@ and the paged cache (:func:`init_paged_cache`, :func:`paged_prefill`,
 ``(B*S, d)`` tokens) and the patch frontend (``cfg.frontend == "patch"``:
 ``batch["patches"]`` (B, n_patches, d) prepended to the token embeddings,
 so positions and ``pos`` count them; the ring path takes them, the paged
-engine serves text).  Recurrent / SSM blocks, the encoder-decoder and
-training belong to later slices and raise here.
+engine serves text).  The recurrent blocks (``"rglru"``:
+:func:`repro_torch.layers.rglru.rglru_block`, ``"ssd"``:
+:func:`repro_torch.layers.ssd.ssd_block`) run on the ring path, their
+states kept in the ring cache; the paged path is attention-only in this
+port and raises for them.  Training belongs to a later slice.
 
 Parameters and caches are plain dicts of tensors with the JAX package's
 keys and layouts: linear weights ``(in, out)`` float or ``w_q (out, in)``
 int8 codes, layer-stacked ``units`` subtrees (leading layer axis; the
 reference's scan over units is a Python loop here).
 
-- Ring cache: ``k``/``v`` ``(B, Hkv, span, hd)`` int8 codes (``hd/2``
-  uint8 nibbles at ``kv_bits=4``, floats in float mode), one per-tensor
-  ``k_scale``/``v_scale`` per layer calibrated at prefill, and a 0-d
-  ``pos`` shared by the batch; position ``p`` lives in slot
-  ``p % span`` (``span = max_len``, or ``window + q_chunk`` for
-  ``local`` layers).  ``pos`` stays on the device: a decode step never
-  reads it on the host.
+- Ring cache: an attention layer keeps ``k``/``v`` ``(B, Hkv, span, hd)``
+  int8 codes (``hd/2`` uint8 nibbles at ``kv_bits=4``, floats in float
+  mode), one per-tensor ``k_scale``/``v_scale`` per layer calibrated at
+  prefill, and a 0-d ``pos`` shared by the batch; position ``p`` lives in
+  slot ``p % span`` (``span = max_len``, or ``window + q_chunk`` for
+  ``local`` layers); an ``rglru`` layer keeps ``h (B, d_rnn)`` and
+  ``conv (B, 3, d_rnn)``, an ``ssd`` layer ``h (B, H, P, N)`` and ``convs
+  (B, 3, d_conv)``, all f32.  ``pos`` stays on the device: a decode step
+  never reads it on the host.
 - Paged cache: pools ``(num_pages + 1, Hkv, page_size, hd[/2])`` whose
   last page is the TRASH page (masked writes land there, it is never
   read), ``pos (B,)`` (negative = inactive row) and ``page_table
@@ -38,7 +43,8 @@ Where JAX returned updated copies, this port writes in place:
 
 - :func:`decode_step` writes the new key/value into the ring slot (or
   each row's page of the pools), and advances ``cache["pos"]``, in place;
-- :func:`prefill` fills the ring it creates (codes, scales, ``pos``);
+- :func:`prefill` fills the ring it creates (codes, scales, recurrent
+  states, ``pos``), and a decode step writes each recurrent state;
 - :func:`paged_prefill` writes the prompt's codes into the pools, the
   per-sequence scales, the per-page scale registrations and ``pos`` in
   place;
@@ -68,7 +74,11 @@ from repro_torch.layers.embed import embed_lookup, init_embed
 from repro_torch.layers.mlp import mlp
 from repro_torch.layers.moe import MoEConfig, init_moe, moe_ffn
 from repro_torch.layers.norms import apply_norm, init_norm
+from repro_torch.layers.rglru import (init_rglru, init_rglru_state,
+                                      rglru_block)
 from repro_torch.layers.rope import apply_rope
+from repro_torch.layers.ssd import (SSDConfig, init_ssd, init_ssd_state,
+                                    ssd_block)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,7 +91,7 @@ class LMConfig:
     d_ff: int
     vocab: int
     head_dim: Optional[int] = None
-    block_pattern: tuple = ("attn",)          # cycled; "attn" | "local"
+    block_pattern: tuple = ("attn",)    # cycled: attn, local, rglru, ssd
     attn_window: Optional[int] = None
     rope_theta: float = 10000.0
     rotary_frac: float = 1.0
@@ -89,6 +99,8 @@ class LMConfig:
     norm: str = "rmsnorm"
     act: str = "swiglu"
     moe: Optional[MoEConfig] = None
+    ssd: Optional[SSDConfig] = None
+    d_rnn: Optional[int] = None
     dtype: str = "bfloat16"
     quant: Optional[QuantConfig] = None
     q_chunk: int = 128
@@ -121,12 +133,17 @@ def unit_structure(cfg: LMConfig):
     unit = tuple(cfg.block_pattern)
     n_units = cfg.n_layers // len(unit)
     rem = tuple(block_kinds(cfg)[n_units * len(unit):])
-    for kind in unit + rem:
-        if kind not in ATTN_KINDS:
-            raise NotImplementedError(
-                f"block kind {kind!r} is not ported yet (attention-only "
-                f"stacks in this slice)")
     return unit, n_units, rem
+
+
+def _paged_attention_only(cfg: LMConfig):
+    """The paged path serves attention stacks only in this port."""
+    rec = sorted(set(block_kinds(cfg)) - set(ATTN_KINDS))
+    if rec:
+        raise NotImplementedError(
+            f"the paged path of this port is attention-only; {cfg.name} has "
+            f"{rec} blocks (ROADMAP queue 1: paged recurrent serving, checked "
+            f"in the reference first)")
 
 
 # ---------------------------------------------------------------------------
@@ -141,17 +158,25 @@ def _lin(gen, lead, din, dout, dtype, device, bias=False):
     return p
 
 
-def _init_block(gen, cfg: LMConfig, lead, device) -> dict:
+def _init_block(gen, cfg: LMConfig, kind: str, lead, device) -> dict:
     d, hd, dt = cfg.d_model, cfg.hd, cfg.tdtype
-    p = {"ln1": _stack(init_norm(d, cfg.norm, device=device), lead),
-         "attn": {
-             "wq": _lin(gen, lead, d, cfg.n_heads * hd, dt, device,
-                        cfg.qkv_bias),
-             "wk": _lin(gen, lead, d, cfg.kv_heads * hd, dt, device,
-                        cfg.qkv_bias),
-             "wv": _lin(gen, lead, d, cfg.kv_heads * hd, dt, device,
-                        cfg.qkv_bias),
-             "wo": _lin(gen, lead, cfg.n_heads * hd, d, dt, device)}}
+    p = {"ln1": _stack(init_norm(d, cfg.norm, device=device), lead)}
+    if kind in ATTN_KINDS:
+        p["attn"] = {
+            "wq": _lin(gen, lead, d, cfg.n_heads * hd, dt, device,
+                       cfg.qkv_bias),
+            "wk": _lin(gen, lead, d, cfg.kv_heads * hd, dt, device,
+                       cfg.qkv_bias),
+            "wv": _lin(gen, lead, d, cfg.kv_heads * hd, dt, device,
+                       cfg.qkv_bias),
+            "wo": _lin(gen, lead, cfg.n_heads * hd, d, dt, device)}
+    elif kind == "rglru":
+        p["rglru"] = init_rglru(gen, d, cfg.d_rnn or d, dt, lead=lead,
+                                device=device)
+    elif kind == "ssd":
+        p["ssd"] = init_ssd(gen, d, cfg.ssd, dt, lead=lead, device=device)
+    else:
+        raise ValueError(kind)
     if cfg.d_ff > 0:
         ff = cfg.d_ff
         p["ln2"] = _stack(init_norm(d, cfg.norm, device=device), lead)
@@ -181,10 +206,11 @@ def init_params(cfg: LMConfig, *, seed: int = 0, device="cuda") -> dict:
               "lm_head": _lin(gen, (), cfg.d_model, cfg.vocab, cfg.tdtype,
                               device)}
     if n_units:
-        params["units"] = {f"b{j}": _init_block(gen, cfg, (n_units,), device)
-                           for j in range(len(unit))}
-    for i in range(len(rem)):
-        params[f"rem{i}"] = _init_block(gen, cfg, (), device)
+        params["units"] = {f"b{j}": _init_block(gen, cfg, kind, (n_units,),
+                                                device)
+                           for j, kind in enumerate(unit)}
+    for i, kind in enumerate(rem):
+        params[f"rem{i}"] = _init_block(gen, cfg, kind, (), device)
     return params
 
 
@@ -218,12 +244,19 @@ def _attn_cache(cfg: LMConfig, batch: int, max_len: int, lead,
 
 def init_block_cache(cfg: LMConfig, kind: str, batch: int, max_len: int, *,
                      lead=(), device="cuda") -> dict:
-    """One attention layer's ring (``lead``: stacked layer axes)."""
+    """One layer's ring, or its recurrent state (``lead``: stacked layer
+    axes)."""
     if kind in ATTN_KINDS:
         span = max_len if (kind == "attn" or cfg.attn_window is None) \
             else min(max_len, cfg.attn_window + cfg.q_chunk)
         return _attn_cache(cfg, batch, span, lead, device)
-    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    if kind == "rglru":
+        return init_rglru_state(batch, cfg.d_rnn or cfg.d_model, lead=lead,
+                                device=device)
+    if kind == "ssd":
+        return init_ssd_state(batch, cfg.d_model, cfg.ssd, lead=lead,
+                              device=device)
+    raise ValueError(kind)
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, *,
@@ -286,15 +319,16 @@ def _ring_write_prefill(cache, k, v, mode, qcfg):
     return cache
 
 
-def _ring_write_decode(cache, k1, v1, pos, mode, qcfg):
+def _ring_write_decode(cache, k1, v1, pos, mode):
     """Write one decoded key/value (B, Hkv, hd) into slot ``pos % span`` on
-    the ring's prefill scale, in place (``pos`` a 0-d device tensor).
+    the ring's prefill scale, in place (``pos`` a 0-d device tensor); the
+    ring's dtype says how codes are stored (uint8: int4 nibbles).
     Returns the slot -> position map of the written ring (negative =
     unwritten): ``pos - ((slot - j) mod span)``, a floor-mod."""
     span = cache["k"].shape[2]
     slot = torch.remainder(pos, span)
     if mode == "int":
-        kv4 = qcfg.kv_bits == 4
+        kv4 = cache["k"].dtype == torch.uint8
         kq = _ring_codes(k1, cache["k_scale"], kv4)
         vq = _ring_codes(v1, cache["v_scale"], kv4)
     else:
@@ -336,8 +370,10 @@ def init_paged_cache(cfg: LMConfig, batch: int, max_len: int, *,
 
     ``max_len`` bounds one sequence (``max_pages`` = table width);
     ``num_pages`` sizes the shared pool (default ``batch * max_pages``).
-    All rows start inactive (``pos = -1``) with empty page tables.
+    All rows start inactive (``pos = -1``) with empty page tables.  Raises
+    for a stack with recurrent blocks (attention-only in this port).
     """
+    _paged_attention_only(cfg)
     unit, n_units, rem = unit_structure(cfg)
     max_pages = -(-max_len // page_size)
     if num_pages is None:
@@ -515,7 +551,7 @@ def _attn_mixer(x, p, cfg: LMConfig, kind: str, positions, cache, decode,
         # stored (int4 nibbles stay packed for the kernel).
         pos = positions[0, 0]
         k_positions = _ring_write_decode(cache, k[:, :, 0], v[:, :, 0], pos,
-                                         mode, qcfg)
+                                         mode)
         if mode == "int":
             k_all = QTensor(cache["k"], cache["k_scale"], qcfg.kv_bits)
             v_all = QTensor(cache["v"], cache["v_scale"], qcfg.kv_bits)
@@ -537,10 +573,25 @@ def _attn_mixer(x, p, cfg: LMConfig, kind: str, positions, cache, decode,
 def mixer_block(x, p, cfg: LMConfig, kind: str, *, positions, cache=None,
                 decode=False, page_table=None, lengths=None,
                 prefix_len: int = 0):
-    """The first half of a block: x + attention(norm(x))."""
+    """The first half of a block: x + mixer(norm(x)), the mixer attention,
+    RG-LRU or SSD.  A recurrent block starts from no state at prefill and
+    from the cache's at decode; its new state is written into the cache in
+    place."""
     h = apply_norm(x, p["ln1"], cfg.norm)
-    out = _attn_mixer(h, p["attn"], cfg, kind, positions, cache, decode,
-                      page_table, lengths, prefix_len)
+    if kind in ATTN_KINDS:
+        out = _attn_mixer(h, p["attn"], cfg, kind, positions, cache, decode,
+                          page_table, lengths, prefix_len)
+        return x + out.to(x.dtype)
+    state = cache if decode else None
+    if kind == "rglru":
+        out, new = rglru_block(h, p["rglru"], cfg.quant, state=state)
+    elif kind == "ssd":
+        out, new = ssd_block(h, p["ssd"], cfg.ssd, cfg.quant, state=state)
+    else:
+        raise ValueError(kind)
+    if cache is not None:
+        for key, leaf in new.items():
+            cache[key].copy_(leaf)
     return x + out.to(x.dtype)
 
 
@@ -666,8 +717,9 @@ def paged_prefill(params, batch, cfg: LMConfig, cache, *,
     ``batch["tokens"]`` (B, S) right-padded, ``batch["lengths"]`` (B,).
     Pages named by ``cache["page_table"]`` must be allocated for every
     row's prompt; pad positions write to the trash page.  Returns
-    (last-real-position logits (B, 1, V), cache).
+    (last-real-position logits (B, 1, V), cache).  Attention stacks only.
     """
+    _paged_attention_only(cfg)
     x, cache = forward(params, batch, cfg, cache=cache, decode=False,
                        prefix_len=prefix_len)
     lengths = batch.get("lengths")
@@ -776,7 +828,9 @@ def admission_prefill(params, batch, cfg: LMConfig, cache, rows, page_table,
     a solo prefill.  ``prefix_len``: the tokens are prompt tails whose first
     ``prefix_len`` positions are already cached (prefix sharing, resumable
     chunks).  Returns (last-real-position logits (W, 1, V), cache).
+    Attention stacks only.
     """
+    _paged_attention_only(cfg)
     w = batch["tokens"].shape[0]
     view = _admission_view(cache, w, page_table)
     logits, view = paged_prefill(params, batch, cfg, view,

@@ -671,3 +671,95 @@ def test_moe_serve_on_the_card_takes_no_plain_path(gen, arch):
     for key in ("qlinear_torch", "qexpert_torch", "attention_torch",
                 "attention_paged_torch"):
         assert snap[key] == 0, (key, snap)
+
+
+# The recurrent and encoder-decoder families' new shapes (chip_smoke.py's
+# QMM_FAMILIES, ATTN_FAMILIES, RING_FAMILIES): RecurrentGemma-9B's lm_head
+# (N 256000, K 4096), Whisper-large-v3's (N 51866, K 1280), Mamba2-130M's
+# in_proj (N 3352, K 768)
+@pytest.mark.parametrize("m,n,k", [(2, 256000, 4096), (256, 256000, 4096),
+                                   (4, 51866, 1280), (256, 51866, 1280),
+                                   (4, 3352, 768), (2048, 3352, 768)])
+def test_qmatmul_family_shapes_equal_plain(gen, m, n, k):
+    x, w, s, b, rs = _qmm_inputs(gen, m, n, k, False)
+    blocks = dispatch.qmatmul_blocks(m, n, k)
+    got = qm.qmatmul(x, w, s, b, rs, blocks=blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.qmatmul_ref(x, w, s, b, rs))
+
+
+# (H, G * Sq, Sk, D, causal, window, sq_mod, chunk): RecurrentGemma-9B's
+# local prefill (D 256, window 2048 under 2304 keys), Whisper's encoder,
+# cross attention at prefill, and a decode step's one query row over 1500
+# pre-quantized keys
+FUSED_FAMILY_CASES = [(2, 16 * 2304, 2304, 256, True, 2048, 2304, 128),
+                      (8, 1500, 1500, 64, False, None, None, 125),
+                      (8, 32, 1500, 64, False, None, None, 32),
+                      (8, 1, 1500, 64, False, None, None, None)]
+
+
+@pytest.mark.parametrize("h,sq,sk,d,causal,window,sq_mod,chunk",
+                         FUSED_FAMILY_CASES)
+def test_fused_kernel_family_shapes_codes_exact(gen, h, sq, sk, d, causal,
+                                                window, sq_mod, chunk):
+    bq, bk = dispatch.attention_blocks(sq, sk, d, window=window, chunk=chunk)
+    nq = -(-sq // bq)
+    mk = lambda *shape: torch.randint(-127, 128, shape, generator=gen,
+                                      device="cuda", dtype=torch.int8)
+    q, k, v = mk(h, sq, d), mk(h, sk, d), mk(h, sk, d)
+    sc = (torch.rand((h, nq), generator=gen, device="cuda") + 0.5) * 1e-4
+    vs = torch.rand((h,), generator=gen, device="cuda") + 0.5
+    kw = dict(attn_bits=7, causal=causal, window=window, bq=bq, bk=bk,
+              sq_mod=sq_mod, return_codes=True)
+    out, codes = ia.int_attention_fused(q, k, v, sc, vs, **kw)
+    torch.cuda.synchronize()
+    want, wcodes = ia.int_attention_fused_plain(q, k, v, sc, vs, **kw)
+    assert torch.equal(codes, wcodes)
+    assert _rel(out, want) <= 1e-5
+
+
+# (head-folds, G, D, span, pos, window): RecurrentGemma-9B's local ring of
+# 2176 slots over its 2048 window, Whisper's self-attention ring of 64
+@pytest.mark.parametrize("h,g,d,span,pos,window",
+                         [(2, 16, 256, 2176, 2319, 2048),
+                          (2, 16, 256, 2176, 2304, 2048),
+                          (80, 1, 64, 64, 47, None)])
+def test_ring_kernel_family_shapes_codes_exact(gen, h, g, d, span, pos,
+                                               window):
+    args = _ring_case(gen, h, g, d, 8, span, pos)
+    _ring_exact(args, attn_bits=7, window=window,
+                bk=dispatch.decode_blocks(span, d))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m",
+                                  "whisper-large-v3"])
+def test_family_smoke_on_the_card_takes_no_plain_path(gen, arch):
+    from repro_torch.configs.registry import is_encdec, smoke_config
+    from repro_torch.core.api import QuantConfig, integerize_params
+    from repro_torch.models import encdec, lm
+    qc = QuantConfig(w_bits=4, a_bits=8, attn_bits=7, kv_bits=8, mode="int",
+                     backend="cuda")
+    cfg = smoke_config(arch).replace(quant=qc)
+    model = encdec if is_encdec(cfg) else lm
+    params = integerize_params(model.init_params(cfg, seed=0, device="cuda"),
+                               qc)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 24), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    if model is encdec:
+        batch["frames"] = torch.randn((2, cfg.n_audio_ctx, cfg.d_model),
+                                      generator=gen, device="cuda")
+    dispatch.reset_stats()
+    dispatch.reset_launches()
+    logits, cache = model.prefill(params, batch, cfg, max_len=32)
+    for _ in range(4):
+        tok = torch.argmax(logits[:, 0], -1).to(torch.int32)[:, None]
+        logits, cache = model.decode_step(params, tok, cache, cfg)
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    assert launches["qmatmul"] > 0, launches
+    if arch != "mamba2-130m":
+        assert launches["int_attention_fused"] > 0, launches
+        assert launches["int_decode_attention"] > 0, launches
+    for key in ("qlinear_torch", "attention_torch", "attention_decode_torch"):
+        assert dispatch.STATS[key] == 0, (key, dispatch.snapshot())
+    assert int(cache["pos"]) == 28 and bool(torch.isfinite(logits).all())

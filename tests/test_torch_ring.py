@@ -258,7 +258,7 @@ def test_ring_writes_match_reference_arithmetic_on_bf16(kv_bits, s_in):
         kpos = lm._ring_write_decode(cache, _to_t(k1[:, :, 0]),
                                      _to_t(v1[:, :, 0]),
                                      torch.tensor(pos, dtype=torch.int32),
-                                     "int", qt)
+                                     "int")
         slot = pos % span
         k1j, v1j = jnp.asarray(k1), jnp.asarray(v1)
         if kv4:
