@@ -103,7 +103,22 @@ Phases, in order; any failure exits non-zero before the result line:
     ``benchmarks/fig_softmax_error.py``'s attention through
     ``layers.attention.attention`` at prob grids of 2, 3, 4 and 7 bits,
     each through the fused kernel, its error not growing with bits;
-14. time: each kernel with CUDA events beside its bound, its plain
+14. train: the paper's QAT recipe (``repro_torch.launch.train``,
+    ``examples/train_cifar_qat.py``'s step) at DeiT-S's full size, batch
+    64, fake w4/a8/attn7, LAMB: 10 head-only and 50 full steps (every loss
+    finite, the head-only step leaving every other leaf bitwise, the last
+    5 losses below the first 5), then ``integerize_params`` and the int
+    forward on a held-out batch through the ``[route]`` gate (73 qmatmul,
+    12 fused, no plain dispatch), accuracies printed; one full DeiT-S step
+    at batch 8 on the card against the CPU (loss within 1e-4, gradient
+    norm within 1e-3; past that, the step with the CPU's fake-quant values
+    replayed within 1e-4, each layer teacher-forced within 5e-2, and the
+    code flips counted layer by layer); ``make_train_step`` at
+    Qwen2.5-32B's widths with 2 layers, bf16, batch 2 x 512 (two
+    head-only steps, the freeze bitwise, two full steps); ``train()``
+    restarted from its checkpoint bitwise equal to an uninterrupted run;
+    ms per step, peak memory and a profiled step printed;
+15. time: each kernel with CUDA events beside its bound, its plain
     version and, where one PyTorch call computes the same function, that
     call (``torch._int_mm`` for qmatmul, over x zero-padded to 32 rows at
     decode rows, ``F.layer_norm`` / ``F.rms_norm`` for PQ-LayerNorm); every
@@ -124,6 +139,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1126,9 +1142,10 @@ def layer_attribution(tag, params, cfg, tcfg, prompts):
             idx = moe.route(h2.reshape(b * s, -1), p["ffn"], cfg.moe)[2]
             idxt = moe.route(h2t.reshape(b * s, -1), p["ffn"], cfg.moe)[2]
             flips.append(int((idx != idxt).any(dim=-1).sum()))
-        same.append(torch.equal(lm.ffn(h2, p, cfg), lm.ffn(h2, p, tcfg)))
-        x = lm.ffn_block(x1, p, cfg)
-        xt = lm.apply_block(xt, p, tcfg, "attn", positions=pos)
+        same.append(torch.equal(lm.ffn(h2, p, cfg)[0],
+                                lm.ffn(h2, p, tcfg)[0]))
+        x = lm.ffn_block(x1, p, cfg)[0]
+        xt = lm.apply_block(xt, p, tcfg, "attn", positions=pos)[0]
         free.append(rel_err(xt, x)[1])
     log(f"{tag} prefill layer by layer, teacher-forced: attention update "
         f"max rel {' '.join(f'{e:.2e}' for e in attn)} (tol rel "
@@ -1862,6 +1879,536 @@ def phase_ops(params, imgs):
                       "pq_layernorm": float(pq_diff)}
 
 
+# ---------------------------------------------------------------------------
+# [train]: QAT training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_HEAD_STEPS = 60, 10       # the recipe: head only, then all
+TRAIN_BATCH = 64
+TRAIN_CPU_BATCH = 8
+# card vs cpu, one step at full DeiT-S size: f32 sums in other orders
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-4, 1e-3
+# the same with every fake-quant value replayed from the CPU's run: f32 sums
+# in other orders alone
+TRAIN_REPLAY_RTOL = 1e-4
+# past TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL, the free-running step's bounds
+# while code flips explain its gap (an H100 read 4.991e-4 / 1.236e-3)
+TRAIN_FREE_LOSS_RTOL, TRAIN_FREE_GNORM_RTOL = 5e-3, 1e-2
+TRAIN_LM_LAYERS, TRAIN_LM_BATCH, TRAIN_LM_SEQ = 2, 2, 512
+RESTART_STEPS, RESTART_STOP, RESTART_EVERY = 30, 20, 10
+
+
+def train_vit_config():
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import QuantConfig
+    return get_config("deit-s").replace(quant=QuantConfig(
+        w_bits=4, a_bits=8, attn_bits=7, mode="fake"))
+
+
+def train_recipe_opt():
+    from repro_torch.optim import OptConfig
+    return OptConfig(kind="lamb", lr=5e-4, weight_decay=0.0,      # §V-A
+                     warmup_steps=10, total_steps=TRAIN_STEPS)
+
+
+def frozen_but(before, after, keep):
+    """Leaves other than those whose path holds ``keep`` that moved."""
+    import torch
+    from repro_torch import tree as tree_lib
+    old = dict(tree_lib.leaves_with_paths(before))
+    return [p for p, leaf in tree_lib.leaves_with_paths(after)
+            if keep not in p and not torch.equal(leaf, old[p])]
+
+
+def timed(fn):
+    """(fn's result, its CUDA-event ms)."""
+    import torch
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def train_deit(card):
+    """The paper's recipe at DeiT-S's full size: head-only LAMB steps, then
+    full QAT steps, then integerization and the int forward on the
+    kernels."""
+    import math
+    import torch
+    from repro_torch.core.api import integerize_params
+    from repro_torch.data.synthetic import image_batch
+    from repro_torch.examples.train_cifar_qat import make_vit_step
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import vit
+    from repro_torch.optim import init_opt_state
+    cfg, ocfg = train_vit_config(), train_recipe_opt()
+    log(f"[train] deit-s: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.img_size} px / patch {cfg.patch}, {cfg.n_classes} classes, "
+        f"batch {TRAIN_BATCH}, fake w4/a8/attn7, LAMB lr {ocfg.lr} no decay, "
+        f"warm-up {ocfg.warmup_steps}, {TRAIN_HEAD_STEPS} head-only + "
+        f"{TRAIN_STEPS - TRAIN_HEAD_STEPS} full steps, random weights from "
+        f"seed 0, synthetic class blobs")
+    params = vit.init_params(cfg, seed=0, device="cuda")
+    opt = init_opt_state(params)
+    steps = (make_vit_step(cfg, ocfg, head_only=True),
+             make_vit_step(cfg, ocfg, head_only=False))
+    losses, ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    moved = None
+    for i in range(TRAIN_STEPS):
+        batch = image_batch(i, batch=TRAIN_BATCH, img=cfg.img_size,
+                            device="cuda")
+        before = clone_tree(params) if i == 0 else None
+        (params, opt, m), t = timed(
+            lambda: steps[i >= TRAIN_HEAD_STEPS](params, opt, batch))
+        losses.append(float(m["loss"]))
+        ms.append(t)
+        if before is not None:
+            moved = frozen_but(before, params, "head")
+            del before
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    head_ms = sum(ms[2:TRAIN_HEAD_STEPS]) / (TRAIN_HEAD_STEPS - 2)
+    full_ms = sum(ms[TRAIN_HEAD_STEPS + 2:]) / (TRAIN_STEPS
+                                                - TRAIN_HEAD_STEPS - 2)
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    log(f"[train] deit-s losses {' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"[train] deit-s mean loss of the first 5 steps {first:.4f}, of the "
+        f"last 5 {last:.4f}; leaves moved by the first head-only step other "
+        f"than head: {moved}")
+    log(f"[train] deit-s {head_ms:.3f} ms per head-only step, {full_ms:.3f} "
+        f"ms per full step (CUDA events, mean after 2 warm-up steps of each "
+        f"phase; {TRAIN_BATCH / full_ms * 1e3:.1f} images/s); peak memory "
+        f"{peak:.2f} GiB ({card})")
+    pp, oo = clone_tree(params), clone_tree(opt)      # the recipe's copy
+    log_profile(f"[train] deit-s full step (batch {TRAIN_BATCH}; {card})",
+                lambda: steps[1](pp, oo, batch), 2, full_ms)
+    deterministic_cost(lambda: steps[1](pp, oo, batch), card)
+    del pp, oo
+
+    qc_int = cfg.quant.replace(mode="int", backend="cuda")
+    icfg = cfg.replace(quant=qc_int)
+    held = image_batch(10**6, batch=TRAIN_BATCH, img=cfg.img_size,
+                       device="cuda")
+    with torch.no_grad():
+        fake = vit.forward(params, held["images"], cfg)
+        iparams = integerize_params(params, qc_int)
+        torch.cuda.synchronize()
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        logits = vit.forward(iparams, held["images"], icfg)
+        torch.cuda.synchronize()
+    launches, snap = dispatch.launch_counts(), dispatch.snapshot()
+    check_route("[train] deit-s int forward", "cuda", launches, snap,
+                ("qmatmul", "int_attention_fused"))
+
+    def acc(z):
+        return float((z.argmax(-1) == held["labels"]).float().mean())
+
+    acc_qat, acc_int = acc(fake), acc(logits)
+    gap = rel_err(logits, fake)
+    log(f"[train] deit-s held-out batch: acc_qat {acc_qat:.4f} acc_int "
+        f"{acc_int:.4f} |int - qat| {abs(acc_int - acc_qat):.4f}; int vs "
+        f"fake logits max abs {gap[0]:.3e} rel {gap[1]:.3e} (printed only: "
+        f"the fake graph calibrates activations per tensor over the batch, "
+        f"the int graph per image, so the two grids differ)")
+    want_q = 1 + 6 * cfg.n_layers
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("[train] deit-s: a loss is not finite")
+    if moved:
+        raise AssertionError(f"[train] deit-s head-only step moved {moved}")
+    if not last < first:
+        raise AssertionError("[train] deit-s: the loss did not descend")
+    if launches["qmatmul"] != want_q or \
+            launches["int_attention_fused"] != cfg.n_layers:
+        raise AssertionError(f"[train] deit-s int launches {launches}, "
+                             f"expected {want_q} qmatmul, {cfg.n_layers} "
+                             f"fused")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("[train] deit-s int logits not finite")
+
+
+def deterministic_cost(step, card, rounds=3, calls=2):
+    """ms per call of a training step with the deterministic mode as the
+    train entry points run it, without the mode, and with the mode's
+    default NaN fill of new memory on; the three interleaved."""
+    import contextlib
+    import statistics
+    import torch
+    from repro_torch.launch import train as train_mod
+    shipped = train_mod.deterministic
+
+    @contextlib.contextmanager
+    def with_fill():
+        with shipped():
+            torch.utils.deterministic.fill_uninitialized_memory = True
+            yield
+
+    variants = {"as shipped": shipped, "off": contextlib.nullcontext,
+                "with the NaN fill": with_fill}
+    ms = {name: [] for name in variants}
+    try:
+        for _ in range(rounds):
+            for name, mode in variants.items():
+                train_mod.deterministic = mode
+                for _ in range(calls):
+                    ms[name].append(timed(step)[1])
+    finally:
+        train_mod.deterministic = shipped
+    log(f"[train] deit-s full step, deterministic mode (median of "
+        f"{rounds * calls} steps, CUDA events, the three interleaved; "
+        f"{card}): " + ", ".join(f"{name} {statistics.median(v):.3f} ms"
+                                 for name, v in ms.items()))
+
+
+class FakeQuantTap:
+    """Within ``with``: every ``quant.fake_quant`` call records its (x,
+    delta, bits, unsigned, output), detached copies (a training step updates
+    the weights in place), the output the op's own; with
+    ``replay`` (another run's records) each output takes that run's value,
+    the gradient still the op's own (``y + (value - y).detach()``)."""
+
+    def __init__(self, replay=None):
+        self.calls, self.replay = [], replay
+
+    def __enter__(self):
+        from repro_torch.core import quant
+        self.quant, self.orig = quant, quant.fake_quant
+        quant.fake_quant = self
+        return self
+
+    def __exit__(self, *exc):
+        self.quant.fake_quant = self.orig
+
+    def __call__(self, x, delta, bits, unsigned=False):
+        y = self.orig(x, delta, bits, unsigned)
+        self.calls.append((x.detach().clone(), delta.detach().clone(),
+                           bits, unsigned, y.detach()))
+        if self.replay is not None:
+            y = y + (self.replay[len(self.calls) - 1][4].to(y.device)
+                     - y).detach()
+        return y
+
+
+# two runs' x / delta within this many grid steps of each other, on either
+# side of a half-integer: a flip that the float sums' order alone decides
+FLIP_NEAR = 1e-3
+
+
+def fake_quant_code(x, delta, bits, unsigned, y, exact=True):
+    """(x / delta, code) of one recorded fake_quant call, on the CPU: the
+    quotient in the promoted dtype as the op divides, the code read back
+    from the call's output.  Raises where the output is not the op's own
+    forward on its inputs (a fault in fake_quant on that device); with
+    ``exact`` False (a graph that may multiply by 1 / delta instead, as
+    XLA's compiled ones do) only where the quotient is not at a rounding
+    edge either."""
+    import torch
+    from repro_torch.core.quant import qrange
+    lo, hi = qrange(bits, unsigned=unsigned)
+    dt = torch.promote_types(x.dtype, delta.dtype)
+    d = delta.cpu().to(dt)
+    s = (x.cpu().to(dt) / d).float()
+    code = torch.round(y.cpu().float() / d.float())
+    off = code != torch.clamp(torch.round(s), lo, hi)
+    if not exact:
+        off &= (s - torch.floor(s) - 0.5).abs() > FLIP_NEAR
+    if bool(off.any()):
+        raise AssertionError("a fake_quant output is off its own x / delta")
+    return s, code
+
+
+def code_flips(rec_a, rec_b, *, a_exact=True):
+    """Fake-quant codes that differ between two recorded runs of one graph
+    (``FakeQuantTap`` records, in call order): (all, primary, shifted).
+    Each code is read from its run's output and checked against that run's
+    own x / delta (:func:`fake_quant_code`; ``a_exact`` for the first run),
+    so a code can differ only where the two quotients do.  A primary flip
+    has a rounding edge (a half-integer) between the two quotients, their
+    nearest integers differing, and the quotients within FLIP_NEAR of a
+    grid step: the float sums' order alone decides it (where the first run
+    is not ``a_exact``, a flip with its quotient within FLIP_NEAR of an
+    edge is primary too).  A shifted flip sits in a row whose step moved
+    by a power of two with x the same within FLIP_NEAR of a step: the fake
+    attention's prob grid is (2 / qmax) / Sigma, and Sigma doubles where a
+    row's max crosses an integer and its floor-max shift moves by one.
+    The others follow from earlier flips."""
+    import torch
+    if len(rec_a) != len(rec_b) or not rec_a:
+        raise AssertionError(f"the runs made {len(rec_a)} and {len(rec_b)} "
+                             f"fake_quant calls")
+    total = primary = shifted = 0
+    for a, b in zip(rec_a, rec_b):
+        if a[2:4] != b[2:4] or a[0].shape != b[0].shape:
+            raise AssertionError("the runs' fake_quant calls differ")
+        (sa, ca), (sb, cb) = fake_quant_code(*a, exact=a_exact), \
+            fake_quant_code(*b)
+        flip = ca != cb
+        edge = (torch.round(sa) != torch.round(sb)) & \
+            ((sa - sb).abs() <= FLIP_NEAR)
+        if not a_exact:   # the first run's code may be its 1 / delta's
+            edge |= (sa - torch.floor(sa) - 0.5).abs() <= FLIP_NEAR
+        da, db = a[1].cpu().float(), b[1].cpu().float()
+        k = torch.broadcast_to(torch.log2(db / da), sa.shape)
+        moved = (torch.round(k) != 0) & ((k - torch.round(k)).abs()
+                                         <= FLIP_NEAR)
+        same_x = (a[0].cpu().float() - b[0].cpu().float()).abs() <= \
+            FLIP_NEAR * da
+        total += int(flip.sum())
+        primary += int((flip & edge).sum())
+        shifted += int((flip & ~edge & moved & same_x).sum())
+    return total, primary, shifted
+
+
+def train_attribution(params_cpu, params_card, imgs, cfg):
+    """The step's forward layer by layer on the card, teacher-forced on the
+    CPU's residual stream: each layer's code differences (:func:`code_flips`)
+    with the card's own codes and, with the CPU's codes replayed, the
+    card's own codes on the replayed stream; its update's gap both ways;
+    the card's own stream beside it, free-running."""
+    import torch
+    from repro_torch.models import vit
+
+    def run(fn, replay=None):
+        with FakeQuantTap(replay) as tap:
+            out = fn()
+        return out, tap.calls
+
+    with torch.no_grad():
+        x, _ = run(lambda: vit.embed(params_cpu, imgs, cfg))
+        xg, _ = run(lambda: vit.embed(params_card, imgs.cuda(), cfg))
+        flips, rflips, forced, replayed, free = [], [], [], [], []
+        for i in range(cfg.n_layers):
+            pc = layer_at(params_cpu["layers"], i)
+            pg = layer_at(params_card["layers"], i)
+            y, rc = run(lambda: vit.block(x, pc, cfg))
+            xc = x.cuda()
+            yt, rg = run(lambda: vit.block(xc, pg, cfg))
+            yr, rr = run(lambda: vit.block(xc, pg, cfg), replay=rc)
+            flips.append(code_flips(rc, rg))
+            rflips.append(code_flips(rc, rr))
+            want = (y - x).cuda()
+            forced.append(rel_err(yt - xc, want)[1])
+            replayed.append(rel_err(yr - xc, want)[1])
+            xg = vit.block(xg, pg, cfg)
+            free.append(rel_err(xg, y.cuda())[1])
+            x = y
+    return flips, rflips, forced, replayed, free
+
+
+def train_card_vs_cpu(card):
+    """One full training step of DeiT-S at full size on the card and on the
+    CPU, same params and batch; then the card's step with the CPU's
+    fake-quant values replayed, and the forward layer by layer."""
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.synthetic import image_batch
+    from repro_torch.examples.train_cifar_qat import make_vit_step
+    from repro_torch.models import vit
+    from repro_torch.optim import init_opt_state
+    cfg, ocfg = train_vit_config(), train_recipe_opt()
+    start = vit.init_params(cfg, seed=1, device="cpu")
+    params_cpu = clone_tree(start)
+    batch = image_batch(0, batch=TRAIN_CPU_BATCH, img=cfg.img_size)
+    batch_card = {k: v.to("cuda") for k, v in batch.items()}
+    step = make_vit_step(cfg, ocfg, head_only=False)
+
+    def on_card():
+        return tree_lib.tree_map(lambda t: t.to("cuda"), start)
+
+    t0 = time.perf_counter()
+    with FakeQuantTap() as tap:
+        _, _, mc = step(params_cpu, init_opt_state(params_cpu), batch)
+    cpu_s = time.perf_counter() - t0
+    params_card = on_card()
+    (_, _, mg), card_ms = timed(lambda: step(
+        params_card, init_opt_state(params_card), batch_card))
+    replay_card = on_card()
+    with FakeQuantTap(replay=tap.calls) as rtap:
+        _, _, mr = step(replay_card, init_opt_state(replay_card), batch_card)
+    step_flips = code_flips(tap.calls, rtap.calls)
+    del tap, rtap, replay_card
+
+    def gaps(m):
+        return (abs(float(m["loss"]) - float(mc["loss"]))
+                / abs(float(mc["loss"])),
+                abs(float(m["grad_norm"]) - float(mc["grad_norm"]))
+                / float(mc["grad_norm"]))
+
+    (loss_gap, gn_gap), (loss_r, gn_r) = gaps(mg), gaps(mr)
+    leaf_gaps = [(p, rel_err(g.cpu(), c)[1]) for (p, c), (_, g) in zip(
+        tree_lib.leaves_with_paths(params_cpu),
+        tree_lib.leaves_with_paths(params_card))]
+    log(f"[train] card vs cpu: DeiT-S full size, batch {TRAIN_CPU_BATCH}, "
+        f"one full step (card {card_ms:.3f} ms, CUDA events, a first step; "
+        f"CPU {cpu_s:.1f} s with {torch.get_num_threads()} threads; {card}): "
+        f"loss {float(mg['loss']):.7f} vs {float(mc['loss']):.7f} rel "
+        f"{loss_gap:.3e} (tol {TRAIN_LOSS_RTOL}); grad norm "
+        f"{float(mg['grad_norm']):.7f} vs {float(mc['grad_norm']):.7f} rel "
+        f"{gn_gap:.3e} (tol {TRAIN_GNORM_RTOL})")
+    log(f"[train] card vs cpu with the CPU's fake-quant values replayed on "
+        f"the card (float sums alone): loss rel {loss_r:.3e}, grad norm rel "
+        f"{gn_r:.3e} (tol {TRAIN_REPLAY_RTOL}); the card's own codes there "
+        f"that differ from the CPU's (all, at a rounding edge, in a row "
+        f"whose floor-max shift moved) {step_flips}")
+    log("[train] card vs cpu, each leaf's largest relative gap after the "
+        "update (printed only: Adam's first step moves an element by about "
+        "lr * sign(g), so a zero-initialized bias or a gradient near 0 can "
+        "move the other way): "
+        + " ".join(f"{p} {e:.2e}" for p, e in leaf_gaps))
+    flips, rflips, forced, replayed, free = train_attribution(
+        start, on_card(), batch["images"], cfg)
+
+    def counts(fl):
+        return " ".join(f"{n}({p},{s})" for n, p, s in fl)
+
+    log(f"[train] card vs cpu, the step's forward layer by layer, each "
+        f"layer on the CPU's residual stream: fake-quant codes that differ "
+        f"(of them at a rounding edge, in a shifted row) {counts(flips)}; "
+        f"with the CPU's codes replayed {counts(rflips)}; update max rel "
+        f"with the card's codes {' '.join(f'{e:.2e}' for e in forced)} "
+        f"(tol {LOGITS_RTOL}), with the CPU's codes replayed "
+        f"{' '.join(f'{e:.2e}' for e in replayed)} (tol "
+        f"{TRAIN_REPLAY_RTOL}); free-running residual stream max rel "
+        f"{' '.join(f'{e:.2e}' for e in free)}")
+    if loss_r > TRAIN_REPLAY_RTOL or gn_r > TRAIN_REPLAY_RTOL or \
+            max(replayed) > TRAIN_REPLAY_RTOL:
+        raise AssertionError("[train] card vs cpu: a gap with the codes "
+                             "equal")
+    # on a stream with the CPU's codes replayed, every code of the card's
+    # own that differs must have a cause of its own: a rounding edge or a
+    # moved floor-max shift
+    if any(n != p + s for n, p, s in [step_flips] + rflips):
+        raise AssertionError("[train] card vs cpu: a code differs on the "
+                             "replayed stream with no edge or shift")
+    if loss_gap <= TRAIN_LOSS_RTOL and gn_gap <= TRAIN_GNORM_RTOL:
+        return
+    # past the bounds: only code flips may explain it, each layer's from a
+    # flip of its own at an edge or a shift (its input is the CPU's)
+    if loss_gap > TRAIN_FREE_LOSS_RTOL or gn_gap > TRAIN_FREE_GNORM_RTOL:
+        raise AssertionError(f"[train] card vs cpu: the free-running step "
+                             f"is past {TRAIN_FREE_LOSS_RTOL} / "
+                             f"{TRAIN_FREE_GNORM_RTOL}")
+    if not any(n for n, _, _ in flips) or max(forced) > LOGITS_RTOL or \
+            any(n and not p + s for n, p, s in flips):
+        raise AssertionError("[train] card vs cpu: a gap that no code flip "
+                             "at a rounding edge or shift explains")
+    log("[train] card vs cpu: the free-running step is past its bounds; "
+        "with the codes equal it is within them, and each layer's codes "
+        "differ from flips of its own at rounding edges or shifts on, so "
+        "the flips explain the gap")
+
+
+def train_lm(card):
+    """make_train_step at Qwen2.5-32B's published widths, 2 layers, bf16:
+    head-only steps, then full steps."""
+    import math
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import QuantConfig, count_params
+    from repro_torch.data.synthetic import DataConfig, lm_batch
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import OptConfig, init_opt_state
+    cfg = get_config("qwen2.5-32b").replace(
+        n_layers=TRAIN_LM_LAYERS, quant=QuantConfig(w_bits=4, a_bits=8,
+                                                    attn_bits=7, mode="fake"))
+    ocfg = OptConfig(total_steps=4, warmup_steps=1)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_LM_SEQ,
+                      global_batch=TRAIN_LM_BATCH)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    opt = init_opt_state(params)
+    n = count_params(params)
+    log(f"[train] lm: Qwen2.5-32B widths (d_model {cfg.d_model}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}), {cfg.n_layers} of 64 layers, "
+        f"{cfg.dtype}, remat {cfg.remat}, batch {TRAIN_LM_BATCH} x "
+        f"{TRAIN_LM_SEQ} tokens, fake w4/a8/attn7, LAMB; {n / 1e9:.3f} B "
+        f"params, random from seed 0")
+    head, full = (make_train_step(cfg, ocfg, last_layer_only=True),
+                  make_train_step(cfg, ocfg))
+    before = clone_tree(params)
+    losses, ms = [], []
+    for i in range(2):
+        batch = lm_batch(dcfg, i, device="cuda")
+        (params, opt, m), t = timed(lambda: head(params, opt, batch))
+        losses.append(float(m["loss"]))
+        ms.append(t)
+    moved = frozen_but(before, params, "lm_head")
+    del before
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2, 4):
+        batch = lm_batch(dcfg, i, device="cuda")
+        (params, opt, m), t = timed(lambda: full(params, opt, batch))
+        losses.append(float(m["loss"]))
+        ms.append(t)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log_profile(f"[train] lm full step ({card})",
+                lambda: full(params, opt, batch), 1, ms[3])
+    log(f"[train] lm losses {' '.join(f'{x:.4f}' for x in losses)}; leaves "
+        f"moved by the head-only steps other than lm_head: {moved}")
+    log(f"[train] lm {ms[1]:.3f} ms per head-only step, {ms[3]:.3f} ms per "
+        f"full step (CUDA events, each phase's second step); peak memory "
+        f"over the full steps {peak:.2f} GiB ({card})")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("[train] lm: a loss is not finite")
+    if moved:
+        raise AssertionError(f"[train] lm head-only steps moved {moved}")
+
+
+def train_restart(card):
+    """train() on the CLI's default (Qwen2.5-32B SMOKE, fake w4/a8): an
+    uninterrupted run against one stopped and resumed from its checkpoint,
+    bitwise on the card."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.api import QuantConfig
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.launch.train import TrainConfig, train
+    from repro_torch.optim import OptConfig
+    cfg = smoke_config("qwen2.5-32b").replace(
+        quant=QuantConfig(w_bits=4, a_bits=8, mode="fake"))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=4)
+    ocfg = OptConfig(total_steps=RESTART_STEPS)
+    root = tempfile.mkdtemp(prefix="train_restart_")
+
+    def run(steps, d):
+        return train(cfg, TrainConfig(steps=steps, ckpt_every=RESTART_EVERY,
+                                      ckpt_dir=os.path.join(root, d)),
+                     ocfg, dcfg, verbose=False, device="cuda")
+
+    try:
+        (full, _, mfull, _), full_ms = timed(lambda: run(RESTART_STEPS, "a"))
+        run(RESTART_STOP, "b")
+        resumed, _, mres, last = run(RESTART_STEPS, "b")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    diff = [p for (p, a), (_, b) in zip(tree_lib.leaves_with_paths(full),
+                                        tree_lib.leaves_with_paths(resumed))
+            if not torch.equal(a, b)]
+    log(f"[train] restart: train() on {cfg.name}, {RESTART_STEPS} steps, a "
+        f"checkpoint every {RESTART_EVERY}, against a run stopped at "
+        f"{RESTART_STOP} and resumed (last step {last}): final loss "
+        f"{float(mfull['loss']):.6f} vs {float(mres['loss']):.6f}; leaves "
+        f"that differ {diff}; uninterrupted run {full_ms / 1e3:.2f} s "
+        f"({card})")
+    if diff or last != RESTART_STEPS - 1:
+        raise AssertionError(f"[train] restart not bitwise: {diff}")
+
+
+def phase_train():
+    card = card_line()
+    train_deit(card)
+    train_card_vs_cpu(card)
+    train_lm(card)
+    train_restart(card)
+
+
 # Each kernel of the kernels line: its source and the TPU kernel it replaces.
 KERNELS = {
     "qmatmul": ("qmatmul.cu", "qmatmul.py:119"),
@@ -2212,6 +2759,9 @@ def main() -> int:
         print("chip_smoke.py needs the repository around it "
               "(src/repro_torch not found)", file=sys.stderr)
         return 2
+    # [train] runs deterministic algorithms (repro_torch.launch.train);
+    # cuBLAS reads this before its first call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -2248,6 +2798,8 @@ def main() -> int:
                            for path in MAIN_PATHS[name]}
                     for name in KERNELS}
         del vparams, imgs
+        torch.cuda.empty_cache()
+        phase_train()
         torch.cuda.empty_cache()
         kernels = phase_time(g, launches, errs)
     except Exception:                 # report the failing phase, exit non-0

@@ -12,4 +12,4 @@ CONFIG = LMConfig(
 SMOKE = LMConfig(
     name="chatglm3-smoke", n_layers=4, d_model=64, n_heads=4, kv_heads=2,
     d_ff=128, vocab=512, qkv_bias=True, rotary_frac=0.5, dtype="float32",
-    q_chunk=16)
+    q_chunk=16, remat=False)

@@ -13,4 +13,4 @@ CONFIG = LMConfig(
 SMOKE = LMConfig(
     name="internvl2-smoke", n_layers=4, d_model=64, n_heads=4, kv_heads=2,
     d_ff=128, vocab=512, frontend="patch", n_patches=8, dtype="float32",
-    q_chunk=16)
+    q_chunk=16, remat=False)

@@ -15,4 +15,4 @@ SMOKE = LMConfig(
     name="llama4-smoke", n_layers=4, d_model=64, n_heads=4, kv_heads=2,
     d_ff=128, vocab=512, moe=MoEConfig(n_experts=4, top_k=1,
                                        shared_expert=True),
-    dtype="float32", q_chunk=16)
+    dtype="float32", q_chunk=16, remat=False)

@@ -16,4 +16,4 @@ SMOKE = LMConfig(
     name="mamba2-smoke", n_layers=4, d_model=64, n_heads=1, kv_heads=1,
     d_ff=0, vocab=512, block_pattern=("ssd",),
     ssd=SSDConfig(d_state=16, head_dim=16, expand=2, chunk=8),
-    dtype="float32", q_chunk=16)
+    dtype="float32", q_chunk=16, remat=False)

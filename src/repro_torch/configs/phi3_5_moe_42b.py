@@ -14,4 +14,4 @@ CONFIG = LMConfig(
 SMOKE = LMConfig(
     name="phi35moe-smoke", n_layers=4, d_model=64, n_heads=4, kv_heads=2,
     d_ff=128, vocab=512, moe=MoEConfig(n_experts=4, top_k=2),
-    dtype="float32", q_chunk=16)
+    dtype="float32", q_chunk=16, remat=False)

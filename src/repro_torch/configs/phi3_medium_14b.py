@@ -10,4 +10,4 @@ CONFIG = LMConfig(
 
 SMOKE = LMConfig(
     name="phi3-smoke", n_layers=4, d_model=80, n_heads=4, kv_heads=2,
-    d_ff=160, vocab=512, dtype="float32", q_chunk=16)
+    d_ff=160, vocab=512, dtype="float32", q_chunk=16, remat=False)

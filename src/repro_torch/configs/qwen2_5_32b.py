@@ -10,4 +10,5 @@ CONFIG = LMConfig(
 
 SMOKE = LMConfig(
     name="qwen2.5-smoke", n_layers=4, d_model=64, n_heads=4, kv_heads=2,
-    d_ff=128, vocab=512, qkv_bias=True, dtype="float32", q_chunk=16)
+    d_ff=128, vocab=512, qkv_bias=True, dtype="float32", q_chunk=16,
+    remat=False)

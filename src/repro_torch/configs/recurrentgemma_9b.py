@@ -17,4 +17,4 @@ SMOKE = LMConfig(
     name="recurrentgemma-smoke", n_layers=7, d_model=64, n_heads=4,
     kv_heads=1, head_dim=16, d_ff=128, vocab=512,
     block_pattern=("rglru", "rglru", "local"), attn_window=16, d_rnn=64,
-    act="gelu", dtype="float32", q_chunk=16)
+    act="gelu", dtype="float32", q_chunk=16, remat=False)

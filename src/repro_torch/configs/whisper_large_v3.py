@@ -13,4 +13,4 @@ CONFIG = EncDecConfig(
 SMOKE = EncDecConfig(
     name="whisper-smoke", n_enc_layers=2, n_dec_layers=2, d_model=64,
     n_heads=4, d_ff=128, vocab=256, n_audio_ctx=16, dtype="float32",
-    q_chunk=16)
+    q_chunk=16, remat=False)

@@ -10,4 +10,4 @@ CONFIG = LMConfig(
 
 SMOKE = LMConfig(
     name="yi-smoke", n_layers=4, d_model=64, n_heads=8, kv_heads=2,
-    d_ff=128, vocab=512, dtype="float32", q_chunk=16)
+    d_ff=128, vocab=512, dtype="float32", q_chunk=16, remat=False)

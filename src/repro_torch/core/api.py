@@ -3,11 +3,12 @@
 Counterpart of ``repro/core/api.py``.  Modes of :class:`QuantConfig`:
 
 - ``"float"``: full-precision reference;
+- ``"fake"``: the QAT (training) graph — fake quantization
+  (:func:`repro_torch.core.quant.fake_quant`, STE and LSQ gradients) of
+  weights per output column and of activations per tensor, float matmuls;
 - ``"int"``: the paper's integerized serving graph — int8 weight codes,
   activations quantized at module inputs, integer contractions with the
   dequantization reordered into a per-channel epilogue (Eq. 2).
-
-``"fake"`` (QAT) belongs to the training slice and raises here.
 
 Param-tree convention (identical to the JAX package): a sub-dict
 ``{"w": (in, out) float, ["b": (out,)]}`` is a linear layer;
@@ -32,7 +33,7 @@ class QuantConfig:
     a_bits: int = 8
     attn_bits: int = 8          # attention-probability grid (unsigned)
     kv_bits: int = 8            # serving KV-cache storage
-    mode: str = "fake"          # "float" | "int" ("fake": training slice)
+    mode: str = "fake"          # "float" | "fake" | "int"
     softmax: str = "base2"      # "base2" (paper Eq.4) | "exact" (ablation)
     quantize_embeddings: bool = True
     pack_weights: bool = False  # pack 2x4b per byte (kernels unpack)
@@ -58,6 +59,14 @@ def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig]) -> torch.Tensor:
     if cfg is None or cfg.mode == "float":
         y = torch.matmul(x, p["w"])
         return y + b if b is not None else y
+    if cfg.mode == "fake":
+        w = p["w"]
+        dw = quant.absmax_scale(w, cfg.w_bits, axis=0)          # per-out-col
+        w_fq = quant.fake_quant(w, dw, cfg.w_bits)
+        dx = quant.absmax_scale(x, cfg.a_bits)
+        x_fq = quant.fake_quant(x, dx, cfg.a_bits)
+        y = torch.matmul(x_fq, w_fq)
+        return y + b if b is not None else y
     if cfg.mode == "int":
         from repro_torch.kernels.dispatch import maybe_qlinear
         y = maybe_qlinear(x, p, cfg)       # cuda backend; None -> plain path
@@ -72,8 +81,7 @@ def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig]) -> torch.Tensor:
         else:
             xq = quant.quantize_tensor(x, cfg.a_bits)
         return integerize.int_linear(xq, as_qlinear(p, cfg)).to(x.dtype)
-    raise ValueError(f"unsupported quant mode {cfg.mode!r} in this port "
-                     f"(fake-quant QAT belongs to the training slice)")
+    raise ValueError(f"unknown quant mode {cfg.mode!r}")
 
 
 def as_qlinear(p: dict, cfg: QuantConfig) -> QLinearParams:

@@ -11,7 +11,14 @@ use the unsigned grid ``[0, 2^b - 1]``.
 
 Codes are stored in int8 (uint8 for unsigned grids); 4-bit codes may pack
 two nibbles per byte (:func:`pack_int4` / :func:`unpack_int4`, low nibble =
-even index).  ``fake_quant`` (the QAT path) belongs to the training slice.
+even index).
+
+:func:`fake_quant` is the QAT path: quantize-dequantize with the
+straight-through estimator for ``x`` and the LSQ gradient for the step
+``delta``.  ``x / delta`` runs in the promoted dtype of the two, as JAX
+computes it: a bf16 ``x`` over a 0-d f32 ``delta`` divides in f32 (torch
+would treat the 0-d tensor as a scalar and stay in bf16), and only the
+result is cast back to ``x``'s dtype.
 """
 from __future__ import annotations
 
@@ -52,6 +59,58 @@ def quantize(x: torch.Tensor, delta, bits: int, *,
 
 def dequantize(q: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     return q.to(delta.dtype) * delta
+
+
+# ---------------------------------------------------------------------------
+# Fake quantization for QAT (straight-through estimator, LSQ-style step grad)
+# ---------------------------------------------------------------------------
+
+def _reduce_to_shape(x: torch.Tensor, shape) -> torch.Tensor:
+    """Sum ``x`` onto the shape ``delta`` was broadcast from."""
+    if len(shape) == 0:
+        return x.sum()
+    ndiff = x.ndim - len(shape)
+    dims = list(range(ndiff)) + [ndiff + i for i, s in enumerate(shape)
+                                 if s == 1 and x.shape[ndiff + i] != 1]
+    # torch sums every axis for an empty dim list: guard it
+    out = x.sum(dim=dims) if dims else x
+    return out.reshape(shape)
+
+
+class _FakeQuant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, delta, bits, unsigned):
+        qmin, qmax = qrange(bits, unsigned=unsigned)
+        dt = torch.promote_types(x.dtype, delta.dtype)
+        d = delta.to(dt)
+        scaled = x.to(dt) / d
+        q = torch.clamp(torch.round(scaled), qmin, qmax)
+        ctx.save_for_backward(scaled, q)
+        ctx.delta_shape, ctx.delta_dtype = delta.shape, delta.dtype
+        ctx.qrange = (qmin, qmax)
+        return (q * d).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        qmin, qmax = ctx.qrange
+        scaled, q = ctx.saved_tensors
+        inside = (scaled >= qmin) & (scaled <= qmax)
+        gx = torch.where(inside, g, 0.0)
+        # LSQ: d(q*delta)/d(delta) = (q - x/delta) inside, the clip code
+        # outside.
+        gdelta = torch.where(inside, q - scaled, q) * g
+        gdelta = _reduce_to_shape(gdelta, ctx.delta_shape)
+        return gx, gdelta.to(ctx.delta_dtype), None, None
+
+
+def fake_quant(x: torch.Tensor, delta: torch.Tensor, bits: int,
+               unsigned: bool = False) -> torch.Tensor:
+    """Quantize-dequantize with STE wrt ``x`` and LSQ gradient wrt
+    ``delta`` (any shape that broadcasts against ``x``: ``()`` per tensor,
+    ``(1, out)`` per column, ``(..., out, 1)`` per row, ``(E, 1, dout)``
+    per expert).  Keeps ``x``'s dtype: the f32 step must not upcast bf16
+    weights or activations."""
+    return _FakeQuant.apply(x, delta, bits, unsigned)
 
 
 @dataclasses.dataclass

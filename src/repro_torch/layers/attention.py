@@ -1,8 +1,9 @@
 """Attention core: GQA, causal / local window, paged decode — in PyTorch.
 
-Counterpart of ``repro/layers/attention.py`` (modes ``float`` and
-``int``; ``fake`` belongs to the training slice).  The integer path per
-query row:
+Counterpart of ``repro/layers/attention.py``, in three modes: ``float``
+(exact softmax), ``fake`` (QAT: fake-quantized q, k, v and probabilities on
+the serving grid, float matmuls; the training graph) and ``int``.  The
+integer path per query row:
 
     int QK^T -> x = s*dq*dk*log2(e)*acc -> e = (1+r)*2^floor(x - m)
     Sigma = sum_j e -> p_q on the power-of-two Sigma grid -> int PV -> dequant
@@ -105,14 +106,37 @@ def _row_attention(q, k, v, q_pos, k_pos, spec: AttnSpec,
         pv = int_matmul_exact(p_q, vq.q[:, :, None])
         out = pv.to(torch.float32) * (dattn * _sc5(vq.scale))
         return out.to(q.dtype)
-    if mode != "float":
-        raise ValueError(f"unsupported attention mode {mode!r} in this port")
 
     k = _as_f(k, q.dtype)
     v = _as_f(v, q.dtype)
+    if mode == "fake":
+        q = quant.fake_quant(q, quant.absmax_scale(q, cfg.a_bits), cfg.a_bits)
+        k = quant.fake_quant(k, quant.absmax_scale(k, cfg.a_bits), cfg.a_bits)
+        v = quant.fake_quant(v, quant.absmax_scale(v, cfg.a_bits), cfg.a_bits)
+    elif mode != "float":
+        raise ValueError(f"unknown attention mode {mode!r}")
+
     x = torch.einsum("bhgqd,bhkd->bhgqk", q, k).to(torch.float32) * scale
     x = torch.where(mask, x, NEG_BIG)
-    p = torch.softmax(x, dim=-1).to(q.dtype)
+    if mode == "fake":
+        # QAT trains through the pipeline the int path serves: the shift
+        # exp (or exact 2^x for the ablation), the floor-max shift and the
+        # power-of-two Sigma-scaled prob grid, so the fake-quantized probs
+        # land on the codes mode="int" emits.  torch.maximum splits a tie's
+        # gradient as jnp.maximum does.
+        xl = torch.maximum(x * LOG2E, x.new_tensor(-120.0))
+        m = torch.floor(xl.amax(dim=-1, keepdim=True))
+        e = exp2_shift(xl - m) if cfg.softmax == "base2" \
+            else torch.exp2(xl - m)
+        e = torch.where(mask & (xl > -120.0), e, 0.0)
+        sigma = torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+        p = e / sigma
+        qmaxp = (1 << cfg.attn_bits) - 1
+        dp = (2.0 / qmaxp) / sigma                  # serving-grid step
+        p = quant.fake_quant(p, dp, cfg.attn_bits, True)
+    else:
+        p = torch.softmax(x, dim=-1)
+    p = p.to(q.dtype)
     return torch.einsum("bhgqk,bhkd->bhgqd", p, v)
 
 
@@ -258,7 +282,7 @@ def prefix_prefill_attention(q, k, v, k_pre, v_pre, pre_k_scale, pre_v_scale,
             pv_t = int_matmul_exact(p_q[..., kp:], vq.q[:, :, None])
             pv = pv_pre + pv_t.to(torch.float32) * _sc5(vq.scale)
             return (pv * dattn).to(q.dtype)
-    elif mode == "float":
+    else:                              # float pools (the reference's else)
         kpre_f = k_pre.to(q.dtype)
         vpre_f = v_pre.to(q.dtype)
 
@@ -274,8 +298,6 @@ def prefix_prefill_attention(q, k, v, k_pre, v_pre, pre_k_scale, pre_v_scale,
             p = torch.softmax(x, dim=-1).to(q.dtype)
             vcat = torch.cat([vpre_f, v.to(q.dtype)], dim=2)
             return torch.einsum("bhgqk,bhkd->bhgqd", p, vcat)
-    else:
-        raise ValueError(f"unsupported attention mode {mode!r} in this port")
 
     from repro_torch.kernels.dispatch import chunk_len
     bq = chunk_len(st, spec.q_chunk)

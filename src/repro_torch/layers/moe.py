@@ -39,6 +39,13 @@ def dense_expert(x, p: dict, cfg: QuantConfig | None):
     b = p.get("b")
     if cfg is None or cfg.mode == "float":
         y = torch.matmul(x, p["w"])
+    elif cfg.mode == "fake":
+        w = p["w"]
+        dw = quant.absmax_scale(w, cfg.w_bits, axis=1)       # (E,1,dout)
+        w_fq = quant.fake_quant(w, dw, cfg.w_bits)
+        dx = quant.absmax_scale(x, cfg.a_bits)
+        x_fq = quant.fake_quant(x, dx, cfg.a_bits)
+        y = torch.matmul(x_fq, w_fq)
     elif cfg.mode == "int":
         from repro_torch.kernels.dispatch import maybe_qexpert
         y = maybe_qexpert(x, p, cfg)       # cuda backend; None -> plain path
@@ -48,8 +55,7 @@ def dense_expert(x, p: dict, cfg: QuantConfig | None):
             y = acc.to(torch.float32) * (xq.scale * p["w_scale"])
             y = y.to(x.dtype)
     else:
-        raise ValueError(f"unsupported quant mode {cfg.mode!r} in this port "
-                         f"(fake-quant QAT belongs to the training slice)")
+        raise ValueError(f"unknown quant mode {cfg.mode!r}")
     return y + b[:, None, :] if b is not None else y
 
 

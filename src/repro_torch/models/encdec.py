@@ -1,8 +1,11 @@
 """Whisper-style encoder-decoder backbone (conv frontend stubbed), in
-PyTorch.  Counterpart of ``repro/models/encdec.py`` for serving:
+PyTorch.  Counterpart of ``repro/models/encdec.py``:
 :class:`EncDecConfig`, :func:`init_params`, :func:`encode`,
-:func:`init_cache`, :func:`decoder_embed`, :func:`prefill` and
-:func:`decode_step` (``loss_fn`` belongs to the training slice).
+:func:`init_cache`, :func:`decoder_embed`, :func:`prefill`,
+:func:`decode_step` and the training loss :func:`loss_fn` (teacher-forced,
+chunked over the target length; with ``cfg.remat`` and grad enabled each
+encoder layer, and each decoder layer run without a cache, is recomputed
+in the backward pass).
 
 The audio frontend is a stub: the caller gives frame embeddings (B,
 n_audio_ctx, d_model).  Self- and cross-attention run the port's attention
@@ -36,8 +39,8 @@ from repro_torch.layers.embed import embed_lookup, init_embed
 from repro_torch.layers.mlp import mlp
 from repro_torch.layers.norms import apply_norm, init_norm
 from repro_torch.models.lm import (_lin, _ring_write_decode, _sat_int8,
-                                    _stack)
-from repro_torch.models.scan_util import _index
+                                    _stack, chunked_nll)
+from repro_torch.models.scan_util import _index, remat
 
 _F32 = torch.float32
 
@@ -55,6 +58,8 @@ class EncDecConfig:
     dtype: str = "bfloat16"
     quant: Optional[QuantConfig] = None
     q_chunk: int = 128
+    loss_chunk: int = 512
+    remat: bool = True
 
     @property
     def hd(self) -> int:
@@ -167,18 +172,21 @@ def _attn(x, kv_x, p, cfg: EncDecConfig, *, causal, kv_override=None):
     return dense(_merge(out), p["wo"], cfg.quant), (k, v)
 
 
+def _enc_layer(x, p, cfg: EncDecConfig):
+    h, _ = _attn(apply_norm(x, p["ln1"], "layernorm"), None, p["attn"],
+                 cfg, causal=False)
+    x = x + h.to(x.dtype)
+    return x + mlp(apply_norm(x, p["ln2"], "layernorm"), p["mlp"],
+                   cfg.quant, act="gelu").to(x.dtype)
+
+
 def encode(params, frames, cfg: EncDecConfig):
     """frames (B, n_audio_ctx, d_model) stub embeddings -> encoder states."""
     x = frames.to(cfg.tdtype)
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(cfg.tdtype)
-    lay = params["enc_layers"]
+    layer = remat(_enc_layer, cfg.remat)
     for i in range(cfg.n_enc_layers):
-        p = _index(lay, i)
-        h, _ = _attn(apply_norm(x, p["ln1"], "layernorm"), None, p["attn"],
-                     cfg, causal=False)
-        x = x + h.to(x.dtype)
-        x = x + mlp(apply_norm(x, p["ln2"], "layernorm"), p["mlp"],
-                    cfg.quant, act="gelu").to(x.dtype)
+        x = layer(x, _index(params["enc_layers"], i), cfg)
     return apply_norm(x, params["enc_ln"], "layernorm")
 
 
@@ -253,29 +261,32 @@ def _dec_stack(params, x, cfg: EncDecConfig, *, enc_x=None, cache=None,
     """The decoder layers over x; at prefill (``enc_x`` given) each layer's
     self and cross K/V fill ``cache`` when there is one, at decode the
     layers read and write it."""
-    lay = params["dec_layers"]
+    layer = remat(_dec_layer, cfg.remat and cache is None)
     for i in range(cfg.n_dec_layers):
-        p = _index(lay, i)
         c = None if cache is None else _index(cache["layers"], i)
-        h_in = apply_norm(x, p["ln1"], "layernorm")
-        if decode:
-            h = _self_attn_decode(h_in, p["self_attn"], c, cfg)
-            x = x + h.to(x.dtype)
-            h2, _ = _attn(apply_norm(x, p["ln2"], "layernorm"), None,
-                          p["cross_attn"], cfg, causal=False,
-                          kv_override=_cross_kv(c, cfg))
-            x = x + h2.to(x.dtype)
-        else:
-            h, (sk, sv) = _attn(h_in, h_in, p["self_attn"], cfg, causal=True)
-            x = x + h.to(x.dtype)
-            h2, (ek, ev) = _attn(apply_norm(x, p["ln2"], "layernorm"), enc_x,
-                                 p["cross_attn"], cfg, causal=False)
-            x = x + h2.to(x.dtype)
-            if c is not None:
-                _fill_cache(c, sk, sv, ek, ev, cfg)
-        x = x + mlp(apply_norm(x, p["ln3"], "layernorm"), p["mlp"],
-                    cfg.quant, act="gelu").to(x.dtype)
+        x = layer(x, _index(params["dec_layers"], i), cfg, enc_x, c, decode)
     return x
+
+
+def _dec_layer(x, p, cfg: EncDecConfig, enc_x, c, decode):
+    h_in = apply_norm(x, p["ln1"], "layernorm")
+    if decode:
+        h = _self_attn_decode(h_in, p["self_attn"], c, cfg)
+        x = x + h.to(x.dtype)
+        h2, _ = _attn(apply_norm(x, p["ln2"], "layernorm"), None,
+                      p["cross_attn"], cfg, causal=False,
+                      kv_override=_cross_kv(c, cfg))
+        x = x + h2.to(x.dtype)
+    else:
+        h, (sk, sv) = _attn(h_in, h_in, p["self_attn"], cfg, causal=True)
+        x = x + h.to(x.dtype)
+        h2, (ek, ev) = _attn(apply_norm(x, p["ln2"], "layernorm"), enc_x,
+                             p["cross_attn"], cfg, causal=False)
+        x = x + h2.to(x.dtype)
+        if c is not None:
+            _fill_cache(c, sk, sv, ek, ev, cfg)
+    return x + mlp(apply_norm(x, p["ln3"], "layernorm"), p["mlp"],
+                   cfg.quant, act="gelu").to(x.dtype)
 
 
 def init_cache(cfg: EncDecConfig, batch: int, max_len: int, *,
@@ -309,6 +320,19 @@ def decoder_embed(params, tokens, cfg: EncDecConfig, pos0):
 def _head(params, x, cfg: EncDecConfig):
     x = apply_norm(x, params["dec_ln"], "layernorm")
     return dense(x, params["lm_head"], cfg.quant)
+
+
+def loss_fn(params, batch, cfg: EncDecConfig):
+    """Teacher-forced NLL of ``batch["labels"]`` (B, S) given
+    ``batch["frames"]`` and ``batch["tokens"]``, chunked over the target
+    length (the largest chunk <= ``cfg.loss_chunk`` that divides S; the f32
+    sums in the reference's order).  Returns (loss, {})."""
+    enc_x = encode(params, batch["frames"], cfg)
+    x = decoder_embed(params, batch["tokens"], cfg, 0)
+    x = apply_norm(_dec_stack(params, x, cfg, enc_x=enc_x), params["dec_ln"],
+                   "layernorm")
+    return chunked_nll(x, batch["labels"], cfg.loss_chunk,
+                       lambda xc: dense(xc, params["lm_head"], cfg.quant)), {}
 
 
 def prefill(params, batch, cfg: EncDecConfig, max_len: Optional[int] = None):

@@ -15,7 +15,12 @@ engine serves text).  The recurrent blocks (``"rglru"``:
 :func:`repro_torch.layers.rglru.rglru_block`, ``"ssd"``:
 :func:`repro_torch.layers.ssd.ssd_block`) run on the ring path, their
 states kept in the ring cache; the paged path is attention-only in this
-port and raises for them.  Training belongs to a later slice.
+port and raises for them.  Training: :func:`lm_loss` (the causal LM loss,
+sequence-chunked, plus 0.01 x the MoE load-balance loss that
+:func:`forward` sums into ``aux``), through autograd, with each pattern
+unit recomputed in the backward pass when ``cfg.remat``
+(``torch.utils.checkpoint``; only with grad enabled and no cache, so an
+in-place cache write is never recomputed).
 
 Parameters and caches are plain dicts of tensors with the JAX package's
 keys and layouts: linear weights ``(in, out)`` float or ``w_q (out, in)``
@@ -79,6 +84,7 @@ from repro_torch.layers.rglru import (init_rglru, init_rglru_state,
 from repro_torch.layers.rope import apply_rope
 from repro_torch.layers.ssd import (SSDConfig, init_ssd, init_ssd_state,
                                     ssd_block)
+from repro_torch.models.scan_util import remat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +110,8 @@ class LMConfig:
     dtype: str = "bfloat16"
     quant: Optional[QuantConfig] = None
     q_chunk: int = 128
+    loss_chunk: int = 512
+    remat: bool = True
     frontend: Optional[str] = None            # "patch" (VLM stub)
     n_patches: int = 256
     causal: bool = True
@@ -597,45 +605,61 @@ def mixer_block(x, p, cfg: LMConfig, kind: str, *, positions, cache=None,
 
 def ffn(h2, p, cfg: LMConfig):
     """The feed-forward on the normed stream (B, S, d): the MLP, or the MoE
-    FFN on the flattened (B*S, d) tokens (its ``aux`` is the training
-    slice's, and stays inside ``moe_ffn``'s return value)."""
+    FFN on the flattened (B*S, d) tokens.  Returns (out, aux): ``aux`` holds
+    MoE's ``lb_loss`` (empty for the MLP)."""
     if cfg.moe is None:
-        return mlp(h2, p["ffn"], cfg.quant, act=cfg.act)
+        return mlp(h2, p["ffn"], cfg.quant, act=cfg.act), {}
     b, s, d = h2.shape
-    out, _ = moe_ffn(h2.reshape(b * s, d), p["ffn"], cfg.moe, cfg.quant,
-                     act=cfg.act)
-    return out.reshape(b, s, d)
+    out, aux = moe_ffn(h2.reshape(b * s, d), p["ffn"], cfg.moe, cfg.quant,
+                       act=cfg.act)
+    return out.reshape(b, s, d), aux
 
 
 def ffn_block(x, p, cfg: LMConfig):
     """The second half of a block: x + ffn(norm(x)) (x itself when the
-    config has no feed-forward)."""
+    config has no feed-forward).  Returns (x, aux) as :func:`ffn`."""
     if cfg.d_ff <= 0:
-        return x
-    return x + ffn(apply_norm(x, p["ln2"], cfg.norm), p, cfg).to(x.dtype)
+        return x, {}
+    out, aux = ffn(apply_norm(x, p["ln2"], cfg.norm), p, cfg)
+    return x + out.to(x.dtype), aux
 
 
 def apply_block(x, p, cfg: LMConfig, kind: str, **kw):
+    """One block; returns (x, aux) as :func:`ffn_block`."""
     return ffn_block(mixer_block(x, p, cfg, kind, **kw), p, cfg)
+
+
+def _blocks(x, aux, ps, kinds, caches, cfg, kw):
+    """Blocks ``kinds`` in turn, their ``lb_loss`` added to ``aux`` in
+    the reference's order."""
+    for p, kind, c in zip(ps, kinds, caches):
+        x, a = apply_block(x, p, cfg, kind, cache=c, **kw)
+        if "lb_loss" in a:
+            aux = aux + a["lb_loss"]
+    return x, aux
 
 
 def stack_forward(x, params, cfg: LMConfig, *, positions, cache=None,
                   decode=False, page_table=None, lengths=None,
                   prefix_len: int = 0):
+    """The blocks over x; returns (x, aux), ``aux`` the f32 sum of the MoE
+    load-balance losses (0 without MoE).  With ``cfg.remat``, grad enabled
+    and no cache, each pattern unit is recomputed in the backward pass."""
     unit, n_units, rem = unit_structure(cfg)
     kw = dict(positions=positions, decode=decode, page_table=page_table,
               lengths=lengths, prefix_len=prefix_len)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    unit_blocks = remat(_blocks, cfg.remat and cache is None)
     for u in range(n_units):
         up = _index(params["units"], u)
         uc = _index(cache["units"], u) if cache is not None else None
-        for j, kind in enumerate(unit):
-            x = apply_block(x, up[f"b{j}"], cfg, kind,
-                            cache=None if uc is None else uc[f"b{j}"], **kw)
-    for i, kind in enumerate(rem):
-        x = apply_block(x, params[f"rem{i}"], cfg, kind,
-                        cache=None if cache is None else cache[f"rem{i}"],
-                        **kw)
-    return x
+        ps = [up[f"b{j}"] for j in range(len(unit))]
+        cs = [None if uc is None else uc[f"b{j}"] for j in range(len(unit))]
+        x, aux = unit_blocks(x, aux, ps, unit, cs, cfg, kw)
+    ps = [params[f"rem{i}"] for i in range(len(rem))]
+    cs = [None if cache is None else cache[f"rem{i}"]
+          for i in range(len(rem))]
+    return _blocks(x, aux, ps, rem, cs, cfg, kw)
 
 
 def _inputs_to_x(params, batch, cfg: LMConfig):
@@ -647,7 +671,8 @@ def _inputs_to_x(params, batch, cfg: LMConfig):
 
 def forward(params, batch, cfg: LMConfig, *, cache=None, decode=False,
             prefix_len: int = 0):
-    """Returns (pre-head hidden states, cache).
+    """Returns (pre-head hidden states, cache, aux); ``aux`` is the f32
+    sum of the MoE load-balance losses (0 without MoE), as the reference's.
 
     With a ring cache, ``cache["pos"]`` is one 0-d position for the whole
     batch (prompt positions start at 0; ``pos`` advances by S at prefill
@@ -673,9 +698,10 @@ def forward(params, batch, cfg: LMConfig, *, cache=None, decode=False,
         positions = (prefix_len + torch.arange(s, device=x.device,
                                                dtype=torch.int32)
                      )[None, :].expand(b, s)
-    x = stack_forward(x, params, cfg, positions=positions, cache=cache,
-                      decode=decode, page_table=page_table, lengths=lengths,
-                      prefix_len=0 if decode else prefix_len)
+    x, aux = stack_forward(x, params, cfg, positions=positions, cache=cache,
+                           decode=decode, page_table=page_table,
+                           lengths=lengths,
+                           prefix_len=0 if decode else prefix_len)
     x = apply_norm(x, params["final_norm"], cfg.norm)
     if paged:
         pos = cache["pos"]
@@ -688,11 +714,43 @@ def forward(params, batch, cfg: LMConfig, *, cache=None, decode=False,
                                                    device=pos.device))
     elif cache is not None:                    # ring: one shared position
         cache["pos"].add_(1 if decode else s)
-    return x, cache
+    return x, cache, aux
 
 
 def logits_fn(params, x, cfg: LMConfig):
     return dense(x, params["lm_head"], cfg.quant)
+
+
+def chunked_nll(x, labels, loss_chunk: int, head):
+    """Mean next-token NLL of ``labels`` (B, S) from hidden states x (B, S,
+    d), ``head`` turning a chunk of x into logits, so (B, S, V) logits never
+    exist at once.  The chunk is the largest one <= ``loss_chunk`` that
+    divides S; the f32 ``logsumexp - gold`` sums chunk by chunk in the
+    reference's order."""
+    b, s, _ = x.shape
+    c = next(cc for cc in range(min(loss_chunk, s), 0, -1) if s % cc == 0)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, c):
+        logits = head(x[:, i:i + c]).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels[:, i:i + c, None].long())[..., 0]
+        tot = tot + torch.sum(logz - gold)
+    return tot / (b * s)
+
+
+def lm_loss(params, batch, cfg: LMConfig):
+    """Causal LM loss on ``batch["tokens"]`` and ``batch["labels"]`` (B, S)
+    (plus ``patches`` for a patch frontend, whose positions take no loss),
+    :func:`chunked_nll` over ``cfg.loss_chunk``.  Returns (nll + 0.01 *
+    aux, {"nll", "aux"})."""
+    x, _, aux = forward(params, batch, cfg)
+    labels = batch["labels"]
+    if cfg.frontend == "patch":                   # frontend tokens: no loss
+        x = x[:, -labels.shape[1]:]
+    loss = chunked_nll(x, labels, cfg.loss_chunk,
+                       lambda xc: logits_fn(params, xc, cfg))
+    return loss + 0.01 * aux, {"nll": loss, "aux": aux}
 
 
 def prefill(params, batch, cfg: LMConfig, max_len: Optional[int] = None):
@@ -706,7 +764,7 @@ def prefill(params, batch, cfg: LMConfig, max_len: Optional[int] = None):
     tokens = batch["tokens"]
     b, s = tokens.shape
     cache = init_cache(cfg, b, max_len or s, device=tokens.device)
-    x, cache = forward(params, batch, cfg, cache=cache, decode=False)
+    x, cache, _ = forward(params, batch, cfg, cache=cache, decode=False)
     return logits_fn(params, x[:, -1:], cfg), cache
 
 
@@ -720,7 +778,7 @@ def paged_prefill(params, batch, cfg: LMConfig, cache, *,
     (last-real-position logits (B, 1, V), cache).  Attention stacks only.
     """
     _paged_attention_only(cfg)
-    x, cache = forward(params, batch, cfg, cache=cache, decode=False,
+    x, cache, _ = forward(params, batch, cfg, cache=cache, decode=False,
                        prefix_len=prefix_len)
     lengths = batch.get("lengths")
     if lengths is None:
@@ -842,6 +900,6 @@ def admission_prefill(params, batch, cfg: LMConfig, cache, rows, page_table,
 def decode_step(params, token, cache, cfg: LMConfig):
     """One serving step: token (B, 1) + ring or paged cache -> logits
     (B, 1, V); the cache is updated in place."""
-    x, cache = forward(params, {"tokens": token}, cfg, cache=cache,
+    x, cache, _ = forward(params, {"tokens": token}, cfg, cache=cache,
                        decode=True)
     return logits_fn(params, x, cfg), cache

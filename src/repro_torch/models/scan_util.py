@@ -1,11 +1,18 @@
-"""``scan`` over a layer-stacked parameter tree, as a Python loop.
+"""``scan`` over a layer-stacked parameter tree, as a Python loop, and
+``remat``.
 
 Counterpart of ``repro/models/scan_util.py``: ``jax.lax.scan`` becomes a
 loop over the leading axis of ``xs`` (each leaf sliced as a view), so a
 model reads like the reference.  The reference's ``full_unroll`` switch
 exists for XLA's cost analysis and has no counterpart here.
+:func:`remat` stands for the models' ``jax.checkpoint``.
 """
 from __future__ import annotations
+
+import functools
+
+import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def _index(tree, i):
@@ -18,6 +25,15 @@ def _length(tree) -> int:
     if isinstance(tree, dict):
         return _length(next(iter(tree.values())))
     return tree.shape[0]
+
+
+def remat(f, enabled: bool):
+    """``f``, recomputed in the backward pass instead of keeping its
+    activations (``torch.utils.checkpoint``), when ``enabled`` and grad is
+    on; ``f`` itself otherwise.  Recompute changes no number."""
+    if not (enabled and torch.is_grad_enabled()):
+        return f
+    return functools.partial(checkpoint, f, use_reentrant=False)
 
 
 def scan(body, carry, xs):

@@ -10,6 +10,9 @@ fused kernel, non-causal (``dispatch`` picks its blocks: at N = 198 one
 query chunk, bq = 33, bk = 224).  The parameter tree is the reference's:
 ``layers`` stacked along a leading axis of length ``n_layers``, so a tree
 made by the JAX package crosses over through ``repro_torch.interop``.
+``loss_fn`` is the training loss (the fake graph of ``cfg.quant.mode ==
+"fake"`` trains through autograd); ``cfg.remat`` recomputes each layer in
+the backward pass (``torch.utils.checkpoint``, with grad enabled only).
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from repro_torch.core.api import QuantConfig, dense
 from repro_torch.layers.attention import AttnSpec, attention
 from repro_torch.layers.mlp import mlp
 from repro_torch.layers.norms import apply_norm, init_norm
-from repro_torch.models.scan_util import scan
+from repro_torch.models.scan_util import remat, scan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +43,7 @@ class ViTConfig:
     dtype: str = "float32"
     quant: Optional[QuantConfig] = None
     q_chunk: int = 256
+    remat: bool = False
 
     @property
     def n_patches(self):
@@ -142,7 +146,8 @@ def head(params, x, cfg: ViTConfig):
 def forward(params, images, cfg: ViTConfig):
     """-> (B, n_classes) f32 logits (cls/distill-token average, DeiT
     eval)."""
-    x, _ = scan(lambda x, p: (block(x, p, cfg), None),
+    layer = remat(block, cfg.remat)
+    x, _ = scan(lambda x, p: (layer(x, p, cfg), None),
                 embed(params, images, cfg), params["layers"])
     return head(params, x, cfg)
 

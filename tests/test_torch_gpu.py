@@ -763,3 +763,138 @@ def test_family_smoke_on_the_card_takes_no_plain_path(gen, arch):
     for key in ("qlinear_torch", "attention_torch", "attention_decode_torch"):
         assert dispatch.STATS[key] == 0, (key, dispatch.snapshot())
     assert int(cache["pos"]) == 28 and bool(torch.isfinite(logits).all())
+
+
+# ---------------------------------------------------------------------------
+# QAT training on the card (the fake graph is plain PyTorch; the int
+# forward after it runs the kernels)
+# ---------------------------------------------------------------------------
+
+def _train_smoke_cfg():
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.api import QuantConfig
+    return smoke_config("qwen2.5-32b").replace(quant=QuantConfig(
+        w_bits=4, a_bits=8, attn_bits=7, mode="fake"))
+
+
+def test_smoke_train_step_card_against_cpu(gen):
+    """One SMOKE step on the card and on the CPU, same params and batch:
+    the loss within 1e-3 (a fake-quant code at a rounding edge flips
+    between the devices; 2.2e-5 seen on the H100).  With the CPU's
+    fake-quant values replayed on the card, every code the card computes
+    itself is its op's own on its x / delta and any that differs from the
+    CPU's sits at a rounding edge (or in a prob row whose floor-max shift
+    moved: ``chip_smoke.code_flips``); the loss within 1e-5 and the
+    gradients' global norm within 1e-4 (f32 sums in other orders alone),
+    each gradient within 1e-3 of its leaf's max: the backward's LSQ term
+    still takes the card's own codes, which differ where a code flipped,
+    and sums that onto the step's absmax element (1.1e-4 seen on the
+    H100).  The params after the update are not compared leaf by leaf:
+    Adam's first step divides g by |g| + 1e-6, so a gradient element near
+    1e-6 magnifies the sum order's gap (4.4e-3 seen on a zero-initialized
+    bias)."""
+    from chip_smoke import FakeQuantTap, code_flips
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.synthetic import DataConfig, lm_batch
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim import OptConfig, init_opt_state
+    cfg = _train_smoke_cfg()
+    start = lm.init_params(cfg, seed=0, device="cpu")
+    batch = lm_batch(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                global_batch=4), 0)
+    batch_card = {k: v.cuda() for k, v in batch.items()}
+    step = make_train_step(cfg, OptConfig(lr=3e-3, warmup_steps=1,
+                                          total_steps=10))
+    cpu = tree_lib.tree_map(torch.clone, start)
+    _, _, mc = step(cpu, init_opt_state(cpu), batch)
+    card = tree_lib.tree_map(lambda t: t.to("cuda"), start)
+    _, _, mg = step(card, init_opt_state(card), batch_card)
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= \
+        1e-3 * abs(float(mc["loss"]))
+
+    def grads(params, batch, replay=None):
+        named = tree_lib.leaves_with_paths(params)
+        for _, leaf in named:
+            leaf.requires_grad_(True)
+        with FakeQuantTap(replay) as tap:
+            loss, _ = lm.lm_loss(params, batch, cfg)
+            got = torch.autograd.grad(loss, [leaf for _, leaf in named])
+        return loss.detach(), tap.calls, dict(zip((p for p, _ in named), got))
+
+    lc, calls, gc = grads(tree_lib.tree_map(torch.clone, start), batch)
+    lg, card_calls, gg = grads(tree_lib.tree_map(lambda t: t.to("cuda"),
+                                                 start),
+                               batch_card, replay=calls)
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    # the card's own codes on the replayed stream: each the op's own on its
+    # x / delta, and any that differs from the CPU's at a rounding edge or
+    # in a prob row whose floor-max shift moved
+    total, primary, shifted = code_flips(calls, card_calls)
+    assert total == primary + shifted
+
+    def norm(gs):
+        return float(sum(torch.sum(g.double().cpu() ** 2)
+                         for g in gs.values()) ** 0.5)
+
+    assert abs(norm(gg) - norm(gc)) <= 1e-4 * norm(gc)
+    for path, g in gc.items():
+        assert _rel(gg[path].cpu(), g) <= 1e-3, path
+
+
+def test_train_restart_bitwise_on_the_card(gen, tmp_path):
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.launch.train import TrainConfig, train
+    from repro_torch.optim import OptConfig
+    cfg = _train_smoke_cfg()
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)
+    ocfg = OptConfig(lr=3e-3, warmup_steps=5, total_steps=30)
+
+    def run(steps, d):
+        return train(cfg, TrainConfig(steps=steps, ckpt_every=10,
+                                      ckpt_dir=str(tmp_path / d)),
+                     ocfg, dcfg, verbose=False, device="cuda")
+
+    full = run(30, "a")[0]
+    run(20, "b")
+    resumed = run(30, "b")[0]
+    for (path, a), (_, b) in zip(tree_lib.leaves_with_paths(full),
+                                 tree_lib.leaves_with_paths(resumed)):
+        assert a.is_cuda and torch.equal(a, b), path
+
+
+def test_smoke_deit_recipe_int_forward_on_the_kernels(gen):
+    """The recipe on DeiT SMOKE (head-only steps, then full QAT steps),
+    integerized: its int forward launches qmatmul for every linear and the
+    fused kernel for every layer, with no plain dispatch."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.api import QuantConfig, integerize_params
+    from repro_torch.data.synthetic import image_batch
+    from repro_torch.examples.train_cifar_qat import make_vit_step
+    from repro_torch.models import vit
+    from repro_torch.optim import OptConfig, init_opt_state
+    qc = QuantConfig(w_bits=4, a_bits=8, attn_bits=7, mode="fake")
+    cfg = smoke_config("deit-s").replace(quant=qc)
+    ocfg = OptConfig(kind="lamb", lr=5e-4, warmup_steps=2, total_steps=6)
+    params = vit.init_params(cfg, seed=0, device="cuda")
+    opt = init_opt_state(params)
+    for i in range(6):
+        step = make_vit_step(cfg, ocfg, head_only=i < 2)
+        batch = image_batch(i, batch=16, img=cfg.img_size, device="cuda")
+        params, opt, m = step(params, opt, batch)
+        assert bool(torch.isfinite(m["loss"]))
+    qi = qc.replace(mode="int", backend="cuda")
+    iparams = integerize_params(params, qi)
+    imgs = image_batch(99, batch=16, img=cfg.img_size, device="cuda")
+    dispatch.reset_stats()
+    dispatch.reset_launches()
+    with torch.no_grad():
+        logits = vit.forward(iparams, imgs["images"], cfg.replace(quant=qi))
+    torch.cuda.synchronize()
+    launches = dispatch.launch_counts()
+    assert launches["qmatmul"] == 1 + 6 * cfg.n_layers, launches
+    assert launches["int_attention_fused"] == cfg.n_layers, launches
+    for key in ("qlinear_torch", "attention_torch"):
+        assert dispatch.STATS[key] == 0, (key, dispatch.snapshot())
+    assert bool(torch.isfinite(logits).all())

@@ -165,8 +165,8 @@ def test_dense_expert_float_and_int_match_jax(dtype, w_bits):
         assert got.dtype == tx.dtype
         np.testing.assert_array_equal(got.float().numpy(), want)
         assert dispatch.STATS[f"qexpert_{backend}"] == 1
-    with pytest.raises(ValueError):
-        moe.dense_expert(tx, tp, QuantConfig(mode="fake"))
+    with pytest.raises(ValueError):                 # an unknown mode
+        moe.dense_expert(tx, tp, QuantConfig(mode="fakeint"))
 
 
 def _j_route(jx, jp, jcfg, t):
