@@ -22,17 +22,18 @@ Phases, in order; any failure exits non-zero before the result line:
    at G 7 and 6), paged decode (the serve shape, and G 16 at D 256; the
    [archs] head groups (Hkv, G) (2, 16), (8, 7), (10, 4), (8, 6); tables
    of 512 pages at 8192 tokens, kv8 and kv4, and G 16 at D 256 over a
-   2048-token window) and ring decode (32 head-folds, G 5, kv8 and
-   packed kv4, rings of 1024 and 8192 slots, partly written, wrapped and
-   windowed; G 16 at D 128 and 256, D 12) with codes exact and outputs
-   within a stated tolerance; the attention kernels also at the paper's
-   2-, 3- and 4-bit prob grids (both prefill kernels at every prefill
-   shape, the paged kernel at the serve shape, kv8 and kv4, the ring
-   kernel at the ring phase's shape); PQ-LayerNorm codes exactly at the DeiT-S
-   block, the reference's benchmark shape and Qwen2.5-32B's width, and at
-   ragged widths (100 f32, 77 bf16), x one element into its buffer,
-   without beta, 4 rows of 5120, and the first widths above the kernel's
-   register plan;
+   2048-token window; [serve-recurrent]'s decode, B 2 at Hkv 1, G 16, D
+   256, 256-page tables, 2320 tokens, the 2048 window) and ring decode
+   (32 head-folds, G 5, kv8 and packed kv4, rings of 1024 and 8192 slots,
+   partly written, wrapped and windowed; G 16 at D 128 and 256, D 12)
+   with codes exact and outputs within a stated tolerance; the attention
+   kernels also at the paper's 2-, 3- and 4-bit prob grids (both prefill
+   kernels at every prefill shape, the paged kernel at the serve shape,
+   kv8 and kv4, the ring kernel at the ring phase's shape); PQ-LayerNorm
+   codes exactly at the DeiT-S block, the reference's benchmark shape and
+   Qwen2.5-32B's width, and at ragged widths (100 f32, 77 bf16), x one
+   element into its buffer, without beta, 4 rows of 5120, and the first
+   widths above the kernel's register plan;
    two-pass attention codes exact, outputs within the tolerance of its
    plain version and of the fused kernel at the same bq / bk; the
    [recurrent] / [encdec] shapes: qmatmul at the lm_heads N 256000 (K
@@ -80,30 +81,42 @@ Phases, in order; any failure exits non-zero before the result line:
    4096 ring (a 2176-slot local ring that wraps at prefill); the Mamba
    example (``repro_torch.examples.serve_mamba130m``) at its defaults;
    Mamba2-130M at full size, batch 4, 512-token prompts (four SSD chunks);
-9. encdec: Whisper-large-v3 at its published widths, 4 + 4 of 32 + 32
+9. serve-recurrent: the same RecurrentGemma-9B and Mamba2-130M through
+   the paged engine (``launch/engine.py``, one row a prompt, pages of 16,
+   audited every step, 16 greedy tokens, 4 decode steps profiled):
+   RecurrentGemma at max_len 4096 with (a) two 2304-token prompts filling
+   their bucket, (b) prompts of 2304 and 1800 in it, (c) (a) prefilled in
+   chunks of 1024; Mamba with four 512-token prompts.  Gates, each run:
+   every request DONE with a clean audit, its ``[route]`` (qmatmul, and
+   the fused and paged kernels for RecurrentGemma; no plain dispatch),
+   the engine's first step on the ``cuda`` and ``torch`` backends within
+   the stated tolerance; in (a) the first-step logits within it of the
+   ring prefill's, the ring's tokens printed; Mamba's tokens equal to its
+   ring generation's; ms per engine step, tok/s and peak memory printed;
+10. encdec: Whisper-large-v3 at its published widths, 4 + 4 of 32 + 32
    layers, batch 4, 1500 seeded stub frames, 32-token prompts, max_len
-   64; each run of 8 and 9 generates 16 greedy tokens on the ``cuda``
+   64; each run of 8 and 10 generates 16 greedy tokens on the ``cuda``
    backend with the ``torch`` backend teacher-forced beside it: its kernels
    launched (the ring kernel once a local layer a step), no plain dispatch,
    the ``torch`` run launching nothing, logits within the tolerance, its
    peak memory, time and a profiled decode step printed;
-10. quickstart: ``python -m repro_torch.examples.quickstart`` on the card;
-11. vit: ``models.vit.forward`` at the full DeiT-S config (12 layers,
+11. quickstart: ``python -m repro_torch.examples.quickstart`` on the card;
+12. vit: ``models.vit.forward`` at the full DeiT-S config (12 layers,
    224 px, patch 16; random weights from a seed, made on the card), batch
    64, on the ``cuda`` backend: 73 qmatmul and 12 fused-attention launches
    and no plain dispatch; logits against the ``torch`` backend; ms per
    batch;
-12. ops: the paper's integerized self-attention module through the kernel
+13. ops: the paper's integerized self-attention module through the kernel
    entry points (``kernels/ops.py``) at DeiT-S widths, on layer 0 of the
    same weights and the model's own residual stream (64 x 198 rows):
    PQ-LayerNorm -> q/k/v -> fused and two-pass attention -> wo, every
    kernel against its plain version on the same inputs;
-13. lowbit: DeiT-S at the paper's 3- and 2-bit points (w3/attn3,
+14. lowbit: DeiT-S at the paper's 3- and 2-bit points (w3/attn3,
     w2/attn2; Table II) on the ``cuda`` backend, gated like ``vit``; then
     ``benchmarks/fig_softmax_error.py``'s attention through
     ``layers.attention.attention`` at prob grids of 2, 3, 4 and 7 bits,
     each through the fused kernel, its error not growing with bits;
-14. train: the paper's QAT recipe (``repro_torch.launch.train``,
+15. train: the paper's QAT recipe (``repro_torch.launch.train``,
     ``examples/train_cifar_qat.py``'s step) at DeiT-S's full size, batch
     64, fake w4/a8/attn7, LAMB: 10 head-only and 50 full steps (every loss
     finite, the head-only step leaving every other leaf bitwise, the last
@@ -118,7 +131,7 @@ Phases, in order; any failure exits non-zero before the result line:
     head-only steps, the freeze bitwise, two full steps); ``train()``
     restarted from its checkpoint bitwise equal to an uninterrupted run;
     ms per step, peak memory and a profiled step printed;
-15. time: each kernel with CUDA events beside its bound, its plain
+16. time: each kernel with CUDA events beside its bound, its plain
     version and, where one PyTorch call computes the same function, that
     call (``torch._int_mm`` for qmatmul, over x zero-padded to 32 rows at
     decode rows, ``F.layer_norm`` / ``F.rms_norm`` for PQ-LayerNorm); every
@@ -275,13 +288,14 @@ def qmatmul_inputs(g, m, n, k, packed):
 
 def paged_inputs(g, kv_bits, grp=5, d=128, maxp=5, pos=(79, 35, -1, 63),
                  window=None, bits=7, hkv=8):
-    """B=4, Hkv=8, G=5, D=128 (or the given Hkv, G, D), page 16, a table of
-    5 pages a row (or maxp) in a random permutation of the pool,
+    """B=4, Hkv=8, G=5, D=128 (or a row per given position and the given
+    Hkv, G, D), page 16, a table of 5 pages a row (or maxp) in a random
+    permutation of the pool,
     page-scaled, at the given positions (row 2 inactive by default), window
     and prob grid bits."""
     import torch
     from repro_torch.core.quant import pack_int4
-    b, ps = 4, 16
+    b, ps = len(pos), 16
     num = b * maxp + 1                               # + trash page
     lo, hi = (-8, 8) if kv_bits == 4 else (-127, 128)
     mk = lambda *shape: torch.randint(lo, hi, shape, generator=g,
@@ -456,7 +470,8 @@ def phase_check(g):
     errs["int_attention_fused"], errs["int_attention"] = fused, two
     rows = [(row, 7, 8) for row in PAGED_CHECKS + PAGED_LONG] + \
         [(row, bits, 8) for bits in LOW_BITS for row in PAGED_CHECKS[:2]] + \
-        [(row[:3], 7, row[3]) for row in PAGED_ARCHS]
+        [(row[:3], 7, row[3]) for row in PAGED_ARCHS] + \
+        [(PAGED_SERVE_REC[0], 7, PAGED_SERVE_REC[1])]
     errs["int_paged_decode_attention"] = max(check_paged(g, row, bits, hkv)
                                              for row, bits, hkv in rows)
     rows = [(row, 7) for row in RING_CHECKS + RING_FAMILIES] + \
@@ -753,6 +768,11 @@ PAGED_LONG = [(8, 5, 128, 512, (8191, 8191, 5000, 8191), None),
 # ChatGLM3-6B, Yi-34B, Phi-3-medium (and Phi-3.5-MoE's G) and InternVL2-26B
 PAGED_ARCHS = [(8, 16, 128, 2), (8, 7, 128, 8), (8, 4, 128, 10),
                (8, 6, 128, 8)]
+# ((kv_bits, G, D, maxp, pos, window), Hkv): [serve-recurrent]'s
+# RecurrentGemma-9B decode, B 2 at Hkv 1, tables of 256 pages (max_len
+# 4096), both rows at their last step (2304 + 15: 2320 tokens written),
+# a 2048-token window
+PAGED_SERVE_REC = ((8, 16, 256, 256, (2319, 2319), 2048), 1)
 
 
 def model_config(backend):
@@ -820,7 +840,7 @@ def phase_serve():
     # The torch backend on the same inputs: first-step logits and tokens.
     tcfg = model_config("torch")
     for what, abs_e, rel_e in first_step_gaps(params, cfg, tcfg, prompts[:4],
-                                              SERVE_KERNELS):
+                                              SERVE_KERNELS)[0]:
         log(f"[serve] {what} logits cuda vs torch backend: max abs "
             f"{abs_e:.3e} rel {rel_e:.3e} (tol rel {LOGITS_RTOL})")
         if rel_e > LOGITS_RTOL:
@@ -829,7 +849,7 @@ def phase_serve():
     # then the prefill layer by layer
     for what, abs_e, rel_e in first_step_gaps(
             params, cfg.replace(n_layers=2), tcfg.replace(n_layers=2),
-            prompts[:4], SERVE_KERNELS):
+            prompts[:4], SERVE_KERNELS)[0]:
         log(f"[serve] at 2 layers, {what} logits cuda vs torch backend: max "
             f"abs {abs_e:.3e} rel {rel_e:.3e} (printed only)")
     layer_attribution("[serve]", params, cfg, tcfg, prompts[:4])
@@ -840,14 +860,13 @@ def phase_serve():
 
 
 def padded_prompts(prompts):
-    """Prompts right-padded into a (B, S) device batch, and their lengths."""
+    """Prompts right-padded into a (B, S) device batch."""
     import torch
-    lens = [len(p) for p in prompts]
-    toks = torch.zeros((len(prompts), max(lens)), dtype=torch.int32,
-                       device="cuda")
+    toks = torch.zeros((len(prompts), max(len(p) for p in prompts)),
+                       dtype=torch.int32, device="cuda")
     for i, p in enumerate(prompts):
         toks[i, :len(p)] = torch.as_tensor(p, device="cuda")
-    return toks, torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return toks
 
 
 # the dispatch counters of each backend's kernel route and plain path
@@ -857,42 +876,81 @@ PLAIN_DISPATCH = ("qlinear_torch", "qexpert_torch", "attention_torch",
                   "attention_paged_torch", "attention_decode_torch")
 
 
-def first_step_gaps(params, cfg, tcfg, prompts, ran):
-    """The paged path's first step on both backends from the same prompts
-    (4 rows, pages of 16): prefill logits, then the first decode step's
-    on each backend's own cache and the cuda run's token; ``(what, max
-    abs, max rel)`` of each.  Gates that each backend took its own path:
-    the ``torch`` run launched no kernel and dispatched nothing to one, the
-    ``cuda`` run launched every kernel in ``ran`` and dispatched nothing to
-    the plain path."""
+PAGE = 16                 # page size of the paged runs and first steps
+
+
+def engine_first_step(params, cfg, prompts, bucket, chunk, max_len,
+                      tok=None):
+    """The engine's first step on ``cfg``'s backend, one row a prompt,
+    made of the calls it makes: every chunk of the cut plan (or the whole
+    prompt) through ``lm.admission_prefill`` into the rows' pages, then one
+    ``lm.decode_step`` from the prompts' ends on ``tok`` (the prefill's
+    greedy tokens when None).  Returns (the final chunks' logits, the
+    decode step's logits, ``tok``)."""
+    import torch
+    from repro_torch.models import lm
+    b = len(prompts)
+    maxp = -(-max_len // PAGE)
+    cache = lm.init_paged_cache(cfg, b, max_len, page_size=PAGE,
+                                device="cuda")
+    table = torch.arange(b * maxp, dtype=torch.int32,
+                         device="cuda").reshape(b, maxp)
+    total = max(len(p) for p in prompts)
+    c = chunk or total
+    last = [None] * b
+    for start in range(0, total, c):
+        live = [i for i, p in enumerate(prompts) if len(p) > start]
+        segs = [prompts[i][start:start + c] for i in live]
+        toks = torch.zeros((len(live), bucket), dtype=torch.int32,
+                           device="cuda")
+        for j, seg in enumerate(segs):
+            toks[j, :len(seg)] = torch.as_tensor(seg, device="cuda")
+        lens = torch.tensor([len(seg) for seg in segs], dtype=torch.int32,
+                            device="cuda")
+        idx = torch.tensor(live, device="cuda")
+        lg, cache = lm.admission_prefill(
+            params, {"tokens": toks, "lengths": lens}, cfg, cache,
+            idx.to(torch.int32), table[idx], prefix_len=start)
+        for j, i in enumerate(live):
+            if start + c >= len(prompts[i]):
+                last[i] = lg[j]
+    lg = torch.stack(last)
+    cache["page_table"].copy_(table)
+    cache["pos"].copy_(torch.tensor([len(p) for p in prompts],
+                                    dtype=torch.int32, device="cuda"))
+    if tok is None:
+        tok = torch.argmax(lg[:, 0], -1).to(torch.int32)[:, None]
+    lg2, _ = lm.decode_step(params, tok, cache, cfg)
+    return lg, lg2, tok
+
+
+def first_step_gaps(params, cfg, tcfg, prompts, ran, *, tag="", bucket=None,
+                    chunk=None, max_len=None):
+    """The paged path's first step (``engine_first_step``; by default one
+    bucket of the longest prompt and room for 16 tokens) on the cuda
+    backend, then on the torch backend from the cuda run's tokens:
+    ``(what, max abs, max rel)`` of the prefill and the decode step's
+    logits, and the cuda run's prefill logits.  Gates that each backend
+    took its own path: the ``torch`` run launched no kernel and dispatched
+    nothing to one, the ``cuda`` run launched every kernel in ``ran`` and
+    dispatched nothing to the plain path."""
     import torch
     from repro_torch.kernels import dispatch
-    from repro_torch.models import lm
-    toks, lens = padded_prompts(prompts)
-    maxp = -(-(toks.shape[1] + 16) // 16)
-    logits = {}
-    nxt = None
+    s = max(len(p) for p in prompts)
+    kw = dict(bucket=bucket or s, chunk=chunk, max_len=max_len or s + 16)
+    logits, tok = {}, None
     for name, c in (("cuda", cfg), ("torch", tcfg)):
-        cache = lm.init_paged_cache(c, len(prompts), maxp * 16, page_size=16,
-                                    device="cuda")
-        cache["page_table"].copy_(torch.arange(
-            len(prompts) * maxp, dtype=torch.int32,
-            device="cuda").reshape(len(prompts), maxp))
         torch.cuda.synchronize()
         dispatch.reset_stats()
         dispatch.reset_launches()
-        lg, cache = lm.paged_prefill(params, {"tokens": toks,
-                                              "lengths": lens}, c, cache)
-        if nxt is None:
-            nxt = torch.argmax(lg[:, 0], dim=-1).to(torch.int32)[:, None]
-        lg2, _ = lm.decode_step(params, nxt, cache, c)
+        lg, lg2, tok = engine_first_step(params, c, prompts, tok=tok, **kw)
         torch.cuda.synchronize()
-        check_route(f"first step, {name} backend", name,
+        check_route(f"{tag}first step, {name} backend", name,
                     dispatch.launch_counts(), dispatch.snapshot(), ran)
         logits[name] = (lg.float(), lg2.float())
-        del cache
-    return [(what, *rel_err(logits["cuda"][i], logits["torch"][i]))
+    gaps = [(what, *rel_err(logits["cuda"][i], logits["torch"][i]))
             for i, what in enumerate(("prefill", "first decode step"))]
+    return gaps, logits["cuda"][0]
 
 
 def check_route(what, backend, launches, snap, ran):
@@ -1081,7 +1139,7 @@ def phase_archs():
             raise AssertionError(f"[archs] {arch}: launches {launches}, "
                                  f"dispatch {snap}")
         add_launches(total, launches)
-        gaps = first_step_gaps(params, cfg, tcfg, prompts, SERVE_KERNELS)
+        gaps, _ = first_step_gaps(params, cfg, tcfg, prompts, SERVE_KERNELS)
         for what, abs_e, rel_e in gaps:
             log(f"[archs] {arch} {what} logits cuda vs torch backend: max "
                 f"abs {abs_e:.3e} rel {rel_e:.3e} (tol rel {LOGITS_RTOL})")
@@ -1111,10 +1169,24 @@ def expert_copies(params):
             yield from leaf.__dict__.get("_codes_t", {}).values()
 
 
+def stack_blocks(params, cfg):
+    """Each block's parameters and kind, in the stack's order (the
+    ``units`` layers, then the remainder)."""
+    from repro_torch.models import lm
+    unit, n_units, rem = lm.unit_structure(cfg)
+    for u in range(n_units):
+        up = layer_at(params["units"], u)
+        for j, kind in enumerate(unit):
+            yield up[f"b{j}"], kind
+    for i, kind in enumerate(rem):
+        yield params[f"rem{i}"], kind
+
+
 def layer_attribution(tag, params, cfg, tcfg, prompts):
     """The first step's prefill, layer by layer, the torch backend beside
     the cuda run (teacher-forced: each half block on the cuda run's
-    stream, the ring phase's method): the attention half's update gap, the
+    stream, the ring phase's method): the mixer half's update gap (the
+    attention, RG-LRU or SSD), the
     FFN half on the same input (bitwise: the expert route is float, the
     integer products exact), for MoE the tokens whose expert choice
     differs between the two backends' own normed streams; then the torch
@@ -1125,29 +1197,30 @@ def layer_attribution(tag, params, cfg, tcfg, prompts):
     from repro_torch.layers.embed import embed_lookup
     from repro_torch.layers.norms import apply_norm
     from repro_torch.models import lm
-    toks, _ = padded_prompts(prompts)
+    toks = padded_prompts(prompts)
     b, s = toks.shape
     pos = torch.arange(s, dtype=torch.int32, device="cuda")[None].expand(b, s)
     x = embed_lookup(toks, params["embed"], cfg.tdtype)
     xt = x
     attn, flips, same, free = [], [], [], []
-    for u in range(cfg.n_layers):
-        p = layer_at(params["units"], u)["b0"]
-        x1 = lm.mixer_block(x, p, cfg, "attn", positions=pos)
-        x1t = lm.mixer_block(x, p, tcfg, "attn", positions=pos)
+    for p, kind in stack_blocks(params, cfg):
+        x1 = lm.mixer_block(x, p, cfg, kind, positions=pos)
+        x1t = lm.mixer_block(x, p, tcfg, kind, positions=pos)
         attn.append(rel_err(x1t - x, x1 - x)[1])
-        h2 = apply_norm(x1, p["ln2"], cfg.norm)
-        if cfg.moe is not None:
-            h2t = apply_norm(x1t, p["ln2"], cfg.norm)
-            idx = moe.route(h2.reshape(b * s, -1), p["ffn"], cfg.moe)[2]
-            idxt = moe.route(h2t.reshape(b * s, -1), p["ffn"], cfg.moe)[2]
-            flips.append(int((idx != idxt).any(dim=-1).sum()))
-        same.append(torch.equal(lm.ffn(h2, p, cfg)[0],
-                                lm.ffn(h2, p, tcfg)[0]))
+        if cfg.d_ff > 0:
+            h2 = apply_norm(x1, p["ln2"], cfg.norm)
+            if cfg.moe is not None:
+                h2t = apply_norm(x1t, p["ln2"], cfg.norm)
+                idx = moe.route(h2.reshape(b * s, -1), p["ffn"], cfg.moe)[2]
+                idxt = moe.route(h2t.reshape(b * s, -1), p["ffn"],
+                                 cfg.moe)[2]
+                flips.append(int((idx != idxt).any(dim=-1).sum()))
+            same.append(torch.equal(lm.ffn(h2, p, cfg)[0],
+                                    lm.ffn(h2, p, tcfg)[0]))
         x = lm.ffn_block(x1, p, cfg)[0]
-        xt = lm.apply_block(xt, p, tcfg, "attn", positions=pos)[0]
+        xt = lm.apply_block(xt, p, tcfg, kind, positions=pos)[0]
         free.append(rel_err(xt, x)[1])
-    log(f"{tag} prefill layer by layer, teacher-forced: attention update "
+    log(f"{tag} prefill layer by layer, teacher-forced: mixer update "
         f"max rel {' '.join(f'{e:.2e}' for e in attn)} (tol rel "
         f"{LOGITS_RTOL}); FFN on the same input bitwise equal {same}"
         + (f"; tokens routed differently by the two backends' own streams "
@@ -1346,6 +1419,188 @@ def phase_recurrent():
     torch.cuda.empty_cache()
     log(f"[recurrent] mamba2-130m run in {time.perf_counter() - t0:.1f}s; "
         f"launches over the three runs {total}")
+    return total
+
+
+# [serve-recurrent]: the recurrent families through the paged engine at the
+# [recurrent] phase's widths; RecurrentGemma-9B three times: (a) both
+# prompts fill their bucket in one chunk (where the reference serves a
+# recurrent stack as its ring path does), (b) ragged prompts in one bucket,
+# (c) (a) prefilled in chunks of 1024
+RG_SERVE_RUNS = (("a", (RG_PROMPT, RG_PROMPT), None),
+                 ("b", (RG_PROMPT, 1800), None),
+                 ("c", (RG_PROMPT, RG_PROMPT), 1024))
+SR_PROFILE_AT = 6         # the engine step after which 4 steps are profiled
+
+
+def serve_engine(tag, params, cfg, prompts, ran, *, bucket, max_len,
+                 chunk=None):
+    """``PagedEngine`` over ``prompts`` on ``cfg``'s backend, one row a
+    prompt, pages of 16, one prefill bucket, REC_STEPS greedy tokens,
+    audited after every step; every count zeroed just before and read just
+    after.  Four decode steps after step SR_PROFILE_AT run under the
+    profiler and are left out of the step times.  Gates: every request
+    DONE, no violation, a clean audit, the ``[route]`` of the path.
+    Returns (each request's tokens, the launches)."""
+    import statistics
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.engine import PagedEngine, Request
+    eng = PagedEngine(cfg, params, batch_size=len(prompts), max_len=max_len,
+                      page_size=PAGE, prefill_buckets=(bucket,),
+                      prefill_chunk=chunk, audit_every=1)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=REC_STEPS)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_stats()
+    dispatch.reset_launches()
+    pre, dec = [], []
+    while True:
+        chunks = eng.prefill_chunks
+        t0 = time.perf_counter()
+        more = eng.step()
+        torch.cuda.synchronize()
+        if not more:
+            break
+        (pre if eng.prefill_chunks > chunks else dec).append(
+            time.perf_counter() - t0)
+        if eng.step_count == SR_PROFILE_AT:
+            log_profile(f"{tag} engine decode step", eng.step, 4,
+                        statistics.median(dec) * 1e3)
+    launches, snap = dispatch.launch_counts(), dispatch.snapshot()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    statuses = [r.status for r in reqs]
+    timed = pre + dec
+    log(f"{tag} engine: {len(prompts)} requests (prompts "
+        f"{[len(p) for p in prompts]}), bucket {bucket}, chunk {chunk}, "
+        f"pages of {PAGE}, max_len {max_len}: statuses {statuses}; "
+        f"{eng.step_count} engine steps, {eng.prefill_chunks} prefill "
+        f"launches; {sum(timed) / len(timed) * 1e3:.2f} ms per engine step "
+        f"(prefill included; {len(timed)} steps timed), prefill step(s) "
+        f"{' '.join(f'{t * 1e3:.2f}' for t in pre)} ms, decode step median "
+        f"{statistics.median(dec) * 1e3:.2f} ms mean "
+        f"{sum(dec) / len(dec) * 1e3:.2f} ms "
+        f"({len(prompts) * len(dec) / sum(dec):.1f} tok/s); peak "
+        f"{peak:.2f} GB allocated; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    check_route(f"{tag} engine run", cfg.quant.backend, launches, snap, ran)
+    if any(s != "done" for s in statuses) or eng.violations or eng.audit():
+        raise AssertionError(f"{tag}: statuses {statuses}, violations "
+                             f"{eng.violations}")
+    return [r.tokens for r in reqs], launches
+
+
+def log_gaps(tag, gaps):
+    for what, abs_e, rel_e in gaps:
+        log(f"{tag} first step, {what} logits cuda vs torch backend: max "
+            f"abs {abs_e:.3e} rel {rel_e:.3e} (tol rel {LOGITS_RTOL})")
+
+
+def ring_generation(params, cfg, prompts, max_len):
+    """``lm.prefill`` of the prompts (equal lengths) into a ring of
+    ``max_len`` slots and greedy ``decode_step``s: (the prefill's logits,
+    each row's REC_STEPS tokens)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    toks = torch.as_tensor(np.stack(prompts), device="cuda")
+    lg, cache = lm.prefill(params, {"tokens": toks}, cfg, max_len=max_len)
+    first, out = lg.float(), []
+    for i in range(REC_STEPS):
+        tok = torch.argmax(lg[:, 0], -1).to(torch.int32)[:, None]
+        out.append(tok)
+        if i < REC_STEPS - 1:
+            lg, cache = lm.decode_step(params, tok, cache, cfg)
+    return first, torch.cat(out, 1).tolist()
+
+
+def phase_serve_recurrent():
+    """RecurrentGemma-9B (5 layers; runs a, b, c) and Mamba2-130M (all 24)
+    served by the paged engine on the cuda backend: every integer linear on
+    qmatmul, RecurrentGemma's local layer on the fused kernel at admission
+    and the paged kernel at decode.  Gates each run (``serve_engine``, and
+    the first step against the torch backend); where the reference serves
+    as its ring path does (RecurrentGemma (a), Mamba), the first-step
+    logits (RecurrentGemma) or the tokens (Mamba) against the ring
+    generation on the same backend.  Returns the launches of every engine
+    run, summed."""
+    import numpy as np
+    import torch
+    from repro_torch.core.api import integerize_params
+    from repro_torch.models import lm
+    total = {}
+    rng = np.random.RandomState(1)
+    t0 = time.perf_counter()
+    cfg = family_config("recurrentgemma-9b", "cuda", n_layers=RG_LAYERS)
+    tcfg = family_config("recurrentgemma-9b", "torch", n_layers=RG_LAYERS)
+    log(f"[serve-recurrent] recurrentgemma-9b: the [recurrent] widths at "
+        f"{cfg.n_layers} layers, batch {RG_BATCH}, bf16, w4/a8/attn7/kv8, "
+        f"random weights from seed 0; {REC_STEPS} greedy tokens a request")
+    params = integerize_params(
+        lm.init_params(cfg.replace(quant=None), seed=0, device="cuda"),
+        cfg.quant)
+    base = [rng.randint(0, cfg.vocab, RG_PROMPT).astype(np.int32)
+            for _ in range(RG_BATCH)]
+    for name, lens, chunk in RG_SERVE_RUNS:
+        tag = f"[serve-recurrent] recurrentgemma-9b ({name})"
+        prompts = [p[:n] for p, n in zip(base, lens)]
+        kw = dict(bucket=RG_PROMPT, chunk=chunk, max_len=RG_MAX_LEN)
+        toks, launches = serve_engine(tag, params, cfg, prompts,
+                                      SERVE_KERNELS, **kw)
+        add_launches(total, launches)
+        gaps, lg = first_step_gaps(params, cfg, tcfg, prompts,
+                                   SERVE_KERNELS, tag=f"{tag} ", **kw)
+        log_gaps(tag, gaps)
+        bad = max(rel_e for _, _, rel_e in gaps) > LOGITS_RTOL
+        if name == "a":
+            ring_lg, ring = ring_generation(params, cfg, prompts, RG_MAX_LEN)
+            abs_e, rel_e = rel_err(lg, ring_lg)
+            agree = sum(int(a == b) for x, y in zip(toks, ring)
+                        for a, b in zip(x, y))
+            log(f"{tag} engine vs ring generation, cuda backend: prefill "
+                f"logits max abs {abs_e:.3e} rel {rel_e:.3e} (tol rel "
+                f"{LOGITS_RTOL}); greedy tokens equal {agree}/"
+                f"{RG_BATCH * REC_STEPS} (printed only: the local layer's "
+                f"KV grid is per sequence and page in the engine, per "
+                f"tensor in the ring)")
+            bad = bad or rel_e > LOGITS_RTOL
+        if bad:
+            layer_attribution(tag, params, cfg, tcfg, prompts)
+            raise AssertionError(f"{tag}: first-step logits past the gate")
+    del params
+    torch.cuda.empty_cache()
+    log(f"[serve-recurrent] recurrentgemma-9b in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    tag = "[serve-recurrent] mamba2-130m"
+    cfg = family_config("mamba2-130m", "cuda")
+    tcfg = family_config("mamba2-130m", "torch")
+    params = integerize_params(
+        lm.init_params(cfg.replace(quant=None), seed=0, device="cuda"),
+        cfg.quant)
+    prompts = [rng.randint(0, cfg.vocab, MAMBA_PROMPT).astype(np.int32)
+               for _ in range(MAMBA_BATCH)]
+    kw = dict(bucket=MAMBA_PROMPT, max_len=MAMBA_PROMPT + REC_STEPS)
+    toks, launches = serve_engine(tag, params, cfg, prompts, ("qmatmul",),
+                                  **kw)
+    add_launches(total, launches)
+    gaps, _ = first_step_gaps(params, cfg, tcfg, prompts, ("qmatmul",),
+                              tag=f"{tag} ", **kw)
+    log_gaps(tag, gaps)
+    _, ring = ring_generation(params, cfg, prompts, kw["max_len"])
+    log(f"{tag} engine tokens equal to the ring generation's (cuda "
+        f"backend): {toks == ring}; row 0 {toks[0]}")
+    if max(rel_e for _, _, rel_e in gaps) > LOGITS_RTOL or toks != ring:
+        layer_attribution(tag, params, cfg, tcfg, prompts)
+        raise AssertionError(f"{tag} failed its gates")
+    del params
+    torch.cuda.empty_cache()
+    log(f"[serve-recurrent] mamba2-130m in {time.perf_counter() - t0:.1f}s; "
+        f"launches over the four engine runs {total}")
     return total
 
 
@@ -2420,10 +2675,12 @@ KERNELS = {
 }
 # the counted runs of each kernel's main paths (the kernels line's
 # launches: their sum, and each path's count)
-MAIN_PATHS = {"qmatmul": ("serve", "archs", "recurrent", "encdec"),
+MAIN_PATHS = {"qmatmul": ("serve", "archs", "recurrent", "serve-recurrent",
+                          "encdec"),
               "int_attention_fused": ("serve", "archs", "recurrent",
-                                      "encdec"),
-              "int_paged_decode_attention": ("serve", "archs"),
+                                      "serve-recurrent", "encdec"),
+              "int_paged_decode_attention": ("serve", "archs",
+                                             "serve-recurrent"),
               "int_decode_attention": ("ring", "archs", "recurrent",
                                        "encdec"),
               "pq_layernorm": ("ops",), "int_attention": ("ops",)}
@@ -2507,8 +2764,9 @@ def phase_time(g, launches, errs):
     for name in ATTN_FAMILIES:
         time_attention(g, name, family_attention_case(name), both=False)
 
-    for row in PAGED_CHECKS + PAGED_LONG:
-        args, kw = paged_inputs(g, *row)
+    for row, hkv in [(row, 8) for row in PAGED_CHECKS + PAGED_LONG] + \
+            [PAGED_SERVE_REC]:
+        args, kw = paged_inputs(g, *row, hkv=hkv)
         q, kp, vp, sc, vs, pt, pos = args
         window = kw["window"]
         ms = cuda_ms(lambda: ia.int_paged_decode_attention(*args, **kw))
@@ -2530,7 +2788,8 @@ def phase_time(g, launches, errs):
             4 * (2 * b + 2 * pages) + 4 * pt.numel() + 4 * b
         bnd, by = bound_ms(nbytes, 4 * d * grp * hkv * sum(live))
         lib = paged_sdpa_ms(g, q, pt, pos, ps, window)
-        log(f"[time] paged decode kv_bits={row[0]} B={b} G={grp} D={d} "
+        log(f"[time] paged decode kv_bits={row[0]} B={b} Hkv={hkv} G={grp} "
+            f"D={d} "
             f"pages {pt.shape[1]} window {window} live keys {live}: "
             f"{ms:.4f} ms ({dev_str(dms, bnd)}), bound {bnd:.4f} ms ({by}), "
             f"plain {pms:.4f} ms, bf16 SDPA over the gathered pages, masked "
@@ -2787,6 +3046,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths["archs"] = phase_archs()
         paths["recurrent"] = phase_recurrent()
+        paths["serve-recurrent"] = phase_serve_recurrent()
         paths["encdec"] = phase_encdec()
         phase_quickstart()
         vparams, imgs = phase_vit()

@@ -4,7 +4,8 @@ The reference's parameter and paged-cache trees, handed over as numpy
 arrays (``jax.tree.map(np.asarray, tree)`` on the JAX side), become the
 port's dicts of tensors with the same keys and layouts (``w_q (out, in)``,
 pools ``(num_pages + 1, Hkv, page_size, hd[/2])``, ``page_table
-(B, max_pages)``, layer-stacked ``units``), and so does a ring cache
+(B, max_pages)``, layer-stacked ``units``, and a recurrent layer's
+per-row f32 states beside the pools), and so does a ring cache
 (codes ``(B, Hkv, span, hd[/2])``, 0-d per-layer scales and the 0-d
 ``pos``, shapes kept), with its recurrent layers' f32 states (RG-LRU ``h``
 / ``conv``, SSD ``h`` / ``convs``), and Whisper's cache (``layers`` stacked

@@ -17,6 +17,9 @@ Page-table layout (see :func:`repro_torch.models.lm.init_paged_cache`)::
     page_table  (batch_size, max_pages) int32: row b, entry l = physical
                  page of b's logical page l; -1 = none
     pos         (batch_size,) int32: next decode position; -1 = inactive
+    states      (batch_size, ...) f32 per recurrent layer: the row's
+                 RG-LRU / SSD state, updated by every decode step (inactive
+                 rows too) and overwritten by the row's next admission
 
 The engine owns the refcounted allocator (:class:`PageAllocator`) and host
 mirrors of ``pos`` / ``page_table``, pushed into the device cache in place
@@ -29,6 +32,11 @@ Request state machine (the reference's)::
     recompute (re-prefill the prompt, replay the recorded tokens);
     > max_preemptions -> REJECTED; ttl/deadline -> TIMED_OUT;
     cancel -> CANCELLED; impossible -> REJECTED; shutdown -> PREEMPTED.
+
+Recurrent stacks (RecurrentGemma, Mamba2) serve as in the reference: a
+prefill scans each row's whole padded chunk from a zero state, so the
+tokens equal the ring path's only where a prompt fills its bucket in one
+chunk (ROADMAP queue 3), and prefix sharing is off (``sharing_enabled``).
 
 Invariants kept from the reference: the chunked-prefill cut plan is a
 pure function of (prompt length, prefix length, chunk size), so the token

@@ -9,13 +9,16 @@ integer matmuls with reordered dequantization, a low-bit paged KV cache
 read in place by the paged decode kernel, base-2 embedded softmax.
 
 Requests with ragged prompt lengths flow through
-:class:`repro_torch.launch.engine.PagedEngine`.  ``--shared-prefix N``
-declares a common N-token prefix as a cache breakpoint (prefilled once,
-pages aliased).  ``--prefill-chunk`` / ``--prefill-budget`` engage the
-chunked-prefill token-budget scheduler.  The report always carries the
-dispatch STATS and the kernels' launch counts — the evidence that the
-serving graph really ran on the kernels — and the device it ran on;
-``--json`` emits it as one JSON object.
+:class:`repro_torch.launch.engine.PagedEngine`, for every decoder-only LM
+of the registry (``--arch``, its SMOKE config), the recurrent families
+included; an encoder-decoder (Whisper) is refused with a pointer to
+``models/encdec.py``, where the reference's CLI fails on it.
+``--shared-prefix N`` declares a common N-token prefix as a cache
+breakpoint (prefilled once, pages aliased).  ``--prefill-chunk`` /
+``--prefill-budget`` engage the chunked-prefill token-budget scheduler.
+The report always carries the dispatch STATS and the kernels' launch
+counts — the evidence that the serving graph really ran on the kernels —
+and the device it ran on; ``--json`` emits it as one JSON object.
 
 Failure handling: the loop installs the
 :mod:`repro_torch.runtime.preemption` SIGTERM/SIGUSR1 handlers (and puts
@@ -201,7 +204,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         formatter_class=argparse.RawDescriptionHelpFormatter,
         epilog=_EPILOG)
-    ap.add_argument("--arch", default="qwen2.5-32b")
+    ap.add_argument("--arch", default="qwen2.5-32b",
+                    help="a decoder-only LM of the registry, served at its "
+                         "SMOKE config: the attention families and the "
+                         "recurrent ones (recurrentgemma-9b, mamba2-130m)")
     ap.add_argument("--mode", choices=["int", "float"], default="int")
     ap.add_argument("--backend", choices=["cuda", "torch"], default=None,
                     help="kernel backend for the int serving graph "
@@ -245,8 +251,14 @@ def main(argv=None):
                     help="emit the report as one JSON object on stdout")
     args = ap.parse_args(argv)
 
-    from repro_torch.configs.registry import smoke_config
+    from repro_torch.configs.registry import is_encdec, smoke_config
     cfg = smoke_config(args.arch)
+    if is_encdec(cfg):
+        raise SystemExit(
+            f"{args.arch} is an encoder-decoder model; the paged engine "
+            f"serves decoder-only LMs. Generate with "
+            f"repro_torch.models.encdec (models/encdec.py: prefill, "
+            f"decode_step).")
     params = lm.init_params(cfg, seed=0, device=args.device)
     qc = None
     if args.mode == "int":

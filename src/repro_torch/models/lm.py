@@ -13,12 +13,13 @@ and the paged cache (:func:`init_paged_cache`, :func:`paged_prefill`,
 so positions and ``pos`` count them; the ring path takes them, the paged
 engine serves text).  The recurrent blocks (``"rglru"``:
 :func:`repro_torch.layers.rglru.rglru_block`, ``"ssd"``:
-:func:`repro_torch.layers.ssd.ssd_block`) run on the ring path, their
-states kept in the ring cache; the paged path is attention-only in this
-port and raises for them.  Training: :func:`lm_loss` (the causal LM loss,
-sequence-chunked, plus 0.01 x the MoE load-balance loss that
-:func:`forward` sums into ``aux``), through autograd, with each pattern
-unit recomputed in the backward pass when ``cfg.remat``
+:func:`repro_torch.layers.ssd.ssd_block`) keep their states per row, in
+the ring cache and beside the page pools of the paged cache alike; they
+start from a zero state at (every chunk of) a prefill and from the row's
+state at decode, as the reference's do.  Training: :func:`lm_loss` (the
+causal LM loss, sequence-chunked, plus 0.01 x the MoE load-balance loss
+that :func:`forward` sums into ``aux``), through autograd, with each
+pattern unit recomputed in the backward pass when ``cfg.remat``
 (``torch.utils.checkpoint``; only with grad enabled and no cache, so an
 in-place cache write is never recomputed).
 
@@ -42,7 +43,10 @@ reference's scan over units is a Python loop here).
   (B, max_pages)`` (negative = unallocated).  Scales calibrate per
   sequence ``(B,)`` and are read per PHYSICAL page
   (``page_k_scale``/``page_v_scale``), so a page aliased from a shared
-  prefix dequantizes with its owner's grid.
+  prefix dequantizes with its owner's grid.  A recurrent layer keeps its
+  ring-cache state, one row per sequence: a decode step updates every
+  row's, inactive rows' included, and an admission's install overwrites
+  the admitted rows'.
 
 Where JAX returned updated copies, this port writes in place:
 
@@ -142,16 +146,6 @@ def unit_structure(cfg: LMConfig):
     n_units = cfg.n_layers // len(unit)
     rem = tuple(block_kinds(cfg)[n_units * len(unit):])
     return unit, n_units, rem
-
-
-def _paged_attention_only(cfg: LMConfig):
-    """The paged path serves attention stacks only in this port."""
-    rec = sorted(set(block_kinds(cfg)) - set(ATTN_KINDS))
-    if rec:
-        raise NotImplementedError(
-            f"the paged path of this port is attention-only; {cfg.name} has "
-            f"{rec} blocks (ROADMAP queue 1: paged recurrent serving, checked "
-            f"in the reference first)")
 
 
 # ---------------------------------------------------------------------------
@@ -378,10 +372,11 @@ def init_paged_cache(cfg: LMConfig, batch: int, max_len: int, *,
 
     ``max_len`` bounds one sequence (``max_pages`` = table width);
     ``num_pages`` sizes the shared pool (default ``batch * max_pages``).
-    All rows start inactive (``pos = -1``) with empty page tables.  Raises
-    for a stack with recurrent blocks (attention-only in this port).
+    All rows start inactive (``pos = -1``) with empty page tables;
+    recurrent blocks keep their ring-cache per-row states (f32, row axis
+    first, after the ``units`` layer axis), so an SSD-only stack has page
+    tables and ``pos`` but no pools.
     """
-    _paged_attention_only(cfg)
     unit, n_units, rem = unit_structure(cfg)
     max_pages = -(-max_len // page_size)
     if num_pages is None:
@@ -389,13 +384,19 @@ def init_paged_cache(cfg: LMConfig, batch: int, max_len: int, *,
     i32 = dict(dtype=torch.int32, device=device)
     cache = {"pos": torch.full((batch,), -1, **i32),
              "page_table": torch.full((batch, max_pages), -1, **i32)}
+
+    def blockc(kind, lead):
+        if kind in ATTN_KINDS:
+            return _paged_attn_cache(cfg, batch, num_pages, page_size, lead,
+                                     device)
+        return init_block_cache(cfg, kind, batch, max_len, lead=lead,
+                                device=device)
+
     if n_units:
-        cache["units"] = {f"b{j}": _paged_attn_cache(
-            cfg, batch, num_pages, page_size, (n_units,), device)
-            for j in range(len(unit))}
-    for i in range(len(rem)):
-        cache[f"rem{i}"] = _paged_attn_cache(cfg, batch, num_pages,
-                                             page_size, (), device)
+        cache["units"] = {f"b{j}": blockc(kind, (n_units,))
+                          for j, kind in enumerate(unit)}
+    for i, kind in enumerate(rem):
+        cache[f"rem{i}"] = blockc(kind, ())
     return cache
 
 
@@ -775,9 +776,10 @@ def paged_prefill(params, batch, cfg: LMConfig, cache, *,
     ``batch["tokens"]`` (B, S) right-padded, ``batch["lengths"]`` (B,).
     Pages named by ``cache["page_table"]`` must be allocated for every
     row's prompt; pad positions write to the trash page.  Returns
-    (last-real-position logits (B, 1, V), cache).  Attention stacks only.
+    (last-real-position logits (B, 1, V), cache).  A recurrent block
+    scans the whole padded row from a zero state (``prefix_len`` or not),
+    as the reference's does: its state takes in the pads.
     """
-    _paged_attention_only(cfg)
     x, cache, _ = forward(params, batch, cfg, cache=cache, decode=False,
                        prefix_len=prefix_len)
     lengths = batch.get("lengths")
@@ -886,9 +888,9 @@ def admission_prefill(params, batch, cfg: LMConfig, cache, rows, page_table,
     a solo prefill.  ``prefix_len``: the tokens are prompt tails whose first
     ``prefix_len`` positions are already cached (prefix sharing, resumable
     chunks).  Returns (last-real-position logits (W, 1, V), cache).
-    Attention stacks only.
+    Recurrent states start from zeros at every call, chunks after the
+    first included, as in the reference (ROADMAP queue 3).
     """
-    _paged_attention_only(cfg)
     w = batch["tokens"].shape[0]
     view = _admission_view(cache, w, page_table)
     logits, view = paged_prefill(params, batch, cfg, view,

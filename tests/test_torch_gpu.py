@@ -765,6 +765,64 @@ def test_family_smoke_on_the_card_takes_no_plain_path(gen, arch):
     assert int(cache["pos"]) == 28 and bool(torch.isfinite(logits).all())
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m"])
+def test_recurrent_serve_on_the_card_both_backends(gen, arch):
+    """The two SMOKE models through the paged engine (4 requests of up to
+    40 tokens past RecurrentGemma's 16-token window, on 2 rows, pages of
+    8): every request DONE with a clean audit on each backend; the cuda
+    run launches every kernel of its path and dispatches nothing to the
+    plain path, the torch run launches nothing; the first step (prefill,
+    then one decode step from the cuda run's tokens) within 5e-2."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.api import QuantConfig, integerize_params
+    from repro_torch.launch.serve import serve, staggered_prompts
+    from repro_torch.models import lm
+    qc = QuantConfig(w_bits=4, a_bits=8, attn_bits=7, kv_bits=8, mode="int",
+                     backend="cuda")
+    cfgs = {b: smoke_config(arch).replace(quant=qc.replace(backend=b))
+            for b in ("cuda", "torch")}
+    params = integerize_params(lm.init_params(cfgs["cuda"], seed=0,
+                                              device="cuda"), qc)
+    ran = ("qmatmul",) if arch == "mamba2-130m" else \
+        ("qmatmul", "int_attention_fused", "int_paged_decode_attention")
+    prompts = staggered_prompts(4, 40, cfgs["cuda"].vocab)
+    for backend, cfg in cfgs.items():
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        _, stats = serve(cfg, params, prompts, gen_tokens=6, page_size=8,
+                         batch_size=2, audit_every=1)
+        torch.cuda.synchronize()
+        assert [s["status"] for s in stats["per_seq"]] == ["done"] * 4
+        assert stats["audit_violations"] == []
+        launches, snap = dispatch.launch_counts(), stats["dispatch"]
+        other = "torch" if backend == "cuda" else "cuda"
+        for key in ("qlinear", "attention", "attention_paged"):
+            assert snap[f"{key}_{other}"] == 0, (backend, key, snap)
+        if backend == "cuda":
+            for name in ran:
+                assert launches[name] > 0, launches
+        else:
+            assert sum(launches.values()) == 0, launches
+    lens = [len(p) for p in prompts]
+    toks = torch.zeros((4, max(lens)), dtype=torch.int32, device="cuda")
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.as_tensor(p, device="cuda")
+    batch = {"tokens": toks, "lengths": torch.tensor(lens, dtype=torch.int32,
+                                                     device="cuda")}
+    out, nxt = {}, None
+    for backend, cfg in cfgs.items():
+        cache = lm.init_paged_cache(cfg, 4, 48, page_size=8, device="cuda")
+        cache["page_table"].copy_(torch.arange(
+            24, dtype=torch.int32, device="cuda").reshape(4, 6))
+        lg, cache = lm.paged_prefill(params, batch, cfg, cache)
+        if nxt is None:
+            nxt = torch.argmax(lg[:, 0], -1).to(torch.int32)[:, None]
+        lg2, _ = lm.decode_step(params, nxt, cache, cfg)
+        out[backend] = (lg.float(), lg2.float())
+    for i in range(2):
+        assert _rel(out["cuda"][i], out["torch"][i]) <= 5e-2, i
+
+
 # ---------------------------------------------------------------------------
 # QAT training on the card (the fake graph is plain PyTorch; the int
 # forward after it runs the kernels)

@@ -43,7 +43,6 @@ from repro_torch import interop
 from repro_torch.configs import registry
 from repro_torch.core.api import QuantConfig, integerize_params
 from repro_torch.kernels import dispatch
-from repro_torch.launch.engine import PagedEngine
 from repro_torch.layers import mlp, rglru, ssd
 from repro_torch.models import lm
 
@@ -419,22 +418,6 @@ def test_cuda_route_equals_torch_backend_on_the_cpu(arch):
     want = dict(_leaves(out["torch"][2]))
     for path, g in _leaves(out["cuda"][2]):
         np.testing.assert_array_equal(g, want[path], err_msg=path)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_paged_path_raises_for_recurrent_blocks(arch):
-    _, _, ports, tp = _models(arch, 4)
-    cfg = ports["torch"]
-    with pytest.raises(NotImplementedError, match="attention-only"):
-        lm.init_paged_cache(cfg, 2, 32, page_size=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PagedEngine(cfg, tp, batch_size=2, max_len=32, page_size=8)
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "lengths": torch.tensor([8], dtype=torch.int32)}
-    with pytest.raises(NotImplementedError):
-        lm.paged_prefill(tp, batch, cfg, {})
-    with pytest.raises(NotImplementedError):
-        lm.admission_prefill(tp, batch, cfg, {}, [0], [[0]])
 
 
 def test_local_attention_ring_span_and_recurrent_state_shapes():
