@@ -41,6 +41,9 @@ Phases, in order; any failure exits non-zero before the result line:
    kernel at RecurrentGemma's windowed D 256 prefill and Whisper's encoder,
    self, cross and one-row decode cross attention, the ring kernel at a
    2176-slot windowed ring (G 16, D 256) and a 64-slot one (G 1, D 64);
+   [dist]'s shapes on one of 4 ranks: qmatmul at N 5120 over K 1280 and
+   6912 (Qwen2.5-32B's wo and down, a quarter of K each) at M 4 and 256,
+   and Llama-4-Scout's 4 local experts over 80 slots;
 4. serve: ``repro_torch.launch.serve.serve`` at Qwen2.5-32B widths
    (4 of 64 layers, random weights from a seed, made on the card) on the
    ``cuda`` backend; every request DONE, a clean audit, every kernel of
@@ -100,23 +103,37 @@ Phases, in order; any failure exits non-zero before the result line:
    launched (the ring kernel once a local layer a step), no plain dispatch,
    the ``torch`` run launching nothing, logits within the tolerance, its
    peak memory, time and a profiled decode step printed;
-11. quickstart: ``python -m repro_torch.examples.quickstart`` on the card;
-12. vit: ``models.vit.forward`` at the full DeiT-S config (12 layers,
+11. dist: the distributed layer (``repro_torch.distributed``) on NCCL,
+   one rank a card (``torch.cuda.device_count()`` ranks, spawned; one in a
+   one-card run), on a (data 1, model n) mesh under
+   ``Rules(batch=("data",), int_bf16_reduce=True, moe_a2a=True)``:
+   Qwen2.5-32B widths at 2 layers, batch 4, 256-token prompts and 16 ring
+   steps (every row-parallel linear through the shard body: 2 a layer a
+   forward, qmatmul on the rank's K slice, an f32 reduce-scatter and a
+   bf16 all-gather), gated like ``ring`` with the ``torch`` backend
+   teacher-forced; Llama-4-Scout widths at 2 layers, the prefill's MoE FFNs
+   through the all-to-all (the rank's experts on qmatmul), gated like
+   ``archs``; layer 0's row-parallel linears and its a2a FFN alone, cuda
+   against torch, bitwise at one rank and within one bf16 ulp past it;
+   ``compress_psum`` over Qwen-width gradients and ``pipeline_forward``
+   with stages = ranks, each equal to its plain arithmetic; times printed;
+12. quickstart: ``python -m repro_torch.examples.quickstart`` on the card;
+13. vit: ``models.vit.forward`` at the full DeiT-S config (12 layers,
    224 px, patch 16; random weights from a seed, made on the card), batch
    64, on the ``cuda`` backend: 73 qmatmul and 12 fused-attention launches
    and no plain dispatch; logits against the ``torch`` backend; ms per
    batch;
-13. ops: the paper's integerized self-attention module through the kernel
+14. ops: the paper's integerized self-attention module through the kernel
    entry points (``kernels/ops.py``) at DeiT-S widths, on layer 0 of the
    same weights and the model's own residual stream (64 x 198 rows):
    PQ-LayerNorm -> q/k/v -> fused and two-pass attention -> wo, every
    kernel against its plain version on the same inputs;
-14. lowbit: DeiT-S at the paper's 3- and 2-bit points (w3/attn3,
+15. lowbit: DeiT-S at the paper's 3- and 2-bit points (w3/attn3,
     w2/attn2; Table II) on the ``cuda`` backend, gated like ``vit``; then
     ``benchmarks/fig_softmax_error.py``'s attention through
     ``layers.attention.attention`` at prob grids of 2, 3, 4 and 7 bits,
     each through the fused kernel, its error not growing with bits;
-15. train: the paper's QAT recipe (``repro_torch.launch.train``,
+16. train: the paper's QAT recipe (``repro_torch.launch.train``,
     ``examples/train_cifar_qat.py``'s step) at DeiT-S's full size, batch
     64, fake w4/a8/attn7, LAMB: 10 head-only and 50 full steps (every loss
     finite, the head-only step leaving every other leaf bitwise, the last
@@ -131,7 +148,7 @@ Phases, in order; any failure exits non-zero before the result line:
     head-only steps, the freeze bitwise, two full steps); ``train()``
     restarted from its checkpoint bitwise equal to an uninterrupted run;
     ms per step, peak memory and a profiled step printed;
-16. time: each kernel with CUDA events beside its bound, its plain
+17. time: each kernel with CUDA events beside its bound, its plain
     version and, where one PyTorch call computes the same function, that
     call (``torch._int_mm`` for qmatmul, over x zero-padded to 32 rows at
     decode rows, ``F.layer_norm`` / ``F.rms_norm`` for PQ-LayerNorm); every
@@ -405,6 +422,9 @@ QMM_HEADS = [(202048, 5120), (92553, 6144), (32064, 4096)]
 # 4 rows and its prefill's 2048
 QMM_FAMILIES = [(2, 256000, 4096), (256, 256000, 4096), (4, 51866, 1280),
                 (256, 51866, 1280), (4, 3352, 768), (2048, 3352, 768)]
+# [dist]'s row-parallel products on each of 4 ranks: Qwen2.5-32B's wo (K
+# 5120 / 4) and MLP down (K 27648 / 4), N 5120, at decode and prefill rows
+QMM_DIST = [(m, 5120, k) for m in (4, 256) for k in (1280, 6912)]
 # DeiT-S's linears at batch 64: the patch embedding (64 x 196 rows, K 768),
 # wq/wk/wv/wo, the MLP's up and down (64 x 198 rows)
 QMM_DEIT = [(64 * 196, 384, 768), (64 * 198, 384, 384),
@@ -422,7 +442,7 @@ QMM_CHECKS = [(m, n, k, packed) for m in (4, 256) for n, k in QMM_NK
                                                   (129, 300, 1028)]
      for packed in (False, True)] + \
     [(m, n, k, False) for m in (4, 256) for n, k in QMM_HEADS] + \
-    [(m, n, k, False) for m, n, k in QMM_FAMILIES]
+    [(m, n, k, False) for m, n, k in QMM_FAMILIES + QMM_DIST]
 
 
 def phase_check(g):
@@ -449,7 +469,9 @@ def phase_check(g):
         worst = max(worst, diff)
         del args, got, want
 
-    errs["qmatmul"] = max(worst, check_expert(g))
+    # Llama-4-Scout's prefill expert product, and [dist]'s on one of 4
+    # ranks: its 4 local experts over 4 sources' 20 slots
+    errs["qmatmul"] = max(worst, check_expert(g), check_expert(g, 4, 80))
 
     # the shapes dispatch gives the fused kernel on the main paths
     for name, q_chunk in (("qwen", 128), ("deit", 256), ("yi", 128),
@@ -525,16 +547,16 @@ def check_attention(g, name, case, bits):
     return f_abs, t_abs
 
 
-def check_expert(g):
-    """One Llama-4-Scout expert product at its prefill shape (16 experts,
-    capacity 20, din 5120, dout 8192; bf16 activations, w4 codes) through
+def check_expert(g, e=16, cap=20):
+    """One Llama-4-Scout expert product (``e`` experts, capacity ``cap``,
+    din 5120, dout 8192; bf16 activations, w4 codes) through
     ``dense_expert``'s kernel route (one qmatmul launch an expert) against
     its plain version, bitwise; its max abs error (0)."""
     import torch
     from repro_torch.core.api import QuantConfig
     from repro_torch.kernels import dispatch
     from repro_torch.layers.moe import dense_expert
-    e, cap, din, dout = 16, 20, 5120, 8192
+    din, dout = 5120, 8192
     p = {"w_q": torch.randint(-8, 8, (e, din, dout), generator=g,
                               device="cuda", dtype=torch.int8),
          "w_scale": torch.rand((e, 1, dout), generator=g, device="cuda")
@@ -870,10 +892,12 @@ def padded_prompts(prompts):
 
 
 # the dispatch counters of each backend's kernel route and plain path
-CUDA_DISPATCH = ("qlinear_cuda", "qexpert_cuda", "attention_cuda",
-                 "attention_paged_cuda", "attention_decode_cuda")
-PLAIN_DISPATCH = ("qlinear_torch", "qexpert_torch", "attention_torch",
-                  "attention_paged_torch", "attention_decode_torch")
+CUDA_DISPATCH = ("qlinear_cuda", "qlinear_row_cuda", "qexpert_cuda",
+                 "attention_cuda", "attention_paged_cuda",
+                 "attention_decode_cuda")
+PLAIN_DISPATCH = ("qlinear_torch", "qlinear_row_torch", "qexpert_torch",
+                  "attention_torch", "attention_paged_torch",
+                  "attention_decode_torch")
 
 
 PAGE = 16                 # page size of the paged runs and first steps
@@ -1651,6 +1675,431 @@ def phase_encdec():
     torch.cuda.empty_cache()
     log(f"[encdec] run in {time.perf_counter() - t0:.1f}s")
     return launches
+
+
+# [dist]: the distributed layer (src/repro_torch/distributed) on NCCL, one
+# rank a card, on a (data 1, model n) mesh: Qwen2.5-32B widths through the
+# row-parallel shard body, Llama-4-Scout widths through the all-to-all
+DIST_LAYERS = 2
+DIST_BATCH, DIST_PROMPT, DIST_STEPS = 4, 256, 16
+DIST_KERNELS = ("qmatmul", "int_attention_fused", "int_decode_attention")
+DIST_JOIN_S = 600
+DIST_MICRO = 8            # pipeline microbatches of DIST_BATCH rows
+
+
+def phase_dist():
+    """Spawn ``torch.cuda.device_count()`` ranks, one a card, on NCCL
+    (``dist_rank``), and wait for them; returns rank 0's launches of the
+    [dist] main path (the Qwen and Llama-4 runs)."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    n = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    d = tempfile.mkdtemp(prefix="dist")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dist_rank, args=(r, n, d)) for r in range(n)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        # a rank that fails leaves the others waiting in a collective:
+        # stop them all then, rather than at the deadline
+        while any(p.is_alive() for p in procs) and \
+                not any(p.exitcode for p in procs) and \
+                time.perf_counter() - t0 < DIST_JOIN_S:
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f"[dist] rank exit codes {codes}")
+    with open(os.path.join(d, "launches.json")) as f:
+        launches = json.load(f)
+    log(f"[dist] {n} rank(s) in {time.perf_counter() - t0:.1f}s; rank 0's "
+        f"launches {launches}")
+    return launches
+
+
+def dist_rank(rank, world, d):
+    """One [dist] rank: card ``rank``, NCCL through a file store in ``d``;
+    rank 0 logs and writes its launches to ``d``."""
+    from datetime import timedelta
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=DIST_JOIN_S))
+    try:
+        launches = dist_run(rank, world)
+        if rank == 0:
+            with open(os.path.join(d, "launches.json"), "w") as f:
+                json.dump(launches, f)
+    except Exception:
+        traceback.print_exc()
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_run(rank, world):
+    """The [dist] phase on this rank; returns its main-path launches."""
+    import torch
+    from repro_torch.distributed.sharding import Rules
+    from repro_torch.launch.mesh import make_test_mesh
+    say = log if rank == 0 else (lambda *a: None)
+    mesh = make_test_mesh((1, world), ("data", "model"), device_type="cuda")
+    rules = Rules(batch=("data",), mesh=mesh, int_bf16_reduce=True,
+                  moe_a2a=True)
+    say(f"[dist] {world} rank(s) on NCCL, mesh (data 1, model {world}); "
+        f"Rules(batch=('data',), int_bf16_reduce, moe_a2a)")
+    total = {}
+    with torch.no_grad():
+        add_launches(total, dist_qwen(rules, world, say))
+        add_launches(total, dist_llama(rules, world, say))
+        dist_compress(mesh, rank, world, say)
+        dist_pipeline(world, say)
+    return {k: total.get(k, 0) for k in DIST_KERNELS}
+
+
+def dist_gap(got, want, world):
+    """(max abs, max rel, in one bf16 ulp): bitwise at one rank, else
+    within one bf16 ulp of each value (the collectives sum f32 partials in
+    NCCL's order)."""
+    import torch
+    abs_e, rel_e = rel_err(got.float(), want.float())
+    if world == 1:
+        return abs_e, rel_e, torch.equal(got, want)
+    tol = 2.0 ** -7 * want.float().abs() + 1e-30
+    return abs_e, rel_e, bool(((got.float() - want.float()).abs()
+                               <= tol).all())
+
+
+def dist_qwen(rules, world, say):
+    """Qwen2.5-32B widths, 2 layers: ``lm.prefill`` of 4 x 256 tokens and
+    16 greedy ring steps under the rules on the cuda backend (every count
+    zeroed before, read after), the torch backend teacher-forced beside it;
+    then both row-parallel linears of layer 0 alone, cuda against torch, at
+    prefill and decode rows, and their times.  Returns the run's
+    launches."""
+    import torch
+    from repro_torch.core.api import dense, integerize_params
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+    cfg = arch_config("qwen2.5-32b", "cuda").replace(n_layers=DIST_LAYERS)
+    tcfg = cfg.replace(quant=cfg.quant.replace(backend="torch"))
+    params = integerize_params(
+        lm.init_params(cfg.replace(quant=None), seed=0, device="cuda"),
+        cfg.quant)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (DIST_BATCH, DIST_PROMPT),
+                         generator=g, device="cuda", dtype=torch.int32)
+    max_len = DIST_PROMPT + DIST_STEPS
+    with use_rules(rules):
+        # a first prefill sets up cuBLAS and NCCL's communicators lazily
+        t0 = time.perf_counter()
+        lm.prefill(params, {"tokens": toks}, cfg, max_len)
+        torch.cuda.synchronize()
+        t_cold = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        lc, cache = lm.prefill(params, {"tokens": toks}, cfg, max_len)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        logits, fed, copies, step_s = [lc], [], [], 0.0
+        for _ in range(DIST_STEPS):
+            tok = torch.argmax(lc[:, 0], -1).to(torch.int32)[:, None]
+            fed.append(tok)
+            copies.append(clone_tree(cache))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lc, cache = lm.decode_step(params, tok, cache, cfg)
+            torch.cuda.synchronize()
+            step_s += time.perf_counter() - t1
+            logits.append(lc)
+        launches = dispatch.launch_counts()
+        snap = dispatch.snapshot()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        rows = snap["qlinear_row_cuda"]
+        want_rows = 2 * cfg.n_layers * (1 + DIST_STEPS)
+        check_route("[dist] qwen2.5-32b cuda run", "cuda", launches, snap,
+                    DIST_KERNELS)
+        if rows != want_rows or \
+                launches["int_decode_attention"] != cfg.n_layers * DIST_STEPS:
+            raise AssertionError(f"[dist] qwen: row-parallel products {rows} "
+                                 f"(want {want_rows}), launches {launches}")
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        lt, _ = lm.prefill(params, {"tokens": toks}, tcfg, max_len)
+        gaps = [dist_gap(logits[0], lt, world)]
+        for i, (tok, c) in enumerate(zip(fed, copies)):
+            lf, _ = lm.decode_step(params, tok, c, tcfg)
+            gaps.append(dist_gap(logits[i + 1], lf, world))
+        torch.cuda.synchronize()
+        check_route("[dist] qwen2.5-32b torch run", "torch",
+                    dispatch.launch_counts(), dispatch.snapshot(), ())
+    del copies
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    worst = max(rel for _, rel, _ in gaps)
+    same = sum(ok for _, _, ok in gaps)
+    apart = [i for i, (_, _, ok) in enumerate(gaps) if not ok]
+    say(f"[dist] qwen2.5-32b widths, {cfg.n_layers} layers, batch "
+        f"{DIST_BATCH}, {DIST_PROMPT}-token prompts, {DIST_STEPS} ring steps: "
+        f"prefill {t_prefill * 1e3:.2f} ms (the first {t_cold * 1e3:.2f}), "
+        f"decode step "
+        f"{step_s / DIST_STEPS * 1e3:.2f} ms ({DIST_BATCH * DIST_STEPS / step_s:.1f} "
+        f"tok/s), peak {peak:.2f} GB allocated; row-parallel products "
+        f"{rows} (2 a layer a forward); launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    say(f"[dist] qwen2.5-32b torch vs cuda backend (teacher-forced): max rel "
+        f"{worst:.3e} (tol rel {LOGITS_RTOL}); "
+        f"{'bitwise' if world == 1 else 'within one bf16 ulp'} in {same} of "
+        f"{len(gaps)} forwards (not in {apart}: 0 the prefill, i decode "
+        f"step i); greedy tokens of row 0 "
+        f"{torch.cat(fed, 1)[0].tolist()}; finite {finite}")
+    if worst > LOGITS_RTOL or not finite:
+        raise AssertionError("[dist] qwen2.5-32b: cuda and torch differ")
+    tok = torch.argmax(logits[-1][:, 0], -1).to(torch.int32)[:, None]
+    with use_rules(rules):
+        step = lambda: lm.decode_step(params, tok, cache, cfg)
+        step()                                              # warm
+        if world_rank() == 0:
+            log_profile("[dist] qwen2.5-32b decode step", step, 4,
+                        step_s / DIST_STEPS * 1e3)
+        else:                  # the same collectives, unprofiled
+            for _ in range(4):
+                step()
+    # the two row-parallel linears of layer 0 alone
+    p0 = layer_at(params["units"], 0)["b0"]
+    for name, p, k in (("wo", p0["attn"]["wo"], cfg.n_heads * cfg.hd),
+                       ("down", p0["ffn"]["down"], cfg.d_ff)):
+        for s in (DIST_PROMPT, 1):
+            x = torch.randn((DIST_BATCH, s, k), generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+            with use_rules(rules):
+                got = dense(x, p, cfg.quant, tp="row")
+                want = dense(x, p, tcfg.quant, tp="row")
+                ms = cuda_ms(lambda: dense(x, p, cfg.quant, tp="row"))
+            plain_ms = cuda_ms(lambda: dense(x, p, cfg.quant))
+            abs_e, _, ok = dist_gap(got, want, world)
+            parts = row_parallel_parts(x, p, cfg.quant, rules)
+            say(f"[dist] row-parallel {name} x ({DIST_BATCH}, {s}, {k}) -> "
+                f"N {p['w_q'].shape[0]}, the rank's K {k // world}: cuda vs "
+                f"torch max abs {abs_e:.3e} "
+                f"({'bitwise' if world == 1 else 'one bf16 ulp'}: {ok}); "
+                f"{ms:.4f} ms (event) against {plain_ms:.4f} ms for the "
+                f"replicated dense on the same card; alone (ms, and the bus "
+                f"bandwidth): "
+                + ", ".join(f"{k_} {v:.4f}" for k_, v in parts.items()))
+            if not ok:
+                raise AssertionError(f"[dist] row-parallel {name} differs")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def world_rank():
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
+def row_parallel_parts(x, p, qc, rules):
+    """The shard body's steps timed alone (CUDA events) on this rank's
+    slices: the per-tensor quantizer, qmatmul on the K slice, the f32
+    reduce-scatter and the bf16 all-gather."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.distributed import collectives as col
+    from repro_torch.kernels.dispatch import maybe_qlinear_row
+    mesh = rules.mesh
+    m, j = col.axes_size(mesh, ("model",)), col.axes_index(mesh, ("model",))
+    grp = col.group(mesh, "model")
+    kl, n = x.shape[-1] // m, p["w_q"].shape[0]
+    xl = x[..., j * kl:(j + 1) * kl]
+    xq = quant.quantize_tensor(xl, qc.a_bits)
+    codes = xq.q.reshape(-1, kl)
+    scale = (p["w_scale"] * xq.scale).to(torch.float32)
+    y = maybe_qlinear_row(codes, p["w_q"], scale, j, m, qc)
+    rows = codes.shape[0]
+    ys = y.reshape(rows, m, n // m).transpose(0, 1).contiguous()
+    part = col.reduce_scatter0(ys, grp).to(torch.bfloat16)
+    rs = cuda_ms(lambda: col.reduce_scatter0(ys, grp))
+    ag = cuda_ms(lambda: col.gather0(part, grp))
+    # bus bytes a rank moves: (m - 1) / m of the f32 partials, and of the
+    # gathered bf16 result
+    bus = (m - 1) / m * ys.numel() * 4, (m - 1) * part.numel() * 2
+    return {"quantize": cuda_ms(lambda: quant.quantize_tensor(xl, qc.a_bits)),
+            "qmatmul": cuda_ms(lambda: maybe_qlinear_row(codes, p["w_q"],
+                                                         scale, j, m, qc)),
+            "reduce-scatter": rs, "all-gather": ag,
+            "reduce-scatter GB/s": bus[0] / rs / 1e6,
+            "all-gather GB/s": bus[1] / ag / 1e6}
+
+
+def dist_llama(rules, world, say):
+    """Llama-4-Scout widths, 2 layers: the forward of 4 x 256 tokens under
+    the rules (every MoE FFN through ``moe_ffn_a2a``) on the cuda backend,
+    against the torch backend (a miss allowed only where a route flip
+    explains it, attributed layer by layer); the a2a FFN of layer 0 alone,
+    cuda against torch.  Returns the run's launches."""
+    import torch
+    from repro_torch.core.api import integerize_params
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.kernels import dispatch
+    from repro_torch.layers import moe
+    from repro_torch.models import lm
+    cfg = arch_config("llama4-scout-17b-a16e", "cuda").replace(
+        n_layers=DIST_LAYERS)
+    tcfg = cfg.replace(quant=cfg.quant.replace(backend="torch"))
+    params = integerize_params(
+        lm.init_params(cfg.replace(quant=None), seed=0, device="cuda"),
+        cfg.quant)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (DIST_BATCH, DIST_PROMPT),
+                         generator=g, device="cuda", dtype=torch.int32)
+    with use_rules(rules):
+        t0 = time.perf_counter()
+        lm.forward(params, {"tokens": toks}, cfg)              # cold
+        torch.cuda.synchronize()
+        t_cold = time.perf_counter() - t0
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        x, _, aux = lm.forward(params, {"tokens": toks}, cfg)
+        lc = lm.logits_fn(params, x[:, -1:], cfg)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        launches = dispatch.launch_counts()
+        snap = dispatch.snapshot()
+        check_route("[dist] llama4-scout cuda run", "cuda", launches, snap,
+                    ("qmatmul", "int_attention_fused"))
+        if snap["qexpert_cuda"] <= 0:
+            raise AssertionError(f"[dist] llama4: no expert product {snap}")
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        xt, _, auxt = lm.forward(params, {"tokens": toks}, tcfg)
+        lt = lm.logits_fn(params, xt[:, -1:], tcfg)
+        abs_e, rel_e = rel_err(lt.float(), lc.float())
+        flips = 0
+        if rel_e > LOGITS_RTOL:
+            flips = layer_attribution("[dist] llama4-scout", params, cfg,
+                                      tcfg, [r.tolist() for r in toks])
+        p0 = layer_at(params["units"], 0)["b0"]
+        h = torch.randn((DIST_BATCH * DIST_PROMPT, cfg.d_model), generator=g,
+                        device="cuda", dtype=torch.bfloat16)
+        dispatch.reset_stats()
+        got, _ = moe.moe_ffn(h, p0["ffn"], cfg.moe, cfg.quant, act=cfg.act)
+        n_exp = dispatch.STATS["qexpert_cuda"]
+        want, _ = moe.moe_ffn(h, p0["ffn"], cfg.moe, tcfg.quant, act=cfg.act)
+        ms = cuda_ms(lambda: moe.moe_ffn(h, p0["ffn"], cfg.moe, cfg.quant,
+                                         act=cfg.act), iters=5, warmup=1)
+    dense_ms = cuda_ms(lambda: moe.moe_ffn(h, p0["ffn"], cfg.moe, cfg.quant,
+                                           act=cfg.act), iters=5, warmup=1)
+    f_abs, _, ok = dist_gap(got, want, world)
+    e_loc = cfg.moe.n_experts // world
+    say(f"[dist] llama4-scout widths, {cfg.n_layers} layers, "
+        f"{cfg.moe.n_experts} experts ({e_loc} a rank) top-{cfg.moe.top_k} "
+        f"+ shared, forward of {DIST_BATCH} x {DIST_PROMPT} tokens "
+        f"{t_fwd * 1e3:.2f} ms (the first {t_cold * 1e3:.2f}), lb_loss {float(aux):.4f} (torch "
+        f"{float(auxt):.4f}); launches "
+        f"{ {k: n for k, n in launches.items() if n} }, expert products "
+        f"{snap['qexpert_cuda']}; last-position logits torch vs cuda max abs "
+        f"{abs_e:.3e} rel {rel_e:.3e} (tol rel {LOGITS_RTOL}; route flips "
+        f"{flips})")
+    say(f"[dist] a2a FFN of layer 0 alone, {DIST_BATCH * DIST_PROMPT} "
+        f"tokens: cuda vs torch max abs {f_abs:.3e} "
+        f"({'bitwise' if world == 1 else 'one bf16 ulp'}: {ok}); {n_exp} "
+        f"expert products; {ms:.3f} ms (event) against {dense_ms:.3f} ms for "
+        f"the replicated dense dispatch on the same card")
+    if (rel_e > LOGITS_RTOL and not flips) or not ok:
+        raise AssertionError("[dist] llama4-scout: cuda and torch differ")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dist_compress(mesh, rank, world, say):
+    """``compress_psum`` over one Qwen2.5-32B layer's gradient shapes (bf16,
+    each rank its own, seed 100 + rank), against the same arithmetic on
+    every rank's gradients gathered (bitwise); its time beside a bf16
+    all-reduce of the same tree."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.compression import (compress_psum,
+                                                     init_error_buffer)
+    g = torch.Generator(device="cuda").manual_seed(100 + rank)
+    shapes = {"wq": (5120, 5120), "wkv": (2048, 5120), "wo": (5120, 5120),
+              "up": (27648, 5120), "gate": (27648, 5120),
+              "down": (5120, 27648), "ln": (5120,)}
+    grads = {k: (torch.randn(s, generator=g, device="cuda") * 1e-3).to(
+        torch.bfloat16) for k, s in shapes.items()}
+    err = init_error_buffer(grads)
+    mean, new_err = compress_psum(grads, err, ("model",), mesh=mesh)
+    for k in sorted(grads):
+        parts = [torch.empty_like(grads[k]) for _ in range(world)]
+        dist.all_gather(parts, grads[k])
+        gf = torch.stack(parts).float()
+        scale = torch.clamp(gf.abs().max(), min=1e-12) / 127
+        q = torch.clamp(torch.round(gf / scale), -128, 127).to(torch.int32)
+        want = (q.sum(0).float() * (scale / world)).to(grads[k].dtype)
+        want_err = gf[rank] - q[rank].float() * scale
+        if not (torch.equal(mean[k], want) and
+                torch.equal(new_err[k], want_err)):
+            raise AssertionError(f"[dist] compress_psum {k} differs from its "
+                                 f"plain arithmetic")
+    n = sum(t.numel() for t in grads.values())
+    ms = cuda_ms(lambda: compress_psum(grads, err, ("model",), mesh=mesh),
+                 iters=5, warmup=1)
+
+    def bf16_mean():
+        for t in grads.values():
+            dist.all_reduce(t.clone())
+    ref_ms = cuda_ms(bf16_mean, iters=5, warmup=1)
+    say(f"[dist] compress_psum over {len(grads)} Qwen-width leaves "
+        f"({n / 1e6:.1f} M values) on {world} rank(s): equal to the plain "
+        f"arithmetic on the gathered gradients; {ms:.3f} ms (event) against "
+        f"{ref_ms:.3f} ms for a bf16 all-reduce of the same tree")
+
+
+def dist_pipeline(world, say):
+    """``pipeline_forward`` with stages = ranks at Qwen's d_model (each
+    stage tanh(x @ w), w 5120 x 5120 bf16), 8 microbatches of 4 rows,
+    against the stages run in turn on one rank (bitwise)."""
+    import torch
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh((world,), ("stage",), device_type="cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    d = 5120
+    ws = (torch.randn((world, d, d), generator=g, device="cuda")
+          * d ** -0.5).to(torch.bfloat16)
+    xs = torch.randn((DIST_MICRO, DIST_BATCH, d), generator=g,
+                     device="cuda").to(torch.bfloat16)
+
+    def stage_fn(w, x):
+        return torch.tanh(x @ w)
+    out = pipeline_forward(stage_fn, ws, xs, mesh, axis="stage")
+    want = xs
+    for s in range(world):
+        want = stage_fn(ws[s], want)
+    ms = cuda_ms(lambda: pipeline_forward(stage_fn, ws, xs, mesh,
+                                          axis="stage"), iters=5, warmup=1)
+    same = torch.equal(out, want)
+    say(f"[dist] pipeline_forward, {world} stage(s), {DIST_MICRO} "
+        f"microbatches of ({DIST_BATCH}, {d}) bf16: equal to the stages in "
+        f"turn {same}; {ms:.3f} ms (event)")
+    if not same:
+        raise AssertionError("[dist] pipeline_forward differs")
 
 
 FAULT_GEN = 12
@@ -2676,13 +3125,13 @@ KERNELS = {
 # the counted runs of each kernel's main paths (the kernels line's
 # launches: their sum, and each path's count)
 MAIN_PATHS = {"qmatmul": ("serve", "archs", "recurrent", "serve-recurrent",
-                          "encdec"),
+                          "encdec", "dist"),
               "int_attention_fused": ("serve", "archs", "recurrent",
-                                      "serve-recurrent", "encdec"),
+                                      "serve-recurrent", "encdec", "dist"),
               "int_paged_decode_attention": ("serve", "archs",
                                              "serve-recurrent"),
               "int_decode_attention": ("ring", "archs", "recurrent",
-                                       "encdec"),
+                                       "encdec", "dist"),
               "pq_layernorm": ("ops",), "int_attention": ("ops",)}
 # qmatmul timed at every (M, N, K) of one Qwen2.5-32B layer and its
 # lm_head at decode and prefill rows, int8 and packed, then DeiT-S's
@@ -2691,10 +3140,11 @@ QMM_TIMES = [(m, n, k, packed) for m in (4, 256) for n, k in QMM_NK
              for packed in (False, True)] + \
     [(m, n, k, False) for m, n, k in QMM_DEIT] + \
     [(m, n, k, False) for m in (4, 256) for n, k in QMM_HEADS] + \
-    [(m, n, k, False) for m, n, k in QMM_FAMILIES]
-# Llama-4-Scout's expert product (16 experts, din 5120, dout 8192) at the
-# [archs] prefill's capacity (20) and a decode step's (1)
-EXPERT_TIMES = (20, 1)
+    [(m, n, k, False) for m, n, k in QMM_FAMILIES + QMM_DIST]
+# Llama-4-Scout's expert product (din 5120, dout 8192) as (experts,
+# capacity): the [archs] prefill's 16 x 20, a decode step's 16 x 1, and one
+# of 4 [dist] ranks' 4 local experts over 80 slots
+EXPERT_TIMES = ((16, 20), (16, 1), (4, 80))
 # (kv_bits, span, pos, G, D): the ring phase's shapes (64-token prompts, so
 # the last decode step reads positions 0..79) first, then full rings, then
 # a full ring at chatglm3-6b's G 16.
@@ -2755,8 +3205,8 @@ def phase_time(g, launches, errs):
         keep("qmatmul", (m, n, k, packed), (ms, pms, bnd, by, lib))
         del x, w, s, b, rs
 
-    for cap in EXPERT_TIMES:
-        time_expert(g, cap)
+    for e, cap in EXPERT_TIMES:
+        time_expert(g, cap, e)
 
     for name, case in ATTN_CASES.items():
         for kname, t in time_attention(g, name, case, both=True).items():
@@ -3048,6 +3498,7 @@ def main() -> int:
         paths["recurrent"] = phase_recurrent()
         paths["serve-recurrent"] = phase_serve_recurrent()
         paths["encdec"] = phase_encdec()
+        paths["dist"] = phase_dist()
         phase_quickstart()
         vparams, imgs = phase_vit()
         paths["ops"], ops_errs = phase_ops(vparams, imgs)

@@ -53,8 +53,15 @@ def is_linear(p: Any) -> bool:
                  or ("w_q" in p)))
 
 
-def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig]) -> torch.Tensor:
-    """The one linear-layer entry point of the models."""
+def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig], *,
+          tp: Optional[str] = None) -> torch.Tensor:
+    """The one linear-layer entry point of the models.
+
+    ``tp="row"`` marks row-parallel layers (wo / down-proj): when the
+    active sharding rules enable ``int_bf16_reduce`` on a mesh with a
+    "model" axis, their integerized form runs the explicit shard body
+    :func:`_int_row_parallel`, whose cross-rank reduce moves bf16.
+    """
     b = p.get("b")
     if cfg is None or cfg.mode == "float":
         y = torch.matmul(x, p["w"])
@@ -68,6 +75,12 @@ def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig]) -> torch.Tensor:
         y = torch.matmul(x_fq, w_fq)
         return y + b if b is not None else y
     if cfg.mode == "int":
+        from repro_torch.distributed.sharding import current_rules
+        rules = current_rules()
+        if (tp == "row" and rules is not None and rules.int_bf16_reduce
+                and rules.mesh is not None
+                and "model" in rules.mesh.mesh_dim_names):
+            return _int_row_parallel(x, p, cfg, rules)
         from repro_torch.kernels.dispatch import maybe_qlinear
         y = maybe_qlinear(x, p, cfg)       # cuda backend; None -> plain path
         if y is not None:
@@ -82,6 +95,65 @@ def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig]) -> torch.Tensor:
             xq = quant.quantize_tensor(x, cfg.a_bits)
         return integerize.int_linear(xq, as_qlinear(p, cfg)).to(x.dtype)
     raise ValueError(f"unknown quant mode {cfg.mode!r}")
+
+
+def _int_row_parallel(x, p, cfg, rules):
+    """Row-parallel integer linear with an explicit bf16 cross-rank reduce.
+
+    Every rank holds the global ``x`` and weights; on its coordinates of
+    the mesh it takes x's batch slice (over the batch axes) and then its
+    slice of the feature (K) dim (over "model"), quantizes that slice on
+    ONE per-tensor grid (its own, finer than the global one; 3-D x too),
+    runs its int32 partial contraction against its K slice of ``w_q`` with
+    the f32 epilogue ``f32(acc) * (w_scale * x_scale)`` and no bias, and
+    reduce-scatters the f32 partials over "model" by output column.  Each
+    rank's 1/m of the sum is cast to bf16 and all-gathered in 2-byte
+    lanes, cast to ``x.dtype``, the bias added once, and the batch slices
+    gathered back, since the model code holds global tensors.
+
+    On the ``cuda`` backend the rank's product is the qmatmul kernel
+    (``dispatch.maybe_qlinear_row``).  The f32 partials sum in the
+    collective's order, not XLA's: past two ranks a bf16 result may differ
+    by one bf16 ulp at a rounding edge.
+    """
+    from repro_torch.distributed import collectives as col
+    from repro_torch.kernels.dispatch import maybe_qlinear_row
+    mesh = rules.mesh
+    bax = tuple(a for a in rules.batch if a in mesh.mesh_dim_names)
+    model = col.group(mesh, "model")
+    m, j = col.axes_size(mesh, ("model",)), col.axes_index(mesh, ("model",))
+    n_dp, bi = col.axes_size(mesh, bax), col.axes_index(mesh, bax)
+    w_q = p["w_q"]
+    packed = w_q.dtype == torch.uint8
+    n, kdim = w_q.shape[0], x.shape[-1]
+    if x.shape[0] % n_dp or kdim % m or n % m or (packed and (kdim // m) % 2):
+        raise ValueError(f"row-parallel linear: x {tuple(x.shape)}, w_q "
+                         f"{tuple(w_q.shape)} over {n_dp} batch x {m} model "
+                         f"ranks (packed K slices must be even)")
+    bl, kl = x.shape[0] // n_dp, kdim // m
+    xl = x[bi * bl:(bi + 1) * bl, ..., j * kl:(j + 1) * kl]
+    xq = quant.quantize_tensor(xl, cfg.a_bits)
+    codes = xq.q.reshape(-1, kl)
+    scale = (p["w_scale"] * xq.scale).to(torch.float32)
+    y = maybe_qlinear_row(codes, w_q, scale, j, m, cfg)
+    if y is None:
+        # packed codes are sliced as stored: K slice j is bytes
+        # [j*kl/2, (j+1)*kl/2) of every row (kl even)
+        unit = kl // 2 if packed else kl
+        w = w_q[:, j * unit:(j + 1) * unit]
+        if packed:
+            w = quant.unpack_int4(w)
+        acc = quant.int_matmul_exact(codes, w.T)
+        y = acc.to(torch.float32) * scale
+    rows = codes.shape[0]
+    # psum_scatter over the last dim: rank r keeps columns [r*N/m, ...)
+    y = col.reduce_scatter0(y.reshape(rows, m, n // m).transpose(0, 1), model)
+    y = col.gather0(y.to(torch.bfloat16), model)            # 2-byte lanes
+    y = y.reshape(m, rows, n // m).transpose(0, 1).reshape(*xl.shape[:-1], n)
+    y = y.to(x.dtype)
+    if p.get("b") is not None:
+        y = y + p["b"]
+    return col.gather_axes(y, mesh, bax)
 
 
 def as_qlinear(p: dict, cfg: QuantConfig) -> QLinearParams:

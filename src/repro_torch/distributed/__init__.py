@@ -1,0 +1,1 @@
+"""distributed of the PyTorch port (see the package docstring)."""

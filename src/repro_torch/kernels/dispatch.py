@@ -61,6 +61,8 @@ def _checked(name: str, source: str) -> str:
 _backend = ["cuda"]
 
 STATS = {"qlinear_cuda": 0, "qlinear_torch": 0,
+         # the rank's product of a row-parallel shard body
+         "qlinear_row_cuda": 0, "qlinear_row_torch": 0,
          "qexpert_cuda": 0, "qexpert_torch": 0,
          "attention_cuda": 0, "attention_paged_cuda": 0,
          "attention_paged_torch": 0, "attention_torch": 0,
@@ -264,6 +266,38 @@ def maybe_qlinear(x, p: dict, cfg):
                   None if bias is None else bias.to(torch.float32),
                   row_scale, blocks=blocks, packed=packed)
     return out.reshape(*x.shape[:-1], n).to(x.dtype)
+
+
+def row_codes(w_q, j: int, m: int):
+    """Rank ``j`` of ``m``'s contiguous K slice of ``w_q`` (N, K) int8 or
+    (N, K/2) nibbles (sliced as stored: ``K/m`` is even), as qmatmul takes
+    W.  Made once per parameter tree and kept on the tensor that owns the
+    codes, as :func:`expert_codes_t` keeps its copies: together the slices
+    double the bytes the row-parallel codes take on the device."""
+    owner = w_q if w_q._base is None else w_q._base
+    memo = owner.__dict__.setdefault("_row_codes", {})
+    key = (w_q.storage_offset(), tuple(w_q.shape), w_q.stride(), j, m)
+    if key not in memo:
+        unit = w_q.shape[1] // m
+        memo[key] = w_q[:, j * unit:(j + 1) * unit].contiguous()
+    return memo[key]
+
+
+def maybe_qlinear_row(codes, w_q, scale, j: int, m: int, cfg):
+    """The rank's product in a row-parallel shard body
+    (``core/api.py::_int_row_parallel``): ``codes`` (M, K/m) int8 on the
+    rank's per-tensor grid against its K slice of ``w_q``, epilogue
+    ``f32(acc) * scale[n]`` with no bias -> f32 (M, N); ``None`` -> the
+    caller's plain path.  Counted as ``qlinear_row_*``."""
+    if resolve_backend(cfg) != "cuda":
+        STATS["qlinear_row_torch"] += 1
+        return None
+    STATS["qlinear_row_cuda"] += 1
+    w = row_codes(w_q, j, m)
+    kl = codes.shape[1]
+    blocks = qmatmul_blocks(codes.shape[0], w.shape[0], kl)
+    return qmatmul(codes.contiguous(), w, scale.contiguous(), blocks=blocks,
+                   packed=w_q.dtype == torch.uint8)
 
 
 # ---------------------------------------------------------------------------

@@ -61,4 +61,4 @@ def mlp(x, p: dict, cfg: QuantConfig | None, *, act: str = "swiglu"):
         h = gelu(dense(x, p["up"], cfg))
     else:
         raise ValueError(act)
-    return dense(h.to(x.dtype), p["down"], cfg)
+    return dense(h.to(x.dtype), p["down"], cfg, tp="row")

@@ -7,8 +7,9 @@ batched ``(E, C, d)`` contractions through :func:`dense_expert`, so the
 paper's reordering applies to MoE unchanged.  In ``int`` mode the expert
 products take the qmatmul kernel, one launch an expert
 (``kernels/dispatch.py::maybe_qexpert``), or the plain exact int32
-product.  The expert-parallel all-to-all body (``moe_ffn_a2a``) belongs to
-the distributed slice.
+product.  Under sharding rules with ``moe_a2a`` on a mesh with a "model"
+axis, :func:`moe_ffn` takes the expert-parallel body :func:`moe_ffn_a2a`
+with its explicit all-to-all exchanges.
 
 Capacity ``max(int(T * k * capacity_factor / E), 1)`` counts every token
 of the call, pad and inactive rows included, so a token's output depends
@@ -21,8 +22,10 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree as tree_lib
 from repro_torch.core import quant
 from repro_torch.core.api import QuantConfig, dense
+from repro_torch.distributed.sharding import current_rules, shard
 from repro_torch.layers.mlp import mlp, silu
 
 
@@ -101,18 +104,128 @@ def _expert_stack(buf, p, cfg, act):
     return dense_expert(h.to(buf.dtype), p["experts_down"], cfg)
 
 
+def _local_experts(p, name, lo, hi, mesh, fsdp):
+    """Experts [lo, hi) of ``p[name]`` as this rank's expert stack; with
+    ``fsdp`` the rank's dout slice over "data", gathered back in its
+    storage dtype (bf16 weights, int8 codes and their scales)."""
+    from repro_torch.distributed import collectives as col
+    out = {}
+    for key in ("w", "w_q", "w_scale"):
+        if key not in p[name]:
+            continue
+        w = p[name][key][lo:hi]
+        if fsdp:
+            n, i = col.axes_size(mesh, ("data",)), col.axes_index(mesh,
+                                                                  ("data",))
+            cols = w.shape[2] // n
+            w = w[:, :, i * cols:(i + 1) * cols].transpose(0, 2)
+            w = col.gather0(w, col.group(mesh, "data"),
+                            shards=True).transpose(0, 2)
+        out[key] = w
+    return out
+
+
+def moe_ffn_a2a(x, p, mcfg: MoEConfig, cfg: QuantConfig | None, rules, *,
+                act: str = "swiglu"):
+    """Expert-parallel MoE with an EXPLICIT all-to-all dispatch.
+
+    On each rank of the mesh, of the global tokens ``x`` (T, d):
+
+      its batch slice (over the batch axes), then its sub-shard of that
+        over "model"                                   (no exchange)
+        -> top-k routing + capacity slots (``cap_sub``)  (no exchange)
+        -> all-to-all over "model": experts to owners  (E_loc, m*cap_sub, d)
+        -> [``expert_fsdp``: gather the expert weights' dout over "data"]
+        -> the rank's E/m experts (``int``: ``dispatch.maybe_qexpert``,
+           one qmatmul launch an expert)               (no exchange)
+        -> reverse all-to-all + combine              (cap_sub slots back)
+        -> all-gather of ``y_sub`` in ``x.dtype`` over "model" and the
+           batch axes, since the model code holds global tensors.
+
+    ``lb_loss`` is the mean over the mesh of each rank's.  The exchanges
+    carry gradients: after a backward pass every rank holds the full
+    gradient of ``x`` and of the weights (``distributed/collectives.py``).
+    Requires ``n_experts % m == 0``.  Returns ``x.dtype`` (the dense
+    dispatch returns f32 for bf16 x, as the reference's two bodies do).
+    """
+    from repro_torch.distributed import collectives as col
+    mesh = rules.mesh
+    m = col.axes_size(mesh, ("model",))
+    e, k = mcfg.n_experts, mcfg.top_k
+    bax = tuple(a for a in rules.batch if a in mesh.mesh_dim_names)
+    n_dp = col.axes_size(mesh, bax)
+    if e % m or x.shape[0] % (n_dp * m):
+        raise ValueError(f"moe_ffn_a2a: {e} experts, {x.shape[0]} tokens "
+                         f"over {n_dp} batch x {m} model ranks")
+    t_local = x.shape[0] // n_dp
+    ts = t_local // m                        # token sub-shard per model rank
+    cap_sub = max(int(ts * k * mcfg.capacity_factor / e), 1)
+    fsdp = rules.expert_fsdp and "data" in mesh.mesh_dim_names
+    model = col.group(mesh, "model")
+    j = col.axes_index(mesh, ("model",))
+    # every rank takes its own tokens and experts of the global tensors
+    ranks = bax + ("model",)
+    p = {k: (v if k == "shared" else tree_lib.tree_map(
+        lambda t: col.shared_input(t, mesh, ranks), v)) for k, v in p.items()}
+    start = col.axes_index(mesh, bax) * t_local + j * ts
+    xs = col.shared_input(x, mesh, ranks)[start:start + ts]
+    probs, gate, idx = route(xs, p, mcfg)
+    buf, eid, slot, keepw = _assign_slots(xs, gate, idx, e, cap_sub)
+
+    e_loc = e // m
+    # experts -> their owning rank; sources' slots concatenate (tiled a2a
+    # with split_axis 0, concat_axis 1)
+    buf = col.all_to_all0(buf, model)                   # (m*E_loc, cap, d)
+    buf = buf.reshape(m, e_loc, cap_sub, -1).transpose(0, 1).reshape(
+        e_loc, m * cap_sub, -1)
+    names = ("experts_gate", "experts_up", "experts_down") \
+        if act == "swiglu" else ("experts_up", "experts_down")
+    lp = {name: _local_experts(p, name, j * e_loc, (j + 1) * e_loc, mesh,
+                               fsdp) for name in names}
+    out_buf = _expert_stack(buf, lp, cfg, act)          # (E_loc, m*cap, d)
+    out_buf = out_buf.reshape(e_loc, m, cap_sub, -1).transpose(0, 1)
+    out_buf = col.all_to_all0(out_buf, model).reshape(e, cap_sub, -1)
+    picked = out_buf[eid, slot]
+    y_sub = (picked * keepw).reshape(ts, k, -1).sum(dim=1)
+    y = col.gather_axes(col.gather0(y_sub.to(x.dtype), model), mesh, bax)
+
+    frac = F.one_hot(idx[:, 0], e).to(torch.float32).mean(dim=0)
+    lb = e * torch.sum(frac * probs.mean(dim=0))
+    for a in ("model",) + bax:
+        lb = col.mean(lb, col.group(mesh, a))
+    if mcfg.shared_expert:
+        y = y + mlp(x, p["shared"], cfg, act=act)
+    return y, {"lb_loss": lb}
+
+
 def moe_ffn(x, p: dict, mcfg: MoEConfig, cfg: QuantConfig | None, *,
             act: str = "swiglu"):
     """x: (T, d) flat tokens -> (T, d), plus aux dict (load-balance loss).
 
     The output is f32 where ``x`` is bf16 (the gate weights are f32), as
-    in the reference; the caller casts it back."""
+    in the reference; the caller casts it back.  Under rules with
+    ``moe_a2a`` the expert-parallel body runs instead, where the tokens
+    sub-shard over "model" (decode-sized blocks that do not take the dense
+    dispatch, replicated on every rank)."""
+    rules = current_rules()
+    if (rules is not None and rules.moe_a2a and rules.mesh is not None
+            and "model" in rules.mesh.mesh_dim_names):
+        from repro_torch.distributed import collectives as col
+        mesh = rules.mesh
+        m = col.axes_size(mesh, ("model",))
+        n_dp = col.axes_size(mesh, tuple(
+            a for a in rules.batch if a in mesh.mesh_dim_names))
+        t_loc = x.shape[0] // max(n_dp, 1)
+        if mcfg.n_experts % m == 0 and t_loc % m == 0 and t_loc > 0:
+            return moe_ffn_a2a(x, p, mcfg, cfg, rules, act=act)
     t, d = x.shape
     e, k = mcfg.n_experts, mcfg.top_k
     cap = max(int(t * k * mcfg.capacity_factor / e), 1)
     probs, gate, idx = route(x, p, mcfg)
     buf, eid, slot, keepw = _assign_slots(x, gate, idx, e, cap)
+    buf = shard(buf, "expert", None, None)
     out_buf = _expert_stack(buf, p, cfg, act)                 # (E, cap, d)
+    out_buf = shard(out_buf, "expert", None, None)
     picked = out_buf[eid, slot]                               # (T*k, d)
     out = (picked * keepw).reshape(t, k, d).sum(dim=1)
     if mcfg.shared_expert:

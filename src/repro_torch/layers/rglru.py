@@ -111,7 +111,7 @@ def rglru_block(x, p: dict, cfg: QuantConfig | None, *, state=None):
         h, h_last = rglru_step(u[:, 0], r[:, 0], i[:, 0], p["lam"],
                                state["h"])
         h = h[:, None]
-    y = dense(h * gate_branch, p["w_out"], cfg)
+    y = dense(h * gate_branch, p["w_out"], cfg, tp="row")
     return y, {"h": h_last, "conv": new_conv}
 
 

@@ -169,7 +169,7 @@ def _attn(x, kv_x, p, cfg: EncDecConfig, *, causal, kv_override=None):
         v = _proj(kv_x, p["wv"], cfg)
     spec = AttnSpec(causal=causal, q_chunk=cfg.q_chunk)
     out = attention(q, k, v, spec, cfg.quant)
-    return dense(_merge(out), p["wo"], cfg.quant), (k, v)
+    return dense(_merge(out), p["wo"], cfg.quant, tp="row"), (k, v)
 
 
 def _enc_layer(x, p, cfg: EncDecConfig):

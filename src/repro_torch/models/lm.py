@@ -75,6 +75,7 @@ import torch
 
 from repro_torch.core.api import QuantConfig, dense
 from repro_torch.core.quant import QTensor, pack_int4, qrange, unpack_int4
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels.ref import gather_pages
 from repro_torch.layers.attention import (AttnSpec, attention,
                                           paged_attention,
@@ -506,6 +507,7 @@ def _attn_mixer(x, p, cfg: LMConfig, kind: str, positions, cache, decode,
     qcfg = cfg.quant
 
     def split(y, h):
+        y = shard(y, "batch", None, "model")
         return y.reshape(b, s, h, hd).transpose(1, 2)
 
     q = split(dense(x, p["wq"], qcfg), hq)
@@ -576,7 +578,7 @@ def _attn_mixer(x, p, cfg: LMConfig, kind: str, positions, cache, decode,
         if cache is not None:
             _ring_write_prefill(cache, k, v, mode, qcfg)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
-    return dense(out, p["wo"], qcfg)
+    return dense(out, p["wo"], qcfg, tp="row")
 
 
 def mixer_block(x, p, cfg: LMConfig, kind: str, *, positions, cache=None,
@@ -586,7 +588,7 @@ def mixer_block(x, p, cfg: LMConfig, kind: str, *, positions, cache=None,
     RG-LRU or SSD.  A recurrent block starts from no state at prefill and
     from the cache's at decode; its new state is written into the cache in
     place."""
-    h = apply_norm(x, p["ln1"], cfg.norm)
+    h = shard(apply_norm(x, p["ln1"], cfg.norm), "batch", "seq_tp", None)
     if kind in ATTN_KINDS:
         out = _attn_mixer(h, p["attn"], cfg, kind, positions, cache, decode,
                           page_table, lengths, prefix_len)
@@ -627,7 +629,8 @@ def ffn_block(x, p, cfg: LMConfig):
 
 def apply_block(x, p, cfg: LMConfig, kind: str, **kw):
     """One block; returns (x, aux) as :func:`ffn_block`."""
-    return ffn_block(mixer_block(x, p, cfg, kind, **kw), p, cfg)
+    x, aux = ffn_block(mixer_block(x, p, cfg, kind, **kw), p, cfg)
+    return shard(x, "batch", "seq_tp", None), aux
 
 
 def _blocks(x, aux, ps, kinds, caches, cfg, kw):
@@ -667,7 +670,7 @@ def _inputs_to_x(params, batch, cfg: LMConfig):
     x = embed_lookup(batch["tokens"], params["embed"], cfg.tdtype)
     if cfg.frontend == "patch" and "patches" in batch:
         x = torch.cat([batch["patches"].to(cfg.tdtype), x], dim=1)
-    return x
+    return shard(x, "batch", None, None)
 
 
 def forward(params, batch, cfg: LMConfig, *, cache=None, decode=False,

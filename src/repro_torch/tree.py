@@ -13,14 +13,21 @@ from typing import Callable
 import torch
 
 
-def leaves_with_paths(tree, path: str = "") -> list[tuple[str, torch.Tensor]]:
-    """(keystr path, leaf) for every non-dict leaf, in sorted key order."""
+def leaves_with_keys(tree, keys: tuple = ()) -> list[tuple[tuple, object]]:
+    """(keys from the root, leaf) for every non-dict leaf, in sorted key
+    order: the ``key`` of each entry of a ``tree_flatten_with_path`` path."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
-            out.extend(leaves_with_paths(tree[k], f"{path}[{k!r}]"))
+            out.extend(leaves_with_keys(tree[k], keys + (k,)))
         return out
-    return [(path, tree)]
+    return [(keys, tree)]
+
+
+def leaves_with_paths(tree) -> list[tuple[str, torch.Tensor]]:
+    """(keystr path, leaf) for every non-dict leaf, in sorted key order."""
+    return [("".join(f"[{k!r}]" for k in keys), leaf)
+            for keys, leaf in leaves_with_keys(tree)]
 
 
 def leaves(tree) -> list[torch.Tensor]:

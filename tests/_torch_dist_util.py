@@ -1,0 +1,414 @@
+"""Both sides of ``tests/test_torch_distributed.py``, each in processes of
+its own.
+
+    python tests/_torch_dist_util.py jax OUT.npz
+        The reference on host meshes (the caller sets
+        ``--xla_force_host_platform_device_count=8``): the inputs it makes and every output, in one
+        npz.  Meshes are ``jax.sharding.Mesh`` over the first 4 devices
+        (``jax.make_mesh`` makes Explicit axes, which the reference's
+        ``shard()`` refuses); the elastic case uses 8 and 6 devices.
+    python tests/_torch_dist_util.py rank JOB RANK WORLD STORE REF OUT_DIR
+        One gloo rank of the port (no JAX imported): JOB "main" (world 4)
+        runs every case on the reference's inputs, "elastic8" / "elastic6"
+        the elastic round trip; each rank writes OUT_DIR/JOB-RANK.npz.
+
+Arrays cross as npz: trees flatten to "/"-joined keys, and a bfloat16
+array travels widened to float32 under a key ending in "@bf16" (exact).
+"""
+import os
+import sys
+
+import numpy as np
+
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
+
+D_IN, D_OUT = 64, 48
+# (name, mesh, x shape, x dtype, packed weights, bias)
+ROW_CASES = [("2d_i8_bias_22", "22", (8, D_IN), "float32", False, True),
+             ("3d_i8_22", "22", (4, 6, D_IN), "float32", False, False),
+             ("3d_pk_bias_22", "22", (4, 6, D_IN), "float32", True, True),
+             ("2d_pk_22", "22", (8, D_IN), "float32", True, False),
+             ("3d_bf16_bias_22", "22", (4, 6, D_IN), "bfloat16", False, True),
+             ("2d_i8_bias_4", "4", (8, D_IN), "float32", False, True),
+             ("3d_pk_4", "4", (4, 6, D_IN), "float32", True, False),
+             ("3d_bf16_pk_bias_4", "4", (4, 6, D_IN), "bfloat16", True,
+              True)]
+LM_BATCH, LM_PROMPT, LM_STEPS, LM_MAX_LEN = 4, 16, 4, 24
+A2A_E, A2A_K, A2A_CF, A2A_D, A2A_FF, A2A_T = 8, 2, 8.0, 32, 64, 64
+PIPE_STAGES, PIPE_MICRO, PIPE_MB, PIPE_D = 4, 8, 2, 16
+ELASTIC_LM = dict(name="t", n_layers=2, d_model=32, n_heads=4, kv_heads=2,
+                  d_ff=64, vocab=64, dtype="float32", remat=False)
+
+
+def flat(tree, prefix=""):
+    """Nested dicts -> {"a/b/c": leaf}."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def unflat(d, prefix):
+    """The inverse of :func:`flat` for the keys under ``prefix``."""
+    out = {}
+    for key, v in d.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        *path, leaf = key[len(prefix) + 1:].split("/")
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def save(path, arrays):
+    """numpy / jax arrays -> npz; bfloat16 widened under "@bf16" keys."""
+    out = {}
+    for k, v in arrays.items():
+        a = np.asarray(v)
+        if a.dtype.name == "bfloat16":
+            out[k + "@bf16"] = a.astype(np.float32)
+        else:
+            out[k] = a
+    np.savez(path, **out)
+
+
+def load(path):
+    """npz -> {key: numpy array}; "@bf16" keys stay widened, key kept."""
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+# ---------------------------------------------------------------------------
+# The reference
+# ---------------------------------------------------------------------------
+
+def row_inputs(case):
+    name, _, shape, dtype, packed, bias = case
+    rng = np.random.RandomState(sum(map(ord, name)))
+    x = rng.randn(*shape).astype(np.float32)
+    w = (rng.randn(D_IN, D_OUT) * D_IN ** -0.5).astype(np.float32)
+    b = (rng.randn(D_OUT) * 0.1).astype(np.float32) if bias else None
+    return x, w, b
+
+
+def jax_reference(out_path):
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as JP
+
+    from repro.configs.registry import smoke_config
+    from repro.core.api import QuantConfig, dense, integerize_params
+    from repro.distributed.compression import compress_psum
+    from repro.distributed.elastic import best_mesh, reshard_to
+    from repro.distributed.pipeline import pipeline_forward
+    from repro.distributed.sharding import Rules, use_rules
+    from repro.layers import moe
+    from repro.models import lm
+
+    devs = np.array(jax.devices()[:4])
+    meshes = {"22": Mesh(devs.reshape(2, 2), ("data", "model")),
+              "4": Mesh(devs, ("model",))}
+    res = {}
+
+    # the row-parallel integer linear, alone
+    for case in ROW_CASES:
+        name, mesh, _, dtype, packed, bias = case
+        x, w, b = row_inputs(case)
+        qc = QuantConfig(w_bits=4, a_bits=8, mode="int", pack_weights=packed)
+        lin = {"w": jnp.asarray(w)}
+        if b is not None:
+            lin["b"] = jnp.asarray(b, dtype)
+        p = integerize_params({"wo": lin}, qc)["wo"]
+        xj = jnp.asarray(x, dtype)
+        rules = Rules(batch=("data",), mesh=meshes[mesh],
+                      int_bf16_reduce=True)
+        with meshes[mesh], use_rules(rules):
+            # eager, op by op, and compiled: XLA's compiled epilogue reads
+            # a bf16 activation scale unrounded (excess precision)
+            y = dense(xj, p, qc, tp="row")
+            yc = jax.jit(lambda x, p: dense(x, p, qc, tp="row"))(xj, p)
+        res.update(flat({"x": xj, "p": p, "y": y, "y_jit": yc},
+                        f"row/{name}/"))
+
+    # integer LM prefill + ring decode, and the MoE forward, on the mesh
+    qc = QuantConfig(w_bits=4, a_bits=8, attn_bits=7, kv_bits=8, mode="int")
+    rules = Rules(batch=("data",), mesh=meshes["22"], int_bf16_reduce=True,
+                  moe_a2a=True)
+    for arch, tag in (("qwen2.5-32b", "qwen"), ("phi3.5-moe-42b-a6.6b",
+                                                "moe")):
+        cfg = smoke_config(arch).replace(quant=qc)
+        params = jax.jit(lambda k: integerize_params(
+            lm.init_params(k, cfg.replace(quant=None)), qc))(
+                jax.random.PRNGKey(0))
+        toks = np.random.RandomState(1).randint(
+            0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+        res.update(flat(params, f"{tag}/params/"))
+        res[f"{tag}/tokens"] = toks
+        with meshes["22"], use_rules(rules):
+            if tag == "qwen":
+                logits, cache = jax.jit(lambda p, b: lm.prefill(
+                    p, b, cfg, LM_MAX_LEN))(params, {"tokens": toks})
+                step = jax.jit(lambda p, t, c: lm.decode_step(p, t, c, cfg))
+                fed = []
+                for i in range(LM_STEPS + 1):
+                    res[f"qwen/logits{i}"] = logits
+                    if i == LM_STEPS:
+                        break
+                    fed.append(np.asarray(jnp.argmax(logits[:, -1], -1),
+                                          np.int32)[:, None])
+                    logits, cache = step(params, fed[-1], cache)
+                res["qwen/fed"] = np.stack(fed)
+            else:
+                def fwd(p, b):
+                    x, _, aux = lm.forward(p, b, cfg)
+                    return lm.logits_fn(p, x, cfg), aux
+                logits, aux = jax.jit(fwd)(params, {"tokens": toks})
+                res["moe/logits"], res["moe/aux"] = logits, aux
+
+    # the reference test's float a2a, with gradients
+    mcfg = moe.MoEConfig(n_experts=A2A_E, top_k=A2A_K,
+                         capacity_factor=A2A_CF)
+    p = moe.init_moe(jax.random.PRNGKey(0), A2A_D, A2A_FF, mcfg,
+                     dtype=jnp.float32)
+    x = jax.random.normal(jax.random.PRNGKey(1), (A2A_T, A2A_D))
+    y_dense, aux_dense = moe.moe_ffn(x, p, mcfg, None)
+    res.update(flat({"p": p, "x": x, "y_dense": y_dense}, "a2a/"))
+    qc = QuantConfig(w_bits=4, a_bits=8, mode="int")
+    pq = integerize_params(p, qc)
+    res.update(flat(pq, "a2a/pq/"))
+    for fsdp in (False, True):
+        rules = Rules(batch=("data",), mesh=meshes["22"], moe_a2a=True,
+                      expert_fsdp=fsdp)
+        with meshes["22"], use_rules(rules):
+            y, aux = jax.jit(lambda x, p: moe.moe_ffn(x, p, mcfg, None))(x, p)
+            g = jax.jit(jax.grad(lambda p: jnp.sum(
+                moe.moe_ffn(x, p, mcfg, None)[0] ** 2)))(p)
+            yq, _ = jax.jit(lambda x, p: moe.moe_ffn(x, p, mcfg, qc))(x, pq)
+        res.update(flat({"y": y, "lb": aux["lb_loss"], "grad": g, "yq": yq},
+                        f"a2a/fsdp{int(fsdp)}/"))
+
+    # compress_psum over 4 data ranks, one leaf per dtype
+    mesh = Mesh(devs, ("data",))
+    rng = np.random.RandomState(3)
+    grads = {"w": rng.randn(4, 64).astype(np.float32),
+             "v": (rng.randn(4, 3, 8) * 3).astype(np.float32)}
+    err = {"w": np.zeros((4, 64), np.float32),
+           "v": (rng.randn(4, 3, 8) * 0.01).astype(np.float32)}
+
+    def f(gs, es):
+        out, new = compress_psum({k: v[0] for k, v in gs.items()},
+                                 {k: v[0] for k, v in es.items()},
+                                 ("data",), bits=8)
+        return ({k: v[None] for k, v in out.items()},
+                {k: v[None] for k, v in new.items()})
+    fm = shard_map(f, mesh=mesh, in_specs=(JP("data"), JP("data")),
+                   out_specs=(JP("data"), JP("data")), check_rep=False)
+    mean, new_err = jax.jit(fm)(grads, err)
+    res.update(flat({"g": grads, "e": err, "mean": mean, "err": new_err},
+                    "psum/"))
+
+    # GPipe over 4 stages
+    mesh = Mesh(devs, ("stage",))
+    ws = jax.random.normal(jax.random.PRNGKey(0),
+                           (PIPE_STAGES, PIPE_D, PIPE_D)) * 0.3
+    xs = jax.random.normal(jax.random.PRNGKey(1),
+                           (PIPE_MICRO, PIPE_MB, PIPE_D))
+    out = pipeline_forward(lambda w, x: jnp.tanh(x @ w), ws, xs, mesh,
+                           axis="stage")
+    res.update({"pipe/ws": ws, "pipe/xs": xs, "pipe/out": out})
+
+    # elastic: 8 devices -> 6, each leaf's shard shape
+    cfg = lm.LMConfig(**ELASTIC_LM)
+    params = lm.init_params(jax.random.PRNGKey(0), cfg)
+    res.update(flat(params, "elastic/params/"))
+    tree = params
+    for n in (8, 6):
+        m = best_mesh(n)
+        tree = reshard_to(jax.device_get(tree), m)
+        res[f"elastic/mesh{n}"] = np.asarray(m.devices.shape)
+        res.update(flat(jax.tree.map(
+            lambda a: np.asarray(a.sharding.shard_shape(a.shape)), tree),
+            f"elastic/shard{n}/"))
+    save(out_path, res)
+
+
+# ---------------------------------------------------------------------------
+# The port, one gloo rank
+# ---------------------------------------------------------------------------
+
+def _tensors(ref, prefix):
+    """The reference's arrays under ``prefix`` as the port's CPU tensors."""
+    import torch
+    out = {}
+    for k, v in ref.items():
+        if k.startswith(prefix):
+            t = torch.from_numpy(np.array(v))
+            if k.endswith("@bf16"):
+                t, k = t.to(torch.bfloat16), k[:-5]
+            out[k] = t
+    return out
+
+
+def _tree(ref, prefix):
+    return unflat(_tensors(ref, prefix + "/"), prefix)
+
+
+def _np(tree):
+    import torch
+    return {k: (v.detach().float() if v.dtype == torch.bfloat16
+                else v.detach()).numpy() for k, v in flat(tree).items()}
+
+
+def main_job(rank, world, ref):
+    import torch
+
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.api import QuantConfig, dense
+    from repro_torch.distributed.compression import compress_psum
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.distributed.sharding import Rules, use_rules
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.layers import moe
+    from repro_torch.models import lm
+
+    meshes = {"22": make_test_mesh((2, 2), ("data", "model"),
+                                   device_type="cpu"),
+              "4": make_test_mesh((4,), ("model",), device_type="cpu"),
+              # every rank alone on its "data" and "model" axes
+              "solo": make_test_mesh((4, 1, 1), ("x", "data", "model"),
+                                     device_type="cpu")}
+    out = {}
+
+    for name, mesh, _, dtype, packed, bias in ROW_CASES:
+        x = _tensors(ref, f"row/{name}/x")[f"row/{name}/x"]
+        p = _tree(ref, f"row/{name}/p")
+        qc = QuantConfig(w_bits=4, a_bits=8, mode="int")
+        for m in (mesh, "solo"):
+            rules = Rules(batch=("data",), mesh=meshes[m],
+                          int_bf16_reduce=True)
+            for backend in ("cuda", "torch"):
+                dispatch.reset_stats()
+                with use_rules(rules), dispatch.use_backend(backend):
+                    y = dense(x, p, qc, tp="row")
+                key = f"row/{name}/{m}/{backend}"
+                out[key] = y
+                out[key + "/calls"] = torch.tensor(
+                    dispatch.STATS[f"qlinear_row_{backend}"])
+
+    qc = QuantConfig(w_bits=4, a_bits=8, attn_bits=7, kv_bits=8, mode="int")
+    rules = Rules(batch=("data",), mesh=meshes["22"], int_bf16_reduce=True,
+                  moe_a2a=True)
+    cfg = smoke_config("qwen2.5-32b").replace(quant=qc)
+    params = _tree(ref, "qwen/params")
+    toks = _tensors(ref, "qwen/tokens")["qwen/tokens"]
+    fed = _tensors(ref, "qwen/fed")["qwen/fed"]
+    dispatch.reset_stats()
+    with use_rules(rules):
+        logits, cache = lm.prefill(params, {"tokens": toks}, cfg, LM_MAX_LEN)
+        out["qwen/logits0"] = logits
+        for i in range(LM_STEPS):
+            logits, cache = lm.decode_step(params, fed[i], cache, cfg)
+            out[f"qwen/logits{i + 1}"] = logits
+    out["qwen/row_calls"] = torch.tensor(dispatch.STATS["qlinear_row_cuda"])
+    out["qwen/plain_calls"] = torch.tensor(
+        dispatch.STATS["qlinear_row_torch"] + dispatch.STATS["qlinear_torch"])
+
+    cfg = smoke_config("phi3.5-moe-42b-a6.6b").replace(quant=qc)
+    params = _tree(ref, "moe/params")
+    toks = _tensors(ref, "moe/tokens")["moe/tokens"]
+    dispatch.reset_stats()
+    with use_rules(rules):
+        x, _, aux = lm.forward(params, {"tokens": toks}, cfg)
+        out["moe/logits"] = lm.logits_fn(params, x, cfg)
+    out["moe/aux"] = aux
+    out["moe/qexpert_calls"] = torch.tensor(dispatch.STATS["qexpert_cuda"])
+
+    mcfg = moe.MoEConfig(n_experts=A2A_E, top_k=A2A_K,
+                         capacity_factor=A2A_CF)
+    x = _tensors(ref, "a2a/x")["a2a/x"]
+    pq = _tree(ref, "a2a/pq")
+    qc = QuantConfig(w_bits=4, a_bits=8, mode="int")
+    for fsdp in (False, True):
+        p = _tree(ref, "a2a/p")
+        for leaf in flat(p).values():
+            leaf.requires_grad_(True)
+        rules = Rules(batch=("data",), mesh=meshes["22"], moe_a2a=True,
+                      expert_fsdp=fsdp)
+        with use_rules(rules):
+            y, aux = moe.moe_ffn(x, p, mcfg, None)
+            (y ** 2).sum().backward()
+            with torch.no_grad():
+                yq, _ = moe.moe_ffn(x, pq, mcfg, qc)
+        tag = f"a2a/fsdp{int(fsdp)}"
+        out.update({f"{tag}/grad/{k}": leaf.grad
+                    for k, leaf in flat(p).items()})
+        out.update({f"{tag}/y": y, f"{tag}/lb": aux["lb_loss"],
+                    f"{tag}/yq": yq})
+
+    mesh = make_test_mesh((4,), ("data",), device_type="cpu")
+    g = {k: v[rank] for k, v in _tree(ref, "psum/g").items()}
+    e = {k: v[rank] for k, v in _tree(ref, "psum/e").items()}
+    mean, new_err = compress_psum(g, e, ("data",), mesh=mesh, bits=8)
+    out.update(flat({"mean": mean, "err": new_err}, "psum/"))
+
+    mesh = make_test_mesh((4,), ("stage",), device_type="cpu")
+    ws = _tensors(ref, "pipe/ws")["pipe/ws"]
+    xs = _tensors(ref, "pipe/xs")["pipe/xs"]
+    out["pipe/out"] = pipeline_forward(lambda w, x: torch.tanh(x @ w), ws, xs,
+                                       mesh, axis="stage")
+    return out
+
+
+def elastic_job(n, ref, tree_path):
+    """Place the tree on best_mesh(n): each leaf's local shape on this
+    rank, and the global tree gathered back (rank 0 saves it, as a
+    checkpoint)."""
+    import torch
+
+    from repro_torch.distributed.elastic import best_mesh, reshard_to
+    tree = _tree(ref, "elastic/params") if n == 8 else \
+        unflat({k: torch.from_numpy(v) for k, v in load(tree_path).items()
+                if k.startswith("tree/")}, "tree")
+    mesh = best_mesh(n, device_type="cpu")
+    placed = reshard_to(tree, mesh)
+    out = {"mesh": torch.tensor(tuple(mesh.shape))}
+    for k, v in flat(placed).items():
+        out[f"shard/{k}"] = torch.tensor(v.to_local().shape)
+        out[f"tree/{k}"] = v.full_tensor()
+    return out
+
+
+def rank_main(job, rank, world, store, ref_path, out_dir):
+    import torch
+    import torch.distributed as dist
+    from datetime import timedelta
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=120))
+    try:
+        ref = load(ref_path)
+        if job == "main":
+            out = main_job(rank, world, ref)
+        else:
+            n = int(job[len("elastic"):])
+            out = elastic_job(n, ref, os.path.join(out_dir, "elastic8-0.npz"))
+        save(os.path.join(out_dir, f"{job}-{rank}.npz"), _np(out))
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, SRC)
+    if sys.argv[1] == "jax":
+        jax_reference(sys.argv[2])
+    else:
+        job, rank, world, store, ref_path, out_dir = sys.argv[2:8]
+        rank_main(job, int(rank), int(world), store, ref_path, out_dir)

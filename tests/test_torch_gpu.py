@@ -956,3 +956,75 @@ def test_smoke_deit_recipe_int_forward_on_the_kernels(gen):
     for key in ("qlinear_torch", "attention_torch"):
         assert dispatch.STATS[key] == 0, (key, dispatch.snapshot())
     assert bool(torch.isfinite(logits).all())
+
+
+def _one_rank(tmp_path, backend):
+    import torch.distributed as dist
+    dist.init_process_group(backend, init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+
+
+def test_gloo_mesh_refuses_cuda_tensors(gen, tmp_path):
+    """No copy through the host: a gloo mesh handed the card's tensors
+    raises rather than moving them."""
+    import torch.distributed as dist
+    from repro_torch.core.api import QuantConfig, dense
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import Rules, use_rules
+    from repro_torch.launch.mesh import make_test_mesh
+    _one_rank(tmp_path, "gloo")
+    try:
+        mesh = make_test_mesh((1, 1), device_type="cpu")
+        x = torch.randn((4, 64), generator=gen, device="cuda")
+        with pytest.raises(ValueError, match="through the host"):
+            col.gather0(x, col.group(mesh, "model"))
+        p = {"w_q": torch.zeros((32, 64), dtype=torch.int8, device="cuda"),
+             "w_scale": torch.ones((32,), device="cuda")}
+        with use_rules(Rules(batch=("data",), mesh=mesh,
+                             int_bf16_reduce=True)):
+            with pytest.raises(ValueError, match="through the host"):
+                dense(x, p, QuantConfig(mode="int"), tp="row")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_row_parallel_one_rank_nccl_equals_per_tensor_dense(gen, tmp_path,
+                                                            packed):
+    """One NCCL rank: the shard body runs qmatmul (one launch, counted as
+    ``qlinear_row_cuda``) and equals the per-tensor integer product
+    rounded to bf16, bias after, bit for bit; the torch backend too."""
+    import torch.distributed as dist
+    from repro_torch.core import integerize, quant
+    from repro_torch.core.api import QuantConfig, as_qlinear, dense
+    from repro_torch.distributed.sharding import Rules, use_rules
+    from repro_torch.launch.mesh import make_test_mesh
+    _one_rank(tmp_path, "nccl")
+    try:
+        mesh = make_test_mesh((1, 1))
+        w = torch.randint(-8, 8, (512, 1024), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        p = {"w_q": pack_int4(w) if packed else w,
+             "w_scale": torch.rand((512,), generator=gen, device="cuda"),
+             "b": torch.randn((512,), generator=gen,
+                              device="cuda").to(torch.bfloat16)}
+        x = torch.randn((4, 33, 1024), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        qc = QuantConfig(w_bits=4, mode="int")
+        xq = quant.quantize_tensor(x, qc.a_bits)
+        want = integerize.int_linear(xq, as_qlinear(
+            {"w_q": w, "w_scale": p["w_scale"]}, qc)).to(torch.bfloat16)
+        want = want + p["b"]
+        rules = Rules(batch=("data",), mesh=mesh, int_bf16_reduce=True)
+        dispatch.reset_stats()
+        before = qm.LAUNCHES["qmatmul"]
+        with use_rules(rules):
+            got = dense(x, p, qc, tp="row")
+            plain = dense(x, p, qc.replace(backend="torch"), tp="row")
+        torch.cuda.synchronize()
+        assert qm.LAUNCHES["qmatmul"] == before + 1
+        assert dispatch.STATS["qlinear_row_cuda"] == 1
+        assert dispatch.STATS["qlinear_row_torch"] == 1
+        assert torch.equal(got, want) and torch.equal(plain, want)
+    finally:
+        dist.destroy_process_group()
