@@ -43,7 +43,10 @@ Phases, in order; any failure exits non-zero before the result line:
    2176-slot windowed ring (G 16, D 256) and a 64-slot one (G 1, D 64);
    [dist]'s shapes on one of 4 ranks: qmatmul at N 5120 over K 1280 and
    6912 (Qwen2.5-32B's wo and down, a quarter of K each) at M 4 and 256,
-   and Llama-4-Scout's 4 local experts over 80 slots;
+   and Llama-4-Scout's 4 local experts over 80 slots; qmatmul's int32
+   accumulator output exactly at [tp]'s row-parallel products (N 5120 over
+   K 5120, 27648 and 8192, and a quarter of each), M 4 and 256, int8 and
+   packed;
 4. serve: ``repro_torch.launch.serve.serve`` at Qwen2.5-32B widths
    (4 of 64 layers, random weights from a seed, made on the card) on the
    ``cuda`` backend; every request DONE, a clean audit, every kernel of
@@ -116,7 +119,20 @@ Phases, in order; any failure exits non-zero before the result line:
    ``archs``; layer 0's row-parallel linears and its a2a FFN alone, cuda
    against torch, bitwise at one rank and within one bf16 ulp past it;
    ``compress_psum`` over Qwen-width gradients and ``pipeline_forward``
-   with stages = ranks, each equal to its plain arithmetic; times printed;
+   with stages = ranks, each equal to its plain arithmetic; times printed.
+   Then [tp], partitioned serving on the same ranks (mesh (data 1, model
+   n), ``Rules(batch=("data",), partitioned=True)``, each rank holding only
+   its shard of the weights and ring caches): (a) Qwen2.5-32B and
+   Llama-4-Scout widths at 2 layers from ``partition.build_params``,
+   prefill of 4 x 256 tokens and 16 greedy ring steps, gated by [route]
+   (every linear on qmatmul, every row-parallel product on its int32
+   accumulator output, attention on the fused and ring kernels, no plain
+   dispatch) and bitwise equal to rank 0's one-rank run of the same tree
+   (logits every step, tokens, the gathered ring caches); (b) at four
+   cards only, Llama-4-Scout at its 48 layers, each rank building its
+   shard: its bytes and peak memory under the card's, the global tree's
+   (meta shapes) above it, 16 ring steps on the cuda backend with the
+   torch backend teacher-forced within the tolerance;
 12. quickstart: ``python -m repro_torch.examples.quickstart`` on the card;
 13. vit: ``models.vit.forward`` at the full DeiT-S config (12 layers,
    224 px, patch 16; random weights from a seed, made on the card), batch
@@ -150,8 +166,9 @@ Phases, in order; any failure exits non-zero before the result line:
     ms per step, peak memory and a profiled step printed;
 17. time: each kernel with CUDA events beside its bound, its plain
     version and, where one PyTorch call computes the same function, that
-    call (``torch._int_mm`` for qmatmul, over x zero-padded to 32 rows at
-    decode rows, ``F.layer_norm`` / ``F.rms_norm`` for PQ-LayerNorm); every
+    call (``torch._int_mm`` for qmatmul and its accumulator output, over x
+    zero-padded to 32 rows at decode rows, ``F.layer_norm`` /
+    ``F.rms_norm`` for PQ-LayerNorm); every
     kernel also with its device time alone (``torch.profiler``), since
     CUDA events count the host's launch overhead at small shapes; a device
     time, and its share of the bound, is quoted only from traces that saw
@@ -425,6 +442,13 @@ QMM_FAMILIES = [(2, 256000, 4096), (256, 256000, 4096), (4, 51866, 1280),
 # [dist]'s row-parallel products on each of 4 ranks: Qwen2.5-32B's wo (K
 # 5120 / 4) and MLP down (K 27648 / 4), N 5120, at decode and prefill rows
 QMM_DIST = [(m, 5120, k) for m in (4, 256) for k in (1280, 6912)]
+# qmatmul's accumulator output (int32 sums, no epilogue) at [tp]'s
+# row-parallel products: Qwen2.5-32B's wo (K 5120) and down (K 27648) and
+# Llama-4-Scout's shared-expert down (K 8192), whole at one rank and a
+# quarter of K on each of 4, at decode and prefill rows, int8 and packed
+QMM_ACC = [(m, 5120, k, packed) for m in (4, 256)
+           for k in (5120, 27648, 8192, 1280, 6912, 2048)
+           for packed in (False, True)]
 # DeiT-S's linears at batch 64: the patch embedding (64 x 196 rows, K 768),
 # wq/wk/wv/wo, the MLP's up and down (64 x 198 rows)
 QMM_DEIT = [(64 * 196, 384, 768), (64 * 198, 384, 384),
@@ -449,7 +473,7 @@ def phase_check(g):
     import torch
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels.pq_layernorm import pq_layernorm
-    from repro_torch.kernels.qmatmul import qmatmul
+    from repro_torch.kernels.qmatmul import qmatmul, qmatmul_acc
     errs = {}
     worst = 0.0
     for m, n, k, packed in QMM_CHECKS:
@@ -472,6 +496,22 @@ def phase_check(g):
     # Llama-4-Scout's prefill expert product, and [dist]'s on one of 4
     # ranks: its 4 local experts over 4 sources' 20 slots
     errs["qmatmul"] = max(worst, check_expert(g), check_expert(g, 4, 80))
+
+    worst = 0
+    for m, n, k, packed in QMM_ACC:
+        x, w, s, b, rs = qmatmul_inputs(g, m, n, k, packed)
+        blocks = dispatch.qmatmul_blocks(m, n, k)
+        got = qmatmul_acc(x, w, blocks=blocks, packed=packed)
+        torch.cuda.synchronize()
+        diff = int((got.long() - ref.qmatmul_acc_ref(x, w).long()).abs().max())
+        log(f"[check] qmatmul_acc M={m} N={n} K={k} packed={packed} plan "
+            f"{blocks}: int32 sums "
+            f"{'exact' if diff == 0 else f'MISMATCH (max abs {diff})'}")
+        if diff:
+            raise AssertionError("qmatmul_acc differs from its plain version")
+        worst = max(worst, diff)
+        del x, w, s, b, rs, got
+    errs["qmatmul_acc"] = float(worst)
 
     # the shapes dispatch gives the fused kernel on the main paths
     for name, q_chunk in (("qwen", 128), ("deit", 256), ("yi", 128),
@@ -892,11 +932,11 @@ def padded_prompts(prompts):
 
 
 # the dispatch counters of each backend's kernel route and plain path
-CUDA_DISPATCH = ("qlinear_cuda", "qlinear_row_cuda", "qexpert_cuda",
-                 "attention_cuda", "attention_paged_cuda",
+CUDA_DISPATCH = ("qlinear_cuda", "qlinear_row_cuda", "qlinear_acc_cuda",
+                 "qexpert_cuda", "attention_cuda", "attention_paged_cuda",
                  "attention_decode_cuda")
-PLAIN_DISPATCH = ("qlinear_torch", "qlinear_row_torch", "qexpert_torch",
-                  "attention_torch", "attention_paged_torch",
+PLAIN_DISPATCH = ("qlinear_torch", "qlinear_row_torch", "qlinear_acc_torch",
+                  "qexpert_torch", "attention_torch", "attention_paged_torch",
                   "attention_decode_torch")
 
 
@@ -1167,8 +1207,8 @@ def phase_archs():
         for what, abs_e, rel_e in gaps:
             log(f"[archs] {arch} {what} logits cuda vs torch backend: max "
                 f"abs {abs_e:.3e} rel {rel_e:.3e} (tol rel {LOGITS_RTOL})")
-        flips = layer_attribution(f"[archs] {arch}", params, cfg, tcfg,
-                                  prompts)
+        flips, _ = layer_attribution(f"[archs] {arch}", params, cfg,
+                                     tcfg, prompts)
         if max(rel_e for _, _, rel_e in gaps) > LOGITS_RTOL and not flips:
             raise AssertionError(f"[archs] {arch}: cuda and torch differ")
         if cfg.frontend == "patch":
@@ -1215,7 +1255,10 @@ def layer_attribution(tag, params, cfg, tcfg, prompts):
     integer products exact), for MoE the tokens whose expert choice
     differs between the two backends' own normed streams; then the torch
     backend's own residual stream against the cuda run's after each layer
-    (free-running), which shows how a gap grows.  Returns the route flips."""
+    (free-running), which shows how a gap grows, and for MoE the tokens
+    that stream routes differently.  Under partitioned rules every rank
+    runs it on its shard.  Returns the route flips, teacher-forced and
+    free-running."""
     import torch
     from repro_torch.layers import moe
     from repro_torch.layers.embed import embed_lookup
@@ -1224,9 +1267,9 @@ def layer_attribution(tag, params, cfg, tcfg, prompts):
     toks = padded_prompts(prompts)
     b, s = toks.shape
     pos = torch.arange(s, dtype=torch.int32, device="cuda")[None].expand(b, s)
-    x = embed_lookup(toks, params["embed"], cfg.tdtype)
+    x = embed_lookup(toks, params["embed"], cfg.tdtype, vocab=cfg.vocab)
     xt = x
-    attn, flips, same, free = [], [], [], []
+    attn, flips, same, free, free_flips = [], [], [], [], []
     for p, kind in stack_blocks(params, cfg):
         x1 = lm.mixer_block(x, p, cfg, kind, positions=pos)
         x1t = lm.mixer_block(x, p, tcfg, kind, positions=pos)
@@ -1242,7 +1285,12 @@ def layer_attribution(tag, params, cfg, tcfg, prompts):
             same.append(torch.equal(lm.ffn(h2, p, cfg)[0],
                                     lm.ffn(h2, p, tcfg)[0]))
         x = lm.ffn_block(x1, p, cfg)[0]
-        xt = lm.apply_block(xt, p, tcfg, kind, positions=pos)[0]
+        x1f = lm.mixer_block(xt, p, tcfg, kind, positions=pos)
+        if cfg.moe is not None:
+            h2f = apply_norm(x1f, p["ln2"], cfg.norm)
+            idxf = moe.route(h2f.reshape(b * s, -1), p["ffn"], cfg.moe)[2]
+            free_flips.append(int((idx != idxf).any(dim=-1).sum()))
+        xt = lm.ffn_block(x1f, p, tcfg)[0]
         free.append(rel_err(xt, x)[1])
     log(f"{tag} prefill layer by layer, teacher-forced: mixer update "
         f"max rel {' '.join(f'{e:.2e}' for e in attn)} (tol rel "
@@ -1250,10 +1298,12 @@ def layer_attribution(tag, params, cfg, tcfg, prompts):
         + (f"; tokens routed differently by the two backends' own streams "
            f"{flips} of {b * s}" if cfg.moe is not None else "")
         + f"; free-running residual stream after each layer max rel "
-        f"{' '.join(f'{e:.2e}' for e in free)}")
+        f"{' '.join(f'{e:.2e}' for e in free)}"
+        + (f"; tokens the free-running stream routes differently "
+           f"{free_flips}" if cfg.moe is not None else ""))
     if max(attn) > LOGITS_RTOL or not all(same):
         raise AssertionError(f"{tag}: teacher-forced layers differ")
-    return sum(flips)
+    return sum(flips), sum(free_flips)
 
 
 def arch_ring(params, cfg, tcfg):
@@ -1690,7 +1740,8 @@ DIST_MICRO = 8            # pipeline microbatches of DIST_BATCH rows
 def phase_dist():
     """Spawn ``torch.cuda.device_count()`` ranks, one a card, on NCCL
     (``dist_rank``), and wait for them; returns rank 0's launches of the
-    [dist] main path (the Qwen and Llama-4 runs)."""
+    [dist] main path (the Qwen and Llama-4 runs) and of [tp]'s (the
+    partitioned runs of (a))."""
     import tempfile
     import torch
     import torch.multiprocessing as mp
@@ -1721,7 +1772,7 @@ def phase_dist():
         launches = json.load(f)
     log(f"[dist] {n} rank(s) in {time.perf_counter() - t0:.1f}s; rank 0's "
         f"launches {launches}")
-    return launches
+    return launches["dist"], launches["tp"]
 
 
 def dist_rank(rank, world, d):
@@ -1750,7 +1801,8 @@ def dist_rank(rank, world, d):
 
 
 def dist_run(rank, world):
-    """The [dist] phase on this rank; returns its main-path launches."""
+    """The [dist] phase and [tp] on this rank; returns their main-path
+    launches."""
     import torch
     from repro_torch.distributed.sharding import Rules
     from repro_torch.launch.mesh import make_test_mesh
@@ -1766,7 +1818,8 @@ def dist_run(rank, world):
         add_launches(total, dist_llama(rules, world, say))
         dist_compress(mesh, rank, world, say)
         dist_pipeline(world, say)
-    return {k: total.get(k, 0) for k in DIST_KERNELS}
+        tp = dist_tp(rank, world, say)
+    return {"dist": {k: total.get(k, 0) for k in DIST_KERNELS}, "tp": tp}
 
 
 def dist_gap(got, want, world):
@@ -1992,7 +2045,7 @@ def dist_llama(rules, world, say):
         abs_e, rel_e = rel_err(lt.float(), lc.float())
         flips = 0
         if rel_e > LOGITS_RTOL:
-            flips = layer_attribution("[dist] llama4-scout", params, cfg,
+            flips, _ = layer_attribution("[dist] llama4-scout", params, cfg,
                                       tcfg, [r.tolist() for r in toks])
         p0 = layer_at(params["units"], 0)["b0"]
         h = torch.randn((DIST_BATCH * DIST_PROMPT, cfg.d_model), generator=g,
@@ -2100,6 +2153,241 @@ def dist_pipeline(world, say):
         f"turn {same}; {ms:.3f} ms (event)")
     if not same:
         raise AssertionError("[dist] pipeline_forward differs")
+
+
+TP_KERNELS = ("qmatmul", "qmatmul_acc", "int_attention_fused",
+              "int_decode_attention")
+
+
+def dist_tp(rank, world, say):
+    """[tp]: partitioned serving, each rank holding only its shard of the
+    weights and ring caches (``repro_torch.distributed.partition``), on a
+    (data 1, model n) mesh under ``Rules(batch=("data",),
+    partitioned=True)``.  (a) Qwen2.5-32B and Llama-4-Scout widths at 2
+    layers from ``partition.build_params``: ``lm.prefill`` of 4 x 256
+    tokens and 16 greedy ring steps, gated by [route] (every linear on
+    qmatmul, every row-parallel product on its int32 accumulator output,
+    attention on the fused and ring kernels, no plain dispatch), then on
+    rank 0 bitwise against the one-rank run of the same tree (logits every
+    step, tokens, the gathered ring caches); (b) at four cards,
+    Llama-4-Scout at its 48 layers.  Returns rank 0's launches of (a)."""
+    import torch
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import Rules
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh((1, world), ("data", "model"), device_type="cuda")
+    rules = Rules(batch=("data",), mesh=mesh, partitioned=True)
+    layout = partition.Layout.of(mesh, ("data",))
+    say(f"[tp] {world} rank(s), mesh (data 1, model {world}), "
+        f"Rules(batch=('data',), partitioned=True)")
+    total = {}
+    for arch in ("qwen2.5-32b", "llama4-scout-17b-a16e"):
+        cfg = arch_config(arch, "cuda").replace(n_layers=DIST_LAYERS)
+        add_launches(total, tp_short(cfg, rules, layout, rank, world, say))
+        torch.cuda.empty_cache()
+    if world < 4:
+        say(f"[tp] (b) Llama-4-Scout at its full depth needs four "
+            f"cards; this run has {world}")
+    else:
+        tp_scout_full(rules, layout, world, say)
+    return {k: total.get(k, 0) for k in TP_KERNELS}
+
+
+def tp_greedy(params, toks, cfg, steps, copies=None):
+    """``lm.prefill`` and ``steps`` greedy ring steps (the host clock
+    around each, synchronized): logits (steps + 1), fed tokens, cache,
+    prefill s, decode s; ``copies`` collects the cache before each step."""
+    import torch
+    from repro_torch.models import lm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lc, cache = lm.prefill(params, {"tokens": toks}, cfg, DIST_PROMPT + steps)
+    torch.cuda.synchronize()
+    t_prefill, step_s = time.perf_counter() - t0, 0.0
+    logits, fed = [lc], []
+    for _ in range(steps):
+        fed.append(torch.argmax(lc[:, 0], -1).to(torch.int32)[:, None])
+        if copies is not None:
+            copies.append(clone_tree(cache))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lc, cache = lm.decode_step(params, fed[-1], cache, cfg)
+        torch.cuda.synchronize()
+        step_s += time.perf_counter() - t1
+        logits.append(lc)
+    return logits, fed, cache, t_prefill, step_s
+
+
+def tp_row_products(cfg):
+    """Row-parallel products a forward: wo, and a dense or shared down."""
+    moe = cfg.moe
+    return cfg.n_layers * (1 + int(moe is None or moe.shared_expert))
+
+
+def tree_bytes(tree):
+    from repro_torch import tree as tree_lib
+    return sum(t.numel() * t.element_size() for t in tree_lib.leaves(tree))
+
+
+def tp_short(cfg, rules, layout, rank, world, say):
+    """[tp] (a) for one config; returns the partitioned run's launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as tree_lib
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+    local = partition.build_params(cfg, seed=0, layout=layout)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (DIST_BATCH, DIST_PROMPT),
+                         generator=g, device="cuda", dtype=torch.int32)
+    with use_rules(rules):
+        tp_greedy(local, toks, cfg, 1)           # cold: NCCL, cuBLAS
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        logits, fed, cache, t_prefill, step_s = tp_greedy(
+            local, toks, cfg, DIST_STEPS)
+        launches = dispatch.launch_counts()
+        snap = dispatch.snapshot()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check_route(f"[tp] {cfg.name} cuda run, {world} rank(s)", "cuda",
+                launches, snap, TP_KERNELS)
+    parts = [None] * world
+    dist.all_gather_object(parts, (layout, tree_lib.tree_map(
+        lambda t: t.cpu(), cache)))
+    # a decode step profiled on rank 0 (the others run the same steps);
+    # it writes a copy of the ring
+    tok, ring = fed[-1], clone_tree(cache)
+    with use_rules(rules):
+        step = lambda: lm.decode_step(local, tok, ring, cfg)
+        step()                                              # warm
+        if rank == 0:
+            log_profile(f"[tp] {cfg.name} decode step, {world} rank(s)",
+                        step, 4, step_s / DIST_STEPS * 1e3)
+        else:
+            for _ in range(4):
+                step()
+    del ring
+    want = tp_row_products(cfg) * (1 + DIST_STEPS)
+    if snap["qlinear_acc_cuda"] != want or launches["qmatmul_acc"] != want \
+            or launches["int_decode_attention"] != cfg.n_layers * DIST_STEPS:
+        raise AssertionError(f"[tp] {cfg.name}: int32 row products "
+                             f"{snap['qlinear_acc_cuda']} (want {want}), "
+                             f"launches {launches}")
+    say(f"[tp] {cfg.name} widths, {cfg.n_layers} layers, partitioned over "
+        f"{world} rank(s): rank 0 holds {tree_bytes(local) / 1e9:.3f} GB of "
+        f"parameters; batch {DIST_BATCH}, {DIST_PROMPT}-token prompts: "
+        f"prefill {t_prefill * 1e3:.2f} ms, decode step "
+        f"{step_s / DIST_STEPS * 1e3:.2f} ms "
+        f"({DIST_BATCH * DIST_STEPS / step_s:.1f} tok/s), peak "
+        f"{peak:.2f} GB allocated; int32 row products "
+        f"{snap['qlinear_acc_cuda']}; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    del local
+    torch.cuda.empty_cache()
+    if rank == 0:
+        whole = partition.build_params(cfg, seed=0)
+        w_logits, w_fed, w_cache, w_pre, w_step = tp_greedy(
+            whole, toks, cfg, DIST_STEPS)
+        del whole
+        got = partition.gather_cache(parts, cfg)
+        same_logits = all(torch.equal(a, b) for a, b in zip(logits,
+                                                             w_logits))
+        same_fed = all(torch.equal(a, b) for a, b in zip(fed, w_fed))
+        same_cache = all(torch.equal(a, b.cpu()) for a, b in zip(
+            tree_lib.leaves(got), tree_lib.leaves(w_cache)))
+        gap = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(logits, w_logits))
+        say(f"[tp] {cfg.name}: {world} rank(s) against the one-rank run of "
+            f"the same tree (prefill {w_pre * 1e3:.2f} ms, decode step "
+            f"{w_step / DIST_STEPS * 1e3:.2f} ms): logits bitwise at every "
+            f"step {same_logits} (max abs {gap:.3e}), tokens {same_fed}, "
+            f"gathered ring caches {same_cache}; greedy tokens of row 0 "
+            f"{torch.cat(fed, 1)[0].tolist()}")
+        if not (same_logits and same_fed and same_cache):
+            raise AssertionError(f"[tp] {cfg.name}: partitioned run differs "
+                                 f"from one rank")
+    return launches
+
+
+def tp_scout_full(rules, layout, world, say):
+    """[tp] (b): Llama-4-Scout at its 48 layers, each rank building its
+    shard; its bytes and peak memory against the card's, and the global
+    tree's (meta shapes) above it; prefill of 4 x 256 tokens and 16 ring
+    steps on the cuda backend, the torch backend teacher-forced beside it
+    within the tolerance; a miss only where route flips explain it (as in
+    [archs]: the prefill layer by layer, teacher-forced, every layer's
+    mixer within the tolerance and its FFN bitwise on the same input, and
+    tokens routed differently by either backend's stream)."""
+    import torch
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+    from repro_torch.configs.registry import get_config
+    arch = "llama4-scout-17b-a16e"
+    cfg = arch_config(arch, "cuda").replace(
+        n_layers=get_config(arch).n_layers)
+    tcfg = cfg.replace(quant=cfg.quant.replace(backend="torch"))
+    cap = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    local = partition.build_params(cfg, seed=0, layout=layout)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    held = tree_bytes(local)
+    build_peak = torch.cuda.max_memory_allocated()
+    whole = tree_bytes(partition.global_shapes(local, cfg, layout))
+    g = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(0, cfg.vocab, (DIST_BATCH, DIST_PROMPT),
+                         generator=g, device="cuda", dtype=torch.int32)
+    with use_rules(rules):
+        tp_greedy(local, toks, cfg, 1)     # cold: NCCL, the expert copies
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        copies = []
+        logits, fed, cache, t_prefill, step_s = tp_greedy(
+            local, toks, cfg, DIST_STEPS, copies)
+        launches = dispatch.launch_counts()
+        snap = dispatch.snapshot()
+        check_route(f"[tp] (b) llama4-scout {cfg.n_layers} layers cuda run",
+                    "cuda", launches, snap, TP_KERNELS)
+        peak = torch.cuda.max_memory_allocated()
+        gaps = [rel_err(logits[0].float(), tp_greedy(
+            local, toks, tcfg, 0)[0][0].float())[1]]
+        for i, (tok, c) in enumerate(zip(fed, copies)):
+            lf, _ = lm.decode_step(local, tok, c, tcfg)
+            gaps.append(rel_err(logits[i + 1].float(), lf.float())[1])
+        del copies
+        flips = free = 0
+        if max(gaps) > LOGITS_RTOL:
+            flips, free = layer_attribution(
+                "[tp] (b) llama4-scout", local, cfg, tcfg,
+                [r.tolist() for r in toks])
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    say(f"[tp] (b) llama4-scout-17b-a16e at {cfg.n_layers} layers over "
+        f"{world} ranks: rank 0 holds {held / 1e9:.2f} GB of parameters "
+        f"(built in {t_build:.1f} s, peak {build_peak / 1e9:.2f} GB while "
+        f"building), the global tree {whole / 1e9:.2f} GB (meta shapes), "
+        f"the card {cap / 1e9:.2f} GB; batch {DIST_BATCH}, "
+        f"{DIST_PROMPT}-token prompts: prefill {t_prefill * 1e3:.2f} ms, decode step "
+        f"{step_s / DIST_STEPS * 1e3:.2f} ms "
+        f"({DIST_BATCH * DIST_STEPS / step_s:.1f} tok/s), peak "
+        f"{peak / 1e9:.2f} GB allocated; launches "
+        f"{ {k: n for k, n in launches.items() if n} }; torch vs cuda "
+        f"backend (teacher-forced) max rel {max(gaps):.3e} (tol rel "
+        f"{LOGITS_RTOL}; prefill, then each step: "
+        f"{' '.join(f'{e:.2e}' for e in gaps)}; route flips {flips} "
+        f"teacher-forced, {free} free-running); "
+        f"finite {finite}; greedy tokens of row 0 "
+        f"{torch.cat(fed, 1)[0].tolist()}")
+    if not (held < cap and max(build_peak, peak) < cap < whole):
+        raise AssertionError("[tp] (b): a rank's bytes or peak above the "
+                             "card, or the global tree within it")
+    if (max(gaps) > LOGITS_RTOL and not (flips or free)) or not finite:
+        raise AssertionError("[tp] (b): cuda and torch backends differ")
 
 
 FAULT_GEN = 12
@@ -3121,18 +3409,22 @@ KERNELS = {
     "int_decode_attention": ("int_attention.cu", "int_attention.py:649"),
     "pq_layernorm": ("pq_layernorm.cu", "pq_layernorm.py:48"),
     "int_attention": ("int_attention.cu", "int_attention.py:496"),
+    # qmatmul's accumulator output: the same kernel, epilogue skipped
+    "qmatmul_acc": ("qmatmul.cu", "qmatmul.py:119"),
 }
 # the counted runs of each kernel's main paths (the kernels line's
 # launches: their sum, and each path's count)
 MAIN_PATHS = {"qmatmul": ("serve", "archs", "recurrent", "serve-recurrent",
-                          "encdec", "dist"),
+                          "encdec", "dist", "tp"),
               "int_attention_fused": ("serve", "archs", "recurrent",
-                                      "serve-recurrent", "encdec", "dist"),
+                                      "serve-recurrent", "encdec", "dist",
+                                      "tp"),
               "int_paged_decode_attention": ("serve", "archs",
                                              "serve-recurrent"),
               "int_decode_attention": ("ring", "archs", "recurrent",
-                                       "encdec", "dist"),
-              "pq_layernorm": ("ops",), "int_attention": ("ops",)}
+                                       "encdec", "dist", "tp"),
+              "pq_layernorm": ("ops",), "int_attention": ("ops",),
+              "qmatmul_acc": ("tp",)}
 # qmatmul timed at every (M, N, K) of one Qwen2.5-32B layer and its
 # lm_head at decode and prefill rows, int8 and packed, then DeiT-S's
 # linears (int8, as the model runs them)
@@ -3141,6 +3433,10 @@ QMM_TIMES = [(m, n, k, packed) for m in (4, 256) for n, k in QMM_NK
     [(m, n, k, False) for m, n, k in QMM_DEIT] + \
     [(m, n, k, False) for m in (4, 256) for n, k in QMM_HEADS] + \
     [(m, n, k, False) for m, n, k in QMM_FAMILIES + QMM_DIST]
+# the accumulator output at Qwen2.5-32B's wo and down on one of 4 [tp]
+# ranks (K 1280 and 6912), decode and prefill rows, int8 and packed
+QMM_ACC_TIMES = [(m, 5120, k, packed) for m in (4, 256) for k in (1280, 6912)
+                 for packed in (False, True)]
 # Llama-4-Scout's expert product (din 5120, dout 8192) as (experts,
 # capacity): the [archs] prefill's 16 x 20, a decode step's 16 x 1, and one
 # of 4 [dist] ranks' 4 local experts over 80 slots
@@ -3156,7 +3452,8 @@ RING_TIMES = [(8, 1024, 79, 5, 128), (4, 1024, 79, 5, 128),
 ROW_OF = {"qmatmul": (256, 27648, 5120, False), "int_attention_fused": "qwen",
           "int_paged_decode_attention": PAGED_CHECKS[0],
           "int_decode_attention": RING_TIMES[0],
-          "pq_layernorm": PQLN_CASES[0], "int_attention": "deit-ops"}
+          "pq_layernorm": PQLN_CASES[0], "int_attention": "deit-ops",
+          "qmatmul_acc": (256, 5120, 6912, False)}
 
 
 def phase_time(g, launches, errs):
@@ -3169,7 +3466,7 @@ def phase_time(g, launches, errs):
     from repro_torch.kernels import int_attention as ia
     from repro_torch.kernels import dispatch, ref
     from repro_torch.kernels.pq_layernorm import pq_layernorm
-    from repro_torch.kernels.qmatmul import qmatmul
+    from repro_torch.kernels.qmatmul import qmatmul, qmatmul_acc
     rows = {}                    # name -> (ms, plain ms, bound, by, library)
 
     def keep(name, key, t):
@@ -3204,6 +3501,28 @@ def phase_time(g, launches, errs):
             f"ms ({by}), plain {pms:.4f} ms, _int_mm{how} {lib:.4f} ms")
         keep("qmatmul", (m, n, k, packed), (ms, pms, bnd, by, lib))
         del x, w, s, b, rs
+
+    for m, n, k, packed in QMM_ACC_TIMES:
+        x, w, *_ = qmatmul_inputs(g, m, n, k, packed)
+        blocks = dispatch.qmatmul_blocks(m, n, k)
+        call = lambda: qmatmul_acc(x, w, blocks=blocks, packed=packed)
+        ms, dms = cuda_ms(call), device_ms(call)
+        pms = cuda_ms(lambda: ref.qmatmul_acc_ref(x, w), iters=3, warmup=1)
+        # torch._int_mm computes the same int32 product (M > 16 only:
+        # decode rows over x zero-padded to 32 rows; W unpacked)
+        xi = F.pad(x, (0, 0, 0, 32 - m)) if m <= 16 else x
+        wi = unpack_int4(w) if packed else w
+        lib = cuda_ms(lambda: torch._int_mm(xi, wi.t()))
+        del wi
+        nbytes = x.numel() + w.numel() + 4 * m * n
+        bnd, by = bound_ms(nbytes, 2 * m * n * k)
+        how = (" (x padded to 32 rows)" if m <= 16 else "") + \
+            (" (W unpacked)" if packed else "")
+        log(f"[time] qmatmul_acc M={m} N={n} K={k} packed={packed} plan "
+            f"{blocks}: {ms:.4f} ms ({dev_str(dms, bnd)}), bound {bnd:.4f} "
+            f"ms ({by}), plain {pms:.4f} ms, _int_mm{how} {lib:.4f} ms")
+        keep("qmatmul_acc", (m, n, k, packed), (ms, pms, bnd, by, lib))
+        del x, w
 
     for e, cap in EXPERT_TIMES:
         time_expert(g, cap, e)
@@ -3498,7 +3817,7 @@ def main() -> int:
         paths["recurrent"] = phase_recurrent()
         paths["serve-recurrent"] = phase_serve_recurrent()
         paths["encdec"] = phase_encdec()
-        paths["dist"] = phase_dist()
+        paths["dist"], paths["tp"] = phase_dist()
         phase_quickstart()
         vparams, imgs = phase_vit()
         paths["ops"], ops_errs = phase_ops(vparams, imgs)

@@ -54,13 +54,17 @@ def is_linear(p: Any) -> bool:
 
 
 def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig], *,
-          tp: Optional[str] = None) -> torch.Tensor:
+          tp: Optional[str] = None, k_split: bool = False) -> torch.Tensor:
     """The one linear-layer entry point of the models.
 
     ``tp="row"`` marks row-parallel layers (wo / down-proj): when the
     active sharding rules enable ``int_bf16_reduce`` on a mesh with a
     "model" axis, their integerized form runs the explicit shard body
-    :func:`_int_row_parallel`, whose cross-rank reduce moves bf16.
+    :func:`_int_row_parallel`, whose cross-rank reduce moves bf16; under
+    partitioned rules it runs
+    ``distributed/partition.py::row_parallel_linear``, whose int32 sums
+    are all-reduced over "model" where ``k_split`` says x and the codes
+    hold this rank's slice of K.
     """
     b = p.get("b")
     if cfg is None or cfg.mode == "float":
@@ -75,7 +79,10 @@ def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig], *,
         y = torch.matmul(x_fq, w_fq)
         return y + b if b is not None else y
     if cfg.mode == "int":
+        from repro_torch.distributed import partition
         from repro_torch.distributed.sharding import current_rules
+        if tp == "row" and partition.active() is not None:
+            return partition.row_parallel_linear(x, p, cfg, k_split)
         rules = current_rules()
         if (tp == "row" and rules is not None and rules.int_bf16_reduce
                 and rules.mesh is not None
@@ -92,7 +99,8 @@ def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig], *,
             dx = quant.absmax_scale(x, cfg.a_bits, axis=(1, 2))
             xq = quant.quantize_tensor(x, cfg.a_bits, scale=dx)
         else:
-            xq = quant.quantize_tensor(x, cfg.a_bits)
+            xq = quant.quantize_tensor(x, cfg.a_bits,
+                                       group=partition.tensor_max)
         return integerize.int_linear(xq, as_qlinear(p, cfg)).to(x.dtype)
     raise ValueError(f"unknown quant mode {cfg.mode!r}")
 

@@ -39,13 +39,20 @@ def qrange(bits: int, *, unsigned: bool = False) -> tuple[int, int]:
 
 
 def absmax_scale(x: torch.Tensor, bits: int, *, axis=None,
-                 unsigned: bool = False, eps: float = 1e-8) -> torch.Tensor:
-    """Calibrate step size from the abs-max of ``x`` (keepdims over ``axis``)."""
+                 unsigned: bool = False, eps: float = 1e-8,
+                 group=None) -> torch.Tensor:
+    """Calibrate step size from the abs-max of ``x`` (keepdims over ``axis``).
+
+    ``group``: maps the local abs-max to the grid's abs-max where ``x`` is
+    one rank's part of what the grid spans (``distributed/partition.py``'s
+    ``group_max``); None for a grid over ``x`` alone."""
     _, qmax = qrange(bits, unsigned=unsigned)
     if axis is None:
         amax = x.abs().amax()
     else:
         amax = x.abs().amax(dim=axis, keepdim=True)
+    if group is not None:
+        amax = group(amax)
     return torch.clamp(amax, min=eps) / qmax
 
 
@@ -146,10 +153,11 @@ class QTensor:
 
 def quantize_tensor(x: torch.Tensor, bits: int, *,
                     scale: Optional[torch.Tensor] = None,
-                    unsigned: bool = False) -> QTensor:
-    """Quantize an activation (calibrates a per-tensor scale if none)."""
+                    unsigned: bool = False, group=None) -> QTensor:
+    """Quantize an activation (calibrates a per-tensor scale if none;
+    ``group`` as in :func:`absmax_scale`)."""
     if scale is None:
-        scale = absmax_scale(x, bits, unsigned=unsigned)
+        scale = absmax_scale(x, bits, unsigned=unsigned, group=group)
     scale = torch.as_tensor(scale, dtype=x.dtype, device=x.device)
     return QTensor(quantize(x, scale, bits, unsigned=unsigned), scale, bits,
                    unsigned)

@@ -54,7 +54,10 @@
 // before the epilogue.
 //
 // Both bodies apply the f32 epilogue in the reference's order, each
-// product and sum rounded on its own (no FMA).
+// product and sum rounded on its own (no FMA).  In accumulator mode (acc
+// given) they skip it and write the exact int32 sums as the result, for
+// callers that add the sums of several K slices before one epilogue (a
+// row-parallel linear over the ranks of a mesh).
 #include "common.cuh"
 
 namespace {
@@ -261,20 +264,24 @@ qmatmul_mma_kernel(const int8_t* __restrict__ x,
 }
 
 // Split-K's second launch: one element a thread, the splits' int32 sums
-// added in split order, then the epilogue.
+// added in split order, then the epilogue into out, or the sum into acc.
 __global__ void __launch_bounds__(NT)
 qmatmul_splitk_kernel(const int* __restrict__ part,
                         const float* __restrict__ scale,
                         const float* __restrict__ bias,
                         const float* __restrict__ row_scale,
-                        float* __restrict__ out, int M, int N, int splits) {
+                        float* __restrict__ out, int* __restrict__ acc,
+                        int M, int N, int splits) {
   const size_t mn = (size_t)M * N;
   const size_t i = (size_t)blockIdx.x * NT + threadIdx.x;
   if (i >= mn) return;
-  int acc = 0;
-  for (int z = 0; z < splits; ++z) acc += part[z * mn + i];
-  out[i] = epilogue(acc, scale, bias, row_scale, static_cast<int>(i / N),
-                    static_cast<int>(i % N));
+  int sum = 0;
+  for (int z = 0; z < splits; ++z) sum += part[z * mn + i];
+  if (acc)
+    acc[i] = sum;
+  else
+    out[i] = epilogue(sum, scale, bias, row_scale, static_cast<int>(i / N),
+                      static_cast<int>(i % N));
 }
 
 constexpr int SK = 64;           // stream body: bytes of a W row a chunk
@@ -339,7 +346,8 @@ __device__ __forceinline__ void w_words(const uint4& v,
 
 // Output columns n0 .. n0 + 16R of every row m < M <= 8 T8: the 16R rows
 // of W of block blockIdx.x, each warp over its contiguous share of the
-// K chunks (none when the chunks are fewer than the warps).
+// K chunks (none when the chunks are fewer than the warps); the epilogue
+// into out, or the int32 sums into acc.
 template <int R, int T8, bool PACKED>
 __global__ void __launch_bounds__(NT, 2)
 qmatmul_stream_kernel(const int8_t* __restrict__ x,
@@ -347,7 +355,8 @@ qmatmul_stream_kernel(const int8_t* __restrict__ x,
                       const float* __restrict__ scale,
                       const float* __restrict__ bias,
                       const float* __restrict__ row_scale,
-                      float* __restrict__ out, int M, int N, int K) {
+                      float* __restrict__ out, int* __restrict__ acc_out,
+                      int M, int N, int K) {
   using L = StreamLayout<R, T8>;
   constexpr int U = SLOADS / (2 * R);  // chunks a step
   constexpr int XL = PACKED ? 2 : 1;   // 16-byte x loads a chunk and row
@@ -454,7 +463,10 @@ qmatmul_stream_kernel(const int8_t* __restrict__ x,
     if (m >= M || n >= N) continue;
     int sum = 0;
     for (int v = 0; v < SWARPS; ++v) sum += red[v][m * L::CS + r];
-    out[(size_t)m * N + n] = epilogue(sum, scale, bias, row_scale, m, n);
+    if (acc_out)
+      acc_out[(size_t)m * N + n] = sum;
+    else
+      out[(size_t)m * N + n] = epilogue(sum, scale, bias, row_scale, m, n);
   }
 }
 
@@ -464,6 +476,7 @@ struct Args {
   const float *scale, *bias, *row_scale;
   float* out;
   int* part;
+  int* acc;
   int M, N, K;
   cudaStream_t stream;
 };
@@ -473,10 +486,10 @@ cudaError_t stream_body(const Args& a, bool packed) {
   const dim3 grid((a.N + 16 * R - 1) / (16 * R));
   if (packed)
     qmatmul_stream_kernel<R, T8, true><<<grid, NT, 0, a.stream>>>(
-        a.x, a.w, a.scale, a.bias, a.row_scale, a.out, a.M, a.N, a.K);
+        a.x, a.w, a.scale, a.bias, a.row_scale, a.out, a.acc, a.M, a.N, a.K);
   else
     qmatmul_stream_kernel<R, T8, false><<<grid, NT, 0, a.stream>>>(
-        a.x, a.w, a.scale, a.bias, a.row_scale, a.out, a.M, a.N, a.K);
+        a.x, a.w, a.scale, a.bias, a.row_scale, a.out, a.acc, a.M, a.N, a.K);
   return cudaGetLastError();
 }
 
@@ -494,15 +507,16 @@ cudaError_t mma_body(const Args& a, int splits) {
       allow_smem(reinterpret_cast<const void*>(kern), smem, done);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.M + BM - 1) / BM, (a.N + BN - 1) / BN, splits);
+  // One split in accumulator mode: its int32 sums are the result.
   kern<<<grid, NT, smem, a.stream>>>(a.x, a.w, a.scale, a.bias, a.row_scale,
-                                     a.out, splits > 1 ? a.part : nullptr,
+                                     a.out, splits > 1 ? a.part : a.acc,
                                      a.M, a.N, a.K);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const size_t mn = (size_t)a.M * a.N;
   qmatmul_splitk_kernel<<<(unsigned)((mn + NT - 1) / NT), NT, 0,
                             a.stream>>>(a.part, a.scale, a.bias, a.row_scale,
-                                        a.out, a.M, a.N, splits);
+                                        a.out, a.acc, a.M, a.N, splits);
   return cudaGetLastError();
 }
 
@@ -520,22 +534,25 @@ cudaError_t launch_mma(const Args& a, bool packed, int splits) {
 // is kernels/qmatmul.py::plan: body 0 is the stream body with M <= 16, bm
 // 8 (M <= 8) or 16, bn 16 or 32 and one split; body 1 is mma with
 // (128, 128) or (64, 128), splits no more than K's slabs and, for
-// splits > 1, part: (splits, M, N) int32 scratch.  Anything else returns
-// cudaErrorInvalidValue and launches nothing.
+// splits > 1, part: (splits, M, N) int32 scratch.  acc (M, N) int32 or
+// null: when given, the exact sums go there, the epilogue is skipped and
+// scale, bias, row_scale and out are not read (they may be null).
+// Anything else returns cudaErrorInvalidValue and launches nothing.
 extern "C" int qmatmul_launch(const void* x, const void* w, const void* scale,
                               const void* bias, const void* row_scale,
-                              void* out, void* part, int M, int N, int K,
-                              int packed, int body, int bm, int bn,
+                              void* out, void* part, void* acc, int M, int N,
+                              int K, int packed, int body, int bm, int bn,
                               int splits, void* stream) {
   const Args a{static_cast<const int8_t*>(x), static_cast<const uint8_t*>(w),
                static_cast<const float*>(scale),
                static_cast<const float*>(bias),
                static_cast<const float*>(row_scale), static_cast<float*>(out),
-               static_cast<int*>(part), M, N, K,
+               static_cast<int*>(part), static_cast<int*>(acc), M, N, K,
                static_cast<cudaStream_t>(stream)};
   const cudaError_t bad = cudaErrorInvalidValue;
   cudaError_t err = bad;
   if (K % (packed ? 32 : 16) != 0) return static_cast<int>(bad);
+  if (!acc && (!out || !scale)) return static_cast<int>(bad);
   if (body == 0 && M >= 1 && M <= 16 && bm == (M <= 8 ? 8 : 16) &&
       splits == 1) {
     if (bn == 16)

@@ -15,15 +15,19 @@ per-dimension entries, equal entry for entry to JAX's ``PartitionSpec``
 on the same tree.  :func:`named_shardings` turns specs into DTensor
 placements on a mesh.
 
-The port has no automatic partitioner: outside the two shard bodies every
-rank runs the model on global tensors, replicated.  :func:`shard` is
-therefore the identity (the reference's is a GSPMD layout constraint,
+The port has no automatic partitioner.  ``Rules(partitioned=True)``
+switches on the partitioned program of ``distributed/partition.py``,
+where each rank holds only its shard of the weights and caches and the
+cross-rank steps are written out; otherwise every rank runs the model on
+global tensors, replicated, outside the two shard bodies.  :func:`shard`
+is the identity either way (the reference's is a GSPMD layout constraint,
 which never changes a value either).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Optional
 
 from repro_torch import tree as tree_lib
@@ -64,10 +68,18 @@ class Rules:
     int_bf16_reduce: bool = False  # row-parallel int linears reduce in bf16
     moe_a2a: bool = False          # explicit all-to-all expert dispatch
     expert_fsdp: bool = False      # expert weights' dout sharded over "data"
+    partitioned: bool = False      # rank-local trees (distributed/partition)
 
     def axes(self, name: str):
         ax = getattr(self, name, ())
         return ax if len(ax) != 1 else ax[0]
+
+    @functools.cached_property
+    def partition(self):
+        """This rank's ``distributed/partition.py::Partition`` on
+        ``mesh``, made once per rules object."""
+        from repro_torch.distributed.partition import Partition
+        return Partition(self)
 
 
 _ACTIVE: list = []

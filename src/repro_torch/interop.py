@@ -7,10 +7,12 @@ pools ``(num_pages + 1, Hkv, page_size, hd[/2])``, ``page_table
 (B, max_pages)``, layer-stacked ``units``, and a recurrent layer's
 per-row f32 states beside the pools), and so does a ring cache
 (codes ``(B, Hkv, span, hd[/2])``, 0-d per-layer scales and the 0-d
-``pos``, shapes kept), with its recurrent layers' f32 states (RG-LRU ``h``
-/ ``conv``, SSD ``h`` / ``convs``), and Whisper's cache (``layers`` stacked
-along the decoder layers: rings, cross K/V codes, scales and ``pos`` of
-shape (L,); a 0-d ``pos``), so both packages can start from one cache;
+``pos``, shapes kept; :func:`to_torch_shard` gives one rank's shard of
+it under partitioned rules), with its recurrent layers' f32 states
+(RG-LRU ``h`` / ``conv``, SSD ``h`` / ``convs``), and Whisper's cache
+(``layers`` stacked along the decoder layers: rings, cross K/V codes,
+scales and ``pos`` of shape (L,); a 0-d ``pos``), so both packages can
+start from one cache;
 :func:`to_numpy` carries tensors back for comparison.  Weights therefore
 cross over as they are and are never re-initialised with torch's
 generator.  bfloat16 crosses as its raw 16-bit pattern, so no value is
@@ -42,6 +44,14 @@ def to_torch(tree, device="cuda"):
     if tree is None or isinstance(tree, (bool, int, float, str)):
         return tree
     return _array_to_tensor(tree, device)
+
+
+def to_torch_shard(cache, cfg, layout, device="cuda"):
+    """A ring cache of the JAX package (array-likes) as one rank's shard
+    of it under partitioned rules (``distributed/partition.py``: rows over
+    the batch axes, KV heads over "model" where attention splits)."""
+    from repro_torch.distributed.partition import partition_cache
+    return partition_cache(to_torch(cache, device), cfg, layout)
 
 
 def to_numpy(tree):

@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.core import quant
 from repro_torch.core.softmax2 import LOG2E
+from repro_torch.distributed.partition import heads_max, tensor_max
 from repro_torch.kernels import int_attention as _attn_mod
 from repro_torch.kernels import pq_layernorm as _pqln_mod
 from repro_torch.kernels import qmatmul as _qmm_mod
@@ -46,7 +47,8 @@ from repro_torch.kernels.int_attention import (MAX_PROB_BITS, SMEM_BUDGET,
                                                int_attention_fused,
                                                int_decode_attention,
                                                int_paged_decode_attention)
-from repro_torch.kernels.qmatmul import plan as qmatmul_plan, qmatmul
+from repro_torch.kernels.qmatmul import plan as qmatmul_plan
+from repro_torch.kernels.qmatmul import qmatmul, qmatmul_acc
 
 _VALID = ("cuda", "torch")
 
@@ -63,6 +65,8 @@ _backend = ["cuda"]
 STATS = {"qlinear_cuda": 0, "qlinear_torch": 0,
          # the rank's product of a row-parallel shard body
          "qlinear_row_cuda": 0, "qlinear_row_torch": 0,
+         # a partitioned row-parallel linear's int32 sums
+         "qlinear_acc_cuda": 0, "qlinear_acc_torch": 0,
          "qexpert_cuda": 0, "qexpert_torch": 0,
          "attention_cuda": 0, "attention_paged_cuda": 0,
          "attention_paged_torch": 0, "attention_torch": 0,
@@ -238,8 +242,9 @@ def maybe_qlinear(x, p: dict, cfg):
 
     Flattens leading dims to 2D, quantizes the activation on the plain
     path's grid — per sequence for (B, S, K) through the kernel's per-row
-    epilogue scale — keeps nibble-packed weights packed, and folds
-    ``dx * dw`` plus bias into the epilogue.
+    epilogue scale, per tensor (over every rank's rows when partitioned)
+    for (T, K) — keeps nibble-packed weights packed, and folds ``dx * dw``
+    plus bias into the epilogue.
     """
     if resolve_backend(cfg) != "cuda" or not qlinear_supported(x, p):
         STATS["qlinear_torch"] += 1
@@ -256,7 +261,7 @@ def maybe_qlinear(x, p: dict, cfg):
         row_scale = torch.repeat_interleave(row_scale.to(torch.float32),
                                             x.shape[1])
     else:
-        xq = quant.quantize_tensor(x, cfg.a_bits)
+        xq = quant.quantize_tensor(x, cfg.a_bits, group=tensor_max)
         x2 = xq.q.reshape(-1, kdim)
         scale = (p["w_scale"] * xq.scale).to(torch.float32)
         row_scale = None
@@ -266,6 +271,21 @@ def maybe_qlinear(x, p: dict, cfg):
                   None if bias is None else bias.to(torch.float32),
                   row_scale, blocks=blocks, packed=packed)
     return out.reshape(*x.shape[:-1], n).to(x.dtype)
+
+
+def maybe_qlinear_acc(codes, w_q, cfg):
+    """The rank's exact int32 sums of a partitioned row-parallel linear
+    (``distributed/partition.py::row_parallel_linear``): ``codes`` (M, K)
+    int8 against ``w_q`` (N, K) int8 or (N, K/2) nibbles on qmatmul's
+    accumulator output; ``None`` -> the caller's plain path.  Counted as
+    ``qlinear_acc_*``."""
+    if resolve_backend(cfg) != "cuda":
+        STATS["qlinear_acc_torch"] += 1
+        return None
+    STATS["qlinear_acc_cuda"] += 1
+    blocks = qmatmul_blocks(codes.shape[0], w_q.shape[0], codes.shape[1])
+    return qmatmul_acc(codes.contiguous(), w_q, blocks=blocks,
+                       packed=w_q.dtype == torch.uint8)
 
 
 def row_codes(w_q, j: int, m: int):
@@ -336,16 +356,17 @@ def maybe_qexpert(x, p: dict, cfg):
     path.
 
     Quantizes the whole (E, C, din) buffer on one per-tensor grid, as the
-    plain path does, then runs each expert's slice through the qmatmul
-    kernel (one launch an expert) against :func:`expert_codes_t`, with the
-    epilogue scale ``(xq.scale * w_scale)[e, 0]`` in the reference's
-    order: ``f32(acc) * scale[n]``, the plain path's product bit for bit.
+    plain path does (over every rank's experts when partitioned), then
+    runs each expert's slice through the qmatmul kernel (one launch an
+    expert) against :func:`expert_codes_t`, with the epilogue scale
+    ``(xq.scale * w_scale)[e, 0]`` in the reference's order:
+    ``f32(acc) * scale[n]``, the plain path's product bit for bit.
     """
     if resolve_backend(cfg) != "cuda" or not qexpert_supported(x, p):
         STATS["qexpert_torch"] += 1
         return None
     STATS["qexpert_cuda"] += 1
-    xq = quant.quantize_tensor(x, cfg.a_bits)
+    xq = quant.quantize_tensor(x, cfg.a_bits, group=heads_max)
     w_t = expert_codes_t(p["w_q"])
     scale = (xq.scale * p["w_scale"]).to(torch.float32)     # (E, 1, dout)
     e, c, din = x.shape
@@ -445,7 +466,8 @@ def _fused_call(q, k, v, spec, cfg):
     rows (row r at position ``r % Sq`` via ``sq_mod``).
 
     Float inputs quantize on per-sequence grids exactly like the plain
-    path — k/v per batch row, q per (batch row, query chunk) — and the
+    path — k/v per batch row, q per (batch row, query chunk), each over
+    every rank's heads when partitioned — and the
     resulting (B*Hkv, nq) logit-scale matrix gives each bq tile its own
     scale.  Pre-quantized QTensor operands keep their own single grid, with
     the plain path's association ``scale*LOG2E*dq*dk``.
@@ -467,10 +489,13 @@ def _fused_call(q, k, v, spec, cfg):
         c = chunk_len(sq, spec.q_chunk)
         n_ch = sq // c
         qr = q.reshape(b, hkv, g, n_ch, c, d)
-        qsc = quant.absmax_scale(qr, cfg.a_bits, axis=(1, 2, 4, 5))
+        qsc = quant.absmax_scale(qr, cfg.a_bits, axis=(1, 2, 4, 5),
+                                 group=heads_max)
         qf = quant.quantize(qr, qsc, cfg.a_bits).reshape(b * hkv, g * sq, d)
-        ksc = quant.absmax_scale(k, cfg.a_bits, axis=(1, 2, 3))
-        vsc = quant.absmax_scale(v, cfg.a_bits, axis=(1, 2, 3))
+        ksc = quant.absmax_scale(k, cfg.a_bits, axis=(1, 2, 3),
+                                 group=heads_max)
+        vsc = quant.absmax_scale(v, cfg.a_bits, axis=(1, 2, 3),
+                                 group=heads_max)
         kf = quant.quantize(k, ksc, cfg.a_bits)
         vf = quant.quantize(v, vsc, cfg.a_bits)
         bq, bk = attention_blocks(g * sq, sk, d, window=spec.window, chunk=c)
@@ -494,14 +519,15 @@ def _fused_call(q, k, v, spec, cfg):
 
 def _as_q(x, bits):
     return x if isinstance(x, quant.QTensor) \
-        else quant.quantize_tensor(x, bits)
+        else quant.quantize_tensor(x, bits, group=tensor_max)
 
 
 def _decode_call(q, k, v, spec, cfg, q_offset, k_positions):
     """One decode step on the ring kernel: the cache's codes as stored
     (int8, or int4 nibbles read in place), and the query on the plain
     path's PER-TENSOR grid (the whole batch shares one ring and one
-    scale), with the plain path's association ``scale*LOG2E*dq*dk``.
+    scale; over every rank's heads and rows when partitioned), with the
+    plain path's association ``scale*LOG2E*dq*dk``.
     ``q_offset`` is the query position as a device tensor."""
     b, hq, _, d = q.shape
     hkv, span = k.shape[1], k.shape[2]

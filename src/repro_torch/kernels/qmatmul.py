@@ -17,6 +17,10 @@ plain version's.
 :func:`qmatmul` runs the kernel on CUDA tensors and the plain version
 (:func:`repro_torch.kernels.ref.qmatmul_ref`) on CPU tensors, and nowhere
 else: there is no fallback from a CUDA tensor to the plain version.
+:func:`qmatmul_acc` is the same kernel in its accumulator mode: the exact
+int32 sums, no epilogue (plain version
+:func:`repro_torch.kernels.ref.qmatmul_acc_ref`), for a row-parallel
+linear whose ranks add their K slices' sums before one epilogue.
 """
 from __future__ import annotations
 
@@ -27,8 +31,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import build, ref
 
-# Kernel launches (one per call that launches, bumped nowhere else).
-LAUNCHES = {"qmatmul": 0}
+# Kernel launches (one per call that launches, bumped nowhere else): every
+# call of the kernel counts under "qmatmul", and those in accumulator mode
+# also under "qmatmul_acc".
+LAUNCHES = {"qmatmul": 0, "qmatmul_acc": 0}
 
 SMS = 132             # H100 SXM streaming multiprocessors
 MIN_SPLIT_K = 1024    # least K bytes a split of K
@@ -102,19 +108,52 @@ def qmatmul(x_q, w_q, scale, bias=None, row_scale=None, *, blocks=None,
                          f"{tuple(w_q.shape)} (packed={packed})")
     if x_q.device.type == "cpu":
         return ref.qmatmul_ref(x_q, w_q, scale, bias, row_scale)
+    _check(scale, torch.float32, (n,), "scale")
+    if bias is not None:
+        _check(bias, torch.float32, (n,), "bias")
+    if row_scale is not None:
+        _check(row_scale, torch.float32, (m,), "row_scale")
+    out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
+    _launch(x_q, w_q, blocks, packed, out=out, scale=scale, bias=bias,
+            row_scale=row_scale)
+    return out
+
+
+def qmatmul_acc(x_q, w_q, *, blocks=None, packed=False):
+    """x_q (M, K) int8 @ w_q (N, K) int8 -> (M, N) int32: the kernel's
+    exact sums with the epilogue skipped (``packed`` and ``blocks`` as in
+    :func:`qmatmul`; a split of K adds its splits' sums in the second
+    launch).  One call counts one launch under "qmatmul" and under
+    "qmatmul_acc"."""
+    m, k = x_q.shape
+    n = w_q.shape[0]
+    if w_q.shape[1] * (2 if packed else 1) != k:
+        raise ValueError(f"qmatmul_acc: x {tuple(x_q.shape)} vs w "
+                         f"{tuple(w_q.shape)} (packed={packed})")
+    if x_q.device.type == "cpu":
+        return ref.qmatmul_acc_ref(x_q, w_q)
+    acc = torch.empty((m, n), dtype=torch.int32, device=x_q.device)
+    _launch(x_q, w_q, blocks, packed, acc=acc)
+    LAUNCHES["qmatmul_acc"] += 1
+    return acc
+
+
+def _launch(x_q, w_q, blocks, packed, *, out=None, acc=None, scale=None,
+            bias=None, row_scale=None):
+    """One call of ``qmatmul_launch``: the epilogue into ``out`` or, with
+    ``acc``, the int32 sums into it."""
     if x_q.device.type != "cuda":
         raise ValueError(f"qmatmul: unsupported device {x_q.device}")
+    m, k = x_q.shape
+    n = w_q.shape[0]
     body, bm, bn, splits = blocks or plan(m, n, k)
     # Both bodies read 16-byte runs of x and of W (nibbles: 32 codes).
     unit = 32 if packed else 16
     _check(x_q, torch.int8, (m, k), "x_q", 16)
     _check(w_q, torch.uint8 if packed else torch.int8,
            (n, k // 2 if packed else k), "w_q", 16)
-    _check(scale, torch.float32, (n,), "scale")
-    if bias is not None:
-        _check(bias, torch.float32, (n,), "bias")
-    if row_scale is not None:
-        _check(row_scale, torch.float32, (m,), "row_scale")
+    if acc is not None:
+        _check(acc, torch.int32, (m, n), "acc", 16)
     if k % unit:
         # Pad K with zero codes (exact for the int32 sums); the main-path
         # shapes never need it.
@@ -122,23 +161,22 @@ def qmatmul(x_q, w_q, scale, bias=None, row_scale=None, *, blocks=None,
         x_q = F.pad(x_q, (0, ku - k))
         w_q = F.pad(w_q, (0, (ku - k) // 2 if packed else ku - k))
         k = ku
-    out = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     part = torch.empty((splits, m, n), dtype=torch.int32,
                        device=x_q.device) if splits > 1 else None
     lib = build.load("qmatmul")
     fn = lib.qmatmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + \
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(x_q.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            None if row_scale is None else row_scale.data_ptr(),
-            out.data_ptr(), None if part is None else part.data_ptr(),
-            m, n, k, int(packed), {"stream": 0, "mma": 1}.get(body, -1), bm,
-            bn, splits, build.stream_ptr(x_q))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    rc = fn(x_q.data_ptr(), w_q.data_ptr(), ptr(scale), ptr(bias),
+            ptr(row_scale), ptr(out), ptr(part), ptr(acc), m, n, k,
+            int(packed), {"stream": 0, "mma": 1}.get(body, -1), bm, bn,
+            splits, build.stream_ptr(x_q))
     build.check(lib, rc, f"qmatmul (plan {(body, bm, bn, splits)})")
     LAUNCHES["qmatmul"] += 1
-    return out
 
 
 def _check(t, dtype, shape, name, align=4):

@@ -39,15 +39,18 @@ from repro_torch.core.softmax2 import exp2_shift, exp2i
 NEG = -1e30
 
 
-def qmatmul_ref(x_q, w_q, scale, bias=None, row_scale=None):
-    """int8 (M,K) @ int8 (N,K)^T * (scale[n] * row_scale[m]) + bias[n].
-
-    ``w_q`` may be (N, K/2) uint8 nibbles (low nibble = even k).  Returns
-    f32 (M, N), with the epilogue's products in the kernel's order.
-    """
+def qmatmul_acc_ref(x_q, w_q):
+    """int8 (M,K) @ int8 (N,K)^T -> exact int32 (M, N); ``w_q`` may be
+    (N, K/2) uint8 nibbles (low nibble = even k), unpacked as
+    ``core/api.py::as_qlinear`` unpacks them."""
     if w_q.dtype == torch.uint8:
         w_q = unpack_int4(w_q)
-    acc = int_matmul_exact(x_q, w_q.T)
+    return int_matmul_exact(x_q, w_q.T)
+
+
+def qmatmul_epilogue(acc, scale, bias=None, row_scale=None):
+    """``f32(acc) * (scale[n] * row_scale[m]) + bias[n]``, each product and
+    sum rounded on its own, in the kernel's order."""
     s = scale.to(torch.float32)[None, :]
     if row_scale is not None:
         s = s * row_scale.to(torch.float32)[:, None]
@@ -55,6 +58,16 @@ def qmatmul_ref(x_q, w_q, scale, bias=None, row_scale=None):
     if bias is not None:
         out = out + bias.to(torch.float32)[None, :]
     return out
+
+
+def qmatmul_ref(x_q, w_q, scale, bias=None, row_scale=None):
+    """int8 (M,K) @ int8 (N,K)^T * (scale[n] * row_scale[m]) + bias[n].
+
+    ``w_q`` may be (N, K/2) uint8 nibbles (low nibble = even k).  Returns
+    f32 (M, N), with the epilogue's products in the kernel's order.
+    """
+    return qmatmul_epilogue(qmatmul_acc_ref(x_q, w_q), scale, bias,
+                            row_scale)
 
 
 def _row_sc(sc, h, sq):

@@ -63,6 +63,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import partition
 from repro_torch.kernels import dispatch
 from repro_torch.models import lm
 from repro_torch.runtime import faults as faults_mod
@@ -242,6 +243,7 @@ class PagedEngine:
                  audit_raises: bool = True,
                  watchdog: Optional[Watchdog] = None,
                  fault_plan: Optional["faults_mod.FaultPlan"] = None):
+        partition.refuse("the paged engine (launch/engine.py)")
         self.cfg, self.params = cfg, params
         self.batch_size, self.page_size = batch_size, page_size
         self.max_pages = -(-max_len // page_size)

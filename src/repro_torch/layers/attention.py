@@ -29,6 +29,7 @@ from repro_torch.core import quant
 from repro_torch.core.api import QuantConfig
 from repro_torch.core.quant import int_matmul_exact
 from repro_torch.core.softmax2 import LOG2E, exp2_shift
+from repro_torch.distributed.partition import heads_max, tensor_max
 
 NEG_BIG = -1e9
 
@@ -52,16 +53,20 @@ def _mask(q_pos, k_pos, spec: AttnSpec):
 
 
 def _as_q(x, bits):
+    """Per-tensor quantization (over every rank's heads and rows when
+    partitioned; QTensors pass through on their grid)."""
     if isinstance(x, quant.QTensor):
         return x
-    return quant.quantize_tensor(x, bits)
+    return quant.quantize_tensor(x, bits, group=tensor_max)
 
 
 def _as_q_rows(x, bits):
-    """Per-batch-row quantization (QTensors pass through on their grid)."""
+    """Per-batch-row quantization (over every rank's heads when
+    partitioned; QTensors pass through on their grid)."""
     if isinstance(x, quant.QTensor):
         return x
-    scale = quant.absmax_scale(x, bits, axis=tuple(range(1, x.ndim)))
+    scale = quant.absmax_scale(x, bits, axis=tuple(range(1, x.ndim)),
+                               group=heads_max)
     return quant.quantize_tensor(x, bits, scale=scale)
 
 

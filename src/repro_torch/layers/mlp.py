@@ -54,11 +54,14 @@ def softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def mlp(x, p: dict, cfg: QuantConfig | None, *, act: str = "swiglu"):
+def mlp(x, p: dict, cfg: QuantConfig | None, *, act: str = "swiglu",
+        k_split: bool = False):
+    """The feed-forward on x (..., d); ``k_split``: under partitioned rules,
+    gate and up hold this rank's columns and down its slice of K."""
     if act == "swiglu":
         h = silu(dense(x, p["gate"], cfg)) * dense(x, p["up"], cfg)
     elif act == "gelu":
         h = gelu(dense(x, p["up"], cfg))
     else:
         raise ValueError(act)
-    return dense(h.to(x.dtype), p["down"], cfg, tp="row")
+    return dense(h.to(x.dtype), p["down"], cfg, tp="row", k_split=k_split)

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch import tree as tree_lib
 from repro_torch.core import quant
 from repro_torch.core.api import QuantConfig, dense
+from repro_torch.distributed import partition
 from repro_torch.distributed.sharding import current_rules, shard
 from repro_torch.layers.mlp import mlp, silu
 
@@ -53,7 +54,8 @@ def dense_expert(x, p: dict, cfg: QuantConfig | None):
         from repro_torch.kernels.dispatch import maybe_qexpert
         y = maybe_qexpert(x, p, cfg)       # cuda backend; None -> plain path
         if y is None:
-            xq = quant.quantize_tensor(x, cfg.a_bits)
+            xq = quant.quantize_tensor(x, cfg.a_bits,
+                                       group=partition.heads_max)
             acc = quant.int_matmul_exact(xq.q, p["w_q"])
             y = acc.to(torch.float32) * (xq.scale * p["w_scale"])
             y = y.to(x.dtype)
@@ -198,6 +200,10 @@ def moe_ffn_a2a(x, p, mcfg: MoEConfig, cfg: QuantConfig | None, rules, *,
     return y, {"lb_loss": lb}
 
 
+def _lead(lin):
+    return lin["w_q"] if "w_q" in lin else lin["w"]
+
+
 def moe_ffn(x, p: dict, mcfg: MoEConfig, cfg: QuantConfig | None, *,
             act: str = "swiglu"):
     """x: (T, d) flat tokens -> (T, d), plus aux dict (load-balance loss).
@@ -206,7 +212,16 @@ def moe_ffn(x, p: dict, mcfg: MoEConfig, cfg: QuantConfig | None, *,
     in the reference; the caller casts it back.  Under rules with
     ``moe_a2a`` the expert-parallel body runs instead, where the tokens
     sub-shard over "model" (decode-sized blocks that do not take the dense
-    dispatch, replicated on every rank)."""
+    dispatch, replicated on every rank).
+
+    Under partitioned rules ``x`` holds the rank's tokens and ``p`` its
+    experts (E/m where E splits over "model"): routing and the capacity
+    slots run over all of the call's tokens, gathered over the batch axes
+    since the capacity couples them; the rank runs only its experts (on a
+    grid over every rank's buffer), their outputs are gathered along E,
+    the combine runs as on one rank and the rank keeps its own tokens, on
+    which the shared expert runs.  Bit for bit one rank's run."""
+    part = partition.active()
     rules = current_rules()
     if (rules is not None and rules.moe_a2a and rules.mesh is not None
             and "model" in rules.mesh.mesh_dim_names):
@@ -218,18 +233,28 @@ def moe_ffn(x, p: dict, mcfg: MoEConfig, cfg: QuantConfig | None, *,
         t_loc = x.shape[0] // max(n_dp, 1)
         if mcfg.n_experts % m == 0 and t_loc % m == 0 and t_loc > 0:
             return moe_ffn_a2a(x, p, mcfg, cfg, rules, act=act)
-    t, d = x.shape
+    xg = x if part is None else part.gather(x, part.batch)
+    t, d = xg.shape
     e, k = mcfg.n_experts, mcfg.top_k
     cap = max(int(t * k * mcfg.capacity_factor / e), 1)
-    probs, gate, idx = route(x, p, mcfg)
-    buf, eid, slot, keepw = _assign_slots(x, gate, idx, e, cap)
+    probs, gate, idx = route(xg, p, mcfg)
+    buf, eid, slot, keepw = _assign_slots(xg, gate, idx, e, cap)
     buf = shard(buf, "expert", None, None)
+    e_loc = _lead(p["experts_up"]).shape[0]
+    if e_loc != e:                            # this rank's experts only
+        buf = buf[part.j * e_loc:(part.j + 1) * e_loc]
     out_buf = _expert_stack(buf, p, cfg, act)                 # (E, cap, d)
+    if e_loc != e:
+        out_buf = part.gather(out_buf, ("model",))
     out_buf = shard(out_buf, "expert", None, None)
     picked = out_buf[eid, slot]                               # (T*k, d)
     out = (picked * keepw).reshape(t, k, d).sum(dim=1)
+    if part is not None:
+        out = part.batch_rows(out)
     if mcfg.shared_expert:
-        out = out + mlp(x, p["shared"], cfg, act=act)
+        split = partition.out_features(p["shared"]["up"]) < \
+            _lead(p["experts_up"]).shape[-1]
+        out = out + mlp(x, p["shared"], cfg, act=act, k_split=split)
     # Load-balance aux loss (Switch-style): E * sum_e f_e * p_e.
     frac = F.one_hot(idx[:, 0], e).to(torch.float32).mean(dim=0)
     aux = {"lb_loss": e * torch.sum(frac * probs.mean(dim=0))}

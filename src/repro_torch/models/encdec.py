@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.core.api import QuantConfig, dense
 from repro_torch.core.quant import QTensor
+from repro_torch.distributed import partition
 from repro_torch.layers.attention import AttnSpec, attention
 from repro_torch.layers.embed import embed_lookup, init_embed
 from repro_torch.layers.mlp import mlp
@@ -340,6 +341,7 @@ def prefill(params, batch, cfg: EncDecConfig, max_len: Optional[int] = None):
     ``batch["tokens"]`` (B, S) into a new cache of ``max_len`` (default S)
     self-attention slots.  Returns (last-position logits (B, 1, V),
     cache)."""
+    partition.refuse("the encoder-decoder family (models/encdec.py)")
     enc_x = encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -354,6 +356,7 @@ def prefill(params, batch, cfg: EncDecConfig, max_len: Optional[int] = None):
 def decode_step(params, token, cache, cfg: EncDecConfig):
     """One step: token (B, 1) -> logits (B, 1, V); the cache is updated in
     place (the new self-attention key / value, both ``pos``)."""
+    partition.refuse("the encoder-decoder family (models/encdec.py)")
     x = decoder_embed(params, token, cfg, cache["pos"])
     x = _dec_stack(params, x, cfg, cache=cache, decode=True)
     cache["pos"].add_(1)

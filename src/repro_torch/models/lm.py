@@ -65,6 +65,14 @@ Each returns the cache it was given, so callers read like the reference.
 Ring writes compute in f32 (XLA promotes a bf16 tensor divided by a 0-d
 f32 scale to f32; torch would stay in bf16) and saturate int8 codes as
 XLA converts (torch's cast wraps).
+
+Partitioned serving (``distributed/partition.py``): under
+``Rules(partitioned=True)`` :func:`prefill` and :func:`decode_step` take
+the global tokens, run the rank's batch rows on its shard of the tree
+(attention on its KV heads, read from the local weights; row-parallel
+linears reduced as int32; its experts; its vocabulary rows) into its
+shard of the ring cache, and return the global logits on every rank.
+:func:`forward` then takes the rank's rows.
 """
 from __future__ import annotations
 
@@ -75,6 +83,7 @@ import torch
 
 from repro_torch.core.api import QuantConfig, dense
 from repro_torch.core.quant import QTensor, pack_int4, qrange, unpack_int4
+from repro_torch.distributed import partition
 from repro_torch.distributed.sharding import shard
 from repro_torch.kernels.ref import gather_pages
 from repro_torch.layers.attention import (AttnSpec, attention,
@@ -310,8 +319,9 @@ def _ring_write_prefill(cache, k, v, mode, qcfg):
     if mode == "int":
         kv4 = qcfg.kv_bits == 4
         qmax = 7.0 if kv4 else 127.0
-        ksc = ks_.abs().amax().to(torch.float32) / qmax
-        vsc = vs_.abs().amax().to(torch.float32) / qmax
+        # per tensor: over every rank's heads and rows when partitioned
+        ksc = partition.tensor_max(ks_.abs().amax()).to(torch.float32) / qmax
+        vsc = partition.tensor_max(vs_.abs().amax()).to(torch.float32) / qmax
         cache["k"].copy_(_ring_codes(ks_, ksc, kv4))
         cache["v"].copy_(_ring_codes(vs_, vsc, kv4))
         cache["k_scale"].copy_(ksc)
@@ -503,7 +513,10 @@ def _paged_write_prefill(cache, k, v, positions, lengths, page_table, mode,
 def _attn_mixer(x, p, cfg: LMConfig, kind: str, positions, cache, decode,
                 page_table=None, lengths=None, prefix_len: int = 0):
     b, s, _ = x.shape
-    hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.kv_heads
+    # the heads this rank holds (all of them unless partitioned)
+    hd = cfg.hd
+    hq = partition.out_features(p["wq"]) // hd
+    hkv = partition.out_features(p["wk"]) // hd
     qcfg = cfg.quant
 
     def split(y, h):
@@ -578,7 +591,7 @@ def _attn_mixer(x, p, cfg: LMConfig, kind: str, positions, cache, decode,
         if cache is not None:
             _ring_write_prefill(cache, k, v, mode, qcfg)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
-    return dense(out, p["wo"], qcfg, tp="row")
+    return dense(out, p["wo"], qcfg, tp="row", k_split=hq < cfg.n_heads)
 
 
 def mixer_block(x, p, cfg: LMConfig, kind: str, *, positions, cache=None,
@@ -611,7 +624,8 @@ def ffn(h2, p, cfg: LMConfig):
     FFN on the flattened (B*S, d) tokens.  Returns (out, aux): ``aux`` holds
     MoE's ``lb_loss`` (empty for the MLP)."""
     if cfg.moe is None:
-        return mlp(h2, p["ffn"], cfg.quant, act=cfg.act), {}
+        split = partition.out_features(p["ffn"]["up"]) < cfg.d_ff
+        return mlp(h2, p["ffn"], cfg.quant, act=cfg.act, k_split=split), {}
     b, s, d = h2.shape
     out, aux = moe_ffn(h2.reshape(b * s, d), p["ffn"], cfg.moe, cfg.quant,
                        act=cfg.act)
@@ -667,7 +681,8 @@ def stack_forward(x, params, cfg: LMConfig, *, positions, cache=None,
 
 
 def _inputs_to_x(params, batch, cfg: LMConfig):
-    x = embed_lookup(batch["tokens"], params["embed"], cfg.tdtype)
+    x = embed_lookup(batch["tokens"], params["embed"], cfg.tdtype,
+                     vocab=cfg.vocab)
     if cfg.frontend == "patch" and "patches" in batch:
         x = torch.cat([batch["patches"].to(cfg.tdtype), x], dim=1)
     return shard(x, "batch", None, None)
@@ -688,10 +703,21 @@ def forward(params, batch, cfg: LMConfig, *, cache=None, decode=False,
     ``prefix_len``: ``batch["tokens"]`` is the tail of a prompt whose
     first ``prefix_len`` positions are already cached (prefix sharing /
     chunked prefill).  Cache writes
-    happen in place (module docstring).
+    happen in place (module docstring).  Under partitioned rules ``batch``
+    holds the rank's rows and ``params`` / ``cache`` its shards
+    (:func:`repro_torch.distributed.partition.check_tree`).
     """
-    x = _inputs_to_x(params, batch, cfg)
     paged = cache is not None and "page_table" in cache
+    if partition.active() is not None:
+        if paged:
+            partition.refuse("the paged cache (launch/engine.py)")
+        if any(k not in ATTN_KINDS for k in block_kinds(cfg)):
+            partition.refuse("the recurrent blocks (rglru, ssd)")
+        if cfg.quant is None or cfg.quant.mode != "int":
+            partition.refuse(f"mode {cfg.quant.mode if cfg.quant else None!r}"
+                             f" (partitioned serving is int mode)")
+    partition.check_tree(params, cfg)
+    x = _inputs_to_x(params, batch, cfg)
     page_table = cache["page_table"] if paged else None
     lengths = batch.get("lengths") if paged and not decode else None
     b, s = x.shape[0], x.shape[1]
@@ -722,7 +748,12 @@ def forward(params, batch, cfg: LMConfig, *, cache=None, decode=False,
 
 
 def logits_fn(params, x, cfg: LMConfig):
-    return dense(x, params["lm_head"], cfg.quant)
+    """Logits over the whole vocabulary (gathered over "model" where the
+    rank holds a block of the lm_head's rows)."""
+    y = dense(x, params["lm_head"], cfg.quant)
+    if y.shape[-1] != cfg.vocab:
+        y = partition.active().gather(y, ("model",), dim=-1)
+    return y
 
 
 def chunked_nll(x, labels, loss_chunk: int, head):
@@ -748,6 +779,7 @@ def lm_loss(params, batch, cfg: LMConfig):
     (plus ``patches`` for a patch frontend, whose positions take no loss),
     :func:`chunked_nll` over ``cfg.loss_chunk``.  Returns (nll + 0.01 *
     aux, {"nll", "aux"})."""
+    partition.refuse("training (lm_loss)")
     x, _, aux = forward(params, batch, cfg)
     labels = batch["labels"]
     if cfg.frontend == "patch":                   # frontend tokens: no loss
@@ -764,12 +796,25 @@ def prefill(params, batch, cfg: LMConfig, max_len: Optional[int] = None):
     for a ``"patch"`` frontend (prepended, so the prompt is n_patches + S
     positions); the ring holds ``max_len`` positions (default S, as in the
     reference: a prompt with patches then wraps).  Returns (last-position
-    logits (B, 1, V), cache)."""
+    logits (B, 1, V), cache).  Partitioned: the global batch in, the
+    global logits out on every rank, and the rank's shard of the cache
+    (:func:`repro_torch.distributed.partition.init_cache`)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    cache = init_cache(cfg, b, max_len or s, device=tokens.device)
+    part = partition.active()
+    if part is None:
+        cache = init_cache(cfg, b, max_len or s, device=tokens.device)
+    else:
+        cache = partition.init_cache(cfg, b, max_len or s, part.layout,
+                                     device=tokens.device)
+        batch = {k: part.batch_rows(v) for k, v in batch.items()}
     x, cache, _ = forward(params, batch, cfg, cache=cache, decode=False)
-    return logits_fn(params, x[:, -1:], cfg), cache
+    return _global_logits(params, x[:, -1:], cfg, part), cache
+
+
+def _global_logits(params, x, cfg, part):
+    logits = logits_fn(params, x, cfg)
+    return logits if part is None else part.gather(logits, part.batch)
 
 
 def paged_prefill(params, batch, cfg: LMConfig, cache, *,
@@ -904,7 +949,11 @@ def admission_prefill(params, batch, cfg: LMConfig, cache, rows, page_table,
 
 def decode_step(params, token, cache, cfg: LMConfig):
     """One serving step: token (B, 1) + ring or paged cache -> logits
-    (B, 1, V); the cache is updated in place."""
+    (B, 1, V); the cache is updated in place.  Partitioned: the global
+    tokens in, the global logits out, the rank's shard of the ring."""
+    part = partition.active()
+    if part is not None:
+        token = part.batch_rows(token)
     x, cache, _ = forward(params, {"tokens": token}, cfg, cache=cache,
                        decode=True)
-    return logits_fn(params, x, cfg), cache
+    return _global_logits(params, x, cfg, part), cache

@@ -10,12 +10,16 @@ its own.
     python tests/_torch_dist_util.py rank JOB RANK WORLD STORE REF OUT_DIR
         One gloo rank of the port (no JAX imported): JOB "main" (world 4)
         runs every case on the reference's inputs, "elastic8" / "elastic6"
-        the elastic round trip; each rank writes OUT_DIR/JOB-RANK.npz.
+        the elastic round trip, "partition" (world 4) the partitioned ring
+        serving of ``tests/test_torch_partition.py``; each rank writes
+        OUT_DIR/JOB-RANK.npz.  :func:`launch` and :func:`join` start and
+        wait for a job's ranks.
 
 Arrays cross as npz: trees flatten to "/"-joined keys, and a bfloat16
 array travels widened to float32 under a key ending in "@bf16" (exact).
 """
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -38,6 +42,81 @@ A2A_E, A2A_K, A2A_CF, A2A_D, A2A_FF, A2A_T = 8, 2, 8.0, 32, 64, 64
 PIPE_STAGES, PIPE_MICRO, PIPE_MB, PIPE_D = 4, 8, 2, 16
 ELASTIC_LM = dict(name="t", n_layers=2, d_model=32, n_heads=4, kv_heads=2,
                   d_ff=64, vocab=64, dtype="float32", remat=False)
+# partitioned ring serving: SMOKE configs, int8 ("w8") and packed int4
+# ("w4p") weights, kv 8 and 4, on (data, model) meshes of 4 ranks; the
+# torch backend too on one mesh, and there two in bf16, their trees from
+# partition.build_params (seed 0) on each rank
+PART_ARCHS = ("qwen2.5-32b", "yi-34b", "llama4-scout-17b-a16e",
+              "phi3.5-moe-42b-a6.6b")
+PART_WEIGHTS = {"w8": (8, False), "w4p": (4, True)}
+PART_KV = (8, 4)
+PART_MESHES = ((1, 4), (2, 2), (4, 1))
+PART_TORCH_MESH = (2, 2)
+PART_BF16 = ("qwen2.5-32b", "llama4-scout-17b-a16e")
+PART_BATCH, PART_PROMPT, PART_STEPS, PART_MAX_LEN = 4, 32, 4, 40
+# decode steps from JAX's prefill cache, carried into each rank's shard
+PART_FROM_JAX = (("w8", 8), ("w4p", 4))
+
+
+def part_quant(weights, kv_bits):
+    """QuantConfig fields of a partitioned case (either package's)."""
+    w_bits, packed = PART_WEIGHTS[weights]
+    return dict(w_bits=w_bits, a_bits=8, attn_bits=7, kv_bits=kv_bits,
+                mode="int", pack_weights=packed)
+
+
+def part_cases():
+    """(arch, weights, kv_bits, mesh, backend, dtype) of every partitioned
+    run."""
+    return [(arch, w, kv, mesh, backend, "float32")
+            for mesh in PART_MESHES for arch in PART_ARCHS
+            for w in PART_WEIGHTS for kv in PART_KV
+            for backend in ("cuda", "torch")
+            if backend == "cuda" or mesh == PART_TORCH_MESH] + \
+        [(arch, "w4p", 8, PART_TORCH_MESH, "cuda", "bfloat16")
+         for arch in PART_BF16]
+
+
+def part_key(case):
+    arch, w, kv, mesh, backend, dtype = case
+    return f"{arch}/{w}/kv{kv}/{mesh_tag(mesh)}/{backend}/{dtype}"
+
+
+def mesh_tag(mesh):
+    return f"{mesh[0]}x{mesh[1]}"
+
+
+def greedy_from(params, cache, token, cfg):
+    """PART_STEPS free-running greedy ring steps from ``cache``, fed
+    ``token`` (B, 1) first: (logits (steps, B, 1, V), fed (steps, B, 1))."""
+    import torch
+
+    from repro_torch.models import lm
+    out, fed = [], [token]
+    for i in range(PART_STEPS):
+        logits, cache = lm.decode_step(params, fed[-1], cache, cfg)
+        out.append(logits)
+        if i + 1 < PART_STEPS:
+            fed.append(torch.argmax(logits[:, -1], -1).to(torch.int32)
+                       [:, None])
+    return torch.stack(out), torch.stack(fed)
+
+
+def greedy(params, tokens, cfg):
+    """The port's ring prefill and PART_STEPS free-running greedy decode
+    steps: (logits (steps + 1, B, 1, V), fed tokens (steps, B, 1),
+    cache)."""
+    import torch
+
+    from repro_torch.models import lm
+    logits, cache = lm.prefill(params, {"tokens": tokens}, cfg,
+                               PART_MAX_LEN)
+    out, fed = [logits], []
+    for _ in range(PART_STEPS):
+        fed.append(torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None])
+        logits, cache = lm.decode_step(params, fed[-1], cache, cfg)
+        out.append(logits)
+    return torch.stack(out), torch.stack(fed), cache
 
 
 def flat(tree, prefix=""):
@@ -385,6 +464,170 @@ def elastic_job(n, ref, tree_path):
     return out
 
 
+def partition_job(ref):
+    """Every partitioned run of :func:`part_cases` on this rank (the
+    rank's layout, the global logits and fed tokens, its cache shard, the
+    dispatch counts), the refusals, and the local trees against
+    ``distribute_tensor(...).to_local()``."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch import interop
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.api import QuantConfig
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import (Rules, filter_mesh_axes,
+                                                  named_shardings,
+                                                  param_specs, use_rules)
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.engine import PagedEngine
+    from repro_torch.models import encdec, lm
+
+    toks = _tensors(ref, "tokens")["tokens"]
+    out = {}
+    meshes = {mesh: make_mesh(mesh) for mesh in PART_MESHES}
+    locals_ = {}
+    for case in part_cases():
+        arch, w, kv, mesh, backend, dtype = case
+        m = mesh_tag(mesh)
+        layout = partition.Layout.of(meshes[mesh], ("data",))
+        out[f"layout/{m}"] = torch.tensor(
+            [layout.index(("data",)), layout.index(("model",))])
+        cfg = smoke_config(arch).replace(dtype=dtype, quant=QuantConfig(
+            **part_quant(w, kv), backend=backend))
+        if (arch, w, mesh, dtype) not in locals_:
+            locals_[arch, w, mesh, dtype] = partition.partition_params(
+                _tree(ref, f"{arch}/{w}/params"), cfg, layout) \
+                if dtype == "float32" else partition.build_params(
+                    cfg, seed=0, layout=layout, device="cpu")
+        rules = Rules(batch=("data",), mesh=meshes[mesh], partitioned=True)
+        dispatch.reset_stats()
+        with use_rules(rules):
+            logits, fed, cache = greedy(locals_[arch, w, mesh, dtype], toks,
+                                        cfg)
+        key = part_key(case)
+        other = "torch" if backend == "cuda" else "cuda"
+        out.update({f"{key}/logits": logits, f"{key}/fed": fed,
+                    f"{key}/acc": torch.tensor(
+                        dispatch.STATS[f"qlinear_acc_{backend}"]),
+                    f"{key}/expert": torch.tensor(
+                        dispatch.STATS[f"qexpert_{backend}"]),
+                    f"{key}/other": torch.tensor(sum(
+                        n for k, n in dispatch.STATS.items()
+                        if k.endswith(f"_{other}")))})
+        out.update(flat(cache, f"{key}/cache/"))
+
+    # decode steps from JAX's prefill cache, carried into the rank's shard
+    for mesh in PART_MESHES:
+        layout = partition.Layout.of(meshes[mesh], ("data",))
+        rules = Rules(batch=("data",), mesh=meshes[mesh], partitioned=True)
+        for arch in PART_ARCHS:
+            for w, kv in PART_FROM_JAX:
+                tag = f"{arch}/{w}/kv{kv}"
+                cfg = smoke_config(arch).replace(quant=QuantConfig(
+                    **part_quant(w, kv)))
+                cache = interop.to_torch_shard(
+                    unflat(ref, f"jaxcache/{tag}"), cfg, layout, "cpu")
+                tok = torch.from_numpy(ref[f"jaxtok/{tag}"])
+                with use_rules(rules):
+                    logits, fed = greedy_from(
+                        locals_[arch, w, mesh, "float32"], cache, tok, cfg)
+                key = f"fromjax/{tag}/{mesh_tag(mesh)}"
+                out.update({f"{key}/logits": logits, f"{key}/fed": fed})
+
+    # refusals, on (data 1, model 4)
+    mesh = meshes[(1, 4)]
+    cfg = smoke_config("qwen2.5-32b").replace(quant=QuantConfig(
+        **part_quant("w8", 8)))
+    glob = _tree(ref, "qwen2.5-32b/w8/params")
+    refusals = {}
+
+    def refused(name, err, fn):
+        try:
+            fn()
+            refusals[name] = False
+        except err as e:
+            refusals[name] = "ROADMAP" in str(e) or err is ValueError
+
+    with use_rules(Rules(batch=("data",), mesh=mesh, partitioned=True)):
+        refused("global_tree", ValueError, lambda: lm.prefill(
+            glob, {"tokens": toks}, cfg, PART_MAX_LEN))
+        rg = smoke_config("recurrentgemma-9b").replace(quant=cfg.quant)
+        refused("recurrent", NotImplementedError, lambda: lm.prefill(
+            {}, {"tokens": toks}, rg, PART_MAX_LEN))
+        refused("encdec", NotImplementedError, lambda: encdec.prefill(
+            {}, {"tokens": toks}, None))
+        refused("engine", NotImplementedError,
+                lambda: PagedEngine(cfg, glob))
+        refused("lm_loss", NotImplementedError, lambda: lm.lm_loss(
+            glob, {"tokens": toks, "labels": toks}, cfg))
+    for flag in ("int_bf16_reduce", "moe_a2a"):
+        rules = Rules(batch=("data",), mesh=mesh, partitioned=True,
+                      **{flag: True})
+        with use_rules(rules):
+            refused(flag, ValueError, lambda: lm.decode_step(
+                glob, toks[:, :1], {}, cfg))
+    out.update({f"refused/{k}": torch.tensor(v)
+                for k, v in refusals.items()})
+
+    # the local trees against DTensor's shards of the same specs
+    for m_shape, mesh in meshes.items():
+        layout = partition.Layout.of(mesh, ("data",))
+        for arch in PART_ARCHS:
+            glob = _tree(ref, f"{arch}/w4p/params")
+            loc = locals_[arch, "w4p", m_shape, "float32"]
+            specs = filter_mesh_axes(param_specs(glob), mesh)
+            same = checked = 0
+            for g, l, pl in zip(tree_lib.leaves(glob), tree_lib.leaves(loc),
+                                tree_lib.leaves(named_shardings(specs,
+                                                                mesh))):
+                d = distribute_tensor(g, mesh, pl).to_local()
+                if tuple(d.shape) == tuple(l.shape):
+                    checked += 1
+                    same += int(torch.equal(d, l))
+            out[f"dtensor/{arch}/{mesh_tag(m_shape)}"] = torch.tensor(
+                [same, checked, len(tree_lib.leaves(glob))])
+    return out
+
+
+def make_mesh(shape):
+    from repro_torch.launch.mesh import make_test_mesh
+    return make_test_mesh(shape, ("data", "model"), device_type="cpu")
+
+
+def launch(job, world, d, ref):
+    """``world`` gloo ranks of ``job`` (this file's ``rank`` command), each
+    logging to ``d``; join them with :func:`join`."""
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    store = d / f"{job}.store"
+    procs = []
+    for r in range(world):
+        log = open(d / f"{job}-{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, __file__, "rank", job, str(r), str(world),
+             str(store), str(ref), str(d)], stdout=log,
+            stderr=subprocess.STDOUT, env=env), log))
+    return procs
+
+
+def join(procs, d, job, timeout):
+    """Wait for a job's ranks (each within ``timeout`` seconds, the rest
+    killed); their outputs by rank."""
+    try:
+        for p, _ in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    assert not bad, (job, bad, (d / f"{job}-{bad[0]}.log").read_text()[-3000:])
+    return [load(d / f"{job}-{r}.npz") for r in range(len(procs))]
+
+
 def rank_main(job, rank, world, store, ref_path, out_dir):
     import torch
     import torch.distributed as dist
@@ -397,6 +640,8 @@ def rank_main(job, rank, world, store, ref_path, out_dir):
         ref = load(ref_path)
         if job == "main":
             out = main_job(rank, world, ref)
+        elif job == "partition":
+            out = partition_job(ref)
         else:
             n = int(job[len("elastic"):])
             out = elastic_job(n, ref, os.path.join(out_dir, "elastic8-0.npz"))

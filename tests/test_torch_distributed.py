@@ -66,32 +66,11 @@ JOIN_S = 240
 
 
 def _launch(job, world, d, ref):
-    """``world`` gloo ranks of ``job``; returns their outputs by rank."""
-    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    store = d / f"{job}.store"
-    procs = []
-    for r in range(world):
-        log = open(d / f"{job}-{r}.log", "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, util.__file__, "rank", job, str(r), str(world),
-             str(store), str(ref), str(d)], stdout=log,
-            stderr=subprocess.STDOUT, env=env), log))
-    return procs
+    return util.launch(job, world, d, ref)
 
 
 def _join(procs, d, job):
-    try:
-        for p, _ in procs:
-            p.wait(timeout=JOIN_S)
-    finally:
-        for p, log in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            log.close()
-    bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
-    assert not bad, (job, bad, (d / f"{job}-{bad[0]}.log").read_text()[-3000:])
-    return [util.load(d / f"{job}-{r}.npz") for r in range(len(procs))]
+    return util.join(procs, d, job, JOIN_S)
 
 
 @pytest.fixture(scope="module")

@@ -171,7 +171,8 @@ def test_serve_cli_json_on_cpu_plain_backend():
     assert rep["device"] == {"platform": "cpu", "kind": "cpu", "count": 1}
     assert rep["backend"] == "torch"
     assert [s["status"] for s in rep["per_seq"]] == ["done"] * 3
-    assert rep["kernel_launches"] == {"qmatmul": 0, "int_attention_fused": 0,
+    assert rep["kernel_launches"] == {"qmatmul": 0, "qmatmul_acc": 0,
+                                      "int_attention_fused": 0,
                                       "int_attention": 0,
                                       "int_paged_decode_attention": 0,
                                       "int_decode_attention": 0,

@@ -81,6 +81,32 @@ def test_qmatmul_split_k_equals_plain(gen, m, n, k, packed, epilogue):
     assert torch.equal(got, ref.qmatmul_ref(x, w, s, b, rs))
 
 
+# The accumulator output (a partitioned row-parallel linear's int32 sums,
+# no epilogue): the stream body at M 1, 4, 9 and 16, the tensor-core body
+# at M 17, 129 and 256, ragged N (1001, 300) and K (1028, padded), K split
+# across blocks (K 6912, 8320), and Qwen2.5-32B's wo and down on one of 4
+# ranks (N 5120, K 1280 and 6912); int8 and packed.  The epilogue applied
+# to the sums is the fused output bit for bit.
+@pytest.mark.parametrize("m,n,k", [(1, 1000, 512), (4, 1001, 1280),
+                                   (9, 300, 1028), (16, 5120, 6912),
+                                   (17, 1000, 512), (129, 1001, 6912),
+                                   (200, 1001, 8320), (4, 5120, 1280),
+                                   (256, 5120, 1280), (256, 5120, 6912)])
+@pytest.mark.parametrize("packed", [False, True])
+def test_qmatmul_acc_equals_plain(gen, m, n, k, packed):
+    x, w, s, b, rs = _qmm_inputs(gen, m, n, k, packed)
+    blocks = dispatch.qmatmul_blocks(m, n, k)
+    before = dict(qm.LAUNCHES)
+    got = qm.qmatmul_acc(x, w, blocks=blocks, packed=packed)
+    torch.cuda.synchronize()
+    assert qm.LAUNCHES["qmatmul"] == before["qmatmul"] + 1
+    assert qm.LAUNCHES["qmatmul_acc"] == before["qmatmul_acc"] + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ref.qmatmul_acc_ref(x, w))
+    fused = qm.qmatmul(x, w, s, b, rs, blocks=blocks, packed=packed)
+    assert torch.equal(ref.qmatmul_epilogue(got, s, b, rs), fused)
+
+
 # (at 64 rows, where the stream body takes none; the last: five splits
 # of K 512, which has four 128-byte slabs)
 @pytest.mark.parametrize("blocks", [("mma", 32, 128, 1), ("mma", 64, 64, 1),
