@@ -132,7 +132,17 @@ Phases, in order; any failure exits non-zero before the result line:
    cards only, Llama-4-Scout at its 48 layers, each rank building its
    shard: its bytes and peak memory under the card's, the global tree's
    (meta shapes) above it, 16 ring steps on the cuda backend with the
-   torch backend teacher-forced within the tolerance;
+   torch backend teacher-forced within the tolerance. Then [tp-train],
+   partitioned training on the same ranks (``Rules(batch=("data",),
+   partitioned=True, expert_fsdp=True)``, ZeRO-1 moments; fake
+   w4/a8/attn7, bf16, 3 LAMB steps on 4 x 256 tokens): (a) Qwen2.5-32B at
+   2 layers and Llama-4-Scout at 1, full width, on (data 1, model 1) and,
+   at four cards, (data 2, model 2), against rank 0's one-rank run
+   (bitwise on one rank; past it loss, grad norm and params within stated
+   bounds) with the whole leaves' gradients bitwise on every rank; (b) at
+   four cards, Llama-4-Scout at 4 layers on (data 1, model 4); each
+   trained tree integerized on its ranks and served 8 ring steps, gated by
+   [route];
 12. quickstart: ``python -m repro_torch.examples.quickstart`` on the card;
 13. vit: ``models.vit.forward`` at the full DeiT-S config (12 layers,
    224 px, patch 16; random weights from a seed, made on the card), batch
@@ -242,10 +252,12 @@ def cuda_ms(fn, iters=20, warmup=3):
 MARKER = "spin_kernel"
 
 
-def device_events(run, cpu=False):
-    """The device events (``key_averages()``) of ``run()`` under
-    torch.profiler, the marker kernel launched and synchronised first and
-    left out."""
+def device_trace(run, cpu=False):
+    """torch.profiler over ``run()``, the marker kernel launched and
+    synchronised first and left out: (the device events of
+    ``key_averages()``, each device kernel's (start, end, name) in us;
+    neither holds the device side of a ``record_function`` range, which
+    would count its kernels twice)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
@@ -254,9 +266,29 @@ def device_events(run, cpu=False):
         torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and MARKER not in e.key]
+
+    def kernel(e, name):
+        return e.device_type == torch.autograd.DeviceType.CUDA and \
+            MARKER not in name and not getattr(e, "is_user_annotation", False)
+    return ([e for e in prof.key_averages() if kernel(e, e.key)],
+            [(e.time_range.start, e.time_range.end, e.name)
+             for e in prof.events() if kernel(e, e.name)])
+
+
+def device_events(run, cpu=False):
+    """The device events (``key_averages()``) of ``run()``
+    (:func:`device_trace`)."""
+    return device_trace(run, cpu)[0]
+
+
+def union_us(spans):
+    """The time covered by the union of (start, end, ...) spans."""
+    total, reach = 0.0, float("-inf")
+    for start, end, *_ in sorted(spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
 
 
 def device_ms(fn, calls=10):
@@ -1740,8 +1772,9 @@ DIST_MICRO = 8            # pipeline microbatches of DIST_BATCH rows
 def phase_dist():
     """Spawn ``torch.cuda.device_count()`` ranks, one a card, on NCCL
     (``dist_rank``), and wait for them; returns rank 0's launches of the
-    [dist] main path (the Qwen and Llama-4 runs) and of [tp]'s (the
-    partitioned runs of (a))."""
+    [dist] main path (the Qwen and Llama-4 runs), of [tp]'s (the
+    partitioned runs of (a)) and of [tp-train]'s (serving (a)'s trained
+    trees)."""
     import tempfile
     import torch
     import torch.multiprocessing as mp
@@ -1772,7 +1805,7 @@ def phase_dist():
         launches = json.load(f)
     log(f"[dist] {n} rank(s) in {time.perf_counter() - t0:.1f}s; rank 0's "
         f"launches {launches}")
-    return launches["dist"], launches["tp"]
+    return launches["dist"], launches["tp"], launches["tp-train"]
 
 
 def dist_rank(rank, world, d):
@@ -1801,8 +1834,8 @@ def dist_rank(rank, world, d):
 
 
 def dist_run(rank, world):
-    """The [dist] phase and [tp] on this rank; returns their main-path
-    launches."""
+    """The [dist] phase, [tp] and [tp-train] on this rank; returns their
+    main-path launches."""
     import torch
     from repro_torch.distributed.sharding import Rules
     from repro_torch.launch.mesh import make_test_mesh
@@ -1819,7 +1852,9 @@ def dist_run(rank, world):
         dist_compress(mesh, rank, world, say)
         dist_pipeline(world, say)
         tp = dist_tp(rank, world, say)
-    return {"dist": {k: total.get(k, 0) for k in DIST_KERNELS}, "tp": tp}
+    torch.cuda.empty_cache()
+    return {"dist": {k: total.get(k, 0) for k in DIST_KERNELS}, "tp": tp,
+            "tp-train": dist_train(rank, world, say)}
 
 
 def dist_gap(got, want, world):
@@ -2390,6 +2425,405 @@ def tp_scout_full(rules, layout, world, say):
         raise AssertionError("[tp] (b): cuda and torch backends differ")
 
 
+# [tp-train]: the reference's train cell (launch/dryrun.py: fake
+# w4/a8/attn7, LAMB, ZeRO-1 moments, expert_fsdp) on rank-local trees, at
+# full width, bf16, batch 4 x 256, from partition.build_params's float tree
+TT_QUANT = dict(w_bits=4, a_bits=8, attn_bits=7, mode="fake")
+TT_STEPS, TT_SERVE = 3, 8
+TT_OPT = dict(total_steps=TT_STEPS, warmup_steps=1)
+# (a)'s depths: Llama-4-Scout at 2 layers holds 6.47 B parameters, 77.7 GB
+# at 12 bytes a parameter (bf16 params and grads, f32 mu / nu); the one-rank
+# run (a) is held against must fit one card, so 1 layer (4.27 B, 51.2 GB)
+TT_SHORT = (("qwen2.5-32b", 2), ("llama4-scout-17b-a16e", 1))
+TT_FULL_LAYERS = 4        # (b): Llama-4-Scout on four cards
+# (a) past one rank against the one-rank run: the partial products' f32
+# sums round bf16 once where one rank rounds each product, so fake-quant
+# codes flip at rounding edges and the flips cascade (the reference's own
+# sharded Llama-4-Scout SMOKE run is 1.5e-3 from its one-device run in
+# f32).  A bf16 param moves only where its update reaches half an ulp, so
+# the params are held on the elements that either run moved: the share of
+# those equal in both runs, and the gap of the two runs' updates over the
+# one-rank update (||d - d_one|| / ||d_one||, over every element).  Each
+# limit sits near the geometric mean of the sound runs' worst reading
+# and the planted faults' best (``tp_train_faults.py`` on four cards:
+# loss 5.5e-4 / 4.9e-2, grad norm 1.3e-3 / 0.26, moved and equal 85% /
+# 52%, update gap 0.22 / 0.79; PERF.md, [tp-train])
+TT_LOSS_RTOL, TT_GNORM_RTOL = 5e-3, 2e-2
+TT_MOVED_EQUAL_MIN, TT_UPDATE_GAP_MAX = 0.7, 0.4
+TT_CHUNK = 1 << 26        # elements compared at a time (temporaries' size)
+
+
+def sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dist_train(rank, world, say, device="cuda"):
+    """[tp-train]: partitioned training of the decoder LMs, each rank
+    holding only its shard of the weights and of the ZeRO-1 moments, under
+    ``Rules(batch=("data",), partitioned=True, expert_fsdp=True)``.  (a)
+    Qwen2.5-32B (2 layers) and Llama-4-Scout (1 layer) at full width on
+    (data 1, model 1) with one card and (data 2, model 2) with four, held on
+    rank 0 against the one-rank run of the same tree (:func:`tt_short`);
+    (b) at four cards, Llama-4-Scout at 4 layers on (data 1, model 4),
+    more than one card holds (:func:`tt_scout`).  Each run then integerizes
+    its trained tree locally and serves TT_SERVE ring steps partitioned,
+    gated by [route].  Returns rank 0's serving launches of (a)."""
+    mesh = tt_mesh(world, device)
+    say(f"[tp-train] {world} rank(s), mesh (data {mesh.size(0)}, model "
+        f"{mesh.size(1)}), Rules(batch=('data',), partitioned=True, "
+        f"expert_fsdp=True); fake w4/a8/attn7, LAMB, {TT_STEPS} steps on "
+        f"{DIST_BATCH} x {DIST_PROMPT} tokens")
+    total = {}
+    for arch, layers in TT_SHORT:
+        add_launches(total, tt_short(arch, layers, mesh, rank, world, say,
+                                     device))
+    if world < 4:
+        say(f"[tp-train] (b) Llama-4-Scout at {TT_FULL_LAYERS} layers needs "
+            f"four cards; this run has {world}")
+    else:
+        from repro_torch.launch.mesh import make_test_mesh
+        tt_scout(make_test_mesh((1, world), ("data", "model"),
+                                device_type=device), world, say, device)
+    return {k: total.get(k, 0) for k in TP_KERNELS}
+
+
+def tt_mesh(world, device):
+    """(a)'s mesh: (data 2, model world / 2) from four ranks on, else
+    (data 1, model world)."""
+    from repro_torch.launch.mesh import make_test_mesh
+    shape = (2, world // 2) if world >= 4 else (1, world)
+    return make_test_mesh(shape, ("data", "model"), device_type=device)
+
+
+def tt_config(arch, layers):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import QuantConfig
+    return get_config(arch).replace(n_layers=layers,
+                                    quant=QuantConfig(**TT_QUANT))
+
+
+def tt_batch(cfg, seed, device):
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    return {k: torch.randint(0, cfg.vocab, (DIST_BATCH, DIST_PROMPT),
+                             generator=g, device=device, dtype=torch.int32)
+            for k in ("tokens", "labels")}
+
+
+def tt_steps(cfg, params, batch, device):
+    """TT_STEPS steps of ``make_train_step`` (partitioned under the active
+    rules): (params, state, losses, grad norms, host ms a step)."""
+    import torch
+    from repro_torch.distributed import partition
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim import OptConfig, init_opt_state
+    state = init_opt_state(params, partition.opt_shards(params, cfg))
+    step = make_train_step(cfg, OptConfig(**TT_OPT))
+    losses, gnorms, ms = [], [], []
+    for _ in range(TT_STEPS):
+        sync(device)
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+        del met
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()    # Llama's one-card step runs near 80 GB
+    return params, state, losses, gnorms, ms
+
+
+def tt_whole_grads(cfg, params, batch):
+    """The gradients of the leaves every rank holds whole (past one rank),
+    each rank's flattened (f32, exact for bf16) and gathered: (leaves,
+    bitwise equal on every rank)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as tree_lib
+    from repro_torch.distributed import partition
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.models import lm
+    if dist.get_world_size() == 1:
+        return 0, True
+    shards = partition.opt_shards(params, cfg)
+    _, _, grads = value_and_grad(lambda p, b: lm.lm_loss(p, b, cfg), params,
+                                 batch, shards=shards)
+    whole = [g.flatten().float() for g, sh in
+             zip(tree_lib.leaves(grads), shards) if not sh.axes]
+    del grads
+    flat = torch.cat(whole)
+    parts = [torch.empty_like(flat) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, flat)
+    return len(whole), all(torch.equal(p, parts[0]) for p in parts)
+
+
+def tt_compare(cfg, local, start, one, layout, device):
+    """Each rank's blocks of the partitioned run's params against the same
+    blocks of rank 0's one-rank run (``one``: its final tree on the host;
+    None elsewhere), leaf by leaf broadcast from rank 0, summed over every
+    rank's blocks: (bitwise, the share of elements that either run moved
+    from ``start``, the share of those equal in both runs, the gap of the
+    updates ||d - d_one|| / ||d_one||)."""
+    import math
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as tree_lib
+    from repro_torch.distributed import partition
+    glob = tree_lib.leaves(partition.global_shapes(local, cfg, layout))
+    keyed = tree_lib.leaves_with_keys(local)
+    ones = tree_lib.leaves(one) if one is not None else [None] * len(glob)
+    same = True
+    # elements, moved by either run, moved and equal, |d - d_one|^2,
+    # |d_one|^2
+    sums = torch.zeros(5, dtype=torch.float64, device=device)
+    for (keys, loc), g, o, st in zip(keyed, glob, ones,
+                                     tree_lib.leaves(start)):
+        full = o.to(device) if o is not None else torch.empty(
+            g.shape, dtype=g.dtype, device=device)
+        dist.broadcast(full, 0)
+        nested = full
+        for k in reversed(keys):
+            nested = {k: nested}
+        blk = tree_lib.leaves(partition.partition_params(nested, cfg,
+                                                         layout))[0]
+        del full, nested
+        same &= torch.equal(loc, blk)
+        loc, blk, st = loc.flatten(), blk.flatten(), st.flatten()
+        for i in range(0, loc.numel(), TT_CHUNK):
+            a, b = loc[i:i + TT_CHUNK].float(), blk[i:i + TT_CHUNK].float()
+            s = st[i:i + TT_CHUNK].to(device).float()
+            moved = (a != s) | (b != s)
+            sums += torch.stack([
+                torch.tensor(a.numel(), device=device), moved.sum(),
+                (moved & (a == b)).sum(), ((a - b) ** 2).sum(),
+                ((b - s) ** 2).sum()]).double()
+    flag = torch.tensor([float(not same)], device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    dist.all_reduce(sums)
+    n, moved, equal, d2, r2 = sums.tolist()
+    gap = math.sqrt(d2 / r2) if r2 else (0.0 if d2 == 0 else math.inf)
+    return not bool(flag[0]), moved / n, equal / max(moved, 1.0), gap
+
+
+def tt_serve(cfg_train, arch, layers, params, mesh, world, say, device, tag):
+    """The trained tree integerized on the rank (under the training rules)
+    and served TT_SERVE ring steps partitioned, gated by [route]; returns
+    the launches."""
+    import torch
+    from repro_torch.core.api import integerize_params
+    from repro_torch.distributed.sharding import Rules, use_rules
+    from repro_torch.kernels import dispatch
+    icfg = arch_config(arch, "cuda").replace(n_layers=layers)
+    with use_rules(Rules(batch=("data",), mesh=mesh, partitioned=True,
+                         expert_fsdp=True)), torch.no_grad():
+        iq = integerize_params(params, icfg.quant)
+    toks = tt_batch(cfg_train, 9, device)["tokens"]
+    with use_rules(Rules(batch=("data",), mesh=mesh, partitioned=True)), \
+            torch.no_grad():
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        logits, fed, _, t_prefill, step_s = tp_greedy(iq, toks, icfg,
+                                                      TT_SERVE)
+        launches = dispatch.launch_counts()
+        snap = dispatch.snapshot()
+    check_route(f"[tp-train] {tag} served after training, {world} rank(s)",
+                "cuda", launches, snap, TP_KERNELS)
+    want = tp_row_products(icfg) * (1 + TT_SERVE)
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    say(f"[tp-train] {tag}: the trained tree integerized on each rank, "
+        f"served partitioned: prefill {t_prefill * 1e3:.2f} ms, ring step "
+        f"{step_s / TT_SERVE * 1e3:.2f} ms; int32 row products "
+        f"{snap['qlinear_acc_cuda']} (want {want}); finite {finite}; "
+        f"greedy tokens of row 0 {torch.cat(fed, 1)[0].tolist()}")
+    if snap["qlinear_acc_cuda"] != want or not finite:
+        raise AssertionError(f"[tp-train] {tag}: serving the trained tree")
+    return launches
+
+
+def tt_one_rank(cfg, batch, device):
+    """Rank 0's one-rank run of (a) from ``build_params``'s seed 0: (its
+    final tree on the host, losses, grad norms, host ms a step)."""
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.distributed import partition
+    whole = partition.build_params(cfg, seed=0, device=device)
+    whole, state, loss, gn, ms = tt_steps(cfg, whole, batch, device)
+    one = tree_lib.tree_map(lambda t: t.cpu(), whole)
+    del whole, state
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return one, loss, gn, ms
+
+
+def tt_partitioned(cfg, batch, mesh, one, ref, device):
+    """The partitioned run of (a) from the same seed, held on rank 0
+    against the one-rank run (``one`` its tree, ``ref`` its (losses, grad
+    norms); None elsewhere): (local params, moments, readings)."""
+    import math
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import Rules, use_rules
+    cuda = torch.device(device).type == "cuda"
+    layout = partition.Layout.of(mesh, ("data",), fsdp=True)
+    local = partition.build_params(cfg, seed=0, layout=layout, device=device)
+    start = tree_lib.tree_map(lambda t: t.to("cpu", copy=True), local)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with use_rules(Rules(batch=("data",), mesh=mesh, partitioned=True,
+                         expert_fsdp=True)):
+        n_whole, whole_same = tt_whole_grads(cfg, local, batch)
+        local, state, loss, gn, ms = tt_steps(cfg, local, batch, device)
+    r = dict(loss=loss, gn=gn, ms=ms, n_whole=n_whole, whole_same=whole_same,
+             peak=torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0,
+             held=(tree_bytes(local) + tree_bytes(state)) / 1e9,
+             finite=all(math.isfinite(x) for x in loss))
+    r["same"], r["moved"], r["moved_equal"], r["update_gap"] = tt_compare(
+        cfg, local, start, one, layout, device)
+    if ref is not None:
+        r["loss_gap"] = max(abs(a - b) / abs(b) for a, b in zip(loss, ref[0]))
+        r["gn_gap"] = max(abs(a - b) / abs(b) for a, b in zip(gn, ref[1]))
+    return local, state, r
+
+
+def tt_gate(r, world):
+    """Rank 0's verdict on (a)'s readings against the one-rank run:
+    bitwise on one rank, else within the TT_* limits; (ok, the line)."""
+    if world == 1:
+        ok = r["same"] and r["loss_gap"] == 0 and r["gn_gap"] == 0
+        lim = dict(loss=0, gn=0, eq=1, gap=0)
+    else:
+        ok = (r["loss_gap"] <= TT_LOSS_RTOL and r["gn_gap"] <= TT_GNORM_RTOL
+              and r["moved_equal"] >= TT_MOVED_EQUAL_MIN
+              and r["update_gap"] <= TT_UPDATE_GAP_MAX)
+        lim = dict(loss=TT_LOSS_RTOL, gn=TT_GNORM_RTOL,
+                   eq=TT_MOVED_EQUAL_MIN, gap=TT_UPDATE_GAP_MAX)
+    return ok, (f"loss max rel {r['loss_gap']:.3e} (tol {lim['loss']}), "
+                f"grad norm max rel {r['gn_gap']:.3e} (tol {lim['gn']}); "
+                f"params bitwise {r['same']}, {100 * r['moved']:.4f}% of "
+                f"elements moved by either run, {100 * r['moved_equal']:.2f}"
+                f"% of those equal (min {100 * lim['eq']:.0f}%), update gap "
+                f"{r['update_gap']:.4f} (max {lim['gap']})")
+
+
+def tt_short(arch, layers, mesh, rank, world, say, device):
+    """[tp-train] (a) for one config: rank 0's one-rank run, then the
+    partitioned run, held against it (:func:`tt_gate`), the whole leaves'
+    gradients bitwise on every rank; then the trained tree served."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import Rules, use_rules
+    cuda = torch.device(device).type == "cuda"
+    cfg = tt_config(arch, layers)
+    batch = tt_batch(cfg, 7, device)
+    one = ref = None
+    if rank == 0:
+        one, o_loss, o_gn, o_ms = tt_one_rank(cfg, batch, device)
+        ref = (o_loss, o_gn)
+    dist.barrier()
+    local, state, r = tt_partitioned(cfg, batch, mesh, one, ref, device)
+    del one
+    say(f"[tp-train] (a) {cfg.name} widths, {layers} layer(s), {world} "
+        f"rank(s): rank 0 holds {r['held']:.3f} GB of params and moments; "
+        f"{' '.join(f'{t:.1f}' for t in r['ms'])} ms a step (host clock, "
+        f"synchronized; the first warms up), peak {r['peak']:.2f} GB "
+        f"allocated; losses {' '.join(f'{x:.5f}' for x in r['loss'])}, grad "
+        f"norms {' '.join(f'{x:.4f}' for x in r['gn'])}; whole leaves' "
+        f"gradients ({r['n_whole']}) bitwise on every rank "
+        f"{r['whole_same']}")
+    if rank == 0:
+        ok, line = tt_gate(r, world)
+        say(f"[tp-train] (a) {cfg.name}: against the one-rank run ("
+            f"{' '.join(f'{t:.1f}' for t in o_ms)} ms a step; losses "
+            f"{' '.join(f'{x:.5f}' for x in o_loss)}, grad norms "
+            f"{' '.join(f'{x:.4f}' for x in o_gn)}): {line}")
+        if not ok:
+            raise AssertionError(f"[tp-train] (a) {cfg.name}: the "
+                                 f"partitioned run differs from one rank")
+    if not (r["whole_same"] and r["finite"]):
+        raise AssertionError(f"[tp-train] (a) {cfg.name}: whole leaves' "
+                             f"gradients differ or a loss is not finite")
+    rules = Rules(batch=("data",), mesh=mesh, partitioned=True,
+                  expert_fsdp=True)
+    if cuda:                  # one more step, profiled on rank 0
+        with use_rules(rules):
+            if rank == 0:
+                log_profile(f"[tp-train] (a) {cfg.name} step, {world} "
+                            f"rank(s)", lambda: tt_one_step(
+                                cfg, local, state, batch), 1, r["ms"][-1])
+            else:
+                tt_one_step(cfg, local, state, batch)
+    del state
+    if not cuda:
+        return {}
+    torch.cuda.empty_cache()
+    launches = tt_serve(cfg, arch, layers, local, mesh, world, say, device,
+                        f"(a) {cfg.name}")
+    del local
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tt_one_step(cfg, params, state, batch):
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim import OptConfig
+    make_train_step(cfg, OptConfig(**TT_OPT))(params, state, batch)
+
+
+def tt_scout(mesh, world, say, device):
+    """[tp-train] (b): Llama-4-Scout at TT_FULL_LAYERS layers on (data 1,
+    model ``world``): a rank's params and moments, and its peak, within
+    the card while the global ones (12 bytes a parameter) are not; the
+    losses finite; then the trained tree served."""
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import Rules, use_rules
+    import math
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as tree_lib
+    arch = "llama4-scout-17b-a16e"
+    cfg = tt_config(arch, TT_FULL_LAYERS)
+    layout = partition.Layout.of(mesh, ("data",), fsdp=True)
+    cap = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.reset_peak_memory_stats()
+    local = partition.build_params(cfg, seed=0, layout=layout, device=device)
+    n_glob = sum(t.numel() for t in tree_lib.leaves(
+        partition.global_shapes(local, cfg, layout)))
+    batch = tt_batch(cfg, 8, device)
+    rules = Rules(batch=("data",), mesh=mesh, partitioned=True,
+                  expert_fsdp=True)
+    with use_rules(rules):
+        local, state, loss, gn, ms = tt_steps(cfg, local, batch, device)
+        peak = torch.cuda.max_memory_allocated()
+        held = tree_bytes(local) + tree_bytes(state)
+        if dist.get_rank() == 0:       # one more step, profiled on rank 0
+            log_profile(f"[tp-train] (b) llama4-scout {TT_FULL_LAYERS} "
+                        f"layers step, {world} ranks", lambda: tt_one_step(
+                            cfg, local, state, batch), 1, ms[-1])
+        else:
+            tt_one_step(cfg, local, state, batch)
+    del state
+    torch.cuda.empty_cache()
+    finite = all(math.isfinite(x) for x in loss)
+    say(f"[tp-train] (b) llama4-scout-17b-a16e at {TT_FULL_LAYERS} layers "
+        f"over {world} ranks (data 1, model {world}): {n_glob / 1e9:.2f} B "
+        f"parameters, {12 * n_glob / 1e9:.1f} GB at 12 bytes a parameter; "
+        f"rank 0 holds {held / 1e9:.2f} GB of params and moments, peak "
+        f"{peak / 1e9:.2f} GB allocated, the card {cap / 1e9:.2f} GB; "
+        f"{' '.join(f'{t:.1f}' for t in ms)} ms a step; losses "
+        f"{' '.join(f'{x:.5f}' for x in loss)}, grad norms "
+        f"{' '.join(f'{x:.4f}' for x in gn)}")
+    if not (finite and peak < cap < 12 * n_glob):
+        raise AssertionError("[tp-train] (b): a loss not finite, a rank's "
+                             "peak above the card, or the global state "
+                             "within it")
+    tt_serve(cfg, arch, TT_FULL_LAYERS, local, mesh, world, say, device,
+             f"(b) llama4-scout {TT_FULL_LAYERS} layers")
+
+
 FAULT_GEN = 12
 FAULT_LATE = 3            # the step at which requests 3-5 arrive
 
@@ -2555,21 +2989,32 @@ def log_profile(what, fn, calls, ref_ms):
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) / calls * 1e3)
 
+    events, spans = device_trace(run, cpu=True)
     by_name = {}
-    for e in device_events(run, cpu=True):
+    for e in events:
         by_name[e.key] = by_name.get(e.key, 0.0) + \
             e.self_device_time_total / 1e3 / calls
     wall = wall[0]
-    busy = sum(by_name.values())
+    # busy: the union of the kernels' intervals (NCCL kernels overlap
+    # compute on other streams, so a sum would count that time twice)
+    busy = union_us(spans) / 1e3 / calls
     if busy <= 0:
         log(f"[profile] {what}: {wall:.2f} ms wall; device time not "
             f"measured (the profiler saw no kernel)")
         return
+    nccl = [sp for sp in spans if "nccl" in sp[2].lower()]
+    comm = ""
+    if nccl:
+        n_ms = union_us(nccl) / 1e3 / calls
+        c_ms = union_us([sp for sp in spans if "nccl" not in sp[2].lower()]
+                        ) / 1e3 / calls
+        comm = (f"; NCCL kernels {n_ms:.3f} ms, {n_ms + c_ms - busy:.3f} ms "
+                f"of it beside compute kernels")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log(f"[profile] {what}: device busy {busy:.3f} ms of {ref_ms:.2f} ms "
-        f"unprofiled ({100 * busy / ref_ms:.1f}%; {wall:.2f} ms wall with "
-        f"the profiler on); per call: "
-        + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
+        f"unprofiled ({100 * busy / ref_ms:.1f}%; the union of the kernels' "
+        f"intervals{comm}; {wall:.2f} ms wall with the profiler on); per "
+        f"call: " + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
 
 
 def layer_at(tree, i):
@@ -3415,16 +3860,16 @@ KERNELS = {
 # the counted runs of each kernel's main paths (the kernels line's
 # launches: their sum, and each path's count)
 MAIN_PATHS = {"qmatmul": ("serve", "archs", "recurrent", "serve-recurrent",
-                          "encdec", "dist", "tp"),
+                          "encdec", "dist", "tp", "tp-train"),
               "int_attention_fused": ("serve", "archs", "recurrent",
                                       "serve-recurrent", "encdec", "dist",
-                                      "tp"),
+                                      "tp", "tp-train"),
               "int_paged_decode_attention": ("serve", "archs",
                                              "serve-recurrent"),
               "int_decode_attention": ("ring", "archs", "recurrent",
-                                       "encdec", "dist", "tp"),
+                                       "encdec", "dist", "tp", "tp-train"),
               "pq_layernorm": ("ops",), "int_attention": ("ops",),
-              "qmatmul_acc": ("tp",)}
+              "qmatmul_acc": ("tp", "tp-train")}
 # qmatmul timed at every (M, N, K) of one Qwen2.5-32B layer and its
 # lm_head at decode and prefill rows, int8 and packed, then DeiT-S's
 # linears (int8, as the model runs them)
@@ -3817,7 +4262,7 @@ def main() -> int:
         paths["recurrent"] = phase_recurrent()
         paths["serve-recurrent"] = phase_serve_recurrent()
         paths["encdec"] = phase_encdec()
-        paths["dist"], paths["tp"] = phase_dist()
+        paths["dist"], paths["tp"], paths["tp-train"] = phase_dist()
         phase_quickstart()
         vparams, imgs = phase_vit()
         paths["ops"], ops_errs = phase_ops(vparams, imgs)

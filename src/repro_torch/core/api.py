@@ -65,21 +65,34 @@ def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig], *,
     ``distributed/partition.py::row_parallel_linear``, whose int32 sums
     are all-reduced over "model" where ``k_split`` says x and the codes
     hold this rank's slice of K.
+
+    Under partitioned rules the float and fake forms take ``x``'s rows of
+    the rank (the per-tensor activation grid maxed over the batch axes)
+    and, with ``tp="row"`` and ``k_split``, its slice of K: both grids
+    then max over "model" too, and the partial products are summed over
+    "model" (``Partition.sum``) before the bias.
     """
+    from repro_torch.distributed import partition
     b = p.get("b")
+    split = tp == "row" and k_split and partition.active() is not None
     if cfg is None or cfg.mode == "float":
         y = torch.matmul(x, p["w"])
+        if split:
+            y = partition.active().sum(y)
         return y + b if b is not None else y
     if cfg.mode == "fake":
         w = p["w"]
-        dw = quant.absmax_scale(w, cfg.w_bits, axis=0)          # per-out-col
+        dw = quant.absmax_scale(w, cfg.w_bits, axis=0,          # per-out-col
+                                group=partition.heads_max if split else None)
         w_fq = quant.fake_quant(w, dw, cfg.w_bits)
-        dx = quant.absmax_scale(x, cfg.a_bits)
+        dx = quant.absmax_scale(x, cfg.a_bits, group=partition.tensor_max
+                                if split else partition.rows_max)
         x_fq = quant.fake_quant(x, dx, cfg.a_bits)
         y = torch.matmul(x_fq, w_fq)
+        if split:
+            y = partition.active().sum(y)
         return y + b if b is not None else y
     if cfg.mode == "int":
-        from repro_torch.distributed import partition
         from repro_torch.distributed.sharding import current_rules
         if tp == "row" and partition.active() is not None:
             return partition.row_parallel_linear(x, p, cfg, k_split)
@@ -183,6 +196,8 @@ def dense_q(x: QTensor, p: dict, cfg: QuantConfig, *,
 # stay float (router precision, rglru gates: the paper's "cheap ops" rule).
 EXPERT_PARENTS = frozenset({"experts_up", "experts_gate", "experts_down"})
 FLOAT_PARENTS = frozenset({"router", "w_a", "w_i", "head"})
+# row-parallel linears: K split over "model" under partitioned rules
+ROW_PARENTS = frozenset({"wo", "down"})
 
 
 def integerize_params(params: Any, cfg: QuantConfig) -> Any:
@@ -192,11 +207,22 @@ def integerize_params(params: Any, cfg: QuantConfig) -> Any:
     ((E, din, dout), possibly stacked) by layout.  Embeddings become
     per-row int8 codes when ``cfg.quantize_embeddings``.  Returns a new
     tree; float weights of the input are not modified.
+
+    Under partitioned rules ``params`` is this rank's tree
+    (``distributed/partition.py``) and so is the result: a row-parallel
+    weight's per-column grid spans the whole K (its max taken over
+    "model"), and experts split over "data" (``expert_fsdp``) are
+    gathered back whole, codes and scales, for serving.  So it equals the
+    partition of the global tree's integerization, bit for bit.
     """
-    def q_linear(w):
+    from repro_torch.distributed import partition
+    part = partition.active()
+
+    def q_linear(w, row):
         # (..., in, out) -> codes (..., out, in), scale (..., out)
         wt = w.to(torch.float32).transpose(-1, -2)
-        dw = quant.absmax_scale(wt, cfg.w_bits, axis=-1)          # (...,out,1)
+        dw = quant.absmax_scale(wt, cfg.w_bits, axis=-1,       # (...,out,1)
+                                group=partition.heads_max if row else None)
         return quant.quantize(wt, dw, cfg.w_bits).contiguous(), dw[..., 0]
 
     def q_expert(w):
@@ -204,7 +230,10 @@ def integerize_params(params: Any, cfg: QuantConfig) -> Any:
         # never nibble-packed
         w = w.to(torch.float32)
         dw = quant.absmax_scale(w, cfg.w_bits, axis=-2)
-        return quant.quantize(w, dw, cfg.w_bits), dw
+        q = quant.quantize(w, dw, cfg.w_bits)
+        if part is not None and part.layout.fsdp:
+            q, dw = (part.gather(t, ("data",), -1) for t in (q, dw))
+        return q, dw
 
     def rewrite(p, parent=""):
         if not isinstance(p, dict):
@@ -214,7 +243,8 @@ def integerize_params(params: Any, cfg: QuantConfig) -> Any:
             if parent in EXPERT_PARENTS:
                 new["w_q"], new["w_scale"] = q_expert(p["w"])
                 return new
-            wq, dw = q_linear(p["w"])
+            wq, dw = q_linear(p["w"], part is not None
+                              and parent in ROW_PARENTS)
             if cfg.pack_weights and cfg.w_bits == 4 and wq.shape[-1] % 2 == 0:
                 new["w_q"] = quant.pack_int4(wq)   # uint8 marks packing
             else:

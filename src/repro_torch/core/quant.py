@@ -43,16 +43,16 @@ def absmax_scale(x: torch.Tensor, bits: int, *, axis=None,
                  group=None) -> torch.Tensor:
     """Calibrate step size from the abs-max of ``x`` (keepdims over ``axis``).
 
-    ``group``: maps the local abs-max to the grid's abs-max where ``x`` is
-    one rank's part of what the grid spans (``distributed/partition.py``'s
-    ``group_max``); None for a grid over ``x`` alone."""
+    ``group(|x|, axis)``: the grid's abs-max where ``x`` is one rank's part
+    of what the grid spans (``distributed/partition.py``'s ``grid_max``,
+    differentiable); None for a grid over ``x`` alone."""
     _, qmax = qrange(bits, unsigned=unsigned)
-    if axis is None:
+    if group is not None:
+        amax = group(x.abs(), axis)
+    elif axis is None:
         amax = x.abs().amax()
     else:
         amax = x.abs().amax(dim=axis, keepdim=True)
-    if group is not None:
-        amax = group(amax)
     return torch.clamp(amax, min=eps) / qmax
 
 
@@ -84,30 +84,43 @@ def _reduce_to_shape(x: torch.Tensor, shape) -> torch.Tensor:
     return out.reshape(shape)
 
 
+def _codes(x, delta, qmin, qmax):
+    """(x / delta in the promoted dtype, its clipped rounded codes)."""
+    dt = torch.promote_types(x.dtype, delta.dtype)
+    scaled = x.to(dt) / delta.to(dt)
+    return scaled, torch.clamp(torch.round(scaled), qmin, qmax)
+
+
 class _FakeQuant(torch.autograd.Function):
+    """Keeps ``x`` and ``delta`` for the backward, which recomputes the
+    quotient and codes (the same ops, so the same values): a bf16 weight
+    then costs no f32 copies between the passes."""
     @staticmethod
     def forward(ctx, x, delta, bits, unsigned):
         qmin, qmax = qrange(bits, unsigned=unsigned)
-        dt = torch.promote_types(x.dtype, delta.dtype)
-        d = delta.to(dt)
-        scaled = x.to(dt) / d
-        q = torch.clamp(torch.round(scaled), qmin, qmax)
-        ctx.save_for_backward(scaled, q)
+        scaled, q = _codes(x, delta, qmin, qmax)
+        ctx.save_for_backward(x, delta)
         ctx.delta_shape, ctx.delta_dtype = delta.shape, delta.dtype
         ctx.qrange = (qmin, qmax)
-        return (q * d).to(x.dtype)
+        return (q * delta.to(q.dtype)).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         qmin, qmax = ctx.qrange
-        scaled, q = ctx.saved_tensors
-        inside = (scaled >= qmin) & (scaled <= qmax)
-        gx = torch.where(inside, g, 0.0)
-        # LSQ: d(q*delta)/d(delta) = (q - x/delta) inside, the clip code
-        # outside.
-        gdelta = torch.where(inside, q - scaled, q) * g
-        gdelta = _reduce_to_shape(gdelta, ctx.delta_shape)
-        return gx, gdelta.to(ctx.delta_dtype), None, None
+        scaled, q = _codes(*ctx.saved_tensors, qmin, qmax)
+        return _lsq_grads(ctx, g, scaled, q)
+
+
+def _lsq_grads(ctx, g, scaled, q):
+    """STE and LSQ gradients of (x, delta) from the quotient and codes."""
+    qmin, qmax = ctx.qrange
+    inside = (scaled >= qmin) & (scaled <= qmax)
+    gx = torch.where(inside, g, 0.0)
+    # LSQ: d(q*delta)/d(delta) = (q - x/delta) inside, the clip code
+    # outside.
+    gdelta = torch.where(inside, q - scaled, q) * g
+    gdelta = _reduce_to_shape(gdelta, ctx.delta_shape)
+    return gx, gdelta.to(ctx.delta_dtype), None, None
 
 
 def fake_quant(x: torch.Tensor, delta: torch.Tensor, bits: int,

@@ -70,20 +70,66 @@ def _gather0(t, grp):
     return out
 
 
+def group_index(groups) -> int:
+    """This rank's linear index over ``groups`` (major first)."""
+    i = 0
+    for grp in groups:
+        i = i * dist.get_world_size(grp) + dist.get_rank(grp)
+    return i
+
+
+def reduce_sum(t: torch.Tensor, groups) -> torch.Tensor:
+    """The sum of ``t`` over ``groups``: int32 in place, floats in f32
+    (an exact widening of bf16) and cast back."""
+    if t.dtype == torch.int32:
+        out = t.contiguous()                         # in place
+    else:
+        out = t.to(torch.float32).contiguous().clone()
+    for grp in groups:
+        all_reduce(out, grp)
+    return out.to(t.dtype)
+
+
+def gather_dim(t: torch.Tensor, groups, dim: int = 0) -> torch.Tensor:
+    """All-gather along ``dim`` over ``groups`` (major first: the
+    innermost group gathers first), contiguous; bf16 moves as byte pairs,
+    which NCCL and gloo both carry."""
+    bf16 = t.dtype == torch.bfloat16
+    out = t.contiguous().view(torch.uint8) if bf16 else t
+    out = out.movedim(dim, 0)
+    for grp in reversed(tuple(groups)):
+        out = _gather0(out, grp)
+    out = out.movedim(0, dim).contiguous()
+    return out.view(torch.bfloat16) if bf16 else out
+
+
+def reduce_scatter_dim(g: torch.Tensor, groups, dim: int = 0) -> torch.Tensor:
+    """The reverse of :func:`gather_dim` for shards each rank uses on its
+    own data: the sum over ``groups`` of each rank's chunk along ``dim``,
+    in f32, cast back."""
+    out = g.to(torch.float32).movedim(dim, 0)
+    for grp in groups:                               # major first
+        n = dist.get_world_size(grp)
+        out = reduce_scatter0(
+            out.reshape(n, out.shape[0] // n, *out.shape[1:]).contiguous(),
+            grp)
+    return out.movedim(0, dim).to(g.dtype)
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, grp, shards):
-        ctx.grp, ctx.n, ctx.shards = grp, t.shape[0], shards
-        return _gather0(t, grp)
+    def forward(ctx, t, groups, dim, shards):
+        ctx.groups, ctx.dim, ctx.shards = groups, dim, shards
+        ctx.n = t.shape[dim]
+        return gather_dim(t, groups, dim)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.shards:
-            m = dist.get_world_size(ctx.grp)
-            return reduce_scatter0(g.reshape(m, ctx.n, *g.shape[1:]),
-                                   ctx.grp), None, None
-        i = dist.get_rank(ctx.grp)
-        return g[i * ctx.n:(i + 1) * ctx.n], None, None
+            g = reduce_scatter_dim(g, ctx.groups, ctx.dim)
+        else:
+            g = g.narrow(ctx.dim, group_index(ctx.groups) * ctx.n, ctx.n)
+        return g, None, None, None
 
 
 class _SharedInput(torch.autograd.Function):
@@ -94,10 +140,7 @@ class _SharedInput(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        for grp in ctx.groups:
-            all_reduce(g, grp)
-        return g, None
+        return reduce_sum(g, ctx.groups), None
 
 
 def _a2a0(t, grp):
@@ -133,28 +176,37 @@ class _Mean(torch.autograd.Function):
         return g / ctx.n, None
 
 
+def gather(t: torch.Tensor, groups, dim: int = 0, *,
+           shards: bool = False) -> torch.Tensor:
+    """All-gather along ``dim`` over ``groups``, major first (JAX's
+    ``all_gather(tiled=True)``): the ranks' chunks in rank order.
+    ``shards``: the result is used by each rank on its own data (FSDP
+    weights), so the backward sums the ranks' gradients of each chunk
+    (in f32); else every rank uses it alike and takes its chunk of the
+    gradient."""
+    return _Gather.apply(t, tuple(groups), dim, shards)
+
+
 def gather0(t: torch.Tensor, grp, *, shards: bool = False) -> torch.Tensor:
-    """All-gather along dim 0 (JAX's ``all_gather(axis=0, tiled=True)``):
-    the ranks' chunks in rank order.  ``shards``: the result is used by
-    each rank on its own data (FSDP weights), so the backward sums the
-    ranks' gradients of each chunk; else every rank uses it alike and
-    takes its chunk of the gradient."""
-    return _Gather.apply(t, grp, shards)
+    """:func:`gather` along dim 0 over one group."""
+    return gather(t, (grp,), shards=shards)
+
+
+def shared(t: torch.Tensor, groups) -> torch.Tensor:
+    """A tensor the ranks of ``groups`` hold alike entering work they
+    split: the identity, whose backward sums the ranks' gradients (in
+    f32)."""
+    return _SharedInput.apply(t, tuple(groups))
 
 
 def shared_input(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """A global tensor entering a shard body whose ranks over ``axes`` use
-    it on different data: the identity, whose backward sums the ranks'
-    gradients over those axes."""
-    return _SharedInput.apply(t, tuple(group(mesh, a) for a in axes))
+    """:func:`shared` over the groups of mesh ``axes``."""
+    return shared(t, [group(mesh, a) for a in axes])
 
 
 def gather_axes(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """All-gather along dim 0 over several mesh axes, major first (the
-    innermost axis gathers first)."""
-    for a in reversed(tuple(axes)):
-        t = gather0(t, group(mesh, a))
-    return t
+    """:func:`gather` along dim 0 over several mesh axes, major first."""
+    return gather(t, [group(mesh, a) for a in axes])
 
 
 def all_to_all0(t: torch.Tensor, grp) -> torch.Tensor:

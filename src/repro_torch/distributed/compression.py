@@ -5,9 +5,11 @@ quantize-then-integer-op idea applied to the collective layer.  Each
 rank's gradients are quantized to int8 codes on a per-leaf grid shared by
 every rank (the absmax all-reduced with MAX), the codes are summed in
 int32 (exact for up to 2^23 ranks), and the sum is dequantized to the
-mean: 4x less data-parallel traffic than f32.  The quantization residual
-is carried in an error-feedback buffer so the compression bias does not
-accumulate (EF-SGD).
+mean.  The all-reduce carries the codes widened to int32, 4 bytes an
+element: as many bytes as an f32 all-reduce of the gradients (plus one f32
+max a leaf), not fewer; the reference sums its codes in int32 the same
+way.  The quantization residual is carried in an error-feedback buffer so
+the compression bias does not accumulate (EF-SGD).
 """
 from __future__ import annotations
 

@@ -18,10 +18,13 @@ logits on every rank; only the parameters (:func:`partition_params` or
 partitioned tree without them (``ValueError``).  Partitioned rules do not
 combine with ``int_bf16_reduce`` or ``moe_a2a`` (the shard bodies on
 global tensors, ``core/api.py::_int_row_parallel`` and
-``layers/moe.py::moe_ffn_a2a``), and the recurrent blocks, Whisper, the
-paged engine and training raise ``NotImplementedError`` under them; each
-message names :data:`ROADMAP_ITEM`.  Only ``mode="int"`` serves
-partitioned.
+``layers/moe.py::moe_ffn_a2a``), and the recurrent blocks, Whisper and
+the paged engine raise ``NotImplementedError`` under them; each message
+names its ROADMAP item.  ``mode="int"`` serves partitioned; modes
+"float" and "fake" train partitioned (``lm.lm_loss`` and
+``launch/train.py::make_train_step``, with gradients through every
+exchange: :class:`Partition`), and ``core/api.py::integerize_params``
+turns a trained local tree into the local int tree that serves.
 
 **Layout.**  Each leaf splits as ``sharding.param_specs`` says, after
 ``filter_mesh_axes`` and ``enforce_divisible``: column-parallel weights
@@ -42,11 +45,14 @@ reference's ``cache_specs`` (kept as it is in ``sharding.py``) splits the
 ring's sequence instead, which would need a cross-rank merge of the
 softmax's f32 sum, not an exact step.
 
-**Exactness.**  A partitioned run on any mesh is bitwise equal to one
-rank's run of the same tree, since every cross-rank step is exact:
+**Exactness.**  A partitioned int-mode run on any mesh is bitwise equal
+to one rank's run of the same tree, since every cross-rank step is exact
+(modes "float" and "fake" sum f32 partial products and gradients over
+ranks, so past one rank they part as the reference's sharded train cell
+parts from its one-device run):
 
 - a quantizer grid that spans a split dimension takes its max over the
-  mesh (:func:`group_max`): over "model" where it spans heads or a
+  mesh (:func:`grid_max`): over "model" where it spans heads or a
   row-parallel K, and also over the batch axes where it is per tensor;
 - a row-parallel linear (:func:`row_parallel_linear`) all-reduces its
   int32 sums over "model" (the qmatmul kernel's accumulator output) and
@@ -63,11 +69,17 @@ from typing import Optional
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.distributed import collectives as col
 from repro_torch.distributed.sharding import (P, _names, current_rules,
                                               enforce_divisible,
-                                              filter_mesh_axes, param_specs)
+                                              filter_mesh_axes, param_specs,
+                                              zero1_specs)
 
 ROADMAP_ITEM = "ROADMAP.md queue 1, item 6c (partitioned execution)"
+# what is still to do, by item: the shard bodies on local operands, and
+# the families (and the paged engine) not partitioned yet
+SHARD_BODIES = "ROADMAP.md queue 1, item 6c.3"
+FAMILIES = "ROADMAP.md queue 1, item 6c.4"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,21 +91,23 @@ class Layout:
     sizes: tuple                  # ((axis, size), ...)
     coords: tuple                 # ((axis, index), ...)
     batch: tuple = ()             # the batch axes present, major first
+    fsdp: bool = False            # experts' dout split over "data"
 
     @classmethod
     def make(cls, sizes: dict, coords: Optional[dict] = None,
-             batch=("pod", "data")) -> "Layout":
+             batch=("pod", "data"), fsdp: bool = False) -> "Layout":
         coords = coords or {}
         return cls(tuple(sizes.items()),
                    tuple((a, coords.get(a, 0)) for a in sizes),
-                   tuple(a for a in batch if a in sizes))
+                   tuple(a for a in batch if a in sizes), fsdp)
 
     @classmethod
-    def of(cls, mesh, batch=("pod", "data")) -> "Layout":
+    def of(cls, mesh, batch=("pod", "data"), fsdp: bool = False) -> "Layout":
         """This rank's layout on a ``DeviceMesh``."""
         names = tuple(mesh.mesh_dim_names)
         return cls.make(dict(zip(names, tuple(mesh.shape))),
-                        {a: mesh.get_local_rank(a) for a in names}, batch)
+                        {a: mesh.get_local_rank(a) for a in names}, batch,
+                        fsdp)
 
     @property
     def mesh_dim_names(self) -> tuple:
@@ -155,12 +169,10 @@ def _group(keys) -> Optional[str]:
     return None
 
 
-def _plan_specs(params, cfg, layout):
-    """``param_specs`` on ``layout``'s axes, each group whole unless
-    :func:`split_plan` splits it.  Depends on the tree's keys and leaf
-    ranks only, so a local tree gives its global tree's specs."""
+def _whole_groups(specs, cfg, layout):
+    """``specs`` with "model" dropped from every leaf of a group that
+    :func:`split_plan` keeps whole."""
     plan = split_plan(cfg, layout.m)
-    specs = filter_mesh_axes(param_specs(params), layout)
 
     def fix(keys, spec):
         g = _group(keys)
@@ -170,6 +182,15 @@ def _plan_specs(params, cfg, layout):
 
     flat = tree_lib.leaves_with_keys(specs)
     return tree_lib.unflatten(specs, [fix(list(k), s) for k, s in flat])
+
+
+def _plan_specs(params, cfg, layout):
+    """``param_specs`` on ``layout``'s axes (the experts' dout over "data"
+    with ``layout.fsdp``), each group whole unless :func:`split_plan`
+    splits it.  Depends on the tree's keys and leaf ranks only, so a local
+    tree gives its global tree's specs."""
+    return _whole_groups(filter_mesh_axes(
+        param_specs(params, expert_fsdp=layout.fsdp), layout), cfg, layout)
 
 
 def local_param_specs(params, cfg, layout):
@@ -311,15 +332,94 @@ def init_cache(cfg, batch: int, max_len: int, layout: Layout, *,
 # The rank's state under partitioned rules
 # ---------------------------------------------------------------------------
 
+class _Sum(torch.autograd.Function):
+    """Forward a sum over ranks, backward the identity: the ranks hold
+    parts of one value, which every rank then uses alike."""
+    @staticmethod
+    def forward(ctx, t, groups):
+        return col.reduce_sum(t, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Counted(torch.autograd.Function):
+    """Forward the identity, backward a division by ``n``: a value every
+    rank of a sum of the loss holds alike, counted once in that sum."""
+    @staticmethod
+    def forward(ctx, t, n):
+        ctx.n = n
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+class _Take(torch.autograd.Function):
+    """This rank's chunk of a value every rank holds alike; the backward
+    gathers the chunks' gradients back into the whole."""
+    @staticmethod
+    def forward(ctx, t, groups, dim, index, n):
+        ctx.groups, ctx.dim = groups, dim
+        return t.narrow(dim, index * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return col.gather_dim(g, ctx.groups, ctx.dim), None, None, None, None
+
+
+class _Max(torch.autograd.Function):
+    """The max of ``xa`` over ``dims`` (kept, size 1) and over the ranks of
+    ``groups``.  The backward first sums the incoming gradient over those
+    ranks (each holds the part of it from its own share of the work), then
+    hands it to every element, on any rank, equal to the max, divided by
+    their count over all ranks: what ``jnp.max``'s gradient gives each
+    element of the whole tensor (``ct / count``, then the 0/1 mask)."""
+    @staticmethod
+    def forward(ctx, xa, dims, groups):
+        out = xa.amax(dim=dims, keepdim=True).to(torch.float32).clone()
+        for grp in groups:                    # exact for bf16 and f32
+            col.all_reduce(out, grp, op=torch.distributed.ReduceOp.MAX)
+        out = out.to(xa.dtype)
+        ctx.save_for_backward(xa, out)
+        ctx.dims, ctx.groups = dims, groups
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        xa, out = ctx.saved_tensors
+        hit = xa == out
+        count = col.reduce_sum(hit.sum(dim=ctx.dims, keepdim=True,
+                                       dtype=torch.float32), ctx.groups)
+        ct = col.reduce_sum(g, ctx.groups)
+        return (ct / count.to(xa.dtype)) * hit.to(xa.dtype), None, None
+
+
 class Partition:
     """This rank on the mesh of partitioned rules: its layout and the
     exchanges of the partitioned program (NCCL for CUDA tensors, gloo for
     CPU ones; bf16 travels as its bytes where it is moved, and is
-    widened, exactly, where it is reduced)."""
+    widened, exactly, where it is summed).
+
+    Every exchange carries gradients.  A rank's backward gives, for a
+    tensor that the model ranks hold alike, its whole gradient (the same
+    on every model rank), and for one that they split, the gradient of its
+    own part; over the batch axes it gives each rank's part of the
+    gradient, from its own rows, which the train step sums
+    (``launch/train.py``).  So: a sum over "model" (a row-parallel linear,
+    the vocabulary-split embedding) has the identity backward; a value
+    entering work split over "model" (:meth:`shared`) sums its gradient
+    over "model"; a gather whose result the ranks use alike (:meth:`gather`)
+    hands each rank its chunk of the gradient, and one of shards each rank
+    uses on its own rows (``shards``) reduce-scatters it; a quantizer
+    grid's max (:meth:`max`) sums its gradient over the ranks it spans and
+    splits it among the elements that hold the max, on any rank."""
 
     def __init__(self, rules):
         self.mesh = rules.mesh
-        self.layout = Layout.of(rules.mesh, rules.batch)
+        self.layout = Layout.of(rules.mesh, rules.batch, rules.expert_fsdp)
         self.m = self.layout.m
         self.j = self.layout.index(("model",))
         self.batch = tuple(a for a in self.layout.batch
@@ -328,43 +428,55 @@ class Partition:
         self.bi = self.layout.index(self.batch)
 
     def _groups(self, axes):
-        from repro_torch.distributed import collectives as col
         return [col.group(self.mesh, a) for a in axes
                 if self.layout.size((a,)) > 1]
 
-    def max(self, t, axes):
+    def max(self, xa, axis, axes):
+        """The max of ``xa`` over ``axis`` (all dims when None: 0-d; else
+        kept) and over the ranks of ``axes``."""
+        groups = self._groups(axes)
+        if not groups:
+            return xa.amax() if axis is None else \
+                xa.amax(dim=axis, keepdim=True)
+        dims = tuple(range(xa.ndim)) if axis is None else axis
+        out = _Max.apply(xa, dims, groups)
+        return out.reshape(()) if axis is None else out
+
+    def sum(self, t, axes=("model",)):
+        """The sum over the ranks of ``axes`` of their parts (int32 sums
+        exact; floats in f32, cast back); the backward is the identity."""
+        groups = self._groups(axes)
+        return _Sum.apply(t, groups) if groups else t
+
+    def shared(self, t, axes=("model",)):
+        """``t``, which the ranks of ``axes`` hold alike, entering work
+        split over them: its backward sums the gradient over them."""
+        groups = self._groups(axes)
+        return col.shared(t, groups) if groups else t
+
+    def counted(self, t):
+        """``t``, which every batch rank holds alike, as a term of the
+        loss that the train step sums over the batch axes: counted once."""
+        return _Counted.apply(t, self.n_dp) if self.n_dp > 1 else t
+
+    def gather(self, t, axes, dim: int = 0, *, shards: bool = False):
+        """All-gather along ``dim`` over ``axes`` (major first).  The
+        backward hands this rank its chunk of the gradient, or with
+        ``shards`` (each rank uses the result on its own rows) the sum of
+        every rank's gradient of its chunk."""
         groups = self._groups(axes)
         if not groups:
             return t
-        from repro_torch.distributed import collectives as col
-        out = t.to(torch.float32).clone()      # exact for bf16 and f32
-        for grp in groups:
-            col.all_reduce(out, grp, op=torch.distributed.ReduceOp.MAX)
-        return out.to(t.dtype)
+        return col.gather(t, groups, dim, shards=shards)
 
-    def sum_model(self, t):
-        """Sum over "model": int32 sums in place; a float tensor (one
-        non-zero term per element) summed in f32 and cast back."""
-        groups = self._groups(("model",))
+    def take(self, t, axes, dim: int = 0):
+        """This rank's chunk along ``dim`` of ``t`` split over ``axes``,
+        which every rank holds whole; the backward gathers the gradient."""
+        groups = self._groups(axes)
         if not groups:
             return t
-        from repro_torch.distributed import collectives as col
-        if t.dtype == torch.int32:
-            return col.all_reduce(t.contiguous(), groups[0])
-        out = t.to(torch.float32).clone()
-        return col.all_reduce(out, groups[0]).to(t.dtype)
-
-    def gather(self, t, axes, dim: int = 0):
-        """All-gather along ``dim`` over ``axes`` (major first); bf16 moves
-        as byte pairs, which NCCL and gloo both carry."""
-        from repro_torch.distributed import collectives as col
-        bf16 = t.dtype == torch.bfloat16
-        out = t.contiguous().view(torch.uint8) if bf16 else t
-        out = out.movedim(dim, 0)
-        for grp in reversed(self._groups(axes)):
-            out = col.gather0(out, grp)
-        out = out.movedim(0, dim)
-        return out.contiguous().view(torch.bfloat16) if bf16 else out
+        n = t.shape[dim] // self.layout.size(axes)
+        return _Take.apply(t, groups, dim, self.layout.index(axes), n)
 
     def batch_rows(self, t):
         """The rank's rows of a global batch tensor (dim 0)."""
@@ -387,37 +499,52 @@ def active() -> Optional[Partition]:
     if rules.int_bf16_reduce or rules.moe_a2a:
         raise ValueError("partitioned trees do not combine with "
                          "int_bf16_reduce or moe_a2a (their shard bodies "
-                         f"take global tensors): {ROADMAP_ITEM}")
+                         f"take global tensors): {SHARD_BODIES}")
     return rules.partition
 
 
-def refuse(what: str):
+def refuse(what: str, item: str = FAMILIES):
     """``NotImplementedError`` naming the ROADMAP item when partitioned."""
     if active() is not None:
         raise NotImplementedError(f"{what} does not run partitioned yet: "
-                                  f"{ROADMAP_ITEM}")
+                                  f"{item}")
 
 
-def group_max(amax, *, model: bool = True, batch: bool = False):
-    """The max of a quantizer grid's local abs-max over the ranks that
-    hold the rest of what it spans: over "model" (heads, a row-parallel K,
-    experts) and, for a per-tensor grid, the batch axes.  The identity
-    when not partitioned.  A max is exact in any order."""
+def grid_max(xa, axis=None, *, model: bool = True, batch: bool = False):
+    """A quantizer grid's abs-max of ``xa`` (|x|) over ``axis`` (as
+    ``quant.absmax_scale`` takes it), maxed over the ranks that hold the
+    rest of what the grid spans: "model" (heads, a row-parallel K,
+    experts) and, for a per-tensor grid over batch rows, the batch axes.
+    Differentiable (:class:`Partition`); the plain max when not
+    partitioned.  A max is exact in any order."""
     part = active()
     if part is None:
-        return amax
-    return part.max(amax, (("model",) if model else ())
+        return xa.amax() if axis is None else xa.amax(dim=axis, keepdim=True)
+    return part.max(xa, axis, (("model",) if model else ())
                     + (part.batch if batch else ()))
 
 
-def heads_max(amax):
-    """:func:`group_max` of a grid over heads (or a split K) of one row."""
-    return group_max(amax)
+def heads_max(xa, axis=None):
+    """:func:`grid_max` of a grid over heads (or a split K) of one row."""
+    return grid_max(xa, axis)
 
 
-def tensor_max(amax):
-    """:func:`group_max` of a per-tensor grid."""
-    return group_max(amax, batch=True)
+def tensor_max(xa, axis=None):
+    """:func:`grid_max` of a per-tensor grid over heads and batch rows."""
+    return grid_max(xa, axis, batch=True)
+
+
+def rows_max(xa, axis=None):
+    """:func:`grid_max` of a per-tensor grid over batch rows of a tensor
+    the model ranks hold alike."""
+    return grid_max(xa, axis, model=False, batch=True)
+
+
+def model_input(x, split: bool):
+    """``x`` entering a layer whose work ``split`` over "model" (its
+    column-parallel products): its gradient sums over "model"."""
+    part = active()
+    return part.shared(x) if part is not None and split else x
 
 
 def row_parallel_linear(x, p, cfg, k_split: bool):
@@ -448,10 +575,8 @@ def row_parallel_linear(x, p, cfg, k_split: bool):
         row_scale = torch.repeat_interleave(
             dx.reshape(x.shape[0]).to(torch.float32), x.shape[1])
     else:
-        xq = quant.quantize_tensor(
-            x, cfg.a_bits,
-            group=tensor_max if k_split else
-            lambda a: group_max(a, model=False, batch=True))
+        xq = quant.quantize_tensor(x, cfg.a_bits,
+                                   group=tensor_max if k_split else rows_max)
         codes = xq.q
         scale = (p["w_scale"] * xq.scale).to(torch.float32)
         row_scale = None
@@ -460,7 +585,7 @@ def row_parallel_linear(x, p, cfg, k_split: bool):
     if acc is None:
         acc = quant.int_matmul_exact(codes, as_qlinear(p, cfg).w_q.T)
     if k_split:
-        acc = part.sum_model(acc)
+        acc = part.sum(acc)
     b = p.get("b")
     y = qmatmul_epilogue(acc, scale, None if b is None else b, row_scale)
     return y.reshape(*x.shape[:-1], -1).to(x.dtype)
@@ -506,11 +631,14 @@ def tree_dims(params, cfg) -> dict:
             out["ffn"] = out_features(dense_ff["up"])
         if "experts_up" in ffn and "experts" not in out:
             w = ffn["experts_up"]
-            out["experts"] = w.get("w_q", w.get("w")).shape[-3]
+            w = w.get("w_q", w.get("w"))
+            out["experts"], out["expert_dout"] = w.shape[-3], w.shape[-1]
     return out
 
 
-def expected_dims(cfg, m: int) -> dict:
+def expected_dims(cfg, m: int, n_fsdp: int = 1) -> dict:
+    """:func:`tree_dims` of the tree a rank holds on ``m`` model ranks,
+    the experts' dout split over ``n_fsdp`` data ranks."""
     plan = split_plan(cfg, m)
 
     def d(n, key):
@@ -520,6 +648,7 @@ def expected_dims(cfg, m: int) -> dict:
            "kv_heads": d(cfg.kv_heads, "heads"), "ffn": d(cfg.d_ff, "ffn")}
     if cfg.moe is not None:
         out["experts"] = d(cfg.moe.n_experts, "experts")
+        out["expert_dout"] = cfg.d_ff // n_fsdp
     return out
 
 
@@ -527,7 +656,8 @@ def check_tree(params, cfg):
     """Raise ``ValueError`` unless ``params`` is the tree this rank must
     hold: the local one under partitioned rules, the global one without."""
     part = active()
-    want = expected_dims(cfg, part.m if part is not None else 1)
+    want = expected_dims(cfg, 1) if part is None else expected_dims(
+        cfg, part.m, part.layout.size(("data",)) if part.layout.fsdp else 1)
     got = tree_dims(params, cfg)
     bad = {k: (n, want[k]) for k, n in got.items() if n != want[k]}
     if bad:
@@ -550,14 +680,15 @@ def global_shapes(params, cfg, layout: Layout):
 
 def build_params(cfg, *, seed: int = 0, layout: Optional[Layout] = None,
                  device="cuda"):
-    """The integerized tree of ``cfg`` (``cfg.quant``) sliced for
-    ``layout``, built one layer at a time, so no device holds the global
-    tree: each layer's global float weights are drawn on ``device`` from a
-    generator seeded by (``seed``, layer), integerized whole (a weight's
-    per-column scales span its K), and only the rank's slice is kept.
-    With ``layout`` None (or one model rank) it is the unpartitioned tree of
-    the same values.  The embedding and lm_head draw from their own
-    generators; the layout is the reference's (``units`` stacked)."""
+    """The tree of ``cfg`` sliced for ``layout``, built one layer at a
+    time, so no device holds the global tree: each layer's global float
+    weights are drawn on ``device`` from a generator seeded by (``seed``,
+    layer), integerized whole where ``cfg.quant`` is int mode (a weight's
+    per-column scales span its K; kept float in modes "float" and "fake",
+    to train), and only the rank's slice is kept.  With ``layout`` None
+    (or one rank) it is the unpartitioned tree of the same values.  The
+    embedding and lm_head draw from their own generators; the layout is
+    the reference's (``units`` stacked)."""
     from repro_torch.core.api import integerize_params
     from repro_torch.layers.embed import init_embed
     from repro_torch.layers.norms import init_norm
@@ -570,8 +701,9 @@ def build_params(cfg, *, seed: int = 0, layout: Optional[Layout] = None,
             seed * 100_003 + i)
 
     def own(tree):
-        return partition_params(integerize_params(tree, cfg.quant), cfg,
-                                layout)
+        if cfg.quant is not None and cfg.quant.mode == "int":
+            tree = integerize_params(tree, cfg.quant)
+        return partition_params(tree, cfg, layout)
 
     params = own({"embed": init_embed(gen(0), cfg.vocab, d, dt,
                                       device=device),
@@ -595,3 +727,103 @@ def build_params(cfg, *, seed: int = 0, layout: Optional[Layout] = None,
         params[f"rem{i}"] = own({"rem0": lm._init_block(
             gen(layer), cfg, kind, (), device)})["rem0"]
     return params
+
+
+# ---------------------------------------------------------------------------
+# Training on the rank's tree: gradients and ZeRO-1 optimizer moments
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LeafShard:
+    """How this rank holds one leaf of the tree and its optimizer moments
+    under partitioned rules."""
+    axes: tuple                   # mesh axes the leaf is split over
+    dim: Optional[int] = None     # the moments' dim split over "data"
+    n: int = 1                    # ranks of "data" (ZeRO-1)
+    i: int = 0                    # this rank's index on "data"
+
+    def part(self, t):
+        """The rank's ZeRO-1 slice of a local leaf (its moments' block)."""
+        if self.dim is None:
+            return t
+        size = t.shape[self.dim] // self.n
+        return t.narrow(self.dim, self.i * size, size)
+
+    @property
+    def norm_axes(self) -> tuple:
+        """The axes whose ranks hold the rest of what :meth:`part` is a
+        block of: a sum over the leaf sums over them."""
+        return self.axes + (("data",) if self.dim is not None else ())
+
+
+def opt_shards(params, cfg):
+    """Each leaf's :class:`LeafShard` (sorted key order) of the rank's tree
+    ``params`` under the active partitioned rules; None without them.  The
+    moments are split as the reference's train cell splits them
+    (``launch/dryrun.py``): ``zero1_specs`` over "data" on
+    ``param_specs(expert_fsdp=...)`` of the global shapes, on the mesh's
+    axes where they divide, with the groups :func:`split_plan` keeps whole
+    left whole."""
+    part = active()
+    if part is None:
+        return None
+    layout = part.layout
+    glob = global_shapes(params, cfg, layout)
+    n = layout.size(("data",))
+    zspecs = _whole_groups(enforce_divisible(filter_mesh_axes(zero1_specs(
+        glob, param_specs(glob, expert_fsdp=layout.fsdp), data_size=n),
+        layout), glob, layout), cfg, layout)
+    out = []
+    for (keys, pspec), zspec in zip(
+            tree_lib.leaves_with_keys(_plan_specs(params, cfg, layout)),
+            tree_lib.leaves(zspecs)):
+        axes = tuple(a for e in pspec for a in _names(e))
+        z, q = ([set(_names(e)) for e in sp] for sp in (zspec, pspec))
+        extra = [d for d in range(len(z)) if z[d] - q[d]]
+        if any(not q[d] <= z[d] or z[d] - q[d] - {"data"}
+               for d in range(len(z))) or len(extra) > 1:
+            raise ValueError(f"{'/'.join(keys)}: moments {zspec} are not "
+                             f"the leaf's {pspec} split over data")
+        dim = extra[0] if extra and n > 1 else None
+        out.append(LeafShard(axes, dim, n if dim is not None else 1,
+                             layout.index(("data",)) if dim is not None
+                             else 0))
+    return out
+
+
+def reduce_grads(grads, shards):
+    """Each rank's part of each gradient (``lm.lm_loss``) summed over the
+    batch axes it is not split over: the gradient of the leaf's block,
+    the same on every batch rank (f32 sums, cast back)."""
+    part = active()
+    out = []
+    for g, sh in zip(tree_lib.leaves(grads), shards):
+        groups = part._groups(tuple(a for a in part.batch
+                                    if a not in sh.axes))
+        out.append(col.reduce_sum(g, groups) if groups else g)
+    return tree_lib.unflatten(grads, out)
+
+
+def leaf_sums(sums, shards):
+    """Per leaf, f32 sums over what the rank holds of it (``sums[i]``,
+    any shape) summed over the ranks that hold the rest of the leaf
+    (:attr:`LeafShard.norm_axes`): one all-reduce for each set of axes."""
+    part = active()
+    out, by = list(sums), {}
+    for i, sh in enumerate(shards):
+        axes = tuple(a for a in sh.norm_axes if part.layout.size((a,)) > 1)
+        if axes:
+            by.setdefault(axes, []).append(i)
+    for axes, idx in by.items():
+        total = col.reduce_sum(torch.stack([sums[i] for i in idx]),
+                               part._groups(axes))
+        for j, i in enumerate(idx):
+            out[i] = total[j]
+    return out
+
+
+def gather_slice(t, sh: LeafShard):
+    """The leaf from every data rank's :meth:`LeafShard.part` (exact)."""
+    if sh.dim is None:
+        return t
+    return col.gather_dim(t, active()._groups(("data",)), sh.dim)

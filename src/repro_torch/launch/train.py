@@ -88,37 +88,61 @@ def deterministic():
         torch.use_deterministic_algorithms(prev, warn_only=warn_only)
 
 
-def make_step(loss_fn, ocfg: OptConfig, *, only: str | None = None):
+def value_and_grad(loss_fn, params, batch, *, only: str | None = None,
+                   shards=None):
+    """``(loss, metrics, grads)`` of ``loss_fn(params, batch) -> (loss,
+    metrics)``; with ``only``, every gradient but those whose leaf path
+    holds ``only`` is zero (autograd computes only the others).
+
+    ``shards`` (``distributed/partition.py::opt_shards``, under
+    partitioned rules): ``params`` is this rank's tree, and each rank's
+    part of each gradient (from its own rows) is summed over the batch
+    axes (``partition.reduce_grads``), so every rank holds the gradient
+    of its leaves' blocks."""
+    named = tree_lib.leaves_with_paths(params)
+    want = [i for i, (path, _) in enumerate(named)
+            if only is None or only in path]
+    for i in want:
+        named[i][1].requires_grad_(True)
+    try:
+        loss, metrics = loss_fn(params, batch)
+        got = dict(zip(want, torch.autograd.grad(
+            loss, [named[i][1] for i in want], allow_unused=True)))
+    finally:
+        for i in want:
+            named[i][1].requires_grad_(False)
+    grads = tree_lib.unflatten(params, [
+        torch.zeros_like(leaf) if got.get(i) is None else got[i]
+        for i, (_, leaf) in enumerate(named)])
+    del got
+    if shards is not None:
+        from repro_torch.distributed import partition
+        grads = partition.reduce_grads(grads, shards)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_step(loss_fn, ocfg: OptConfig, *, only: str | None = None,
+              cfg=None):
     """A training step ``(params, opt_state, batch) -> (params, opt_state,
     metrics)`` for ``loss_fn(params, batch) -> (loss, metrics)``.  With
     ``only``, every gradient but those whose leaf path holds ``only`` is
     zero (the paper's phase 1; the zero gradients still go through the
-    optimizer, as the reference's do, and autograd computes only the
-    others).  The params and state are updated in place."""
+    optimizer, as the reference's do).  The params and state are updated
+    in place.  Under partitioned rules (``cfg``: the model's config, which
+    says how its tree splits) the params are the rank's tree and the state
+    its ZeRO-1 moments (``optim.init_opt_state(params,
+    partition.opt_shards(params, cfg))``), as the reference's train cell
+    shards them (``launch/dryrun.py``)."""
     def train_step(params, opt_state, batch):
-        named = tree_lib.leaves_with_paths(params)
-        want = [i for i, (path, _) in enumerate(named)
-                if only is None or only in path]
+        from repro_torch.distributed import partition
+        shards = partition.opt_shards(params, cfg) if cfg is not None \
+            else None
         with deterministic():
-            for i in want:
-                named[i][1].requires_grad_(True)
-            try:
-                loss, metrics = loss_fn(params, batch)
-                got = dict(zip(want, torch.autograd.grad(
-                    loss, [named[i][1] for i in want], allow_unused=True)))
-            finally:
-                for i in want:
-                    named[i][1].requires_grad_(False)
-            grads = tree_lib.unflatten(params, [
-                torch.zeros_like(leaf) if got.get(i) is None else got[i]
-                for i, (_, leaf) in enumerate(named)])
-            del got
+            loss, metrics, grads = value_and_grad(loss_fn, params, batch,
+                                                  only=only, shards=shards)
             params, opt_state, om = opt_update(params, grads, opt_state,
-                                               ocfg)
-        return params, opt_state, {"loss": loss.detach(),
-                                   **{k: v.detach()
-                                      for k, v in metrics.items()},
-                                   **om}
+                                               ocfg, shards=shards)
+        return params, opt_state, {"loss": loss, **metrics, **om}
 
     return train_step
 
@@ -127,12 +151,13 @@ def make_train_step(cfg: lm.LMConfig, ocfg: OptConfig, *,
                     last_layer_only: bool = False):
     """The LM training step on :func:`repro_torch.models.lm.lm_loss`;
     ``last_layer_only`` keeps only the gradients whose path holds
-    ``lm_head``."""
+    ``lm_head``.  Runs partitioned under ``Rules(partitioned=True)``
+    (modes "float" and "fake"; :func:`make_step`)."""
     def loss_fn(params, batch):
         return lm.lm_loss(params, batch, cfg)
 
     return make_step(loss_fn, ocfg,
-                     only="lm_head" if last_layer_only else None)
+                     only="lm_head" if last_layer_only else None, cfg=cfg)
 
 
 def train(cfg: lm.LMConfig, tcfg: TrainConfig, ocfg: OptConfig,

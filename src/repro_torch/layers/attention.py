@@ -29,7 +29,8 @@ from repro_torch.core import quant
 from repro_torch.core.api import QuantConfig
 from repro_torch.core.quant import int_matmul_exact
 from repro_torch.core.softmax2 import LOG2E, exp2_shift
-from repro_torch.distributed.partition import heads_max, tensor_max
+from repro_torch.distributed.partition import (heads_max, rows_max,
+                                               tensor_max)
 
 NEG_BIG = -1e9
 
@@ -40,6 +41,7 @@ class AttnSpec:
     window: Optional[int] = None      # local attention: keys in (i-window, i]
     softmax_scale: Optional[float] = None
     q_chunk: int = 128
+    split_heads: bool = False         # partitioned: the rank holds some heads
 
 
 def _mask(q_pos, k_pos, spec: AttnSpec):
@@ -115,9 +117,14 @@ def _row_attention(q, k, v, q_pos, k_pos, spec: AttnSpec,
     k = _as_f(k, q.dtype)
     v = _as_f(v, q.dtype)
     if mode == "fake":
-        q = quant.fake_quant(q, quant.absmax_scale(q, cfg.a_bits), cfg.a_bits)
-        k = quant.fake_quant(k, quant.absmax_scale(k, cfg.a_bits), cfg.a_bits)
-        v = quant.fake_quant(v, quant.absmax_scale(v, cfg.a_bits), cfg.a_bits)
+        # per tensor: over every rank's rows, and heads where they split
+        grp = tensor_max if spec.split_heads else rows_max
+        q = quant.fake_quant(q, quant.absmax_scale(q, cfg.a_bits, group=grp),
+                             cfg.a_bits)
+        k = quant.fake_quant(k, quant.absmax_scale(k, cfg.a_bits, group=grp),
+                             cfg.a_bits)
+        v = quant.fake_quant(v, quant.absmax_scale(v, cfg.a_bits, group=grp),
+                             cfg.a_bits)
     elif mode != "float":
         raise ValueError(f"unknown attention mode {mode!r}")
 

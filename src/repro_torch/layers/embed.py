@@ -12,7 +12,8 @@ def embed_lookup(tokens, p: dict, dtype=torch.bfloat16, vocab=None):
     with fewer rows is this rank's block of a vocabulary split over
     "model" (partitioned rules): other ranks' tokens look up zeros here,
     and the sum over "model", one non-zero term an element, is the
-    lookup, exactly."""
+    lookup, exactly.  Its backward is the identity, so each rank's table
+    gets the gradient of its own rows."""
     tokens = tokens.long()
     table = p["emb_q"] if "emb_q" in p else p["emb"]
     n = table.shape[0]
@@ -29,7 +30,7 @@ def embed_lookup(tokens, p: dict, dtype=torch.bfloat16, vocab=None):
         x = p["emb"][tokens].to(dtype)
     if part is None:
         return x
-    return part.sum_model(torch.where(hit[..., None], x, 0))
+    return part.sum(torch.where(hit[..., None], x, 0))
 
 
 def init_embed(gen: torch.Generator, vocab: int, d: int,

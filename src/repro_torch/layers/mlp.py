@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.api import QuantConfig, dense
+from repro_torch.distributed import partition
 
 _BF16 = torch.bfloat16
 
@@ -58,6 +59,7 @@ def mlp(x, p: dict, cfg: QuantConfig | None, *, act: str = "swiglu",
         k_split: bool = False):
     """The feed-forward on x (..., d); ``k_split``: under partitioned rules,
     gate and up hold this rank's columns and down its slice of K."""
+    x = partition.model_input(x, k_split)
     if act == "swiglu":
         h = silu(dense(x, p["gate"], cfg)) * dense(x, p["up"], cfg)
     elif act == "gelu":

@@ -38,8 +38,11 @@ class MoEConfig:
     shared_expert: bool = False   # llama4-style always-on expert
 
 
-def dense_expert(x, p: dict, cfg: QuantConfig | None):
-    """Batched per-expert linear: x (E, C, din) @ w (E, din, dout)."""
+def dense_expert(x, p: dict, cfg: QuantConfig | None, *,
+                 split: bool = False):
+    """Batched per-expert linear: x (E, C, din) @ w (E, din, dout).
+    ``split``: under partitioned rules x and w hold this rank's experts,
+    and the fake activation grid spans every rank's."""
     b = p.get("b")
     if cfg is None or cfg.mode == "float":
         y = torch.matmul(x, p["w"])
@@ -47,7 +50,8 @@ def dense_expert(x, p: dict, cfg: QuantConfig | None):
         w = p["w"]
         dw = quant.absmax_scale(w, cfg.w_bits, axis=1)       # (E,1,dout)
         w_fq = quant.fake_quant(w, dw, cfg.w_bits)
-        dx = quant.absmax_scale(x, cfg.a_bits)
+        dx = quant.absmax_scale(x, cfg.a_bits,
+                                group=partition.heads_max if split else None)
         x_fq = quant.fake_quant(x, dx, cfg.a_bits)
         y = torch.matmul(x_fq, w_fq)
     elif cfg.mode == "int":
@@ -97,13 +101,14 @@ def _assign_slots(x, gate, idx, e, cap):
     return buf, eid, slot, keepw
 
 
-def _expert_stack(buf, p, cfg, act):
-    """gate/up/down expert FFN on a (E, C, d) buffer."""
-    h_gate = silu(dense_expert(buf, p["experts_gate"], cfg)) \
+def _expert_stack(buf, p, cfg, act, split=False):
+    """gate/up/down expert FFN on a (E, C, d) buffer (``split``: as
+    :func:`dense_expert`'s)."""
+    h_gate = silu(dense_expert(buf, p["experts_gate"], cfg, split=split)) \
         if act == "swiglu" else None
-    h = dense_expert(buf, p["experts_up"], cfg)
+    h = dense_expert(buf, p["experts_up"], cfg, split=split)
     h = (h_gate * h) if h_gate is not None else F.gelu(h, approximate="tanh")
-    return dense_expert(h.to(buf.dtype), p["experts_down"], cfg)
+    return dense_expert(h.to(buf.dtype), p["experts_down"], cfg, split=split)
 
 
 def _local_experts(p, name, lo, hi, mesh, fsdp):
@@ -215,12 +220,17 @@ def moe_ffn(x, p: dict, mcfg: MoEConfig, cfg: QuantConfig | None, *,
     dispatch, replicated on every rank).
 
     Under partitioned rules ``x`` holds the rank's tokens and ``p`` its
-    experts (E/m where E splits over "model"): routing and the capacity
+    experts (E/m where E splits over "model"; with ``expert_fsdp`` their
+    dout split over "data", gathered here): routing and the capacity
     slots run over all of the call's tokens, gathered over the batch axes
     since the capacity couples them; the rank runs only its experts (on a
     grid over every rank's buffer), their outputs are gathered along E,
     the combine runs as on one rank and the rank keeps its own tokens, on
-    which the shared expert runs.  Bit for bit one rank's run."""
+    which the shared expert runs.  Bit for bit one rank's run in int
+    mode.  The gathers carry gradients (``distributed/partition.py``):
+    the tokens' and the experts' weights' reduce-scatter, since each batch
+    rank keeps the gradient of its own tokens' outputs only; the expert
+    buffer's slice gathers its gradient back over "model"."""
     part = partition.active()
     rules = current_rules()
     if (rules is not None and rules.moe_a2a and rules.mesh is not None
@@ -233,7 +243,7 @@ def moe_ffn(x, p: dict, mcfg: MoEConfig, cfg: QuantConfig | None, *,
         t_loc = x.shape[0] // max(n_dp, 1)
         if mcfg.n_experts % m == 0 and t_loc % m == 0 and t_loc > 0:
             return moe_ffn_a2a(x, p, mcfg, cfg, rules, act=act)
-    xg = x if part is None else part.gather(x, part.batch)
+    xg = x if part is None else part.gather(x, part.batch, shards=True)
     t, d = xg.shape
     e, k = mcfg.n_experts, mcfg.top_k
     cap = max(int(t * k * mcfg.capacity_factor / e), 1)
@@ -241,9 +251,14 @@ def moe_ffn(x, p: dict, mcfg: MoEConfig, cfg: QuantConfig | None, *,
     buf, eid, slot, keepw = _assign_slots(xg, gate, idx, e, cap)
     buf = shard(buf, "expert", None, None)
     e_loc = _lead(p["experts_up"]).shape[0]
+    if part is not None and part.layout.fsdp:
+        p = {name: ({key: part.gather(w, ("data",), -1, shards=True)
+                     for key, w in lin.items()}
+                    if name.startswith("experts_") else lin)
+             for name, lin in p.items()}
     if e_loc != e:                            # this rank's experts only
-        buf = buf[part.j * e_loc:(part.j + 1) * e_loc]
-    out_buf = _expert_stack(buf, p, cfg, act)                 # (E, cap, d)
+        buf = part.take(buf, ("model",))
+    out_buf = _expert_stack(buf, p, cfg, act, e_loc != e)     # (E, cap, d)
     if e_loc != e:
         out_buf = part.gather(out_buf, ("model",))
     out_buf = shard(out_buf, "expert", None, None)

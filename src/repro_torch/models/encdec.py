@@ -328,6 +328,7 @@ def loss_fn(params, batch, cfg: EncDecConfig):
     ``batch["frames"]`` and ``batch["tokens"]``, chunked over the target
     length (the largest chunk <= ``cfg.loss_chunk`` that divides S; the f32
     sums in the reference's order).  Returns (loss, {})."""
+    partition.refuse("the encoder-decoder family (models/encdec.py)")
     enc_x = encode(params, batch["frames"], cfg)
     x = decoder_embed(params, batch["tokens"], cfg, 0)
     x = apply_norm(_dec_stack(params, x, cfg, enc_x=enc_x), params["dec_ln"],

@@ -66,12 +66,14 @@ Ring writes compute in f32 (XLA promotes a bf16 tensor divided by a 0-d
 f32 scale to f32; torch would stay in bf16) and saturate int8 codes as
 XLA converts (torch's cast wraps).
 
-Partitioned serving (``distributed/partition.py``): under
+Partitioned serving and training (``distributed/partition.py``): under
 ``Rules(partitioned=True)`` :func:`prefill` and :func:`decode_step` take
 the global tokens, run the rank's batch rows on its shard of the tree
 (attention on its KV heads, read from the local weights; row-parallel
 linears reduced as int32; its experts; its vocabulary rows) into its
-shard of the ring cache, and return the global logits on every rank.
+shard of the ring cache, and return the global logits on every rank;
+:func:`lm_loss` (modes "float" and "fake") takes the global batch and
+returns the global loss, with gradients through every exchange.
 :func:`forward` then takes the rank's rows.
 """
 from __future__ import annotations
@@ -320,8 +322,8 @@ def _ring_write_prefill(cache, k, v, mode, qcfg):
         kv4 = qcfg.kv_bits == 4
         qmax = 7.0 if kv4 else 127.0
         # per tensor: over every rank's heads and rows when partitioned
-        ksc = partition.tensor_max(ks_.abs().amax()).to(torch.float32) / qmax
-        vsc = partition.tensor_max(vs_.abs().amax()).to(torch.float32) / qmax
+        ksc = partition.tensor_max(ks_.abs()).to(torch.float32) / qmax
+        vsc = partition.tensor_max(vs_.abs()).to(torch.float32) / qmax
         cache["k"].copy_(_ring_codes(ks_, ksc, kv4))
         cache["v"].copy_(_ring_codes(vs_, vsc, kv4))
         cache["k_scale"].copy_(ksc)
@@ -518,6 +520,7 @@ def _attn_mixer(x, p, cfg: LMConfig, kind: str, positions, cache, decode,
     hq = partition.out_features(p["wq"]) // hd
     hkv = partition.out_features(p["wk"]) // hd
     qcfg = cfg.quant
+    x = partition.model_input(x, hq < cfg.n_heads)
 
     def split(y, h):
         y = shard(y, "batch", None, "model")
@@ -532,7 +535,8 @@ def _attn_mixer(x, p, cfg: LMConfig, kind: str, positions, cache, decode,
                    rotary_frac=cfg.rotary_frac)
 
     window = cfg.attn_window if kind == "local" else None
-    spec = AttnSpec(causal=cfg.causal, window=window, q_chunk=cfg.q_chunk)
+    spec = AttnSpec(causal=cfg.causal, window=window, q_chunk=cfg.q_chunk,
+                    split_heads=hq < cfg.n_heads)
     mode = qcfg.mode if qcfg else "float"
     paged = cache is not None and "k_pages" in cache
 
@@ -713,9 +717,6 @@ def forward(params, batch, cfg: LMConfig, *, cache=None, decode=False,
             partition.refuse("the paged cache (launch/engine.py)")
         if any(k not in ATTN_KINDS for k in block_kinds(cfg)):
             partition.refuse("the recurrent blocks (rglru, ssd)")
-        if cfg.quant is None or cfg.quant.mode != "int":
-            partition.refuse(f"mode {cfg.quant.mode if cfg.quant else None!r}"
-                             f" (partitioned serving is int mode)")
     partition.check_tree(params, cfg)
     x = _inputs_to_x(params, batch, cfg)
     page_table = cache["page_table"] if paged else None
@@ -749,9 +750,11 @@ def forward(params, batch, cfg: LMConfig, *, cache=None, decode=False,
 
 def logits_fn(params, x, cfg: LMConfig):
     """Logits over the whole vocabulary (gathered over "model" where the
-    rank holds a block of the lm_head's rows)."""
-    y = dense(x, params["lm_head"], cfg.quant)
-    if y.shape[-1] != cfg.vocab:
+    rank holds a block of the lm_head's rows; the gather hands each rank
+    its block's gradient)."""
+    split = partition.out_features(params["lm_head"]) != cfg.vocab
+    y = dense(partition.model_input(x, split), params["lm_head"], cfg.quant)
+    if split:
         y = partition.active().gather(y, ("model",), dim=-1)
     return y
 
@@ -761,7 +764,9 @@ def chunked_nll(x, labels, loss_chunk: int, head):
     d), ``head`` turning a chunk of x into logits, so (B, S, V) logits never
     exist at once.  The chunk is the largest one <= ``loss_chunk`` that
     divides S; the f32 ``logsumexp - gold`` sums chunk by chunk in the
-    reference's order."""
+    reference's order.  Under partitioned rules x and ``labels`` hold the
+    rank's rows: the sum runs over every batch rank's (its backward the
+    identity) and the mean is over the global B * S."""
     b, s, _ = x.shape
     c = next(cc for cc in range(min(loss_chunk, s), 0, -1) if s % cc == 0)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -771,6 +776,9 @@ def chunked_nll(x, labels, loss_chunk: int, head):
         gold = torch.gather(logits, -1,
                             labels[:, i:i + c, None].long())[..., 0]
         tot = tot + torch.sum(logz - gold)
+    part = partition.active()
+    if part is not None:
+        tot, b = part.sum(tot, part.batch), b * part.n_dp
     return tot / (b * s)
 
 
@@ -778,15 +786,28 @@ def lm_loss(params, batch, cfg: LMConfig):
     """Causal LM loss on ``batch["tokens"]`` and ``batch["labels"]`` (B, S)
     (plus ``patches`` for a patch frontend, whose positions take no loss),
     :func:`chunked_nll` over ``cfg.loss_chunk``.  Returns (nll + 0.01 *
-    aux, {"nll", "aux"})."""
-    partition.refuse("training (lm_loss)")
+    aux, {"nll", "aux"}).
+
+    Partitioned (modes "float" and "fake"): the global batch in, the rank's
+    rows run on its shard of the tree, and every rank returns the global
+    loss.  A rank's backward gives its part of each gradient, from its own
+    rows (``aux``, the same on every batch rank, counted once), which the
+    train step sums over the batch axes (``launch/train.py``)."""
+    part = partition.active()
+    if part is not None:
+        if cfg.quant is not None and cfg.quant.mode == "int":
+            partition.refuse("training in int mode (lm_loss; item 6c.1 "
+                             "trains modes 'float' and 'fake')",
+                             partition.ROADMAP_ITEM)
+        batch = {k: part.batch_rows(v) for k, v in batch.items()}
     x, _, aux = forward(params, batch, cfg)
     labels = batch["labels"]
     if cfg.frontend == "patch":                   # frontend tokens: no loss
         x = x[:, -labels.shape[1]:]
     loss = chunked_nll(x, labels, cfg.loss_chunk,
                        lambda xc: logits_fn(params, xc, cfg))
-    return loss + 0.01 * aux, {"nll": loss, "aux": aux}
+    counted = aux if part is None else part.counted(aux)
+    return loss + 0.01 * counted, {"nll": loss, "aux": aux}
 
 
 def prefill(params, batch, cfg: LMConfig, max_len: Optional[int] = None):

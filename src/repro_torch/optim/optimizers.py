@@ -54,45 +54,105 @@ def cosine_schedule(step, cfg: OptConfig) -> torch.Tensor:
     return cfg.lr * warm * cos
 
 
-def init_opt_state(params) -> dict:
-    def zeros(p):
-        return torch.zeros_like(p, dtype=torch.float32)
+def init_opt_state(params, shards=None) -> dict:
+    """Zero moments shaped like ``params``; with ``shards`` (this rank's
+    ``distributed/partition.py::opt_shards``) each leaf's ZeRO-1 block."""
+    flat = tree_lib.leaves(params)
+    if shards is not None:
+        flat = [sh.part(p) for p, sh in zip(flat, shards)]
 
-    first = tree_lib.leaves(params)[0]
-    return {"mu": tree_lib.tree_map(zeros, params),
-            "nu": tree_lib.tree_map(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32, device=first.device)}
+    def zeros():
+        return tree_lib.unflatten(params, [
+            torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for p in flat])
+
+    return {"mu": zeros(), "nu": zeros(),
+            "step": torch.zeros((), dtype=torch.int32, device=flat[0].device)}
 
 
-def _global_norm(flat) -> torch.Tensor:
+def _global_norm(flat, squared: bool = False) -> torch.Tensor:
+    """The f32 norm of every leaf of ``flat`` (``squared``: each leaf's
+    sum of squares given), summed leaf by leaf in order."""
     total = 0
     for g in flat:
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+        total = total + (g if squared else _sq(g.to(torch.float32)))
     return torch.sqrt(total)
 
 
-def _update_leaf(p, g32, mu, nu, lr, c1, c2, cfg: OptConfig):
+def _moments(g32, mu, nu, cfg: OptConfig):
     mu.mul_(cfg.b1).add_(g32 * (1 - cfg.b1))
     t = g32 * (1 - cfg.b2)
     nu.mul_(cfg.b2).add_(t.mul_(g32))
-    del t
+
+
+def _direction(p32, mu, nu, c1, c2, cfg: OptConfig):
     den = (nu / c2).sqrt_().add_(cfg.eps)
     u = (mu / c1).div_(den)
     del den
-    p32 = p.to(torch.float32)
     if cfg.weight_decay:
         u.add_(p32 * cfg.weight_decay)
+    return u
+
+
+def _sq(t):
+    return torch.sum(torch.square(t))
+
+
+def _apply(p, p32, u, wn2, un2, lr, cfg: OptConfig):
+    """The update of ``p`` (in place; returns it), LAMB's trust ratio from
+    the squared norms ``wn2`` / ``un2`` of the whole leaf."""
     if cfg.kind == "lamb":
-        wn = torch.sqrt(torch.sum(torch.square(p32)))
-        un = torch.sqrt(torch.sum(torch.square(u)))
+        wn, un = torch.sqrt(wn2), torch.sqrt(un2)
         trust = torch.where((wn > 0) & (un > 0), wn / un, 1.0)
         u.mul_(trust)
-    p.copy_((p32 - u.mul_(lr)).to(p.dtype))
+    return p.copy_((p32 - u.mul_(lr)).to(p.dtype))
 
 
-def opt_update(params, grads, state, cfg: OptConfig):
+def _update_leaf(p, g32, mu, nu, lr, c1, c2, cfg: OptConfig):
+    _moments(g32, mu, nu, cfg)
+    p32 = p.to(torch.float32)
+    u = _direction(p32, mu, nu, c1, c2, cfg)
+    _apply(p, p32, u, _sq(p32), _sq(u), lr, cfg)
+
+
+def _update_shards(flat_p, flat_g, flat_mu, flat_nu, shards, scale, lr, c1,
+                   c2, cfg: OptConfig):
+    """The per-leaf updates on this rank's ZeRO-1 blocks: moments and
+    direction on the block, LAMB's norms summed over the ranks holding the
+    rest of the leaf, then each block's update gathered back over
+    "data"."""
+    from repro_torch.distributed import partition
+    norms = []
+    for p, g, mu, nu, sh in zip(flat_p, flat_g, flat_mu, flat_nu, shards):
+        g32 = sh.part(g).to(torch.float32)
+        if scale is not None:
+            g32 = g32 * scale
+        _moments(g32, mu, nu, cfg)
+        del g32
+        p32 = sh.part(p).to(torch.float32)
+        norms.append(torch.stack([_sq(p32), _sq(_direction(
+            p32, mu, nu, c1, c2, cfg))]))
+    norms = partition.leaf_sums(norms, shards)
+    for p, mu, nu, sh, n2 in zip(flat_p, flat_mu, flat_nu, shards, norms):
+        blk = sh.part(p)
+        p32 = blk.to(torch.float32)
+        # the block's update, recomputed as the norms saw it
+        new = _apply(torch.empty_like(blk), p32,
+                     _direction(p32, mu, nu, c1, c2, cfg), n2[0], n2[1],
+                     lr, cfg)
+        p.copy_(partition.gather_slice(new, sh))
+
+
+def opt_update(params, grads, state, cfg: OptConfig, *, shards=None):
     """One optimizer step; returns (params, state, metrics), the params and
-    the state updated in place."""
+    the state updated in place.
+
+    ``shards`` (``distributed/partition.py::opt_shards``, under partitioned
+    rules): ``params`` and ``grads`` are this rank's leaves and ``state``
+    its ZeRO-1 moments (:func:`init_opt_state`).  Each rank updates its
+    block of each leaf and gathers the leaf back over "data"; the global
+    gradient norm and LAMB's two norms sum over the ranks that hold the
+    rest of each leaf, so each element counts once."""
     flat_p = tree_lib.leaves(params)
     flat_g = tree_lib.leaves(grads)
     flat_mu = tree_lib.leaves(state["mu"])
@@ -100,17 +160,27 @@ def opt_update(params, grads, state, cfg: OptConfig):
     with torch.no_grad():
         step = state["step"] + 1
         lr = cosine_schedule(step, cfg)
-        gnorm = _global_norm(flat_g)
+        if shards is None:
+            gnorm = _global_norm(flat_g)
+        else:
+            from repro_torch.distributed import partition
+            gnorm = _global_norm(partition.leaf_sums(
+                [_sq(sh.part(g).to(torch.float32))
+                 for g, sh in zip(flat_g, shards)], shards), squared=True)
         scale = None
         if cfg.grad_clip is not None:
             scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
         stepf = step.to(torch.float32)
         c1 = 1 - cfg.b1 ** stepf
         c2 = 1 - cfg.b2 ** stepf
-        for p, g, mu, nu in zip(flat_p, flat_g, flat_mu, flat_nu):
-            g32 = g.to(torch.float32)
-            if scale is not None:
-                g32 = g32 * scale
-            _update_leaf(p, g32, mu, nu, lr, c1, c2, cfg)
+        if shards is not None:
+            _update_shards(flat_p, flat_g, flat_mu, flat_nu, shards, scale,
+                           lr, c1, c2, cfg)
+        else:
+            for p, g, mu, nu in zip(flat_p, flat_g, flat_mu, flat_nu):
+                g32 = g.to(torch.float32)
+                if scale is not None:
+                    g32 = g32 * scale
+                _update_leaf(p, g32, mu, nu, lr, c1, c2, cfg)
         state["step"].copy_(step)
     return params, state, {"lr": lr, "grad_norm": gnorm}

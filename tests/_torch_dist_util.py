@@ -18,13 +18,15 @@ its own.
 Arrays cross as npz: trees flatten to "/"-joined keys, and a bfloat16
 array travels widened to float32 under a key ending in "@bf16" (exact).
 """
+import itertools
 import os
 import subprocess
 import sys
 
 import numpy as np
 
-SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+SRC = os.path.join(ROOT, "src")
 
 D_IN, D_OUT = 64, 48
 # (name, mesh, x shape, x dtype, packed weights, bias)
@@ -56,6 +58,41 @@ PART_BF16 = ("qwen2.5-32b", "llama4-scout-17b-a16e")
 PART_BATCH, PART_PROMPT, PART_STEPS, PART_MAX_LEN = 4, 32, 4, 40
 # decode steps from JAX's prefill cache, carried into each rank's shard
 PART_FROM_JAX = (("w8", 8), ("w4p", 4))
+# partitioned training (tests/test_torch_partition_train.py): the reference's
+# train cell (launch/dryrun.py: value_and_grad(lm_loss), LAMB, fake
+# w4/a8/attn7) on the SMOKE configs of Qwen2.5-32B (two loss chunks) and
+# Llama-4-Scout (recomputed units), and float mode at
+# tests/test_distributed.py's widths; f32, one step on 8 x 32 tokens (two
+# query chunks); warm-up of one step, so the update is lr 5e-4's
+TRAIN_CASES = ("qwen-fake", "llama-fake", "qwen-float")
+TRAIN_MESHES = ((2, 2), (1, 4), (4, 1))
+TRAIN_BATCH, TRAIN_SEQ = 8, 32
+TRAIN_FLOAT_LM = dict(name="t", n_layers=2, d_model=32, n_heads=4,
+                      kv_heads=2, d_ff=64, vocab=64, dtype="float32",
+                      q_chunk=16, remat=False)
+TRAIN_OPT = dict(total_steps=100, warmup_steps=1)
+# the trained tree integerized (int8 weights, kv 8) and served partitioned
+TRAIN_SERVE = dict(w_bits=8, a_bits=8, attn_bits=7, kv_bits=8, mode="int")
+TRAIN_SERVE_STEPS, TRAIN_SERVE_PROMPT = 4, 16
+
+
+def train_config(case, lm_mod, registry, quant_config):
+    """One training case's LMConfig in either package (its ``lm`` module,
+    registry and QuantConfig class)."""
+    if case == "qwen-float":
+        return lm_mod.LMConfig(**TRAIN_FLOAT_LM)
+    fq = quant_config(w_bits=4, a_bits=8, attn_bits=7, mode="fake")
+    if case == "qwen-fake":
+        return registry.smoke_config("qwen2.5-32b").replace(
+            quant=fq, loss_chunk=16)
+    return registry.smoke_config("llama4-scout-17b-a16e").replace(
+        quant=fq, remat=True)
+
+
+def train_batch(case, vocab):
+    rs = np.random.RandomState(sum(map(ord, case)))
+    return {k: rs.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(
+        np.int32) for k in ("tokens", "labels")}
 
 
 def part_quant(weights, kv_bits):
@@ -314,6 +351,64 @@ def jax_reference(out_path):
         res.update(flat(jax.tree.map(
             lambda a: np.asarray(a.sharding.shard_shape(a.shape)), tree),
             f"elastic/shard{n}/"))
+    save(out_path, res)
+
+
+def jax_train(ref_path, out_path):
+    """The reference's train cell on a (data 2, model 2) host mesh, as
+    ``launch/dryrun.py`` builds it: ``param_specs(expert_fsdp=True)`` for
+    the params, ``zero1_specs`` for ``mu`` / ``nu``, the batch over
+    "data"; per case the loss, gradients, updated params and gradient
+    norm, and the shard shapes of the moments and the experts."""
+    import jax
+    from jax.sharding import Mesh
+
+    from repro.configs import registry
+    from repro.core.api import QuantConfig
+    from repro.distributed.sharding import (Rules, batch_specs,
+                                            enforce_divisible,
+                                            filter_mesh_axes,
+                                            named_shardings, param_specs,
+                                            use_rules, zero1_specs)
+    from repro.models import lm
+    from repro.optim import OptConfig, init_opt_state, opt_update
+
+    ref = load(ref_path)
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+
+    def finalize(specs, tree):
+        return named_shardings(enforce_divisible(
+            filter_mesh_axes(specs, mesh), tree, mesh), mesh)
+
+    res = {}
+    for case in TRAIN_CASES:
+        cfg = train_config(case, lm, registry, QuantConfig)
+        params = unflat({k: v for k, v in ref.items()}, f"{case}/params")
+        batch = {k: ref[f"{case}/batch/{k}"] for k in ("tokens", "labels")}
+        opt = init_opt_state(params)
+        ocfg = OptConfig(**TRAIN_OPT)
+
+        def step(p, o, b):
+            (loss, _), g = jax.value_and_grad(
+                lambda p, b: lm.lm_loss(p, b, cfg), has_aux=True)(p, b)
+            p, o, om = opt_update(p, g, o, ocfg)
+            return loss, g, p, om["grad_norm"]
+
+        pspecs = param_specs(params, expert_fsdp=True)
+        ospecs = {"mu": zero1_specs(opt["mu"], pspecs, data_size=2),
+                  "nu": zero1_specs(opt["nu"], pspecs, data_size=2),
+                  "step": jax.sharding.PartitionSpec()}
+        in_sh = (finalize(pspecs, params), finalize(ospecs, opt),
+                 finalize(batch_specs(batch, ("data",)), batch))
+        with mesh, use_rules(Rules(batch=("data",))):
+            loss, g, new, gnorm = jax.jit(step, in_shardings=in_sh)(
+                params, opt, batch)
+        res.update(flat({"loss": loss, "grads": g, "params": new,
+                         "grad_norm": gnorm}, f"{case}/"))
+        res.update(flat(jax.tree.map(
+            lambda sh, a: np.asarray(sh.shard_shape(a.shape)),
+            {"mu": in_sh[1]["mu"], "params": in_sh[0]},
+            {"mu": opt["mu"], "params": params}), f"{case}/shard/"))
     save(out_path, res)
 
 
@@ -591,6 +686,353 @@ def partition_job(ref):
     return out
 
 
+# the group max's ties: (rows, cols) of the tensor, its integer values'
+# range (so maxima tie within and across ranks), and each rank's weight in
+# the loss (powers of two summing to one: the sum of the parts is exact)
+TIES_SHAPE, TIES_RANGE, TIES_WEIGHTS = (8, 16), 4, (0.5, 0.25, 0.125, 0.125)
+
+
+def ties_job(rank, ref):
+    """The group max's values and gradients on this rank: per tensor over
+    (data 2, model 2) (rows over "data", columns over "model") and per
+    column over a K split over (model 4); each rank's loss its weight
+    times the max (times the columns' weights)."""
+    import torch
+
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import Rules, use_rules
+    x = torch.from_numpy(ref["ties/x"])
+    c = torch.from_numpy(ref["ties/c"])
+    w = TIES_WEIGHTS[rank]
+    out = {}
+    for tag, shape in (("tensor", (2, 2)), ("column", (1, 4))):
+        mesh = make_mesh(shape)
+        layout = partition.Layout.of(mesh, ("data",))
+        rows = x.shape[0] // shape[0]
+        cols = x.shape[1] // shape[1]
+        if tag == "tensor":
+            i, j = layout.index(("data",)), layout.index(("model",))
+            xl = x[i * rows:(i + 1) * rows, j * cols:(j + 1) * cols]
+        else:
+            k = x.shape[0] // 4
+            xl = x[rank * k:(rank + 1) * k]
+        xl = xl.clone().requires_grad_(True)
+        with use_rules(Rules(batch=("data",), mesh=mesh, partitioned=True)):
+            if tag == "tensor":
+                amax = partition.grid_max(xl.abs(), None, batch=True)
+                loss = amax * w
+            else:
+                amax = partition.grid_max(xl.abs(), 0)
+                loss = (amax[0] * c).sum() * w
+            loss.backward()
+        out[f"ties/{tag}/amax"] = amax.detach()
+        out[f"ties/{tag}/grad"] = xl.grad
+    return out
+
+
+def train_job(rank, ref):
+    """The partitioned train cell on this rank, each case on each mesh of
+    TRAIN_MESHES (rules with ``expert_fsdp``): (replay) the loss and
+    gradients on the recorded codes of JAX's one-device run, (opt) one
+    LAMB update on JAX's one-device gradients, (step) ``make_train_step``
+    on the rank's own codes, and for the fake cases the stepped tree
+    integerized locally and served partitioned; then the refusals."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import registry
+    from repro_torch.core.api import QuantConfig, integerize_params
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import Rules, use_rules
+    from repro_torch.launch import train
+    from repro_torch.launch.engine import PagedEngine
+    from repro_torch.models import encdec, lm
+    from repro_torch.optim import OptConfig, init_opt_state, opt_update
+    out = ties_job(rank, ref)
+    ocfg = OptConfig(**TRAIN_OPT)
+    for shape in TRAIN_MESHES:
+        mesh = make_mesh(shape)
+        m = mesh_tag(shape)
+        layout = partition.Layout.of(mesh, ("data",), fsdp=True)
+        out[f"layout/{m}"] = torch.tensor(
+            [layout.index(("data",)), layout.index(("model",))])
+        rules = Rules(batch=("data",), mesh=mesh, partitioned=True,
+                      expert_fsdp=True)
+        for case in TRAIN_CASES:
+            cfg = train_config(case, lm, registry, QuantConfig)
+            key = f"{case}/{m}"
+            glob = _tree(ref, f"{case}/params")
+            batch = {k: torch.from_numpy(ref[f"{case}/batch/{k}"])
+                     for k in ("tokens", "labels")}
+            loc = partition.partition_params(glob, cfg, layout)
+            with use_rules(rules):
+                shards = partition.opt_shards(loc, cfg)
+                if cfg.quant is None:
+                    loss, _, grads = train.value_and_grad(
+                        lambda p, b: lm.lm_loss(p, b, cfg), loc, batch,
+                        shards=shards)
+                else:
+                    with BlockReplay(*records_from(ref, f"{case}/rec")) \
+                            as rep:
+                        loss, _, grads = train.value_and_grad(
+                            lambda p, b: lm.lm_loss(p, b, cfg), loc, batch,
+                            shards=shards)
+                    out[f"{key}/replay/flips"] = torch.tensor(rep.flips())
+                out[f"{key}/replay/loss"] = loss
+                out.update(flat(grads, f"{key}/replay/grads/"))
+
+                jg = partition.partition_params(_tree(ref, f"{case}/jgrads"),
+                                                cfg, layout)
+                p = tree_lib.tree_map(torch.clone, loc)
+                state = init_opt_state(p, shards)
+                out.update(flat(state["mu"], f"{key}/mu/"))
+                opt_update(p, jg, state, ocfg, shards=shards)
+                out.update(flat(p, f"{key}/opt/params/"))
+
+                p = tree_lib.tree_map(torch.clone, loc)
+                step = train.make_train_step(cfg, ocfg)
+                p, _, met = step(p, init_opt_state(p, shards), batch)
+                out.update({f"{key}/step/loss": met["loss"],
+                            f"{key}/step/grad_norm": met["grad_norm"]})
+                out.update(flat(p, f"{key}/step/params/"))
+                if cfg.quant is None:
+                    continue
+                iq = integerize_params(p, QuantConfig(**TRAIN_SERVE))
+            out.update(flat(iq, f"{key}/int/"))
+            # the kernels take contiguous operands only
+            out[f"{key}/int_contiguous"] = torch.tensor(all(
+                t.is_contiguous() for t in tree_lib.leaves(iq)))
+            icfg = cfg.replace(quant=QuantConfig(**TRAIN_SERVE))
+            with use_rules(Rules(batch=("data",), mesh=mesh,
+                                 partitioned=True)), torch.no_grad():
+                logits, fed = serve_steps(iq, batch["tokens"], icfg)
+            out.update({f"{key}/serve/logits": logits,
+                        f"{key}/serve/fed": fed})
+
+    # refusals of the train path, on (data 2, model 2)
+    mesh = make_mesh((2, 2))
+    fq = QuantConfig(w_bits=4, a_bits=8, attn_bits=7, mode="fake")
+    toks = torch.from_numpy(ref["qwen-fake/batch/tokens"])
+    batch = {"tokens": toks, "labels": toks}
+    refusals = {}
+
+    def refused(name, fn):
+        try:
+            fn()
+            refusals[name] = False
+        except NotImplementedError as e:
+            refusals[name] = "ROADMAP" in str(e)
+
+    with use_rules(Rules(batch=("data",), mesh=mesh, partitioned=True,
+                         expert_fsdp=True)):
+        for arch in ("recurrentgemma-9b", "mamba2-130m"):
+            rc = registry.smoke_config(arch).replace(quant=fq)
+            refused(arch, lambda: lm.lm_loss({}, batch, rc))
+        wc = registry.smoke_config("whisper-large-v3").replace(quant=fq)
+        refused("whisper", lambda: encdec.loss_fn({}, batch, wc))
+        qc = train_config("qwen-fake", lm, registry, QuantConfig)
+        refused("engine", lambda: PagedEngine(qc, _tree(
+            ref, "qwen-fake/params")))
+    out.update({f"refused/{k}": torch.tensor(v)
+                for k, v in refusals.items()})
+    return out
+
+
+def serve_steps(params, tokens, cfg):
+    """Ring prefill of the first TRAIN_SERVE_PROMPT tokens and
+    TRAIN_SERVE_STEPS greedy steps: (logits (steps + 1, B, 1, V), fed
+    (steps, B, 1))."""
+    import torch
+
+    from repro_torch.models import lm
+    logits, cache = lm.prefill(
+        params, {"tokens": tokens[:, :TRAIN_SERVE_PROMPT]}, cfg,
+        TRAIN_SERVE_PROMPT + TRAIN_SERVE_STEPS)
+    out, fed = [logits], []
+    for _ in range(TRAIN_SERVE_STEPS):
+        fed.append(torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None])
+        logits, cache = lm.decode_step(params, fed[-1], cache, cfg)
+        out.append(logits)
+    return torch.stack(out), torch.stack(fed)
+
+
+# ---------------------------------------------------------------------------
+# Replaying one run's fake-quant codes into another, block by block
+# ---------------------------------------------------------------------------
+
+def _blocks(small, big):
+    """The index tuples of every block of shape ``small`` that tiles
+    ``big`` (none unless each dim divides)."""
+    if len(small) != len(big) or any(b % s for s, b in zip(small, big)):
+        return []
+    return [tuple(slice(k * s, (k + 1) * s) for k, s in zip(ks, small))
+            for ks in itertools.product(*(range(b // s)
+                                          for s, b in zip(small, big)))]
+
+
+def _at(t, idx, shape):
+    """``t`` (broadcastable to ``shape``, as a grid step is) at block
+    ``idx`` of ``shape``."""
+    if t.ndim == 0:
+        return t
+    pad = len(shape) - t.ndim
+    return t[tuple(slice(None) if t.shape[d - pad] == 1 else idx[d]
+                   for d in range(pad, len(shape)))]
+
+
+def _replayed():
+    import torch
+
+    from repro_torch.core import quant
+
+    class Replayed(torch.autograd.Function):
+        """fake_quant on another run's call: the forward returns that
+        run's output, the backward is the port's own STE / LSQ
+        (``quant._lsq_grads``) on this run's ``x / delta`` and that run's
+        codes."""
+
+        @staticmethod
+        def forward(ctx, x, delta, bits, unsigned, rec):
+            _, rdelta, _, _, value = rec
+            dt = torch.promote_types(x.dtype, delta.dtype)
+            ctx.save_for_backward(x.to(dt) / delta.to(dt),
+                                  torch.round(value.to(dt) / rdelta.to(dt)))
+            ctx.delta_shape, ctx.delta_dtype = delta.shape, delta.dtype
+            ctx.qrange = quant.qrange(bits, unsigned=unsigned)
+            return value.to(x.dtype).clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return (*quant._lsq_grads(ctx, g, *ctx.saved_tensors), None)
+    return Replayed
+
+
+class BlockReplay:
+    """Within ``with``: each of the port's fake_quant calls takes the
+    output of a recorded run's call (``records``: (x, delta, bits,
+    unsigned, out), the whole tensors) at the block its own ``x`` is of,
+    the nearest in x over every record of its bits and signedness and
+    every block (a rank holds blocks: rows, heads, a K slice, experts); its
+    gradient is the port's own on those codes.  The fake attention's
+    ``exp2_shift`` calls take the recorded run's side of every kink of
+    ``floor`` (``exp2``: the recorded inputs, matched the same way).
+    ``calls`` holds the port's own calls and ``matched`` the blocks of the
+    records they took, for ``chip_smoke.code_flips``; ``kinks`` counts the
+    kinks taken."""
+
+    def __init__(self, records, exp2=()):
+        self.records, self.exp2 = records, list(exp2)
+        self.calls, self.matched, self.kinks = [], [], 0
+        self._next = {"fq": 0, "exp2": 0}
+
+    def __enter__(self):
+        from repro_torch.core import quant
+        from repro_torch.layers import attention
+        self.replayed = _replayed()
+        self.orig = quant.fake_quant
+        quant.fake_quant = self
+        self.orig_exp2 = attention.exp2_shift
+        attention.exp2_shift = self.exp2_shift
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import quant
+        from repro_torch.layers import attention
+        quant.fake_quant = self.orig
+        attention.exp2_shift = self.orig_exp2
+
+    def _find(self, x, key, tensors, ok=lambda i: True):
+        """(gap, i, block) of the record nearest ``x``: the one after the
+        last match first (the runs' orders mostly agree), else all."""
+        def gap(i):
+            best = (float("inf"), i, None)
+            for idx in _blocks(tuple(x.shape), tuple(tensors[i].shape)):
+                t = tensors[i][idx]
+                g = float((t - x).abs().max() / (t.abs().max() + 1e-30))
+                best = min(best, (g, i, idx), key=lambda b: b[0])
+            return best
+        n = self._next[key]
+        if n < len(tensors) and ok(n):
+            found = gap(n)
+            if found[0] <= 1e-6:
+                self._next[key] = n + 1
+                return found
+        found = min((gap(i) for i in range(len(tensors)) if ok(i)),
+                    key=lambda b: b[0], default=(float("inf"), None, None))
+        self._next[key] = (found[1] or 0) + 1
+        return found
+
+    def __call__(self, x, delta, bits, unsigned=False):
+        import torch
+        with torch.no_grad():
+            own = self.orig(x, delta, bits, unsigned)
+            xd = x.detach().clone()    # a training step updates in place
+            gap, i, idx = self._find(
+                xd, "fq", [r[0] for r in self.records],
+                lambda i: self.records[i][2:4] == (bits, unsigned))
+        assert gap <= 1e-4, f"no recorded fake_quant call matches ({gap})"
+        rx, rd, _, _, ry = self.records[i]
+        rec = (rx[idx], _at(rd, idx, rx.shape), bits, unsigned, ry[idx])
+        self.calls.append((xd, delta.detach().clone(), bits, unsigned, own))
+        self.matched.append(rec)
+        return self.replayed.apply(x, delta, bits, unsigned, rec)
+
+    def exp2_shift(self, x):
+        import torch
+
+        from chip_smoke import FLIP_NEAR
+        from repro_torch.core import softmax2
+        with torch.no_grad():
+            gap, i, idx = self._find(x.detach(), "exp2", self.exp2)
+            assert gap <= 1e-4, f"no recorded exp2_shift call ({gap})"
+            tj = self.exp2[i][idx]
+            # the row's floor-max shift between the runs (an integer),
+            # then the record's floor in this run's frame
+            shift = torch.round(x - tj)
+            f = torch.floor(tj) + shift
+            kink = f != torch.floor(x)
+            assert bool(((x - tj - shift).abs()[kink] <= FLIP_NEAR).all())
+            self.kinks += int(kink.sum())
+        return (1.0 + (x - f)) * softmax2.exp2i(f)
+
+    def flips(self) -> int:
+        """The codes the port's own calls would have taken otherwise; each
+        must be at a rounding edge (``chip_smoke.code_flips``)."""
+        from chip_smoke import code_flips
+        total, primary, _ = code_flips(self.matched, self.calls,
+                                       a_exact=False)
+        assert total == primary, f"{total - primary} of {total} flips off " \
+            f"an edge"
+        return total
+
+
+def records_to(arrays, prefix, rec):
+    """A BlockReplay's records (and ``rec.exp2``) into npz ``arrays``."""
+    for i, (x, d, bits, unsigned, y) in enumerate(rec):
+        arrays.update({f"{prefix}/fq/{i}/x": x, f"{prefix}/fq/{i}/d": d,
+                       f"{prefix}/fq/{i}/y": y,
+                       f"{prefix}/fq/{i}/kind": np.array([bits, unsigned])})
+    for i, t in enumerate(rec.exp2):
+        arrays[f"{prefix}/exp2/{i}"] = t
+
+
+def records_from(ref, prefix):
+    """(records, exp2) saved by :func:`records_to`, as CPU tensors."""
+    t = _tensors(ref, prefix + "/")
+    recs, exp2 = [], []
+    for i in itertools.count():
+        if f"{prefix}/fq/{i}/x" not in t:
+            break
+        bits, unsigned = (int(v) for v in t[f"{prefix}/fq/{i}/kind"])
+        recs.append((t[f"{prefix}/fq/{i}/x"], t[f"{prefix}/fq/{i}/d"], bits,
+                     bool(unsigned), t[f"{prefix}/fq/{i}/y"]))
+    for i in itertools.count():
+        if f"{prefix}/exp2/{i}" not in t:
+            break
+        exp2.append(t[f"{prefix}/exp2/{i}"])
+    return recs, exp2
+
+
 def make_mesh(shape):
     from repro_torch.launch.mesh import make_test_mesh
     return make_test_mesh(shape, ("data", "model"), device_type="cpu")
@@ -642,6 +1084,9 @@ def rank_main(job, rank, world, store, ref_path, out_dir):
             out = main_job(rank, world, ref)
         elif job == "partition":
             out = partition_job(ref)
+        elif job == "train":
+            sys.path.insert(0, ROOT)          # chip_smoke's code_flips
+            out = train_job(rank, ref)
         else:
             n = int(job[len("elastic"):])
             out = elastic_job(n, ref, os.path.join(out_dir, "elastic8-0.npz"))
@@ -654,6 +1099,8 @@ if __name__ == "__main__":
     sys.path.insert(0, SRC)
     if sys.argv[1] == "jax":
         jax_reference(sys.argv[2])
+    elif sys.argv[1] == "jaxtrain":
+        jax_train(sys.argv[2], sys.argv[3])
     else:
         job, rank, world, store, ref_path, out_dir = sys.argv[2:8]
         rank_main(job, int(rank), int(world), store, ref_path, out_dir)

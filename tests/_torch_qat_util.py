@@ -142,7 +142,7 @@ def forward_flips(monkeypatch, jrun, trun) -> int:
 class _Replayed(torch.autograd.Function):
     """fake_quant on another run's call: the forward returns that run's
     output, the backward is the port's own STE / LSQ
-    (``quant._FakeQuant.backward``) on this run's ``x / delta`` and that
+    (``quant._lsq_grads``) on this run's ``x / delta`` and that
     run's codes."""
 
     @staticmethod
@@ -157,7 +157,7 @@ class _Replayed(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (*quant._FakeQuant.backward(ctx, g), None)
+        return (*quant._lsq_grads(ctx, g, *ctx.saved_tensors), None)
 
 
 class JaxReplay:
