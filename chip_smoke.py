@@ -132,7 +132,20 @@ Phases, in order; any failure exits non-zero before the result line:
    cards only, Llama-4-Scout at its 48 layers, each rank building its
    shard: its bytes and peak memory under the card's, the global tree's
    (meta shapes) above it, 16 ring steps on the cuda backend with the
-   torch backend teacher-forced within the tolerance. Then [tp-train],
+   torch backend teacher-forced within the tolerance. Then
+   [tp-families], the recurrent and encoder-decoder families served
+   partitioned on the same ranks (RecurrentGemma-9B at 5 layers, batch 2,
+   2304-token prompts, its RG-LRU split by d_rnn and its local attention
+   whole; Mamba2-130M at full size, batch 4, 512-token prompts, the SSD
+   mixer whole; Whisper-large-v3 at 4 + 4 layers, batch 4, 1500 stub
+   frames, 32-token prompts, attention and caches split by head), each
+   from ``partition.build_params``, prefill and 16 greedy ring steps on
+   (data 1, model n) and, at four cards, on (data 2, model 2) too
+   (RecurrentGemma at batch 4, Mamba and Whisper at 8); gated by [route]
+   and bitwise equal to rank 0's one-rank run (logits every step, tokens,
+   the gathered caches with their states); first, cuBLAS's decode-row
+   gate product against a rank's slices, and ``rglru.gate_step``'s, and
+   torch's row mean against a few of its rows, and the norms'. Then [tp-train],
    partitioned training on the same ranks (``Rules(batch=("data",),
    partitioned=True, expert_fsdp=True)``, ZeRO-1 moments; fake
    w4/a8/attn7, bf16, 3 LAMB steps on 4 x 256 tokens): (a) Qwen2.5-32B at
@@ -1769,12 +1782,16 @@ DIST_JOIN_S = 600
 DIST_MICRO = 8            # pipeline microbatches of DIST_BATCH rows
 
 
-def phase_dist():
+DIST_STEPS_ALL = ("dist", "tp", "tp-families", "tp-train")
+
+
+def phase_dist(only=DIST_STEPS_ALL):
     """Spawn ``torch.cuda.device_count()`` ranks, one a card, on NCCL
-    (``dist_rank``), and wait for them; returns rank 0's launches of the
-    [dist] main path (the Qwen and Llama-4 runs), of [tp]'s (the
-    partitioned runs of (a)) and of [tp-train]'s (serving (a)'s trained
-    trees)."""
+    (``dist_rank``), and wait for them; returns rank 0's launches of each
+    step of ``only`` (all of them by default), by step: the [dist] main
+    path (the Qwen and Llama-4 runs), [tp]'s (the partitioned runs of
+    (a)), [tp-families]' (its partitioned runs) and [tp-train]'s (serving
+    (a)'s trained trees)."""
     import tempfile
     import torch
     import torch.multiprocessing as mp
@@ -1782,7 +1799,8 @@ def phase_dist():
     torch.cuda.empty_cache()
     d = tempfile.mkdtemp(prefix="dist")
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=dist_rank, args=(r, n, d)) for r in range(n)]
+    procs = [ctx.Process(target=dist_rank, args=(r, n, d, tuple(only)))
+             for r in range(n)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
@@ -1805,10 +1823,10 @@ def phase_dist():
         launches = json.load(f)
     log(f"[dist] {n} rank(s) in {time.perf_counter() - t0:.1f}s; rank 0's "
         f"launches {launches}")
-    return launches["dist"], launches["tp"], launches["tp-train"]
+    return launches
 
 
-def dist_rank(rank, world, d):
+def dist_rank(rank, world, d, only):
     """One [dist] rank: card ``rank``, NCCL through a file store in ``d``;
     rank 0 logs and writes its launches to ``d``."""
     from datetime import timedelta
@@ -1822,7 +1840,7 @@ def dist_rank(rank, world, d):
                             world_size=world, rank=rank,
                             timeout=timedelta(seconds=DIST_JOIN_S))
     try:
-        launches = dist_run(rank, world)
+        launches = dist_run(rank, world, only)
         if rank == 0:
             with open(os.path.join(d, "launches.json"), "w") as f:
                 json.dump(launches, f)
@@ -1833,28 +1851,38 @@ def dist_rank(rank, world, d):
         dist.destroy_process_group()
 
 
-def dist_run(rank, world):
-    """The [dist] phase, [tp] and [tp-train] on this rank; returns their
-    main-path launches."""
+def dist_run(rank, world, only=DIST_STEPS_ALL):
+    """The steps of ``only`` on this rank, in order: the [dist] phase,
+    [tp], [tp-families] and [tp-train]; returns their main-path launches,
+    by step."""
     import torch
     from repro_torch.distributed.sharding import Rules
     from repro_torch.launch.mesh import make_test_mesh
     say = log if rank == 0 else (lambda *a: None)
-    mesh = make_test_mesh((1, world), ("data", "model"), device_type="cuda")
-    rules = Rules(batch=("data",), mesh=mesh, int_bf16_reduce=True,
-                  moe_a2a=True)
-    say(f"[dist] {world} rank(s) on NCCL, mesh (data 1, model {world}); "
-        f"Rules(batch=('data',), int_bf16_reduce, moe_a2a)")
-    total = {}
+    out = {}
     with torch.no_grad():
-        add_launches(total, dist_qwen(rules, world, say))
-        add_launches(total, dist_llama(rules, world, say))
-        dist_compress(mesh, rank, world, say)
-        dist_pipeline(world, say)
-        tp = dist_tp(rank, world, say)
+        if "dist" in only:
+            mesh = make_test_mesh((1, world), ("data", "model"),
+                                  device_type="cuda")
+            rules = Rules(batch=("data",), mesh=mesh, int_bf16_reduce=True,
+                          moe_a2a=True)
+            say(f"[dist] {world} rank(s) on NCCL, mesh (data 1, model "
+                f"{world}); Rules(batch=('data',), int_bf16_reduce, "
+                f"moe_a2a)")
+            total = {}
+            add_launches(total, dist_qwen(rules, world, say))
+            add_launches(total, dist_llama(rules, world, say))
+            dist_compress(mesh, rank, world, say)
+            dist_pipeline(world, say)
+            out["dist"] = {k: total.get(k, 0) for k in DIST_KERNELS}
+        if "tp" in only:
+            out["tp"] = dist_tp(rank, world, say)
+        if "tp-families" in only:
+            out["tp-families"] = dist_tp_families(rank, world, say)
     torch.cuda.empty_cache()
-    return {"dist": {k: total.get(k, 0) for k in DIST_KERNELS}, "tp": tp,
-            "tp-train": dist_train(rank, world, say)}
+    if "tp-train" in only:
+        out["tp-train"] = dist_train(rank, world, say)
+    return out
 
 
 def dist_gap(got, want, world):
@@ -2228,15 +2256,22 @@ def dist_tp(rank, world, say):
     return {k: total.get(k, 0) for k in TP_KERNELS}
 
 
-def tp_greedy(params, toks, cfg, steps, copies=None):
-    """``lm.prefill`` and ``steps`` greedy ring steps (the host clock
-    around each, synchronized): logits (steps + 1), fed tokens, cache,
-    prefill s, decode s; ``copies`` collects the cache before each step."""
+def tp_greedy(params, toks, cfg, steps, copies=None, max_len=None):
+    """``prefill`` and ``steps`` greedy ring steps (the host clock around
+    each, synchronized) of the model that serves ``cfg``: logits (steps +
+    1), fed tokens, cache, prefill s, decode s; ``toks``: the prompts, or a
+    batch (Whisper's: ``frames`` and ``tokens``); ``max_len`` (default
+    DIST_PROMPT + steps) ring slots; ``copies`` collects the cache before
+    each step."""
     import torch
-    from repro_torch.models import lm
+    from repro_torch.configs.registry import is_encdec
+    from repro_torch.models import encdec, lm
+    model = encdec if is_encdec(cfg) else lm
+    batch = toks if isinstance(toks, dict) else {"tokens": toks}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lc, cache = lm.prefill(params, {"tokens": toks}, cfg, DIST_PROMPT + steps)
+    lc, cache = model.prefill(params, batch, cfg, max_len or
+                              DIST_PROMPT + steps)
     torch.cuda.synchronize()
     t_prefill, step_s = time.perf_counter() - t0, 0.0
     logits, fed = [lc], []
@@ -2246,7 +2281,7 @@ def tp_greedy(params, toks, cfg, steps, copies=None):
             copies.append(clone_tree(cache))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        lc, cache = lm.decode_step(params, fed[-1], cache, cfg)
+        lc, cache = model.decode_step(params, fed[-1], cache, cfg)
         torch.cuda.synchronize()
         step_s += time.perf_counter() - t1
         logits.append(lc)
@@ -2254,9 +2289,21 @@ def tp_greedy(params, toks, cfg, steps, copies=None):
 
 
 def tp_row_products(cfg):
-    """Row-parallel products a forward: wo, and a dense or shared down."""
+    """Row-parallel products (each through qmatmul_acc under partitioned
+    rules) of a prefill and of a decode step: an LM's wo or RG-LRU w_out
+    and its dense or shared down; Whisper's encoder wo and down and its
+    decoder's self wo, cross wo and down; none in Mamba (its mixer stays
+    whole)."""
+    from repro_torch.configs.registry import is_encdec
+    if is_encdec(cfg):
+        step = 3 * cfg.n_dec_layers
+        return 2 * cfg.n_enc_layers + step, step
+    if cfg.ssd is not None:
+        return 0, 0
     moe = cfg.moe
-    return cfg.n_layers * (1 + int(moe is None or moe.shared_expert))
+    n = cfg.n_layers * (1 + int(cfg.d_ff > 0 and (
+        moe is None or moe.shared_expert)))
+    return n, n
 
 
 def tree_bytes(tree):
@@ -2267,83 +2314,119 @@ def tree_bytes(tree):
 def tp_short(cfg, rules, layout, rank, world, say):
     """[tp] (a) for one config; returns the partitioned run's launches."""
     import torch
-    import torch.distributed as dist
-    from repro_torch import tree as tree_lib
-    from repro_torch.distributed import partition
-    from repro_torch.distributed.sharding import use_rules
-    from repro_torch.kernels import dispatch
-    from repro_torch.models import lm
-    local = partition.build_params(cfg, seed=0, layout=layout)
     g = torch.Generator(device="cuda").manual_seed(5)
     toks = torch.randint(0, cfg.vocab, (DIST_BATCH, DIST_PROMPT),
                          generator=g, device="cuda", dtype=torch.int32)
+    return tp_hold(cfg, rules, layout, {"tokens": toks},
+                   DIST_PROMPT + DIST_STEPS, DIST_STEPS,
+                   f"[tp] {cfg.name} widths, {cfg.n_layers} layers, over "
+                   f"{world} rank(s)", rank, world, say)
+
+
+def tp_hold(cfg, rules, layout, inputs, max_len, steps, tag, rank, world,
+            say):
+    """One partitioned serving run of [tp] or [tp-families]: the rank's
+    tree from ``partition.build_params`` (seed 0), ``prefill`` of
+    ``inputs`` and ``steps`` greedy ring steps under ``rules`` (after a
+    cold run), gated by [route] (every int linear on qmatmul, every
+    row-parallel product on qmatmul_acc, the fused and ring kernels
+    launched, no plain dispatch) and its launch counts; a decode step
+    profiled on rank 0; then on rank 0 bitwise against the one-rank run
+    of the same tree (logits every step, tokens, every leaf of the
+    gathered caches).  Returns the partitioned run's launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.registry import is_encdec
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import encdec, lm
+    model = encdec if is_encdec(cfg) else lm
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    local = partition.build_params(cfg, seed=0, layout=layout)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
     with use_rules(rules):
-        tp_greedy(local, toks, cfg, 1)           # cold: NCCL, cuBLAS
+        tp_greedy(local, inputs, cfg, 1, max_len=max_len)  # cold: NCCL
         torch.cuda.reset_peak_memory_stats()
         dispatch.reset_stats()
         dispatch.reset_launches()
         logits, fed, cache, t_prefill, step_s = tp_greedy(
-            local, toks, cfg, DIST_STEPS)
+            local, inputs, cfg, steps, max_len=max_len)
         launches = dispatch.launch_counts()
         snap = dispatch.snapshot()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    check_route(f"[tp] {cfg.name} cuda run, {world} rank(s)", "cuda",
-                launches, snap, TP_KERNELS)
+    ssd = getattr(cfg, "ssd", None) is not None
+    check_route(f"{tag} cuda run", "cuda", launches, snap,
+                ("qmatmul",) if ssd else TP_KERNELS)
+    pre, step = tp_row_products(cfg)
+    want = pre + step * steps
+    rings = steps * (cfg.n_dec_layers if model is encdec else sum(
+        k in lm.ATTN_KINDS for k in lm.block_kinds(cfg)))
+    if snap["qlinear_acc_cuda"] != want or launches["qmatmul_acc"] != want \
+            or launches["int_decode_attention"] != rings:
+        raise AssertionError(f"{tag}: int32 row products "
+                             f"{snap['qlinear_acc_cuda']} (want {want}), "
+                             f"ring launches {launches['int_decode_attention']}"
+                             f" (want {rings})")
     parts = [None] * world
     dist.all_gather_object(parts, (layout, tree_lib.tree_map(
         lambda t: t.cpu(), cache)))
     # a decode step profiled on rank 0 (the others run the same steps);
-    # it writes a copy of the ring
+    # it writes a copy of the cache
     tok, ring = fed[-1], clone_tree(cache)
     with use_rules(rules):
-        step = lambda: lm.decode_step(local, tok, ring, cfg)
-        step()                                              # warm
+        run = lambda: model.decode_step(local, tok, ring, cfg)
+        run()                                               # warm
         if rank == 0:
-            log_profile(f"[tp] {cfg.name} decode step, {world} rank(s)",
-                        step, 4, step_s / DIST_STEPS * 1e3)
+            log_profile(f"{tag} decode step", run, 4, step_s / steps * 1e3)
         else:
             for _ in range(4):
-                step()
+                run()
     del ring
-    want = tp_row_products(cfg) * (1 + DIST_STEPS)
-    if snap["qlinear_acc_cuda"] != want or launches["qmatmul_acc"] != want \
-            or launches["int_decode_attention"] != cfg.n_layers * DIST_STEPS:
-        raise AssertionError(f"[tp] {cfg.name}: int32 row products "
-                             f"{snap['qlinear_acc_cuda']} (want {want}), "
-                             f"launches {launches}")
-    say(f"[tp] {cfg.name} widths, {cfg.n_layers} layers, partitioned over "
-        f"{world} rank(s): rank 0 holds {tree_bytes(local) / 1e9:.3f} GB of "
-        f"parameters; batch {DIST_BATCH}, {DIST_PROMPT}-token prompts: "
-        f"prefill {t_prefill * 1e3:.2f} ms, decode step "
-        f"{step_s / DIST_STEPS * 1e3:.2f} ms "
-        f"({DIST_BATCH * DIST_STEPS / step_s:.1f} tok/s), peak "
-        f"{peak:.2f} GB allocated; int32 row products "
+    b, s = inputs["tokens"].shape
+    held = tree_bytes(local)
+    whole_bytes = tree_bytes(partition.global_shapes(local, cfg, layout))
+    say(f"{tag}: {card_line()}; rank 0 holds {held / 1e9:.3f} GB of "
+        f"parameters (the whole tree {whole_bytes / 1e9:.3f} GB; built in "
+        f"{t_build:.1f} s); batch {b}, {s}-token prompts, max_len "
+        f"{max_len}: prefill {t_prefill * 1e3:.2f} ms, decode step "
+        f"{step_s / steps * 1e3:.2f} ms ({b * steps / step_s:.1f} tok/s), "
+        f"peak {peak:.2f} GB allocated; int32 row products "
         f"{snap['qlinear_acc_cuda']}; launches "
         f"{ {k: n for k, n in launches.items() if n} }")
-    del local
+    del local, cache
     torch.cuda.empty_cache()
     if rank == 0:
         whole = partition.build_params(cfg, seed=0)
         w_logits, w_fed, w_cache, w_pre, w_step = tp_greedy(
-            whole, toks, cfg, DIST_STEPS)
+            whole, inputs, cfg, steps, max_len=max_len)
         del whole
         got = partition.gather_cache(parts, cfg)
-        same_logits = all(torch.equal(a, b) for a, b in zip(logits,
+        same_logits = all(torch.equal(x, y) for x, y in zip(logits,
                                                              w_logits))
-        same_fed = all(torch.equal(a, b) for a, b in zip(fed, w_fed))
-        same_cache = all(torch.equal(a, b.cpu()) for a, b in zip(
-            tree_lib.leaves(got), tree_lib.leaves(w_cache)))
-        gap = max(float((a.float() - b.float()).abs().max())
-                  for a, b in zip(logits, w_logits))
-        say(f"[tp] {cfg.name}: {world} rank(s) against the one-rank run of "
-            f"the same tree (prefill {w_pre * 1e3:.2f} ms, decode step "
-            f"{w_step / DIST_STEPS * 1e3:.2f} ms): logits bitwise at every "
-            f"step {same_logits} (max abs {gap:.3e}), tokens {same_fed}, "
-            f"gathered ring caches {same_cache}; greedy tokens of row 0 "
+        same_fed = all(torch.equal(x, y) for x, y in zip(fed, w_fed))
+        keys = ["/".join(k) for k, _ in tree_lib.leaves_with_keys(got)]
+        differ = [k for k, x, y in zip(keys, tree_lib.leaves(got),
+                                       tree_lib.leaves(w_cache))
+                  if not torch.equal(x, y.cpu())]
+        finite = all(bool(torch.isfinite(x).all()) for x in logits)
+        gap = max(float((x.float() - y.float()).abs().max())
+                  for x, y in zip(logits, w_logits))
+        say(f"{tag}: against the one-rank run of the same tree (prefill "
+            f"{w_pre * 1e3:.2f} ms, decode step {w_step / steps * 1e3:.2f} "
+            f"ms): logits bitwise at every step {same_logits} (max abs "
+            f"{gap:.3e}), tokens {same_fed}, gathered caches {not differ} "
+            f"({len(keys)} leaves"
+            f"{'; differing: ' + ', '.join(differ) if differ else ''}); "
+            f"finite {finite}; greedy tokens of row 0 "
             f"{torch.cat(fed, 1)[0].tolist()}")
-        if not (same_logits and same_fed and same_cache):
-            raise AssertionError(f"[tp] {cfg.name}: partitioned run differs "
-                                 f"from one rank")
+        if not (same_logits and same_fed and not differ and finite) or \
+                tuple(logits[-1].shape) != (b, 1, cfg.vocab):
+            raise AssertionError(f"{tag}: partitioned run differs from one "
+                                 f"rank")
     return launches
 
 
@@ -2423,6 +2506,202 @@ def tp_scout_full(rules, layout, world, say):
                              "card, or the global tree within it")
     if (max(gaps) > LOGITS_RTOL and not (flips or free)) or not finite:
         raise AssertionError("[tp] (b): cuda and torch backends differ")
+
+
+# [tp-families]: partitioned ring serving of the recurrent and
+# encoder-decoder families on the [dist] ranks, at [recurrent]'s and
+# [encdec]'s widths and shapes: (arch, config fields, batch on (data 1,
+# model n), batch on (data 2, model n / 2) or None, prompt, max_len)
+TF_RUNS = (("recurrentgemma-9b", dict(n_layers=RG_LAYERS), RG_BATCH, 4,
+            RG_PROMPT, RG_PROMPT + REC_STEPS),
+           ("mamba2-130m", {}, MAMBA_BATCH, 2 * MAMBA_BATCH, MAMBA_PROMPT,
+            MAMBA_PROMPT + REC_STEPS),
+           ("whisper-large-v3", dict(n_enc_layers=WH_LAYERS,
+                                     n_dec_layers=WH_LAYERS),
+            WH_BATCH, 2 * WH_BATCH, WH_PROMPT, WH_MAX_LEN))
+
+
+def dist_tp_families(rank, world, say):
+    """[tp-families]: RecurrentGemma-9B (5 layers: the RG-LRU split by
+    d_rnn, its one-KV-head local attention whole), Mamba2-130M (the SSD
+    mixer whole, rows split) and Whisper-large-v3 (4 + 4 layers, attention
+    and caches split by head) served partitioned under
+    ``Rules(batch=("data",), partitioned=True)``, each rank holding only
+    its shard of the weights, rings and states (``partition.build_params``,
+    seed 0): prefill and REC_STEPS greedy ring steps on (data 1, model n)
+    and, at four cards, on (data 2, model n / 2) too (RecurrentGemma at
+    batch 4, Mamba and Whisper at 8: 4 rows a rank).  First the three
+    probes of what a rank's slice would change (``tf_gate_slices``,
+    ``tf_norm_rows``, ``tf_ssd_rows``).  Gated by [route] (every int
+    linear on qmatmul, every row-parallel product on its int32
+    accumulator output, the fused and ring kernels launched, no plain
+    dispatch), then on rank 0 bitwise
+    against the one-rank run of the same tree (logits every step, tokens,
+    the gathered caches with their states).  Returns rank 0's launches of
+    the partitioned runs, summed."""
+    import torch
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import Rules
+    from repro_torch.launch.mesh import make_test_mesh
+    say(f"[tp-families] {world} rank(s); Rules(batch=('data',), "
+        f"partitioned=True); {REC_STEPS} greedy ring steps a run")
+    tf_gate_slices(rank, say)
+    tf_norm_rows(rank, say)
+    tf_ssd_rows(rank, say)
+    shapes = [(1, world)] + ([(2, world // 2)] if world >= 4 else [])
+    total = {}
+    for arch, kw, b1, b2, prompt, max_len in TF_RUNS:
+        for shape in shapes:
+            batch = b1 if shape[0] == 1 else b2
+            if batch is None:
+                continue
+            cfg = family_config(arch, "cuda", **kw)
+            mesh = make_test_mesh(shape, ("data", "model"),
+                                  device_type="cuda")
+            add_launches(total, tp_hold(
+                cfg, Rules(batch=("data",), mesh=mesh, partitioned=True),
+                partition.Layout.of(mesh, ("data",)),
+                tf_batch(cfg, batch, prompt), max_len, REC_STEPS,
+                f"[tp-families] {cfg.name} on (data {shape[0]}, model "
+                f"{shape[1]})", rank, world, say))
+            torch.cuda.empty_cache()
+    return {k: total.get(k, 0) for k in TP_KERNELS}
+
+
+def tf_gate_slices(rank, say):
+    """Why a decode step's float RG-LRU gates take ``rglru.gate_step``:
+    cuBLAS's product at RecurrentGemma-9B's decode shape against the
+    slices a rank holds (contiguous column quarters and halves, and a
+    row), and gate_step's; gate_step's time against the matmul's."""
+    import torch
+    from repro_torch.layers.rglru import gate_step
+    if rank != 0:
+        return
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((RG_BATCH, 1, 4096), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    w = (torch.randn((4096, 4096), generator=g, device="cuda") *
+         4096 ** -0.5).to(torch.bfloat16)
+    cuts = [(slice(None), slice(j * 1024, (j + 1) * 1024)) for j in range(4)]
+    cuts += [(slice(r, r + 1), slice(j * 2048, (j + 1) * 2048))
+             for r in range(RG_BATCH) for j in range(2)]
+
+    def same(fn):
+        whole = fn(x, w)
+        return all(torch.equal(whole[rows][..., cols],
+                               fn(x[rows], w[:, cols].contiguous()))
+                   for rows, cols in cuts)
+    mm, gs = torch.matmul(x, w), gate_step(x, w)
+    same_mm, same_gs = same(torch.matmul), same(gate_step)
+    gap = float((gs.float() - mm.float()).abs().max())
+    t_mm = dev_str(device_ms(lambda: torch.matmul(x, w)))
+    t_gs = dev_str(device_ms(lambda: gate_step(x, w)))
+    say(f"[tp-families] a decode step's float gate, ({RG_BATCH}, 1, 4096) "
+        f"x (4096, 4096) bf16, against a rank's slices (column quarters; "
+        f"a row with column halves): torch.matmul (cuBLAS) bitwise "
+        f"{same_mm}, rglru.gate_step bitwise {same_gs}; gate_step vs "
+        f"matmul max abs {gap:.3e}; matmul {t_mm}, gate_step {t_gs} "
+        f"({card_line()})")
+    if not same_gs:
+        raise AssertionError("[tp-families] gate_step depends on its slice")
+
+
+def tf_norm_rows(rank, say):
+    """Why ``layers/norms.py`` pads a few rows to 16 on the card: torch's
+    row mean of the first r rows of 64 against the 64 rows' mean, at the
+    widths of Whisper-large-v3 (1280), Mamba2-130M's gated norm (1536)
+    and RecurrentGemma-9B (4096); and the norms' own."""
+    import torch
+    from repro_torch.layers import norms
+    if rank != 0:
+        return
+    g = torch.Generator(device="cuda").manual_seed(4)
+    plain, ours = [], []
+    for d in (1280, 1536, 4096):
+        x = torch.randn((64, d), generator=g, device="cuda") * 3 + 1
+        gamma = torch.rand((d,), generator=g, device="cuda") + 0.5
+        beta = torch.randn((d,), generator=g, device="cuda")
+        m = x.mean(-1, keepdim=True)
+        ln, rms = norms.layernorm(x, gamma, beta), norms.rmsnorm(x, gamma)
+        for r in (1, 2, 3, 4, 8, 15, 16, 32):
+            if not torch.equal(x[:r].mean(-1, keepdim=True), m[:r]):
+                plain.append(f"d{d}/{r}")
+            if not (torch.equal(norms.layernorm(x[:r], gamma, beta), ln[:r])
+                    and torch.equal(norms.rmsnorm(x[:r], gamma), rms[:r])):
+                ours.append(f"d{d}/{r}")
+    say(f"[tp-families] a row's mean among r of 64 rows (r 1, 2, 3, 4, 8, "
+        f"15, 16, 32; widths 1280, 1536, 4096, f32): torch's mean differs "
+        f"from the 64 rows' at {', '.join(plain) or 'none'}; norms' "
+        f"layernorm / rmsnorm at {', '.join(ours) or 'none'}")
+    if ours:
+        raise AssertionError("[tp-families] a norm depends on the rows")
+
+
+def tf_ssd_rows(rank, say):
+    """Why ``ssd.ssd_step`` sums its products over the state: at
+    Mamba2-130M's shapes (8 rows of 512 positions, 24 heads of 64, state
+    128, chunks of 128) each of the SSD's einsums over 8 rows against
+    its two halves of 4 (a rank's rows at (data 2)), and the port's
+    ``ssd_chunked`` and ``ssd_step``."""
+    import torch
+    from repro_torch.layers import ssd
+    if rank != 0:
+        return
+    g = torch.Generator(device="cuda").manual_seed(5)
+    b, s, h, p, n, q = 8, 512, 24, 64, 128, 128
+    c = s // q
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+    eqs = {"scores": ("bcqhn,bckhn->bchqk", rnd(b, c, q, h, n),
+                      rnd(b, c, q, h, n)),
+           "y_intra": ("bchqk,bchqk,bckhp->bcqhp", rnd(b, c, h, q, q),
+                       rnd(b, c, h, q, q), rnd(b, c, q, h, p)),
+           "chunk_state": ("bcqhn,bcqhp,bcqh->bchpn", rnd(b, c, q, h, n),
+                           rnd(b, c, q, h, p), rnd(b, c, q, h)),
+           "y_inter": ("bcqhn,bchpn,bcqh->bcqhp", rnd(b, c, q, h, n),
+                       rnd(b, c, h, p, n), rnd(b, c, q, h)),
+           "step y": ("bhn,bhpn->bhp", rnd(b, h, n), rnd(b, h, p, n))}
+    halves = (slice(0, b // 2), slice(b // 2, b))
+    plain = [name for name, (eq, *ops) in eqs.items()
+             if not all(torch.equal(torch.einsum(eq, *ops)[r],
+                                    torch.einsum(eq, *(o[r] for o in ops)))
+                        for r in halves)]
+    x, dt = rnd(b, s, h, p), rnd(b, s, h).abs() * 0.5
+    A, B, C = -rnd(h).exp(), rnd(b, s, 1, n), rnd(b, s, 1, n)
+    cfg = ssd.SSDConfig(chunk=q)
+    whole = ssd.ssd_chunked(x, dt, A, B, C, cfg)
+    step = ssd.ssd_step(x[:, 0], dt[:, 0], A, B[:, 0], C[:, 0], whole[1])
+    ours = []
+    for r in halves:
+        part = ssd.ssd_chunked(x[r], dt[r], A, B[r], C[r], cfg)
+        if not all(torch.equal(u[r], v) for u, v in zip(whole, part)):
+            ours.append(f"ssd_chunked rows {r.start}:{r.stop}")
+        part = ssd.ssd_step(x[r, 0], dt[r, 0], A, B[r, 0], C[r, 0],
+                            whole[1][r])
+        if not all(torch.equal(u[r], v) for u, v in zip(step, part)):
+            ours.append(f"ssd_step rows {r.start}:{r.stop}")
+    say(f"[tp-families] the SSD's einsums over {b} rows against their "
+        f"halves: torch.einsum differs at {', '.join(plain) or 'none'}; "
+        f"ssd_chunked / ssd_step at {', '.join(ours) or 'none'}")
+    if ours:
+        raise AssertionError("[tp-families] the SSD depends on the rows")
+
+
+def tf_batch(cfg, batch, prompt):
+    """A run's prompts, and Whisper's stub frames, from seed 1 (the same
+    on every rank)."""
+    import torch
+    from repro_torch.configs.registry import is_encdec
+    g = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    if is_encdec(cfg):
+        out["frames"] = torch.randn((batch, cfg.n_audio_ctx, cfg.d_model),
+                                    generator=g, device="cuda")
+    out["tokens"] = torch.randint(0, cfg.vocab, (batch, prompt),
+                                  generator=g, device="cuda",
+                                  dtype=torch.int32)
+    return out
 
 
 # [tp-train]: the reference's train cell (launch/dryrun.py: fake
@@ -2631,7 +2910,8 @@ def tt_serve(cfg_train, arch, layers, params, mesh, world, say, device, tag):
         snap = dispatch.snapshot()
     check_route(f"[tp-train] {tag} served after training, {world} rank(s)",
                 "cuda", launches, snap, TP_KERNELS)
-    want = tp_row_products(icfg) * (1 + TT_SERVE)
+    pre, step = tp_row_products(icfg)
+    want = pre + step * TT_SERVE
     finite = all(bool(torch.isfinite(x).all()) for x in logits)
     say(f"[tp-train] {tag}: the trained tree integerized on each rank, "
         f"served partitioned: prefill {t_prefill * 1e3:.2f} ms, ring step "
@@ -3860,16 +4140,17 @@ KERNELS = {
 # the counted runs of each kernel's main paths (the kernels line's
 # launches: their sum, and each path's count)
 MAIN_PATHS = {"qmatmul": ("serve", "archs", "recurrent", "serve-recurrent",
-                          "encdec", "dist", "tp", "tp-train"),
+                          "encdec", "dist", "tp", "tp-families", "tp-train"),
               "int_attention_fused": ("serve", "archs", "recurrent",
                                       "serve-recurrent", "encdec", "dist",
-                                      "tp", "tp-train"),
+                                      "tp", "tp-families", "tp-train"),
               "int_paged_decode_attention": ("serve", "archs",
                                              "serve-recurrent"),
               "int_decode_attention": ("ring", "archs", "recurrent",
-                                       "encdec", "dist", "tp", "tp-train"),
+                                       "encdec", "dist", "tp", "tp-families",
+                                       "tp-train"),
               "pq_layernorm": ("ops",), "int_attention": ("ops",),
-              "qmatmul_acc": ("tp", "tp-train")}
+              "qmatmul_acc": ("tp", "tp-families", "tp-train")}
 # qmatmul timed at every (M, N, K) of one Qwen2.5-32B layer and its
 # lm_head at decode and prefill rows, int8 and packed, then DeiT-S's
 # linears (int8, as the model runs them)
@@ -4262,7 +4543,7 @@ def main() -> int:
         paths["recurrent"] = phase_recurrent()
         paths["serve-recurrent"] = phase_serve_recurrent()
         paths["encdec"] = phase_encdec()
-        paths["dist"], paths["tp"], paths["tp-train"] = phase_dist()
+        paths.update(phase_dist())
         phase_quickstart()
         vparams, imgs = phase_vit()
         paths["ops"], ops_errs = phase_ops(vparams, imgs)

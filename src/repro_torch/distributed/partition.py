@@ -1,5 +1,5 @@
-"""Partitioned execution of the decoder LMs' ring serving steps: each rank
-holds only its shard of the weights and of the caches.
+"""Partitioned execution of the ring serving steps: each rank holds only
+its shard of the weights and of the caches.
 
 The port's counterpart of the reference's ``jax.jit(prefill / decode_step,
 in_shardings=...)`` (``repro/launch/dryrun.py``), where GSPMD partitions
@@ -10,53 +10,77 @@ its local tensors, and the few steps that cross ranks are written out.
 ``sharding.use_rules``; the model reads it only through :func:`active`,
 which returns this rank's :class:`Partition` (None when off).  Under it
 ``models/lm.py``'s :func:`~repro_torch.models.lm.prefill` and
-:func:`~repro_torch.models.lm.decode_step` take the same global tokens as
-on one card, run on the rank's batch rows, and return the same global
-logits on every rank; only the parameters (:func:`partition_params` or
-:func:`build_params`) and the ring cache are rank-local.
-:func:`check_tree` refuses a global tree under partitioned rules and a
-partitioned tree without them (``ValueError``).  Partitioned rules do not
-combine with ``int_bf16_reduce`` or ``moe_a2a`` (the shard bodies on
-global tensors, ``core/api.py::_int_row_parallel`` and
-``layers/moe.py::moe_ffn_a2a``), and the recurrent blocks, Whisper and
-the paged engine raise ``NotImplementedError`` under them; each message
-names its ROADMAP item.  ``mode="int"`` serves partitioned; modes
-"float" and "fake" train partitioned (``lm.lm_loss`` and
-``launch/train.py::make_train_step``, with gradients through every
+:func:`~repro_torch.models.lm.decode_step`, and ``models/encdec.py``'s
+:func:`~repro_torch.models.encdec.prefill` and
+:func:`~repro_torch.models.encdec.decode_step`, take the same global
+inputs as on one card, run on the rank's batch rows, and return the same
+global logits on every rank; only the parameters (:func:`partition_params`
+or :func:`build_params`) and the ring cache, recurrent states included,
+are rank-local.  :func:`check_tree` refuses a global tree under
+partitioned rules and a partitioned tree without them (``ValueError``).
+Partitioned rules do not combine with ``int_bf16_reduce`` or ``moe_a2a``
+(the shard bodies on global tensors, ``core/api.py::_int_row_parallel``
+and ``layers/moe.py::moe_ffn_a2a``), and the paged engine and the
+training of the recurrent and encoder-decoder families raise
+``NotImplementedError`` under them; each message names its ROADMAP item.
+``mode="int"`` serves partitioned, every family; modes "float" and "fake"
+train the decoder-only attention families partitioned (``lm.lm_loss``
+and ``launch/train.py::make_train_step``, with gradients through every
 exchange: :class:`Partition`), and ``core/api.py::integerize_params``
 turns a trained local tree into the local int tree that serves.
 
 **Layout.**  Each leaf splits as ``sharding.param_specs`` says, after
 ``filter_mesh_axes`` and ``enforce_divisible``: column-parallel weights
-(wq, wk, wv, gate, up, lm_head) by output rows, row-parallel ones (wo,
-down) by K as stored (nibble bytes kept whole, so K/m is even), experts by
-E, the embedding by vocabulary rows; norms, the router and row-parallel
-biases stay whole.  Local shapes equal the reference's shard shapes, with
-one departure: attention splits by whole KV groups.  The port's GQA layout
-(``q.reshape(b, hkv, g, ...)``) maps a contiguous range of query heads
-onto a contiguous range of KV heads, so where ``kv_heads % m != 0`` a
-layer's wq, wk, wv and wo stay whole on every rank (``enforce_divisible``
-alone would cut inside a head: ChatGLM3's wk has 256 columns).  The other
-groups (a feed-forward's up, gate and down; the experts; the embedding and
-lm_head) likewise split only as a whole (:func:`split_plan`).  The batch
-splits over ``Rules.batch``.  The ring caches split by KV head over
-"model" and by row over the batch axes (:func:`local_cache_specs`); the
-reference's ``cache_specs`` (kept as it is in ``sharding.py``) splits the
-ring's sequence instead, which would need a cross-rank merge of the
-softmax's f32 sum, not an exact step.
+(wq, wk, wv, gate, up, lm_head; the RG-LRU's w_gate, w_in, w_a, w_i) and
+their biases by output rows, row-parallel ones (wo, down, w_out) by K as
+stored (nibble bytes kept whole, so K/m is even), the RG-LRU's ``conv_w``
+and ``lam`` by d_rnn, experts by E, the embedding by vocabulary rows;
+norms, the router, the SSD mixer (``in_proj``, ``out_proj``, ``conv_w``,
+``dt_bias``, ``A_log``, ``D``, ``norm_gamma``) and row-parallel biases
+stay whole.  Local shapes equal the reference's shard shapes, with
+departures where the reference would cut inside a head: attention splits
+by whole KV groups.  The port's GQA layout (``q.reshape(b, hkv, g,
+...)``) maps a contiguous range of query heads onto a contiguous range of
+KV heads, so where ``kv_heads % m != 0`` a layer's wq, wk, wv and wo stay
+whole on every rank (``enforce_divisible`` alone would cut inside a head:
+ChatGLM3's wk has 256 columns, and RecurrentGemma's local attention, one
+KV head of 256, stays whole at every m > 1).  Whisper's attention (MHA:
+``EncDecConfig`` has no ``kv_heads``) splits by whole heads of
+``n_heads``.  The other groups (a feed-forward's up, gate and down,
+Whisper's ``mlp`` too; the RG-LRU; the experts; the embedding and lm_head)
+likewise split only as a whole (:func:`split_plan`).  The batch splits
+over ``Rules.batch``.  The caches split by row over the batch axes and,
+over "model", a ring by KV head (Whisper's self-attention ring and cross
+K/V by head) and the RG-LRU's ``h`` and ``conv`` by d_rnn; the SSD state
+stays whole over "model" (:func:`local_cache_specs`).  The reference's
+``cache_specs`` (kept as it is in ``sharding.py``) splits the ring's
+sequence instead, which would need a cross-rank merge of the softmax's f32
+sum, not an exact step.
 
-**Exactness.**  A partitioned int-mode run on any mesh is bitwise equal
-to one rank's run of the same tree, since every cross-rank step is exact
-(modes "float" and "fake" sum f32 partial products and gradients over
-ranks, so past one rank they part as the reference's sharded train cell
-parts from its one-device run):
+**Exactness.**  A partitioned int-mode run is bitwise equal to one
+rank's run of the same tree wherever it was checked: meshes (1, 4),
+(2, 2) and (4, 1) at SMOKE size on the CPU, and ``chip_smoke.py``'s
+``[tp]`` and ``[tp-families]`` runs on the card.  Every cross-rank step
+is exact, and a rank's float arithmetic is made independent of the slice
+it holds where it was not (modes "float" and "fake" sum f32 partial
+products and gradients over ranks, so past one rank they part as the
+reference's sharded train cell parts from its one-device run):
 
 - a quantizer grid that spans a split dimension takes its max over the
   mesh (:func:`grid_max`): over "model" where it spans heads or a
-  row-parallel K, and also over the batch axes where it is per tensor;
+  row-parallel K (the RG-LRU's ``h * gate`` over d_rnn), and also over
+  the batch axes where it is per tensor;
 - a row-parallel linear (:func:`row_parallel_linear`) all-reduces its
   int32 sums over "model" (the qmatmul kernel's accumulator output) and
-  applies the f32 epilogue once, to the full sum;
+  applies the f32 epilogue, bias included, once, to the full sum;
+- the RG-LRU's scan, step, temporal conv and float gates act per
+  feature, and the SSD mixer per row, so neither exchanges anything;
+  a decode step's gates run as matmuls of one shape
+  (``layers/rglru.py::gate_step``), and the norms' row means pad a few
+  rows to 16 on the card (``layers/norms.py``), since cuBLAS and torch's
+  row reductions pick their order by the shape of a call; other float
+  products (the prefill's gates) keep cuBLAS, bitwise at the checked
+  shapes but not by construction;
 - the vocabulary-split embedding sums one non-zero term per element; the
   logits (along the vocabulary), the expert outputs (along E) and the
   batch rows are gathered.
@@ -69,6 +93,7 @@ from typing import Optional
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.configs.registry import is_encdec
 from repro_torch.distributed import collectives as col
 from repro_torch.distributed.sharding import (P, _names, current_rules,
                                               enforce_divisible,
@@ -76,10 +101,12 @@ from repro_torch.distributed.sharding import (P, _names, current_rules,
                                               zero1_specs)
 
 ROADMAP_ITEM = "ROADMAP.md queue 1, item 6c (partitioned execution)"
-# what is still to do, by item: the shard bodies on local operands, and
-# the families (and the paged engine) not partitioned yet
+# what is still to do, by item: the shard bodies on local operands, the
+# training of the recurrent and encoder-decoder families; the paged
+# engine, which the reference never shards, stays whole
 SHARD_BODIES = "ROADMAP.md queue 1, item 6c.3"
-FAMILIES = "ROADMAP.md queue 1, item 6c.4"
+TRAIN_FAMILIES = "ROADMAP.md queue 1, item 6c.4b"
+PAGED = "ROADMAP.md queue 1, item 6c.4 (the paged engine)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,29 +169,46 @@ def _packed(cfg) -> bool:
     return q is not None and q.pack_weights and q.w_bits == 4
 
 
+def _kv_heads(cfg) -> int:
+    return cfg.n_heads if is_encdec(cfg) else cfg.kv_heads
+
+
+def d_rnn(cfg) -> int:
+    """The RG-LRU's width (``models/lm.py::_init_block``'s default)."""
+    return getattr(cfg, "d_rnn", None) or cfg.d_model
+
+
 def split_plan(cfg, m: int) -> dict:
     """Which groups of the tree split over ``m`` model ranks: attention by
-    whole KV groups ("heads"), a feed-forward ("ffn", the shared expert's
-    too), the experts, the vocabulary.  A row-parallel K stored as nibbles
-    must split into whole bytes."""
+    whole KV groups ("heads"; Whisper's by whole heads), a feed-forward
+    ("ffn": an LM's, the shared expert's, Whisper's ``mlp``), the RG-LRU
+    by d_rnn, the experts, the vocabulary.  A row-parallel K stored as
+    nibbles must split into whole bytes."""
     def ok(n, stored=None):
         return m > 1 and n % m == 0 and \
             (not _packed(cfg) or stored is None or stored % m == 0)
-    return {"heads": ok(cfg.kv_heads, cfg.n_heads * cfg.hd // 2),
+    moe = getattr(cfg, "moe", None)
+    return {"heads": ok(_kv_heads(cfg), cfg.n_heads * cfg.hd // 2),
             "ffn": cfg.d_ff > 0 and ok(cfg.d_ff, cfg.d_ff // 2),
-            "experts": cfg.moe is not None and ok(cfg.moe.n_experts),
+            "rglru": ok(d_rnn(cfg), d_rnn(cfg) // 2),
+            "experts": moe is not None and ok(moe.n_experts),
             "vocab": ok(cfg.vocab)}
+
+
+ATTN_KEYS = ("attn", "self_attn", "cross_attn")
 
 
 def _group(keys) -> Optional[str]:
     if "embed" in keys or "lm_head" in keys:
         return "vocab"
-    if "attn" in keys:
+    if any(k in ATTN_KEYS for k in keys):
         return "heads"
+    if "rglru" in keys:
+        return "rglru"
     if len(keys) > 1 and keys[-2].startswith("experts_"):
         return "experts"
-    if "ffn" in keys and len(keys) > 1 and keys[-2] in ("up", "gate",
-                                                          "down"):
+    if ("ffn" in keys or "mlp" in keys) and len(keys) > 1 and \
+            keys[-2] in ("up", "gate", "down"):
         return "ffn"
     return None
 
@@ -282,19 +326,30 @@ def gather_params(parts, cfg):
 
 
 def local_cache_specs(cache, cfg, layout: Layout):
-    """Specs of a ring cache: codes ``(B, Hkv, span, hd[/2])`` by row over
-    the batch axes and by KV head over "model" where attention splits;
-    scales and ``pos`` whole."""
-    heads = split_plan(cfg, layout.m)["heads"]
+    """Specs of a ring cache: every per-row leaf by row over the batch
+    axes; over "model", attention codes ``(B, Hkv, span, hd[/2])`` (and
+    Whisper's ``k``, ``v``, ``ek``, ``ev``) by KV head where attention
+    splits, the RG-LRU's ``h (B, d_rnn)`` and ``conv (B, 3, d_rnn)`` by
+    d_rnn where it splits; the SSD's ``h (B, H, P, N)`` and ``convs (B, 3,
+    d_conv)`` by row only; scales and ``pos`` whole."""
+    plan = split_plan(cfg, layout.m)
     b = layout.batch if len(layout.batch) != 1 else layout.batch[0]
     b = b or None
+    heads = "model" if plan["heads"] else None
+    rnn = "model" if plan["rglru"] else None
 
     def one(keys, leaf):
-        nd = leaf.ndim
-        pad = (None,) * (1 if "units" in keys else 0)
-        if keys[-1] in ("k", "v") and nd - len(pad) == 4:
-            return P(*pad, b, "model" if heads else None, None, None)
-        return P(*((None,) * nd))
+        pad = (None,) * (1 if "units" in keys or "layers" in keys else 0)
+        nd, name = leaf.ndim - len(pad), keys[-1]
+        if name in ("k", "v", "ek", "ev") and nd == 4:
+            return P(*pad, b, heads, None, None)
+        if name == "h" and nd == 2:                       # RG-LRU
+            return P(*pad, b, rnn)
+        if name == "conv" and nd == 3:
+            return P(*pad, b, None, rnn)
+        if (name, nd) in (("h", 4), ("convs", 3)):        # SSD
+            return P(*pad, b, *((None,) * (nd - 1)))
+        return P(*((None,) * leaf.ndim))
     return tree_lib.unflatten(cache, [one(list(k), v) for k, v in
                                       tree_lib.leaves_with_keys(cache)])
 
@@ -313,18 +368,26 @@ def gather_cache(parts, cfg):
 
 
 def local_kv_heads(cfg, m: int) -> int:
-    return cfg.kv_heads // m if split_plan(cfg, m)["heads"] else cfg.kv_heads
+    kv = _kv_heads(cfg)
+    return kv // m if split_plan(cfg, m)["heads"] else kv
 
 
 def init_cache(cfg, batch: int, max_len: int, layout: Layout, *,
                device="cuda"):
     """The rank's ring cache for a global ``batch``: its rows over the
-    batch axes, its KV heads."""
-    from repro_torch.models import lm
+    batch axes, its KV heads (Whisper's heads), its RG-LRU features."""
     n_dp = layout.size(layout.batch)
     if batch % n_dp:
         raise ValueError(f"batch {batch} over {n_dp} batch ranks")
-    return lm.init_cache(cfg.replace(kv_heads=local_kv_heads(cfg, layout.m)),
+    heads = local_kv_heads(cfg, layout.m)
+    if is_encdec(cfg):
+        from repro_torch.models import encdec
+        return encdec.init_cache(cfg, batch // n_dp, max_len, heads=heads,
+                                 device=device)
+    from repro_torch.models import lm
+    rnn = d_rnn(cfg) // (layout.m if split_plan(cfg, layout.m)["rglru"]
+                         else 1)
+    return lm.init_cache(cfg.replace(kv_heads=heads, d_rnn=rnn),
                          batch // n_dp, max_len, device=device)
 
 
@@ -503,7 +566,7 @@ def active() -> Optional[Partition]:
     return rules.partition
 
 
-def refuse(what: str, item: str = FAMILIES):
+def refuse(what: str, item: str):
     """``NotImplementedError`` naming the ROADMAP item when partitioned."""
     if active() is not None:
         raise NotImplementedError(f"{what} does not run partitioned yet: "
@@ -604,16 +667,18 @@ def out_features(lin) -> Optional[int]:
 
 
 def _blocks(params):
+    """Each layer (stack) of an LM's or Whisper's tree."""
     for key, sub in params.items():
         if key == "units":
             yield from sub.values()
-        elif key.startswith("rem"):
+        elif key.startswith("rem") or key.endswith("_layers"):
             yield sub
 
 
 def tree_dims(params, cfg) -> dict:
     """The dims of ``params`` that partitioning splits, as stored: vocab
-    rows, query and KV heads, feed-forward width, experts."""
+    rows, query and KV heads, feed-forward width, the RG-LRU's d_rnn,
+    experts; and the SSD mixer's ``in_proj`` width, which stays whole."""
     out = {}
     emb = params.get("embed", {})
     if emb:
@@ -621,10 +686,15 @@ def tree_dims(params, cfg) -> dict:
     if "lm_head" in params:
         out["lm_head"] = out_features(params["lm_head"])
     for blk in _blocks(params):
-        if "attn" in blk and "heads" not in out:
-            out["heads"] = out_features(blk["attn"]["wq"]) // cfg.hd
-            out["kv_heads"] = out_features(blk["attn"]["wk"]) // cfg.hd
-        ffn = blk.get("ffn", {})
+        attn = next((blk[k] for k in ATTN_KEYS if k in blk), None)
+        if attn is not None and "heads" not in out:
+            out["heads"] = out_features(attn["wq"]) // cfg.hd
+            out["kv_heads"] = out_features(attn["wk"]) // cfg.hd
+        if "rglru" in blk and "d_rnn" not in out:
+            out["d_rnn"] = out_features(blk["rglru"]["w_in"])
+        if "ssd" in blk and "ssd" not in out:
+            out["ssd"] = out_features(blk["ssd"]["in_proj"])
+        ffn = blk.get("ffn", blk.get("mlp", {}))
         dense_ff = ffn.get("shared", ffn) if "up" in ffn.get(
             "shared", ffn) else None
         if dense_ff is not None and "ffn" not in out:
@@ -645,7 +715,14 @@ def expected_dims(cfg, m: int, n_fsdp: int = 1) -> dict:
         return n // m if plan[key] else n
     out = {"vocab": d(cfg.vocab, "vocab"), "lm_head": d(cfg.vocab, "vocab"),
            "heads": d(cfg.n_heads, "heads"),
-           "kv_heads": d(cfg.kv_heads, "heads"), "ffn": d(cfg.d_ff, "ffn")}
+           "kv_heads": d(_kv_heads(cfg), "heads"), "ffn": d(cfg.d_ff, "ffn")}
+    if is_encdec(cfg):
+        return out
+    if "rglru" in cfg.block_pattern:
+        out["d_rnn"] = d(d_rnn(cfg), "rglru")
+    if cfg.ssd is not None:
+        from repro_torch.layers.ssd import in_proj_width
+        out["ssd"] = in_proj_width(cfg.d_model, cfg.ssd)
     if cfg.moe is not None:
         out["experts"] = d(cfg.moe.n_experts, "experts")
         out["expert_dout"] = cfg.d_ff // n_fsdp
@@ -678,21 +755,31 @@ def global_shapes(params, cfg, layout: Layout):
     return _map2(one, params, _plan_specs(params, cfg, layout))
 
 
+def _stack_into(dst: dict, key: str, i: int, n: int, layer):
+    """Copy ``layer`` into slot ``i`` of ``dst[key]``, the stack of ``n``
+    such layers (allocated at the first)."""
+    if key not in dst:
+        dst[key] = tree_lib.tree_map(
+            lambda t: t.new_empty((n, *t.shape)), layer)
+    _map2(lambda a, b: a[i].copy_(b), dst[key], layer)
+
+
 def build_params(cfg, *, seed: int = 0, layout: Optional[Layout] = None,
                  device="cuda"):
-    """The tree of ``cfg`` sliced for ``layout``, built one layer at a
-    time, so no device holds the global tree: each layer's global float
-    weights are drawn on ``device`` from a generator seeded by (``seed``,
-    layer), integerized whole where ``cfg.quant`` is int mode (a weight's
-    per-column scales span its K; kept float in modes "float" and "fake",
-    to train), and only the rank's slice is kept.  With ``layout`` None
-    (or one rank) it is the unpartitioned tree of the same values.  The
-    embedding and lm_head draw from their own generators; the layout is
-    the reference's (``units`` stacked)."""
+    """The tree of ``cfg`` (an LM's or Whisper's) sliced for ``layout``,
+    built one layer at a time, so no device holds the global tree: each
+    layer's global float weights are drawn on ``device`` from a generator
+    seeded by (``seed``, layer), integerized whole where ``cfg.quant`` is
+    int mode (a weight's per-column scales span its K; kept float in modes
+    "float" and "fake", to train), and only the rank's slice is kept.
+    With ``layout`` None (or one rank) it is the unpartitioned tree of the
+    same values.  The embedding and lm_head draw from their own
+    generators; the layout is the reference's (``units``, ``enc_layers``
+    and ``dec_layers`` stacked)."""
     from repro_torch.core.api import integerize_params
     from repro_torch.layers.embed import init_embed
     from repro_torch.layers.norms import init_norm
-    from repro_torch.models import lm
+    from repro_torch.models import encdec, lm
     layout = layout or Layout.make({})
     d, dt = cfg.d_model, cfg.tdtype
 
@@ -705,27 +792,37 @@ def build_params(cfg, *, seed: int = 0, layout: Optional[Layout] = None,
             tree = integerize_params(tree, cfg.quant)
         return partition_params(tree, cfg, layout)
 
+    def layer(i, init):
+        # one layer under a key no spec reads as stacked
+        return own({"layer": init(gen(i))})["layer"]
+
     params = own({"embed": init_embed(gen(0), cfg.vocab, d, dt,
                                       device=device),
                   "lm_head": lm._lin(gen(1), (), d, cfg.vocab, dt, device)})
+    if is_encdec(cfg):
+        params["enc_ln"] = init_norm(d, "layernorm", device=device)
+        params["dec_ln"] = init_norm(d, "layernorm", device=device)
+        n_enc, n_dec = cfg.n_enc_layers, cfg.n_dec_layers
+        for i in range(n_enc + n_dec):
+            kind, n, j = ("enc", n_enc, i) if i < n_enc else \
+                ("dec", n_dec, i - n_enc)
+            _stack_into(params, f"{kind}_layers", j, n, layer(
+                2 + i, lambda g: encdec.init_layer(g, cfg, kind,
+                                                   device=device)))
+        return params
     params["final_norm"] = init_norm(d, cfg.norm, device=device)
     unit, n_units, rem = lm.unit_structure(cfg)
     if n_units:
         params["units"] = {}
     for u in range(n_units):
         for j, kind in enumerate(unit):
-            blk = own({"rem0": lm._init_block(gen(2 + u * len(unit) + j),
-                                              cfg, kind, (), device)})
-            if u == 0:
-                params["units"][f"b{j}"] = tree_lib.tree_map(
-                    lambda t: t.new_empty((n_units, *t.shape)), blk["rem0"])
-            _map2(lambda dst, src: dst[u].copy_(src),
-                  params["units"][f"b{j}"], blk["rem0"])
-            del blk
+            _stack_into(params["units"], f"b{j}", u, n_units, layer(
+                2 + u * len(unit) + j,
+                lambda g: lm._init_block(g, cfg, kind, (), device)))
     for i, kind in enumerate(rem):
-        layer = 2 + n_units * len(unit) + i
-        params[f"rem{i}"] = own({"rem0": lm._init_block(
-            gen(layer), cfg, kind, (), device)})["rem0"]
+        params[f"rem{i}"] = layer(
+            2 + n_units * len(unit) + i,
+            lambda g: lm._init_block(g, cfg, kind, (), device))
     return params
 
 

@@ -47,9 +47,12 @@ def to_torch(tree, device="cuda"):
 
 
 def to_torch_shard(cache, cfg, layout, device="cuda"):
-    """A ring cache of the JAX package (array-likes) as one rank's shard
-    of it under partitioned rules (``distributed/partition.py``: rows over
-    the batch axes, KV heads over "model" where attention splits)."""
+    """A ring cache of the JAX package (array-likes), an LM's or
+    Whisper's, as one rank's shard of it under partitioned rules
+    (``distributed/partition.py::local_cache_specs``: every per-row leaf
+    by row over the batch axes; over "model" the rings, and Whisper's
+    ``ek`` / ``ev``, by KV head where attention splits, the RG-LRU's ``h``
+    and ``conv`` by d_rnn where it splits, the SSD's states whole)."""
     from repro_torch.distributed.partition import partition_cache
     return partition_cache(to_torch(cache, device), cfg, layout)
 

@@ -243,7 +243,8 @@ class PagedEngine:
                  audit_raises: bool = True,
                  watchdog: Optional[Watchdog] = None,
                  fault_plan: Optional["faults_mod.FaultPlan"] = None):
-        partition.refuse("the paged engine (launch/engine.py)")
+        partition.refuse("the paged engine (launch/engine.py)",
+                         partition.PAGED)
         self.cfg, self.params = cfg, params
         self.batch_size, self.page_size = batch_size, page_size
         self.max_pages = -(-max_len // page_size)

@@ -17,6 +17,23 @@ from repro_torch.core.api import QuantConfig, dense
 from repro_torch.distributed import partition
 
 _BF16 = torch.bfloat16
+_VEC = 64     # elements: a whole number of torch's CPU vectors, unrolled
+
+
+def whole_vectors(fn, x):
+    """``fn(x)`` elementwise, each element the same bits whatever the size
+    of ``x``.  Torch's CPU kernels for sigmoid and logaddexp run whole
+    vectors on one path and the tail on a scalar one, and the two differ
+    in the last bit; so on the CPU x is padded to whole vectors (a
+    partitioned rank's slice of a tensor then gives the whole tensor's
+    bits).  The card's kernels compute every element alike.  Used where a
+    rank's slice reaches these functions: the RG-LRU's gates and
+    ``softplus`` (its ``lam``, SSD's ``dt``)."""
+    if x.device.type != "cpu":
+        return fn(x)
+    n = x.numel()
+    flat = F.pad(x.reshape(-1), (0, (-n) % _VEC))
+    return fn(flat)[:n].reshape(x.shape)
 
 
 def logistic(x):
@@ -52,7 +69,8 @@ def softplus(x):
     """``jax.nn.softplus`` = ``logaddexp(x, 0)``: ``torch.logaddexp``
     differs from XLA's in the last bit of 9% of f32 values (``F.softplus``
     in 15%, JAX's own ``max + log1p(exp(-|x|))`` in torch's ops in 13%)."""
-    return torch.logaddexp(x, torch.zeros_like(x))
+    return whole_vectors(lambda t: torch.logaddexp(t, torch.zeros_like(t)),
+                          x)
 
 
 def mlp(x, p: dict, cfg: QuantConfig | None, *, act: str = "swiglu",

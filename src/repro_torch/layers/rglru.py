@@ -12,16 +12,29 @@ log S depth, no loop over S); decode carries ``h``.  The projections in
 and out are quantized linears; the gates ``w_a`` / ``w_i`` stay float
 (``core.api.FLOAT_PARENTS``) and the recurrence is elementwise f32, as in
 the reference.
+
+Under partitioned rules (``distributed/partition.py``) a rank may hold a
+slice of d_rnn: the columns of w_gate, w_in, w_a and w_i, those features
+of ``conv_w`` and ``lam`` and of the state, and w_out's slice of K.  The
+scan, the step, the temporal conv and the gates act per feature, so they
+run on the slice as they are; w_out is row-parallel, its int32 sums
+reduced over "model" and its activation grid maxed over the slices.  A
+decode step's float gates run as matmuls of one fixed shape
+(:func:`gate_step`), so a feature's gate is the same bits whatever slice
+of rows and features a rank holds.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.api import QuantConfig, dense
-from repro_torch.layers.mlp import gelu, logistic, softplus
+from repro_torch.distributed import partition
+from repro_torch.layers.mlp import gelu, logistic, softplus, whole_vectors
 
 C_MULT = 8.0
 CONV_WIDTH = 4
+GATE_ROWS, GATE_COLS = 16, 1024      # the one shape of gate_step's matmuls
 
 
 def _log_a(lam, r):
@@ -95,23 +108,49 @@ def temporal_conv(x, w, state=None):
     return y, xp[:, -(CONV_WIDTH - 1):].to(torch.float32)
 
 
-def rglru_block(x, p: dict, cfg: QuantConfig | None, *, state=None):
+def gate_step(x, w):
+    """A float gate ``x @ w`` at one position: x (B, 1, K), w (K, N).  It
+    runs as matmuls of GATE_ROWS rows by GATE_COLS columns, x's rows and
+    w's last block of columns zero-padded, every call the same shape, so
+    each output is the same bits for any B and N: a partitioned rank's
+    rows and columns give the one-rank values.  (At a few rows cuBLAS
+    picks its reduction by the shape it is given, so one matmul over a
+    slice of the columns would not: ``chip_smoke.py`` ``[tp-families]``
+    prints both.)"""
+    b, n = x.shape[0], w.shape[-1]
+    xs = F.pad(x[:, 0], (0, 0, 0, (-b) % GATE_ROWS))
+    blocks = [w[:, j:j + GATE_COLS] for j in range(0, n, GATE_COLS)]
+    if n % GATE_COLS:
+        blocks[-1] = F.pad(blocks[-1], (0, GATE_COLS - n % GATE_COLS))
+    return torch.cat([
+        torch.cat([torch.matmul(xs[i:i + GATE_ROWS], blk) for blk in blocks],
+                  -1) for i in range(0, xs.shape[0], GATE_ROWS)
+    ])[:b, None, :n]
+
+
+def rglru_block(x, p: dict, cfg: QuantConfig | None, *, state=None,
+                k_split: bool = False):
     """The Griffin recurrent block.  x (B, S, d); ``state`` None (prefill:
     the scan from h = 0) or ``{"h": (B, Drnn) f32, "conv": (B, 3, Drnn)
-    f32}`` (decode, S == 1).  Returns (y, new state)."""
+    f32}`` (decode, S == 1).  ``k_split``: under partitioned rules, ``p``
+    and ``state`` hold this rank's slice of Drnn.  Returns (y, new
+    state)."""
+    x = partition.model_input(x, k_split)
     gate_branch = gelu(dense(x, p["w_gate"], cfg))
     u = dense(x, p["w_in"], cfg)
     u, new_conv = temporal_conv(u, p["conv_w"],
                                 None if state is None else state["conv"])
-    r = logistic(dense(x, p["w_a"], None))      # small gates stay float
-    i = logistic(dense(x, p["w_i"], None))
-    if state is None:
+    if state is None:                           # small gates stay float
+        r = whole_vectors(logistic, dense(x, p["w_a"], None))
+        i = whole_vectors(logistic, dense(x, p["w_i"], None))
         h, h_last = rglru_scan(u, r, i, p["lam"])
     else:
+        r = whole_vectors(logistic, gate_step(x, p["w_a"]["w"]))
+        i = whole_vectors(logistic, gate_step(x, p["w_i"]["w"]))
         h, h_last = rglru_step(u[:, 0], r[:, 0], i[:, 0], p["lam"],
                                state["h"])
         h = h[:, None]
-    y = dense(h * gate_branch, p["w_out"], cfg, tp="row")
+    y = dense(h * gate_branch, p["w_out"], cfg, tp="row", k_split=k_split)
     return y, {"h": h_last, "conv": new_conv}
 
 

@@ -6,6 +6,13 @@ Within a chunk the terms are a masked quadratic contraction; the state
 crosses chunks by a scan (a loop over the S / chunk chunks).  The in / out
 projections are quantized linears; the recurrence is f32 einsums over the
 state, outside any kernel, as in the reference.
+
+Under partitioned rules (``distributed/partition.py``) the mixer is whole
+on every rank, as the reference's ``param_specs`` keeps it (``in_proj`` /
+``out_proj`` replicated), and runs on the rank's batch rows with its
+rows of the state: nothing crosses ranks.  A decode step's contraction
+over the state is a sum of products (:func:`ssd_step`), so a rank's rows
+give the one-rank bits.
 """
 from __future__ import annotations
 
@@ -95,8 +102,20 @@ def ssd_step(x, dt, A, B, C, h_prev):
     a = torch.exp(dtf * A.to(_F32))                         # (b,h)
     upd = torch.einsum("bhn,bhp,bh->bhpn", Bh, x.to(_F32), dtf)
     h = h_prev * a[..., None, None] + upd
-    y = torch.einsum("bhn,bhpn->bhp", Ch, h)
+    # y = einsum("bhn,bhpn->bhp"), as products and a sum over n: on the
+    # card the einsum's batched product is chosen by the rows it is given,
+    # so a rank's rows would part from the one-rank batch's (chip_smoke.py
+    # [tp-families] prints it); the sum keeps one block shape from 16
+    # outputs up (layers/norms.py)
+    y = (Ch[:, :, None, :] * h).sum(-1)
     return y.to(x.dtype), h
+
+
+def in_proj_width(d: int, scfg: SSDConfig) -> int:
+    """Output features of ``in_proj``: z, x, B, C and dt."""
+    d_inner = scfg.expand * d
+    return 2 * d_inner + 2 * scfg.n_groups * scfg.d_state + \
+        d_inner // scfg.head_dim
 
 
 def ssd_block(x, p: dict, scfg: SSDConfig, cfg: QuantConfig | None, *,
@@ -138,7 +157,7 @@ def init_ssd(gen: torch.Generator, d: int, scfg: SSDConfig, dtype, *,
     d_inner = scfg.expand * d
     h = d_inner // scfg.head_dim
     g, n = scfg.n_groups, scfg.d_state
-    d_in_proj = 2 * d_inner + 2 * g * n + h
+    d_in_proj = in_proj_width(d, scfg)
     d_conv = d_inner + 2 * g * n
 
     def randn(*shape):

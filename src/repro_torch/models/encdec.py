@@ -24,6 +24,16 @@ stays on the device.  A prompt at least ``max_len`` long keeps its last
 ``max_len`` positions unrolled (reference ``_fill_cache``), so the first
 decode step overwrites slot 0, as the reference does.  Int8 casts saturate
 as XLA's do (torch's would wrap).
+
+Partitioned serving (``distributed/partition.py``, mode "int"): under
+``Rules(partitioned=True)`` :func:`prefill` and :func:`decode_step` take
+the global frames and tokens, run the rank's batch rows on its shard of
+the tree (attention on its heads, wq, wk, wv and their biases by
+columns, wo by K; the MLP's up by columns, down by K; its vocabulary
+rows) into its shard of the cache (rings and cross K/V by row and head),
+and return the global logits on every rank.  Every row-parallel product
+reduces its int32 sums over "model" and adds its bias once, after the
+reduce; per-tensor cache scales max over every rank's heads and rows.
 """
 from __future__ import annotations
 
@@ -39,8 +49,9 @@ from repro_torch.layers.attention import AttnSpec, attention
 from repro_torch.layers.embed import embed_lookup, init_embed
 from repro_torch.layers.mlp import mlp
 from repro_torch.layers.norms import apply_norm, init_norm
-from repro_torch.models.lm import (_lin, _ring_write_decode, _sat_int8,
-                                    _stack, chunked_nll)
+from repro_torch.models.lm import (_global_logits, _lin,
+                                    _ring_write_decode, _sat_int8, _stack,
+                                    chunked_nll)
 from repro_torch.models.scan_util import _index, remat
 
 _F32 = torch.float32
@@ -119,24 +130,34 @@ def _ln(cfg, lead, device):
     return _stack(init_norm(cfg.d_model, "layernorm", device=device), lead)
 
 
+def init_layer(gen, cfg: EncDecConfig, kind: str, lead=(),
+               device="cuda") -> dict:
+    """An encoder ("enc") or decoder ("dec") layer's random weights
+    (``lead``: stacked layer axes)."""
+    if kind == "enc":
+        return {"ln1": _ln(cfg, lead, device),
+                "attn": _init_attn(gen, cfg, lead, device),
+                "ln2": _ln(cfg, lead, device),
+                "mlp": _init_mlp(gen, cfg, lead, device)}
+    return {"ln1": _ln(cfg, lead, device),
+            "self_attn": _init_attn(gen, cfg, lead, device),
+            "ln2": _ln(cfg, lead, device),
+            "cross_attn": _init_attn(gen, cfg, lead, device),
+            "ln3": _ln(cfg, lead, device),
+            "mlp": _init_mlp(gen, cfg, lead, device)}
+
+
 def init_params(cfg: EncDecConfig, *, seed: int = 0, device="cuda") -> dict:
     """Random weights (torch generator seeded with ``seed``) on ``device``,
     in the JAX package's tree layout."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    enc, dec = (cfg.n_enc_layers,), (cfg.n_dec_layers,)
     return {
         "embed": init_embed(gen, cfg.vocab, cfg.d_model, cfg.tdtype,
                             device=device),
-        "enc_layers": {"ln1": _ln(cfg, enc, device),
-                       "attn": _init_attn(gen, cfg, enc, device),
-                       "ln2": _ln(cfg, enc, device),
-                       "mlp": _init_mlp(gen, cfg, enc, device)},
-        "dec_layers": {"ln1": _ln(cfg, dec, device),
-                       "self_attn": _init_attn(gen, cfg, dec, device),
-                       "ln2": _ln(cfg, dec, device),
-                       "cross_attn": _init_attn(gen, cfg, dec, device),
-                       "ln3": _ln(cfg, dec, device),
-                       "mlp": _init_mlp(gen, cfg, dec, device)},
+        "enc_layers": init_layer(gen, cfg, "enc", (cfg.n_enc_layers,),
+                                 device),
+        "dec_layers": init_layer(gen, cfg, "dec", (cfg.n_dec_layers,),
+                                 device),
         "enc_ln": init_norm(cfg.d_model, "layernorm", device=device),
         "dec_ln": init_norm(cfg.d_model, "layernorm", device=device),
         "lm_head": _lin(gen, (), cfg.d_model, cfg.vocab, cfg.tdtype, device),
@@ -148,9 +169,15 @@ def init_params(cfg: EncDecConfig, *, seed: int = 0, device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 def _proj(x, p, cfg: EncDecConfig):
+    """(B, S, d) -> (B, H, S, hd) over the heads ``p`` holds."""
     b, s, _ = x.shape
     y = dense(x, p, cfg.quant)
-    return y.reshape(b, s, cfg.n_heads, cfg.hd).transpose(1, 2)
+    return y.reshape(b, s, -1, cfg.hd).transpose(1, 2)
+
+
+def _split(p, cfg: EncDecConfig) -> bool:
+    """Whether the rank holds some of the heads of attention ``p``."""
+    return partition.out_features(p["wq"]) < cfg.n_heads * cfg.hd
 
 
 def _merge(x):
@@ -168,21 +195,29 @@ def _attn(x, kv_x, p, cfg: EncDecConfig, *, causal, kv_override=None):
         kv_x = x if kv_x is None else kv_x
         k = _proj(kv_x, p["wk"], cfg)
         v = _proj(kv_x, p["wv"], cfg)
-    spec = AttnSpec(causal=causal, q_chunk=cfg.q_chunk)
+    split = _split(p, cfg)
+    spec = AttnSpec(causal=causal, q_chunk=cfg.q_chunk, split_heads=split)
     out = attention(q, k, v, spec, cfg.quant)
-    return dense(_merge(out), p["wo"], cfg.quant, tp="row"), (k, v)
+    return dense(_merge(out), p["wo"], cfg.quant, tp="row",
+                 k_split=split), (k, v)
+
+
+def _mlp(x, p, cfg: EncDecConfig):
+    split = partition.out_features(p["up"]) < cfg.d_ff
+    return mlp(x, p, cfg.quant, act="gelu", k_split=split)
 
 
 def _enc_layer(x, p, cfg: EncDecConfig):
     h, _ = _attn(apply_norm(x, p["ln1"], "layernorm"), None, p["attn"],
                  cfg, causal=False)
     x = x + h.to(x.dtype)
-    return x + mlp(apply_norm(x, p["ln2"], "layernorm"), p["mlp"],
-                   cfg.quant, act="gelu").to(x.dtype)
+    return x + _mlp(apply_norm(x, p["ln2"], "layernorm"), p["mlp"],
+                    cfg).to(x.dtype)
 
 
 def encode(params, frames, cfg: EncDecConfig):
-    """frames (B, n_audio_ctx, d_model) stub embeddings -> encoder states."""
+    """frames (B, n_audio_ctx, d_model) stub embeddings -> encoder states.
+    Partitioned: the rank's rows of ``frames``, on its heads."""
     x = frames.to(cfg.tdtype)
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(cfg.tdtype)
     layer = remat(_enc_layer, cfg.remat)
@@ -192,10 +227,12 @@ def encode(params, frames, cfg: EncDecConfig):
 
 
 def _quant_pair(k, v):
-    """int8 codes of k and v, each on one per-tensor scale (f32 division,
-    saturating cast)."""
+    """int8 codes of k and v, each on one per-tensor scale (over every
+    rank's heads and rows when partitioned; f32 division, saturating
+    cast)."""
     def one(t):
-        s = torch.clamp(t.abs().amax(), min=1e-8).to(_F32) / 127.
+        s = torch.clamp(partition.tensor_max(t.abs()), min=1e-8).to(_F32) \
+            / 127.
         return _sat_int8(torch.round(t.to(_F32) / s)), s
 
     (kq, ks), (vq, vs) = one(k), one(v)
@@ -243,10 +280,15 @@ def _self_attn_decode(h_in, p, c, cfg: EncDecConfig):
     else:
         k_all, v_all = c["k"], c["v"]
     q = _proj(h_in, p["wq"], cfg)
-    spec = AttnSpec(causal=True, q_chunk=cfg.q_chunk)
+    split = _split(p, cfg)
+    spec = AttnSpec(causal=True, q_chunk=cfg.q_chunk, split_heads=split)
     h = attention(q, k_all, v_all, spec, cfg.quant, q_offset=qpos,
                   k_positions=kpos)
-    return dense(_merge(h), p["wo"], cfg.quant)
+    # The reference leaves this wo unmarked (its GSPMD program reduces the
+    # heads' partial sums all the same); a rank holding some heads must
+    # take the row-parallel path.
+    tp = "row" if partition.active() is not None else None
+    return dense(_merge(h), p["wo"], cfg.quant, tp=tp, k_split=split)
 
 
 def _cross_kv(c, cfg: EncDecConfig):
@@ -286,15 +328,17 @@ def _dec_layer(x, p, cfg: EncDecConfig, enc_x, c, decode):
         x = x + h2.to(x.dtype)
         if c is not None:
             _fill_cache(c, sk, sv, ek, ev, cfg)
-    return x + mlp(apply_norm(x, p["ln3"], "layernorm"), p["mlp"],
-                   cfg.quant, act="gelu").to(x.dtype)
+    return x + _mlp(apply_norm(x, p["ln3"], "layernorm"), p["mlp"],
+                    cfg).to(x.dtype)
 
 
 def init_cache(cfg: EncDecConfig, batch: int, max_len: int, *,
-               device="cuda") -> dict:
+               heads: Optional[int] = None, device="cuda") -> dict:
+    """The cache of ``batch`` rows; ``heads``: those a rank holds
+    (``partition.init_cache``), all by default."""
     int_mode = _mode(cfg) == "int"
     dt = torch.int8 if int_mode else cfg.tdtype
-    n, h = cfg.n_dec_layers, cfg.n_heads
+    n, h = cfg.n_dec_layers, heads or cfg.n_heads
     z = dict(dtype=dt, device=device)
     lay = {"k": torch.zeros((n, batch, h, max_len, cfg.hd), **z),
            "v": torch.zeros((n, batch, h, max_len, cfg.hd), **z),
@@ -312,15 +356,16 @@ def decoder_embed(params, tokens, cfg: EncDecConfig, pos0):
     """Token embeddings plus the sinusoid rows at positions ``pos0 + i``
     (``pos0`` an int or a 0-d device tensor); only those rows are
     computed, each as the reference's 100 000-row table has it."""
-    x = embed_lookup(tokens, params["embed"], cfg.tdtype)
+    x = embed_lookup(tokens, params["embed"], cfg.tdtype, vocab=cfg.vocab)
     pos = pos0 + torch.arange(tokens.shape[1], dtype=torch.int32,
                               device=x.device)
     return x + _sinusoid_rows(pos, cfg.d_model).to(cfg.tdtype)
 
 
-def _head(params, x, cfg: EncDecConfig):
+def _head(params, x, cfg: EncDecConfig, part):
+    """The logits over the whole vocabulary and, partitioned, every row."""
     x = apply_norm(x, params["dec_ln"], "layernorm")
-    return dense(x, params["lm_head"], cfg.quant)
+    return _global_logits(params, x, cfg, part)
 
 
 def loss_fn(params, batch, cfg: EncDecConfig):
@@ -328,7 +373,8 @@ def loss_fn(params, batch, cfg: EncDecConfig):
     ``batch["frames"]`` and ``batch["tokens"]``, chunked over the target
     length (the largest chunk <= ``cfg.loss_chunk`` that divides S; the f32
     sums in the reference's order).  Returns (loss, {})."""
-    partition.refuse("the encoder-decoder family (models/encdec.py)")
+    partition.refuse("training the encoder-decoder family "
+                     "(models/encdec.py)", partition.TRAIN_FAMILIES)
     enc_x = encode(params, batch["frames"], cfg)
     x = decoder_embed(params, batch["tokens"], cfg, 0)
     x = apply_norm(_dec_stack(params, x, cfg, enc_x=enc_x), params["dec_ln"],
@@ -341,25 +387,37 @@ def prefill(params, batch, cfg: EncDecConfig, max_len: Optional[int] = None):
     """Encode ``batch["frames"]`` (B, n_audio_ctx, d) and run the prompt
     ``batch["tokens"]`` (B, S) into a new cache of ``max_len`` (default S)
     self-attention slots.  Returns (last-position logits (B, 1, V),
-    cache)."""
-    partition.refuse("the encoder-decoder family (models/encdec.py)")
-    enc_x = encode(params, batch["frames"], cfg)
+    cache).  Partitioned: the global batch in, the global logits out on
+    every rank, and the rank's shard of the cache."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    cache = init_cache(cfg, b, max_len or s, device=tokens.device)
-    x = decoder_embed(params, tokens, cfg, 0)
+    part = partition.active()
+    if part is None:
+        cache = init_cache(cfg, b, max_len or s, device=tokens.device)
+    else:
+        cache = partition.init_cache(cfg, b, max_len or s, part.layout,
+                                     device=tokens.device)
+        batch = {k: part.batch_rows(v) for k, v in batch.items()}
+    partition.check_tree(params, cfg)
+    enc_x = encode(params, batch["frames"], cfg)
+    x = decoder_embed(params, batch["tokens"], cfg, 0)
     x = _dec_stack(params, x, cfg, enc_x=enc_x, cache=cache)
     cache["pos"].fill_(s)
     cache["layers"]["pos"].fill_(s)
-    return _head(params, x[:, -1:], cfg), cache
+    return _head(params, x[:, -1:], cfg, part), cache
 
 
 def decode_step(params, token, cache, cfg: EncDecConfig):
     """One step: token (B, 1) -> logits (B, 1, V); the cache is updated in
-    place (the new self-attention key / value, both ``pos``)."""
-    partition.refuse("the encoder-decoder family (models/encdec.py)")
+    place (the new self-attention key / value, both ``pos``).
+    Partitioned: the global tokens in, the global logits out, the rank's
+    shard of the cache."""
+    part = partition.active()
+    if part is not None:
+        token = part.batch_rows(token)
+    partition.check_tree(params, cfg)
     x = decoder_embed(params, token, cfg, cache["pos"])
     x = _dec_stack(params, x, cfg, cache=cache, decode=True)
     cache["pos"].add_(1)
     cache["layers"]["pos"].add_(1)
-    return _head(params, x, cfg), cache
+    return _head(params, x, cfg, part), cache

@@ -69,12 +69,13 @@ XLA converts (torch's cast wraps).
 Partitioned serving and training (``distributed/partition.py``): under
 ``Rules(partitioned=True)`` :func:`prefill` and :func:`decode_step` take
 the global tokens, run the rank's batch rows on its shard of the tree
-(attention on its KV heads, read from the local weights; row-parallel
-linears reduced as int32; its experts; its vocabulary rows) into its
-shard of the ring cache, and return the global logits on every rank;
-:func:`lm_loss` (modes "float" and "fake") takes the global batch and
-returns the global loss, with gradients through every exchange.
-:func:`forward` then takes the rank's rows.
+(attention on its KV heads, read from the local weights; the RG-LRU on
+its d_rnn features; the SSD mixer whole; row-parallel linears reduced as
+int32; its experts; its vocabulary rows) into its shard of the ring
+cache and states, and return the global logits on every rank;
+:func:`lm_loss` (modes "float" and "fake", attention stacks only) takes
+the global batch and returns the global loss, with gradients through
+every exchange.  :func:`forward` then takes the rank's rows.
 """
 from __future__ import annotations
 
@@ -612,7 +613,10 @@ def mixer_block(x, p, cfg: LMConfig, kind: str, *, positions, cache=None,
         return x + out.to(x.dtype)
     state = cache if decode else None
     if kind == "rglru":
-        out, new = rglru_block(h, p["rglru"], cfg.quant, state=state)
+        split = partition.out_features(p["rglru"]["w_in"]) < \
+            partition.d_rnn(cfg)
+        out, new = rglru_block(h, p["rglru"], cfg.quant, state=state,
+                               k_split=split)
     elif kind == "ssd":
         out, new = ssd_block(h, p["ssd"], cfg.ssd, cfg.quant, state=state)
     else:
@@ -712,11 +716,14 @@ def forward(params, batch, cfg: LMConfig, *, cache=None, decode=False,
     (:func:`repro_torch.distributed.partition.check_tree`).
     """
     paged = cache is not None and "page_table" in cache
-    if partition.active() is not None:
-        if paged:
-            partition.refuse("the paged cache (launch/engine.py)")
-        if any(k not in ATTN_KINDS for k in block_kinds(cfg)):
-            partition.refuse("the recurrent blocks (rglru, ssd)")
+    if paged:
+        partition.refuse("the paged cache (launch/engine.py)",
+                         partition.PAGED)
+    if (cfg.quant is None or cfg.quant.mode != "int") and \
+            any(k not in ATTN_KINDS for k in block_kinds(cfg)):
+        partition.refuse("the recurrent blocks (rglru, ssd) in modes "
+                         "'float' and 'fake' (training them)",
+                         partition.TRAIN_FAMILIES)
     partition.check_tree(params, cfg)
     x = _inputs_to_x(params, batch, cfg)
     page_table = cache["page_table"] if paged else None

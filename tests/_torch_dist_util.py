@@ -11,7 +11,9 @@ its own.
         One gloo rank of the port (no JAX imported): JOB "main" (world 4)
         runs every case on the reference's inputs, "elastic8" / "elastic6"
         the elastic round trip, "partition" (world 4) the partitioned ring
-        serving of ``tests/test_torch_partition.py``; each rank writes
+        serving of ``tests/test_torch_partition.py``, "families" (world
+        4) that of the recurrent and encoder-decoder families in
+        ``tests/test_torch_partition_families.py``; each rank writes
         OUT_DIR/JOB-RANK.npz.  :func:`launch` and :func:`join` start and
         wait for a job's ranks.
 
@@ -58,6 +60,11 @@ PART_BF16 = ("qwen2.5-32b", "llama4-scout-17b-a16e")
 PART_BATCH, PART_PROMPT, PART_STEPS, PART_MAX_LEN = 4, 32, 4, 40
 # decode steps from JAX's prefill cache, carried into each rank's shard
 PART_FROM_JAX = (("w8", 8), ("w4p", 4))
+# partitioned ring serving of the recurrent and encoder-decoder families:
+# their SMOKE configs, the weights and kv bits above, on the same meshes;
+# prompts of 32 fill RecurrentGemma's 32-slot local ring (window 16 +
+# q_chunk 16), so its steps wrap; Whisper hears 16 stub frames a row
+FAM_ARCHS = ("recurrentgemma-9b", "mamba2-130m", "whisper-large-v3")
 # partitioned training (tests/test_torch_partition_train.py): the reference's
 # train cell (launch/dryrun.py: value_and_grad(lm_loss), LAMB, fake
 # w4/a8/attn7) on the SMOKE configs of Qwen2.5-32B (two loss chunks) and
@@ -114,6 +121,27 @@ def part_cases():
          for arch in PART_BF16]
 
 
+def fam_cases():
+    """(arch, weights, kv_bits, mesh) of every partitioned family run, on
+    the ``cuda`` backend (the kernels' plain versions on the CPU)."""
+    return [(arch, w, kv, mesh) for mesh in PART_MESHES for arch in FAM_ARCHS
+            for w in PART_WEIGHTS for kv in PART_KV]
+
+
+def fam_key(case):
+    arch, w, kv, mesh = case
+    return f"{arch}/{w}/kv{kv}/{mesh_tag(mesh)}"
+
+
+def fam_batch(arrays, arch):
+    """The prompts of a family run, and Whisper's frames, as tensors."""
+    import torch
+    batch = {"tokens": torch.from_numpy(np.array(arrays["tokens"]))}
+    if arch == "whisper-large-v3":
+        batch["frames"] = torch.from_numpy(np.array(arrays["frames"]))
+    return batch
+
+
 def part_key(case):
     arch, w, kv, mesh, backend, dtype = case
     return f"{arch}/{w}/kv{kv}/{mesh_tag(mesh)}/{backend}/{dtype}"
@@ -123,15 +151,22 @@ def mesh_tag(mesh):
     return f"{mesh[0]}x{mesh[1]}"
 
 
+def model_of(cfg):
+    """The port's model module that serves ``cfg``."""
+    from repro_torch.configs.registry import is_encdec
+    from repro_torch.models import encdec, lm
+    return encdec if is_encdec(cfg) else lm
+
+
 def greedy_from(params, cache, token, cfg):
     """PART_STEPS free-running greedy ring steps from ``cache``, fed
     ``token`` (B, 1) first: (logits (steps, B, 1, V), fed (steps, B, 1))."""
     import torch
 
-    from repro_torch.models import lm
+    model = model_of(cfg)
     out, fed = [], [token]
     for i in range(PART_STEPS):
-        logits, cache = lm.decode_step(params, fed[-1], cache, cfg)
+        logits, cache = model.decode_step(params, fed[-1], cache, cfg)
         out.append(logits)
         if i + 1 < PART_STEPS:
             fed.append(torch.argmax(logits[:, -1], -1).to(torch.int32)
@@ -142,16 +177,17 @@ def greedy_from(params, cache, token, cfg):
 def greedy(params, tokens, cfg):
     """The port's ring prefill and PART_STEPS free-running greedy decode
     steps: (logits (steps + 1, B, 1, V), fed tokens (steps, B, 1),
-    cache)."""
+    cache).  ``tokens``: the prompts, or Whisper's batch (``frames`` and
+    ``tokens``)."""
     import torch
 
-    from repro_torch.models import lm
-    logits, cache = lm.prefill(params, {"tokens": tokens}, cfg,
-                               PART_MAX_LEN)
+    model = model_of(cfg)
+    batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
+    logits, cache = model.prefill(params, batch, cfg, PART_MAX_LEN)
     out, fed = [logits], []
     for _ in range(PART_STEPS):
         fed.append(torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None])
-        logits, cache = lm.decode_step(params, fed[-1], cache, cfg)
+        logits, cache = model.decode_step(params, fed[-1], cache, cfg)
         out.append(logits)
     return torch.stack(out), torch.stack(fed), cache
 
@@ -638,21 +674,24 @@ def partition_job(ref):
     glob = _tree(ref, "qwen2.5-32b/w8/params")
     refusals = {}
 
-    def refused(name, err, fn):
+    def refused(name, err, fn, item="ROADMAP"):
         try:
             fn()
             refusals[name] = False
         except err as e:
-            refusals[name] = "ROADMAP" in str(e) or err is ValueError
+            refusals[name] = item in str(e) or err is ValueError
 
     with use_rules(Rules(batch=("data",), mesh=mesh, partitioned=True)):
         refused("global_tree", ValueError, lambda: lm.prefill(
             glob, {"tokens": toks}, cfg, PART_MAX_LEN))
-        rg = smoke_config("recurrentgemma-9b").replace(quant=cfg.quant)
-        refused("recurrent", NotImplementedError, lambda: lm.prefill(
-            {}, {"tokens": toks}, rg, PART_MAX_LEN))
-        refused("encdec", NotImplementedError, lambda: encdec.prefill(
-            {}, {"tokens": toks}, None))
+        # training the families: named by its own item
+        fake = cfg.quant.replace(mode="fake")
+        rg = smoke_config("recurrentgemma-9b").replace(quant=fake)
+        refused("recurrent_train", NotImplementedError, lambda: lm.lm_loss(
+            {}, {"tokens": toks, "labels": toks}, rg), "6c.4b")
+        wc = smoke_config("whisper-large-v3").replace(quant=fake)
+        refused("encdec_train", NotImplementedError, lambda: encdec.loss_fn(
+            {}, {"tokens": toks, "labels": toks}, wc), "6c.4b")
         refused("engine", NotImplementedError,
                 lambda: PagedEngine(cfg, glob))
         refused("lm_loss", NotImplementedError, lambda: lm.lm_loss(
@@ -683,6 +722,64 @@ def partition_job(ref):
                     same += int(torch.equal(d, l))
             out[f"dtensor/{arch}/{mesh_tag(m_shape)}"] = torch.tensor(
                 [same, checked, len(tree_lib.leaves(glob))])
+    return out
+
+
+def families_job(ref):
+    """Every partitioned family run of :func:`fam_cases` on this rank (its
+    layout, the global logits and fed tokens, its cache shard, its int32
+    row products and dispatches on the other backend), and the steps from
+    JAX's prefill caches carried into its shard."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.api import QuantConfig
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import Rules, use_rules
+    from repro_torch.kernels import dispatch
+
+    out, locals_ = {}, {}
+    for mesh in PART_MESHES:
+        dm = make_mesh(mesh)
+        m = mesh_tag(mesh)
+        layout = partition.Layout.of(dm, ("data",))
+        out[f"layout/{m}"] = torch.tensor(
+            [layout.index(("data",)), layout.index(("model",))])
+        rules = Rules(batch=("data",), mesh=dm, partitioned=True)
+        for case in [c for c in fam_cases() if c[3] == mesh]:
+            arch, w, kv, _ = case
+            cfg = smoke_config(arch).replace(quant=QuantConfig(
+                **part_quant(w, kv), backend="cuda"))
+            if (arch, w) not in locals_:
+                locals_[arch, w] = partition.partition_params(
+                    _tree(ref, f"{arch}/{w}/params"), cfg, layout)
+            dispatch.reset_stats()
+            with use_rules(rules):
+                logits, fed, cache = greedy(locals_[arch, w],
+                                            fam_batch(ref, arch), cfg)
+            key = fam_key(case)
+            out.update({f"{key}/logits": logits, f"{key}/fed": fed,
+                        f"{key}/acc": torch.tensor(
+                            dispatch.STATS["qlinear_acc_cuda"]),
+                        f"{key}/other": torch.tensor(sum(
+                            n for k, n in dispatch.STATS.items()
+                            if k.endswith("_torch")))})
+            out.update(flat(cache, f"{key}/cache/"))
+        for arch in FAM_ARCHS:
+            for w, kv in PART_FROM_JAX:
+                tag = f"{arch}/{w}/kv{kv}"
+                cfg = smoke_config(arch).replace(quant=QuantConfig(
+                    **part_quant(w, kv)))
+                cache = interop.to_torch_shard(
+                    unflat(ref, f"jaxcache/{tag}"), cfg, layout, "cpu")
+                tok = torch.from_numpy(ref[f"jaxtok/{tag}"])
+                with use_rules(rules):
+                    logits, fed = greedy_from(locals_[arch, w], cache, tok,
+                                              cfg)
+                out.update({f"fromjax/{tag}/{m}/logits": logits,
+                            f"fromjax/{tag}/{m}/fed": fed})
+        locals_.clear()
     return out
 
 
@@ -1084,6 +1181,8 @@ def rank_main(job, rank, world, store, ref_path, out_dir):
             out = main_job(rank, world, ref)
         elif job == "partition":
             out = partition_job(ref)
+        elif job == "families":
+            out = families_job(ref)
         elif job == "train":
             sys.path.insert(0, ROOT)          # chip_smoke's code_flips
             out = train_job(rank, ref)

@@ -44,8 +44,9 @@ unsharded ``prefill`` / ``decode_step``.  Held:
   by ``interop.to_torch_shard``, bitwise equal to one rank's steps from
   the whole cache;
 - the refusals (a global tree under partitioned rules,
-  ``int_bf16_reduce``, ``moe_a2a``, the recurrent blocks, Whisper, the
-  paged engine, training);
+  ``int_bf16_reduce``, ``moe_a2a``, training the recurrent blocks and
+  Whisper (``tests/test_torch_partition_families.py`` serves them), the
+  paged engine, training in int mode);
 - the local trees equal to ``distribute_tensor(...).to_local()`` on every
   leaf the head rule leaves as ``param_specs`` says.
 """
