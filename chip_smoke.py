@@ -2306,6 +2306,19 @@ def tp_row_products(cfg):
     return n, n
 
 
+def tp_path(cfg):
+    """The kernels a partitioned serving run of ``cfg`` launches (Mamba:
+    qmatmul only, no attention and no row-parallel product) and the ring
+    layers of its decode step."""
+    from repro_torch.configs.registry import is_encdec
+    from repro_torch.models import lm
+    if is_encdec(cfg):
+        return TP_KERNELS, cfg.n_dec_layers
+    if cfg.ssd is not None:
+        return ("qmatmul",), 0
+    return TP_KERNELS, sum(k in lm.ATTN_KINDS for k in lm.block_kinds(cfg))
+
+
 def tree_bytes(tree):
     from repro_torch import tree as tree_lib
     return sum(t.numel() * t.element_size() for t in tree_lib.leaves(tree))
@@ -2358,13 +2371,11 @@ def tp_hold(cfg, rules, layout, inputs, max_len, steps, tag, rank, world,
         launches = dispatch.launch_counts()
         snap = dispatch.snapshot()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    ssd = getattr(cfg, "ssd", None) is not None
-    check_route(f"{tag} cuda run", "cuda", launches, snap,
-                ("qmatmul",) if ssd else TP_KERNELS)
+    ran, ring_layers = tp_path(cfg)
+    check_route(f"{tag} cuda run", "cuda", launches, snap, ran)
     pre, step = tp_row_products(cfg)
     want = pre + step * steps
-    rings = steps * (cfg.n_dec_layers if model is encdec else sum(
-        k in lm.ATTN_KINDS for k in lm.block_kinds(cfg)))
+    rings = steps * ring_layers
     if snap["qlinear_acc_cuda"] != want or launches["qmatmul_acc"] != want \
             or launches["int_decode_attention"] != rings:
         raise AssertionError(f"{tag}: int32 row products "
@@ -2705,8 +2716,10 @@ def tf_batch(cfg, batch, prompt):
 
 
 # [tp-train]: the reference's train cell (launch/dryrun.py: fake
-# w4/a8/attn7, LAMB, ZeRO-1 moments, expert_fsdp) on rank-local trees, at
-# full width, bf16, batch 4 x 256, from partition.build_params's float tree
+# w4/a8/attn7, LAMB, ZeRO-1 moments, expert_fsdp; encdec.loss_fn for
+# Whisper, lm.lm_loss for the rest) on rank-local trees, at full width,
+# bf16, batch 4 x 256 (Whisper's with 1500 stub frames a row, from the
+# batch's seed), from partition.build_params's float tree
 TT_QUANT = dict(w_bits=4, a_bits=8, attn_bits=7, mode="fake")
 TT_STEPS, TT_SERVE = 3, 8
 TT_OPT = dict(total_steps=TT_STEPS, warmup_steps=1)
@@ -2714,7 +2727,16 @@ TT_OPT = dict(total_steps=TT_STEPS, warmup_steps=1)
 # at 12 bytes a parameter (bf16 params and grads, f32 mu / nu); the one-rank
 # run (a) is held against must fit one card, so 1 layer (4.27 B, 51.2 GB)
 TT_SHORT = (("qwen2.5-32b", 2), ("llama4-scout-17b-a16e", 1))
-TT_FULL_LAYERS = 4        # (b): Llama-4-Scout on four cards
+# (a)'s recurrent and encoder-decoder families: RecurrentGemma-9B at 3
+# layers (one (rglru, rglru, local) unit: 2.60 B parameters, 31.2 GB at 12
+# bytes), Mamba2-130M whole, Whisper-large-v3 at 4 + 4 layers (its
+# "layers" count each stack)
+TT_FAMILIES = (("recurrentgemma-9b", 3), ("mamba2-130m", 24),
+               ("whisper-large-v3", 4))
+# (b), on four cards: Llama-4-Scout at 4 layers and RecurrentGemma-9B at
+# all 38 on (data 1, model 4), each more than one card holds with its
+# moments
+TT_FULL = (("llama4-scout-17b-a16e", 4), ("recurrentgemma-9b", 38))
 # (a) past one rank against the one-rank run: the partial products' f32
 # sums round bf16 once where one rank rounds each product, so fake-quant
 # codes flip at rounding edges and the flips cascade (the reference's own
@@ -2739,32 +2761,36 @@ def sync(device):
 
 
 def dist_train(rank, world, say, device="cuda"):
-    """[tp-train]: partitioned training of the decoder LMs, each rank
-    holding only its shard of the weights and of the ZeRO-1 moments, under
+    """[tp-train]: partitioned training, each rank holding only its shard
+    of the weights and of the ZeRO-1 moments, under
     ``Rules(batch=("data",), partitioned=True, expert_fsdp=True)``.  (a)
-    Qwen2.5-32B (2 layers) and Llama-4-Scout (1 layer) at full width on
-    (data 1, model 1) with one card and (data 2, model 2) with four, held on
-    rank 0 against the one-rank run of the same tree (:func:`tt_short`);
-    (b) at four cards, Llama-4-Scout at 4 layers on (data 1, model 4),
-    more than one card holds (:func:`tt_scout`).  Each run then integerizes
-    its trained tree locally and serves TT_SERVE ring steps partitioned,
-    gated by [route].  Returns rank 0's serving launches of (a)."""
+    Qwen2.5-32B (2 layers), Llama-4-Scout (1 layer), RecurrentGemma-9B (3
+    layers), Mamba2-130M (24) and Whisper-large-v3 (4 + 4 layers, 1500
+    frames) at full width on (data 1, model 1) with one card and (data 2,
+    model 2) with four, held on rank 0 against the one-rank run of the
+    same tree (:func:`tt_short`); (b) at four cards, Llama-4-Scout at 4
+    layers and RecurrentGemma-9B at 38 on (data 1, model 4), more than
+    one card holds (:func:`tt_full`).  Each run then integerizes its
+    trained tree locally and serves TT_SERVE ring steps partitioned, gated
+    by [route].  Returns rank 0's serving launches of (a)."""
     mesh = tt_mesh(world, device)
     say(f"[tp-train] {world} rank(s), mesh (data {mesh.size(0)}, model "
         f"{mesh.size(1)}), Rules(batch=('data',), partitioned=True, "
         f"expert_fsdp=True); fake w4/a8/attn7, LAMB, {TT_STEPS} steps on "
         f"{DIST_BATCH} x {DIST_PROMPT} tokens")
     total = {}
-    for arch, layers in TT_SHORT:
+    for arch, layers in TT_SHORT + TT_FAMILIES:
         add_launches(total, tt_short(arch, layers, mesh, rank, world, say,
                                      device))
     if world < 4:
-        say(f"[tp-train] (b) Llama-4-Scout at {TT_FULL_LAYERS} layers needs "
-            f"four cards; this run has {world}")
+        full = ", ".join(f"{a} at {n} layers" for a, n in TT_FULL)
+        say(f"[tp-train] (b) {full} need four cards; this run has {world}")
     else:
         from repro_torch.launch.mesh import make_test_mesh
-        tt_scout(make_test_mesh((1, world), ("data", "model"),
-                                device_type=device), world, say, device)
+        full = make_test_mesh((1, world), ("data", "model"),
+                              device_type=device)
+        for arch, layers in TT_FULL:
+            tt_full(arch, layers, full, world, say, device)
     return {k: total.get(k, 0) for k in TP_KERNELS}
 
 
@@ -2776,19 +2802,35 @@ def tt_mesh(world, device):
     return make_test_mesh(shape, ("data", "model"), device_type=device)
 
 
+def tt_depth(arch, layers):
+    """The config fields of ``layers`` layers (Whisper's: each stack)."""
+    from repro_torch.configs.registry import get_config, is_encdec
+    if is_encdec(get_config(arch)):
+        return dict(n_enc_layers=layers, n_dec_layers=layers)
+    return dict(n_layers=layers)
+
+
 def tt_config(arch, layers):
     from repro_torch.configs.registry import get_config
     from repro_torch.core.api import QuantConfig
-    return get_config(arch).replace(n_layers=layers,
-                                    quant=QuantConfig(**TT_QUANT))
+    return get_config(arch).replace(quant=QuantConfig(**TT_QUANT),
+                                    **tt_depth(arch, layers))
 
 
 def tt_batch(cfg, seed, device):
+    """Tokens and labels (DIST_BATCH x DIST_PROMPT) from ``seed``, and
+    Whisper's stub frames."""
     import torch
+    from repro_torch.configs.registry import is_encdec
     g = torch.Generator(device=device).manual_seed(seed)
-    return {k: torch.randint(0, cfg.vocab, (DIST_BATCH, DIST_PROMPT),
-                             generator=g, device=device, dtype=torch.int32)
-            for k in ("tokens", "labels")}
+    out = {k: torch.randint(0, cfg.vocab, (DIST_BATCH, DIST_PROMPT),
+                            generator=g, device=device, dtype=torch.int32)
+           for k in ("tokens", "labels")}
+    if is_encdec(cfg):
+        out["frames"] = torch.randn((DIST_BATCH, cfg.n_audio_ctx,
+                                     cfg.d_model), generator=g,
+                                    device=device)
+    return out
 
 
 def tt_steps(cfg, params, batch, device):
@@ -2823,13 +2865,12 @@ def tt_whole_grads(cfg, params, batch):
     import torch.distributed as dist
     from repro_torch import tree as tree_lib
     from repro_torch.distributed import partition
-    from repro_torch.launch.train import value_and_grad
-    from repro_torch.models import lm
+    from repro_torch.launch.train import model_loss, value_and_grad
     if dist.get_world_size() == 1:
         return 0, True
     shards = partition.opt_shards(params, cfg)
-    _, _, grads = value_and_grad(lambda p, b: lm.lm_loss(p, b, cfg), params,
-                                 batch, shards=shards)
+    _, _, grads = value_and_grad(model_loss(cfg), params, batch,
+                                 shards=shards)
     whole = [g.flatten().float() for g, sh in
              zip(tree_lib.leaves(grads), shards) if not sh.axes]
     del grads
@@ -2889,36 +2930,43 @@ def tt_compare(cfg, local, start, one, layout, device):
 
 def tt_serve(cfg_train, arch, layers, params, mesh, world, say, device, tag):
     """The trained tree integerized on the rank (under the training rules)
-    and served TT_SERVE ring steps partitioned, gated by [route]; returns
-    the launches."""
+    and served TT_SERVE ring steps partitioned (Whisper's prompts with
+    their frames), gated by [route] (Mamba's on qmatmul only: no
+    attention, no row-parallel product) and the counts of row products
+    and ring steps; returns the launches."""
     import torch
     from repro_torch.core.api import integerize_params
     from repro_torch.distributed.sharding import Rules, use_rules
     from repro_torch.kernels import dispatch
-    icfg = arch_config(arch, "cuda").replace(n_layers=layers)
+    icfg = family_config(arch, "cuda", **tt_depth(arch, layers))
     with use_rules(Rules(batch=("data",), mesh=mesh, partitioned=True,
                          expert_fsdp=True)), torch.no_grad():
         iq = integerize_params(params, icfg.quant)
-    toks = tt_batch(cfg_train, 9, device)["tokens"]
+    prompt = {k: v for k, v in tt_batch(cfg_train, 9, device).items()
+              if k != "labels"}
     with use_rules(Rules(batch=("data",), mesh=mesh, partitioned=True)), \
             torch.no_grad():
         dispatch.reset_stats()
         dispatch.reset_launches()
-        logits, fed, _, t_prefill, step_s = tp_greedy(iq, toks, icfg,
+        logits, fed, _, t_prefill, step_s = tp_greedy(iq, prompt, icfg,
                                                       TT_SERVE)
         launches = dispatch.launch_counts()
         snap = dispatch.snapshot()
+    ran, ring_layers = tp_path(icfg)
     check_route(f"[tp-train] {tag} served after training, {world} rank(s)",
-                "cuda", launches, snap, TP_KERNELS)
+                "cuda", launches, snap, ran)
     pre, step = tp_row_products(icfg)
     want = pre + step * TT_SERVE
+    rings = TT_SERVE * ring_layers
     finite = all(bool(torch.isfinite(x).all()) for x in logits)
     say(f"[tp-train] {tag}: the trained tree integerized on each rank, "
         f"served partitioned: prefill {t_prefill * 1e3:.2f} ms, ring step "
         f"{step_s / TT_SERVE * 1e3:.2f} ms; int32 row products "
-        f"{snap['qlinear_acc_cuda']} (want {want}); finite {finite}; "
-        f"greedy tokens of row 0 {torch.cat(fed, 1)[0].tolist()}")
-    if snap["qlinear_acc_cuda"] != want or not finite:
+        f"{snap['qlinear_acc_cuda']} (want {want}), ring launches "
+        f"{launches['int_decode_attention']} (want {rings}); finite "
+        f"{finite}; greedy tokens of row 0 {torch.cat(fed, 1)[0].tolist()}")
+    if snap["qlinear_acc_cuda"] != want or not finite or \
+            launches["int_decode_attention"] != rings:
         raise AssertionError(f"[tp-train] {tag}: serving the trained tree")
     return launches
 
@@ -3053,19 +3101,18 @@ def tt_one_step(cfg, params, state, batch):
     make_train_step(cfg, OptConfig(**TT_OPT))(params, state, batch)
 
 
-def tt_scout(mesh, world, say, device):
-    """[tp-train] (b): Llama-4-Scout at TT_FULL_LAYERS layers on (data 1,
-    model ``world``): a rank's params and moments, and its peak, within
-    the card while the global ones (12 bytes a parameter) are not; the
-    losses finite; then the trained tree served."""
+def tt_full(arch, layers, mesh, world, say, device):
+    """[tp-train] (b): ``arch`` at ``layers`` layers on (data 1, model
+    ``world``): a rank's params and moments, and its peak, within the card
+    while the global ones (12 bytes a parameter) are not; the losses
+    finite; then the trained tree served."""
     from repro_torch.distributed import partition
     from repro_torch.distributed.sharding import Rules, use_rules
     import math
     import torch
     import torch.distributed as dist
     from repro_torch import tree as tree_lib
-    arch = "llama4-scout-17b-a16e"
-    cfg = tt_config(arch, TT_FULL_LAYERS)
+    cfg = tt_config(arch, layers)
     layout = partition.Layout.of(mesh, ("data",), fsdp=True)
     cap = torch.cuda.get_device_properties(0).total_memory
     torch.cuda.reset_peak_memory_stats()
@@ -3080,28 +3127,30 @@ def tt_scout(mesh, world, say, device):
         peak = torch.cuda.max_memory_allocated()
         held = tree_bytes(local) + tree_bytes(state)
         if dist.get_rank() == 0:       # one more step, profiled on rank 0
-            log_profile(f"[tp-train] (b) llama4-scout {TT_FULL_LAYERS} "
-                        f"layers step, {world} ranks", lambda: tt_one_step(
+            log_profile(f"[tp-train] (b) {arch} {layers} layers step, "
+                        f"{world} ranks", lambda: tt_one_step(
                             cfg, local, state, batch), 1, ms[-1])
         else:
             tt_one_step(cfg, local, state, batch)
     del state
     torch.cuda.empty_cache()
     finite = all(math.isfinite(x) for x in loss)
-    say(f"[tp-train] (b) llama4-scout-17b-a16e at {TT_FULL_LAYERS} layers "
-        f"over {world} ranks (data 1, model {world}): {n_glob / 1e9:.2f} B "
-        f"parameters, {12 * n_glob / 1e9:.1f} GB at 12 bytes a parameter; "
-        f"rank 0 holds {held / 1e9:.2f} GB of params and moments, peak "
+    say(f"[tp-train] (b) {arch} at {layers} layers over {world} ranks "
+        f"(data 1, model {world}): {n_glob / 1e9:.2f} B parameters, "
+        f"{12 * n_glob / 1e9:.1f} GB at 12 bytes a parameter; rank 0 holds "
+        f"{held / 1e9:.2f} GB of params and moments, peak "
         f"{peak / 1e9:.2f} GB allocated, the card {cap / 1e9:.2f} GB; "
         f"{' '.join(f'{t:.1f}' for t in ms)} ms a step; losses "
         f"{' '.join(f'{x:.5f}' for x in loss)}, grad norms "
         f"{' '.join(f'{x:.4f}' for x in gn)}")
     if not (finite and peak < cap < 12 * n_glob):
-        raise AssertionError("[tp-train] (b): a loss not finite, a rank's "
-                             "peak above the card, or the global state "
-                             "within it")
-    tt_serve(cfg, arch, TT_FULL_LAYERS, local, mesh, world, say, device,
-             f"(b) llama4-scout {TT_FULL_LAYERS} layers")
+        raise AssertionError(f"[tp-train] (b) {arch}: a loss not finite, a "
+                             f"rank's peak above the card, or the global "
+                             f"state within it")
+    tt_serve(cfg, arch, layers, local, mesh, world, say, device,
+             f"(b) {arch} {layers} layers")
+    del local
+    torch.cuda.empty_cache()
 
 
 FAULT_GEN = 12

@@ -76,7 +76,7 @@ def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig], *,
     b = p.get("b")
     split = tp == "row" and k_split and partition.active() is not None
     if cfg is None or cfg.mode == "float":
-        y = torch.matmul(x, p["w"])
+        y = _matmul(x, p["w"])
         if split:
             y = partition.active().sum(y)
         return y + b if b is not None else y
@@ -88,7 +88,7 @@ def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig], *,
         dx = quant.absmax_scale(x, cfg.a_bits, group=partition.tensor_max
                                 if split else partition.rows_max)
         x_fq = quant.fake_quant(x, dx, cfg.a_bits)
-        y = torch.matmul(x_fq, w_fq)
+        y = _matmul(x_fq, w_fq)
         if split:
             y = partition.active().sum(y)
         return y + b if b is not None else y
@@ -116,6 +116,13 @@ def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig], *,
                                        group=partition.tensor_max)
         return integerize.int_linear(xq, as_qlinear(p, cfg)).to(x.dtype)
     raise ValueError(f"unknown quant mode {cfg.mode!r}")
+
+
+def _matmul(x, w):
+    """``x @ w`` in their promoted type, as ``jnp.matmul`` takes mixed
+    operands (the SSD's f32 normed output into a bf16 ``out_proj``)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(dt), w.to(dt))
 
 
 def _int_row_parallel(x, p, cfg, rules):
@@ -196,8 +203,9 @@ def dense_q(x: QTensor, p: dict, cfg: QuantConfig, *,
 # stay float (router precision, rglru gates: the paper's "cheap ops" rule).
 EXPERT_PARENTS = frozenset({"experts_up", "experts_gate", "experts_down"})
 FLOAT_PARENTS = frozenset({"router", "w_a", "w_i", "head"})
-# row-parallel linears: K split over "model" under partitioned rules
-ROW_PARENTS = frozenset({"wo", "down"})
+# row-parallel linears: K split over "model" under partitioned rules (the
+# RG-LRU's w_out over d_rnn)
+ROW_PARENTS = frozenset({"wo", "down", "w_out"})
 
 
 def integerize_params(params: Any, cfg: QuantConfig) -> Any:

@@ -20,12 +20,13 @@ are rank-local.  :func:`check_tree` refuses a global tree under
 partitioned rules and a partitioned tree without them (``ValueError``).
 Partitioned rules do not combine with ``int_bf16_reduce`` or ``moe_a2a``
 (the shard bodies on global tensors, ``core/api.py::_int_row_parallel``
-and ``layers/moe.py::moe_ffn_a2a``), and the paged engine and the
-training of the recurrent and encoder-decoder families raise
-``NotImplementedError`` under them; each message names its ROADMAP item.
-``mode="int"`` serves partitioned, every family; modes "float" and "fake"
-train the decoder-only attention families partitioned (``lm.lm_loss``
-and ``launch/train.py::make_train_step``, with gradients through every
+and ``layers/moe.py::moe_ffn_a2a``), and the paged engine and the losses
+in int mode (``lm.lm_loss``, ``encdec.loss_fn``) raise
+``NotImplementedError`` under them; each message names its ROADMAP item.  ``mode="int"`` serves partitioned, every family; modes
+"float" and "fake" train every family partitioned (``lm.lm_loss`` for the
+decoder LMs, attention, RG-LRU and SSD stacks alike, and
+``encdec.loss_fn`` for Whisper, through
+``launch/train.py::make_train_step``, with gradients through every
 exchange: :class:`Partition`), and ``core/api.py::integerize_params``
 turns a trained local tree into the local int tree that serves.
 
@@ -101,11 +102,9 @@ from repro_torch.distributed.sharding import (P, _names, current_rules,
                                               zero1_specs)
 
 ROADMAP_ITEM = "ROADMAP.md queue 1, item 6c (partitioned execution)"
-# what is still to do, by item: the shard bodies on local operands, the
-# training of the recurrent and encoder-decoder families; the paged
-# engine, which the reference never shards, stays whole
+# what is still to do, by item: the shard bodies on local operands; the
+# paged engine, which the reference never shards, stays whole
 SHARD_BODIES = "ROADMAP.md queue 1, item 6c.3"
-TRAIN_FAMILIES = "ROADMAP.md queue 1, item 6c.4b"
 PAGED = "ROADMAP.md queue 1, item 6c.4 (the paged engine)"
 
 

@@ -39,9 +39,10 @@ import tempfile
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.configs.registry import is_encdec
 from repro_torch.core.api import QuantConfig
 from repro_torch.data.synthetic import DataConfig, lm_batch
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.optim import OptConfig, init_opt_state, opt_update
 from repro_torch.runtime import checkpoint, preemption
 from repro_torch.runtime.watchdog import Watchdog
@@ -147,16 +148,22 @@ def make_step(loss_fn, ocfg: OptConfig, *, only: str | None = None,
     return train_step
 
 
-def make_train_step(cfg: lm.LMConfig, ocfg: OptConfig, *,
-                    last_layer_only: bool = False):
-    """The LM training step on :func:`repro_torch.models.lm.lm_loss`;
+def model_loss(cfg):
+    """The loss the reference's train cell takes for ``cfg``'s model
+    (``launch/dryrun.py``), as ``(params, batch) -> (loss, metrics)``:
+    :func:`repro_torch.models.encdec.loss_fn` for the encoder-decoder
+    family (``configs/registry.py::is_encdec``), else
+    :func:`repro_torch.models.lm.lm_loss`."""
+    fn = encdec.loss_fn if is_encdec(cfg) else lm.lm_loss
+    return lambda params, batch: fn(params, batch, cfg)
+
+
+def make_train_step(cfg, ocfg: OptConfig, *, last_layer_only: bool = False):
+    """The training step of ``cfg``'s model on :func:`model_loss`;
     ``last_layer_only`` keeps only the gradients whose path holds
     ``lm_head``.  Runs partitioned under ``Rules(partitioned=True)``
     (modes "float" and "fake"; :func:`make_step`)."""
-    def loss_fn(params, batch):
-        return lm.lm_loss(params, batch, cfg)
-
-    return make_step(loss_fn, ocfg,
+    return make_step(model_loss(cfg), ocfg,
                      only="lm_head" if last_layer_only else None, cfg=cfg)
 
 

@@ -21,7 +21,12 @@ run on the slice as they are; w_out is row-parallel, its int32 sums
 reduced over "model" and its activation grid maxed over the slices.  A
 decode step's float gates run as matmuls of one fixed shape
 (:func:`gate_step`), so a feature's gate is the same bits whatever slice
-of rows and features a rank holds.
+of rows and features a rank holds.  In training (modes "float" and
+"fake") the same two places exchange: x enters the rank's columns
+through ``partition.model_input`` (its gradient summed over "model") and
+w_out's fake product sums its f32 partials over "model" on a grid maxed
+over the slices (``core/api.py::dense``); the rest of the backward is per
+feature.
 """
 from __future__ import annotations
 

@@ -12,7 +12,10 @@ on every rank, as the reference's ``param_specs`` keeps it (``in_proj`` /
 ``out_proj`` replicated), and runs on the rank's batch rows with its
 rows of the state: nothing crosses ranks.  A decode step's contraction
 over the state is a sum of products (:func:`ssd_step`), so a rank's rows
-give the one-rank bits.
+give the one-rank bits.  In training the gradient reaching the mixer is
+whole on every model rank, so each model rank computes its leaves' whole
+gradient from its rows, and the train step sums them over the batch axes
+only (``partition.reduce_grads``), never over "model".
 """
 from __future__ import annotations
 

@@ -34,6 +34,10 @@ rows) into its shard of the cache (rings and cross K/V by row and head),
 and return the global logits on every rank.  Every row-parallel product
 reduces its int32 sums over "model" and adds its bias once, after the
 reduce; per-tensor cache scales max over every rank's heads and rows.
+Partitioned training (modes "float" and "fake"): :func:`loss_fn` under the
+same rules, its gradients through every exchange (an attention's inputs,
+the encoder states into each cross-attention's K/V included, sum theirs
+over "model").
 """
 from __future__ import annotations
 
@@ -51,7 +55,7 @@ from repro_torch.layers.mlp import mlp
 from repro_torch.layers.norms import apply_norm, init_norm
 from repro_torch.models.lm import (_global_logits, _lin,
                                     _ring_write_decode, _sat_int8, _stack,
-                                    chunked_nll)
+                                    chunked_nll, logits_fn)
 from repro_torch.models.scan_util import _index, remat
 
 _F32 = torch.float32
@@ -187,15 +191,19 @@ def _merge(x):
 
 def _attn(x, kv_x, p, cfg: EncDecConfig, *, causal, kv_override=None):
     """Attention of ``x`` over ``kv_x`` (``x`` itself when None), or over
-    ``kv_override``'s stored K/V; returns (out, (k, v))."""
-    q = _proj(x, p["wq"], cfg)
+    ``kv_override``'s stored K/V; returns (out, (k, v)).  Partitioned,
+    ``x`` and ``kv_x`` enter the rank's heads: their gradients sum over
+    "model"."""
+    split = _split(p, cfg)
+    xs = partition.model_input(x, split)
+    q = _proj(xs, p["wq"], cfg)
     if kv_override is not None:
         k, v = kv_override
     else:
-        kv_x = x if kv_x is None else kv_x
+        kv_x = xs if kv_x is None or kv_x is x else \
+            partition.model_input(kv_x, split)
         k = _proj(kv_x, p["wk"], cfg)
         v = _proj(kv_x, p["wv"], cfg)
-    split = _split(p, cfg)
     spec = AttnSpec(causal=causal, q_chunk=cfg.q_chunk, split_heads=split)
     out = attention(q, k, v, spec, cfg.quant)
     return dense(_merge(out), p["wo"], cfg.quant, tp="row",
@@ -372,15 +380,28 @@ def loss_fn(params, batch, cfg: EncDecConfig):
     """Teacher-forced NLL of ``batch["labels"]`` (B, S) given
     ``batch["frames"]`` and ``batch["tokens"]``, chunked over the target
     length (the largest chunk <= ``cfg.loss_chunk`` that divides S; the f32
-    sums in the reference's order).  Returns (loss, {})."""
-    partition.refuse("training the encoder-decoder family "
-                     "(models/encdec.py)", partition.TRAIN_FAMILIES)
+    sums in the reference's order).  Returns (loss, {}).
+
+    Partitioned (modes "float" and "fake"): the global batch in, the rank's
+    rows run on its shard of the tree (heads, the MLP's columns, the
+    vocabulary rows of the lm_head, whose logits are gathered), and every
+    rank returns the global loss; a rank's backward gives its part of each
+    gradient, from its own rows, which the train step sums over the batch
+    axes (``launch/train.py``)."""
+    part = partition.active()
+    if part is not None:
+        if _mode(cfg) == "int":
+            partition.refuse("training in int mode (loss_fn; item 6c.1 "
+                             "trains modes 'float' and 'fake')",
+                             partition.ROADMAP_ITEM)
+        batch = {k: part.batch_rows(v) for k, v in batch.items()}
+    partition.check_tree(params, cfg)
     enc_x = encode(params, batch["frames"], cfg)
     x = decoder_embed(params, batch["tokens"], cfg, 0)
     x = apply_norm(_dec_stack(params, x, cfg, enc_x=enc_x), params["dec_ln"],
                    "layernorm")
     return chunked_nll(x, batch["labels"], cfg.loss_chunk,
-                       lambda xc: dense(xc, params["lm_head"], cfg.quant)), {}
+                       lambda xc: logits_fn(params, xc, cfg)), {}
 
 
 def prefill(params, batch, cfg: EncDecConfig, max_len: Optional[int] = None):

@@ -73,9 +73,9 @@ the global tokens, run the rank's batch rows on its shard of the tree
 its d_rnn features; the SSD mixer whole; row-parallel linears reduced as
 int32; its experts; its vocabulary rows) into its shard of the ring
 cache and states, and return the global logits on every rank;
-:func:`lm_loss` (modes "float" and "fake", attention stacks only) takes
-the global batch and returns the global loss, with gradients through
-every exchange.  :func:`forward` then takes the rank's rows.
+:func:`lm_loss` (modes "float" and "fake", every block kind) takes the
+global batch and returns the global loss, with gradients through every
+exchange.  :func:`forward` then takes the rank's rows.
 """
 from __future__ import annotations
 
@@ -719,11 +719,6 @@ def forward(params, batch, cfg: LMConfig, *, cache=None, decode=False,
     if paged:
         partition.refuse("the paged cache (launch/engine.py)",
                          partition.PAGED)
-    if (cfg.quant is None or cfg.quant.mode != "int") and \
-            any(k not in ATTN_KINDS for k in block_kinds(cfg)):
-        partition.refuse("the recurrent blocks (rglru, ssd) in modes "
-                         "'float' and 'fake' (training them)",
-                         partition.TRAIN_FAMILIES)
     partition.check_tree(params, cfg)
     x = _inputs_to_x(params, batch, cfg)
     page_table = cache["page_table"] if paged else None

@@ -14,8 +14,11 @@ its own.
         serving of ``tests/test_torch_partition.py``, "families" (world
         4) that of the recurrent and encoder-decoder families in
         ``tests/test_torch_partition_families.py``; each rank writes
-        OUT_DIR/JOB-RANK.npz.  :func:`launch` and :func:`join` start and
-        wait for a job's ranks.
+        OUT_DIR/JOB-RANK.npz.  "train" (world 4) runs the partitioned
+        training of the decoder LMs (``tests/test_torch_partition_train.py``),
+        "trainfam" (world 4) that of the recurrent and encoder-decoder
+        families (``tests/test_torch_partition_train_families.py``).
+        :func:`launch` and :func:`join` start and wait for a job's ranks.
 
 Arrays cross as npz: trees flatten to "/"-joined keys, and a bfloat16
 array travels widened to float32 under a key ending in "@bf16" (exact).
@@ -81,14 +84,32 @@ TRAIN_OPT = dict(total_steps=100, warmup_steps=1)
 # the trained tree integerized (int8 weights, kv 8) and served partitioned
 TRAIN_SERVE = dict(w_bits=8, a_bits=8, attn_bits=7, kv_bits=8, mode="int")
 TRAIN_SERVE_STEPS, TRAIN_SERVE_PROMPT = 4, 16
+# partitioned training of the families
+# (tests/test_torch_partition_train_families.py), the same cell, meshes,
+# batch and step: RecurrentGemma-9B SMOKE cut to 3 layers (one (rglru,
+# rglru, local) unit: the RG-LRU split by d_rnn, its one KV head whole),
+# Mamba2-130M SMOKE cut to 1 layer (the SSD mixer whole), both recomputed
+# as the reference's cell sets ``remat``, and Whisper SMOKE (2 + 2 layers,
+# 4 heads, 16 stub frames a row; no remat, as in the cell); fake
+# w4/a8/attn7, and RecurrentGemma in float mode too
+FAM_TRAIN_CASES = ("rg-fake", "mamba-fake", "whisper-fake", "rg-float")
+FAM_TRAIN_ARCH = {"rg": ("recurrentgemma-9b", dict(n_layers=3, remat=True)),
+                  "mamba": ("mamba2-130m", dict(n_layers=1, remat=True)),
+                  "whisper": ("whisper-large-v3", {})}
 
 
 def train_config(case, lm_mod, registry, quant_config):
-    """One training case's LMConfig in either package (its ``lm`` module,
-    registry and QuantConfig class)."""
+    """One training case's config (an LMConfig, or Whisper's EncDecConfig)
+    in either package (its ``lm`` module, registry and QuantConfig
+    class)."""
     if case == "qwen-float":
         return lm_mod.LMConfig(**TRAIN_FLOAT_LM)
     fq = quant_config(w_bits=4, a_bits=8, attn_bits=7, mode="fake")
+    model, mode = case.split("-")
+    if model in FAM_TRAIN_ARCH:
+        arch, kw = FAM_TRAIN_ARCH[model]
+        return registry.smoke_config(arch).replace(
+            quant=fq if mode == "fake" else None, **kw)
     if case == "qwen-fake":
         return registry.smoke_config("qwen2.5-32b").replace(
             quant=fq, loss_chunk=16)
@@ -96,10 +117,24 @@ def train_config(case, lm_mod, registry, quant_config):
         quant=fq, remat=True)
 
 
-def train_batch(case, vocab):
+def train_batch(case, cfg):
+    """A case's tokens and labels (TRAIN_BATCH x TRAIN_SEQ), and Whisper's
+    stub frames, from a seed of the case's name."""
     rs = np.random.RandomState(sum(map(ord, case)))
-    return {k: rs.randint(0, vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(
+    out = {k: rs.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ)).astype(
         np.int32) for k in ("tokens", "labels")}
+    if hasattr(cfg, "n_enc_layers"):
+        out["frames"] = rs.randn(TRAIN_BATCH, cfg.n_audio_ctx,
+                                 cfg.d_model).astype(np.float32)
+    return out
+
+
+def batch_of(ref, case):
+    """A case's saved batch (:func:`train_batch`) as CPU tensors."""
+    import torch
+    pre = f"{case}/batch/"
+    return {k[len(pre):]: torch.from_numpy(v) for k, v in ref.items()
+            if k.startswith(pre)}
 
 
 def part_quant(weights, kv_bits):
@@ -613,7 +648,7 @@ def partition_job(ref):
                                                   param_specs, use_rules)
     from repro_torch.kernels import dispatch
     from repro_torch.launch.engine import PagedEngine
-    from repro_torch.models import encdec, lm
+    from repro_torch.models import lm
 
     toks = _tensors(ref, "tokens")["tokens"]
     out = {}
@@ -684,14 +719,6 @@ def partition_job(ref):
     with use_rules(Rules(batch=("data",), mesh=mesh, partitioned=True)):
         refused("global_tree", ValueError, lambda: lm.prefill(
             glob, {"tokens": toks}, cfg, PART_MAX_LEN))
-        # training the families: named by its own item
-        fake = cfg.quant.replace(mode="fake")
-        rg = smoke_config("recurrentgemma-9b").replace(quant=fake)
-        refused("recurrent_train", NotImplementedError, lambda: lm.lm_loss(
-            {}, {"tokens": toks, "labels": toks}, rg), "6c.4b")
-        wc = smoke_config("whisper-large-v3").replace(quant=fake)
-        refused("encdec_train", NotImplementedError, lambda: encdec.loss_fn(
-            {}, {"tokens": toks, "labels": toks}, wc), "6c.4b")
         refused("engine", NotImplementedError,
                 lambda: PagedEngine(cfg, glob))
         refused("lm_loss", NotImplementedError, lambda: lm.lm_loss(
@@ -828,12 +855,60 @@ def ties_job(rank, ref):
 
 
 def train_job(rank, ref):
-    """The partitioned train cell on this rank, each case on each mesh of
-    TRAIN_MESHES (rules with ``expert_fsdp``): (replay) the loss and
-    gradients on the recorded codes of JAX's one-device run, (opt) one
-    LAMB update on JAX's one-device gradients, (step) ``make_train_step``
-    on the rank's own codes, and for the fake cases the stepped tree
-    integerized locally and served partitioned; then the refusals."""
+    """The partitioned train cell of the decoder LMs on this rank
+    (:func:`train_cases`: TRAIN_CASES) after the group max's ties, then
+    the refusals that remain."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core.api import QuantConfig
+    from repro_torch.distributed.sharding import Rules, use_rules
+    from repro_torch.launch.engine import PagedEngine
+    from repro_torch.models import encdec, lm
+    out = ties_job(rank, ref)
+    out.update(train_cases(ref, TRAIN_CASES))
+
+    # refusals of the train path, on (data 2, model 2): the paged engine,
+    # lm_loss and encdec.loss_fn in int mode, and a global tree
+    mesh = make_mesh((2, 2))
+    toks = torch.from_numpy(ref["qwen-fake/batch/tokens"])
+    batch = {"tokens": toks, "labels": toks}
+    cfg = train_config("qwen-fake", lm, registry, QuantConfig)
+    glob = _tree(ref, "qwen-fake/params")
+    refusals = {}
+
+    def refused(name, err, fn):
+        try:
+            fn()
+            refusals[name] = False
+        except err as e:
+            refusals[name] = "ROADMAP" in str(e) or err is ValueError
+
+    with use_rules(Rules(batch=("data",), mesh=mesh, partitioned=True,
+                         expert_fsdp=True)):
+        refused("engine", NotImplementedError,
+                lambda: PagedEngine(cfg, glob))
+        refused("int_loss", NotImplementedError, lambda: lm.lm_loss(
+            glob, batch, cfg.replace(quant=QuantConfig(**TRAIN_SERVE))))
+        wc = registry.smoke_config("whisper-large-v3").replace(
+            quant=QuantConfig(**TRAIN_SERVE))
+        refused("int_encdec_loss", NotImplementedError,
+                lambda: encdec.loss_fn({}, batch, wc))
+        refused("global_tree", ValueError, lambda: lm.lm_loss(
+            glob, batch, cfg))
+    out.update({f"refused/{k}": torch.tensor(v)
+                for k, v in refusals.items()})
+    return out
+
+
+def train_cases(ref, cases):
+    """The partitioned train cell on this rank, each case of ``cases`` on
+    each mesh of TRAIN_MESHES (rules with ``expert_fsdp``; the case's loss
+    by ``train.model_loss``): (replay) the loss and gradients on the recorded
+    codes of JAX's one-device run, (opt) one LAMB update on JAX's
+    one-device gradients, (step) ``make_train_step`` on the rank's own
+    codes, and for the fake cases the stepped tree integerized locally and
+    served partitioned."""
     import torch
 
     from repro_torch import tree as tree_lib
@@ -842,10 +917,9 @@ def train_job(rank, ref):
     from repro_torch.distributed import partition
     from repro_torch.distributed.sharding import Rules, use_rules
     from repro_torch.launch import train
-    from repro_torch.launch.engine import PagedEngine
-    from repro_torch.models import encdec, lm
+    from repro_torch.models import lm
     from repro_torch.optim import OptConfig, init_opt_state, opt_update
-    out = ties_job(rank, ref)
+    out = {}
     ocfg = OptConfig(**TRAIN_OPT)
     for shape in TRAIN_MESHES:
         mesh = make_mesh(shape)
@@ -855,25 +929,23 @@ def train_job(rank, ref):
             [layout.index(("data",)), layout.index(("model",))])
         rules = Rules(batch=("data",), mesh=mesh, partitioned=True,
                       expert_fsdp=True)
-        for case in TRAIN_CASES:
+        for case in cases:
             cfg = train_config(case, lm, registry, QuantConfig)
+            loss_fn = train.model_loss(cfg)
             key = f"{case}/{m}"
             glob = _tree(ref, f"{case}/params")
-            batch = {k: torch.from_numpy(ref[f"{case}/batch/{k}"])
-                     for k in ("tokens", "labels")}
+            batch = batch_of(ref, case)
             loc = partition.partition_params(glob, cfg, layout)
             with use_rules(rules):
                 shards = partition.opt_shards(loc, cfg)
                 if cfg.quant is None:
                     loss, _, grads = train.value_and_grad(
-                        lambda p, b: lm.lm_loss(p, b, cfg), loc, batch,
-                        shards=shards)
+                        loss_fn, loc, batch, shards=shards)
                 else:
                     with BlockReplay(*records_from(ref, f"{case}/rec")) \
                             as rep:
                         loss, _, grads = train.value_and_grad(
-                            lambda p, b: lm.lm_loss(p, b, cfg), loc, batch,
-                            shards=shards)
+                            loss_fn, loc, batch, shards=shards)
                     out[f"{key}/replay/flips"] = torch.tensor(rep.flips())
                 out[f"{key}/replay/loss"] = loss
                 out.update(flat(grads, f"{key}/replay/grads/"))
@@ -902,53 +974,65 @@ def train_job(rank, ref):
             icfg = cfg.replace(quant=QuantConfig(**TRAIN_SERVE))
             with use_rules(Rules(batch=("data",), mesh=mesh,
                                  partitioned=True)), torch.no_grad():
-                logits, fed = serve_steps(iq, batch["tokens"], icfg)
+                logits, fed = serve_steps(iq, batch, icfg)
             out.update({f"{key}/serve/logits": logits,
                         f"{key}/serve/fed": fed})
-
-    # refusals of the train path, on (data 2, model 2)
-    mesh = make_mesh((2, 2))
-    fq = QuantConfig(w_bits=4, a_bits=8, attn_bits=7, mode="fake")
-    toks = torch.from_numpy(ref["qwen-fake/batch/tokens"])
-    batch = {"tokens": toks, "labels": toks}
-    refusals = {}
-
-    def refused(name, fn):
-        try:
-            fn()
-            refusals[name] = False
-        except NotImplementedError as e:
-            refusals[name] = "ROADMAP" in str(e)
-
-    with use_rules(Rules(batch=("data",), mesh=mesh, partitioned=True,
-                         expert_fsdp=True)):
-        for arch in ("recurrentgemma-9b", "mamba2-130m"):
-            rc = registry.smoke_config(arch).replace(quant=fq)
-            refused(arch, lambda: lm.lm_loss({}, batch, rc))
-        wc = registry.smoke_config("whisper-large-v3").replace(quant=fq)
-        refused("whisper", lambda: encdec.loss_fn({}, batch, wc))
-        qc = train_config("qwen-fake", lm, registry, QuantConfig)
-        refused("engine", lambda: PagedEngine(qc, _tree(
-            ref, "qwen-fake/params")))
-    out.update({f"refused/{k}": torch.tensor(v)
-                for k, v in refusals.items()})
     return out
 
 
-def serve_steps(params, tokens, cfg):
-    """Ring prefill of the first TRAIN_SERVE_PROMPT tokens and
-    TRAIN_SERVE_STEPS greedy steps: (logits (steps + 1, B, 1, V), fed
-    (steps, B, 1))."""
+def train_layouts(ranks, shape, fsdp=True):
+    """Each rank's ``Layout`` on the (data, model) mesh ``shape``, from
+    its saved coordinates."""
+    from repro_torch.distributed import partition
+    sizes = {"data": shape[0], "model": shape[1]}
+    out = []
+    for r in ranks:
+        di, mi = r[f"layout/{mesh_tag(shape)}"]
+        out.append(partition.Layout.make(sizes, {"data": int(di),
+                                                 "model": int(mi)},
+                                         ("data",), fsdp))
+    return out
+
+
+def gathered(ranks, shape, prefix, cfg, fsdp=True):
+    """The global tree of every rank's local tree under ``prefix``."""
     import torch
 
-    from repro_torch.models import lm
-    logits, cache = lm.prefill(
-        params, {"tokens": tokens[:, :TRAIN_SERVE_PROMPT]}, cfg,
-        TRAIN_SERVE_PROMPT + TRAIN_SERVE_STEPS)
+    from repro_torch.distributed import partition
+    parts = []
+    for layout, r in zip(train_layouts(ranks, shape, fsdp), ranks):
+        local = {k: torch.from_numpy(v) for k, v in r.items()
+                 if k.startswith(prefix + "/")}
+        parts.append((layout, unflat(local, prefix)))
+    return partition.gather_params(parts, cfg)
+
+
+def close_leaves(got, want, tol, what):
+    """Every leaf of ``got`` within ``tol`` of its leaf's max in ``want``
+    (trees of tensors or numpy arrays, one key order)."""
+    g = _np(got)
+    w = {k: np.asarray(v, np.float32) for k, v in flat(want).items()}
+    assert sorted(g) == sorted(w), what
+    for k in w:
+        err = np.abs(g[k] - w[k]).max()
+        assert err <= tol * (np.abs(w[k]).max() + 1e-30), (what, k, err)
+
+
+def serve_steps(params, batch, cfg):
+    """Ring prefill of the first TRAIN_SERVE_PROMPT tokens of ``batch``
+    (Whisper's with its frames) and TRAIN_SERVE_STEPS greedy steps:
+    (logits (steps + 1, B, 1, V), fed (steps, B, 1))."""
+    import torch
+
+    model = model_of(cfg)
+    prompt = {k: v for k, v in batch.items() if k != "labels"}
+    prompt["tokens"] = prompt["tokens"][:, :TRAIN_SERVE_PROMPT]
+    logits, cache = model.prefill(params, prompt, cfg,
+                                  TRAIN_SERVE_PROMPT + TRAIN_SERVE_STEPS)
     out, fed = [logits], []
     for _ in range(TRAIN_SERVE_STEPS):
         fed.append(torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None])
-        logits, cache = lm.decode_step(params, fed[-1], cache, cfg)
+        logits, cache = model.decode_step(params, fed[-1], cache, cfg)
         out.append(logits)
     return torch.stack(out), torch.stack(fed)
 
@@ -1186,6 +1270,9 @@ def rank_main(job, rank, world, store, ref_path, out_dir):
         elif job == "train":
             sys.path.insert(0, ROOT)          # chip_smoke's code_flips
             out = train_job(rank, ref)
+        elif job == "trainfam":
+            sys.path.insert(0, ROOT)
+            out = train_cases(ref, FAM_TRAIN_CASES)
         else:
             n = int(job[len("elastic"):])
             out = elastic_job(n, ref, os.path.join(out_dir, "elastic8-0.npz"))

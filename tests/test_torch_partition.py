@@ -44,9 +44,8 @@ unsharded ``prefill`` / ``decode_step``.  Held:
   by ``interop.to_torch_shard``, bitwise equal to one rank's steps from
   the whole cache;
 - the refusals (a global tree under partitioned rules,
-  ``int_bf16_reduce``, ``moe_a2a``, training the recurrent blocks and
-  Whisper (``tests/test_torch_partition_families.py`` serves them), the
-  paged engine, training in int mode);
+  ``int_bf16_reduce``, ``moe_a2a``, the paged engine, training in int
+  mode);
 - the local trees equal to ``distribute_tensor(...).to_local()`` on every
   leaf the head rule leaves as ``param_specs`` says.
 """
@@ -438,7 +437,7 @@ def test_partitioned_rules_refuse_what_they_do_not_run(runs):
     for r in runs[0]:
         refused = {k: bool(v) for k, v in r.items()
                    if k.startswith("refused/")}
-        assert len(refused) == 7 and all(refused.values()), refused
+        assert len(refused) == 5 and all(refused.values()), refused
 
 
 @pytest.mark.parametrize("mesh", util.PART_MESHES, ids=util.mesh_tag)

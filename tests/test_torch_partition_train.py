@@ -42,8 +42,10 @@ run it on the (data, model) meshes (2, 2), (1, 4) and (4, 1) with
 - the stepped local tree integerized on the rank bitwise equal to the
   partition of the gathered tree's integerization, and served partitioned
   (ring prefill and 4 greedy steps) bitwise as on one rank;
-- the recurrent blocks, Whisper and the paged engine still refuse under
-  partitioned rules.
+- what partitioned training still refuses: the paged engine,
+  ``lm_loss`` and ``encdec.loss_fn`` in int mode, and a global tree (the
+  recurrent and encoder-decoder families train partitioned:
+  ``tests/test_torch_partition_train_families.py``).
 """
 import os
 import subprocess
@@ -99,10 +101,6 @@ def _cfg(case):
     return util.train_config(case, lm, registry, QuantConfig)
 
 
-def _np(tree):
-    return {k: v.detach().float().numpy() for k, v in util.flat(tree).items()}
-
-
 def _jax_one(case, arrays, monkeypatch):
     """JAX's one-device train cell on the case (its fake-quant calls and
     exp2_shift inputs recorded into ``arrays``): loss, gradients, updated
@@ -110,7 +108,7 @@ def _jax_one(case, arrays, monkeypatch):
     jcfg = util.train_config(case, jlm, jreg, JQuantConfig)
     params = jax.jit(lambda k: jlm.init_params(k, jcfg))(
         jax.random.PRNGKey(0))
-    batch = util.train_batch(case, jcfg.vocab)
+    batch = util.train_batch(case, jcfg)
     vg = jax.jit(jax.value_and_grad(lambda p, b: jlm.lm_loss(p, b, jcfg),
                                     has_aux=True))
     with jax_fake_quant_records(monkeypatch) as rec:
@@ -195,38 +193,6 @@ def runs(tmp_path_factory):
     return ranks, jax_one, util.load(sharded), one, loaded
 
 
-def _layouts(ranks, shape, fsdp=True):
-    sizes = {"data": shape[0], "model": shape[1]}
-    out = []
-    for r in ranks:
-        di, mi = r[f"layout/{util.mesh_tag(shape)}"]
-        out.append(partition.Layout.make(sizes, {"data": int(di),
-                                                 "model": int(mi)},
-                                         ("data",), fsdp))
-    return out
-
-
-def _gathered(ranks, shape, prefix, cfg, fsdp=True):
-    """The global tree of every rank's local tree under ``prefix``."""
-    parts = []
-    for layout, r in zip(_layouts(ranks, shape, fsdp), ranks):
-        local = {k: torch.from_numpy(v) for k, v in r.items()
-                 if k.startswith(prefix + "/")}
-        parts.append((layout, util.unflat(local, prefix)))
-    return partition.gather_params(parts, cfg)
-
-
-def _close(got, want, tol, what):
-    """Every leaf of ``got`` within ``tol`` of its leaf's max in ``want``
-    (trees of tensors or numpy arrays, one key order)."""
-    g = dict(util.flat(_np(got)))
-    w = {k: np.asarray(v, np.float32) for k, v in util.flat(want).items()}
-    assert sorted(g) == sorted(w), what
-    for k in w:
-        err = np.abs(g[k] - w[k]).max()
-        assert err <= tol * (np.abs(w[k]).max() + 1e-30), (what, k, err)
-
-
 CASE_MESH = [(c, m) for c in util.TRAIN_CASES for m in util.TRAIN_MESHES]
 
 
@@ -274,9 +240,9 @@ def test_loss_and_gradients_on_jax_codes(runs, case, mesh):
         assert abs(loss - want["loss"]) <= 2e-5 * abs(want["loss"])
         assert abs(loss - one[case]["replay"][0]) <= \
             2e-5 * abs(want["loss"])
-    grads = _gathered(ranks, mesh, f"{key}/replay/grads", cfg)
-    _close(grads, want["grads"], 1e-5, "vs jax")
-    _close(grads, one[case]["replay"][1], 1e-5, "vs one rank")
+    grads = util.gathered(ranks, mesh, f"{key}/replay/grads", cfg)
+    util.close_leaves(grads, want["grads"], 1e-5, "vs jax")
+    util.close_leaves(grads, one[case]["replay"][1], 1e-5, "vs one rank")
 
 
 @pytest.mark.parametrize("case", ["qwen-fake", "qwen-float"])
@@ -311,15 +277,15 @@ def test_one_lamb_step_on_jax_gradients(runs, case, mesh):
     ranks, jax_one, sharded, one, _ = runs
     cfg = _cfg(case)
     key = f"{case}/{util.mesh_tag(mesh)}"
-    got = _gathered(ranks, mesh, f"{key}/opt/params", cfg)
+    got = util.gathered(ranks, mesh, f"{key}/opt/params", cfg)
     want, old = jax_one[case]["params"], jax_one[case]["old"]
     step = {k: np.abs(v - util.flat(old)[k]).max()
             for k, v in util.flat(want).items()}
-    for k, v in util.flat(_np(got)).items():
+    for k, v in util._np(got).items():
         w = util.flat(want)[k]
         assert np.abs(v - w).max() <= 1e-6 * step[k] + \
             np.spacing(np.abs(w).max()), k
-        np.testing.assert_allclose(v, util.flat(_np(one[case]["opt"]))[k],
+        np.testing.assert_allclose(v, util._np(one[case]["opt"])[k],
                                    rtol=0, atol=1e-6 * step[k] +
                                    np.spacing(np.abs(w).max()))
     # the moments and the experts at JAX's shard shapes; attention whole
@@ -348,13 +314,13 @@ def test_train_step_on_own_codes(runs, case, mesh):
         assert abs(float(r[f"{key}/step/grad_norm"]) - gnorm) <= \
             (STEP_GNORM_RTOL if cfg.quant is not None else 1e-5) * gnorm
     # replicas bitwise (gather_params checks), every leaf finite and moved
-    got = _gathered(ranks, mesh, f"{key}/step/params", cfg)
+    got = util.gathered(ranks, mesh, f"{key}/step/params", cfg)
     old = util._tree(runs[4], f"{case}/params")
     for (k, g), (_, o) in zip(tree_lib.leaves_with_keys(got),
                               tree_lib.leaves_with_keys(old)):
         assert bool(torch.isfinite(g).all()) and not torch.equal(g, o), k
     if cfg.quant is None:
-        _close(got, params, 1e-5, "float step")
+        util.close_leaves(got, params, 1e-5, "float step")
 
 
 @pytest.mark.parametrize("case,mesh", [cm for cm in CASE_MESH
@@ -365,13 +331,13 @@ def test_local_integerization_serves_as_the_gathered_tree(runs, case, mesh):
     ranks = runs[0]
     cfg = _cfg(case)
     key = f"{case}/{util.mesh_tag(mesh)}"
-    trained = _gathered(ranks, mesh, f"{key}/step/params", cfg)
+    trained = util.gathered(ranks, mesh, f"{key}/step/params", cfg)
     qc = QuantConfig(**util.TRAIN_SERVE)
     icfg = cfg.replace(quant=qc)
     whole = integerize_params(trained, qc)
-    logits, fed = util.serve_steps(whole, torch.from_numpy(
-        runs[4][f"{case}/batch/tokens"]), icfg)
-    for layout, r in zip(_layouts(ranks, mesh, fsdp=False), ranks):
+    logits, fed = util.serve_steps(whole, util.batch_of(runs[4], case),
+                                   icfg)
+    for layout, r in zip(util.train_layouts(ranks, mesh, fsdp=False), ranks):
         assert r[f"{key}/int_contiguous"]
         want = partition.partition_params(whole, icfg, layout)
         for k, v in util.flat(want).items():

@@ -172,6 +172,32 @@ def test_dense_fake_forward_and_gradients(bias, w_bits):
         assert rel(tp[k].grad, wgp[k]) <= 1e-5, k
 
 
+@pytest.mark.parametrize("mode", ["float", "fake"])
+def test_dense_mixed_operands_promote_as_jnp_matmul(mode):
+    """An f32 activation into a bf16 weight (the SSD's normed output into
+    its ``out_proj`` in a bf16 model) runs in f32, as ``jnp.matmul``
+    promotes: the output within 1e-6 of JAX's, x's gradient within 1e-5,
+    the bf16 weight's within one bf16 spacing (2^-8) of its max."""
+    rs = np.random.RandomState(5)
+    x = rs.randn(2, 5, 16).astype(np.float32)
+    w = jnp.asarray(rs.randn(16, 12) * 0.25, jnp.bfloat16)
+    g = rs.randn(2, 5, 12).astype(np.float32)
+    jq = JQuantConfig(w_bits=4, a_bits=8, mode=mode)
+    want, vjp = jax.vjp(lambda xx, ww: j_dense(xx, {"w": ww}, jq),
+                        jnp.asarray(x), w)
+    wgx, wgw = vjp(jnp.asarray(g))
+    assert want.dtype == jnp.float32
+    tx = torch.tensor(x).requires_grad_(True)
+    tw = torch.tensor(np.asarray(w, np.float32)).to(
+        torch.bfloat16).requires_grad_(True)
+    got = dense(tx, {"w": tw}, QuantConfig(w_bits=4, a_bits=8, mode=mode))
+    got.backward(torch.tensor(g))
+    assert got.dtype == torch.float32 and tw.grad.dtype == torch.bfloat16
+    assert rel(got, want) <= 1e-6
+    assert rel(tx.grad, wgx) <= 1e-5
+    assert rel(tw.grad, wgw) <= 2.0 ** -8
+
+
 def test_dense_expert_fake_forward_and_gradients():
     rs = np.random.RandomState(3)
     x = rs.randn(3, 5, 16).astype(np.float32)
