@@ -494,6 +494,16 @@ QMM_DIST = [(m, 5120, k) for m in (4, 256) for k in (1280, 6912)]
 QMM_ACC = [(m, 5120, k, packed) for m in (4, 256)
            for k in (5120, 27648, 8192, 1280, 6912, 2048)
            for packed in (False, True)]
+# [tp-shard-bodies]' row-parallel products in the bf16 shard body: the
+# rank's K slice on qmatmul with the scaled epilogue (f32(acc) * (w_scale
+# * x_scale), no bias, no row scale), N d_model, at decode (4) and prefill
+# (4 x 256) rows: Qwen2.5-32B's wo (K 5120) and down (27648),
+# Llama-4-Scout's shared down (8192), Phi-3.5-MoE's wo (N and K 4096),
+# whole on one card and a quarter on each of 4, int8 and packed
+QMM_SHARD = [(m, n, k // w, packed) for m in (4, 1024)
+             for n, k in ((5120, 5120), (5120, 27648), (5120, 8192),
+                          (4096, 4096)) for w in (1, 4)
+             for packed in (False, True)]
 # DeiT-S's linears at batch 64: the patch embedding (64 x 196 rows, K 768),
 # wq/wk/wv/wo, the MLP's up and down (64 x 198 rows)
 QMM_DEIT = [(64 * 196, 384, 768), (64 * 198, 384, 384),
@@ -538,9 +548,26 @@ def phase_check(g):
         worst = max(worst, diff)
         del args, got, want
 
-    # Llama-4-Scout's prefill expert product, and [dist]'s on one of 4
-    # ranks: its 4 local experts over 4 sources' 20 slots
-    errs["qmatmul"] = max(worst, check_expert(g), check_expert(g, 4, 80))
+    for m, n, k, packed in QMM_SHARD:
+        x, w, sc, _, _ = qmatmul_inputs(g, m, n, k, packed)
+        blocks = dispatch.qmatmul_blocks(m, n, k)
+        got = qmatmul(x, w, sc, blocks=blocks, packed=packed)
+        torch.cuda.synchronize()
+        diff = (got - ref.qmatmul_ref(x, w, sc)).abs().max().item()
+        log(f"[check] qmatmul shard body M={m} N={n} K={k} packed={packed} "
+            f"(scaled epilogue, no bias) plan {blocks}: "
+            f"{'exact' if diff == 0 else f'MISMATCH (max abs {diff})'}")
+        if diff != 0:
+            raise AssertionError("qmatmul differs from its plain version")
+        del x, w, sc, got
+
+    # Llama-4-Scout's prefill expert product, and the all-to-all body's on
+    # one card (16 experts over 80 slots) and one of 4 ranks (its 4 local
+    # experts over 4 sources' 20 slots); Phi-3.5-MoE's on one of 4 ranks
+    # (4 experts over 4 x 40 slots, din 4096, dout 6400)
+    errs["qmatmul"] = max(worst, check_expert(g), check_expert(g, 4, 80),
+                          check_expert(g, 16, 80),
+                          check_expert(g, 4, 160, 4096, 6400))
 
     worst = 0
     for m, n, k, packed in QMM_ACC:
@@ -632,16 +659,15 @@ def check_attention(g, name, case, bits):
     return f_abs, t_abs
 
 
-def check_expert(g, e=16, cap=20):
-    """One Llama-4-Scout expert product (``e`` experts, capacity ``cap``,
-    din 5120, dout 8192; bf16 activations, w4 codes) through
+def check_expert(g, e=16, cap=20, din=5120, dout=8192):
+    """One expert product (``e`` experts, capacity ``cap``; Llama-4-Scout's
+    din 5120, dout 8192 by default; bf16 activations, w4 codes) through
     ``dense_expert``'s kernel route (one qmatmul launch an expert) against
     its plain version, bitwise; its max abs error (0)."""
     import torch
     from repro_torch.core.api import QuantConfig
     from repro_torch.kernels import dispatch
     from repro_torch.layers.moe import dense_expert
-    din, dout = 5120, 8192
     p = {"w_q": torch.randint(-8, 8, (e, din, dout), generator=g,
                               device="cuda", dtype=torch.int8),
          "w_scale": torch.rand((e, 1, dout), generator=g, device="cuda")
@@ -1782,7 +1808,8 @@ DIST_JOIN_S = 600
 DIST_MICRO = 8            # pipeline microbatches of DIST_BATCH rows
 
 
-DIST_STEPS_ALL = ("dist", "tp", "tp-families", "tp-train")
+DIST_STEPS_ALL = ("dist", "tp", "tp-shard-bodies", "tp-families",
+                  "tp-train")
 
 
 def phase_dist(only=DIST_STEPS_ALL):
@@ -1877,6 +1904,8 @@ def dist_run(rank, world, only=DIST_STEPS_ALL):
             out["dist"] = {k: total.get(k, 0) for k in DIST_KERNELS}
         if "tp" in only:
             out["tp"] = dist_tp(rank, world, say)
+        if "tp-shard-bodies" in only:
+            out["tp-shard-bodies"] = dist_tp_shard_bodies(rank, world, say)
         if "tp-families" in only:
             out["tp-families"] = dist_tp_families(rank, world, say)
     torch.cuda.empty_cache()
@@ -2036,7 +2065,7 @@ def row_parallel_parts(x, p, qc, rules):
     import torch
     from repro_torch.core import quant
     from repro_torch.distributed import collectives as col
-    from repro_torch.kernels.dispatch import maybe_qlinear_row
+    from repro_torch.kernels.dispatch import maybe_qlinear_row, row_codes
     mesh = rules.mesh
     m, j = col.axes_size(mesh, ("model",)), col.axes_index(mesh, ("model",))
     grp = col.group(mesh, "model")
@@ -2045,7 +2074,8 @@ def row_parallel_parts(x, p, qc, rules):
     xq = quant.quantize_tensor(xl, qc.a_bits)
     codes = xq.q.reshape(-1, kl)
     scale = (p["w_scale"] * xq.scale).to(torch.float32)
-    y = maybe_qlinear_row(codes, p["w_q"], scale, j, m, qc)
+    w = row_codes(p["w_q"], j, m)
+    y = maybe_qlinear_row(codes, w, scale, qc)
     rows = codes.shape[0]
     ys = y.reshape(rows, m, n // m).transpose(0, 1).contiguous()
     part = col.reduce_scatter0(ys, grp).to(torch.bfloat16)
@@ -2055,8 +2085,8 @@ def row_parallel_parts(x, p, qc, rules):
     # gathered bf16 result
     bus = (m - 1) / m * ys.numel() * 4, (m - 1) * part.numel() * 2
     return {"quantize": cuda_ms(lambda: quant.quantize_tensor(xl, qc.a_bits)),
-            "qmatmul": cuda_ms(lambda: maybe_qlinear_row(codes, p["w_q"],
-                                                         scale, j, m, qc)),
+            "qmatmul": cuda_ms(lambda: maybe_qlinear_row(codes, w, scale,
+                                                         qc)),
             "reduce-scatter": rs, "all-gather": ag,
             "reduce-scatter GB/s": bus[0] / rs / 1e6,
             "all-gather GB/s": bus[1] / ag / 1e6}
@@ -2517,6 +2547,360 @@ def tp_scout_full(rules, layout, world, say):
                              "card, or the global tree within it")
     if (max(gaps) > LOGITS_RTOL and not (flips or free)) or not finite:
         raise AssertionError("[tp] (b): cuda and torch backends differ")
+
+
+# [tp-shard-bodies]: the reference's two shard bodies on rank-local
+# operands under partitioned rules, at [tp]'s shapes: (arch, rules tags);
+# "opt" is both options with packed int4 weights (the reference's dry-run
+# variant of that name)
+SB_RUNS = (("qwen2.5-32b", ("bf16red", "opt")),
+           ("llama4-scout-17b-a16e", ("bf16red", "a2a", "opt")),
+           ("phi3.5-moe-42b-a6.6b", ("a2a", "opt")))
+SB_RULES = {"bf16red": dict(int_bf16_reduce=True), "a2a": dict(moe_a2a=True),
+            "opt": dict(int_bf16_reduce=True, moe_a2a=True)}
+SB_KERNELS = ("qmatmul", "qmatmul_acc", "int_attention_fused",
+              "int_decode_attention")
+
+
+class A2ACount:
+    """Within ``with``: the calls of ``moe.moe_ffn_a2a`` (the all-to-all
+    body) in ``n``."""
+
+    def __enter__(self):
+        from repro_torch.layers import moe
+        self.real, self.n = moe.moe_ffn_a2a, 0
+
+        def counted(*a, **k):
+            self.n += 1
+            return self.real(*a, **k)
+        moe.moe_ffn_a2a = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.layers import moe
+        moe.moe_ffn_a2a = self.real
+
+
+def sb_config(arch, tag, layers=DIST_LAYERS, backend="cuda"):
+    cfg = arch_config(arch, backend).replace(n_layers=layers)
+    return cfg.replace(quant=cfg.quant.replace(pack_weights=tag == "opt"))
+
+
+def dist_tp_shard_bodies(rank, world, say):
+    """[tp-shard-bodies]: partitioned serving with the reference's
+    ``int_bf16_reduce`` (``core/api.py::_int_row_parallel``) and
+    ``moe_a2a`` (``layers/moe.py::moe_ffn_a2a``) on each rank's shard, on
+    (data 1, model n) and at four cards (data 2, model 2): SB_RUNS at 2
+    layers, prefill of 4 x 256 tokens and 16 ring steps, gated by (a)
+    bitwise equal to the same bodies on the global tree under the same
+    rules on the same mesh, (b) every row-parallel product on qmatmul (none
+    on qmatmul_acc) where ``int_bf16_reduce`` is on, every MoE FFN through
+    the all-to-all and every local expert on the expert product, (c) the
+    torch backend teacher-forced within LOGITS_RTOL (MoE: a miss only
+    where route flips explain it), (d) the wire bytes of one row-parallel
+    product and one MoE layer, today's partitioned path against the new
+    bodies, each equal to its analytic count; at four cards, Llama-4-Scout
+    at 48 layers under "opt".  Returns the runs' launches."""
+    import torch
+    from repro_torch.distributed import partition
+    from repro_torch.launch.mesh import make_test_mesh
+    shapes = [(1, world)] + ([(2, world // 2)] if world == 4 else [])
+    total = {}
+    for shape in shapes:
+        mesh = make_test_mesh(shape, ("data", "model"), device_type="cuda")
+        layout = partition.Layout.of(mesh, ("data",))
+        say(f"[tp-shard-bodies] {world} rank(s), mesh (data {shape[0]}, "
+            f"model {shape[1]}), Rules(batch=('data',), partitioned=True, "
+            f"...): {card_line()}")
+        for arch, tags in SB_RUNS:
+            for tag in tags:
+                add_launches(total, sb_run(sb_config(arch, tag), tag, mesh,
+                                           layout, world, say))
+                torch.cuda.empty_cache()
+        for arch in ("qwen2.5-32b", "llama4-scout-17b-a16e"):
+            sb_wire(sb_config(arch, "opt", 1), mesh, layout, say)
+            torch.cuda.empty_cache()
+    if world < 4:
+        say(f"[tp-shard-bodies] Llama-4-Scout at its full depth needs four "
+            f"cards; this run has {world}")
+    else:
+        mesh = make_test_mesh((1, world), ("data", "model"),
+                              device_type="cuda")
+        sb_scout_full(mesh, partition.Layout.of(mesh, ("data",)), rank,
+                      world, say)
+    return {k: total.get(k, 0) for k in SB_KERNELS}
+
+
+def sb_run(cfg, tag, mesh, layout, world, say):
+    """One [tp-shard-bodies] run (see :func:`dist_tp_shard_bodies`);
+    returns its launches."""
+    import torch
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import Rules, use_rules
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+    flags = SB_RULES[tag]
+    rules = Rules(batch=("data",), mesh=mesh, partitioned=True, **flags)
+    tcfg = cfg.replace(quant=cfg.quant.replace(backend="torch"))
+    name = (f"[tp-shard-bodies] {cfg.name} {tag}, {cfg.n_layers} layers, "
+            f"mesh {tuple(mesh.shape)}")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(0, cfg.vocab, (DIST_BATCH, DIST_PROMPT),
+                         generator=g, device="cuda", dtype=torch.int32)
+    local = partition.build_params(cfg, seed=0, layout=layout)
+    with use_rules(rules):
+        tp_greedy(local, toks, cfg, 1)                  # cold: NCCL
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        copies = []
+        with A2ACount() as a2a:
+            logits, fed, _, t_prefill, step_s = tp_greedy(
+                local, toks, cfg, DIST_STEPS, copies)
+        launches = dispatch.launch_counts()
+        snap = dispatch.snapshot()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # (b) the path: row products, all-to-alls, expert products
+        forwards = 1 + DIST_STEPS
+        moe = cfg.moe is not None
+        ran = ("qmatmul", "int_attention_fused", "int_decode_attention") + \
+            (() if flags.get("int_bf16_reduce") else ("qmatmul_acc",))
+        check_route(f"{name} cuda run", "cuda", launches, snap, ran)
+        pre, step = tp_row_products(cfg)
+        rows = pre + step * DIST_STEPS
+        bf16 = flags.get("int_bf16_reduce", False)
+        a2a_want = cfg.n_layers * forwards if moe and \
+            flags.get("moe_a2a") else 0
+        experts = 3 * cfg.n_layers * forwards if moe else 0
+        bad = []
+        if snap["qlinear_row_cuda"] != (rows if bf16 else 0) or \
+                snap["qlinear_acc_cuda"] != (0 if bf16 else rows) or \
+                (bf16 and launches["qmatmul_acc"]):
+            bad.append(f"row products {snap['qlinear_row_cuda']} on qmatmul "
+                       f"and {snap['qlinear_acc_cuda']} on qmatmul_acc "
+                       f"(want {rows} on "
+                       f"{'qmatmul' if bf16 else 'qmatmul_acc'})")
+        if a2a.n != a2a_want or snap["qexpert_cuda"] != experts:
+            bad.append(f"all-to-all bodies {a2a.n} (want {a2a_want}), expert "
+                       f"products {snap['qexpert_cuda']} (want {experts})")
+        if bad:
+            raise AssertionError(f"{name}: {'; '.join(bad)}")
+        # (c) the torch backend, teacher-forced on the cuda run's tokens
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        gaps = [rel_err(logits[0].float(), tp_greedy(
+            local, toks, tcfg, 0)[0][0].float())[1]]
+        for i, (tok, c) in enumerate(zip(fed, copies)):
+            lf, _ = lm.decode_step(local, tok, c, tcfg)
+            gaps.append(rel_err(logits[i + 1].float(), lf.float())[1])
+        check_route(f"{name} torch run", "torch", dispatch.launch_counts(),
+                    dispatch.snapshot(), ())
+        del copies
+        flips = free = 0
+        if max(gaps) > LOGITS_RTOL and moe:
+            flips, free = layer_attribution(name, local, cfg, tcfg,
+                                            [r.tolist() for r in toks])
+    del local
+    torch.cuda.empty_cache()
+    # (a) the same bodies on the global tree under the same rules
+    whole = partition.build_params(cfg, seed=0)
+    with use_rules(Rules(batch=("data",), mesh=mesh, **flags)):
+        w_logits, w_fed, *_ = tp_greedy(whole, toks, cfg, DIST_STEPS)
+    del whole
+    torch.cuda.empty_cache()
+    same = all(torch.equal(x, y) for x, y in zip(logits, w_logits)) and \
+        all(torch.equal(x, y) for x, y in zip(fed, w_fed))
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    step_ms = step_s / DIST_STEPS * 1e3
+    say(f"{name}: prefill {t_prefill * 1e3:.2f} ms, decode step "
+        f"{step_ms:.2f} ms ({DIST_BATCH * DIST_STEPS / step_s:.1f} "
+        f"tok/s), peak {peak:.2f} GB allocated; row products "
+        f"{snap['qlinear_row_cuda']} on qmatmul, {snap['qlinear_acc_cuda']} "
+        f"on qmatmul_acc; all-to-all bodies {a2a.n}, expert products "
+        f"{snap['qexpert_cuda']}; launches "
+        f"{ {k: n for k, n in launches.items() if n} }; (a) bitwise the "
+        f"global-tree bodies' logits and tokens: {same}; (c) torch vs cuda "
+        f"backend (teacher-forced) max rel {max(gaps):.3e} (tol rel "
+        f"{LOGITS_RTOL}; route flips {flips} teacher-forced, {free} "
+        f"free-running); finite {finite}; greedy tokens of row 0 "
+        f"{torch.cat(fed, 1)[0].tolist()}")
+    if not same or not finite or tuple(logits[-1].shape) != (
+            DIST_BATCH, 1, cfg.vocab):
+        raise AssertionError(f"{name}: the local bodies differ from the "
+                             f"global-tree ones")
+    if max(gaps) > LOGITS_RTOL and not (flips or free):
+        raise AssertionError(f"{name}: cuda and torch backends differ")
+    return launches
+
+
+def wire_analytic(kind, cfg, m, n_dp, rows, seqs=None, split=True):
+    """The bytes a rank sends (ring algorithms, as
+    ``distributed/collectives.py`` counts them) in one row-parallel
+    product (``kind`` "row": x of ``rows`` rows over ``seqs`` sequences,
+    N = d_model, K split over "model" when ``split``, else whole on the
+    rank: no exchange today, a slice per call in the bf16 body) or one
+    MoE FFN (``kind`` "moe": ``rows`` tokens
+    a rank) of ``cfg`` (activations in ``cfg.tdtype``), under today's
+    partitioned rules ("old") and with both options ("new"), by
+    exchange."""
+    d, e = cfg.d_model, (cfg.moe.n_experts if cfg.moe else 0)
+    es = cfg.tdtype.itemsize
+    ar = lambda n, b: 2 * (n - 1) / n * b               # all-reduce
+    rs = lambda n, b: (n - 1) / n * b                   # reduce-scatter
+    ag = lambda n, b: (n - 1) * b                       # all-gather chunk
+    grid = ar(m, 4) + ar(n_dp, 4)     # a per-tensor grid's max (f32)
+    # the bf16 body: the f32 partials reduce-scattered, bf16 gathered
+    body = {"reduce_scatter": rs(m, rows * d * 4),
+            "all_gather": ag(m, rows * d // m * 2)}
+    if kind == "row":
+        old = {"all_reduce": ar(m, seqs * 4) + ar(m, rows * d * 4)} \
+            if split else {}
+        return old, body
+    k, cf = cfg.moe.top_k, cfg.moe.capacity_factor
+    cap = max(int(rows * n_dp * k * cf / e), 1)
+    ts = rows // m
+    cap_sub = max(int(ts * k * cf / e), 1)
+    shared = cfg.moe.shared_expert
+    old = {"all_gather": ag(n_dp, rows * d * es)
+           + ag(m, e // m * cap * d * es),
+           "all_reduce": 3 * ar(m, 4)
+           + (3 * grid + ar(m, rows * d * 4) if shared else 0)}
+    new = {"all_to_all": 2 * rs(m, e * cap_sub * d * es),
+           "all_gather": ag(m, ts * d * es)
+           + (body["all_gather"] if shared else 0),
+           "all_reduce": ar(m, 4) + ar(n_dp, 4) + (2 * grid if shared else 0),
+           "reduce_scatter": body["reduce_scatter"] if shared else 0}
+    return old, new
+
+
+def wire_counts(cfg, mesh, layout, device="cuda"):
+    """[tp-shard-bodies] (d): the bytes one rank sends in layer 0's
+    row-parallel wo (x (B, S, K/m) of 4 x 256 rows, bf16, the rank's
+    rows) and its FFN (MoE when ``cfg`` has experts: the rank's 1024 /
+    n_dp tokens), under today's partitioned rules and with both options
+    (``collectives.WIRE``), each beside :func:`wire_analytic`'s count:
+    {(what, rules): (counted, analytic)}."""
+    import torch
+    from repro_torch.core.api import dense
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import Rules, use_rules
+    from repro_torch.layers import moe
+    m, n_dp = layout.m, layout.size(("data",))
+    local = partition.build_params(cfg, seed=0, layout=layout, device=device)
+    p0, _ = next(stack_blocks(local, cfg))
+    g = torch.Generator(device=device).manual_seed(8)
+    b, s = DIST_BATCH // n_dp, DIST_PROMPT
+    hq = partition.out_features(p0["attn"]["wq"]) // cfg.hd
+    x = torch.randn((b, s, hq * cfg.hd), generator=g, device=device).to(
+        cfg.tdtype)
+    h = torch.randn((b * s, cfg.d_model), generator=g, device=device).to(
+        cfg.tdtype)
+    out = {}
+    analytic = {"row": wire_analytic("row", cfg, m, n_dp, b * s, b,
+                                     hq < cfg.n_heads)}
+    if cfg.moe is not None:
+        analytic["moe"] = wire_analytic("moe", cfg, m, n_dp, b * s)
+    for i, flags in enumerate(({}, SB_RULES["opt"])):
+        rules = Rules(batch=("data",), mesh=mesh, partitioned=True, **flags)
+        with use_rules(rules), torch.no_grad():
+            for what in analytic:
+                col.reset_wire()
+                if what == "row":
+                    dense(x, p0["attn"]["wo"], cfg.quant, tp="row",
+                          k_split=hq < cfg.n_heads)
+                else:
+                    moe.moe_ffn(h, p0["ffn"], cfg.moe, cfg.quant,
+                                act=cfg.act)
+                got = {k: v for k, v in col.WIRE.items() if v}
+                want = {k: v for k, v in analytic[what][i].items() if v}
+                out[what, "new" if flags else "old"] = (got, want)
+    return out
+
+
+def sb_wire(cfg, mesh, layout, say):
+    """[tp-shard-bodies] (d) for one config, gated equal to the analytic
+    counts (to 1e-9 of each)."""
+    res = wire_counts(cfg, mesh, layout)
+    for (what, rules), (got, want) in res.items():
+        ok = sorted(got) == sorted(want) and all(
+            abs(got[k] - want[k]) <= 1e-9 * max(want[k], 1) for k in want)
+        which = "today" if rules == "old" else "both options"
+        say(f"[tp-shard-bodies] (d) {cfg.name} layer 0 "
+            f"{'wo (row-parallel)' if what == 'row' else 'MoE FFN'}, mesh "
+            f"{tuple(mesh.shape)}, {which}: a rank sends "
+            f"{sum(got.values()) / 1e6:.4f} MB "
+            f"({ {k: int(v) for k, v in got.items()} }), analytic "
+            f"{ {k: int(v) for k, v in want.items()} }: equal {ok}")
+        if not ok:
+            raise AssertionError(f"[tp-shard-bodies] (d) {cfg.name} {what} "
+                                 f"{rules}: wire bytes {got} != {want}")
+
+
+def sb_scout_full(mesh, layout, rank, world, say):
+    """[tp-shard-bodies] at four cards: Llama-4-Scout at its 48 layers
+    under the "opt" rules on (data 1, model 4): a rank's bytes and peak,
+    prefill and ring step times, the route, a decode step's device busy
+    share (rank 0's profile), with the card's name and power limit."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import Rules, use_rules
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+    arch = "llama4-scout-17b-a16e"
+    cfg = sb_config(arch, "opt", get_config(arch).n_layers)
+    rules = Rules(batch=("data",), mesh=mesh, partitioned=True,
+                  **SB_RULES["opt"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    local = partition.build_params(cfg, seed=0, layout=layout)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    held = tree_bytes(local)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    toks = torch.randint(0, cfg.vocab, (DIST_BATCH, DIST_PROMPT),
+                         generator=g, device="cuda", dtype=torch.int32)
+    with use_rules(rules):
+        tp_greedy(local, toks, cfg, 1)
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        with A2ACount() as a2a:
+            logits, fed, cache, t_prefill, step_s = tp_greedy(
+                local, toks, cfg, DIST_STEPS)
+        launches = dispatch.launch_counts()
+        snap = dispatch.snapshot()
+        peak = torch.cuda.max_memory_allocated()
+        check_route(f"[tp-shard-bodies] {arch} {cfg.n_layers} layers opt",
+                    "cuda", launches, snap, ("qmatmul", "int_attention_fused",
+                                             "int_decode_attention"))
+        tok = fed[-1]
+        run = lambda: lm.decode_step(local, tok, clone_tree(cache), cfg)
+        run()
+        if rank == 0:
+            log_profile(f"[tp-shard-bodies] {arch} {cfg.n_layers} layers opt "
+                        f"decode step", run, 4, step_s / DIST_STEPS * 1e3)
+        else:
+            for _ in range(4):
+                run()
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    cap = torch.cuda.get_device_properties(0).total_memory
+    say(f"[tp-shard-bodies] {arch} at {cfg.n_layers} layers under 'opt' "
+        f"(int_bf16_reduce, moe_a2a, packed int4) over {world} ranks, "
+        f"{card_line()}: rank 0 holds {held / 1e9:.2f} GB of parameters "
+        f"(built in {t_build:.1f} s), peak {peak / 1e9:.2f} GB allocated of "
+        f"{cap / 1e9:.2f} GB; batch {DIST_BATCH}, {DIST_PROMPT}-token "
+        f"prompts: prefill {t_prefill * 1e3:.2f} ms, decode step "
+        f"{step_s / DIST_STEPS * 1e3:.2f} ms "
+        f"({DIST_BATCH * DIST_STEPS / step_s:.1f} tok/s); all-to-all bodies "
+        f"{a2a.n}, row products on qmatmul {snap['qlinear_row_cuda']}, on "
+        f"qmatmul_acc {snap['qlinear_acc_cuda']}; finite {finite}; greedy "
+        f"tokens of row 0 {torch.cat(fed, 1)[0].tolist()}")
+    if not finite or a2a.n != cfg.n_layers * (1 + DIST_STEPS) or \
+            launches["qmatmul_acc"] or not (held < cap and peak < cap):
+        raise AssertionError("[tp-shard-bodies] llama4-scout full depth: "
+                             "path, finiteness or memory")
 
 
 # [tp-families]: partitioned ring serving of the recurrent and
@@ -4189,17 +4573,21 @@ KERNELS = {
 # the counted runs of each kernel's main paths (the kernels line's
 # launches: their sum, and each path's count)
 MAIN_PATHS = {"qmatmul": ("serve", "archs", "recurrent", "serve-recurrent",
-                          "encdec", "dist", "tp", "tp-families", "tp-train"),
+                          "encdec", "dist", "tp", "tp-shard-bodies",
+                          "tp-families", "tp-train"),
               "int_attention_fused": ("serve", "archs", "recurrent",
                                       "serve-recurrent", "encdec", "dist",
-                                      "tp", "tp-families", "tp-train"),
+                                      "tp", "tp-shard-bodies", "tp-families",
+                                      "tp-train"),
               "int_paged_decode_attention": ("serve", "archs",
                                              "serve-recurrent"),
               "int_decode_attention": ("ring", "archs", "recurrent",
-                                       "encdec", "dist", "tp", "tp-families",
+                                       "encdec", "dist", "tp",
+                                       "tp-shard-bodies", "tp-families",
                                        "tp-train"),
               "pq_layernorm": ("ops",), "int_attention": ("ops",),
-              "qmatmul_acc": ("tp", "tp-families", "tp-train")}
+              "qmatmul_acc": ("tp", "tp-shard-bodies", "tp-families",
+                              "tp-train")}
 # qmatmul timed at every (M, N, K) of one Qwen2.5-32B layer and its
 # lm_head at decode and prefill rows, int8 and packed, then DeiT-S's
 # linears (int8, as the model runs them)
@@ -4213,9 +4601,14 @@ QMM_TIMES = [(m, n, k, packed) for m in (4, 256) for n, k in QMM_NK
 QMM_ACC_TIMES = [(m, 5120, k, packed) for m in (4, 256) for k in (1280, 6912)
                  for packed in (False, True)]
 # Llama-4-Scout's expert product (din 5120, dout 8192) as (experts,
-# capacity): the [archs] prefill's 16 x 20, a decode step's 16 x 1, and one
-# of 4 [dist] ranks' 4 local experts over 80 slots
-EXPERT_TIMES = ((16, 20), (16, 1), (4, 80))
+# capacity): the [archs] prefill's 16 x 20, a decode step's 16 x 1, the
+# all-to-all body's on one card (16 x 80) and on one of 4 ranks (its 4
+# local experts over 4 x 20 slots); Phi-3.5-MoE's (din 4096, dout 6400)
+# on one of 4 ranks (4 x 160)
+EXPERT_TIMES = ((16, 20), (16, 1), (16, 80), (4, 80), (4, 160, 4096, 6400))
+# [tp-shard-bodies]' row products timed: a quarter of K on one of 4 ranks
+QMM_SHARD_TIMES = [row for row in QMM_SHARD if row[2] in (1280, 6912, 2048,
+                                                          1024)]
 # (kv_bits, span, pos, G, D): the ring phase's shapes (64-token prompts, so
 # the last decode step reads positions 0..79) first, then full rings, then
 # a full ring at chatglm3-6b's G 16.
@@ -4299,8 +4692,29 @@ def phase_time(g, launches, errs):
         keep("qmatmul_acc", (m, n, k, packed), (ms, pms, bnd, by, lib))
         del x, w
 
-    for e, cap in EXPERT_TIMES:
-        time_expert(g, cap, e)
+    for m, n, k, packed in QMM_SHARD_TIMES:
+        x, w, sc, _, _ = qmatmul_inputs(g, m, n, k, packed)
+        blocks = dispatch.qmatmul_blocks(m, n, k)
+        call = lambda: qmatmul(x, w, sc, blocks=blocks, packed=packed)
+        ms, dms = cuda_ms(call), device_ms(call)
+        pms = cuda_ms(lambda: ref.qmatmul_ref(x, w, sc), iters=3, warmup=1)
+        xi = F.pad(x, (0, 0, 0, 32 - m)) if m <= 16 else x
+        wi = unpack_int4(w) if packed else w
+        lib = cuda_ms(lambda: torch._int_mm(xi, wi.t()))
+        del wi
+        # x, W, the scales, the f32 output
+        nbytes = x.numel() + w.numel() + 4 * n + 4 * m * n
+        bnd, by = bound_ms(nbytes, 2 * m * n * k)
+        how = (" (x padded to 32 rows)" if m <= 16 else "") + \
+            (" (W unpacked)" if packed else "")
+        log(f"[time] qmatmul shard body M={m} N={n} K={k} packed={packed} "
+            f"(scaled epilogue) plan {blocks}: {ms:.4f} ms "
+            f"({dev_str(dms, bnd)}), bound {bnd:.4f} ms ({by}), plain "
+            f"{pms:.4f} ms, _int_mm{how} {lib:.4f} ms")
+        del x, w, sc
+
+    for row in EXPERT_TIMES:
+        time_expert(g, row[1], row[0], *row[2:])
 
     for name, case in ATTN_CASES.items():
         for kname, t in time_attention(g, name, case, both=True).items():
@@ -4492,12 +4906,21 @@ def time_expert(g, cap, e=16, din=5120, dout=8192):
     ms, dms = cuda_ms(call), device_ms(call)
     pms = cuda_ms(lambda: dense_expert(x, p, qc.replace(backend="torch")),
                   iters=3, warmup=1)
+    # Yardstick the port never calls: torch._int_mm on each expert's codes
+    # (x's codes padded to 32 rows where the capacity is 16 or fewer)
+    xi = torch.randint(-128, 128, (e, max(cap, 32), din), generator=g,
+                       device="cuda", dtype=torch.int8)
+    wt = p["w_q"].transpose(-1, -2).contiguous()
+    lib = cuda_ms(lambda: [torch._int_mm(xi[i], wt[i].t())
+                           for i in range(e)])
+    del xi, wt
     # x (bf16), the codes, the scales, the bf16 output; int8 products
     nbytes = 2 * x.numel() + e * din * dout + 4 * e * dout + 2 * e * cap * dout
     bnd, by = bound_ms(nbytes, 2 * e * cap * din * dout)
     log(f"[time] expert product E={e} capacity={cap} din={din} dout={dout} "
         f"(bf16, {e} qmatmul launches): {ms:.4f} ms ({dev_str(dms, bnd)}), "
-        f"bound {bnd:.4f} ms ({by}), plain {pms:.4f} ms")
+        f"bound {bnd:.4f} ms ({by}), plain {pms:.4f} ms, _int_mm (one an "
+        f"expert{', x padded to 32 rows' if cap < 32 else ''}) {lib:.4f} ms")
 
 
 def sdpa_ms(g, h, sq, sk, d, causal, sq_mod, window=None):

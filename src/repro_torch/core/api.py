@@ -57,24 +57,29 @@ def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig], *,
           tp: Optional[str] = None, k_split: bool = False) -> torch.Tensor:
     """The one linear-layer entry point of the models.
 
-    ``tp="row"`` marks row-parallel layers (wo / down-proj): when the
-    active sharding rules enable ``int_bf16_reduce`` on a mesh with a
-    "model" axis, their integerized form runs the explicit shard body
-    :func:`_int_row_parallel`, whose cross-rank reduce moves bf16; under
-    partitioned rules it runs
-    ``distributed/partition.py::row_parallel_linear``, whose int32 sums
-    are all-reduced over "model" where ``k_split`` says x and the codes
-    hold this rank's slice of K.
+    ``tp="row"`` marks the reference's row-parallel layers (wo, down, the
+    RG-LRU's w_out): when the active sharding rules enable
+    ``int_bf16_reduce`` on a mesh with a "model" axis, their integerized
+    form runs the shard body :func:`_int_row_parallel`, whose cross-rank
+    reduce moves bf16, on global tensors (every rank slices its operands
+    out) or, under partitioned rules, on the rank's own rows and K slice.
+    Otherwise, under partitioned rules, ``tp="row"`` and ``tp="sum"`` (a
+    product the reference leaves unmarked, whose GSPMD program sums the
+    heads' partial products all the same: Whisper's decode self-attention
+    wo) run ``distributed/partition.py::row_parallel_linear``, whose int32
+    sums are all-reduced over "model" where ``k_split`` says x and the
+    codes hold this rank's slice of K.
 
     Under partitioned rules the float and fake forms take ``x``'s rows of
     the rank (the per-tensor activation grid maxed over the batch axes)
-    and, with ``tp="row"`` and ``k_split``, its slice of K: both grids
-    then max over "model" too, and the partial products are summed over
-    "model" (``Partition.sum``) before the bias.
+    and, with ``tp`` and ``k_split``, its slice of K: both grids then max
+    over "model" too, and the partial products are summed over "model"
+    (``Partition.sum``) before the bias.
     """
     from repro_torch.distributed import partition
     b = p.get("b")
-    split = tp == "row" and k_split and partition.active() is not None
+    split = tp in ("row", "sum") and k_split and \
+        partition.active() is not None
     if cfg is None or cfg.mode == "float":
         y = _matmul(x, p["w"])
         if split:
@@ -94,13 +99,13 @@ def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig], *,
         return y + b if b is not None else y
     if cfg.mode == "int":
         from repro_torch.distributed.sharding import current_rules
-        if tp == "row" and partition.active() is not None:
-            return partition.row_parallel_linear(x, p, cfg, k_split)
         rules = current_rules()
         if (tp == "row" and rules is not None and rules.int_bf16_reduce
                 and rules.mesh is not None
                 and "model" in rules.mesh.mesh_dim_names):
-            return _int_row_parallel(x, p, cfg, rules)
+            return _int_row_parallel(x, p, cfg, rules, k_split)
+        if tp in ("row", "sum") and partition.active() is not None:
+            return partition.row_parallel_linear(x, p, cfg, k_split)
         from repro_torch.kernels.dispatch import maybe_qlinear
         y = maybe_qlinear(x, p, cfg)       # cuda backend; None -> plain path
         if y is not None:
@@ -125,63 +130,94 @@ def _matmul(x, w):
     return torch.matmul(x.to(dt), w.to(dt))
 
 
-def _int_row_parallel(x, p, cfg, rules):
-    """Row-parallel integer linear with an explicit bf16 cross-rank reduce.
+def _int_row_parallel(x, p, cfg, rules, k_split=False):
+    """Row-parallel integer linear with an explicit bf16 cross-rank reduce:
+    the reference's ``shard_map`` body, on this rank's operands.
 
-    Every rank holds the global ``x`` and weights; on its coordinates of
-    the mesh it takes x's batch slice (over the batch axes) and then its
-    slice of the feature (K) dim (over "model"), quantizes that slice on
-    ONE per-tensor grid (its own, finer than the global one; 3-D x too),
-    runs its int32 partial contraction against its K slice of ``w_q`` with
-    the f32 epilogue ``f32(acc) * (w_scale * x_scale)`` and no bias, and
-    reduce-scatters the f32 partials over "model" by output column.  Each
-    rank's 1/m of the sum is cast to bf16 and all-gathered in 2-byte
-    lanes, cast to ``x.dtype``, the bias added once, and the batch slices
-    gathered back, since the model code holds global tensors.
+    Under partitioned rules (``distributed/partition.py``) ``x`` holds the
+    rank's batch rows and, with ``k_split``, its slice of K, and ``w_q``
+    the same K slice as stored (nibble bytes included); where the tree
+    keeps K whole on the rank (``k_split`` False), the body takes the
+    rank's K slice of both per call, as the reference's ``shard_map``
+    does.  The result is the rank's rows.  On global tensors (rules
+    without ``partitioned``) every rank takes its batch rows and K slice
+    of ``x``, and of ``w_q`` a copy kept with the codes
+    (``dispatch.row_codes``), and the rows are gathered back over the
+    batch axes, since the model code holds global tensors there.
 
-    On the ``cuda`` backend the rank's product is the qmatmul kernel
-    (``dispatch.maybe_qlinear_row``).  The f32 partials sum in the
+    The body (:func:`_row_body`) is the same either way, so both are
+    bitwise equal on the same mesh.  The f32 partials sum in the
     collective's order, not XLA's: past two ranks a bf16 result may differ
-    by one bf16 ulp at a rounding edge.
+    from the reference's by one bf16 ulp at a rounding edge.
     """
     from repro_torch.distributed import collectives as col
-    from repro_torch.kernels.dispatch import maybe_qlinear_row
+    from repro_torch.distributed import partition
+    from repro_torch.kernels.dispatch import row_codes
     mesh = rules.mesh
-    bax = tuple(a for a in rules.batch if a in mesh.mesh_dim_names)
-    model = col.group(mesh, "model")
     m, j = col.axes_size(mesh, ("model",)), col.axes_index(mesh, ("model",))
-    n_dp, bi = col.axes_size(mesh, bax), col.axes_index(mesh, bax)
     w_q = p["w_q"]
     packed = w_q.dtype == torch.uint8
+    if partition.active() is not None:
+        if k_split:
+            _row_divides(x, w_q, 1, m, 1, packed)
+            return _row_body(x, w_q, p, cfg, mesh, m)
+        _row_divides(x, w_q, 1, m, m, packed)
+        kl = x.shape[-1] // m
+        unit = kl // 2 if packed else kl
+        w = w_q[:, j * unit:(j + 1) * unit].contiguous()
+        return _row_body(x[..., j * kl:(j + 1) * kl], w, p, cfg, mesh, m)
+    bax = tuple(a for a in rules.batch if a in mesh.mesh_dim_names)
+    n_dp, bi = col.axes_size(mesh, bax), col.axes_index(mesh, bax)
+    _row_divides(x, w_q, n_dp, m, m, packed)
+    bl, kl = x.shape[0] // n_dp, x.shape[-1] // m
+    xl = x[bi * bl:(bi + 1) * bl, ..., j * kl:(j + 1) * kl]
+    y = _row_body(xl, row_codes(w_q, j, m), p, cfg, mesh, m)
+    return col.gather_axes(y, mesh, bax)
+
+
+def _row_divides(x, w_q, n_dp, m, k_parts, packed):
+    """Raise unless x's rows split over ``n_dp`` batch ranks, the output
+    columns over ``m`` model ranks (the reduce-scatter) and x's K into
+    ``k_parts`` slices (nibble-packed codes: even ones)."""
     n, kdim = w_q.shape[0], x.shape[-1]
-    if x.shape[0] % n_dp or kdim % m or n % m or (packed and (kdim // m) % 2):
+    if x.shape[0] % n_dp or n % m or kdim % k_parts or \
+            (packed and (kdim // k_parts) % 2):
         raise ValueError(f"row-parallel linear: x {tuple(x.shape)}, w_q "
                          f"{tuple(w_q.shape)} over {n_dp} batch x {m} model "
                          f"ranks (packed K slices must be even)")
-    bl, kl = x.shape[0] // n_dp, kdim // m
-    xl = x[bi * bl:(bi + 1) * bl, ..., j * kl:(j + 1) * kl]
+
+
+def _row_body(xl, w, p, cfg, mesh, m):
+    """The rank's part of :func:`_int_row_parallel`: ``xl`` (..., K/m) on
+    ONE per-tensor grid of its own (3-D x too: no grid per sequence, no
+    exchange), its int32 partial product against ``w`` (N, K/m) int8 or
+    (N, K/2m) nibbles, contiguous, with the f32 epilogue ``f32(acc) *
+    (w_scale * x_scale)`` and no bias (on the ``cuda`` backend the qmatmul
+    kernel: ``dispatch.maybe_qlinear_row``), the f32 partials
+    reduce-scattered over "model" by output column, each rank's 1/m of the
+    sum cast to bf16 and all-gathered in 2-byte lanes, cast to
+    ``xl.dtype`` and the bias added once."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.kernels.dispatch import maybe_qlinear_row
+    model = col.group(mesh, "model")
+    n, kl = w.shape[0], xl.shape[-1]
     xq = quant.quantize_tensor(xl, cfg.a_bits)
     codes = xq.q.reshape(-1, kl)
     scale = (p["w_scale"] * xq.scale).to(torch.float32)
-    y = maybe_qlinear_row(codes, w_q, scale, j, m, cfg)
+    y = maybe_qlinear_row(codes, w, scale, cfg)
     if y is None:
-        # packed codes are sliced as stored: K slice j is bytes
-        # [j*kl/2, (j+1)*kl/2) of every row (kl even)
-        unit = kl // 2 if packed else kl
-        w = w_q[:, j * unit:(j + 1) * unit]
-        if packed:
-            w = quant.unpack_int4(w)
-        acc = quant.int_matmul_exact(codes, w.T)
+        wu = quant.unpack_int4(w) if w.dtype == torch.uint8 else w
+        acc = quant.int_matmul_exact(codes, wu.T)
         y = acc.to(torch.float32) * scale
     rows = codes.shape[0]
     # psum_scatter over the last dim: rank r keeps columns [r*N/m, ...)
     y = col.reduce_scatter0(y.reshape(rows, m, n // m).transpose(0, 1), model)
     y = col.gather0(y.to(torch.bfloat16), model)            # 2-byte lanes
     y = y.reshape(m, rows, n // m).transpose(0, 1).reshape(*xl.shape[:-1], n)
-    y = y.to(x.dtype)
+    y = y.to(xl.dtype)
     if p.get("b") is not None:
         y = y + p["b"]
-    return col.gather_axes(y, mesh, bax)
+    return y
 
 
 def as_qlinear(p: dict, cfg: QuantConfig) -> QLinearParams:

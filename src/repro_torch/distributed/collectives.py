@@ -17,6 +17,12 @@ alike hands each rank its own chunk of the (full) output gradient, and a
 gather of shards that each rank uses on its own data reduce-scatters it;
 an all-to-all's backward is the reverse exchange, and a mean over ranks
 scales by 1/n.
+
+Every exchange adds the bytes this rank sends in it to :data:`WIRE`, by
+kind, as the bandwidth-optimal algorithms on n ranks send them: an
+all-reduce of B bytes 2 (n - 1) / n B, a reduce-scatter of B bytes
+(n - 1) / n B, an all-gather of a B-byte chunk (n - 1) B, an all-to-all
+of B bytes (n - 1) / n B (``reset_wire`` zeroes the counts).
 """
 from __future__ import annotations
 
@@ -28,6 +34,23 @@ _all_gather = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
+
+
+WIRE = {"all_reduce": 0.0, "reduce_scatter": 0.0, "all_gather": 0.0,
+        "all_to_all": 0.0}
+_SHARE = {"all_reduce": lambda n: 2 * (n - 1) / n,
+          "reduce_scatter": lambda n: (n - 1) / n,
+          "all_gather": lambda n: n - 1, "all_to_all": lambda n: (n - 1) / n}
+
+
+def reset_wire():
+    for k in WIRE:
+        WIRE[k] = 0.0
+
+
+def _sent(kind: str, t: torch.Tensor, grp):
+    WIRE[kind] += _SHARE[kind](dist.get_world_size(grp)) * \
+        t.numel() * t.element_size()
 
 
 def group(mesh, axis: str):
@@ -64,6 +87,7 @@ def check_device(t: torch.Tensor, grp):
 def _gather0(t, grp):
     check_device(t, grp)
     t = t.contiguous()
+    _sent("all_gather", t, grp)
     out = torch.empty((dist.get_world_size(grp) * t.shape[0], *t.shape[1:]),
                       dtype=t.dtype, device=t.device)
     _all_gather(out, t, group=grp)
@@ -146,6 +170,7 @@ class _SharedInput(torch.autograd.Function):
 def _a2a0(t, grp):
     check_device(t, grp)
     t = t.contiguous()
+    _sent("all_to_all", t, grp)
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t, group=grp)
     return out
@@ -167,9 +192,7 @@ class _Mean(torch.autograd.Function):
     def forward(ctx, t, grp):
         check_device(t, grp)
         ctx.n = dist.get_world_size(grp)
-        out = t.clone()
-        dist.all_reduce(out, group=grp)
-        return out / ctx.n
+        return all_reduce(t.clone(), grp) / ctx.n
 
     @staticmethod
     def backward(ctx, g):
@@ -223,6 +246,7 @@ def mean(t: torch.Tensor, grp) -> torch.Tensor:
 def reduce_scatter0(t: torch.Tensor, grp) -> torch.Tensor:
     """Sum over the ranks of ``t`` (m, ...); rank r keeps chunk r, (...)."""
     check_device(t, grp)
+    _sent("reduce_scatter", t, grp)
     out = torch.empty(t.shape[1:], dtype=t.dtype, device=t.device)
     _reduce_scatter(out, t.reshape(-1, *t.shape[2:]), group=grp)
     return out
@@ -231,5 +255,6 @@ def reduce_scatter0(t: torch.Tensor, grp) -> torch.Tensor:
 def all_reduce(t: torch.Tensor, grp, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """In place over one group."""
     check_device(t, grp)
+    _sent("all_reduce", t, grp)
     dist.all_reduce(t, op=op, group=grp)
     return t

@@ -18,14 +18,20 @@ global logits on every rank; only the parameters (:func:`partition_params`
 or :func:`build_params`) and the ring cache, recurrent states included,
 are rank-local.  :func:`check_tree` refuses a global tree under
 partitioned rules and a partitioned tree without them (``ValueError``).
-Partitioned rules do not combine with ``int_bf16_reduce`` or ``moe_a2a``
-(the shard bodies on global tensors, ``core/api.py::_int_row_parallel``
-and ``layers/moe.py::moe_ffn_a2a``), and the paged engine and the losses
-in int mode (``lm.lm_loss``, ``encdec.loss_fn``) raise
-``NotImplementedError`` under them; each message names its ROADMAP item.  ``mode="int"`` serves partitioned, every family; modes
-"float" and "fake" train every family partitioned (``lm.lm_loss`` for the
-decoder LMs, attention, RG-LRU and SSD stacks alike, and
-``encdec.loss_fn`` for Whisper, through
+The paged engine and the losses in int mode (``lm.lm_loss``,
+``encdec.loss_fn``) raise ``NotImplementedError`` under them; each
+message names its ROADMAP item.  The rules' two communication options
+run on the rank's operands: ``int_bf16_reduce`` takes every
+``dense(tp="row")`` in int mode through the shard body
+``core/api.py::_int_row_parallel`` (a per-tensor grid of the rank's own,
+an f32 reduce-scatter and a bf16 all-gather over "model"), and
+``moe_a2a`` every MoE FFN whose rank's tokens split over "model" through
+``layers/moe.py::moe_ffn_a2a`` (two all-to-alls), as the reference's
+``shard_map`` bodies compute them; neither is then bitwise one rank's
+run, as in the reference.  ``mode="int"`` serves partitioned, every
+family; modes "float" and "fake" train every family partitioned
+(``lm.lm_loss`` for the decoder LMs, attention, RG-LRU and SSD stacks
+alike, and ``encdec.loss_fn`` for Whisper, through
 ``launch/train.py::make_train_step``, with gradients through every
 exchange: :class:`Partition`), and ``core/api.py::integerize_params``
 turns a trained local tree into the local int tree that serves.
@@ -58,10 +64,10 @@ stays whole over "model" (:func:`local_cache_specs`).  The reference's
 sequence instead, which would need a cross-rank merge of the softmax's f32
 sum, not an exact step.
 
-**Exactness.**  A partitioned int-mode run is bitwise equal to one
-rank's run of the same tree wherever it was checked: meshes (1, 4),
-(2, 2) and (4, 1) at SMOKE size on the CPU, and ``chip_smoke.py``'s
-``[tp]`` and ``[tp-families]`` runs on the card.  Every cross-rank step
+**Exactness.**  A partitioned int-mode run without the two options is
+bitwise equal to one rank's run of the same tree wherever it was
+checked: meshes (1, 4), (2, 2) and (4, 1) at SMOKE size on the CPU, and
+``chip_smoke.py``'s ``[tp]`` and ``[tp-families]`` runs on the card.  Every cross-rank step
 is exact, and a rank's float arithmetic is made independent of the slice
 it holds where it was not (modes "float" and "fake" sum f32 partial
 products and gradients over ranks, so past one rank they part as the
@@ -71,9 +77,10 @@ reference's sharded train cell parts from its one-device run):
   mesh (:func:`grid_max`): over "model" where it spans heads or a
   row-parallel K (the RG-LRU's ``h * gate`` over d_rnn), and also over
   the batch axes where it is per tensor;
-- a row-parallel linear (:func:`row_parallel_linear`) all-reduces its
-  int32 sums over "model" (the qmatmul kernel's accumulator output) and
-  applies the f32 epilogue, bias included, once, to the full sum;
+- a row-parallel linear (:func:`row_parallel_linear`; without
+  ``int_bf16_reduce``) all-reduces its int32 sums over "model" (the
+  qmatmul kernel's accumulator output) and applies the f32 epilogue,
+  bias included, once, to the full sum;
 - the RG-LRU's scan, step, temporal conv and float gates act per
   feature, and the SSD mixer per row, so neither exchanges anything;
   a decode step's gates run as matmuls of one shape
@@ -102,9 +109,8 @@ from repro_torch.distributed.sharding import (P, _names, current_rules,
                                               zero1_specs)
 
 ROADMAP_ITEM = "ROADMAP.md queue 1, item 6c (partitioned execution)"
-# what is still to do, by item: the shard bodies on local operands; the
-# paged engine, which the reference never shards, stays whole
-SHARD_BODIES = "ROADMAP.md queue 1, item 6c.3"
+# what is still to do: the paged engine, which the reference never
+# shards, stays whole
 PAGED = "ROADMAP.md queue 1, item 6c.4 (the paged engine)"
 
 
@@ -432,6 +438,23 @@ class _Take(torch.autograd.Function):
         return col.gather_dim(g, ctx.groups, ctx.dim), None, None, None, None
 
 
+class _Mean(torch.autograd.Function):
+    """The mean of the ranks' values over ``groups``, which every rank
+    then holds alike.  The backward sums the incoming gradient over
+    ``parts`` (the batch groups, whose ranks each hold a part of it) and
+    divides by the count: each rank's value enters the mean once."""
+    @staticmethod
+    def forward(ctx, t, groups, parts, n):
+        ctx.parts, ctx.n = parts, n
+        return col.reduce_sum(t, groups) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.parts:
+            g = col.reduce_sum(g, ctx.parts)
+        return g / ctx.n, None, None, None
+
+
 class _Max(torch.autograd.Function):
     """The max of ``xa`` over ``dims`` (kept, size 1) and over the ranks of
     ``groups``.  The backward first sums the incoming gradient over those
@@ -510,6 +533,17 @@ class Partition:
         groups = self._groups(axes)
         return _Sum.apply(t, groups) if groups else t
 
+    def mean(self, t, axes):
+        """``pmean`` over the ranks of ``axes`` (the reference's
+        ``lb_loss`` of the all-to-all body); the backward gives each rank's
+        value its share of the whole gradient, summed over the batch
+        axes."""
+        groups = self._groups(axes)
+        if not groups:
+            return t
+        parts = self._groups(tuple(a for a in axes if a in self.batch))
+        return _Mean.apply(t, groups, parts, self.layout.size(axes))
+
     def shared(self, t, axes=("model",)):
         """``t``, which the ranks of ``axes`` hold alike, entering work
         split over them: its backward sums the gradient over them."""
@@ -558,10 +592,6 @@ def active() -> Optional[Partition]:
         return None
     if rules.mesh is None:
         raise ValueError("partitioned rules need a mesh")
-    if rules.int_bf16_reduce or rules.moe_a2a:
-        raise ValueError("partitioned trees do not combine with "
-                         "int_bf16_reduce or moe_a2a (their shard bodies "
-                         f"take global tensors): {SHARD_BODIES}")
     return rules.partition
 
 

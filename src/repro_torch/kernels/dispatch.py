@@ -289,11 +289,14 @@ def maybe_qlinear_acc(codes, w_q, cfg):
 
 
 def row_codes(w_q, j: int, m: int):
-    """Rank ``j`` of ``m``'s contiguous K slice of ``w_q`` (N, K) int8 or
-    (N, K/2) nibbles (sliced as stored: ``K/m`` is even), as qmatmul takes
-    W.  Made once per parameter tree and kept on the tensor that owns the
-    codes, as :func:`expert_codes_t` keeps its copies: together the slices
-    double the bytes the row-parallel codes take on the device."""
+    """Rank ``j`` of ``m``'s contiguous K slice of a global ``w_q`` (N, K)
+    int8 or (N, K/2) nibbles (sliced as stored: ``K/m`` is even), as
+    qmatmul takes W, for the row-parallel shard body on global tensors
+    (``core/api.py::_int_row_parallel`` without partitioned rules; a
+    partitioned tree holds its slice already).  Made once per parameter
+    tree and kept on the tensor that owns the codes, as
+    :func:`expert_codes_t` keeps its copies: together the slices double
+    the bytes the row-parallel codes take on the device."""
     owner = w_q if w_q._base is None else w_q._base
     memo = owner.__dict__.setdefault("_row_codes", {})
     key = (w_q.storage_offset(), tuple(w_q.shape), w_q.stride(), j, m)
@@ -303,21 +306,20 @@ def row_codes(w_q, j: int, m: int):
     return memo[key]
 
 
-def maybe_qlinear_row(codes, w_q, scale, j: int, m: int, cfg):
-    """The rank's product in a row-parallel shard body
-    (``core/api.py::_int_row_parallel``): ``codes`` (M, K/m) int8 on the
-    rank's per-tensor grid against its K slice of ``w_q``, epilogue
-    ``f32(acc) * scale[n]`` with no bias -> f32 (M, N); ``None`` -> the
-    caller's plain path.  Counted as ``qlinear_row_*``."""
+def maybe_qlinear_row(codes, w, scale, cfg):
+    """The rank's product in the row-parallel shard body
+    (``core/api.py::_row_body``): ``codes`` (M, K/m) int8 on the rank's
+    per-tensor grid against ``w``, its contiguous K slice (N, K/m) int8 or
+    (N, K/2m) nibbles, epilogue ``f32(acc) * scale[n]`` with no bias ->
+    f32 (M, N); ``None`` -> the caller's plain path.  Counted as
+    ``qlinear_row_*``."""
     if resolve_backend(cfg) != "cuda":
         STATS["qlinear_row_torch"] += 1
         return None
     STATS["qlinear_row_cuda"] += 1
-    w = row_codes(w_q, j, m)
-    kl = codes.shape[1]
-    blocks = qmatmul_blocks(codes.shape[0], w.shape[0], kl)
+    blocks = qmatmul_blocks(codes.shape[0], w.shape[0], codes.shape[1])
     return qmatmul(codes.contiguous(), w, scale.contiguous(), blocks=blocks,
-                   packed=w_q.dtype == torch.uint8)
+                   packed=w.dtype == torch.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -348,15 +350,22 @@ def expert_codes_t(w_q):
 
 
 def _aligned(t):
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    """``t`` as qmatmul takes an operand: contiguous, 16-byte aligned (an
+    expert's slice of a buffer whose layout a reshape kept strided, as
+    the all-to-all body's is at one slot a source, gets a copy)."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
-def maybe_qexpert(x, p: dict, cfg):
+def maybe_qexpert(x, p: dict, cfg, group=heads_max):
     """Kernel-backed int dense_expert() body; ``None`` -> caller's plain
     path.
 
     Quantizes the whole (E, C, din) buffer on one per-tensor grid, as the
-    plain path does (over every rank's experts when partitioned), then
+    plain path does (``group``: over every rank's experts when partitioned
+    and the dense dispatch splits them; None for the rank's buffer alone,
+    as in the all-to-all body), then
     runs each expert's slice through the qmatmul kernel (one launch an
     expert) against :func:`expert_codes_t`, with the epilogue scale
     ``(xq.scale * w_scale)[e, 0]`` in the reference's order:
@@ -366,7 +375,7 @@ def maybe_qexpert(x, p: dict, cfg):
         STATS["qexpert_torch"] += 1
         return None
     STATS["qexpert_cuda"] += 1
-    xq = quant.quantize_tensor(x, cfg.a_bits, group=heads_max)
+    xq = quant.quantize_tensor(x, cfg.a_bits, group=group)
     w_t = expert_codes_t(p["w_q"])
     scale = (xq.scale * p["w_scale"]).to(torch.float32)     # (E, 1, dout)
     e, c, din = x.shape

@@ -293,10 +293,9 @@ def _self_attn_decode(h_in, p, c, cfg: EncDecConfig):
     h = attention(q, k_all, v_all, spec, cfg.quant, q_offset=qpos,
                   k_positions=kpos)
     # The reference leaves this wo unmarked (its GSPMD program reduces the
-    # heads' partial sums all the same); a rank holding some heads must
-    # take the row-parallel path.
-    tp = "row" if partition.active() is not None else None
-    return dense(_merge(h), p["wo"], cfg.quant, tp=tp, k_split=split)
+    # heads' partial sums all the same, and it never takes the bf16 shard
+    # body); a rank holding some heads sums its partial product.
+    return dense(_merge(h), p["wo"], cfg.quant, tp="sum", k_split=split)
 
 
 def _cross_kv(c, cfg: EncDecConfig):

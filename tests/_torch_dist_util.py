@@ -17,7 +17,14 @@ its own.
         OUT_DIR/JOB-RANK.npz.  "train" (world 4) runs the partitioned
         training of the decoder LMs (``tests/test_torch_partition_train.py``),
         "trainfam" (world 4) that of the recurrent and encoder-decoder
-        families (``tests/test_torch_partition_train_families.py``).
+        families (``tests/test_torch_partition_train_families.py``);
+        "shardlocal" and "shardjax" (world 4) the shard bodies on
+        rank-local operands (``tests/test_torch_partition_shard_bodies.py``):
+        the first against the same bodies on global tensors and needing
+        nothing of JAX, the second against ``jaxshard``'s outputs.
+    python tests/_torch_dist_util.py jaxshard bodies|serve|train OUT.npz
+        The reference's shard bodies (``int_bf16_reduce``, ``moe_a2a``)
+        on host meshes of 2 and 4 devices, with the inputs it makes.
         :func:`launch` and :func:`join` start and wait for a job's ranks.
 
 Arrays cross as npz: trees flatten to "/"-joined keys, and a bfloat16
@@ -209,8 +216,8 @@ def greedy_from(params, cache, token, cfg):
     return torch.stack(out), torch.stack(fed)
 
 
-def greedy(params, tokens, cfg):
-    """The port's ring prefill and PART_STEPS free-running greedy decode
+def greedy(params, tokens, cfg, steps=PART_STEPS, max_len=PART_MAX_LEN):
+    """The port's ring prefill and ``steps`` free-running greedy decode
     steps: (logits (steps + 1, B, 1, V), fed tokens (steps, B, 1),
     cache).  ``tokens``: the prompts, or Whisper's batch (``frames`` and
     ``tokens``)."""
@@ -218,9 +225,9 @@ def greedy(params, tokens, cfg):
 
     model = model_of(cfg)
     batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
-    logits, cache = model.prefill(params, batch, cfg, PART_MAX_LEN)
+    logits, cache = model.prefill(params, batch, cfg, max_len)
     out, fed = [logits], []
-    for _ in range(PART_STEPS):
+    for _ in range(steps):
         fed.append(torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None])
         logits, cache = model.decode_step(params, fed[-1], cache, cfg)
         out.append(logits)
@@ -272,6 +279,280 @@ def load(path):
 # ---------------------------------------------------------------------------
 # The reference
 # ---------------------------------------------------------------------------
+
+# the shard bodies on rank-local operands
+# (tests/test_torch_partition_shard_bodies.py): the row-parallel body at
+# Qwen2.5 SMOKE's down (K = d_ff 128, 2-D x) and wo (K = 4 heads x 16, 3-D
+# x) widths into d_model 64, int8 and packed, on (data, model) meshes of
+# 2 and 4 ranks (a mesh of 2 runs twice over an outer axis "x"); the MoE
+# FFN of layer 0 of Llama-4-Scout's and Phi-3.5-MoE's SMOKE trees on 64
+# tokens, and 2 decode-sized ones (one a batch rank: the dense dispatch);
+# the reference test's float a2a with gradients in float and fake mode;
+# one train step of Llama-4-Scout SMOKE in float and fake mode; greedy
+# serving of Qwen2.5 and Llama-4-Scout SMOKE under the reference's "opt"
+# rules (both options, packed int4 weights); one int forward of
+# RecurrentGemma-9B and Whisper SMOKE under int_bf16_reduce at (1, 2)
+SB_ROW_MESHES = ((1, 2), (1, 4), (2, 2))
+SB_ROW_CASES = (("2d_i8", (16, 128), False), ("2d_pk", (16, 128), True),
+                ("3d_i8", (4, 8, 64), False), ("3d_pk", (4, 8, 64), True))
+SB_ROW_N = 64
+SB_MOE_ARCHS = ("llama4-scout-17b-a16e", "phi3.5-moe-42b-a6.6b")
+SB_MOE_T, SB_MOE_DECODE_T = 64, 2
+SB_RULES = {"bf16red": dict(int_bf16_reduce=True),
+            "a2a": dict(moe_a2a=True),
+            "opt": dict(int_bf16_reduce=True, moe_a2a=True)}
+SB_W = {"bf16red": "w8", "a2a": "w8", "opt": "w4p"}
+SB_GREEDY_ARCHS = ("qwen2.5-32b", "llama4-scout-17b-a16e")
+SB_BATCH, SB_PROMPT, SB_STEPS = 4, 16, 8
+SB_LOCAL_ARCHS = ("qwen2.5-32b", "chatglm3-6b", "llama4-scout-17b-a16e",
+                  "phi3.5-moe-42b-a6.6b")
+SB_LOCAL_MESHES = ((1, 4), (2, 2))
+SB_LOCAL_STEPS = 4
+SB_FAM_ARCHS = ("recurrentgemma-9b", "whisper-large-v3")
+SB_FAM_MESH = (1, 2)
+SB_TRAIN_CASES = ("llama-fake", "llama-float")
+SB_TRAIN_MESH = (2, 2)
+
+
+def sb_quant(rules_tag):
+    """QuantConfig fields of a shard-body serving case: int8 weights, or
+    the "opt" rules' packed int4; kv 8."""
+    return part_quant(SB_W[rules_tag], 8)
+
+
+def sb_row_inputs(name, shape, packed):
+    rng = np.random.RandomState(sum(map(ord, name)) + 7)
+    x = rng.randn(*shape).astype(np.float32)
+    k = shape[-1]
+    w = (rng.randn(k, SB_ROW_N) * k ** -0.5).astype(np.float32)
+    b = (rng.randn(SB_ROW_N) * 0.1).astype(np.float32) \
+        if len(shape) == 2 else None
+    return x, w, b
+
+
+def sb_train_config(case, lm_mod, registry, quant_config):
+    """Llama-4-Scout SMOKE as ``train_config("llama-fake")`` gives it, in
+    fake or float mode."""
+    cfg = train_config("llama-fake", lm_mod, registry, quant_config)
+    return cfg if case.endswith("fake") else cfg.replace(quant=None)
+
+
+def jax_shard_bodies(out_path, which):
+    """The reference's two shard bodies on host meshes of 2 and 4 devices
+    (``jax.sharding.Mesh``, the caller's 8 host devices), and the inputs
+    it made: see the SB_* constants.  ``which``: "bodies" (the row-parallel
+    body, the MoE FFN, the a2a gradients), "serve" (greedy serving, the
+    families' forwards) or "train" (the train steps), which the caller runs
+    side by side."""
+    import jax
+    from jax.sharding import Mesh
+
+    devs = np.array(jax.devices())
+
+    def mesh_of(shape):
+        return Mesh(devs[:shape[0] * shape[1]].reshape(shape),
+                    ("data", "model"))
+    res = {}
+
+    {"bodies": _jax_bodies, "serve": _jax_serve,
+     "train": _jax_train}[which](res, mesh_of)
+    save(out_path, res)
+
+
+def _jax_bodies(res, mesh_of):
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import PartitionSpec as JP
+
+    from repro.configs.registry import smoke_config
+    from repro.core import quant as jquant
+    from repro.core.api import QuantConfig, dense, integerize_params
+    from repro.distributed.sharding import Rules, use_rules
+    from repro.layers import moe
+    from repro.models import lm
+
+    # the row-parallel body alone (compiled, every case of a mesh in one
+    # program: an eager shard_map runs op by op), and each rank's
+    # activation codes and int32 sums from the same ops in a shard_map
+    for shape in SB_ROW_MESHES:
+        mesh = mesh_of(shape)
+        progs, args = [], []
+        for name, xshape, packed in SB_ROW_CASES:
+            x, w, b = sb_row_inputs(name, xshape, packed)
+            qc = QuantConfig(w_bits=4, a_bits=8, mode="int",
+                             pack_weights=packed)
+            lin = {"w": jnp.asarray(w)}
+            if b is not None:
+                lin["b"] = jnp.asarray(b)
+            p = integerize_params({"wo": lin}, qc)["wo"]
+            w_q = p["w_q"]
+            if w_q.dtype == jnp.uint8:
+                w_q = jquant.unpack_int4(w_q)
+
+            def f(xl, wq):
+                xq = jquant.quantize_tensor(xl, qc.a_bits)
+                acc = jnp.matmul(xq.q, wq.T,
+                                 preferred_element_type=jnp.int32)
+                return xq.q[None], acc[None]
+            nd = len(xshape)
+            xspec = JP(*(["data"] + [None] * (nd - 2) + ["model"]))
+            ospec = JP(("data", "model"))
+            parts = shard_map(f, mesh=mesh, in_specs=(xspec, JP(
+                None, "model")), out_specs=(ospec, ospec), check_rep=False)
+            progs.append((parts, qc))
+            args.append((jnp.asarray(x), p, w_q))
+            res.update(flat({"x": x, "p": p},
+                            f"row/{name}/{mesh_tag(shape)}/"))
+
+        def run(args):
+            return [(dense(x, p, qc, tp="row"), parts(x, w_q))
+                    for (parts, qc), (x, p, w_q) in zip(progs, args)]
+        with mesh, use_rules(Rules(batch=("data",), mesh=mesh,
+                                   int_bf16_reduce=True)):
+            outs = jax.jit(run)(args)
+        for (name, _, _), (y, (codes, acc)) in zip(SB_ROW_CASES, outs):
+            res.update(flat({"y": y, "codes": codes, "acc": acc},
+                            f"row/{name}/{mesh_tag(shape)}/"))
+
+    mesh = mesh_of((2, 2))
+    opt = Rules(batch=("data",), mesh=mesh, **SB_RULES["opt"])
+    rs = np.random.RandomState(9)
+    for arch in SB_MOE_ARCHS:
+        qc = QuantConfig(**sb_quant("a2a"))
+        cfg = smoke_config(arch).replace(quant=qc)
+        params = jax.jit(lambda k: integerize_params(
+            lm.init_params(k, cfg.replace(quant=None)), qc))(
+                jax.random.PRNGKey(0))
+        res.update(flat(params, f"{arch}/a2a/params/"))
+        p0 = jax.tree.map(lambda a: a[0], params["units"]["b0"]["ffn"])
+        x = rs.randn(SB_MOE_T, cfg.d_model).astype(np.float32)
+        with mesh, use_rules(opt):
+            y, aux = jax.jit(lambda x, p: moe.moe_ffn(
+                x, p, cfg.moe, cfg.quant, act=cfg.act))(x, p0)
+        res.update(flat({"x": x, "y": y, "lb": aux["lb_loss"]},
+                        f"{arch}/moe/"))
+        res[f"{arch}/decode/x"] = rs.randn(
+            SB_MOE_DECODE_T, cfg.d_model).astype(np.float32)
+
+    # the reference test's a2a (8 experts, top-2) with gradients of
+    # sum(y ** 2) + lb_loss, float and fake
+    mcfg = moe.MoEConfig(n_experts=A2A_E, top_k=A2A_K,
+                         capacity_factor=A2A_CF)
+    p = moe.init_moe(jax.random.PRNGKey(0), A2A_D, A2A_FF, mcfg,
+                     dtype=jnp.float32)
+    x = jax.random.normal(jax.random.PRNGKey(1), (A2A_T, A2A_D))
+    res.update(flat({"p": p, "x": x}, "a2a/"))
+    for mode in ("float", "fake"):
+        qc = None if mode == "float" else QuantConfig(w_bits=4, a_bits=8,
+                                                      mode="fake")
+        for fsdp in (False, True):
+            rules = Rules(batch=("data",), mesh=mesh, moe_a2a=True,
+                          expert_fsdp=fsdp)
+
+            def loss(p):
+                y, aux = moe.moe_ffn(x, p, mcfg, qc)
+                return jnp.sum(y ** 2) + aux["lb_loss"], (y, aux["lb_loss"])
+            with mesh, use_rules(rules):
+                (_, (y, lb)), g = jax.jit(jax.value_and_grad(
+                    loss, has_aux=True))(p)
+            res.update(flat({"y": y, "lb": lb, "grad": g},
+                            f"a2a/{mode}/fsdp{int(fsdp)}/"))
+
+
+def _jax_serve(res, mesh_of):
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.registry import smoke_config
+    from repro.core.api import QuantConfig, integerize_params
+    from repro.distributed.sharding import Rules, use_rules
+    from repro.models import encdec, lm
+
+    mesh = mesh_of((2, 2))
+    opt = Rules(batch=("data",), mesh=mesh, **SB_RULES["opt"])
+
+    # greedy serving under the "opt" rules
+    def int_tree(arch, qc, seed=0):
+        cfg = smoke_config(arch).replace(quant=qc)
+        return cfg, jax.jit(lambda k: integerize_params(
+            lm.init_params(k, cfg.replace(quant=None)), qc))(
+                jax.random.PRNGKey(seed))
+    toks = np.random.RandomState(5).randint(
+        0, 512, (SB_BATCH, SB_PROMPT)).astype(np.int32)
+    res["tokens"] = toks
+    for arch in SB_GREEDY_ARCHS:
+        cfg, params = int_tree(arch, QuantConfig(**sb_quant("opt")))
+        res.update(flat(params, f"{arch}/opt/params/"))
+        with mesh, use_rules(opt):
+            prefill = jax.jit(lambda p, b: lm.prefill(
+                p, b, cfg, SB_PROMPT + SB_STEPS))
+            step = jax.jit(lambda p, t, c: lm.decode_step(p, t, c, cfg))
+            logits, cache = prefill(params, {"tokens": toks})
+            out, fed = [logits], []
+            for _ in range(SB_STEPS):
+                fed.append(jnp.argmax(logits[:, -1], -1).astype(
+                    jnp.int32)[:, None])
+                logits, cache = step(params, fed[-1], cache)
+                out.append(logits)
+        res[f"{arch}/opt/logits"] = np.stack([np.asarray(t) for t in out])
+        res[f"{arch}/opt/fed"] = np.stack([np.asarray(t) for t in fed])
+
+    # one int forward of the families under int_bf16_reduce at (1, 2)
+    mesh = mesh_of(SB_FAM_MESH)
+    rules = Rules(batch=("data",), mesh=mesh, int_bf16_reduce=True)
+    for arch in SB_FAM_ARCHS:
+        qc = QuantConfig(**sb_quant("bf16red"))
+        cfg = smoke_config(arch).replace(quant=qc)
+        mod = encdec if arch.startswith("whisper") else lm
+        params = jax.jit(lambda k: integerize_params(
+            mod.init_params(k, cfg.replace(quant=None)), qc))(
+                jax.random.PRNGKey(0))
+        batch = {"tokens": toks % cfg.vocab}
+        rs = np.random.RandomState(13)
+        if mod is encdec:
+            batch["frames"] = rs.randn(SB_BATCH, cfg.n_audio_ctx,
+                                       cfg.d_model).astype(np.float32)
+        with mesh, use_rules(rules):
+            logits, _ = jax.jit(lambda p, b: mod.prefill(
+                p, b, cfg, SB_PROMPT))(params, batch)
+        res.update(flat({"params": params, "batch": batch,
+                         "logits": logits}, f"{arch}/bf16red/"))
+
+
+
+def _jax_train(res, mesh_of):
+    import jax
+
+    from repro.configs import registry
+    from repro.core.api import QuantConfig
+    from repro.distributed.sharding import Rules, use_rules
+    from repro.models import lm
+    from repro.optim import OptConfig, init_opt_state, opt_update
+
+    mesh = mesh_of((2, 2))
+    # one train step of the train cell with moe_a2a and expert_fsdp
+    rules = Rules(batch=("data",), mesh=mesh, moe_a2a=True,
+                  expert_fsdp=True)
+    for case in SB_TRAIN_CASES:
+        cfg = sb_train_config(case, lm, registry, QuantConfig)
+        params = jax.jit(lambda k: lm.init_params(k, cfg))(
+            jax.random.PRNGKey(0))
+        batch = train_batch("llama-fake", cfg)
+        ocfg = OptConfig(**TRAIN_OPT)
+
+        def tstep(p, o, b):
+            (loss, _), g = jax.value_and_grad(
+                lambda p, b: lm.lm_loss(p, b, cfg), has_aux=True)(p, b)
+            p, o, om = opt_update(p, g, o, ocfg)
+            return loss, g, p, om["grad_norm"]
+        with mesh, use_rules(rules):
+            loss, g, new, gnorm = jax.jit(tstep)(
+                params, init_opt_state(params), batch)
+        res.update(flat({"params": params, "batch": batch, "loss": loss,
+                         "grads": g, "new": new, "grad_norm": gnorm},
+                        f"{case}/"))
+
 
 def row_inputs(case):
     name, _, shape, dtype, packed, bias = case
@@ -611,6 +892,316 @@ def main_job(rank, world, ref):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The shard bodies on rank-local operands
+# ---------------------------------------------------------------------------
+
+def sb_mesh(shape):
+    """A (data, model) mesh of ``shape`` over the 4 ranks: under an outer
+    axis "x" (which no rule reads) where it holds fewer, so each x slice
+    runs it alone."""
+    from repro_torch.launch.mesh import make_test_mesh
+    n = shape[0] * shape[1]
+    if n == 4:
+        return make_mesh(shape)
+    return make_test_mesh((4 // n, *shape), ("x", "data", "model"),
+                          device_type="cpu")
+
+
+def _sb_counts(prefix):
+    """The dispatch counts a shard-body run is held by."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    st = dispatch.STATS
+    return {f"{prefix}/{k}": torch.tensor(st[k]) for k in (
+        "qlinear_row_cuda", "qlinear_acc_cuda", "qlinear_row_torch",
+        "qlinear_acc_torch", "qlinear_torch", "qexpert_cuda",
+        "qexpert_torch")}
+
+
+def _row_memos(tree):
+    from repro_torch import tree as tree_lib
+    return sum("_row_codes" in (t if t._base is None else t._base).__dict__
+               for t in tree_lib.leaves(tree))
+
+
+def shard_local_job(rank):
+    """The shard bodies on the rank's tree (``partition.build_params``)
+    against the same bodies on the global tree, under the same rules on
+    the same mesh: SB_LOCAL_ARCHS, prefill and SB_LOCAL_STEPS greedy ring
+    steps, each rules set of SB_RULES that the arch runs; the dispatch
+    counts, the all-to-all body's calls and the ``_row_codes`` memos of
+    the local trees."""
+    import torch
+
+    from chip_smoke import A2ACount, wire_counts
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.api import QuantConfig
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import Rules, use_rules
+    from repro_torch.kernels import dispatch
+
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 512, (SB_BATCH, SB_PROMPT)).astype(np.int32))
+    out, memos = {}, 0
+    for shape in SB_LOCAL_MESHES:
+        mesh = sb_mesh(shape)
+        layout = partition.Layout.of(mesh, ("data",))
+        for arch in SB_LOCAL_ARCHS:
+            cfg0 = smoke_config(arch)
+            tags = ("a2a", "opt") if cfg0.moe is not None else \
+                ("bf16red", "opt")
+            for tag in tags:
+                cfg = cfg0.replace(quant=QuantConfig(**sb_quant(tag)))
+                glob = partition.build_params(cfg, seed=0, device="cpu")
+                local = partition.build_params(cfg, seed=0, layout=layout,
+                                               device="cpu")
+                key = f"local/{arch}/{tag}/{mesh_tag(shape)}"
+                run = {}
+                for part in (False, True):
+                    rules = Rules(batch=("data",), mesh=mesh,
+                                  partitioned=part, **SB_RULES[tag])
+                    dispatch.reset_stats()
+                    with use_rules(rules), A2ACount() as a2a, \
+                            torch.no_grad():
+                        run[part] = greedy(local if part else glob, toks,
+                                           cfg, SB_LOCAL_STEPS,
+                                           SB_PROMPT + SB_LOCAL_STEPS)
+                    if part:
+                        out.update(_sb_counts(key))
+                        out[f"{key}/a2a"] = torch.tensor(a2a.n)
+                for i, name in enumerate(("logits", "fed")):
+                    out[f"{key}/{name}"] = run[True][i]
+                    out[f"{key}/global/{name}"] = run[False][i]
+                memos += _row_memos(local)
+        # chip_smoke.py [tp-shard-bodies] (d): the bytes a rank sends in
+        # layer 0's wo and MoE FFN, today and with both options, beside
+        # their analytic counts
+        cfg = smoke_config("llama4-scout-17b-a16e").replace(
+            n_layers=1, quant=QuantConfig(**sb_quant("opt")))
+        for (what, rules), (got, want) in wire_counts(
+                cfg, mesh, layout, device="cpu").items():
+            key = f"wire/{what}/{rules}/{mesh_tag(shape)}"
+            for k in set(got) | set(want):
+                out[f"{key}/{k}"] = torch.tensor(
+                    [got.get(k, 0.0), want.get(k, 0.0)], dtype=torch.float64)
+    out["local/row_memos"] = torch.tensor(memos)
+    return out
+
+
+def _local_rows(t, layout, batch_axes=("data",)):
+    n = layout.size(batch_axes)
+    rows = t.shape[0] // n
+    i = layout.index(batch_axes)
+    return t[i * rows:(i + 1) * rows]
+
+
+def shard_jax_job(rank, ref):
+    """The shard bodies on the rank's operands against ``jaxshard``'s
+    reference (see the SB_* constants), and against the same bodies on
+    the global tensors under the same rules on the same mesh."""
+    import torch
+
+    from chip_smoke import A2ACount
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core import quant
+    from repro_torch.core.api import QuantConfig, dense
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import Rules, use_rules
+    from repro_torch.kernels import dispatch
+    from repro_torch.layers import moe
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import OptConfig, init_opt_state
+    out = {}
+
+    # the row-parallel body alone
+    for shape in SB_ROW_MESHES:
+        mesh = sb_mesh(shape)
+        layout = partition.Layout.of(mesh, ("data",))
+        m, j = shape[1], layout.index(("model",))
+        out[f"layout/{mesh_tag(shape)}"] = torch.tensor(
+            [layout.index(("data",)), j])
+        for name, _, packed in SB_ROW_CASES:
+            key = f"row/{name}/{mesh_tag(shape)}"
+            x = _tensors(ref, f"{key}/x")[f"{key}/x"]
+            p = _tree(ref, f"{key}/p")
+            qc = QuantConfig(w_bits=4, a_bits=8, mode="int",
+                             pack_weights=packed)
+            kl = x.shape[-1] // m
+            unit = kl // 2 if packed else kl
+            xl = _local_rows(x, layout)[..., j * kl:(j + 1) * kl]
+            pl = dict(p, w_q=p["w_q"][:, j * unit:(j + 1) * unit]
+                      .contiguous())
+            for backend in ("cuda", "torch"):
+                dispatch.reset_stats()
+                with use_rules(Rules(batch=("data",), mesh=mesh,
+                                     partitioned=True,
+                                     int_bf16_reduce=True)), \
+                        dispatch.use_backend(backend):
+                    out[f"{key}/{backend}"] = dense(xl, pl, qc, tp="row",
+                                                    k_split=True)
+                out.update(_sb_counts(f"{key}/{backend}"))
+            with use_rules(Rules(batch=("data",), mesh=mesh,
+                                 int_bf16_reduce=True)):
+                out[f"{key}/global"] = _local_rows(
+                    dense(x, p, qc, tp="row"), layout)
+            xq = quant.quantize_tensor(xl, 8)
+            w = pl["w_q"]
+            w = quant.unpack_int4(w) if packed else w
+            out[f"{key}/codes"] = xq.q
+            out[f"{key}/acc"] = quant.int_matmul_exact(
+                xq.q.reshape(-1, kl), w.T).reshape(*xl.shape[:-1], -1)
+
+    mesh = make_mesh((2, 2))
+    layout = partition.Layout.of(mesh, ("data",))
+    out["layout/2x2"] = torch.tensor([layout.index(("data",)),
+                                      layout.index(("model",))])
+
+    # the MoE FFN of layer 0, and a decode-sized call
+    for arch in SB_MOE_ARCHS:
+        cfg = smoke_config(arch).replace(quant=QuantConfig(
+            **sb_quant("a2a")))
+        glob = _tree(ref, f"{arch}/a2a/params")
+        local = partition.partition_params(glob, cfg, layout)
+
+        def ffn0(tree):
+            return tree_lib.tree_map(lambda t: t[0],
+                                     tree["units"]["b0"]["ffn"])
+        for tag in ("moe", "decode"):
+            x = _tensors(ref, f"{arch}/{tag}/x")[f"{arch}/{tag}/x"]
+            key = f"{arch}/{tag}"
+            rules = ("opt",) if tag == "moe" else ("a2a",)
+            for rtag in rules:
+                with use_rules(Rules(batch=("data",), mesh=mesh,
+                                     partitioned=True, **SB_RULES[rtag])), \
+                        A2ACount() as a2a:
+                    y, aux = moe.moe_ffn(_local_rows(x, layout),
+                                         ffn0(local), cfg.moe, cfg.quant,
+                                         act=cfg.act)
+                out.update({f"{key}/{rtag}/y": y,
+                            f"{key}/{rtag}/lb": aux["lb_loss"],
+                            f"{key}/{rtag}/a2a": torch.tensor(a2a.n)})
+            if tag == "moe":
+                with use_rules(Rules(batch=("data",), mesh=mesh,
+                                     **SB_RULES["opt"])):
+                    y, _ = moe.moe_ffn(x, ffn0(glob), cfg.moe, cfg.quant,
+                                       act=cfg.act)
+                out[f"{key}/global/y"] = _local_rows(y, layout)
+            else:
+                with use_rules(Rules(batch=("data",), mesh=mesh,
+                                     partitioned=True)):
+                    y, _ = moe.moe_ffn(_local_rows(x, layout), ffn0(local),
+                                       cfg.moe, cfg.quant, act=cfg.act)
+                out[f"{key}/dense/y"] = y
+
+    # the a2a with gradients of sum(y ** 2) + lb_loss, float and fake
+    mcfg = moe.MoEConfig(n_experts=A2A_E, top_k=A2A_K,
+                         capacity_factor=A2A_CF)
+    x = _local_rows(_tensors(ref, "a2a/x")["a2a/x"], layout)
+    mj, di = layout.index(("model",)), layout.index(("data",))
+    e_loc = A2A_E // 2
+    for mode in ("float", "fake"):
+        qc = None if mode == "float" else QuantConfig(w_bits=4, a_bits=8,
+                                                      mode="fake")
+        for fsdp in (False, True):
+            p = {}
+            for name, lin in _tree(ref, "a2a/p").items():
+                w = lin["w"]
+                if name.startswith("experts_"):
+                    w = w[mj * e_loc:(mj + 1) * e_loc]
+                    if fsdp:
+                        c = w.shape[2] // 2
+                        w = w[:, :, di * c:(di + 1) * c]
+                p[name] = {"w": w.contiguous().requires_grad_(True)}
+            rules = Rules(batch=("data",), mesh=mesh, partitioned=True,
+                          moe_a2a=True, expert_fsdp=fsdp)
+            with use_rules(rules):
+                part = partition.active()
+                y, aux = moe.moe_ffn(x, p, mcfg, qc)
+                lb = part.counted(aux["lb_loss"])
+                ((y ** 2).sum() + lb).backward()
+                grads = {}
+                for name, lin in p.items():
+                    g = lin["w"].grad
+                    split = name.startswith("experts_") and fsdp
+                    grads[name] = {"w": g if split
+                                   else part.sum(g, ("data",))}
+            tag = f"a2a/{mode}/fsdp{int(fsdp)}"
+            out.update({f"{tag}/y": y, f"{tag}/lb": aux["lb_loss"]})
+            out.update(flat(grads, f"{tag}/grad/"))
+
+    # one train step of Llama-4-Scout SMOKE through the all-to-all
+    from repro_torch.configs import registry
+    ocfg = OptConfig(**TRAIN_OPT)
+    flayout = partition.Layout.of(mesh, ("data",), fsdp=True)
+    rules = Rules(batch=("data",), mesh=mesh, partitioned=True,
+                  moe_a2a=True, expert_fsdp=True)
+    for case in SB_TRAIN_CASES:
+        cfg = sb_train_config(case, lm, registry, QuantConfig)
+        glob = _tree(ref, f"{case}/params")
+        batch = batch_of(ref, case)
+        loc = partition.partition_params(glob, cfg, flayout)
+        with use_rules(rules), A2ACount() as a2a:
+            shards = partition.opt_shards(loc, cfg)
+            loss, _, grads = train.value_and_grad(
+                train.model_loss(cfg), loc, batch, shards=shards)
+            p = tree_lib.tree_map(torch.clone, loc)
+            step = train.make_train_step(cfg, ocfg)
+            p, _, met = step(p, init_opt_state(p, shards), batch)
+        out.update({f"{case}/loss": loss, f"{case}/a2a": torch.tensor(a2a.n),
+                    f"{case}/step/loss": met["loss"],
+                    f"{case}/step/grad_norm": met["grad_norm"]})
+        out.update(flat(grads, f"{case}/grads/"))
+        out.update(flat(p, f"{case}/step/params/"))
+
+    # greedy serving under the "opt" rules
+    toks = torch.from_numpy(ref["tokens"])
+    for arch in SB_GREEDY_ARCHS:
+        cfg = smoke_config(arch).replace(quant=QuantConfig(
+            **sb_quant("opt")))
+        glob = _tree(ref, f"{arch}/opt/params")
+        local = partition.partition_params(glob, cfg, layout)
+        for part, tree in ((True, local), (False, glob)):
+            with use_rules(Rules(batch=("data",), mesh=mesh,
+                                 partitioned=part, **SB_RULES["opt"])), \
+                    torch.no_grad():
+                logits, fed, _ = greedy(tree, toks, cfg, SB_STEPS,
+                                        SB_PROMPT + SB_STEPS)
+            key = f"{arch}/opt/{'local' if part else 'global'}"
+            out.update({f"{key}/logits": logits, f"{key}/fed": fed})
+
+    # one int forward of the families under int_bf16_reduce at (1, 2)
+    mesh = sb_mesh(SB_FAM_MESH)
+    layout = partition.Layout.of(mesh, ("data",))
+    for arch in SB_FAM_ARCHS:
+        cfg = smoke_config(arch).replace(quant=QuantConfig(
+            **sb_quant("bf16red")))
+        glob = _tree(ref, f"{arch}/bf16red/params")
+        batch = {k: torch.from_numpy(np.array(v)) for k, v in
+                 _tensors(ref, f"{arch}/bf16red/batch/").items()}
+        batch = {k.rsplit("/", 1)[-1]: v for k, v in batch.items()}
+        local = partition.partition_params(glob, cfg, layout)
+        model = model_of(cfg)
+        for part, tree in ((True, local), (False, glob)):
+            rules = Rules(batch=("data",), mesh=mesh, partitioned=part,
+                          **SB_RULES["bf16red"])
+            key = f"{arch}/bf16red/{'local' if part else 'global'}"
+            dispatch.reset_stats()
+            with use_rules(rules), torch.no_grad():
+                logits, cache = model.prefill(tree, batch, cfg,
+                                              SB_PROMPT + 1)
+                out.update(_sb_counts(key))
+                dispatch.reset_stats()
+                tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
+                step, _ = model.decode_step(tree, tok[:, None], cache, cfg)
+            out.update({f"{key}/logits": logits, f"{key}/step": step})
+            out.update(_sb_counts(f"{key}/step"))
+    return out
+
+
 def elastic_job(n, ref, tree_path):
     """Place the tree on best_mesh(n): each leaf's local shape on this
     rank, and the global tree gathered back (rank 0 saves it, as a
@@ -633,7 +1224,8 @@ def elastic_job(n, ref, tree_path):
 def partition_job(ref):
     """Every partitioned run of :func:`part_cases` on this rank (the
     rank's layout, the global logits and fed tokens, its cache shard, the
-    dispatch counts), the refusals, and the local trees against
+    dispatch counts), the refusals, the ``_row_codes`` copies on the local
+    trees, and the local trees against
     ``distribute_tensor(...).to_local()``."""
     import torch
     from torch.distributed.tensor import distribute_tensor
@@ -723,14 +1315,11 @@ def partition_job(ref):
                 lambda: PagedEngine(cfg, glob))
         refused("lm_loss", NotImplementedError, lambda: lm.lm_loss(
             glob, {"tokens": toks, "labels": toks}, cfg))
-    for flag in ("int_bf16_reduce", "moe_a2a"):
-        rules = Rules(batch=("data",), mesh=mesh, partitioned=True,
-                      **{flag: True})
-        with use_rules(rules):
-            refused(flag, ValueError, lambda: lm.decode_step(
-                glob, toks[:, :1], {}, cfg))
     out.update({f"refused/{k}": torch.tensor(v)
                 for k, v in refusals.items()})
+    # no partitioned run made a copy of a row-parallel weight's K slice
+    out["row_memos"] = torch.tensor(sum(_row_memos(t)
+                                        for t in locals_.values()))
 
     # the local trees against DTensor's shards of the same specs
     for m_shape, mesh in meshes.items():
@@ -1273,6 +1862,12 @@ def rank_main(job, rank, world, store, ref_path, out_dir):
         elif job == "trainfam":
             sys.path.insert(0, ROOT)
             out = train_cases(ref, FAM_TRAIN_CASES)
+        elif job == "shardlocal":
+            sys.path.insert(0, ROOT)          # chip_smoke's A2ACount, wire
+            out = shard_local_job(rank)
+        elif job == "shardjax":
+            sys.path.insert(0, ROOT)
+            out = shard_jax_job(rank, ref)
         else:
             n = int(job[len("elastic"):])
             out = elastic_job(n, ref, os.path.join(out_dir, "elastic8-0.npz"))
@@ -1285,6 +1880,8 @@ if __name__ == "__main__":
     sys.path.insert(0, SRC)
     if sys.argv[1] == "jax":
         jax_reference(sys.argv[2])
+    elif sys.argv[1] == "jaxshard":
+        jax_shard_bodies(sys.argv[3], sys.argv[2])
     elif sys.argv[1] == "jaxtrain":
         jax_train(sys.argv[2], sys.argv[3])
     else:

@@ -43,9 +43,10 @@ unsharded ``prefill`` / ``decode_step``.  Held:
 - 4 greedy steps from JAX's prefill cache, carried into each rank's shard
   by ``interop.to_torch_shard``, bitwise equal to one rank's steps from
   the whole cache;
-- the refusals (a global tree under partitioned rules,
-  ``int_bf16_reduce``, ``moe_a2a``, the paged engine, training in int
-  mode);
+- the refusals that remain (a global tree under partitioned rules, the
+  paged engine, training in int mode; ``int_bf16_reduce`` and
+  ``moe_a2a`` run partitioned: ``tests/test_torch_partition_shard_bodies.py``),
+  and no ``_row_codes`` copy of a row-parallel weight on any local tree;
 - the local trees equal to ``distribute_tensor(...).to_local()`` on every
   leaf the head rule leaves as ``param_specs`` says.
 """
@@ -437,7 +438,14 @@ def test_partitioned_rules_refuse_what_they_do_not_run(runs):
     for r in runs[0]:
         refused = {k: bool(v) for k, v in r.items()
                    if k.startswith("refused/")}
-        assert len(refused) == 5 and all(refused.values()), refused
+        assert len(refused) == 3 and all(refused.values()), refused
+
+
+def test_partitioned_runs_leave_no_row_codes_copy(runs):
+    """The row-parallel shard body takes a rank's K slice as it holds it:
+    ``dispatch.row_codes`` copies only for the body on global tensors."""
+    for r in runs[0]:
+        assert r["row_memos"] == 0
 
 
 @pytest.mark.parametrize("mesh", util.PART_MESHES, ids=util.mesh_tag)
