@@ -46,7 +46,13 @@ Phases, in order; any failure exits non-zero before the result line:
    and Llama-4-Scout's 4 local experts over 80 slots; qmatmul's int32
    accumulator output exactly at [tp]'s row-parallel products (N 5120 over
    K 5120, 27648 and 8192, and a quarter of each), M 4 and 256, int8 and
-   packed;
+   packed; [dryrun] (b)'s shapes: Qwen2.5-32B's qmatmul at M 8 over rank
+   0's N 5120, 1024, 1728 and 9504 (K 5120), its int32 sums at N 5120 over
+   K 5120 and the K slice 1728, the ring kernel at 64 head-folds over a
+   whole 32768-slot ring; RecurrentGemma-9B's qmatmul at M 1 over N 4096,
+   256, 768 and 16000 (K 4096), its int32 sums at N 4096 over K 4096, 256
+   and 768, the ring kernel at one head-fold over its 2176-slot local ring
+   after 524287 tokens (these rows timed too);
 4. serve: ``repro_torch.launch.serve.serve`` at Qwen2.5-32B widths
    (4 of 64 layers, random weights from a seed, made on the card) on the
    ``cuda`` backend; every request DONE, a clean audit, every kernel of
@@ -156,6 +162,25 @@ Phases, in order; any failure exits non-zero before the result line:
    four cards, Llama-4-Scout at 4 layers on (data 1, model 4); each
    trained tree integerized on its ranks and served 8 ring steps, gated by
    [route];
+11b. dryrun: the production-mesh dry run (``repro_torch.launch.dryrun``):
+   (a) rank 0 of the 16 x 16 mesh on meta tensors under torch's fake
+   process group, one process each on the CPU, for Qwen2.5-32B decode_32k
+   and train_4k, Llama-4-Scout train_4k (experts split over "data") and
+   under "opt", RecurrentGemma-9B and Mamba2-130M long_500k and
+   Whisper-large-v3 prefill_32k, each gated at status "ok", with its
+   rank's argument bytes, FLOPs and collective bytes printed; (b)
+   meanwhile, in a process of its own, rank 0 of Qwen2.5-32B decode_32k
+   (all 64 layers) and RecurrentGemma-9B long_500k really run on the card
+   under the fake group on a CUDA mesh: its tree from
+   ``partition.build_params(layout=rank 0)``, the ring as after all but
+   one of its positions, the ``cuda`` backend; gated: argument bytes equal
+   to the dry run's, bytes sent and collective result bytes equal, every
+   plain dispatch the dry run counted a kernel dispatch on the card, each
+   kernel call a launch (qmatmul, qmatmul_acc, the ring kernel), each at a
+   shape the check phase held to its plain version; the measured peak
+   (``max_memory_allocated``) printed beside the forecast, the rank's
+   arguments (a serving cell's temp is not forecast); the phase's time
+   printed;
 12. quickstart: ``python -m repro_torch.examples.quickstart`` on the card;
 13. vit: ``models.vit.forward`` at the full DeiT-S config (12 layers,
    224 px, patch 16; random weights from a seed, made on the card), batch
@@ -487,13 +512,30 @@ QMM_FAMILIES = [(2, 256000, 4096), (256, 256000, 4096), (4, 51866, 1280),
 # [dist]'s row-parallel products on each of 4 ranks: Qwen2.5-32B's wo (K
 # 5120 / 4) and MLP down (K 27648 / 4), N 5120, at decode and prefill rows
 QMM_DIST = [(m, 5120, k) for m in (4, 256) for k in (1280, 6912)]
+# [dryrun] (b)'s products on rank 0 of the 16 x 16 mesh: Qwen2.5-32B's
+# decode_32k, its 8 rows through wq / wk / wv (attention whole on the
+# rank), its sixteenth of the MLP's gate and up (N 1728) and of the lm_head
+# (N 9504); RecurrentGemma-9B's long_500k, its one row through wq (N 4096),
+# wk / wv and the RG-LRU's sixteenth of d_rnn (N 256), the MLP's up (N 768)
+# and the lm_head's sixteenth (N 16000)
+QMM_DRYRUN = [(8, 5120, 5120), (8, 1024, 5120), (8, 27648 // 16, 5120),
+              (8, 152064 // 16, 5120), (1, 4096, 4096), (1, 256, 4096),
+              (1, 12288 // 16, 4096), (1, 256000 // 16, 4096)]
+# [dryrun] (b)'s row-parallel int32 sums (qmatmul_acc), N d_model:
+# Qwen2.5-32B's wo (K 5120, whole) and MLP down on its K slice of 1728;
+# RecurrentGemma-9B's wo (K 4096, whole), the RG-LRU's w_out (K 256) and
+# the MLP's down (K 768)
+QMM_DRYRUN_ACC = [(8, 5120, 5120, False), (8, 5120, 27648 // 16, False),
+                  (1, 4096, 4096, False), (1, 4096, 4096 // 16, False),
+                  (1, 4096, 12288 // 16, False)]
 # qmatmul's accumulator output (int32 sums, no epilogue) at [tp]'s
 # row-parallel products: Qwen2.5-32B's wo (K 5120) and down (K 27648) and
 # Llama-4-Scout's shared-expert down (K 8192), whole at one rank and a
-# quarter of K on each of 4, at decode and prefill rows, int8 and packed
+# quarter of K on each of 4, at decode and prefill rows, int8 and packed;
+# then [dryrun] (b)'s
 QMM_ACC = [(m, 5120, k, packed) for m in (4, 256)
            for k in (5120, 27648, 8192, 1280, 6912, 2048)
-           for packed in (False, True)]
+           for packed in (False, True)] + QMM_DRYRUN_ACC
 # [tp-shard-bodies]' row-parallel products in the bf16 shard body: the
 # rank's K slice on qmatmul with the scaled epilogue (f32(acc) * (w_scale
 # * x_scale), no bias, no row scale), N d_model, at decode (4) and prefill
@@ -521,7 +563,7 @@ QMM_CHECKS = [(m, n, k, packed) for m in (4, 256) for n, k in QMM_NK
                                                   (129, 300, 1028)]
      for packed in (False, True)] + \
     [(m, n, k, False) for m in (4, 256) for n, k in QMM_HEADS] + \
-    [(m, n, k, False) for m, n, k in QMM_FAMILIES + QMM_DIST]
+    [(m, n, k, False) for m, n, k in QMM_FAMILIES + QMM_DIST + QMM_DRYRUN]
 
 
 def phase_check(g):
@@ -608,8 +650,8 @@ def phase_check(g):
         [(PAGED_SERVE_REC[0], 7, PAGED_SERVE_REC[1])]
     errs["int_paged_decode_attention"] = max(check_paged(g, row, bits, hkv)
                                              for row, bits, hkv in rows)
-    rows = [(row, 7) for row in RING_CHECKS + RING_FAMILIES] + \
-        [(RING_CHECKS[0], bits) for bits in LOW_BITS]
+    rows = [(row, 7) for row in RING_CHECKS + RING_FAMILIES
+            + RING_DRYRUN] + [(RING_CHECKS[0], bits) for bits in LOW_BITS]
     errs["int_decode_attention"] = max(check_ring(g, row, bits)
                                        for row, bits in rows)
 
@@ -887,6 +929,13 @@ RING_CHECKS = [(8, 1024, 79, None, 5, 128), (4, 1024, 79, None, 5, 128),
                (8, 8192, 9000, 3000, 5, 128), (4, 1024, 3000, 200, 5, 128),
                (8, 8192, 20000, None, 16, 128), (4, 8192, 9000, 3000, 16, 128),
                (8, 2048, 5000, None, 16, 256), (8, 1024, 3000, None, 5, 12)]
+# [dryrun] (b)'s ring steps on rank 0 of the 16 x 16 mesh (kv_bits, span,
+# pos, window, G, D, head-folds), checked and timed: Qwen2.5-32B's
+# decode_32k, its 8 rows by 8 KV heads over the whole 32768-slot ring;
+# RecurrentGemma-9B's long_500k, its one row's KV head over the 2176-slot
+# local ring after 524287 tokens, window 2048
+RING_DRYRUN = [(8, 32768, 32767, None, 5, 128, 64),
+               (8, 2176, 524287, 2048, 16, 256, 1)]
 # (kv_bits, G, D): the serve path's shape, then G 16 at D 256 (the f32
 # output carries in shared memory)
 PAGED_CHECKS = [(8, 5, 128), (4, 5, 128), (8, 16, 256), (4, 16, 256)]
@@ -3741,6 +3790,240 @@ def clone_tree(tree):
             for k, v in tree.items()}
 
 
+# [dryrun] (a): one cell of each kind and family on the single mesh, one
+# process each on the CPU (arch, shape, variant)
+DRYRUN_CELLS = (("qwen2.5-32b", "decode_32k", None),
+                ("qwen2.5-32b", "train_4k", None),
+                ("llama4-scout-17b-a16e", "train_4k", None),
+                ("llama4-scout-17b-a16e", "train_4k", "opt"),
+                ("recurrentgemma-9b", "long_500k", None),
+                ("whisper-large-v3", "prefill_32k", None),
+                ("mamba2-130m", "long_500k", None))
+# [dryrun] (b): rank 0 of these cells run on the card
+DRYRUN_CARD = (("qwen2.5-32b", "decode_32k"),
+               ("recurrentgemma-9b", "long_500k"))
+DRYRUN_JOIN_S = 600
+
+
+def phase_dryrun():
+    """[dryrun]: (a) ``repro_torch.launch.dryrun`` of DRYRUN_CELLS, rank 0
+    of the 16 x 16 mesh on meta tensors under the fake process group, each
+    in a process of its own on the CPU, gated at status "ok"; (b) meanwhile,
+    rank 0 of DRYRUN_CARD really run on the card (``dryrun_card``), held to
+    its dry run: argument bytes exact, the same bytes sent and collective
+    result bytes, and every plain dispatch the dry run counted a kernel
+    dispatch on the card, each launching its kernel.  Returns (b)'s
+    launches."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    d = Path(tempfile.mkdtemp(prefix="dryrun"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    for i, (arch, shape, variant) in enumerate(DRYRUN_CELLS):
+        tag = f"{arch}|{shape}|{variant or 'baseline'}"
+        stem = d / f"cell{i}"
+        out = open(stem.with_suffix(".log"), "w")
+        procs[tag] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out",
+             str(stem.with_suffix(".json"))]
+            + (["--variant", variant] if variant else []),
+            stdout=out, stderr=subprocess.STDOUT, env=env, cwd=ROOT), out,
+            stem)
+    card = None
+    try:
+        p = mp.get_context("spawn").Process(target=dryrun_card,
+                                            args=(str(d),))
+        p.start()
+        p.join(DRYRUN_JOIN_S)
+        if p.is_alive():
+            p.kill()
+            p.join()
+        if p.exitcode:
+            raise AssertionError(f"[dryrun] the card's run exited {p.exitcode}")
+        with open(d / "card.json") as f:
+            card = json.load(f)
+        for proc, _, _ in procs.values():
+            proc.wait(timeout=max(1.0, DRYRUN_JOIN_S
+                                  - (time.perf_counter() - t0)))
+    finally:
+        for proc, out, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    recs = {}
+    for tag, (proc, _, stem) in procs.items():
+        if proc.returncode:
+            raise AssertionError(f"[dryrun] {tag} exited {proc.returncode}: "
+                                 f"{stem.with_suffix('.log').read_text()[-2000:]}")
+        with open(stem.with_suffix(".json")) as f:
+            rec, = json.load(f).values()
+        recs[tag] = rec
+        mem, cost = rec.get("memory", {}), rec.get("cost", {})
+        temp = mem.get("temp_size_in_bytes")
+        log(f"[dryrun] (a) {tag} x single: {rec['status']} in "
+            f"{rec['seconds']} s, rank 0 arguments "
+            f"{mem.get('argument_size_in_bytes', 0) / 1e9:.3f} GB, temp "
+            + (f"{temp / 1e9:.3f} GB" if temp is not None else
+               "not measured (int mode)")
+            + f", FLOPs {cost.get('flops', 0):.4g} (unrolled "
+            f"{rec.get('cost_unrolled', {}).get('flops', 0):.4g}), collective "
+            f"result bytes {rec.get('collectives')}, sent {rec.get('wire')}")
+        if rec["status"] != "ok":
+            raise AssertionError(f"[dryrun] {tag}: {rec.get('error')}")
+    total = {name: 0 for name in KERNELS}
+    for arch, shape in DRYRUN_CARD:
+        add_launches(total, dryrun_hold(arch, shape, card[f"{arch}|{shape}"],
+                                        recs[f"{arch}|{shape}|baseline"]))
+    log(f"[dryrun] phase {time.perf_counter() - t0:.1f} s; the card's "
+        f"launches {total}")
+    return total
+
+
+def dryrun_card(d):
+    """[dryrun] (b) in a process of its own: rank 0 of each DRYRUN_CARD
+    cell at full width and depth, on the card, under the fake process
+    group of the 16 x 16 mesh (``device_type="cuda"``), its tree from
+    ``partition.build_params(layout=rank 0)``, the ring's positions as
+    after all but one of its slots, on the ``cuda`` backend; what
+    ``dryrun.measure`` counts, the peak memory and the shape of every
+    kernel call dispatch makes (``KernelCalls``), to ``d``/card.json."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    out = {}
+    for arch, shape in DRYRUN_CARD:
+        with dryrun.fake_group(dryrun.MESHES["single"]):
+            mesh = make_production_mesh(device_type="cuda")
+            t = time.perf_counter()
+            cell = dryrun._make_cell(arch, shape, mesh, device="cuda")
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            with KernelCalls() as calls:
+                rec, got = dryrun.measure(cell, backend="cuda", memory=False)
+            torch.cuda.synchronize()
+            rec.update(step_s=time.perf_counter() - t, build_s=build_s,
+                       held_bytes=held,
+                       peak_bytes=torch.cuda.max_memory_allocated(),
+                       logits_shape=list(got[0].shape),
+                       calls=calls.shapes())
+            del cell, got
+            torch.cuda.empty_cache()
+        out[f"{arch}|{shape}"] = rec
+    with open(os.path.join(d, "card.json"), "w") as f:
+        json.dump(out, f)
+
+
+class KernelCalls:
+    """Inside the block, the shape of each call dispatch makes of qmatmul
+    (M, N, K, packed), qmatmul_acc (the same) and the ring kernel
+    (kv_bits, span, pos, window, G, D, head-folds), in ``dispatch``'s
+    namespace: what the wrappers launch, left as it is."""
+
+    def __enter__(self):
+        from repro_torch.kernels import dispatch
+        self.dispatch, self.calls = dispatch, []
+        self.orig = {n: getattr(dispatch, n) for n in
+                     ("qmatmul", "qmatmul_acc", "int_decode_attention")}
+
+        def matmul(name):
+            def call(x, w, *args, packed=False, **kw):
+                self.calls.append((name, (x.shape[0], w.shape[0],
+                                          x.shape[1], packed)))
+                return self.orig[name](x, w, *args, packed=packed, **kw)
+            return call
+
+        def ring(q, k, v, sc, vs, kpos, pos, *, window=None, packed=False,
+                 **kw):
+            self.calls.append(("int_decode_attention", (
+                4 if packed else 8, k.shape[1],
+                pos.clone() if hasattr(pos, "clone") else pos, window,
+                q.shape[1], q.shape[2], q.shape[0])))
+            return self.orig["int_decode_attention"](
+                q, k, v, sc, vs, kpos, pos, window=window, packed=packed,
+                **kw)
+
+        dispatch.qmatmul, dispatch.qmatmul_acc = (matmul("qmatmul"),
+                                                  matmul("qmatmul_acc"))
+        dispatch.int_decode_attention = ring
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.dispatch, name, fn)
+        return False
+
+    def shapes(self):
+        """{kernel: [[shape, calls], ...]}, the ring's pos read back."""
+        out = {}
+        for name, shape in self.calls:
+            shape = tuple(int(x) if hasattr(x, "item") else x
+                          for x in shape)
+            out.setdefault(name, {}).setdefault(shape, 0)
+            out[name][shape] += 1
+        return {k: [[list(s), n] for s, n in v.items()]
+                for k, v in out.items()}
+
+
+def dryrun_hold(arch, shape, card, rec):
+    """Gate [dryrun] (b)'s run of one cell against its dry run ``rec``
+    and the check phase's rows; returns the kernels' launches."""
+    tag = f"{arch} x {shape} x single"
+    args = rec["memory"]["argument_size_in_bytes"]
+    log(f"[dryrun] (b) {tag} on the card: rank 0's tree built in "
+        f"{card['build_s']:.1f} s, step {card['step_s']:.3f} s (first call); "
+        f"arguments {card['memory']['argument_size_in_bytes']} B (dry run "
+        f"{args} B); peak max_memory_allocated {card['peak_bytes'] / 1e9:.3f}"
+        f" GB ({card['held_bytes'] / 1e9:.3f} GB held before the step) "
+        f"beside the dry run's forecast of the arguments, {args / 1e9:.3f} "
+        f"GB (temp not forecast: {rec['memory'].get('temp_not_measured')}); "
+        f"logits {card['logits_shape']}")
+    plain = {k: v for k, v in rec["launches"].items() if k.endswith("_torch")}
+    want = {k[:-len("_torch")] + "_cuda": v for k, v in plain.items()}
+    got, launches = card["launches"], card["kernel_launches"]
+    calls = {k: {tuple(s): n for s, n in v}
+             for k, v in card["calls"].items()}
+    n_calls = {k: sum(v.values()) for k, v in calls.items()}
+    checked = {"qmatmul": {row[:4] for row in QMM_CHECKS}
+               | {row[:4] for row in QMM_SHARD},
+               "qmatmul_acc": set(QMM_ACC),
+               "int_decode_attention": set(RING_DRYRUN)}
+    unchecked = {k: sorted(set(v) - checked[k]) for k, v in calls.items()
+                 if set(v) - checked[k]}
+    log(f"[dryrun] (b) {tag}: dispatches {got} (dry run {rec['launches']}); "
+        f"kernel launches {launches}; kernel calls by shape {calls}; sent "
+        f"{card['wire']} (dry run {rec['wire']}); collective result bytes "
+        f"{card['collectives']} (dry run {rec['collectives']})")
+    checks = {
+        "argument bytes": card["memory"]["argument_size_in_bytes"] == args,
+        "held on the card": card["held_bytes"] >= args,
+        "bytes sent": card["wire"] == rec["wire"],
+        "collective result bytes": card["collectives"] == rec["collectives"],
+        "dispatches": got == want and bool(want),
+        "each kernel launched": all(launches.get(k, 0) > 0 for k in (
+            "qmatmul", "qmatmul_acc", "int_decode_attention")),
+        # qmatmul_acc's wrapper counts its launch under qmatmul too
+        "a launch each call": launches == {
+            "qmatmul": n_calls.get("qmatmul", 0)
+            + n_calls.get("qmatmul_acc", 0),
+            "qmatmul_acc": n_calls.get("qmatmul_acc", 0),
+            "int_decode_attention": n_calls.get("int_decode_attention", 0)},
+        "every shape checked": not unchecked}
+    if not all(checks.values()):
+        raise AssertionError(f"[dryrun] (b) {tag}: {checks}; shapes no "
+                             f"check row holds: {unchecked}")
+    return launches
+
+
 def phase_quickstart():
     import torch
     from repro_torch.examples import quickstart
@@ -4574,7 +4857,7 @@ KERNELS = {
 # launches: their sum, and each path's count)
 MAIN_PATHS = {"qmatmul": ("serve", "archs", "recurrent", "serve-recurrent",
                           "encdec", "dist", "tp", "tp-shard-bodies",
-                          "tp-families", "tp-train"),
+                          "tp-families", "tp-train", "dryrun"),
               "int_attention_fused": ("serve", "archs", "recurrent",
                                       "serve-recurrent", "encdec", "dist",
                                       "tp", "tp-shard-bodies", "tp-families",
@@ -4584,10 +4867,10 @@ MAIN_PATHS = {"qmatmul": ("serve", "archs", "recurrent", "serve-recurrent",
               "int_decode_attention": ("ring", "archs", "recurrent",
                                        "encdec", "dist", "tp",
                                        "tp-shard-bodies", "tp-families",
-                                       "tp-train"),
+                                       "tp-train", "dryrun"),
               "pq_layernorm": ("ops",), "int_attention": ("ops",),
               "qmatmul_acc": ("tp", "tp-shard-bodies", "tp-families",
-                              "tp-train")}
+                              "tp-train", "dryrun")}
 # qmatmul timed at every (M, N, K) of one Qwen2.5-32B layer and its
 # lm_head at decode and prefill rows, int8 and packed, then DeiT-S's
 # linears (int8, as the model runs them)
@@ -4595,11 +4878,12 @@ QMM_TIMES = [(m, n, k, packed) for m in (4, 256) for n, k in QMM_NK
              for packed in (False, True)] + \
     [(m, n, k, False) for m, n, k in QMM_DEIT] + \
     [(m, n, k, False) for m in (4, 256) for n, k in QMM_HEADS] + \
-    [(m, n, k, False) for m, n, k in QMM_FAMILIES + QMM_DIST]
+    [(m, n, k, False) for m, n, k in QMM_FAMILIES + QMM_DIST + QMM_DRYRUN]
 # the accumulator output at Qwen2.5-32B's wo and down on one of 4 [tp]
-# ranks (K 1280 and 6912), decode and prefill rows, int8 and packed
+# ranks (K 1280 and 6912), decode and prefill rows, int8 and packed; then
+# [dryrun] (b)'s
 QMM_ACC_TIMES = [(m, 5120, k, packed) for m in (4, 256) for k in (1280, 6912)
-                 for packed in (False, True)]
+                 for packed in (False, True)] + QMM_DRYRUN_ACC
 # Llama-4-Scout's expert product (din 5120, dout 8192) as (experts,
 # capacity): the [archs] prefill's 16 x 20, a decode step's 16 x 1, the
 # all-to-all body's on one card (16 x 80) and on one of 4 ranks (its 4
@@ -4757,7 +5041,7 @@ def phase_time(g, launches, errs):
     for kv_bits, span, pos, grp, d in RING_TIMES:
         keep("int_decode_attention", (kv_bits, span, pos, grp, d),
              time_ring(g, kv_bits, span, pos, None, grp, d))
-    for row in RING_FAMILIES:
+    for row in RING_FAMILIES + RING_DRYRUN:
         time_ring(g, *row)
 
     for case in PQLN_CASES:
@@ -5016,6 +5300,7 @@ def main() -> int:
         paths["serve-recurrent"] = phase_serve_recurrent()
         paths["encdec"] = phase_encdec()
         paths.update(phase_dist())
+        paths["dryrun"] = phase_dryrun()
         phase_quickstart()
         vparams, imgs = phase_vit()
         paths["ops"], ops_errs = phase_ops(vparams, imgs)

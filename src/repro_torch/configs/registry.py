@@ -59,12 +59,14 @@ def _spec(shape, dtype=torch.int32):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def input_specs(arch: str, shape: str, cfg=None):
+def input_specs(arch: str, shape: str, cfg=None, *, seq=None, batch=None):
     """Returns (kind, batch_specs): shape-only inputs of the step function,
     kind in {"train", "prefill", "decode"}; a decode step's cache is the
-    caller's (it depends on the quant mode)."""
+    caller's (it depends on the quant mode).  ``seq`` and ``batch`` stand
+    in for the shape's own length and global batch (a cell cut to size)."""
     cfg = cfg or get_config(arch)
-    seq, gb, kind = SHAPES[shape]
+    seq0, gb0, kind = SHAPES[shape]
+    seq, gb = seq or seq0, batch or gb0
 
     if is_encdec(cfg):
         frames = _spec((gb, cfg.n_audio_ctx, cfg.d_model), torch.float32)

@@ -4,9 +4,13 @@ The reference writes its shard bodies with ``shard_map`` and JAX's named
 collectives (``all_gather(..., tiled=True)``, ``all_to_all``,
 ``psum_scatter``, ``pmean``).  Here each rank of a ``DeviceMesh`` runs the
 body on its slice of global tensors, and these helpers are its
-collectives over one mesh axis (the axis's process group).  NCCL carries
-CUDA tensors, gloo CPU tensors; a group handed a tensor its backend would
-move through the host raises instead.
+collectives over one mesh axis (the axis's process group).  A group's
+backend is "nccl" for CUDA tensors or "gloo" for CPU ones; a group handed
+a tensor its backend would move through the host raises instead.  The
+third backend is torch's "fake" (``torch.testing._internal.distributed.
+fake_pg``), which carries a tensor of any device, meta included, and
+moves nothing: the dry run (``launch/dryrun.py``) sizes one rank of a
+production mesh under it, and every count below is made alike.
 
 Gradients follow the global view of the model code, where every rank
 holds the same global tensors and, after a backward pass, the same full
@@ -22,7 +26,12 @@ Every exchange adds the bytes this rank sends in it to :data:`WIRE`, by
 kind, as the bandwidth-optimal algorithms on n ranks send them: an
 all-reduce of B bytes 2 (n - 1) / n B, a reduce-scatter of B bytes
 (n - 1) / n B, an all-gather of a B-byte chunk (n - 1) B, an all-to-all
-of B bytes (n - 1) / n B (``reset_wire`` zeroes the counts).
+of B bytes (n - 1) / n B (``reset_wire`` zeroes the counts).  Beside
+it, :data:`RESULT` adds the bytes of each exchange's result, by the
+reference's hyphenated kinds, as ``repro/launch/hlo_analysis.py``'s
+``collective_bytes`` sums the result shapes of the compiled program's
+collectives (an all-reduce's result is its operand, an all-gather's the
+gathered tensor, a reduce-scatter's the rank's chunk).
 """
 from __future__ import annotations
 
@@ -38,6 +47,8 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or \
 
 WIRE = {"all_reduce": 0.0, "reduce_scatter": 0.0, "all_gather": 0.0,
         "all_to_all": 0.0}
+RESULT = {"all-reduce": 0, "reduce-scatter": 0, "all-gather": 0,
+          "all-to-all": 0}
 _SHARE = {"all_reduce": lambda n: 2 * (n - 1) / n,
           "reduce_scatter": lambda n: (n - 1) / n,
           "all_gather": lambda n: n - 1, "all_to_all": lambda n: (n - 1) / n}
@@ -46,11 +57,14 @@ _SHARE = {"all_reduce": lambda n: 2 * (n - 1) / n,
 def reset_wire():
     for k in WIRE:
         WIRE[k] = 0.0
+    for k in RESULT:
+        RESULT[k] = 0
 
 
-def _sent(kind: str, t: torch.Tensor, grp):
+def _sent(kind: str, t: torch.Tensor, grp, out: torch.Tensor):
     WIRE[kind] += _SHARE[kind](dist.get_world_size(grp)) * \
         t.numel() * t.element_size()
+    RESULT[kind.replace("_", "-")] += out.numel() * out.element_size()
 
 
 def group(mesh, axis: str):
@@ -76,8 +90,10 @@ def axes_size(mesh, axes) -> int:
 def check_device(t: torch.Tensor, grp):
     """A collective's tensor must be one its backend carries in place:
     NCCL for CUDA tensors, gloo for CPU ones (gloo would copy a CUDA
-    tensor through the host)."""
+    tensor through the host); the fake backend takes any."""
     backend = str(dist.get_backend(grp))
+    if backend == "fake":
+        return
     if ("nccl" if t.is_cuda else "gloo") not in backend:
         raise ValueError(f"a {backend} group cannot carry a {t.device} "
                          f"tensor without a copy through the host; build "
@@ -87,9 +103,9 @@ def check_device(t: torch.Tensor, grp):
 def _gather0(t, grp):
     check_device(t, grp)
     t = t.contiguous()
-    _sent("all_gather", t, grp)
     out = torch.empty((dist.get_world_size(grp) * t.shape[0], *t.shape[1:]),
                       dtype=t.dtype, device=t.device)
+    _sent("all_gather", t, grp, out)
     _all_gather(out, t, group=grp)
     return out
 
@@ -124,7 +140,13 @@ def gather_dim(t: torch.Tensor, groups, dim: int = 0) -> torch.Tensor:
     for grp in reversed(tuple(groups)):
         out = _gather0(out, grp)
     out = out.movedim(0, dim).contiguous()
-    return out.view(torch.bfloat16) if bf16 else out
+    if not bf16:
+        return out
+    # a contiguous tensor's size-1 dims may keep any stride (one row of
+    # logits gathered along the vocabulary), which a view as bf16 refuses:
+    # view it flat
+    return out.reshape(-1).view(torch.bfloat16).view(*out.shape[:-1],
+                                                     out.shape[-1] // 2)
 
 
 def reduce_scatter_dim(g: torch.Tensor, groups, dim: int = 0) -> torch.Tensor:
@@ -170,8 +192,8 @@ class _SharedInput(torch.autograd.Function):
 def _a2a0(t, grp):
     check_device(t, grp)
     t = t.contiguous()
-    _sent("all_to_all", t, grp)
     out = torch.empty_like(t)
+    _sent("all_to_all", t, grp, out)
     dist.all_to_all_single(out, t, group=grp)
     return out
 
@@ -246,8 +268,8 @@ def mean(t: torch.Tensor, grp) -> torch.Tensor:
 def reduce_scatter0(t: torch.Tensor, grp) -> torch.Tensor:
     """Sum over the ranks of ``t`` (m, ...); rank r keeps chunk r, (...)."""
     check_device(t, grp)
-    _sent("reduce_scatter", t, grp)
     out = torch.empty(t.shape[1:], dtype=t.dtype, device=t.device)
+    _sent("reduce_scatter", t, grp, out)
     _reduce_scatter(out, t.reshape(-1, *t.shape[2:]), group=grp)
     return out
 
@@ -255,6 +277,6 @@ def reduce_scatter0(t: torch.Tensor, grp) -> torch.Tensor:
 def all_reduce(t: torch.Tensor, grp, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """In place over one group."""
     check_device(t, grp)
-    _sent("all_reduce", t, grp)
+    _sent("all_reduce", t, grp, t)
     dist.all_reduce(t, op=op, group=grp)
     return t

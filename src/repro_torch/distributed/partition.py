@@ -804,7 +804,8 @@ def build_params(cfg, *, seed: int = 0, layout: Optional[Layout] = None,
     With ``layout`` None (or one rank) it is the unpartitioned tree of the
     same values.  The embedding and lm_head draw from their own
     generators; the layout is the reference's (``units``, ``enc_layers``
-    and ``dec_layers`` stacked)."""
+    and ``dec_layers`` stacked).  On ``device="meta"`` nothing is drawn:
+    the rank's tree as shapes and dtypes only (``launch/dryrun.py``)."""
     from repro_torch.core.api import integerize_params
     from repro_torch.layers.embed import init_embed
     from repro_torch.layers.norms import init_norm
@@ -813,6 +814,8 @@ def build_params(cfg, *, seed: int = 0, layout: Optional[Layout] = None,
     d, dt = cfg.d_model, cfg.tdtype
 
     def gen(i):
+        if torch.device(device).type == "meta":
+            return None               # a meta device has no generator
         return torch.Generator(device=device).manual_seed(
             seed * 100_003 + i)
 

@@ -25,6 +25,13 @@ its own.
     python tests/_torch_dist_util.py jaxshard bodies|serve|train OUT.npz
         The reference's shard bodies (``int_bf16_reduce``, ``moe_a2a``)
         on host meshes of 2 and 4 devices, with the inputs it makes.
+    python tests/_torch_dist_util.py jaxdryrun OUT.json
+        The reference's dry-run cells (``repro/launch/dryrun.py``, imported
+        first: 512 host devices) of DRYRUN_LAYOUT_CELLS: each argument
+        leaf's global shape, shard shape on the production mesh and item
+        size, nothing compiled.  The rank job "dryrun" (world 4) runs
+        DRYRUN_CASES through ``repro_torch.launch.dryrun.measure`` on real
+        CPU tensors under gloo (``tests/test_torch_dryrun.py``).
         :func:`launch` and :func:`join` start and wait for a job's ranks.
 
 Arrays cross as npz: trees flatten to "/"-joined keys, and a bfloat16
@@ -1803,6 +1810,78 @@ def records_from(ref, prefix):
     return recs, exp2
 
 
+# the dry run (tests/test_torch_dryrun.py): production cells whose rank-0
+# layout is held against the reference's shardings, and SMOKE cells run
+# on real CPU tensors under gloo against meta under the fake group
+DRYRUN_LAYOUT_CELLS = (("qwen2.5-32b", "decode_32k", "single"),
+                       ("llama4-scout-17b-a16e", "train_4k", "multi"),
+                       ("recurrentgemma-9b", "long_500k", "single"),
+                       ("whisper-large-v3", "prefill_32k", "single"))
+# (tag, arch, shape, seq, global batch, variant)
+DRYRUN_CASES = (("llama-train", "llama4-scout-17b-a16e", "train_4k", 32, 8,
+                 None),
+                ("qwen-decode", "qwen2.5-32b", "decode_32k", 40, 4, None),
+                ("llama-prefill-opt", "llama4-scout-17b-a16e", "prefill_32k",
+                 32, 8, "opt"))
+DRYRUN_MESHES = ((2, 2), (1, 4))
+
+
+def jax_dryrun(out_path):
+    """The reference's cells of DRYRUN_LAYOUT_CELLS, as ``jaxdryrun``
+    writes them: {"arch|shape|mesh/arg/leaf path": [global shape, shard
+    shape, item size]}."""
+    import json
+
+    from repro.launch import dryrun        # sets its 512 host devices
+    import jax
+    from repro.launch.mesh import make_production_mesh
+    out = {}
+    for arch, shape, mesh_kind in DRYRUN_LAYOUT_CELLS:
+        mesh = make_production_mesh(multi_pod=mesh_kind == "multi")
+        _, args, shardings, *_ = dryrun._make_cell(arch, shape, mesh)
+        kind = dryrun.SHAPES[shape][2]
+        names = {"train": ("params", "opt_state", "batch"),
+                 "prefill": ("params", "batch"),
+                 "decode": ("params", "token", "cache")}[kind]
+        for name, arg, sh in zip(names, args, shardings):
+            leaves = jax.tree_util.tree_flatten_with_path(arg)[0]
+            for (path, leaf), s in zip(leaves,
+                                       jax.tree_util.tree_leaves(sh)):
+                key = "/".join(str(getattr(k, "key", k)) for k in path)
+                out[f"{arch}|{shape}|{mesh_kind}/{name}/{key}".rstrip("/")] \
+                    = [list(leaf.shape), list(s.shard_shape(leaf.shape)),
+                       leaf.dtype.itemsize]
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def dryrun_job(rank):
+    """DRYRUN_CASES on each mesh of DRYRUN_MESHES, on this rank's real CPU
+    tensors: what ``repro_torch.launch.dryrun.measure`` counts."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    out = {}
+    for shape in DRYRUN_MESHES:
+        mesh = make_mesh(shape)
+        for tag, arch, cell_shape, seq, batch, variant in DRYRUN_CASES:
+            cell = dryrun._make_cell(arch, cell_shape, mesh,
+                                     cfg=registry.smoke_config(arch),
+                                     seq=seq, batch=batch, variant=variant,
+                                     device="cpu")
+            rec, _ = dryrun.measure(cell, memory=False)
+            key = f"{mesh_tag(shape)}/{tag}"
+            out[f"{key}/args"] = torch.tensor(
+                rec["memory"]["argument_size_in_bytes"])
+            out[f"{key}/flops"] = torch.tensor(rec["cost"]["flops"])
+            for what in ("wire", "collectives", "launches"):
+                for k, v in rec[what].items():
+                    out[f"{key}/{what}/{k}"] = torch.tensor(
+                        float(v), dtype=torch.float64)
+    return out
+
+
 def make_mesh(shape):
     from repro_torch.launch.mesh import make_test_mesh
     return make_test_mesh(shape, ("data", "model"), device_type="cpu")
@@ -1868,6 +1947,8 @@ def rank_main(job, rank, world, store, ref_path, out_dir):
         elif job == "shardjax":
             sys.path.insert(0, ROOT)
             out = shard_jax_job(rank, ref)
+        elif job == "dryrun":
+            out = dryrun_job(rank)
         else:
             n = int(job[len("elastic"):])
             out = elastic_job(n, ref, os.path.join(out_dir, "elastic8-0.npz"))
@@ -1884,6 +1965,8 @@ if __name__ == "__main__":
         jax_shard_bodies(sys.argv[3], sys.argv[2])
     elif sys.argv[1] == "jaxtrain":
         jax_train(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "jaxdryrun":
+        jax_dryrun(sys.argv[2])
     else:
         job, rank, world, store, ref_path, out_dir = sys.argv[2:8]
         rank_main(job, int(rank), int(world), store, ref_path, out_dir)
