@@ -134,7 +134,13 @@ Phases, in order; any failure exits non-zero before the result line:
    (every linear on qmatmul, every row-parallel product on its int32
    accumulator output, attention on the fused and ring kernels, no plain
    dispatch) and bitwise equal to rank 0's one-rank run of the same tree
-   (logits every step, tokens, the gathered ring caches); (b) at four
+   (logits every step, tokens, the gathered ring caches), then each again
+   under the residual's sequence split (``Rules(seq_tp=("model",))``,
+   Megatron-SP; the identity at one card): gated by [route], bitwise on
+   every rank against the run without it (logits, tokens, cache shard),
+   every kernel call at the shape it has without it (``KernelCalls``) and
+   layer 0's bytes sent, what the split changes, equal to
+   ``sp_wire_analytic``; (b) at four
    cards only, Llama-4-Scout at its 48 layers, each rank building its
    shard: its bytes and peak memory under the card's, the global tree's
    (meta shapes) above it, 16 ring steps on the cuda backend with the
@@ -149,7 +155,8 @@ Phases, in order; any failure exits non-zero before the result line:
    (data 1, model n) and, at four cards, on (data 2, model 2) too
    (RecurrentGemma at batch 4, Mamba and Whisper at 8); gated by [route]
    and bitwise equal to rank 0's one-rank run (logits every step, tokens,
-   the gathered caches with their states); first, cuBLAS's decode-row
+   the gathered caches with their states), RecurrentGemma also under the
+   sequence split, gated as [tp]'s; first, cuBLAS's decode-row
    gate product against a rank's slices, and ``rglru.gate_step``'s, and
    torch's row mean against a few of its rows, and the norms'. Then [tp-train],
    partitioned training on the same ranks (``Rules(batch=("data",),
@@ -167,8 +174,11 @@ Phases, in order; any failure exits non-zero before the result line:
    process group, one process each on the CPU, for Qwen2.5-32B decode_32k
    and train_4k, Llama-4-Scout train_4k (experts split over "data") and
    under "opt", RecurrentGemma-9B and Mamba2-130M long_500k and
-   Whisper-large-v3 prefill_32k, each gated at status "ok", with its
-   rank's argument bytes, FLOPs and collective bytes printed; (b)
+   Whisper-large-v3 prefill_32k, and Qwen2.5-32B train_4k under "sp" (the
+   residual's sequence split: its arguments gated equal to the baseline
+   cell's, its temp printed beside the baseline's), each gated at status
+   "ok", with its rank's argument bytes, FLOPs and collective bytes
+   printed; (b)
    meanwhile, in a process of its own, rank 0 of Qwen2.5-32B decode_32k
    (all 64 layers) and RecurrentGemma-9B long_500k really run on the card
    under the fake group on a CUDA mesh: its tree from
@@ -2311,8 +2321,10 @@ def dist_tp(rank, world, say):
     qmatmul, every row-parallel product on its int32 accumulator output,
     attention on the fused and ring kernels, no plain dispatch), then on
     rank 0 bitwise against the one-rank run of the same tree (logits every
-    step, tokens, the gathered ring caches); (b) at four cards,
-    Llama-4-Scout at its 48 layers.  Returns rank 0's launches of (a)."""
+    step, tokens, the gathered ring caches); each also under the
+    residual's sequence split (``Rules.seq_tp``, :func:`tp_sp_hold`); (b)
+    at four cards, Llama-4-Scout at its 48 layers.  Returns rank 0's
+    launches of (a)."""
     import torch
     from repro_torch.distributed import partition
     from repro_torch.distributed.sharding import Rules
@@ -2325,7 +2337,8 @@ def dist_tp(rank, world, say):
     total = {}
     for arch in ("qwen2.5-32b", "llama4-scout-17b-a16e"):
         cfg = arch_config(arch, "cuda").replace(n_layers=DIST_LAYERS)
-        add_launches(total, tp_short(cfg, rules, layout, rank, world, say))
+        add_launches(total, tp_short(cfg, rules, layout, rank, world, say,
+                                     sp=True))
         torch.cuda.empty_cache()
     if world < 4:
         say(f"[tp] (b) Llama-4-Scout at its full depth needs four "
@@ -2403,8 +2416,8 @@ def tree_bytes(tree):
     return sum(t.numel() * t.element_size() for t in tree_lib.leaves(tree))
 
 
-def tp_short(cfg, rules, layout, rank, world, say):
-    """[tp] (a) for one config; returns the partitioned run's launches."""
+def tp_short(cfg, rules, layout, rank, world, say, sp=False):
+    """[tp] (a) for one config; returns the partitioned runs' launches."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(5)
     toks = torch.randint(0, cfg.vocab, (DIST_BATCH, DIST_PROMPT),
@@ -2412,11 +2425,11 @@ def tp_short(cfg, rules, layout, rank, world, say):
     return tp_hold(cfg, rules, layout, {"tokens": toks},
                    DIST_PROMPT + DIST_STEPS, DIST_STEPS,
                    f"[tp] {cfg.name} widths, {cfg.n_layers} layers, over "
-                   f"{world} rank(s)", rank, world, say)
+                   f"{world} rank(s)", rank, world, say, sp=sp)
 
 
 def tp_hold(cfg, rules, layout, inputs, max_len, steps, tag, rank, world,
-            say):
+            say, sp=False):
     """One partitioned serving run of [tp] or [tp-families]: the rank's
     tree from ``partition.build_params`` (seed 0), ``prefill`` of
     ``inputs`` and ``steps`` greedy ring steps under ``rules`` (after a
@@ -2425,11 +2438,14 @@ def tp_hold(cfg, rules, layout, inputs, max_len, steps, tag, rank, world,
     launched, no plain dispatch) and its launch counts; a decode step
     profiled on rank 0; then on rank 0 bitwise against the one-rank run
     of the same tree (logits every step, tokens, every leaf of the
-    gathered caches).  Returns the partitioned run's launches."""
+    gathered caches).  With ``sp`` the same run under the residual's
+    sequence split too (:func:`tp_sp_hold`), its launches added.  Returns
+    the partitioned runs' launches."""
     import torch
     import torch.distributed as dist
     from repro_torch import tree as tree_lib
     from repro_torch.configs.registry import is_encdec
+    from repro_torch.distributed import collectives as col
     from repro_torch.distributed import partition
     from repro_torch.distributed.sharding import use_rules
     from repro_torch.kernels import dispatch
@@ -2445,10 +2461,12 @@ def tp_hold(cfg, rules, layout, inputs, max_len, steps, tag, rank, world,
         torch.cuda.reset_peak_memory_stats()
         dispatch.reset_stats()
         dispatch.reset_launches()
+        col.reset_wire()
         logits, fed, cache, t_prefill, step_s = tp_greedy(
             local, inputs, cfg, steps, max_len=max_len)
         launches = dispatch.launch_counts()
         snap = dispatch.snapshot()
+        wire = wire_snapshot()
     peak = torch.cuda.max_memory_allocated() / 1e9
     ran, ring_layers = tp_path(cfg)
     check_route(f"{tag} cuda run", "cuda", launches, snap, ran)
@@ -2461,6 +2479,10 @@ def tp_hold(cfg, rules, layout, inputs, max_len, steps, tag, rank, world,
                              f"{snap['qlinear_acc_cuda']} (want {want}), "
                              f"ring launches {launches['int_decode_attention']}"
                              f" (want {rings})")
+    sp_launches = tp_sp_hold(
+        cfg, rules, layout, local, inputs, max_len,
+        (logits, fed, cache, wire), snap["qlinear_acc_cuda"], tag,
+        say) if sp else {}
     parts = [None] * world
     dist.all_gather_object(parts, (layout, tree_lib.tree_map(
         lambda t: t.cpu(), cache)))
@@ -2517,6 +2539,94 @@ def tp_hold(cfg, rules, layout, inputs, max_len, steps, tag, rank, world,
                 tuple(logits[-1].shape) != (b, 1, cfg.vocab):
             raise AssertionError(f"{tag}: partitioned run differs from one "
                                  f"rank")
+    add_launches(launches, sp_launches)
+    return launches
+
+
+def tp_sp_hold(cfg, rules, layout, local, inputs, max_len, base, acc, tag,
+               say):
+    """The run of :func:`tp_hold` again under ``rules`` with ``seq_tp=
+    ("model",)``: the residual's sequence split over "model"
+    (``partition.seq_split``; m divides the prompt, a decode step keeps it
+    whole).  Gated by [route] and the same int32 row products ``acc`` as
+    the run without it; on every rank bitwise against that run's ``base``
+    (logits every step, fed tokens, every leaf of its cache shard, and the
+    bytes it sent); every kernel call at the shape and count of a run
+    without the split (``KernelCalls``, a prefill and a step of each); the
+    bytes the run sent and its collective result bytes, beside the run
+    without it, equal to :func:`sp_run_wire_analytic` (so the split ran),
+    and layer 0's alone to :func:`sp_wire_analytic`.  On one model rank
+    the split is the identity (``Partition.seq`` is off): printed, and not
+    run.  Returns its launches."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as tree_lib
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.kernels import dispatch
+    m = layout.m
+    if m == 1:
+        say(f"{tag} under seq_tp: on one model rank the residual's "
+            f"sequence split is the identity (Partition.seq is off), so "
+            f"the run is the one above; not rerun")
+        return {}
+    sp_rules = dataclasses.replace(rules, seq_tp=("model",))
+    steps = len(base[1])
+    with use_rules(sp_rules):
+        tp_greedy(local, inputs, cfg, 1, max_len=max_len)      # cold
+        dispatch.reset_stats()
+        dispatch.reset_launches()
+        col.reset_wire()
+        logits, fed, cache, t_prefill, step_s = tp_greedy(
+            local, inputs, cfg, steps, max_len=max_len)
+        launches = dispatch.launch_counts()
+        snap = dispatch.snapshot()
+        wire = wire_snapshot()
+    ran, _ = tp_path(cfg)
+    check_route(f"{tag} sp cuda run", "cuda", launches, snap, ran)
+    calls = {}
+    for key, r in (("base", rules), ("sp", sp_rules)):
+        with use_rules(r), KernelCalls() as kc:
+            tp_greedy(local, inputs, cfg, 1, max_len=max_len)
+        calls[key] = kc.shapes()
+    b, s = inputs["tokens"].shape
+    rows = b // layout.size(("data",)) * s
+    run_got = wire_diff(wire, base[3])
+    run_want = analytic_flat(*sp_run_wire_analytic(cfg, m, rows))
+    flat_a = tree_lib.leaves(cache)
+    flat_b = tree_lib.leaves(base[2])
+    checks = {
+        "int32 row products": snap["qlinear_acc_cuda"] == acc,
+        "logits bitwise": all(torch.equal(x, y)
+                              for x, y in zip(logits, base[0])),
+        "tokens": all(torch.equal(x, y) for x, y in zip(fed, base[1])),
+        "cache shard bitwise": len(flat_a) == len(flat_b) and all(
+            torch.equal(x, y) for x, y in zip(flat_a, flat_b)),
+        "kernel calls as without the split": calls["sp"] == calls["base"],
+        "run's bytes as analytic": wire_equal(run_got, run_want),
+        "finite": all(bool(torch.isfinite(x).all()) for x in logits)}
+    ok = torch.tensor([int(all(checks.values()))], device="cuda")
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    got, want = sp_wire_counts(cfg, rules.mesh, layout, b, s, local=local)
+    wire_ok = wire_equal(got, want)
+    say(f"{tag} under seq_tp (the residual's sequence split over {m} "
+        f"model ranks): {card_line()}; prefill {t_prefill * 1e3:.2f} ms, "
+        f"decode step {step_s / steps * 1e3:.2f} ms "
+        f"({b * steps / step_s:.1f} tok/s); rank 0's checks {checks}; "
+        f"every rank {bool(ok.item())}; kernel calls by shape "
+        f"{calls['sp']}; the run's bytes sent and collective result bytes "
+        f"beside the run without the split "
+        f"{ {k: int(v) for k, v in run_got.items()} }, analytic "
+        f"{ {k: int(v) for k, v in run_want.items()} }; layer 0's "
+        f"{ {k: int(v) for k, v in got.items()} }, analytic "
+        f"{ {k: int(v) for k, v in want.items()} }: equal {wire_ok}; "
+        f"launches { {k: n for k, n in launches.items() if n} }")
+    if not (ok.item() and wire_ok):
+        raise AssertionError(f"{tag}: the run under seq_tp differs from "
+                             f"the run without it: {checks}, run bytes "
+                             f"{run_got} != {run_want}, layer 0's "
+                             f"{got} != {want}")
     return launches
 
 
@@ -2867,13 +2977,135 @@ def wire_counts(cfg, mesh, layout, device="cuda"):
     return out
 
 
+def sp_splits(cfg, m, kind=None):
+    """The row-parallel products with a split K in a layer of ``kind``
+    (default layer 0's) of ``cfg`` on ``m`` model ranks
+    (``partition.split_plan``): attention's wo, the RG-LRU's w_out, a
+    dense FFN's down (the MoE FFN and the SSD mixer come back whole)."""
+    from repro_torch.distributed import partition
+    from repro_torch.models import lm
+    plan = partition.split_plan(cfg, m)
+    kind = kind or lm.block_kinds(cfg)[0]
+    mixer = plan["heads"] if kind in lm.ATTN_KINDS else \
+        plan["rglru"] if kind == "rglru" else False
+    return int(mixer) + int(cfg.d_ff > 0 and cfg.moe is None and plan["ffn"])
+
+
+def sp_wire_analytic(cfg, m, rows, kind=None):
+    """What the residual's sequence split (``Rules.seq_tp``) changes in
+    the bytes a layer of ``kind`` (default layer 0's) of ``cfg`` makes a
+    rank send (``collectives.WIRE``, ring algorithms) and in its
+    exchanges' result bytes (``RESULT``), by kind: sp minus without, for
+    the rank's ``rows`` positions (B x S, m dividing S) on ``m`` model
+    ranks.  The normed stream is all-gathered before the mixer and before
+    a feed-forward (``cfg.tdtype`` bytes), and each row-parallel product
+    with a split K (:func:`sp_splits`) reduce-scatters its 4-byte sums
+    (int32, or f32 in the float and fake modes) where it all-reduced
+    them.  (wire, result)."""
+    d, e = cfg.d_model, cfg.tdtype.itemsize
+    # on one model rank nothing is exchanged: the split is the identity
+    n, k = (1 + int(cfg.d_ff > 0)) * (m > 1), sp_splits(cfg, m, kind)
+    sums = rows * d * 4
+    wire = {"all_gather": n * (m - 1) * rows // m * d * e,
+            "reduce_scatter": k * (m - 1) / m * sums,
+            "all_reduce": -k * 2 * (m - 1) / m * sums}
+    result = {"all-gather": n * rows * d * e,
+              "reduce-scatter": k * sums // m, "all-reduce": -k * sums}
+    return wire, result
+
+
+def sp_run_wire_analytic(cfg, m, rows):
+    """What the split changes in a whole ``lm.forward`` of the rank's
+    ``rows`` positions (m dividing S): :func:`sp_wire_analytic` for each
+    layer's kind, and the final norm's output all-gathered over "model"
+    (``cfg.tdtype`` bytes).  A decode step (S = 1) keeps the residual
+    whole, so a greedy run's steps add nothing.  (wire, result)."""
+    from repro_torch.models import lm
+    d, e = cfg.d_model, cfg.tdtype.itemsize
+    last = int(m > 1)
+    wire = {"all_gather": last * (m - 1) * rows // m * d * e,
+            "reduce_scatter": 0.0, "all_reduce": 0.0}
+    result = {"all-gather": last * rows * d * e, "reduce-scatter": 0,
+              "all-reduce": 0}
+    for kind in lm.block_kinds(cfg):
+        w, r = sp_wire_analytic(cfg, m, rows, kind)
+        for k in wire:
+            wire[k] += w[k]
+        for k in result:
+            result[k] += r[k]
+    return wire, result
+
+
+def wire_diff(got, base):
+    """{"wire/<kind>", "result/<kind>": got minus base} of two
+    :func:`wire_snapshot`'s, the nonzero ones."""
+    return {k: got[k] - base[k] for k in got if got[k] != base[k]}
+
+
+def wire_snapshot():
+    """``collectives.WIRE`` and ``RESULT`` as one flat dict."""
+    from repro_torch.distributed import collectives as col
+    return {**{f"wire/{k}": v for k, v in col.WIRE.items()},
+            **{f"result/{k}": v for k, v in col.RESULT.items()}}
+
+
+def analytic_flat(wire, result):
+    """(wire, result) as :func:`wire_snapshot`'s keys, the nonzero ones."""
+    out = {**{f"wire/{k}": v for k, v in wire.items()},
+           **{f"result/{k}": v for k, v in result.items()}}
+    return {k: v for k, v in out.items() if v}
+
+
+def wire_equal(got, want):
+    """Two byte counts by kind equal (to 1e-9 of each: WIRE's shares are
+    fractions)."""
+    return sorted(got) == sorted(want) and all(
+        abs(got[k] - want[k]) <= 1e-9 * max(abs(want[k]), 1) for k in want)
+
+
+def sp_wire_counts(cfg, mesh, layout, batch, prompt, device="cuda",
+                   local=None):
+    """Layer 0 of the rank's tree ``local`` (default
+    ``partition.build_params``, seed 0) on the rank's rows of ``batch``
+    prompts of ``prompt`` positions, under
+    partitioned rules without and with ``seq_tp``, its exchanges counted:
+    (counted, analytic), each {"wire/<kind>", "result/<kind>": sp minus
+    without} (:func:`sp_wire_analytic`)."""
+    import torch
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import Rules, use_rules
+    from repro_torch.models import lm
+    m, n_dp = layout.m, layout.size(("data",))
+    if local is None:
+        local = partition.build_params(cfg, seed=0, layout=layout,
+                                       device=device)
+    p0, kind = next(stack_blocks(local, cfg))
+    g = torch.Generator(device=device).manual_seed(9)
+    b = batch // n_dp
+    x = torch.randn((b, prompt, cfg.d_model), generator=g,
+                    device=device).to(cfg.tdtype)
+    pos = torch.arange(prompt, dtype=torch.int32,
+                       device=device)[None].expand(b, prompt)
+    runs = {}
+    for sp in (False, True):
+        rules = Rules(batch=("data",), mesh=mesh, partitioned=True,
+                      seq_tp=("model",) if sp else ())
+        with use_rules(rules), torch.no_grad():
+            xin = partition.seq_rows(x, sp)
+            col.reset_wire()
+            lm.apply_block(xin, p0, cfg, kind, positions=pos, seq=sp)
+            runs[sp] = wire_snapshot()
+    return (wire_diff(runs[True], runs[False]),
+            analytic_flat(*sp_wire_analytic(cfg, m, b * prompt)))
+
+
 def sb_wire(cfg, mesh, layout, say):
     """[tp-shard-bodies] (d) for one config, gated equal to the analytic
     counts (to 1e-9 of each)."""
     res = wire_counts(cfg, mesh, layout)
     for (what, rules), (got, want) in res.items():
-        ok = sorted(got) == sorted(want) and all(
-            abs(got[k] - want[k]) <= 1e-9 * max(want[k], 1) for k in want)
+        ok = wire_equal(got, want)
         which = "today" if rules == "old" else "both options"
         say(f"[tp-shard-bodies] (d) {cfg.name} layer 0 "
             f"{'wo (row-parallel)' if what == 'row' else 'MoE FFN'}, mesh "
@@ -2981,8 +3213,10 @@ def dist_tp_families(rank, world, say):
     accumulator output, the fused and ring kernels launched, no plain
     dispatch), then on rank 0 bitwise
     against the one-rank run of the same tree (logits every step, tokens,
-    the gathered caches with their states).  Returns rank 0's launches of
-    the partitioned runs, summed."""
+    the gathered caches with their states); RecurrentGemma's runs also
+    under the residual's sequence split (``Rules.seq_tp``,
+    :func:`tp_sp_hold`).  Returns rank 0's launches of the partitioned
+    runs, summed."""
     import torch
     from repro_torch.distributed import partition
     from repro_torch.distributed.sharding import Rules
@@ -3007,7 +3241,8 @@ def dist_tp_families(rank, world, say):
                 partition.Layout.of(mesh, ("data",)),
                 tf_batch(cfg, batch, prompt), max_len, REC_STEPS,
                 f"[tp-families] {cfg.name} on (data {shape[0]}, model "
-                f"{shape[1]})", rank, world, say))
+                f"{shape[1]})", rank, world, say,
+                sp=arch == "recurrentgemma-9b"))
             torch.cuda.empty_cache()
     return {k: total.get(k, 0) for k in TP_KERNELS}
 
@@ -3798,7 +4033,8 @@ DRYRUN_CELLS = (("qwen2.5-32b", "decode_32k", None),
                 ("llama4-scout-17b-a16e", "train_4k", "opt"),
                 ("recurrentgemma-9b", "long_500k", None),
                 ("whisper-large-v3", "prefill_32k", None),
-                ("mamba2-130m", "long_500k", None))
+                ("mamba2-130m", "long_500k", None),
+                ("qwen2.5-32b", "train_4k", "sp"))
 # [dryrun] (b): rank 0 of these cells run on the card
 DRYRUN_CARD = (("qwen2.5-32b", "decode_32k"),
                ("recurrentgemma-9b", "long_500k"))
@@ -3876,6 +4112,17 @@ def phase_dryrun():
             f"result bytes {rec.get('collectives')}, sent {rec.get('wire')}")
         if rec["status"] != "ok":
             raise AssertionError(f"[dryrun] {tag}: {rec.get('error')}")
+    # sp moves activations only: the same arguments, a lower temp
+    sp, base = (recs[f"qwen2.5-32b|train_4k|{v}"]["memory"]
+                for v in ("sp", "baseline"))
+    log(f"[dryrun] (a) qwen2.5-32b|train_4k x single under sp: arguments "
+        f"{sp['argument_size_in_bytes']} B (baseline "
+        f"{base['argument_size_in_bytes']} B), temp "
+        f"{sp['temp_size_in_bytes'] / 1e9:.3f} GB beside the baseline's "
+        f"{base['temp_size_in_bytes'] / 1e9:.3f} GB")
+    if sp["argument_size_in_bytes"] != base["argument_size_in_bytes"]:
+        raise AssertionError("[dryrun] (a) the sp cell's arguments differ "
+                             "from the baseline cell's")
     total = {name: 0 for name in KERNELS}
     for arch, shape in DRYRUN_CARD:
         add_launches(total, dryrun_hold(arch, shape, card[f"{arch}|{shape}"],

@@ -54,7 +54,8 @@ def is_linear(p: Any) -> bool:
 
 
 def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig], *,
-          tp: Optional[str] = None, k_split: bool = False) -> torch.Tensor:
+          tp: Optional[str] = None, k_split: bool = False,
+          seq: bool = False) -> torch.Tensor:
     """The one linear-layer entry point of the models.
 
     ``tp="row"`` marks the reference's row-parallel layers (wo, down, the
@@ -75,15 +76,20 @@ def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig], *,
     and, with ``tp`` and ``k_split``, its slice of K: both grids then max
     over "model" too, and the partial products are summed over "model"
     (``Partition.sum``) before the bias.
+
+    ``seq`` (a row-parallel product under the residual's sequence split,
+    ``partition.seq_split``; x (B, S, K) whole in S): the result is this
+    rank's chunk of the sequence, the partial products reduce-scattered
+    along S where they split (int32 sums in int mode, f32 in the float
+    and fake modes: ``Partition.scatter``) instead of all-reduced, else
+    narrowed to the chunk; the bias is added on the rank's rows.
     """
     from repro_torch.distributed import partition
     b = p.get("b")
     split = tp in ("row", "sum") and k_split and \
         partition.active() is not None
     if cfg is None or cfg.mode == "float":
-        y = _matmul(x, p["w"])
-        if split:
-            y = partition.active().sum(y)
+        y = _reduce(_matmul(x, p["w"]), split, seq)
         return y + b if b is not None else y
     if cfg.mode == "fake":
         w = p["w"]
@@ -93,9 +99,7 @@ def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig], *,
         dx = quant.absmax_scale(x, cfg.a_bits, group=partition.tensor_max
                                 if split else partition.rows_max)
         x_fq = quant.fake_quant(x, dx, cfg.a_bits)
-        y = _matmul(x_fq, w_fq)
-        if split:
-            y = partition.active().sum(y)
+        y = _reduce(_matmul(x_fq, w_fq), split, seq)
         return y + b if b is not None else y
     if cfg.mode == "int":
         from repro_torch.distributed.sharding import current_rules
@@ -105,7 +109,7 @@ def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig], *,
                 and "model" in rules.mesh.mesh_dim_names):
             return _int_row_parallel(x, p, cfg, rules, k_split)
         if tp in ("row", "sum") and partition.active() is not None:
-            return partition.row_parallel_linear(x, p, cfg, k_split)
+            return partition.row_parallel_linear(x, p, cfg, k_split, seq)
         from repro_torch.kernels.dispatch import maybe_qlinear
         y = maybe_qlinear(x, p, cfg)       # cuda backend; None -> plain path
         if y is not None:
@@ -121,6 +125,17 @@ def dense(x: torch.Tensor, p: dict, cfg: Optional[QuantConfig], *,
                                        group=partition.tensor_max)
         return integerize.int_linear(xq, as_qlinear(p, cfg)).to(x.dtype)
     raise ValueError(f"unknown quant mode {cfg.mode!r}")
+
+
+def _reduce(y, split, seq):
+    """The float partial products ``y`` (B, S, N) of a row-parallel
+    product: summed over "model" where K ``split``; with ``seq`` this
+    rank's chunk of S of the sum (a reduce-scatter), or of ``y``."""
+    from repro_torch.distributed import partition
+    if split:
+        part = partition.active()
+        return part.scatter(y, ("model",), 1) if seq else part.sum(y)
+    return partition.seq_rows(y, seq)
 
 
 def _matmul(x, w):

@@ -151,9 +151,11 @@ def gather_dim(t: torch.Tensor, groups, dim: int = 0) -> torch.Tensor:
 
 def reduce_scatter_dim(g: torch.Tensor, groups, dim: int = 0) -> torch.Tensor:
     """The reverse of :func:`gather_dim` for shards each rank uses on its
-    own data: the sum over ``groups`` of each rank's chunk along ``dim``,
-    in f32, cast back."""
-    out = g.to(torch.float32).movedim(dim, 0)
+    own data: the sum over ``groups`` of each rank's chunk along ``dim``;
+    int32 as it is (exact: an f32 sum would round sums past 2^24), floats
+    in f32 (an exact widening of bf16), cast back."""
+    out = (g if g.dtype == torch.int32 else g.to(torch.float32)).movedim(
+        dim, 0)
     for grp in groups:                               # major first
         n = dist.get_world_size(grp)
         out = reduce_scatter0(

@@ -64,6 +64,26 @@ stays whole over "model" (:func:`local_cache_specs`).  The reference's
 sequence instead, which would need a cross-rank merge of the softmax's f32
 sum, not an exact step.
 
+With ``Rules.seq_tp = ("model",)`` (the reference's ``sp`` variant,
+Megatron-SP; :func:`seq_split`) the residual stream splits too: from the
+embedding (:meth:`Partition.take`) to the final norm (gathered, so
+``lm.forward`` still returns whole hidden states), a rank holds the
+contiguous chunk j of the sequence of its batch rows, j its index on
+"model".  Each half-block normalizes the rank's rows, all-gathers the
+normed stream along S (bf16 as bytes: :func:`model_input`), runs its mixer
+or feed-forward on the whole sequence as without the split (ring writes,
+recurrent states, MoE capacity unchanged), and keeps the rank's chunk of
+the output: a row-parallel product with a split K reduce-scatters its sums
+along S where it would all-reduce them, and an output every rank holds
+whole (attention kept whole, the SSD mixer, the MoE FFN) is narrowed.
+Where m does not divide S the residual stays whole for the call: every
+decode step, and a prompt length m does not divide (the reference's GSPMD
+pads or replicates there).  ``seq_tp`` with ``int_bf16_reduce`` or
+``moe_a2a``, which the reference never runs together, raises
+``NotImplementedError`` when the rank's :class:`Partition` is made;
+without partitioned rules ``seq_tp`` does nothing, as ``sharding.shard``.
+Whisper's stacks (``models/encdec.py``) do not split.
+
 **Exactness.**  A partitioned int-mode run without the two options is
 bitwise equal to one rank's run of the same tree wherever it was
 checked: meshes (1, 4), (2, 2) and (4, 1) at SMOKE size on the CPU, and
@@ -92,6 +112,15 @@ reference's sharded train cell parts from its one-device run):
 - the vocabulary-split embedding sums one non-zero term per element; the
   logits (along the vocabulary), the expert outputs (along E) and the
   batch rows are gathered.
+
+Under ``seq_tp`` an int-mode run is bitwise the same partitioned run
+without it, on every mesh: a reduce-scatter of int32 sums is exact
+(``collectives.reduce_scatter_dim`` keeps int32), and the norms, grids and
+epilogues act per row.  In modes "float" and "fake" the forward is the
+same arithmetic but for the order in which an f32 reduce-scatter adds the
+ranks' partial products (the same sum as the all-reduce's at m = 2), and a
+norm's gain, used on the rank's rows, sums its gradient over "model" in
+another order than one sum over all rows.
 """
 from __future__ import annotations
 
@@ -112,6 +141,10 @@ ROADMAP_ITEM = "ROADMAP.md queue 1, item 6c (partitioned execution)"
 # what is still to do: the paged engine, which the reference never
 # shards, stays whole
 PAGED = "ROADMAP.md queue 1, item 6c.4 (the paged engine)"
+# the sequence split with the shard bodies, which the reference never
+# runs together (its dry run takes one variant a cell)
+SP_BODIES = ("ROADMAP.md section 3, recorded differences: 'sp' with "
+             "int_bf16_reduce or moe_a2a")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -412,6 +445,21 @@ class _Sum(torch.autograd.Function):
         return g, None
 
 
+class _Scatter(torch.autograd.Function):
+    """Forward a reduce-scatter along ``dim``: the sum over ranks of
+    their parts, of which each rank keeps its chunk (int32 exact, floats
+    in f32, cast back); backward the all-gather of the chunks' gradients,
+    since every rank's part entered the whole sum."""
+    @staticmethod
+    def forward(ctx, t, groups, dim):
+        ctx.groups, ctx.dim = groups, dim
+        return col.reduce_scatter_dim(t, groups, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return col.gather_dim(g, ctx.groups, ctx.dim), None, None
+
+
 class _Counted(torch.autograd.Function):
     """Forward the identity, backward a division by ``n``: a value every
     rank of a sum of the loss holds alike, counted once in that sum."""
@@ -506,6 +554,15 @@ class Partition:
         self.mesh = rules.mesh
         self.layout = Layout.of(rules.mesh, rules.batch, rules.expert_fsdp)
         self.m = self.layout.m
+        if rules.seq_tp and tuple(rules.seq_tp) != ("model",):
+            raise ValueError(f"seq_tp {rules.seq_tp}: the residual's "
+                             f"sequence splits over ('model',) only")
+        if rules.seq_tp and (rules.int_bf16_reduce or rules.moe_a2a):
+            raise NotImplementedError(
+                f"the sequence split (seq_tp) with int_bf16_reduce or "
+                f"moe_a2a does not run partitioned: {SP_BODIES}")
+        # Megatron-SP: the residual's sequence over "model" (seq_split)
+        self.seq = bool(rules.seq_tp) and self.m > 1
         self.j = self.layout.index(("model",))
         self.batch = tuple(a for a in self.layout.batch
                            if self.layout.size((a,)) > 1)
@@ -564,6 +621,13 @@ class Partition:
         if not groups:
             return t
         return col.gather(t, groups, dim, shards=shards)
+
+    def scatter(self, t, axes, dim: int = 0):
+        """The reduce-scatter along ``dim`` over ``axes`` of the ranks'
+        parts of one sum: this rank's chunk of the sum (int32 exact,
+        floats in f32, cast back); the backward all-gathers."""
+        groups = self._groups(axes)
+        return _Scatter.apply(t, groups, dim) if groups else t
 
     def take(self, t, axes, dim: int = 0):
         """This rank's chunk along ``dim`` of ``t`` split over ``axes``,
@@ -632,14 +696,40 @@ def rows_max(xa, axis=None):
     return grid_max(xa, axis, model=False, batch=True)
 
 
-def model_input(x, split: bool):
-    """``x`` entering a layer whose work ``split`` over "model" (its
-    column-parallel products): its gradient sums over "model"."""
+def seq_split(s: int) -> bool:
+    """Whether a call's residual of ``s`` positions splits its sequence
+    over "model" (``Rules.seq_tp``, Megatron-SP): under partitioned rules
+    with ``seq_tp``, more than one model rank and ``s`` a multiple of
+    their number.  Elsewhere the residual stays whole for the call: every
+    decode step (S = 1) and a prompt whose length m does not divide (the
+    reference's GSPMD pads or replicates there)."""
     part = active()
-    return part.shared(x) if part is not None and split else x
+    return part is not None and part.seq and s % part.m == 0
 
 
-def row_parallel_linear(x, p, cfg, k_split: bool):
+def model_input(x, split: bool, seq: bool = False):
+    """``x`` entering a layer whose work ``split`` over "model" (its
+    column-parallel products): its gradient sums over "model".  With
+    ``seq`` (:func:`seq_split`) ``x`` holds this rank's chunk of the
+    sequence (dim 1) and is all-gathered here, bf16 as bytes; the gather's
+    backward reduce-scatters the gradient where the work splits, and
+    hands the rank its chunk where every rank does all of it."""
+    part = active()
+    if part is None:
+        return x
+    if seq:
+        return part.gather(x, ("model",), dim=1, shards=split)
+    return part.shared(x) if split else x
+
+
+def seq_rows(t, seq: bool):
+    """This rank's chunk of the sequence (dim 1) of ``t``, which every
+    model rank holds whole, where ``seq`` (:func:`seq_split`); the
+    backward gathers the gradient."""
+    return active().take(t, ("model",), dim=1) if seq else t
+
+
+def row_parallel_linear(x, p, cfg, k_split: bool, seq: bool = False):
     """A row-parallel integer linear (wo, down) under partitioned rules.
 
     ``x`` (B, S, K) or (T, K) and ``p["w_q"]`` hold this rank's K slice
@@ -651,6 +741,11 @@ def row_parallel_linear(x, p, cfg, k_split: bool):
     ``f32(acc) * (w_scale * x_scale [* row_scale]) + b`` is applied once,
     rounded op by op as the kernel's.  So the result equals one rank's
     product bit for bit, split or not.
+
+    ``seq`` (:func:`seq_split`; 3-D x, whole in S): the result is this
+    rank's chunk of the sequence: the int32 sums are reduce-scattered
+    along S instead (exact), and the epilogue runs on the rank's rows with
+    each row's scale; an unsplit K's output is narrowed to the chunk.
     """
     from repro_torch.core import quant
     from repro_torch.core.api import as_qlinear
@@ -664,8 +759,6 @@ def row_parallel_linear(x, p, cfg, k_split: bool):
                                 group=heads_max if k_split else None)
         codes = quant.quantize(x, dx, cfg.a_bits)
         scale = w_scale
-        row_scale = torch.repeat_interleave(
-            dx.reshape(x.shape[0]).to(torch.float32), x.shape[1])
     else:
         xq = quant.quantize_tensor(x, cfg.a_bits,
                                    group=tensor_max if k_split else rows_max)
@@ -676,11 +769,20 @@ def row_parallel_linear(x, p, cfg, k_split: bool):
     acc = maybe_qlinear_acc(codes, p["w_q"], cfg)
     if acc is None:
         acc = quant.int_matmul_exact(codes, as_qlinear(p, cfg).w_q.T)
-    if k_split:
+    shape = x.shape[:-1]
+    if seq and k_split:
+        acc = part.scatter(acc.view(*shape, -1), ("model",), dim=1)
+        shape = acc.shape[:-1]
+        acc = acc.reshape(-1, acc.shape[-1])
+    elif k_split:
         acc = part.sum(acc)
+    if x.ndim == 3:                  # each row its sequence's scale
+        row_scale = torch.repeat_interleave(
+            dx.reshape(x.shape[0]).to(torch.float32), shape[1])
     b = p.get("b")
     y = qmatmul_epilogue(acc, scale, None if b is None else b, row_scale)
-    return y.reshape(*x.shape[:-1], -1).to(x.dtype)
+    y = y.reshape(*shape, -1).to(x.dtype)
+    return seq_rows(y, seq and not k_split)
 
 
 # ---------------------------------------------------------------------------

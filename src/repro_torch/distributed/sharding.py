@@ -18,10 +18,11 @@ placements on a mesh.
 The port has no automatic partitioner.  ``Rules(partitioned=True)``
 switches on the partitioned program of ``distributed/partition.py``,
 where each rank holds only its shard of the weights and caches and the
-cross-rank steps are written out; otherwise every rank runs the model on
-global tensors, replicated, outside the two shard bodies.  :func:`shard`
-is the identity either way (the reference's is a GSPMD layout constraint,
-which never changes a value either).
+cross-rank steps are written out (``Rules.seq_tp`` there splits the
+residual's sequence over "model"); otherwise every rank runs the model on
+global tensors, replicated, outside the two shard bodies, and ``seq_tp``
+does nothing.  :func:`shard` is the identity either way (the reference's
+is a GSPMD layout constraint, which never changes a value either).
 """
 from __future__ import annotations
 
@@ -102,9 +103,13 @@ def shard(x, *logical_axes):
     """The reference's activation layout constraint by logical axis names.
 
     Under GSPMD it tells the partitioner how to lay ``x`` out and never
-    changes a value; the port has no partitioner (every rank holds the
-    global tensor outside the explicit shard bodies), so it returns ``x``.
-    It stays at the reference's call sites, so the two graphs read alike.
+    changes a value; the port has no partitioner, so it returns ``x``.  It
+    stays at the reference's call sites, so the two graphs read alike.
+    The layouts it would constrain are written out where the port runs
+    partitioned: ``"seq_tp"`` (the residual's sequence over "model",
+    ``Rules(partitioned=True, seq_tp=("model",))``) is
+    ``distributed/partition.py::seq_split`` and the take, gathers and
+    reduce-scatters of ``models/lm.py``'s blocks.
     """
     return x
 

@@ -53,10 +53,11 @@ Variants (the reference's ``--variant``): ``packed`` (nibble-packed int4
 weights), ``kv4`` (packed weights and a 4-bit ring), ``nofsdp`` (experts
 not split over "data" in training), ``bf16red`` and ``a2a`` (the
 row-parallel bf16 reduce and the all-to-all expert dispatch,
-``Rules(int_bf16_reduce=..., moe_a2a=...)``), ``opt`` (packed, both).
-``sp`` (the reference's Megatron-SP residual, ``Rules.seq_tp``) has no
-counterpart: the port's ``sharding.shard()`` is the identity, so its
-record is skipped with the ROADMAP item that ports it.
+``Rules(int_bf16_reduce=..., moe_a2a=...)``), ``opt`` (packed, both),
+``sp`` (the reference's Megatron-SP residual, ``Rules(seq_tp=
+("model",))``: the residual's sequence split over "model" between the
+blocks, ``distributed/partition.py::seq_split``; a decode step and
+Whisper's stacks keep it whole, so their records equal the baseline's).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2.5-32b --shape decode_32k --mesh single
@@ -64,8 +65,11 @@ Usage:
 
 It runs on the CPU and needs no card; more than one cell runs in a
 process each, as many at once as the process may use cores.  Results go
-to an incremental JSON (``--out``, default ``results/dryrun_torch.json``),
-resumed unless ``--force``.
+to an incremental JSON (``--out``, default
+``results/dryrun_torch.local.json``, which git ignores), resumed unless
+``--force``.  The records the repo keeps are ``results/dryrun_torch.json``:
+refresh a variant's there with ``--out results/dryrun_torch.json
+--force``, which reruns those cells and keeps the other records.
 """
 from __future__ import annotations
 
@@ -106,9 +110,6 @@ MESHES = {"single": 16 * 16, "multi": 2 * 16 * 16}
 VARIANTS = ("packed", "kv4", "nofsdp", "bf16red", "a2a", "opt", "sp")
 TEMP_INT = ("int mode: the plain route's float64 products on meta, which "
             "the CUDA kernels serving the step on the card never make")
-SP_ITEM = ("ROADMAP.md queue 1, item 6d (the residual's sequence split "
-           "over \"model\", Rules.seq_tp): the port's sharding.shard() is "
-           "the identity")
 
 
 @contextlib.contextmanager
@@ -210,6 +211,7 @@ def _make_cell(arch, shape, mesh, *, remat=True, expert_fsdp=None,
         bax = _batch_axes(mesh, gb)
         layout = partition.Layout.of(mesh, bax, fsdp=expert_fsdp)
         rules = Rules(batch=bax, mesh=mesh, partitioned=True,
+                      seq_tp=("model",) if variant == "sp" else (),
                       int_bf16_reduce=variant in ("bf16red", "opt"),
                       moe_a2a=variant in ("a2a", "opt"),
                       expert_fsdp=expert_fsdp)
@@ -423,8 +425,6 @@ def run_cell(arch, shape, mesh_kind, *, verbose=True, remat=True,
     rec = {"arch": arch, "shape": shape, "mesh": mesh_kind,
            "variant": variant or "baseline"}
     ok, why = cell_supported(arch, shape)
-    if variant == "sp" and ok:
-        ok, why = False, SP_ITEM
     if not ok:
         rec.update(status="skipped", reason=why)
         return rec
@@ -476,7 +476,7 @@ def main(argv=None):
     ap.add_argument("--mesh", choices=["single", "multi", "both"],
                     default="single")
     ap.add_argument("--all", action="store_true")
-    ap.add_argument("--out", default="results/dryrun_torch.json")
+    ap.add_argument("--out", default="results/dryrun_torch.local.json")
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--variant", default=None, choices=VARIANTS,

@@ -74,14 +74,18 @@ def softplus(x):
 
 
 def mlp(x, p: dict, cfg: QuantConfig | None, *, act: str = "swiglu",
-        k_split: bool = False):
+        k_split: bool = False, seq: bool = False):
     """The feed-forward on x (..., d); ``k_split``: under partitioned rules,
-    gate and up hold this rank's columns and down its slice of K."""
-    x = partition.model_input(x, k_split)
+    gate and up hold this rank's columns and down its slice of K.
+    ``seq`` (``partition.seq_split``): x (B, S, d) holds this rank's chunk
+    of the sequence, gathered before gate and up, and the result is the
+    rank's chunk again (down reduce-scattered)."""
+    x = partition.model_input(x, k_split, seq)
     if act == "swiglu":
         h = silu(dense(x, p["gate"], cfg)) * dense(x, p["up"], cfg)
     elif act == "gelu":
         h = gelu(dense(x, p["up"], cfg))
     else:
         raise ValueError(act)
-    return dense(h.to(x.dtype), p["down"], cfg, tp="row", k_split=k_split)
+    return dense(h.to(x.dtype), p["down"], cfg, tp="row", k_split=k_split,
+                 seq=seq)

@@ -134,13 +134,16 @@ def gate_step(x, w):
 
 
 def rglru_block(x, p: dict, cfg: QuantConfig | None, *, state=None,
-                k_split: bool = False):
+                k_split: bool = False, seq: bool = False):
     """The Griffin recurrent block.  x (B, S, d); ``state`` None (prefill:
     the scan from h = 0) or ``{"h": (B, Drnn) f32, "conv": (B, 3, Drnn)
     f32}`` (decode, S == 1).  ``k_split``: under partitioned rules, ``p``
-    and ``state`` hold this rank's slice of Drnn.  Returns (y, new
-    state)."""
-    x = partition.model_input(x, k_split)
+    and ``state`` hold this rank's slice of Drnn.  ``seq``
+    (``partition.seq_split``): x holds this rank's chunk of the sequence,
+    gathered before the products, and y is the rank's chunk (w_out
+    reduce-scattered); the scan runs on the whole sequence.  Returns (y,
+    new state)."""
+    x = partition.model_input(x, k_split, seq)
     gate_branch = gelu(dense(x, p["w_gate"], cfg))
     u = dense(x, p["w_in"], cfg)
     u, new_conv = temporal_conv(u, p["conv_w"],
@@ -155,7 +158,8 @@ def rglru_block(x, p: dict, cfg: QuantConfig | None, *, state=None,
         h, h_last = rglru_step(u[:, 0], r[:, 0], i[:, 0], p["lam"],
                                state["h"])
         h = h[:, None]
-    y = dense(h * gate_branch, p["w_out"], cfg, tp="row", k_split=k_split)
+    y = dense(h * gate_branch, p["w_out"], cfg, tp="row", k_split=k_split,
+              seq=seq)
     return y, {"h": h_last, "conv": new_conv}
 
 

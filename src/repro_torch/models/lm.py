@@ -75,7 +75,12 @@ int32; its experts; its vocabulary rows) into its shard of the ring
 cache and states, and return the global logits on every rank;
 :func:`lm_loss` (modes "float" and "fake", every block kind) takes the
 global batch and returns the global loss, with gradients through every
-exchange.  :func:`forward` then takes the rank's rows.
+exchange.  :func:`forward` then takes the rank's rows.  With
+``Rules.seq_tp`` (``partition.seq_split``) the residual between the
+embedding and the final norm holds the rank's chunk of the sequence: each
+half-block gathers its normed stream before the mixer or feed-forward and
+keeps its chunk of the output (reduce-scattered after a split row-parallel
+product, else narrowed).
 """
 from __future__ import annotations
 
@@ -514,14 +519,15 @@ def _paged_write_prefill(cache, k, v, positions, lengths, page_table, mode,
 
 
 def _attn_mixer(x, p, cfg: LMConfig, kind: str, positions, cache, decode,
-                page_table=None, lengths=None, prefix_len: int = 0):
-    b, s, _ = x.shape
+                page_table=None, lengths=None, prefix_len: int = 0,
+                seq: bool = False):
     # the heads this rank holds (all of them unless partitioned)
     hd = cfg.hd
     hq = partition.out_features(p["wq"]) // hd
     hkv = partition.out_features(p["wk"]) // hd
     qcfg = cfg.quant
-    x = partition.model_input(x, hq < cfg.n_heads)
+    x = partition.model_input(x, hq < cfg.n_heads, seq)
+    b, s, _ = x.shape
 
     def split(y, h):
         y = shard(y, "batch", None, "model")
@@ -596,29 +602,46 @@ def _attn_mixer(x, p, cfg: LMConfig, kind: str, positions, cache, decode,
         if cache is not None:
             _ring_write_prefill(cache, k, v, mode, qcfg)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
-    return dense(out, p["wo"], qcfg, tp="row", k_split=hq < cfg.n_heads)
+    return dense(out, p["wo"], qcfg, tp="row", k_split=hq < cfg.n_heads,
+                 seq=seq)
+
+
+def _norm(x, p, cfg: LMConfig, seq: bool):
+    """``apply_norm`` on the residual.  Under the sequence split (``seq``)
+    each rank normalizes its own rows, so the gains' gradients sum over
+    "model" (``Partition.shared``)."""
+    if seq:
+        part = partition.active()
+        p = {k: part.shared(v) for k, v in p.items()}
+    return apply_norm(x, p, cfg.norm)
 
 
 def mixer_block(x, p, cfg: LMConfig, kind: str, *, positions, cache=None,
                 decode=False, page_table=None, lengths=None,
-                prefix_len: int = 0):
+                prefix_len: int = 0, seq: bool = False):
     """The first half of a block: x + mixer(norm(x)), the mixer attention,
     RG-LRU or SSD.  A recurrent block starts from no state at prefill and
     from the cache's at decode; its new state is written into the cache in
-    place."""
-    h = shard(apply_norm(x, p["ln1"], cfg.norm), "batch", "seq_tp", None)
+    place.  ``seq`` (``partition.seq_split``): x holds this rank's chunk
+    of the sequence; the normed stream is gathered before the mixer, which
+    runs on the whole sequence, and its output comes back as the rank's
+    chunk (reduce-scattered after a split row-parallel product, else
+    narrowed)."""
+    h = shard(_norm(x, p["ln1"], cfg, seq), "batch", "seq_tp", None)
     if kind in ATTN_KINDS:
         out = _attn_mixer(h, p["attn"], cfg, kind, positions, cache, decode,
-                          page_table, lengths, prefix_len)
+                          page_table, lengths, prefix_len, seq)
         return x + out.to(x.dtype)
     state = cache if decode else None
     if kind == "rglru":
         split = partition.out_features(p["rglru"]["w_in"]) < \
             partition.d_rnn(cfg)
         out, new = rglru_block(h, p["rglru"], cfg.quant, state=state,
-                               k_split=split)
+                               k_split=split, seq=seq)
     elif kind == "ssd":
-        out, new = ssd_block(h, p["ssd"], cfg.ssd, cfg.quant, state=state)
+        out, new = ssd_block(partition.model_input(h, False, seq), p["ssd"],
+                             cfg.ssd, cfg.quant, state=state)
+        out = partition.seq_rows(out, seq)
     else:
         raise ValueError(kind)
     if cache is not None:
@@ -627,31 +650,36 @@ def mixer_block(x, p, cfg: LMConfig, kind: str, *, positions, cache=None,
     return x + out.to(x.dtype)
 
 
-def ffn(h2, p, cfg: LMConfig):
+def ffn(h2, p, cfg: LMConfig, seq: bool = False):
     """The feed-forward on the normed stream (B, S, d): the MLP, or the MoE
     FFN on the flattened (B*S, d) tokens.  Returns (out, aux): ``aux`` holds
-    MoE's ``lb_loss`` (empty for the MLP)."""
+    MoE's ``lb_loss`` (empty for the MLP).  ``seq``: h2 and out hold this
+    rank's chunk of the sequence (:func:`mixer_block`); the MoE FFN runs
+    on every token of the gathered stream, its capacity unchanged."""
     if cfg.moe is None:
         split = partition.out_features(p["ffn"]["up"]) < cfg.d_ff
-        return mlp(h2, p["ffn"], cfg.quant, act=cfg.act, k_split=split), {}
+        return mlp(h2, p["ffn"], cfg.quant, act=cfg.act, k_split=split,
+                   seq=seq), {}
+    h2 = partition.model_input(h2, False, seq)
     b, s, d = h2.shape
     out, aux = moe_ffn(h2.reshape(b * s, d), p["ffn"], cfg.moe, cfg.quant,
                        act=cfg.act)
-    return out.reshape(b, s, d), aux
+    return partition.seq_rows(out.reshape(b, s, d), seq), aux
 
 
-def ffn_block(x, p, cfg: LMConfig):
+def ffn_block(x, p, cfg: LMConfig, seq: bool = False):
     """The second half of a block: x + ffn(norm(x)) (x itself when the
     config has no feed-forward).  Returns (x, aux) as :func:`ffn`."""
     if cfg.d_ff <= 0:
         return x, {}
-    out, aux = ffn(apply_norm(x, p["ln2"], cfg.norm), p, cfg)
+    out, aux = ffn(_norm(x, p["ln2"], cfg, seq), p, cfg, seq)
     return x + out.to(x.dtype), aux
 
 
 def apply_block(x, p, cfg: LMConfig, kind: str, **kw):
     """One block; returns (x, aux) as :func:`ffn_block`."""
-    x, aux = ffn_block(mixer_block(x, p, cfg, kind, **kw), p, cfg)
+    x, aux = ffn_block(mixer_block(x, p, cfg, kind, **kw), p, cfg,
+                       kw.get("seq", False))
     return shard(x, "batch", "seq_tp", None), aux
 
 
@@ -667,13 +695,15 @@ def _blocks(x, aux, ps, kinds, caches, cfg, kw):
 
 def stack_forward(x, params, cfg: LMConfig, *, positions, cache=None,
                   decode=False, page_table=None, lengths=None,
-                  prefix_len: int = 0):
+                  prefix_len: int = 0, seq: bool = False):
     """The blocks over x; returns (x, aux), ``aux`` the f32 sum of the MoE
     load-balance losses (0 without MoE).  With ``cfg.remat``, grad enabled
-    and no cache, each pattern unit is recomputed in the backward pass."""
+    and no cache, each pattern unit is recomputed in the backward pass.
+    ``seq``: x holds this rank's chunk of the sequence
+    (``partition.seq_split``), and so does the result."""
     unit, n_units, rem = unit_structure(cfg)
     kw = dict(positions=positions, decode=decode, page_table=page_table,
-              lengths=lengths, prefix_len=prefix_len)
+              lengths=lengths, prefix_len=prefix_len, seq=seq)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     unit_blocks = remat(_blocks, cfg.remat and cache is None)
     for u in range(n_units):
@@ -731,11 +761,17 @@ def forward(params, batch, cfg: LMConfig, *, cache=None, decode=False,
         positions = (prefix_len + torch.arange(s, device=x.device,
                                                dtype=torch.int32)
                      )[None, :].expand(b, s)
+    # the residual's sequence over "model" (Rules.seq_tp) from here to the
+    # final norm; whole for a call whose S the model ranks do not divide
+    seq = partition.seq_split(s)
+    x = partition.seq_rows(x, seq)
     x, aux = stack_forward(x, params, cfg, positions=positions, cache=cache,
                            decode=decode, page_table=page_table,
                            lengths=lengths,
-                           prefix_len=0 if decode else prefix_len)
-    x = apply_norm(x, params["final_norm"], cfg.norm)
+                           prefix_len=0 if decode else prefix_len, seq=seq)
+    x = _norm(x, params["final_norm"], cfg, seq)
+    if seq:
+        x = partition.active().gather(x, ("model",), dim=1)
     if paged:
         pos = cache["pos"]
         if decode:           # inactive rows (pos < 0) do not advance

@@ -21,10 +21,22 @@ its own.
         "shardlocal" and "shardjax" (world 4) the shard bodies on
         rank-local operands (``tests/test_torch_partition_shard_bodies.py``):
         the first against the same bodies on global tensors and needing
-        nothing of JAX, the second against ``jaxshard``'s outputs.
+        nothing of JAX, the second against ``jaxshard``'s outputs; "sp"
+        (world 4) the residual's sequence split in serving
+        (``tests/test_torch_partition_sp.py``; REF is the npz ``jaxsp``
+        writes beside it, read once it exists) and "sptrain" (world 4) in
+        training (``tests/test_torch_partition_sp_train.py``; REF is the
+        npz ``jaxsptrain`` writes, read the same way).
     python tests/_torch_dist_util.py jaxshard bodies|serve|train OUT.npz
         The reference's shard bodies (``int_bf16_reduce``, ``moe_a2a``)
         on host meshes of 2 and 4 devices, with the inputs it makes.
+    python tests/_torch_dist_util.py jaxsp OUT.npz
+        The reference's own ``Rules(seq_tp=("model",))`` serving run on a
+        4-device host mesh (SP_* constants).
+    python tests/_torch_dist_util.py jaxsptrain OUT.npz
+        The reference's own ``seq_tp`` train cell (Qwen2.5 SMOKE, fake
+        mode) on a 4-device host mesh: loss, gradients and every
+        fake-quant call's (x, delta, output).
     python tests/_torch_dist_util.py jaxdryrun OUT.json
         The reference's dry-run cells (``repro/launch/dryrun.py``, imported
         first: 512 host devices) of DRYRUN_LAYOUT_CELLS: each argument
@@ -1882,6 +1894,343 @@ def dryrun_job(rank):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The residual's sequence split (Rules.seq_tp)
+# ---------------------------------------------------------------------------
+
+# tests/test_torch_partition_sp.py: the decoder families' SMOKE configs
+# served in int mode (int8 weights, kv 8) under Rules(partitioned, seq_tp)
+# and without seq_tp, on (data, model) meshes (1, 4) and (2, 2): prompts
+# of 32 (m divides S: the residual splits) and 31 (it stays whole), then
+# SP_STEPS greedy ring steps (S = 1: whole); Qwen2.5 SMOKE at 2 layers
+# against the reference's own seq_tp run (jaxsp) on a (1, 4) host mesh
+SP_ARCHS = ("qwen2.5-32b", "llama4-scout-17b-a16e", "recurrentgemma-9b",
+            "mamba2-130m")
+SP_MESHES = ((1, 4), (2, 2))
+SP_PROMPTS = (32, 31)
+SP_BATCH, SP_STEPS, SP_MAX_LEN = 4, 4, 40
+SP_JAX_LAYERS = 2
+# tests/test_torch_partition_sp_train.py: lm_loss and its gradients in
+# fake mode (the partitioned train cells above) with and without seq_tp
+SP_TRAIN_CASES = ("qwen-fake", "llama-fake", "rg-fake", "mamba-fake")
+# and against the reference's own seq_tp train cell (jaxsptrain, (1, 4))
+SP_JAX_TRAIN_CASE = "qwen-fake"
+# int32 sums reduce-scattered over 4 ranks: each term below 2^26, so the
+# sums pass 2^24, where f32 stops holding every integer
+SP_RS_ROWS, SP_RS_COLS = 16, 8
+
+
+def sp_tokens(s):
+    return np.random.RandomState(11).randint(
+        0, 512, (SP_BATCH, s)).astype(np.int32)
+
+
+def sp_rs_terms(rank):
+    """Rank ``rank``'s int32 terms of the exact reduce-scatter case."""
+    return np.random.RandomState(100 + rank).randint(
+        1 << 25, 1 << 26, (SP_RS_ROWS, SP_RS_COLS)).astype(np.int32)
+
+
+def jax_sp(out_path):
+    """The reference's own ``seq_tp`` run: Qwen2.5 SMOKE at SP_JAX_LAYERS
+    layers, int mode (int8 weights, kv 8), ``jax.jit`` prefill of the
+    32-token prompts and SP_STEPS greedy ring steps under
+    ``Rules(batch=("data",), seq_tp=("model",))`` on a (data 1, model 4)
+    host mesh; with its params and prompts."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from repro.configs.registry import smoke_config
+    from repro.core.api import QuantConfig, integerize_params
+    from repro.distributed.sharding import Rules, use_rules
+    from repro.models import lm
+
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(1, 4),
+                ("data", "model"))
+    qc = QuantConfig(**part_quant("w8", 8))
+    cfg = smoke_config("qwen2.5-32b").replace(n_layers=SP_JAX_LAYERS,
+                                              quant=qc)
+    params = jax.jit(lambda k: integerize_params(
+        lm.init_params(k, cfg.replace(quant=None)), qc))(
+            jax.random.PRNGKey(0))
+    toks = sp_tokens(SP_PROMPTS[0])
+    res = {"tokens": toks}
+    res.update(flat(params, "params/"))
+    rules = Rules(batch=("data",), mesh=mesh, seq_tp=("model",))
+    with mesh, use_rules(rules):
+        logits, cache = jax.jit(lambda p, b: lm.prefill(
+            p, b, cfg, SP_MAX_LEN))(params, {"tokens": toks})
+        step = jax.jit(lambda p, t, c: lm.decode_step(p, t, c, cfg))
+        out, fed = [logits], []
+        for _ in range(SP_STEPS):
+            fed.append(jnp.argmax(logits[:, -1], -1).astype(jnp.int32)
+                       [:, None])
+            logits, cache = step(params, fed[-1], cache)
+            out.append(logits)
+    res["logits"] = np.stack([np.asarray(t) for t in out])
+    res["fed"] = np.stack([np.asarray(t) for t in fed])
+    tmp = out_path + ".part.npz"
+    save(tmp, res)
+    os.replace(tmp, out_path)
+
+
+def jax_sp_train(out_path):
+    """The reference's own ``seq_tp`` train cell: Qwen2.5 SMOKE in fake
+    mode (``train_config("qwen-fake")``), ``jax.jit`` of
+    ``value_and_grad(lm_loss)`` under ``Rules(batch=("data",),
+    seq_tp=("model",))`` on a (data 1, model 4) host mesh; its params,
+    batch, loss and gradients, and every fake-quant call's (x, delta,
+    output) and fake attention ``exp2_shift`` input in
+    :func:`records_to`'s layout.  JAX takes no ordered callback in a
+    program over more than one device, so the records come in no order;
+    :class:`BlockReplay` matches each call by its x."""
+    import jax
+    from jax.sharding import Mesh
+
+    from repro.configs import registry
+    from repro.core import quant as jquant
+    from repro.core.api import QuantConfig
+    from repro.distributed.sharding import Rules, use_rules
+    from repro.layers import attention as jattn
+    from repro.models import lm
+
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(1, 4),
+                ("data", "model"))
+    cfg = train_config(SP_JAX_TRAIN_CASE, lm, registry, QuantConfig)
+    params = jax.jit(lambda k: lm.init_params(k, cfg))(
+        jax.random.PRNGKey(0))
+    batch = train_batch(SP_JAX_TRAIN_CASE, cfg)
+    class Records(list):
+        exp2 = []
+    rec, fq, exp2_shift = Records(), jquant.fake_quant, jattn.exp2_shift
+
+    def fake_quant(x, delta, bits, unsigned=False):
+        y = fq(x, delta, bits, unsigned)
+        jax.debug.callback(lambda a, d, o: rec.append(
+            (np.asarray(a), np.asarray(d), bits, unsigned, np.asarray(o))),
+            x, delta, y)
+        return y
+
+    def exp2_recorded(t):
+        jax.debug.callback(lambda a: rec.exp2.append(np.asarray(a)), t)
+        return exp2_shift(t)
+
+    jquant.fake_quant, jattn.exp2_shift = fake_quant, exp2_recorded
+    try:
+        vg = jax.jit(jax.value_and_grad(
+            lambda p, b: lm.lm_loss(p, b, cfg), has_aux=True))
+        with mesh, use_rules(Rules(batch=("data",), mesh=mesh,
+                                   seq_tp=("model",))):
+            (loss, _), grads = vg(params, batch)
+            jax.block_until_ready(grads)
+            jax.effects_barrier()
+    finally:
+        jquant.fake_quant, jattn.exp2_shift = fq, exp2_shift
+    case = SP_JAX_TRAIN_CASE
+    res = {f"{case}/loss": loss}
+    res.update(flat(params, f"{case}/params/"))
+    res.update(flat(batch, f"{case}/batch/"))
+    res.update(flat(grads, f"{case}/grads/"))
+    records_to(res, f"{case}/rec", rec)
+    tmp = out_path + ".part.npz"
+    save(tmp, res)
+    os.replace(tmp, out_path)
+
+
+def wait_for(path, timeout=200):
+    """Load the npz a process beside this one writes to ``path`` (it
+    renames it into place whole) once it exists."""
+    import time
+    t0 = time.time()
+    while not os.path.exists(path):
+        if time.time() - t0 > timeout:
+            raise TimeoutError(f"no {path}")
+        time.sleep(0.5)
+    return load(path)
+
+
+def _sp_rules(mesh, sp, **kw):
+    from repro_torch.distributed.sharding import Rules
+    return Rules(**{"batch": ("data",), "mesh": mesh, "partitioned": True,
+                    "seq_tp": ("model",) if sp else (), **kw})
+
+
+def sp_job(rank, ref_path):
+    """This rank's part of tests/test_torch_partition_sp.py: the exact
+    int32 reduce-scatter; every serving run of SP_ARCHS x SP_MESHES x
+    SP_PROMPTS with and without seq_tp (logits, fed tokens, the rank's
+    cache shard, the bytes it sent, the dispatch counts); one layer's
+    bytes against ``chip_smoke.sp_wire_analytic``; the refusals; then,
+    once ``jaxsp`` has written ``ref_path``, the reference's tree served
+    under seq_tp."""
+    import torch
+
+    from chip_smoke import sp_wire_counts, wire_snapshot
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.api import QuantConfig
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import lm
+
+    out = {}
+    meshes = {shape: make_mesh(shape) for shape in SP_MESHES}
+    # the int32 reduce-scatter, exact past 2^24
+    grp = meshes[(1, 4)].get_group("model")
+    out["rs/int32"] = col.reduce_scatter_dim(
+        torch.from_numpy(sp_rs_terms(rank)), [grp], 0)
+    qc = QuantConfig(**part_quant("w8", 8))
+    for shape, mesh in meshes.items():
+        layout = partition.Layout.of(mesh, ("data",))
+        m = mesh_tag(shape)
+        out[f"layout/{m}"] = torch.tensor(
+            [layout.index(("data",)), layout.index(("model",))])
+        for arch in SP_ARCHS:
+            cfg = smoke_config(arch).replace(quant=qc)
+            local = partition.build_params(cfg, seed=0, layout=layout,
+                                           device="cpu")
+            for s in SP_PROMPTS:
+                toks = torch.from_numpy(sp_tokens(s))
+                for sp in (False, True):
+                    key = f"{arch}/{m}/s{s}/{'sp' if sp else 'base'}"
+                    col.reset_wire()
+                    dispatch.reset_stats()
+                    with use_rules(_sp_rules(mesh, sp)), torch.no_grad():
+                        logits, fed, cache = greedy(local, toks, cfg,
+                                                    SP_STEPS, SP_MAX_LEN)
+                    out.update({f"{key}/logits": logits, f"{key}/fed": fed,
+                                f"{key}/acc": torch.tensor(
+                                    dispatch.STATS["qlinear_acc_cuda"])})
+                    out.update({f"{key}/{k}": torch.tensor(
+                        float(v), dtype=torch.float64)
+                        for k, v in wire_snapshot().items()})
+                    out.update(flat(cache, f"{key}/cache/"))
+            # one layer's bytes: what the split changes, against the
+            # analytic count
+            got, want = sp_wire_counts(cfg, mesh, layout, SP_BATCH,
+                                       SP_PROMPTS[0], device="cpu")
+            for what, counts in (("got", got), ("want", want)):
+                for k, v in counts.items():
+                    out[f"layerwire/{arch}/{m}/{what}/{k}"] = torch.tensor(
+                        float(v), dtype=torch.float64)
+
+    # refusals, on (data 1, model 4)
+    mesh = meshes[(1, 4)]
+    cfg = smoke_config("qwen2.5-32b").replace(quant=qc)
+    local = partition.build_params(cfg, seed=0, layout=partition.Layout.of(
+        mesh, ("data",)), device="cpu")
+    toks = torch.from_numpy(sp_tokens(SP_PROMPTS[0]))
+    for name, err, rules in (
+            ("bf16red", NotImplementedError,
+             _sp_rules(mesh, True, int_bf16_reduce=True)),
+            ("a2a", NotImplementedError, _sp_rules(mesh, True, moe_a2a=True)),
+            ("data_axis", ValueError, _sp_rules(mesh, True,
+                                                seq_tp=("data",)))):
+        try:
+            with use_rules(rules), torch.no_grad():
+                lm.prefill(local, {"tokens": toks}, cfg, SP_MAX_LEN)
+            ok = False
+        except err as e:
+            ok = err is ValueError or "ROADMAP.md" in str(e)
+        out[f"refused/{name}"] = torch.tensor(ok)
+
+    # the reference's seq_tp run (jaxsp, beside these ranks)
+    ref = wait_for(ref_path)
+    cfg = smoke_config("qwen2.5-32b").replace(n_layers=SP_JAX_LAYERS,
+                                              quant=qc)
+    glob = _tree(ref, "params")
+    toks = torch.from_numpy(ref["tokens"])
+    for shape, mesh in meshes.items():
+        local = partition.partition_params(glob, cfg, partition.Layout.of(
+            mesh, ("data",)))
+        with use_rules(_sp_rules(mesh, True)), torch.no_grad():
+            logits, fed, _ = greedy(local, toks, cfg, SP_STEPS, SP_MAX_LEN)
+        out[f"jax/{mesh_tag(shape)}/logits"] = logits
+        out[f"jax/{mesh_tag(shape)}/fed"] = fed
+    return out
+
+
+def sp_train_job(rank, ref_path):
+    """This rank's part of tests/test_torch_partition_sp_train.py: each
+    case of SP_TRAIN_CASES on each mesh of SP_MESHES (rules with
+    ``expert_fsdp``, the rank's tree from ``partition.build_params``):
+    ``lm_loss`` and the rank's gradients (summed over the batch axes)
+    without and with seq_tp, each on its own fake-quant codes; past two
+    model ranks also the codes that differ between the two runs
+    (``chip_smoke.code_flips``) and the seq_tp run on the codes of the
+    run without it (``chip_smoke.FakeQuantTap``).  Then, once
+    ``jaxsptrain`` has written ``ref_path``, its tree and batch under
+    seq_tp on each mesh: on the reference's codes (:class:`BlockReplay`;
+    every code the rank's own would have taken otherwise at a rounding
+    edge) and on the rank's own."""
+    import torch
+
+    from chip_smoke import FakeQuantTap, code_flips
+    from repro_torch.configs import registry
+    from repro_torch.core.api import QuantConfig
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import use_rules
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    out = {}
+    for shape in SP_MESHES:
+        mesh = make_mesh(shape)
+        layout = partition.Layout.of(mesh, ("data",), fsdp=True)
+        for case in SP_TRAIN_CASES:
+            cfg = train_config(case, lm, registry, QuantConfig)
+            batch = {k: torch.from_numpy(v)
+                     for k, v in train_batch(case, cfg).items()}
+            local = partition.build_params(cfg, seed=0, layout=layout,
+                                           device="cpu")
+            key = f"{case}/{mesh_tag(shape)}"
+
+            def run(sp, tag, replay=None):
+                with use_rules(_sp_rules(mesh, sp, expert_fsdp=True)), \
+                        FakeQuantTap(replay) as tap:
+                    loss, _, grads = train.value_and_grad(
+                        train.model_loss(cfg), local, batch,
+                        shards=partition.opt_shards(local, cfg))
+                out[f"{key}/{tag}/loss"] = loss
+                out.update(flat(grads, f"{key}/{tag}/grads/"))
+                return tap.calls
+            base = run(False, "base")
+            own = run(True, "sp")
+            if shape[1] > 2:
+                out[f"{key}/flips"] = torch.tensor(code_flips(base, own))
+                run(True, "replay", base)
+
+    # the reference's seq_tp train cell (jaxsptrain, beside these ranks)
+    ref = wait_for(ref_path)
+    case = SP_JAX_TRAIN_CASE
+    cfg = train_config(case, lm, registry, QuantConfig)
+    glob = _tree(ref, f"{case}/params")
+    batch = batch_of(ref, case)
+    records = records_from(ref, f"{case}/rec")
+    for shape in SP_MESHES:
+        mesh = make_mesh(shape)
+        m = mesh_tag(shape)
+        layout = partition.Layout.of(mesh, ("data",), fsdp=True)
+        out[f"layout/{m}"] = torch.tensor(
+            [layout.index(("data",)), layout.index(("model",))])
+        local = partition.partition_params(glob, cfg, layout)
+        with use_rules(_sp_rules(mesh, True, expert_fsdp=True)):
+            shards = partition.opt_shards(local, cfg)
+            with BlockReplay(*records) as rep:
+                loss, _, grads = train.value_and_grad(
+                    train.model_loss(cfg), local, batch, shards=shards)
+            out[f"jax/{m}/replay/flips"] = torch.tensor(rep.flips())
+            out[f"jax/{m}/replay/loss"] = loss
+            out.update(flat(grads, f"jax/{m}/replay/grads/"))
+            loss, _, grads = train.value_and_grad(
+                train.model_loss(cfg), local, batch, shards=shards)
+            out[f"jax/{m}/own/loss"] = loss
+            out.update(flat(grads, f"jax/{m}/own/grads/"))
+    return out
+
+
 def make_mesh(shape):
     from repro_torch.launch.mesh import make_test_mesh
     return make_test_mesh(shape, ("data", "model"), device_type="cpu")
@@ -1928,7 +2277,9 @@ def rank_main(job, rank, world, store, ref_path, out_dir):
                             world_size=world, rank=rank,
                             timeout=timedelta(seconds=120))
     try:
-        ref = load(ref_path)
+        # "sp" and "sptrain" read their references once jaxsp and
+        # jaxsptrain, beside them, have written them
+        ref = load(ref_path) if job not in ("sp", "sptrain") else ref_path
         if job == "main":
             out = main_job(rank, world, ref)
         elif job == "partition":
@@ -1949,6 +2300,12 @@ def rank_main(job, rank, world, store, ref_path, out_dir):
             out = shard_jax_job(rank, ref)
         elif job == "dryrun":
             out = dryrun_job(rank)
+        elif job == "sp":
+            sys.path.insert(0, ROOT)          # chip_smoke's sp_wire_counts
+            out = sp_job(rank, ref)
+        elif job == "sptrain":
+            sys.path.insert(0, ROOT)          # chip_smoke's FakeQuantTap
+            out = sp_train_job(rank, ref)
         else:
             n = int(job[len("elastic"):])
             out = elastic_job(n, ref, os.path.join(out_dir, "elastic8-0.npz"))
@@ -1967,6 +2324,10 @@ if __name__ == "__main__":
         jax_train(sys.argv[2], sys.argv[3])
     elif sys.argv[1] == "jaxdryrun":
         jax_dryrun(sys.argv[2])
+    elif sys.argv[1] == "jaxsp":
+        jax_sp(sys.argv[2])
+    elif sys.argv[1] == "jaxsptrain":
+        jax_sp_train(sys.argv[2])
     else:
         job, rank, world, store, ref_path, out_dir = sys.argv[2:8]
         rank_main(job, int(rank), int(world), store, ref_path, out_dir)

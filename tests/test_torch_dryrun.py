@@ -26,9 +26,13 @@ Held:
 - (iii) an analytic count: a dense decode and prefill cell's FLOPs equal
   the sum of 2·M·N·K over the products the plain path runs, and the SSD
   decode step's readout is added;
-- (iv) the variants: ``sp`` skipped with its ROADMAP item, an unsupported
-  cell with ``cell_supported``'s reason, and each other variant changing
-  what it should;
+- (iv) the variants: an ``sp`` cell runs "ok" with the baseline cell's
+  arguments (``sp`` moves activations only), and where nothing splits
+  (Whisper, whose stacks take no ``seq_tp``; a decode step, S = 1) counts
+  all that the baseline counts; where the residual splits, a train cell's
+  temp falls and its row-parallel sums are reduce-scattered; an
+  unsupported cell is skipped with ``cell_supported``'s reason, and each
+  other variant changes what it should;
 - (v) ``launch/analysis.py``'s roofline terms on a hand-worked case;
 
 and the fault the dry run found: a bf16 gather of one row along its last
@@ -430,15 +434,62 @@ def test_ssd_readout_is_added():
 # ---------------------------------------------------------------------------
 
 def test_sp_and_unsupported_cells_are_skipped_with_reasons():
-    rec = dryrun.run_cell("qwen2.5-32b", "decode_32k", "single",
+    """An ``sp`` cell runs (the residual's sequence split) with the
+    baseline cell's arguments; an unsupported cell is skipped with its
+    reason."""
+    rec = dryrun.run_cell("mamba2-130m", "decode_32k", "single",
                           variant="sp", verbose=False)
-    assert rec["status"] == "skipped" and "item 6d" in rec["reason"] \
-        and "ROADMAP.md" in rec["reason"] and "memory" not in rec
+    base = dryrun.run_cell("mamba2-130m", "decode_32k", "single",
+                           verbose=False)
+    assert rec["status"] == base["status"] == "ok"
+    assert rec["memory"] == base["memory"] and rec["variant"] == "sp"
     rec = dryrun.run_cell("qwen2.5-32b", "long_500k", "single",
                           verbose=False)
     assert rec["status"] == "skipped" and \
         rec["reason"] == registry.cell_supported("qwen2.5-32b",
                                                  "long_500k")[1]
+
+
+SP_SAME = (("whisper-large-v3", "train_4k"), ("whisper-large-v3",
+                                              "prefill_32k"),
+           ("qwen2.5-32b", "decode_32k"), ("recurrentgemma-9b",
+                                           "decode_32k"))
+
+
+def _counts(rec):
+    return {k: rec[k] for k in ("memory", "cost", "collectives", "wire",
+                                "launches", "kernel_launches")}
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)], ids=util.mesh_tag)
+@pytest.mark.parametrize("arch,cell", SP_SAME)
+def test_sp_counts_equal_baseline_where_nothing_splits(fake4, arch, cell,
+                                                       shape):
+    """Whisper's stacks take no ``seq_tp`` and a decode step's S = 1 keeps
+    the residual whole: the ``sp`` cell counts what the baseline counts."""
+    mesh = make_test_mesh(shape, device_type="cpu")
+    _, base = _smoke(arch, cell, mesh=mesh)
+    _, rec = _smoke(arch, cell, "sp", mesh)
+    assert _counts(rec) == _counts(base)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)], ids=util.mesh_tag)
+def test_sp_train_cell_moves_activations_only(fake4, shape):
+    """Qwen2.5 SMOKE's train cell under ``sp``: the same arguments and
+    FLOPs, a lower temp (each recomputed unit keeps the rank's chunk of
+    the residual), its row-parallel sums reduce-scattered where they were
+    all-reduced, and the normed stream gathered."""
+    mesh = make_test_mesh(shape, device_type="cpu")
+    _, base = _smoke("qwen2.5-32b", "train_4k", mesh=mesh)
+    _, rec = _smoke("qwen2.5-32b", "train_4k", "sp", mesh)
+    mem, mem0 = rec["memory"], base["memory"]
+    assert mem["argument_size_in_bytes"] == mem0["argument_size_in_bytes"]
+    assert rec["cost"] == base["cost"]
+    assert mem["temp_size_in_bytes"] < mem0["temp_size_in_bytes"]
+    assert "reduce-scatter" not in base["collectives"]
+    assert rec["collectives"]["reduce-scatter"] > 0
+    assert rec["collectives"]["all-reduce"] < base["collectives"]["all-reduce"]
+    assert rec["collectives"]["all-gather"] > base["collectives"]["all-gather"]
 
 
 def test_cli_runs_cells_a_process_each_and_resumes(tmp_path):
