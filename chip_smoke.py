@@ -242,6 +242,7 @@ runs of each kernel's main paths, summed, and by path in
 """
 from __future__ import annotations
 
+import hashlib
 import itertools
 import json
 import os
@@ -523,20 +524,22 @@ QMM_FAMILIES = [(2, 256000, 4096), (256, 256000, 4096), (4, 51866, 1280),
 # 5120 / 4) and MLP down (K 27648 / 4), N 5120, at decode and prefill rows
 QMM_DIST = [(m, 5120, k) for m in (4, 256) for k in (1280, 6912)]
 # [dryrun] (b)'s products on rank 0 of the 16 x 16 mesh: Qwen2.5-32B's
-# decode_32k, its 8 rows through wq / wk / wv (attention whole on the
-# rank), its sixteenth of the MLP's gate and up (N 1728) and of the lm_head
-# (N 9504); RecurrentGemma-9B's long_500k, its one row through wq (N 4096),
-# wk / wv and the RG-LRU's sixteenth of d_rnn (N 256), the MLP's up (N 768)
-# and the lm_head's sixteenth (N 16000)
-QMM_DRYRUN = [(8, 5120, 5120), (8, 1024, 5120), (8, 27648 // 16, 5120),
-              (8, 152064 // 16, 5120), (1, 4096, 4096), (1, 256, 4096),
+# decode_32k, its 8 rows through its sixteenth of wq's columns (N 320) and
+# of wk's and wv's (N 64: attention by column), of the MLP's gate and up (N
+# 1728) and of the lm_head (N 9504); RecurrentGemma-9B's long_500k, its one
+# row through its sixteenth of wq (N 256, as of the RG-LRU's d_rnn), of wk
+# and wv (N 16: a sixteenth of its one KV head), of the MLP's up (N 768)
+# and of the lm_head (N 16000)
+QMM_DRYRUN = [(8, 5120 // 16, 5120), (8, 1024 // 16, 5120),
+              (8, 27648 // 16, 5120), (8, 152064 // 16, 5120),
+              (1, 4096 // 16, 4096), (1, 256 // 16, 4096),
               (1, 12288 // 16, 4096), (1, 256000 // 16, 4096)]
-# [dryrun] (b)'s row-parallel int32 sums (qmatmul_acc), N d_model:
-# Qwen2.5-32B's wo (K 5120, whole) and MLP down on its K slice of 1728;
-# RecurrentGemma-9B's wo (K 4096, whole), the RG-LRU's w_out (K 256) and
-# the MLP's down (K 768)
-QMM_DRYRUN_ACC = [(8, 5120, 5120, False), (8, 5120, 27648 // 16, False),
-                  (1, 4096, 4096, False), (1, 4096, 4096 // 16, False),
+# [dryrun] (b)'s row-parallel int32 sums (qmatmul_acc), N d_model, on the
+# rank's K slice: Qwen2.5-32B's wo (K 320) and MLP down (K 1728);
+# RecurrentGemma-9B's wo and RG-LRU w_out (both K 256) and MLP down (K 768)
+QMM_DRYRUN_ACC = [(8, 5120, 5120 // 16, False),
+                  (8, 5120, 27648 // 16, False),
+                  (1, 4096, 4096 // 16, False),
                   (1, 4096, 12288 // 16, False)]
 # qmatmul's accumulator output (int32 sums, no epilogue) at [tp]'s
 # row-parallel products: Qwen2.5-32B's wo (K 5120) and down (K 27648) and
@@ -939,13 +942,31 @@ RING_CHECKS = [(8, 1024, 79, None, 5, 128), (4, 1024, 79, None, 5, 128),
                (8, 8192, 9000, 3000, 5, 128), (4, 1024, 3000, 200, 5, 128),
                (8, 8192, 20000, None, 16, 128), (4, 8192, 9000, 3000, 16, 128),
                (8, 2048, 5000, None, 16, 256), (8, 1024, 3000, None, 5, 12)]
-# [dryrun] (b)'s ring steps on rank 0 of the 16 x 16 mesh (kv_bits, span,
-# pos, window, G, D, head-folds), checked and timed: Qwen2.5-32B's
-# decode_32k, its 8 rows by 8 KV heads over the whole 32768-slot ring;
-# RecurrentGemma-9B's long_500k, its one row's KV head over the 2176-slot
-# local ring after 524287 tokens, window 2048
+# (kv_bits, span, pos, window, G, D, head-folds), checked and timed: the
+# one-launch kernel at Qwen2.5-32B's decode_32k on rank 0 of the 16 x 16
+# mesh, its 8 rows by 8 KV heads over the whole 32768-slot ring (what
+# [dryrun] (b) ran before the ring split by slot; its staged calls are
+# RING_SPLIT's first row); RecurrentGemma-9B's long_500k, its one row's KV
+# head over the 2176-slot local ring after 524287 tokens, window 2048 (at
+# m = 16 a rank's 136 slots are not whole chunks: the ranks gather the
+# ring and run this)
 RING_DRYRUN = [(8, 32768, 32767, None, 5, 128, 64),
                (8, 2176, 524287, 2048, 16, 256, 1)]
+# [ring-split] (kv_bits, span, pos, window, G, D, head-folds, ranks): the
+# ring kernel's three launches as stages over a ring split by slot range
+# across the model ranks, the exchanges done in this process, held bitwise
+# to the one-launch kernel: Qwen2.5-32B's decode_32k ring on rank 0 of
+# the 16 x 16 mesh ([dryrun] (b): 8 rows by 8 KV heads, G 5, 2048 slots a
+# rank), kv4 with pos < span, wrapped and windowed; ChatGLM3-6B's 8192-slot
+# ring at m = 4 ([tp] at four cards: 4 rows by 2 KV heads, G 16)
+# [tp]'s ChatGLM3-6B at four cards: its ring of 8192 slots, 2048 a rank
+TP_COLUMNS_RING = 8192
+RING_SPLIT = [(8, 32768, 32767, None, 5, 128, 64, 16),
+              (4, 32768, 20000, None, 5, 128, 64, 16),
+              (8, 32768, 70000, 3000, 5, 128, 64, 16),
+              (8, 8192, 8191, None, 16, 128, 8, 4),
+              (4, 8192, 5000, None, 16, 128, 8, 4),
+              (8, 8192, 20000, 3000, 16, 128, 8, 4)]
 # (kv_bits, G, D): the serve path's shape, then G 16 at D 256 (the f32
 # output carries in shared memory)
 PAGED_CHECKS = [(8, 5, 128), (4, 5, 128), (8, 16, 256), (4, 16, 256)]
@@ -965,6 +986,174 @@ PAGED_ARCHS = [(8, 16, 128, 2), (8, 7, 128, 8), (8, 4, 128, 10),
 # 4096), both rows at their last step (2304 + 15: 2320 tokens written),
 # a 2048-token window
 PAGED_SERVE_REC = ((8, 16, 256, 256, (2319, 2319), 2048), 1)
+
+
+def staged_ring(args, parts, bk, window, packed, return_codes=False):
+    """The staged ring kernel (``int_attention.ring_stage_*``) on ``parts``
+    slot ranges of the ring in ``args`` (as ``ring_inputs`` makes them),
+    each rank's stages run in turn and the exchanges done here: the chunk
+    maxima and Sigma partials concatenated in rank order, the per-block
+    int32 PV summed.  Returns (out, codes of every rank in slot order)."""
+    import torch
+    from repro_torch.kernels import int_attention as ia
+    q, k, v, sc, vs, kpos, posd = args
+    h, g, d = q.shape
+    n = k.shape[1] // parts
+    chunk, ds = ia.staged_ring_plan(g, d, bk, n * parts, parts)
+    sl = lambda t, j: t[:, j * n:(j + 1) * n].contiguous()
+    stage1 = [ia.ring_stage_logits(q, sl(k, j), kpos[j * n:(j + 1) * n],
+                                   posd, sc, chunk=chunk, ds=ds,
+                                   window=window, packed=packed)
+              for j in range(parts)]
+    cm = torch.cat([c for _, c in stage1], 1)
+    stage2 = [ia.ring_stage_pv(sl(v, j), stage1[j][0], cm,
+                               c0=j * (n // chunk), bk=bk, chunk=chunk,
+                               ds=ds, packed=packed,
+                               return_codes=return_codes)
+              for j in range(parts)]
+    sp = torch.cat([s_ for s_, _, _ in stage2], 1)
+    pvb = sum(p_ for _, p_, _ in stage2)
+    out = ia.ring_stage_merge(sp, pvb, cm, vs, bk=bk, chunk=chunk)
+    codes = torch.cat([c_ for _, _, c_ in stage2], -1) if return_codes \
+        else None
+    return out, codes
+
+
+def staged_rank_call(args, parts, bk, window, packed):
+    """What one rank (index 0) of the staged ring runs on the card: its
+    stages, with the other ranks' maxima, partials and per-block PV taken
+    as made (the exchanges left out), as a callable to time."""
+    import torch
+    from repro_torch.kernels import int_attention as ia
+    q, k, v, sc, vs, kpos, posd = args
+    h, g, d = q.shape
+    n = k.shape[1] // parts
+    chunk, ds = ia.staged_ring_plan(g, d, bk, n * parts, parts)
+    k0, v0, kp0 = k[:, :n].contiguous(), v[:, :n].contiguous(), kpos[:n]
+    x1, cm0 = ia.ring_stage_logits(q, k0, kp0, posd, sc, chunk=chunk, ds=ds,
+                                   window=window, packed=packed)
+    cm = torch.cat([cm0] + [torch.full_like(cm0, -1e30)] * (parts - 1), 1)
+    sp0, pvb0, _ = ia.ring_stage_pv(v0, x1, cm, c0=0, bk=bk, chunk=chunk,
+                                    ds=ds, packed=packed)
+    sp = torch.cat([sp0] * parts, 1)
+
+    def call():
+        x, c = ia.ring_stage_logits(q, k0, kp0, posd, sc, chunk=chunk, ds=ds,
+                                    window=window, packed=packed)
+        ia.ring_stage_pv(v0, x, cm, c0=0, bk=bk, chunk=chunk, ds=ds,
+                         packed=packed)
+        return ia.ring_stage_merge(sp, pvb0, cm, vs, bk=bk, chunk=chunk)
+    return call
+
+
+def phase_ring_split(g, rows=None, timed=True):
+    """[ring-split]: every RING_SPLIT row's staged ring (:func:`staged_ring`)
+    bitwise equal to the one-launch kernel on the whole ring (outputs and
+    codes), its plain stages (``ref.ring_*_ref``) to the three passes on
+    the whole ring (``ref.int_decode_attention_chunked_ref``), the kernel
+    within ATTN_RTOL of that; then rank 0's three stages timed (CUDA
+    events and device time) beside the one-launch kernel on the whole ring
+    and on rank 0's slots alone."""
+    import torch
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.kernels import int_attention as ia
+    t0 = time.perf_counter()
+    for row in rows or RING_SPLIT:
+        kv_bits, span, pos, window, grp, d, h, parts = row
+        args = ring_inputs(g, kv_bits, span, pos, grp, d, h)
+        packed, bk = kv_bits == 4, dispatch.decode_blocks(span, d)
+        kw = dict(window=window, packed=packed, bk=bk)
+        one, codes = ia.int_decode_attention(*args, return_codes=True, **kw)
+        out, scodes = staged_ring(args, parts, bk, window, packed, True)
+        torch.cuda.synchronize()
+        same = torch.equal(out, one) and torch.equal(scodes, codes)
+        q, k, v, sc, vs, kpos, posd = args
+        n = span // parts
+        ks, vs_ = (t.cpu() for t in (k, v))
+        cpu = [t.cpu() for t in args]
+        chunk = ia.staged_ring_plan(grp, d, bk, span, parts)[0]
+        kw_ = dict(window=window, bk=bk, chunk=chunk)
+        ku, vu = (ia.unpack_int4(t) if packed else t for t in cpu[1:3])
+        want = ref.int_decode_attention_chunked_ref(cpu[0], ku, vu, *cpu[3:],
+                                                    **kw_)
+        pieces = []
+        for j in range(parts):
+            pieces.append((ks[:, j * n:(j + 1) * n], vs_[:, j * n:(j + 1) * n],
+                           cpu[5][j * n:(j + 1) * n]))
+        kk = [ks_ for ks_, _, _ in pieces]
+        if packed:
+            kk = [ia.unpack_int4(t) for t in kk]
+        xs_cm = [ref.ring_logits_ref(cpu[0], kk[j], pieces[j][2], cpu[6],
+                                     cpu[3], chunk=chunk, window=window)
+                 for j in range(parts)]
+        cm = torch.cat([c for _, c in xs_cm], 1)
+        vv = [p_[1] for p_ in pieces]
+        if packed:
+            vv = [ia.unpack_int4(t) for t in vv]
+        st2 = [ref.ring_pv_ref(vv[j], xs_cm[j][0], cm, c0=j * (n // chunk),
+                               bk=bk, chunk=chunk) for j in range(parts)]
+        plain = ref.ring_merge_ref(cm, torch.cat([a for a, _, _ in st2], 1),
+                                   sum(b_ for _, b_, _ in st2), cpu[4], bk=bk,
+                                   chunk=chunk)
+        p_same = torch.equal(plain, want)
+        abs_e, rel_e = rel_err(out, want.cuda())
+        msg = (f"[ring-split] kv_bits={kv_bits} H={h} G={grp} D={d} "
+               f"span={span} pos={pos} window={window} bk={bk} over {parts} "
+               f"ranks of {n} slots ({n // chunk} chunks of {chunk}): staged "
+               f"bitwise the one-launch kernel {same}, its plain stages "
+               f"bitwise the three passes' plain version on the whole ring "
+               f"{p_same}, out vs that rel {rel_e:.3e}")
+        if timed:
+            one_call = lambda: ia.int_decode_attention(*args, **kw)
+            rank0 = staged_rank_call(args, parts, bk, window, packed)
+            part_args = (q, k[:, :n].contiguous(), v[:, :n].contiguous(), sc,
+                         vs, kpos[:n].contiguous(), posd)
+            alone = lambda: ia.int_decode_attention(
+                *part_args, window=window, packed=packed,
+                bk=dispatch.decode_blocks(n, d))
+            ms = {name: (cuda_ms(fn), device_ms(fn)) for name, fn in
+                  (("rank", rank0), ("whole", one_call), ("slots", alone))}
+            # rank 0's plain stages on the card, its bound (its live K/V
+            # rows, q, the slot map, the ring's maxima and partials, its
+            # per-block PV and the output) and bf16 SDPA over its live keys
+            x0, cm0 = ref.ring_logits_ref(q, ia.unpack_int4(k[:, :n]) if
+                                          packed else k[:, :n], kpos[:n],
+                                          posd, sc, chunk=chunk,
+                                          window=window)
+            cmw = torch.cat([cm0] * parts, 1)
+            v0 = ia.unpack_int4(v[:, :n]) if packed else v[:, :n]
+
+            def plain():
+                xs, _ = ref.ring_logits_ref(
+                    q, ia.unpack_int4(k[:, :n]) if packed else k[:, :n],
+                    kpos[:n], posd, sc, chunk=chunk, window=window)
+                sp, pvb, _ = ref.ring_pv_ref(v0, xs, cmw, bk=bk, chunk=chunk)
+                return ref.ring_merge_ref(cmw, torch.cat([sp] * parts, 1),
+                                          pvb, vs, bk=bk, chunk=chunk)
+            pms = cuda_ms(plain, iters=3, warmup=1)
+            live = (kpos[:n] >= 0) & (kpos[:n] <= pos)
+            if window is not None:
+                live &= kpos[:n] > pos - window
+            n_live, dk = int(live.sum()), k.shape[2]
+            nch = span // chunk
+            nblk = -(-nch // (bk // chunk))
+            nbytes = q.numel() + 4 * n + 8 * h + 2 * h * n_live * dk + \
+                4 * h * grp * (2 * nch + nblk * d) + 4 * h * grp * d
+            bnd, by = bound_ms(nbytes, 4 * d * grp * h * n_live)
+            lib = ring_sdpa_ms(g, h, max(n_live, 1), grp, d)
+            msg += "; " + ", ".join(
+                f"{name} {a:.4f} ms ({dev_str(b_)})" for name, (a, b_) in (
+                    ("rank 0's three stages", ms["rank"]),
+                    ("the one-launch kernel on the whole ring", ms["whole"]),
+                    (f"on rank 0's {n} slots alone", ms["slots"])))
+            msg += (f"; rank 0's bound {bnd:.4f} ms ({by}), its plain "
+                    f"stages {pms:.4f} ms, bf16 SDPA over its {n_live} live "
+                    f"keys {lib:.4f} ms")
+        log(msg)
+        if not same or not p_same or rel_e > ATTN_RTOL:
+            raise AssertionError(f"[ring-split] {row}: the staged ring "
+                                 f"differs")
+    log(f"[ring-split] phase {time.perf_counter() - t0:.1f} s")
 
 
 def model_config(backend):
@@ -2340,6 +2529,17 @@ def dist_tp(rank, world, say):
         add_launches(total, tp_short(cfg, rules, layout, rank, world, say,
                                      sp=True))
         torch.cuda.empty_cache()
+    if world >= 4:
+        # ChatGLM3-6B's 2 KV heads over 4 ranks: attention by column, the
+        # 8192-slot ring by slot, its decode the staged ring kernel
+        cfg = arch_config("chatglm3-6b", "cuda").replace(
+            n_layers=DIST_LAYERS)
+        add_launches(total, tp_short(cfg, rules, layout, rank, world, say,
+                                     max_len=TP_COLUMNS_RING))
+        torch.cuda.empty_cache()
+    else:
+        say(f"[tp] ChatGLM3-6B by column needs four cards (its 2 KV heads "
+            f"over 4 model ranks); this run has {world}")
     if world < 4:
         say(f"[tp] (b) Llama-4-Scout at its full depth needs four "
             f"cards; this run has {world}")
@@ -2416,20 +2616,27 @@ def tree_bytes(tree):
     return sum(t.numel() * t.element_size() for t in tree_lib.leaves(tree))
 
 
-def tp_short(cfg, rules, layout, rank, world, say, sp=False):
-    """[tp] (a) for one config; returns the partitioned runs' launches."""
+def tp_short(cfg, rules, layout, rank, world, say, sp=False, max_len=None):
+    """[tp] (a) for one config (``max_len`` ring slots, default the prompt
+    and the steps); returns the partitioned runs' launches.  Where
+    attention splits by column, a decode step's bytes are held to
+    :func:`decode_wire_analytic` on every rank."""
     import torch
+    from repro_torch.distributed import partition
     g = torch.Generator(device="cuda").manual_seed(5)
     toks = torch.randint(0, cfg.vocab, (DIST_BATCH, DIST_PROMPT),
                          generator=g, device="cuda", dtype=torch.int32)
-    return tp_hold(cfg, rules, layout, {"tokens": toks},
-                   DIST_PROMPT + DIST_STEPS, DIST_STEPS,
+    max_len = max_len or DIST_PROMPT + DIST_STEPS
+    cols = partition.split_plan(cfg, layout.m)["heads"] == "columns"
+    return tp_hold(cfg, rules, layout, {"tokens": toks}, max_len, DIST_STEPS,
                    f"[tp] {cfg.name} widths, {cfg.n_layers} layers, over "
-                   f"{world} rank(s)", rank, world, say, sp=sp)
+                   f"{world} rank(s)", rank, world, say, sp=sp,
+                   step_wire=decode_wire_analytic(
+                       cfg, layout.m, DIST_BATCH, max_len) if cols else None)
 
 
 def tp_hold(cfg, rules, layout, inputs, max_len, steps, tag, rank, world,
-            say, sp=False):
+            say, sp=False, step_wire=None):
     """One partitioned serving run of [tp] or [tp-families]: the rank's
     tree from ``partition.build_params`` (seed 0), ``prefill`` of
     ``inputs`` and ``steps`` greedy ring steps under ``rules`` (after a
@@ -2438,9 +2645,11 @@ def tp_hold(cfg, rules, layout, inputs, max_len, steps, tag, rank, world,
     launched, no plain dispatch) and its launch counts; a decode step
     profiled on rank 0; then on rank 0 bitwise against the one-rank run
     of the same tree (logits every step, tokens, every leaf of the
-    gathered caches).  With ``sp`` the same run under the residual's
-    sequence split too (:func:`tp_sp_hold`), its launches added.  Returns
-    the partitioned runs' launches."""
+    gathered caches), and every rank's logits and tokens equal to rank
+    0's.  With ``sp`` the same run under the residual's sequence split too
+    (:func:`tp_sp_hold`), its launches added; with ``step_wire`` (bytes by
+    kind) the bytes every rank sends in a decode step held equal to it.
+    Returns the partitioned runs' launches."""
     import torch
     import torch.distributed as dist
     from repro_torch import tree as tree_lib
@@ -2486,18 +2695,35 @@ def tp_hold(cfg, rules, layout, inputs, max_len, steps, tag, rank, world,
     parts = [None] * world
     dist.all_gather_object(parts, (layout, tree_lib.tree_map(
         lambda t: t.cpu(), cache)))
+    digests = [None] * world
+    dist.all_gather_object(digests, [
+        hashlib.sha256(t.float().cpu().numpy().tobytes()).hexdigest()
+        for t in logits + fed])
+    if any(d != digests[0] for d in digests):
+        raise AssertionError(f"{tag}: the ranks' logits or tokens differ")
     # a decode step profiled on rank 0 (the others run the same steps);
     # it writes a copy of the cache
     tok, ring = fed[-1], clone_tree(cache)
     with use_rules(rules):
         run = lambda: model.decode_step(local, tok, ring, cfg)
+        col.reset_wire()
         run()                                               # warm
+        sent = {k: v for k, v in col.WIRE.items() if v}
         if rank == 0:
             log_profile(f"{tag} decode step", run, 4, step_s / steps * 1e3)
         else:
             for _ in range(4):
                 run()
     del ring
+    if step_wire is not None:
+        want = {k: v for k, v in step_wire.items() if v}
+        ok = wire_equal(sent, want)
+        say(f"{tag}: a decode step sends {sum(sent.values()) / 1e6:.4f} MB "
+            f"({ {k: int(v) for k, v in sent.items()} }), analytic "
+            f"{ {k: int(v) for k, v in want.items()} }: equal {ok}")
+        if not ok:
+            raise AssertionError(f"{tag}: a decode step's bytes {sent} != "
+                                 f"{want}")
     b, s = inputs["tokens"].shape
     held = tree_bytes(local)
     whole_bytes = tree_bytes(partition.global_shapes(local, cfg, layout))
@@ -2980,15 +3206,17 @@ def wire_counts(cfg, mesh, layout, device="cuda"):
 def sp_splits(cfg, m, kind=None):
     """The row-parallel products with a split K in a layer of ``kind``
     (default layer 0's) of ``cfg`` on ``m`` model ranks
-    (``partition.split_plan``): attention's wo, the RG-LRU's w_out, a
-    dense FFN's down (the MoE FFN and the SSD mixer come back whole)."""
+    (``partition.split_plan``): attention's wo (split by head or by
+    column), the RG-LRU's w_out, a dense FFN's down (the MoE FFN and the
+    SSD mixer come back whole)."""
     from repro_torch.distributed import partition
     from repro_torch.models import lm
     plan = partition.split_plan(cfg, m)
     kind = kind or lm.block_kinds(cfg)[0]
     mixer = plan["heads"] if kind in lm.ATTN_KINDS else \
         plan["rglru"] if kind == "rglru" else False
-    return int(mixer) + int(cfg.d_ff > 0 and cfg.moe is None and plan["ffn"])
+    return int(bool(mixer)) + int(cfg.d_ff > 0 and cfg.moe is None and
+                                  plan["ffn"])
 
 
 def sp_wire_analytic(cfg, m, rows, kind=None):
@@ -3034,6 +3262,41 @@ def sp_run_wire_analytic(cfg, m, rows):
         for k in result:
             result[k] += r[k]
     return wire, result
+
+
+def decode_wire_analytic(cfg, m, rows, span):
+    """The bytes a rank sends (``collectives.WIRE`` by kind, ring
+    algorithms) in one partitioned decode step of ``cfg`` (an LM with
+    attention layers and dense feed-forwards, int mode) on (data 1, model
+    ``m``), ``rows`` rows, attention split by column (every attention
+    layer's ring of ``span`` slots by slot): the vocabulary-split
+    embedding's f32 sum; a layer's q, k and v column outputs all-gathered
+    (``cfg.tdtype``), its ring's chunk maxima and Sigma partials
+    all-gathered and per-block int32 PV all-reduced where each rank's
+    slots are whole chunks of the kernel's (``staged_ring_plan``), else its
+    codes all-gathered; wo and down each a per-sequence grid's max and
+    int32 sums all-reduced; the logits all-gathered along the vocabulary."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import int_attention as ia
+    d, hd, kv, es = cfg.d_model, cfg.hd, cfg.kv_heads, cfg.tdtype.itemsize
+    g, h = cfg.n_heads // kv, rows * kv
+    ar = lambda n: 2 * (m - 1) / m * n                  # all-reduce
+    ag = lambda n: (m - 1) * n                          # a rank's chunk
+    bk = dispatch.decode_blocks(span, hd)
+    plan = ia.staged_ring_plan(g, hd, bk, span, m)
+    if plan is not None:
+        nloc, nch = span // m // plan[0], span // plan[0]
+        nblk = -(-nch // (bk // plan[0]))
+        ring_ag, ring_ar = 2 * ag(h * nloc * g * 4), ar(h * nblk * g * hd * 4)
+    else:
+        dk = hd // 2 if cfg.quant.kv_bits == 4 else hd
+        ring_ag, ring_ar = 2 * ag(h * span // m * dk), 0.0
+    layer_ag = ag(rows * cfg.n_heads * hd // m * es) + \
+        2 * ag(rows * kv * hd // m * es) + ring_ag
+    layer_ar = ring_ar + 2 * (ar(rows * 4) + ar(rows * d * 4))
+    n = cfg.n_layers
+    return {"all_reduce": ar(rows * d * 4) + n * layer_ar,
+            "all_gather": n * layer_ag + ag(rows * cfg.vocab // m * es)}
 
 
 def wire_diff(got, base):
@@ -4039,6 +4302,14 @@ DRYRUN_CELLS = (("qwen2.5-32b", "decode_32k", None),
 DRYRUN_CARD = (("qwen2.5-32b", "decode_32k"),
                ("recurrentgemma-9b", "long_500k"))
 DRYRUN_JOIN_S = 600
+# rank 0's arguments in Qwen2.5-32B x decode_32k x single, forecast from
+# the record of the layout before attention split by column (40 191 261
+# 956 B): of each of the 64 layers' attention (wq, wk, wv and wo int8
+# codes, 62 914 560 B; wq, wk and wv's f32 scales and bf16 biases, 43 008
+# B) a rank keeps 1/16, and of the 8 rows' ring (8 KV heads x 32768 slots
+# x 128 x 2 int8 codes x 64 layers) 1/16 of the slots
+DRYRUN_QWEN_ARGS = (40_191_261_956 - 64 * (62_914_560 + 43_008) * 15 // 16
+                    - 8 * 8 * 32768 * 128 * 2 * 64 * 15 // 16)
 
 
 def phase_dryrun():
@@ -4112,6 +4383,14 @@ def phase_dryrun():
             f"result bytes {rec.get('collectives')}, sent {rec.get('wire')}")
         if rec["status"] != "ok":
             raise AssertionError(f"[dryrun] {tag}: {rec.get('error')}")
+    qwen = recs["qwen2.5-32b|decode_32k|baseline"]["memory"][
+        "argument_size_in_bytes"]
+    log(f"[dryrun] (a) qwen2.5-32b|decode_32k x single: rank 0 arguments "
+        f"{qwen} B, forecast {DRYRUN_QWEN_ARGS} B (attention by column, the "
+        f"ring by slot): equal {qwen == DRYRUN_QWEN_ARGS}")
+    if qwen != DRYRUN_QWEN_ARGS:
+        raise AssertionError("[dryrun] (a) Qwen2.5-32B decode_32k's "
+                             "arguments differ from the forecast")
     # sp moves activations only: the same arguments, a lower temp
     sp, base = (recs[f"qwen2.5-32b|train_4k|{v}"]["memory"]
                 for v in ("sp", "baseline"))
@@ -4173,14 +4452,16 @@ def dryrun_card(d):
 class KernelCalls:
     """Inside the block, the shape of each call dispatch makes of qmatmul
     (M, N, K, packed), qmatmul_acc (the same) and the ring kernel
-    (kv_bits, span, pos, window, G, D, head-folds), in ``dispatch``'s
-    namespace: what the wrappers launch, left as it is."""
+    (kv_bits, span, pos, window, G, D, head-folds; staged over a ring split
+    by slot range, the ranks too), in ``dispatch``'s namespace: what the
+    wrappers launch, left as it is."""
 
     def __enter__(self):
         from repro_torch.kernels import dispatch
         self.dispatch, self.calls = dispatch, []
         self.orig = {n: getattr(dispatch, n) for n in
-                     ("qmatmul", "qmatmul_acc", "int_decode_attention")}
+                     ("qmatmul", "qmatmul_acc", "int_decode_attention",
+                      "int_decode_attention_staged")}
 
         def matmul(name):
             def call(x, w, *args, packed=False, **kw):
@@ -4199,9 +4480,20 @@ class KernelCalls:
                 q, k, v, sc, vs, kpos, pos, window=window, packed=packed,
                 **kw)
 
+        def staged(q, k, v, sc, vs, kpos, pos, *, parts, window=None,
+                   packed=False, **kw):
+            self.calls.append(("int_decode_attention", (
+                4 if packed else 8, k.shape[1] * parts,
+                pos.clone() if hasattr(pos, "clone") else pos, window,
+                q.shape[1], q.shape[2], q.shape[0], parts)))
+            return self.orig["int_decode_attention_staged"](
+                q, k, v, sc, vs, kpos, pos, parts=parts, window=window,
+                packed=packed, **kw)
+
         dispatch.qmatmul, dispatch.qmatmul_acc = (matmul("qmatmul"),
                                                   matmul("qmatmul_acc"))
         dispatch.int_decode_attention = ring
+        dispatch.int_decode_attention_staged = staged
         return self
 
     def __exit__(self, *exc):
@@ -4243,7 +4535,7 @@ def dryrun_hold(arch, shape, card, rec):
     checked = {"qmatmul": {row[:4] for row in QMM_CHECKS}
                | {row[:4] for row in QMM_SHARD},
                "qmatmul_acc": set(QMM_ACC),
-               "int_decode_attention": set(RING_DRYRUN)}
+               "int_decode_attention": set(RING_DRYRUN) | set(RING_SPLIT)}
     unchecked = {k: sorted(set(v) - checked[k]) for k, v in calls.items()
                  if set(v) - checked[k]}
     log(f"[dryrun] (b) {tag}: dispatches {got} (dry run {rec['launches']}); "
@@ -5536,6 +5828,7 @@ def main() -> int:
         phase_build()
         g = torch.Generator(device="cuda").manual_seed(0)
         errs = phase_check(g)
+        phase_ring_split(g)
         paths = {}
         paths["serve"], params = phase_serve()
         paths["ring"] = phase_ring(params)

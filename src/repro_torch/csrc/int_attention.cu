@@ -105,8 +105,20 @@
 //      the block's int32 PV summed over its chunks before the one float
 //      conversion (exact), Sigma over its chunks in chunk order, and the
 //      f32 carries rescaled by 2^(m_{t-1} - m_t) in block order.
-//   Only Sigma, an f32 sum, changes order against the plain version; codes
-//   and the int32 partials are exact.  No atomics.  Shared memory holds
+//   Where the ring is split by slot range over the model ranks of a
+//   partitioned program (each rank a whole number of chunks), the three
+//   passes run as stages with exchanges between them (the
+//   ring_stage_*_launch functions): a rank's chunk maxima are all-gathered
+//   after pass 1 (a maximum is exact in any order); pass 2 runs on the
+//   rank's chunks against the whole ring's maxima and ring_block_pv_kernel
+//   sums its live chunks' int32 PV per block; the Sigma partials are
+//   all-gathered and the per-block PV all-reduced (exact); pass 3 merges
+//   every chunk on every rank.  Each value is the one the one-launch path
+//   computes, so the output is its output bit for bit.
+//   Sigma's association (chunk sums, then the chunks in order) is the
+//   plain version's; within a chunk the sum runs in another order, so
+//   Sigma agrees within a tolerance; codes and the int32 partials are
+//   exact.  No atomics.  Shared memory holds
 //   one chunk's logits and one D-slice of its keys or values, so any G and
 //   D the dispatch accepts fit (G * C and the slice are the only terms
 //   that grow).  Bound: the live KV bytes.
@@ -1145,19 +1157,23 @@ ring_logits_kernel(const int8_t* __restrict__ q,
 }
 
 // Pass 2: the codes, Sigma and int32 PV of a live chunk against its bk
-// block's running m_t.
+// block's running m_t.  The launch covers chunks c0 .. c0 + gridDim.x - 1
+// of a ring of nch_all chunks (a rank's slot range; c0 = 0 and nch_all =
+// gridDim.x for the whole ring): cm holds the maxima of every chunk of
+// the ring, xs, v, codes, sp and pvp the launch's own.
 __global__ void __launch_bounds__(256)
 ring_pv_kernel(const uint8_t* __restrict__ v, const float* __restrict__ xs,
                const float* __restrict__ cm, uint8_t* __restrict__ codes,
                float* __restrict__ sp, int* __restrict__ pvp, int G, int D,
-               int span, int bk, int ds, int packed, float qmax) {
+               int span, int bk, int ds, int packed, float qmax, int c0,
+               int nch_all) {
   extern __shared__ __align__(16) uint8_t smem[];
   int* const words = reinterpret_cast<int*>(smem);
   const int C = blockDim.x, tid = threadIdx.x, ci = blockIdx.x;
   const int h = blockIdx.y, nch = gridDim.x, k0 = ci * C;
   const int warp = tid / 32, lane = tid % 32, nwarps = C / 32;
-  const float* cmh = cm + (size_t)h * nch * G;
-  if (cmh[(size_t)ci * G] <= NEG_BIG) return;   // dead chunk
+  const float* cmh = cm + (size_t)h * nch_all * G;
+  if (cmh[(size_t)(c0 + ci) * G] <= NEG_BIG) return;   // dead chunk
   const int PW = C / 4 + 1, dk = packed ? D / 2 : D;
   float* mrow = reinterpret_cast<float*>(words);          // G
   int* pc = reinterpret_cast<int*>(mrow + G);             // G x PW words
@@ -1170,7 +1186,7 @@ ring_pv_kernel(const uint8_t* __restrict__ v, const float* __restrict__ xs,
 
   // m_t: floor of the maximum over every chunk up to the block's end.
   // (loads unrolled by 8 so they are in flight together, not one by one)
-  const int cend = min((k0 / bk + 1) * (bk / C), nch);
+  const int cend = min(((c0 + ci) * C / bk + 1) * (bk / C), nch_all);
   for (int g = tid; g < G; g += C) {
     float mx = NEG_BIG;
 #pragma unroll 8
@@ -1229,19 +1245,48 @@ ring_pv_kernel(const uint8_t* __restrict__ v, const float* __restrict__ xs,
   }
 }
 
+// Pass 2 of a ring split by slot range over ranks (ring_stage_pv_launch):
+// the launch's int32 PV of each bk block, summed over its live chunks c0 ..
+// c0 + nloc - 1 (exact; 0 for a block it holds no live chunk of), which
+// the ranks then sum.
+__global__ void __launch_bounds__(NTM)
+ring_block_pv_kernel(const float* __restrict__ cm, const int* __restrict__ pvp,
+                     int* __restrict__ pvb, int G, int D, int nloc, int c0,
+                     int nch_all, int cpb) {
+  const int h = blockIdx.y, o = blockIdx.x * NTM + threadIdx.x;
+  if (o >= G * D) return;
+  const int g = o / D, d = o % D, nblk = (nch_all + cpb - 1) / cpb;
+  const float* cmh = cm + (size_t)h * nch_all * G + g;
+  const int* pvh = pvp + (size_t)h * nloc * G * D + (size_t)g * D + d;
+  int* pbh = pvb + (size_t)h * nblk * G * D + (size_t)g * D + d;
+  for (int b = 0; b < nblk; ++b) {
+    const int lo = max(b * cpb, c0), hi = min((b + 1) * cpb, c0 + nloc);
+    int ip = 0;
+    for (int c = lo; c < hi; ++c)
+      if (cmh[(size_t)c * G] > NEG_BIG) ip += pvh[(size_t)(c - c0) * G * D];
+    pbh[(size_t)b * G * D] = ip;
+  }
+}
+
 // Pass 3: one thread per (row g, column d) of head-fold h merges the live
-// chunks, block by block in slot order.
+// chunks, block by block in slot order.  The block's int32 PV is the sum
+// of its chunks' partials pvp, or with pvb (a ring split by slot range)
+// the exchanged per-block sums.
 __global__ void __launch_bounds__(NTM)
 ring_merge_kernel(const float* __restrict__ cm, const float* __restrict__ sp,
-                  const int* __restrict__ pvp, const float* __restrict__ vs,
-                  float* __restrict__ out, int G, int D, int nch, int cpb,
-                  float two_over_qmax) {
+                  const int* __restrict__ pvp, const int* __restrict__ pvb,
+                  const float* __restrict__ vs, float* __restrict__ out,
+                  int G, int D, int nch, int cpb, float two_over_qmax) {
   const int h = blockIdx.y, o = blockIdx.x * NTM + threadIdx.x;
   if (o >= G * D) return;
   const int g = o / D, d = o % D;
   const float* cmh = cm + (size_t)h * nch * G + g;
   const float* sph = sp + (size_t)h * nch * G + g;
-  const int* pvh = pvp + (size_t)h * nch * G * D + (size_t)g * D + d;
+  const int* pvh =
+      pvp ? pvp + (size_t)h * nch * G * D + (size_t)g * D + d : nullptr;
+  const int* pbh = pvb ? pvb + (size_t)h * ((nch + cpb - 1) / cpb) * G * D +
+                             (size_t)g * D + d
+                       : nullptr;
   float m = NEG_BIG, s = 0.0f, acc = 0.0f;
   for (int c0 = 0; c0 < nch; c0 += cpb) {
     const int c1 = min(c0 + cpb, nch);
@@ -1259,12 +1304,13 @@ ring_merge_kernel(const float* __restrict__ cm, const float* __restrict__ sp,
     for (int c = c0; c < c1; ++c) {
       const bool live = cmh[(size_t)c * G] > NEG_BIG;
       const float spc = sph[(size_t)c * G];
-      const int pvc = pvh[(size_t)c * G * D];
+      const int pvc = pvb ? 0 : pvh[(size_t)c * G * D];
       if (live) {
         st = __fadd_rn(st, spc);
         ip += pvc;
       }
     }
+    if (pvb) ip = pbh[(size_t)(c0 / cpb) * G * D];
     s = __fadd_rn(__fmul_rn(s, r), st);
     acc = __fadd_rn(__fmul_rn(acc, r), __int2float_rn(ip));
   }
@@ -1444,6 +1490,10 @@ extern "C" int paged_decode_launch(
                                   : launch_paged<16>(a, B, st));
 }
 
+// The shared memory each ring kernel is allowed, per device: one record
+// for every launcher of the kernel (allow_smem only raises it).
+static size_t ring_logits_done[16], ring_pv_done[16];
+
 // q (H, G, D) int8; k, v (H, span, D) int8 or (H, span, D/2) uint8
 // nibbles (packed); kpos (span,) int32 slot -> position (negative =
 // unwritten); pos (1,) int32 on the device; sc, vs (H,) f32; out
@@ -1466,11 +1516,11 @@ extern "C" int ring_decode_launch(const void* q, const void* k, const void* v,
   if (chunk % 32 || chunk > 256 || bk % chunk || ds % 16 || ds <= 0 ||
       (packed && D % 2) || s1 > 232448 || s2 > 232448)
     return static_cast<int>(cudaErrorInvalidValue);
-  static size_t done1[16], done2[16];
   cudaError_t err = allow_smem(
-      reinterpret_cast<const void*>(ring_logits_kernel), s1, done1);
+      reinterpret_cast<const void*>(ring_logits_kernel), s1, ring_logits_done);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_smem(reinterpret_cast<const void*>(ring_pv_kernel), s2, done2);
+  err = allow_smem(reinterpret_cast<const void*>(ring_pv_kernel), s2,
+                   ring_pv_done);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nch = (span + chunk - 1) / chunk;
@@ -1485,12 +1535,95 @@ extern "C" int ring_decode_launch(const void* q, const void* k, const void* v,
       static_cast<const uint8_t*>(v), static_cast<const float*>(xs),
       static_cast<const float*>(cm), static_cast<uint8_t*>(codes),
       static_cast<float*>(sp), static_cast<int*>(pvp), G, D, span, bk, ds,
-      packed, qmax);
+      packed, qmax, 0, nch);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   ring_merge_kernel<<<dim3((G * D + NTM - 1) / NTM, H), NTM, 0, st>>>(
       static_cast<const float*>(cm), static_cast<const float*>(sp),
-      static_cast<const int*>(pvp), static_cast<const float*>(vs),
+      static_cast<const int*>(pvp), nullptr, static_cast<const float*>(vs),
       static_cast<float*>(out), G, D, nch, bk / chunk, two_over_qmax);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same three passes as stages of a ring split by slot range over the
+// model ranks (kernels/int_attention.py::int_decode_attention_staged),
+// the caller exchanging between them.  A rank holds nloc = span / chunk
+// whole chunks, c0 = its index * nloc of the ring's nch_all.
+// Stage 1: q (H, G, D); k (H, span, dk) and kpos (span,) the rank's
+// slots; xs (H, G, span) f32 and cm (H, nloc, G) f32 out (the rank's
+// chunk maxima, which the ranks all-gather into (H, nch_all, G)).
+extern "C" int ring_stage_logits_launch(const void* q, const void* k,
+                                        const void* kpos, const void* pos,
+                                        const void* sc, void* xs, void* cm,
+                                        int H, int G, int D, int span,
+                                        int chunk, int ds, int causal,
+                                        int window, int packed, float qmax,
+                                        float two_over_qmax, void* stream) {
+  const size_t s1 = ring_logits_smem(G, chunk, ds);
+  if (chunk % 32 || chunk > 256 || span % chunk || ds % 16 || ds <= 0 ||
+      (packed && D % 2) || s1 > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(
+      reinterpret_cast<const void*>(ring_logits_kernel), s1, ring_logits_done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ring_logits_kernel<<<dim3(span / chunk, H), chunk, s1,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const uint8_t*>(k),
+      static_cast<const int*>(kpos), static_cast<const int*>(pos),
+      static_cast<const float*>(sc), static_cast<float*>(xs),
+      static_cast<float*>(cm), G, D, span, ds, causal, window, packed);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stage 2: v (H, span, dk) the rank's slots, xs from stage 1, cm the
+// ring's (H, nch_all, G) maxima; out codes (H, G, span) (or null), sp
+// (H, nloc, G) f32 (all-gathered next), pvb (H, nblk, G, D) int32 (the
+// rank's per-block sums, all-reduced next); pvp (H, nloc, G, D) int32 is
+// scratch.
+extern "C" int ring_stage_pv_launch(const void* v, const void* xs,
+                                    const void* cm, void* codes, void* sp,
+                                    void* pvp, void* pvb, int H, int G,
+                                    int D, int span, int bk, int chunk,
+                                    int ds, int c0, int nch_all, int packed,
+                                    float qmax, float two_over_qmax,
+                                    void* stream) {
+  const size_t s2 = ring_pv_smem(G, chunk, ds);
+  if (chunk % 32 || chunk > 256 || bk % chunk || span % chunk || ds % 16 ||
+      ds <= 0 || (packed && D % 2) || s2 > 232448 ||
+      c0 + span / chunk > nch_all)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(ring_pv_kernel),
+                               s2, ring_pv_done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nloc = span / chunk;
+  ring_pv_kernel<<<dim3(nloc, H), chunk, s2, st>>>(
+      static_cast<const uint8_t*>(v), static_cast<const float*>(xs),
+      static_cast<const float*>(cm), static_cast<uint8_t*>(codes),
+      static_cast<float*>(sp), static_cast<int*>(pvp), G, D, span, bk, ds,
+      packed, qmax, c0, nch_all);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ring_block_pv_kernel<<<dim3((G * D + NTM - 1) / NTM, H), NTM, 0, st>>>(
+      static_cast<const float*>(cm), static_cast<const int*>(pvp),
+      static_cast<int*>(pvb), G, D, nloc, c0, nch_all, bk / chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stage 3, on every rank alike: cm and sp (H, nch_all, G) and pvb (H,
+// nblk, G, D) after the exchanges; vs (H,); out (H, G, D) f32.
+extern "C" int ring_stage_merge_launch(const void* cm, const void* sp,
+                                       const void* pvb, const void* vs,
+                                       void* out, int H, int G, int D,
+                                       int nch_all, int bk, int chunk,
+                                       float qmax, float two_over_qmax,
+                                       void* stream) {
+  if (chunk % 32 || chunk > 256 || bk % chunk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ring_merge_kernel<<<dim3((G * D + NTM - 1) / NTM, H), NTM, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cm), static_cast<const float*>(sp), nullptr,
+      static_cast<const int*>(pvb), static_cast<const float*>(vs),
+      static_cast<float*>(out), G, D, nch_all, bk / chunk, two_over_qmax);
   return static_cast<int>(cudaGetLastError());
 }

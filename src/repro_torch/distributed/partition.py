@@ -44,25 +44,36 @@ stored (nibble bytes kept whole, so K/m is even), the RG-LRU's ``conv_w``
 and ``lam`` by d_rnn, experts by E, the embedding by vocabulary rows;
 norms, the router, the SSD mixer (``in_proj``, ``out_proj``, ``conv_w``,
 ``dt_bias``, ``A_log``, ``D``, ``norm_gamma``) and row-parallel biases
-stay whole.  Local shapes equal the reference's shard shapes, with
-departures where the reference would cut inside a head: attention splits
-by whole KV groups.  The port's GQA layout (``q.reshape(b, hkv, g,
-...)``) maps a contiguous range of query heads onto a contiguous range of
-KV heads, so where ``kv_heads % m != 0`` a layer's wq, wk, wv and wo stay
-whole on every rank (``enforce_divisible`` alone would cut inside a head:
-ChatGLM3's wk has 256 columns, and RecurrentGemma's local attention, one
-KV head of 256, stays whole at every m > 1).  Whisper's attention (MHA:
-``EncDecConfig`` has no ``kv_heads``) splits by whole heads of
-``n_heads``.  The other groups (a feed-forward's up, gate and down,
-Whisper's ``mlp`` too; the RG-LRU; the experts; the embedding and lm_head)
-likewise split only as a whole (:func:`split_plan`).  The batch splits
-over ``Rules.batch``.  The caches split by row over the batch axes and,
-over "model", a ring by KV head (Whisper's self-attention ring and cross
-K/V by head) and the RG-LRU's ``h`` and ``conv`` by d_rnn; the SSD state
-stays whole over "model" (:func:`local_cache_specs`).  The reference's
-``cache_specs`` (kept as it is in ``sharding.py``) splits the ring's
-sequence instead, which would need a cross-rank merge of the softmax's f32
-sum, not an exact step.
+stay whole.  Local shapes equal the reference's shard shapes.  A decoder
+LM's attention splits in one of two ways (:func:`split_plan`): by whole
+KV groups where the model ranks divide the KV heads ("heads": the port's
+GQA layout, ``q.reshape(b, hkv, g, ...)``, maps a contiguous range of
+query heads onto a contiguous range of KV heads, so a rank attends its
+own heads and exchanges nothing until wo), else by flat columns
+("columns", where the reference's cut divides ``n_heads * hd``, ``kv_heads
+* hd`` and, packed, wo's K in bytes): a rank's wq, wk and wv columns may
+end inside a head (ChatGLM3's wk has 256 columns, 64 a rank at m = 4;
+RecurrentGemma's one KV head of 256 splits at every m > 1), so the ranks
+all-gather q, k and v after their column products (bytes: exact), every
+rank attends every head, and feeds its K slice of the output to wo.
+Whisper's attention (MHA: ``EncDecConfig`` has no ``kv_heads``) splits by
+whole heads of ``n_heads`` or stays whole.  The other groups (a
+feed-forward's up, gate and down, Whisper's ``mlp`` too; the RG-LRU; the
+experts; the embedding and lm_head) likewise split only as a whole.  The
+batch splits over ``Rules.batch``.  The caches split by row over the
+batch axes and, over "model", a ring by KV head where attention splits by
+head (Whisper's self-attention ring and cross K/V by head), by slot where
+it splits by column, as the reference's ``cache_specs`` (kept as it is in
+``sharding.py``), whole where the ranks do not divide its span (a rank's
+whole ring is marked :data:`RING_WHOLE`); the RG-LRU's ``h`` and ``conv``
+by d_rnn; the SSD state stays whole over "model"
+(:func:`local_cache_specs`).  A decode step over a ring split by slot runs
+the ring kernel's three launches as stages with an exact cross-rank merge
+between them (``models/lm.py::_ring_split_decode``, ``kernels/dispatch.py::
+maybe_staged_decode``: the chunk maxima and the f32 Sigma partials
+all-gathered, per chunk, the per-block int32 PV all-reduced), where each
+rank's slots are whole chunks of the kernel's; elsewhere, and on the
+``torch`` backend's real tensors, the ranks all-gather the ring's codes.
 
 With ``Rules.seq_tp = ("model",)`` (the reference's ``sp`` variant,
 Megatron-SP; :func:`seq_split`) the residual stream splits too: from the
@@ -73,9 +84,10 @@ contiguous chunk j of the sequence of its batch rows, j its index on
 normed stream along S (bf16 as bytes: :func:`model_input`), runs its mixer
 or feed-forward on the whole sequence as without the split (ring writes,
 recurrent states, MoE capacity unchanged), and keeps the rank's chunk of
-the output: a row-parallel product with a split K reduce-scatters its sums
-along S where it would all-reduce them, and an output every rank holds
-whole (attention kept whole, the SSD mixer, the MoE FFN) is narrowed.
+the output: a row-parallel product with a split K (wo, by head or by
+column) reduce-scatters its sums along S where it would all-reduce them,
+and an output every rank holds whole (attention kept whole, the SSD
+mixer, the MoE FFN) is narrowed.
 Where m does not divide S the residual stays whole for the call: every
 decode step, and a prompt length m does not divide (the reference's GSPMD
 pads or replicates there).  ``seq_tp`` with ``int_bf16_reduce`` or
@@ -101,6 +113,12 @@ reference's sharded train cell parts from its one-device run):
   ``int_bf16_reduce``) all-reduces its int32 sums over "model" (the
   qmatmul kernel's accumulator output) and applies the f32 epilogue,
   bias included, once, to the full sum;
+- attention split by column gathers q, k and v as bytes, so every rank
+  attends the same tensors as one rank; a ring split by slot merges the
+  ranks' stages exactly: the chunk maxima and Sigma partials gathered in
+  slot order (the kernel's merge adds the same partials in the same
+  order), the per-block PV summed as int32; the ``torch`` backend, whose
+  one-rank path sums Sigma over whole rows, gathers the ring's codes;
 - the RG-LRU's scan, step, temporal conv and float gates act per
   feature, and the SSD mixer per row, so neither exchanges anything;
   a decode step's gates run as matmuls of one shape
@@ -217,16 +235,26 @@ def d_rnn(cfg) -> int:
 
 
 def split_plan(cfg, m: int) -> dict:
-    """Which groups of the tree split over ``m`` model ranks: attention by
-    whole KV groups ("heads"; Whisper's by whole heads), a feed-forward
-    ("ffn": an LM's, the shared expert's, Whisper's ``mlp``), the RG-LRU
-    by d_rnn, the experts, the vocabulary.  A row-parallel K stored as
-    nibbles must split into whole bytes."""
+    """Which groups of the tree split over ``m`` model ranks, and how
+    attention does: "heads" (by whole KV groups, and each rank keeps its
+    KV heads' ring; Whisper's attention by whole heads), "columns" (a
+    decoder LM whose KV heads ``m`` does not divide: wq, wk and wv by flat
+    output columns and wo by K, as the reference's ``param_specs`` cut
+    them, a cut falling inside a head, and the ring by slot) or False
+    (whole); a feed-forward ("ffn": an LM's, the shared expert's,
+    Whisper's ``mlp``), the RG-LRU by d_rnn, the experts, the vocabulary.
+    A row-parallel K stored as nibbles must split into whole bytes."""
     def ok(n, stored=None):
         return m > 1 and n % m == 0 and \
             (not _packed(cfg) or stored is None or stored % m == 0)
     moe = getattr(cfg, "moe", None)
-    return {"heads": ok(_kv_heads(cfg), cfg.n_heads * cfg.hd // 2),
+    q_cols, kv_cols = cfg.n_heads * cfg.hd, _kv_heads(cfg) * cfg.hd
+    lm_attn = not is_encdec(cfg) and any(k in ("attn", "local")
+                                         for k in cfg.block_pattern)
+    heads = "heads" if ok(_kv_heads(cfg), q_cols // 2) else \
+        "columns" if lm_attn and ok(q_cols, q_cols // 2) and ok(kv_cols) \
+        else False
+    return {"heads": heads,
             "ffn": cfg.d_ff > 0 and ok(cfg.d_ff, cfg.d_ff // 2),
             "rglru": ok(d_rnn(cfg), d_rnn(cfg) // 2),
             "experts": moe is not None and ok(moe.n_experts),
@@ -363,24 +391,39 @@ def gather_params(parts, cfg):
     return _assemble(parts, _plan_specs(parts[0][1], cfg, parts[0][0]))
 
 
-def local_cache_specs(cache, cfg, layout: Layout):
-    """Specs of a ring cache: every per-row leaf by row over the batch
-    axes; over "model", attention codes ``(B, Hkv, span, hd[/2])`` (and
-    Whisper's ``k``, ``v``, ``ek``, ``ev``) by KV head where attention
-    splits, the RG-LRU's ``h (B, d_rnn)`` and ``conv (B, 3, d_rnn)`` by
-    d_rnn where it splits; the SSD's ``h (B, H, P, N)`` and ``convs (B, 3,
-    d_conv)`` by row only; scales and ``pos`` whole."""
+# A layer's ring kept whole on a rank where attention splits by column
+# (its span is not a multiple of the model ranks, as the reference's
+# enforce_divisible keeps it) carries this key, a leaf of no elements: a
+# rank's ring is a slot range of the whole ring unless it does.
+RING_WHOLE = "ring_whole"
+
+
+def local_cache_specs(cache, cfg, layout: Layout, *, local: bool = False):
+    """Specs of a ring cache (the global one, or with ``local`` a rank's):
+    every per-row leaf by row over the batch axes; over "model", attention
+    codes ``(B, Hkv, span, hd[/2])`` (and Whisper's ``k``, ``v``, ``ek``,
+    ``ev``) by KV head where attention splits by head, by slot where it
+    splits by column and the model ranks divide the span (the reference's
+    ``cache_specs``; else whole, marked :data:`RING_WHOLE` on a rank), the
+    RG-LRU's ``h (B, d_rnn)`` and ``conv (B, 3, d_rnn)`` by d_rnn where it
+    splits; the SSD's ``h (B, H, P, N)`` and ``convs (B, 3, d_conv)`` by
+    row only; scales and ``pos`` whole."""
     plan = split_plan(cfg, layout.m)
     b = layout.batch if len(layout.batch) != 1 else layout.batch[0]
     b = b or None
-    heads = "model" if plan["heads"] else None
     rnn = "model" if plan["rglru"] else None
+    # (KV head, slot) of a ring
+    ring = {"heads": ("model", None), "columns": (None, "model")}.get(
+        plan["heads"], (None, None))
+    whole = _whole_rings(cache, layout, local) \
+        if plan["heads"] == "columns" else set()
 
     def one(keys, leaf):
         pad = (None,) * (1 if "units" in keys or "layers" in keys else 0)
         nd, name = leaf.ndim - len(pad), keys[-1]
         if name in ("k", "v", "ek", "ev") and nd == 4:
-            return P(*pad, b, heads, None, None)
+            return P(*pad, b, *((None, None) if tuple(keys[:-1]) in whole
+                                else ring), None)
         if name == "h" and nd == 2:                       # RG-LRU
             return P(*pad, b, rnn)
         if name == "conv" and nd == 3:
@@ -392,41 +435,93 @@ def local_cache_specs(cache, cfg, layout: Layout):
                                       tree_lib.leaves_with_keys(cache)])
 
 
+def _whole_rings(cache, layout, local):
+    """The layers (key paths) whose ring stays whole where attention splits
+    by column: a global ring whose span the model ranks do not divide, a
+    rank's ring marked :data:`RING_WHOLE`."""
+    whole = set()
+    for keys, leaf in tree_lib.leaves_with_keys(cache):
+        if keys[-1] == RING_WHOLE or (keys[-1] == "k" and not local and
+                                      leaf.shape[-2] % layout.m):
+            whole.add(tuple(keys[:-1]))
+    return whole
+
+
+def _mark_whole(local, cache, cfg, layout):
+    """A rank's cache ``local`` of the global ``cache`` (or its shapes)
+    with :data:`RING_WHOLE` in each layer whose ring stays whole."""
+    if split_plan(cfg, layout.m)["heads"] != "columns":
+        return local
+    for layer in _whole_rings(cache, layout, False):
+        d = local
+        for k in layer:
+            d = d[k]
+        d[RING_WHOLE] = d["k"].new_zeros((*d["k"].shape[:-4], 0))
+    return local
+
+
 def partition_cache(cache, cfg, layout: Layout):
     """The rank's shard of a global ring cache (the inverse of
     :func:`gather_cache`)."""
     specs = local_cache_specs(cache, cfg, layout)
-    return _map2(lambda t, s: _slice(t, s, layout), cache, specs)
+    return _mark_whole(_map2(lambda t, s: _slice(t, s, layout), cache,
+                             specs), cache, cfg, layout)
 
 
 def gather_cache(parts, cfg):
-    """The global ring cache from every rank's ``(layout, local cache)``."""
-    return _assemble(parts, local_cache_specs(parts[0][1], cfg,
-                                              parts[0][0]))
+    """The global ring cache from every rank's ``(layout, local cache)``
+    (:data:`RING_WHOLE` markers dropped)."""
+    whole = _assemble(parts, local_cache_specs(parts[0][1], cfg,
+                                               parts[0][0], local=True))
+
+    def drop(d):
+        return {k: drop(v) if isinstance(v, dict) else v
+                for k, v in d.items() if k != RING_WHOLE}
+    return drop(whole)
 
 
 def local_kv_heads(cfg, m: int) -> int:
     kv = _kv_heads(cfg)
-    return kv // m if split_plan(cfg, m)["heads"] else kv
+    return kv // m if split_plan(cfg, m)["heads"] == "heads" else kv
+
+
+def attn_columns(cfg) -> bool:
+    """Whether the active partitioned program splits ``cfg``'s attention
+    by column (:func:`split_plan`): every model rank then holds every head
+    of q, k and v after its column products, and a ring by slot."""
+    part = active()
+    return part is not None and split_plan(cfg, part.m)["heads"] == \
+        "columns"
 
 
 def init_cache(cfg, batch: int, max_len: int, layout: Layout, *,
                device="cuda"):
     """The rank's ring cache for a global ``batch``: its rows over the
-    batch axes, its KV heads (Whisper's heads), its RG-LRU features."""
+    batch axes, its KV heads (Whisper's heads) or its slots of each ring,
+    its RG-LRU features (:func:`local_cache_specs`), allocated at the
+    local shapes only."""
     n_dp = layout.size(layout.batch)
     if batch % n_dp:
         raise ValueError(f"batch {batch} over {n_dp} batch ranks")
-    heads = local_kv_heads(cfg, layout.m)
     if is_encdec(cfg):
         from repro_torch.models import encdec
-        return encdec.init_cache(cfg, batch // n_dp, max_len, heads=heads,
-                                 device=device)
-    from repro_torch.models import lm
-    rnn = d_rnn(cfg) // (layout.m if split_plan(cfg, layout.m)["rglru"]
-                         else 1)
-    return lm.init_cache(cfg.replace(kv_heads=heads, d_rnn=rnn),
-                         batch // n_dp, max_len, device=device)
+        whole = encdec.init_cache(cfg, batch, max_len, device="meta")
+    else:
+        from repro_torch.models import lm
+        whole = lm.init_cache(cfg, batch, max_len, device="meta")
+    specs = local_cache_specs(whole, cfg, layout)
+
+    def local(keys, t, spec):
+        shape = list(t.shape)
+        for dim, _, size in _region(spec, shape, layout):
+            shape[dim] = size
+        # scales start at 1; codes, states and positions at 0
+        return torch.full(shape, 1 if keys[-1].endswith("_scale") else 0,
+                          dtype=t.dtype, device=device)
+    return _mark_whole(tree_lib.unflatten(whole, [
+        local(keys, t, spec) for (keys, t), spec in zip(
+            tree_lib.leaves_with_keys(whole), tree_lib.leaves(specs))]),
+        whole, cfg, layout)
 
 
 # ---------------------------------------------------------------------------
@@ -808,8 +903,9 @@ def _blocks(params):
 
 def tree_dims(params, cfg) -> dict:
     """The dims of ``params`` that partitioning splits, as stored: vocab
-    rows, query and KV heads, feed-forward width, the RG-LRU's d_rnn,
-    experts; and the SSD mixer's ``in_proj`` width, which stays whole."""
+    rows, the query and KV projections' output columns, feed-forward
+    width, the RG-LRU's d_rnn, experts; and the SSD mixer's ``in_proj``
+    width, which stays whole."""
     out = {}
     emb = params.get("embed", {})
     if emb:
@@ -818,9 +914,9 @@ def tree_dims(params, cfg) -> dict:
         out["lm_head"] = out_features(params["lm_head"])
     for blk in _blocks(params):
         attn = next((blk[k] for k in ATTN_KEYS if k in blk), None)
-        if attn is not None and "heads" not in out:
-            out["heads"] = out_features(attn["wq"]) // cfg.hd
-            out["kv_heads"] = out_features(attn["wk"]) // cfg.hd
+        if attn is not None and "q_cols" not in out:
+            out["q_cols"] = out_features(attn["wq"])
+            out["kv_cols"] = out_features(attn["wk"])
         if "rglru" in blk and "d_rnn" not in out:
             out["d_rnn"] = out_features(blk["rglru"]["w_in"])
         if "ssd" in blk and "ssd" not in out:
@@ -845,8 +941,9 @@ def expected_dims(cfg, m: int, n_fsdp: int = 1) -> dict:
     def d(n, key):
         return n // m if plan[key] else n
     out = {"vocab": d(cfg.vocab, "vocab"), "lm_head": d(cfg.vocab, "vocab"),
-           "heads": d(cfg.n_heads, "heads"),
-           "kv_heads": d(_kv_heads(cfg), "heads"), "ffn": d(cfg.d_ff, "ffn")}
+           "q_cols": d(cfg.n_heads * cfg.hd, "heads"),
+           "kv_cols": d(_kv_heads(cfg) * cfg.hd, "heads"),
+           "ffn": d(cfg.d_ff, "ffn")}
     if is_encdec(cfg):
         return out
     if "rglru" in cfg.block_pattern:

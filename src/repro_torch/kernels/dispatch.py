@@ -32,6 +32,7 @@ dispatches; the kernels' own launch counts are ``LAUNCHES`` in
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional
 
 import numpy as np
@@ -39,14 +40,16 @@ import torch
 
 from repro_torch.core import quant
 from repro_torch.core.softmax2 import LOG2E
-from repro_torch.distributed.partition import heads_max, tensor_max
+from repro_torch.distributed.partition import (heads_max, rows_max,
+                                               tensor_max)
 from repro_torch.kernels import int_attention as _attn_mod
 from repro_torch.kernels import pq_layernorm as _pqln_mod
 from repro_torch.kernels import qmatmul as _qmm_mod
-from repro_torch.kernels.int_attention import (MAX_PROB_BITS, SMEM_BUDGET,
-                                               int_attention_fused,
-                                               int_decode_attention,
-                                               int_paged_decode_attention)
+from repro_torch.kernels import ref
+from repro_torch.kernels.int_attention import (
+    MAX_PROB_BITS, SMEM_BUDGET, int_attention_fused, int_decode_attention,
+    int_decode_attention_staged, int_paged_decode_attention,
+    staged_ring_plan)
 from repro_torch.kernels.qmatmul import plan as qmatmul_plan
 from repro_torch.kernels.qmatmul import qmatmul, qmatmul_acc
 
@@ -476,7 +479,7 @@ def _fused_call(q, k, v, spec, cfg):
 
     Float inputs quantize on per-sequence grids exactly like the plain
     path — k/v per batch row, q per (batch row, query chunk), each over
-    every rank's heads when partitioned — and the
+    every rank's heads when partitioned by head — and the
     resulting (B*Hkv, nq) logit-scale matrix gives each bq tile its own
     scale.  Pre-quantized QTensor operands keep their own single grid, with
     the plain path's association ``scale*LOG2E*dq*dk``.
@@ -488,7 +491,8 @@ def _fused_call(q, k, v, spec, cfg):
         else torch.float32
     scale = spec.softmax_scale or (1.0 / d ** 0.5)
     if any(isinstance(x, quant.QTensor) for x in (q, k, v)):
-        qq, kq, vq = (_as_q(x, cfg.a_bits) for x in (q, k, v))
+        qq, kq, vq = (_as_q(x, cfg.a_bits, spec.split_heads)
+                      for x in (q, k, v))
         sc = scale * LOG2E * qq.scale * kq.scale
         vs = vq.scale
         qf = qq.q.reshape(b * hkv, g * sq, d)
@@ -498,13 +502,12 @@ def _fused_call(q, k, v, spec, cfg):
         c = chunk_len(sq, spec.q_chunk)
         n_ch = sq // c
         qr = q.reshape(b, hkv, g, n_ch, c, d)
+        grp = heads_max if spec.split_heads else None
         qsc = quant.absmax_scale(qr, cfg.a_bits, axis=(1, 2, 4, 5),
-                                 group=heads_max)
+                                 group=grp)
         qf = quant.quantize(qr, qsc, cfg.a_bits).reshape(b * hkv, g * sq, d)
-        ksc = quant.absmax_scale(k, cfg.a_bits, axis=(1, 2, 3),
-                                 group=heads_max)
-        vsc = quant.absmax_scale(v, cfg.a_bits, axis=(1, 2, 3),
-                                 group=heads_max)
+        ksc = quant.absmax_scale(k, cfg.a_bits, axis=(1, 2, 3), group=grp)
+        vsc = quant.absmax_scale(v, cfg.a_bits, axis=(1, 2, 3), group=grp)
         kf = quant.quantize(k, ksc, cfg.a_bits)
         vf = quant.quantize(v, vsc, cfg.a_bits)
         bq, bk = attention_blocks(g * sq, sk, d, window=spec.window, chunk=c)
@@ -526,35 +529,89 @@ def _fused_call(q, k, v, spec, cfg):
     return out.reshape(b, hq, sq, d).to(out_dtype)
 
 
-def _as_q(x, bits):
+def _as_q(x, bits, split_heads=True):
+    """Per-tensor codes of ``x`` (QTensors pass through on their grid):
+    the grid over every rank's rows and, where the ranks hold some heads
+    each, their heads."""
     return x if isinstance(x, quant.QTensor) \
-        else quant.quantize_tensor(x, bits, group=tensor_max)
+        else quant.quantize_tensor(x, bits, group=tensor_max if split_heads
+                                   else rows_max)
+
+
+def _decode_operands(q, k, v, spec, cfg):
+    """The ring kernel's operands: the query on the plain path's
+    PER-TENSOR grid (the whole batch shares one ring and one scale; over
+    every rank's rows, and heads where the ranks split them, when
+    partitioned), folded to (B*Hkv, G, D), the cache's codes as stored
+    (int8, or int4 nibbles read in place) folded to (B*Hkv, span, dk), and
+    the plain path's association ``scale*LOG2E*dq*dk``: (qf, kq, vq, kf,
+    vf, sc)."""
+    b, hq, _, d = q.shape
+    hkv, span = k.shape[1], k.shape[2]
+    qq, kq, vq = (_as_q(x, cfg.a_bits, spec.split_heads) for x in (q, k, v))
+    scale = spec.softmax_scale or (1.0 / d ** 0.5)
+    sc = scale * LOG2E * qq.scale * kq.scale
+    qf = qq.q.reshape(b * hkv, hq // hkv, d).contiguous()
+    return (qf, kq, vq, kq.q.reshape(b * hkv, span, -1),
+            vq.q.reshape(b * hkv, span, -1), sc)
 
 
 def _decode_call(q, k, v, spec, cfg, q_offset, k_positions):
-    """One decode step on the ring kernel: the cache's codes as stored
-    (int8, or int4 nibbles read in place), and the query on the plain
-    path's PER-TENSOR grid (the whole batch shares one ring and one
-    scale; over every rank's heads and rows when partitioned), with the
-    plain path's association ``scale*LOG2E*dq*dk``.
+    """One decode step on the ring kernel (:func:`_decode_operands`).
     ``q_offset`` is the query position as a device tensor."""
     b, hq, _, d = q.shape
-    hkv, span = k.shape[1], k.shape[2]
-    g = hq // hkv
     out_dtype = q.dtype if not isinstance(q, quant.QTensor) \
         else torch.float32
-    qq, kq, vq = (_as_q(x, cfg.a_bits) for x in (q, k, v))
-    scale = spec.softmax_scale or (1.0 / d ** 0.5)
-    sc = scale * LOG2E * qq.scale * kq.scale
-    qf = qq.q.reshape(b * hkv, g, d).contiguous()
-    kf = kq.q.reshape(b * hkv, span, -1)
-    vf = vq.q.reshape(b * hkv, span, -1)
+    qf, kq, vq, kf, vf, sc = _decode_operands(q, k, v, spec, cfg)
     out = int_decode_attention(
         qf, kf, vf, sc, vq.scale,
         torch.as_tensor(k_positions, dtype=torch.int32, device=q.device),
         q_offset, attn_bits=cfg.attn_bits, causal=spec.causal,
-        window=spec.window, bk=decode_blocks(span, d),
+        window=spec.window, bk=decode_blocks(k.shape[2], d),
         packed=_is_packed(kq))
+    return out.reshape(b, hq, 1, d).to(out_dtype)
+
+
+def maybe_staged_decode(q, k, v, spec, cfg, q_offset, k_positions, *,
+                        parts, index, gather, reduce):
+    """A decode step over a ring split by slot range over ``parts`` ranks,
+    run by stages; ``None`` -> the caller gathers the ring.  This rank
+    holds slots ``[index * n, (index + 1) * n)`` of ``k``, ``v`` (QTensors
+    on the ring's per-tensor grids), ``k_positions`` their positions; ``q``
+    holds every head.  ``gather(t)`` all-gathers ``t`` along dim 1 in rank
+    order and ``reduce(t)`` sums int32 over the ranks: the chunk maxima and
+    Sigma partials gathered, the per-block PV summed.
+
+    Runs where each rank's range is whole chunks of the ring kernel's
+    (``int_attention.staged_ring_plan``): on the ``cuda`` backend the
+    kernel's stages (``int_decode_attention_staged``), bit for bit the
+    one-launch kernel; on meta tensors the ``torch`` backend's plain stages
+    (``ref.int_decode_attention_staged_ref``), so a dry run counts the
+    card's exchanges.  On real tensors the ``torch`` backend returns
+    ``None``: its one-rank path sums Sigma over whole rows where the stages
+    sum it by chunks, so only the gathered ring is bitwise that path."""
+    if cfg is None or cfg.mode != "int" or \
+            not decode_supported(q, k, spec, cfg, k_positions):
+        return None
+    b, hq, _, d = q.shape
+    span = k.shape[2] * parts
+    bk = decode_blocks(span, d)
+    plan = staged_ring_plan(hq // k.shape[1], d, bk, span, parts)
+    backend = resolve_backend(cfg)
+    if plan is None or (backend == "torch" and not q.is_meta):
+        return None
+    STATS[f"attention_decode_{backend}"] += 1
+    qf, kq, vq, kf, vf, sc = _decode_operands(q, k, v, spec, cfg)
+    fn = int_decode_attention_staged if backend == "cuda" else \
+        functools.partial(ref.int_decode_attention_staged_ref, chunk=plan[0])
+    out = fn(qf, kf, vf, sc, vq.scale,
+             torch.as_tensor(k_positions, dtype=torch.int32,
+                             device=q.device), q_offset,
+             parts=parts, index=index, gather=gather, reduce=reduce,
+             attn_bits=cfg.attn_bits, causal=spec.causal,
+             window=spec.window, bk=bk, packed=_is_packed(kq))
+    out_dtype = q.dtype if not isinstance(q, quant.QTensor) \
+        else torch.float32
     return out.reshape(b, hq, 1, d).to(out_dtype)
 
 

@@ -46,6 +46,11 @@ power-of-two Sigma grid, PV carries rescaled by exact powers of two):
   ``pos``) read nothing, as the TPU's live-block map skipped them.  Plain
   version: :func:`int_decode_attention_plain`, the ring oracle at the same
   ``bk``.  Bound: the live KV bytes.
+  :func:`int_decode_attention_staged` runs the same three passes on a ring
+  split by slot range over the model ranks of a partitioned program, as
+  stages with the ranks' exchanges between them, bit for bit the unsplit
+  kernel's output (plain version: the ring's codes gathered, then
+  :func:`int_decode_attention_plain`).
 
 Each wrapper runs its kernel on CUDA tensors and its plain version on CPU
 tensors, and nowhere else.  ``return_codes`` also returns the prob codes,
@@ -461,6 +466,144 @@ def int_decode_attention(q_q, k_q, v_q, sc, v_scale, k_positions, pos, *,
         ref.f32(2.0 / qmax), build.stream_ptr(q_q))
     LAUNCHES["int_decode_attention"] += 1
     return (out, codes) if return_codes else out
+
+
+def staged_ring_plan(g: int, d: int, bk: int, span: int, parts: int):
+    """(chunk, ds) of the staged ring (:func:`int_decode_attention_staged`)
+    where each of ``parts`` slot ranges of ``span`` slots is a whole number
+    of the one-rank kernel's chunks, else None (the caller gathers the
+    ring)."""
+    plan = ring_plan(g, d, bk) if bk > 0 and bk % 32 == 0 else None
+    if plan is None or span % parts or (span // parts) % plan[0]:
+        return None
+    return plan
+
+
+def int_decode_attention_staged(q_q, k_q, v_q, sc, v_scale, k_positions,
+                                pos, *, parts, index, gather, reduce,
+                                attn_bits=7, causal=True, window=None, bk,
+                                packed=False, return_codes=False):
+    """The ring decode kernel on a ring split by slot range over ``parts``
+    ranks: this rank holds slots ``[index * n, (index + 1) * n)`` of the
+    ``parts * n``-slot ring (``k_q``, ``v_q`` (H, n, D) int8 or (H, n, D/2)
+    nibbles, ``k_positions`` (n,) their positions), ``q_q`` (H, G, D) and
+    the scales as :func:`int_decode_attention`.  Its three launches run as
+    stages with the exchanges of the model ranks between them
+    (``gather(t)``: all-gather along dim 1 in rank order; ``reduce(t)``:
+    the int32 sum over the ranks): the chunk maxima gathered, the Sigma
+    partials gathered and the per-block int32 PV summed, and every rank
+    merges the whole ring.  Each value is the one the unsplit kernel makes,
+    so the output equals :func:`int_decode_attention` on the whole ring
+    bit for bit.  On CPU tensors its plain version gathers the ring's
+    codes and slot map and runs :func:`int_decode_attention_plain`, the
+    oracle, whose Sigma sums whole blocks.  Needs :func:`staged_ring_plan`.
+    Returns (H, G, D) f32 (and the rank's (H, G, n) codes); one launch
+    counted a call."""
+    if attn_bits > MAX_PROB_BITS:
+        raise ValueError(f"prob codes are <= {MAX_PROB_BITS}-bit")
+    h, g, d = q_q.shape
+    n, dk = k_q.shape[1], k_q.shape[2]
+    if dk * (2 if packed else 1) != d:
+        raise ValueError(f"ring decode: q {tuple(q_q.shape)} vs ring "
+                         f"{tuple(k_q.shape)} (packed={packed})")
+    plan = staged_ring_plan(g, d, bk, n * parts, parts)
+    if plan is None:
+        raise ValueError(f"staged ring decode: a slot range of {n} is not "
+                         f"whole chunks at bk={bk} (G={g}, D={d})")
+    chunk, ds = plan
+    if q_q.device.type == "cpu":
+        out = int_decode_attention_plain(
+            q_q, gather(k_q), gather(v_q), sc, v_scale,
+            gather(k_positions[None])[0], pos, attn_bits=attn_bits,
+            causal=causal, window=window, bk=bk, packed=packed,
+            return_codes=return_codes)
+        if not return_codes:
+            return out
+        return out[0], out[1][..., index * n:(index + 1) * n].contiguous()
+    c0 = index * (n // chunk)
+    xs, cm = ring_stage_logits(q_q, k_q, k_positions, pos, sc, chunk=chunk,
+                               ds=ds, causal=causal, window=window,
+                               packed=packed)
+    cm = gather(cm)
+    sp, pvb, codes = ring_stage_pv(v_q, xs, cm, c0=c0, bk=bk, chunk=chunk,
+                                   ds=ds, attn_bits=attn_bits, packed=packed,
+                                   return_codes=return_codes)
+    out = ring_stage_merge(gather(sp), reduce(pvb), cm, v_scale, bk=bk,
+                           chunk=chunk, attn_bits=attn_bits)
+    return (out, codes) if return_codes else out
+
+
+def ring_stage_logits(q_q, k_q, k_positions, pos, sc, *, chunk, ds,
+                      causal=True, window=None, packed=False):
+    """Stage 1 of the staged ring on a rank's slots (CUDA tensors): the
+    logits (H, G, n) f32 and the rank's chunk maxima (H, n / chunk, G)."""
+    h, g, d = q_q.shape
+    n, dk = k_q.shape[1], k_q.shape[2]
+    dev = q_q.device
+    sc = _on(sc, torch.float32, (h,), dev)
+    pos = _on(pos, torch.int32, (1,), dev)
+    _check(q_q, torch.int8, (h, g, d), "q_q")
+    _check(k_q, torch.uint8 if packed else torch.int8, (h, n, dk), "k_q")
+    _check(k_positions, torch.int32, (n,), "k_positions")
+    xs = torch.empty((h, g, n), dtype=torch.float32, device=dev)
+    cm = torch.empty((h, n // chunk, g), dtype=torch.float32, device=dev)
+    _launch("ring_stage_logits_launch", 7, 9, "ring stage 1 (logits)",
+            q_q.data_ptr(), k_q.data_ptr(), k_positions.data_ptr(),
+            pos.data_ptr(), sc.data_ptr(), xs.data_ptr(), cm.data_ptr(),
+            h, g, d, n, chunk, ds, int(causal),
+            -1 if window is None else int(window), int(packed), 0.0, 0.0,
+            build.stream_ptr(q_q))
+    return xs, cm
+
+
+def ring_stage_pv(v_q, xs, cm, *, c0, bk, chunk, ds, attn_bits=7,
+                  packed=False, return_codes=False):
+    """Stage 2 of the staged ring on a rank's slots (chunks ``c0 ..`` of
+    the ring whose maxima ``cm`` (H, nch, G) holds): the Sigma partials
+    (H, n / chunk, G) f32, the rank's int32 PV of each ``bk`` block (H,
+    nblk, G, D) and its codes (H, G, n) (or None)."""
+    h, g, n = xs.shape
+    d = v_q.shape[2] * (2 if packed else 1)
+    nloc, nch = n // chunk, cm.shape[1]
+    nblk = -(-nch // (bk // chunk))
+    dev = xs.device
+    _check(v_q, torch.uint8 if packed else torch.int8,
+           (h, n, v_q.shape[2]), "v_q")
+    _check(cm, torch.float32, (h, nch, g), "cm")
+    qmax = (1 << attn_bits) - 1
+    sp = torch.empty((h, nloc, g), dtype=torch.float32, device=dev)
+    pvp = torch.empty((h, nloc, g, d), dtype=torch.int32, device=dev)
+    pvb = torch.empty((h, nblk, g, d), dtype=torch.int32, device=dev)
+    codes = torch.zeros((h, g, n), dtype=torch.uint8, device=dev) \
+        if return_codes else None
+    _launch("ring_stage_pv_launch", 7, 10, "ring stage 2 (codes, PV)",
+            v_q.data_ptr(), xs.data_ptr(), cm.data_ptr(),
+            None if codes is None else codes.data_ptr(), sp.data_ptr(),
+            pvp.data_ptr(), pvb.data_ptr(), h, g, d, n, bk, chunk, ds, c0,
+            nch, int(packed), float(qmax), ref.f32(2.0 / qmax),
+            build.stream_ptr(xs))
+    return sp, pvb, codes
+
+
+def ring_stage_merge(sp, pvb, cm, v_scale, *, bk, chunk, attn_bits=7):
+    """Stage 3 of the staged ring, on every rank alike: the whole ring's
+    maxima ``cm`` and Sigma partials ``sp`` (H, nch, G) and per-block
+    int32 PV ``pvb`` merged in slot order (H, G, D) f32.  Counts the
+    staged call's launch."""
+    h, nch, g = cm.shape
+    d = pvb.shape[-1]
+    dev = cm.device
+    vs = _on(v_scale, torch.float32, (h,), dev)
+    _check(sp, torch.float32, (h, nch, g), "sp")
+    _check(pvb, torch.int32, (h, pvb.shape[1], g, d), "pvb")
+    qmax = (1 << attn_bits) - 1
+    out = torch.empty((h, g, d), dtype=torch.float32, device=dev)
+    _launch("ring_stage_merge_launch", 5, 6, "ring stage 3 (merge)",
+            cm.data_ptr(), sp.data_ptr(), pvb.data_ptr(), vs.data_ptr(),
+            out.data_ptr(), h, g, d, nch, bk, chunk, float(qmax),
+            ref.f32(2.0 / qmax), build.stream_ptr(cm))
+    LAUNCHES["int_decode_attention"] += 1
+    return out
 
 
 def _check(t, dtype, shape, name, align=4):

@@ -247,6 +247,164 @@ def int_decode_attention_ref(q_q, k_q, v_q, sc, v_scale, k_positions, pos,
     return out
 
 
+def ring_positions(pos, span: int, start: int = 0, count=None):
+    """The slot -> position map of a ring of ``span`` slots after position
+    ``pos`` (a 0-d device tensor) was written: ``pos - ((pos % span - j)
+    mod span)`` for slots j in ``[start, start + count)`` (negative:
+    unwritten)."""
+    n = span - start if count is None else count
+    j = start + torch.arange(n, dtype=torch.int32, device=pos.device)
+    return pos - torch.remainder(torch.remainder(pos, span) - j, span)
+
+
+# The ring decode kernel's three passes in plain PyTorch, each on a slot
+# range of whole chunks of the ring (all of it on one rank), in the
+# association of ``csrc/int_attention.cu``'s ring kernels, unsplit or
+# staged over the model ranks of a partitioned program.  Every value a
+# pass returns is the same, bit for bit, whether it ran on the whole ring
+# or on a rank's slots, so a staged run equals the unsplit one.
+
+def ring_logits_ref(q_q, k_q, k_positions, pos, sc, *, chunk, causal=True,
+                    window=None):
+    """Pass 1 on slots ``k_q`` (H, span, D) int8 (span need not be whole
+    chunks: the last is padded): the masked, clamped logits (H, G,
+    nloc * chunk) f32 (dead slots and pads at -120) and each chunk's
+    per-row maxima (H, nloc, G) (``NEG`` for a chunk with no live key)."""
+    h, g, d = q_q.shape
+    span = k_q.shape[1]
+    dev = q_q.device
+    nloc = -(-span // chunk)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).reshape(())
+    kp = k_positions.to(torch.int32)
+    live = kp >= 0
+    if causal:
+        live &= kp <= pos
+    if window is not None:
+        live &= kp > pos - window
+    acc = int_matmul_exact(q_q, k_q.transpose(1, 2))          # (H, G, span)
+    x = acc.to(torch.float32) * _head_sc(sc, h, dev)
+    x = torch.clamp(torch.where(live[None, None, :], x, NEG), min=-120.0)
+    x = F.pad(x, (0, nloc * chunk - span), value=-120.0)
+    live = F.pad(live, (0, nloc * chunk - span))
+    cm = x.view(h, g, nloc, chunk).amax(-1).transpose(1, 2)   # (H, nloc, G)
+    cm = torch.where(live.view(nloc, chunk).any(-1)[None, :, None], cm, NEG)
+    return x, cm.contiguous()
+
+
+def ring_pv_ref(v_q, x, cm, *, c0: int = 0, bk, chunk, attn_bits=7):
+    """Pass 2 on the same slots: ``v_q`` (H, span, D) int8, ``x`` and the
+    ring's chunk maxima ``cm`` (H, nch, G), of which the slots are chunks
+    ``c0 ..``.  Each chunk's codes against its ``bk`` block's running m
+    (the floor of the maxima of every chunk up to the block's end),
+    Sigma partials (H, nloc, G) f32 (a sum over the chunk), and the int32
+    PV of each block over these chunks (H, nblk, G, D) (0 where they hold
+    none of it); dead chunks give 0.  Returns (sp, pvb, codes (H, G,
+    span) uint8)."""
+    h, g, nslots = x.shape
+    span, d = v_q.shape[1], v_q.shape[2]
+    nloc, nch = nslots // chunk, cm.shape[1]
+    cpb = bk // chunk
+    nblk = -(-nch // cpb)
+    qmax = (1 << attn_bits) - 1
+    # the running maximum at each block's end
+    run, mx = [], torch.full((h, g), NEG, device=x.device)
+    for b in range(nblk):
+        mx = torch.maximum(mx, cm[:, b * cpb:(b + 1) * cpb].amax(1))
+        run.append(mx)
+    blk = (c0 + torch.arange(nloc, device=x.device)) // cpb
+    # a dead chunk's m is never used (its e are 0): held above -120
+    m = torch.floor(torch.stack(run, 1)[:, blk].clamp(min=-120.0))
+    xc = x.view(h, g, nloc, chunk)
+    e = torch.where(xc <= -120.0, 0.0,
+                    exp2_shift(xc - m.transpose(1, 2)[..., None]))
+    p = _codes(e, qmax)
+    live = (cm[:, c0:c0 + nloc] > NEG).transpose(1, 2)        # (H, G, nloc)
+    sp = torch.where(live, e.sum(-1), 0.0).transpose(1, 2)
+    v = F.pad(v_q, (0, 0, 0, nslots - span)).view(h, nloc, chunk, d)
+    pv = int_matmul_exact(p.transpose(1, 2), v)                # (H,nloc,G,D)
+    pv = torch.where(live.transpose(1, 2)[..., None], pv, 0)
+    pvb = torch.zeros((h, nblk, g, d), dtype=pv.dtype, device=x.device)
+    pvb.index_add_(1, blk, pv)
+    codes = p.reshape(h, g, nslots)[..., :span].to(torch.uint8)
+    return sp.contiguous(), pvb, codes
+
+
+def ring_merge_ref(cm, sp, pvb, v_scale, *, bk, chunk, attn_bits=7):
+    """Pass 3 over the whole ring: the chunks block by block in slot
+    order, each block's Sigma the sum of its live chunks' partials in
+    chunk order, the f32 carries rescaled by the exact power of two.
+    ``cm``, ``sp`` (H, nch, G), ``pvb`` (H, nblk, G, D) int32.  Returns
+    (H, G, D) f32."""
+    h, nch, g = cm.shape
+    d = pvb.shape[-1]
+    cpb = bk // chunk
+    qmax = (1 << attn_bits) - 1
+    dev = cm.device
+    m = torch.full((h, g), NEG, device=dev)
+    s = torch.zeros((h, g), device=dev)
+    pv = torch.zeros((h, g, d), device=dev)
+    for b in range(pvb.shape[1]):
+        cs = cm[:, b * cpb:(b + 1) * cpb]
+        bm = cs.amax(1)
+        on = bm > NEG                                # a live key in the block
+        mn = torch.maximum(m, torch.floor(bm))
+        r = torch.where(m <= NEG, 0.0, exp2i((m - mn).clamp(min=-300.0)))
+        st = torch.zeros((h, g), device=dev)
+        for c in range(cs.shape[1]):
+            st = st + sp[:, b * cpb + c]
+        s = torch.where(on, s * r + st, s)
+        pv = torch.where(on[..., None],
+                         pv * r[..., None] + pvb[:, b].to(torch.float32), pv)
+        m = torch.where(on, mn, m)
+    out = pv * ((2.0 / qmax) / torch.clamp(s, min=1e-30)
+                * _head_sc(v_scale, h, dev).reshape(-1, 1))[..., None]
+    return out
+
+
+def int_decode_attention_staged_ref(q_q, k_q, v_q, sc, v_scale, k_positions,
+                                    pos, *, parts, index, gather, reduce,
+                                    chunk, attn_bits=7, causal=True,
+                                    window=None, bk, packed=False,
+                                    return_codes=False):
+    """The staged ring decode kernel (``int_attention.
+    int_decode_attention_staged``: the same contract, ``chunk`` its
+    ``staged_ring_plan``) in plain PyTorch on any device, the three passes
+    above on the rank's chunks with the kernel's exchanges between them:
+    what the ``torch`` backend serves over a ring split by slot range.  It
+    equals :func:`int_decode_attention_chunked_ref` on the whole ring bit
+    for bit."""
+    n = k_q.shape[1]
+    if packed:
+        k_q, v_q = unpack_int4(k_q), unpack_int4(v_q)
+    x, cm = ring_logits_ref(q_q, k_q, k_positions, pos, sc, chunk=chunk,
+                            causal=causal, window=window)
+    cm = gather(cm)
+    sp, pvb, codes = ring_pv_ref(v_q, x, cm, c0=index * (n // chunk), bk=bk,
+                                 chunk=chunk, attn_bits=attn_bits)
+    out = ring_merge_ref(cm, gather(sp), reduce(pvb), v_scale, bk=bk,
+                         chunk=chunk, attn_bits=attn_bits)
+    return (out, codes) if return_codes else out
+
+
+def int_decode_attention_chunked_ref(q_q, k_q, v_q, sc, v_scale, k_positions,
+                                     pos, *, attn_bits=7, causal=True,
+                                     window=None, bk, chunk,
+                                     return_codes=False):
+    """The ring decode kernel's three passes in plain PyTorch over the
+    whole ring (int8 codes), ``chunk`` from ``int_attention.ring_plan``:
+    the kernel's association.  Codes and the int32 sums equal
+    :func:`int_decode_attention_ref` at the same ``bk``; Sigma sums by
+    chunks, then the chunks in order.  Returns (H, G, D) f32 (and the
+    (H, G, span) uint8 codes)."""
+    x, cm = ring_logits_ref(q_q, k_q, k_positions, pos, sc, chunk=chunk,
+                            causal=causal, window=window)
+    sp, pvb, codes = ring_pv_ref(v_q, x, cm, bk=bk, chunk=chunk,
+                                 attn_bits=attn_bits)
+    out = ring_merge_ref(cm, sp, pvb, v_scale, bk=bk, chunk=chunk,
+                         attn_bits=attn_bits)
+    return (out, codes) if return_codes else out
+
+
 def int_paged_decode_attention_ref(q_q, k_pages, v_pages, sc, v_scale,
                                    page_table, pos, *, attn_bits=7,
                                    window=None, bk=None, k_page_scale=None,

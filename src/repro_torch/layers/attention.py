@@ -54,21 +54,24 @@ def _mask(q_pos, k_pos, spec: AttnSpec):
     return m
 
 
-def _as_q(x, bits):
-    """Per-tensor quantization (over every rank's heads and rows when
-    partitioned; QTensors pass through on their grid)."""
+def _as_q(x, bits, split_heads=True):
+    """Per-tensor quantization (over every rank's rows, and heads where the
+    ranks hold some each, when partitioned; QTensors pass through on their
+    grid)."""
     if isinstance(x, quant.QTensor):
         return x
-    return quant.quantize_tensor(x, bits, group=tensor_max)
+    return quant.quantize_tensor(x, bits, group=tensor_max if split_heads
+                                 else rows_max)
 
 
-def _as_q_rows(x, bits):
-    """Per-batch-row quantization (over every rank's heads when
-    partitioned; QTensors pass through on their grid)."""
+def _as_q_rows(x, bits, split_heads=True):
+    """Per-batch-row quantization (over every rank's heads where the ranks
+    hold some each, when partitioned; QTensors pass through on their
+    grid)."""
     if isinstance(x, quant.QTensor):
         return x
     scale = quant.absmax_scale(x, bits, axis=tuple(range(1, x.ndim)),
-                               group=heads_max)
+                               group=heads_max if split_heads else None)
     return quant.quantize_tensor(x, bits, scale=scale)
 
 
@@ -94,9 +97,11 @@ def _row_attention(q, k, v, q_pos, k_pos, spec: AttnSpec,
 
     if mode == "int":
         fresh = not isinstance(k, quant.QTensor)
-        qq = _as_q_rows(q, cfg.a_bits) if fresh else _as_q(q, cfg.a_bits)
-        kq = _as_q_rows(k, cfg.a_bits)
-        vq = _as_q_rows(v, cfg.a_bits)
+        sh = spec.split_heads
+        qq = _as_q_rows(q, cfg.a_bits, sh) if fresh else \
+            _as_q(q, cfg.a_bits, sh)
+        kq = _as_q_rows(k, cfg.a_bits, sh)
+        vq = _as_q_rows(v, cfg.a_bits, sh)
         acc = int_matmul_exact(qq.q, kq.q[:, :, None].transpose(-1, -2))
         x = acc.to(torch.float32) * (scale * LOG2E * _sc5(qq.scale)
                                      * _sc5(kq.scale))

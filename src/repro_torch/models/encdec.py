@@ -340,12 +340,12 @@ def _dec_layer(x, p, cfg: EncDecConfig, enc_x, c, decode):
 
 
 def init_cache(cfg: EncDecConfig, batch: int, max_len: int, *,
-               heads: Optional[int] = None, device="cuda") -> dict:
-    """The cache of ``batch`` rows; ``heads``: those a rank holds
-    (``partition.init_cache``), all by default."""
+               device="cuda") -> dict:
+    """The cache of ``batch`` rows (a rank's shard:
+    ``partition.init_cache``)."""
     int_mode = _mode(cfg) == "int"
     dt = torch.int8 if int_mode else cfg.tdtype
-    n, h = cfg.n_dec_layers, heads or cfg.n_heads
+    n, h = cfg.n_dec_layers, cfg.n_heads
     z = dict(dtype=dt, device=device)
     lay = {"k": torch.zeros((n, batch, h, max_len, cfg.hd), **z),
            "v": torch.zeros((n, batch, h, max_len, cfg.hd), **z),

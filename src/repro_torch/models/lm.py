@@ -69,10 +69,12 @@ XLA converts (torch's cast wraps).
 Partitioned serving and training (``distributed/partition.py``): under
 ``Rules(partitioned=True)`` :func:`prefill` and :func:`decode_step` take
 the global tokens, run the rank's batch rows on its shard of the tree
-(attention on its KV heads, read from the local weights; the RG-LRU on
-its d_rnn features; the SSD mixer whole; row-parallel linears reduced as
-int32; its experts; its vocabulary rows) into its shard of the ring
-cache and states, and return the global logits on every rank;
+(attention on its KV heads, read from the local weights, or where the
+ranks split it by column on every head, its column products gathered,
+into its slots of the ring; the RG-LRU on its d_rnn features; the SSD
+mixer whole; row-parallel linears reduced as int32; its experts; its
+vocabulary rows) into its shard of the ring cache and states, and return
+the global logits on every rank;
 :func:`lm_loss` (modes "float" and "fake", every block kind) takes the
 global batch and returns the global loss, with gradients through every
 exchange.  :func:`forward` then takes the rank's rows.  With
@@ -93,7 +95,7 @@ from repro_torch.core.api import QuantConfig, dense
 from repro_torch.core.quant import QTensor, pack_int4, qrange, unpack_int4
 from repro_torch.distributed import partition
 from repro_torch.distributed.sharding import shard
-from repro_torch.kernels.ref import gather_pages
+from repro_torch.kernels.ref import gather_pages, ring_positions
 from repro_torch.layers.attention import (AttnSpec, attention,
                                           paged_attention,
                                           prefix_prefill_attention)
@@ -306,15 +308,20 @@ def _ring_codes(t, scale, kv4):
     return _sat_int8(x)
 
 
-def _ring_write_prefill(cache, k, v, mode, qcfg):
+def _ring_write_prefill(cache, k, v, mode, qcfg, parts: int = 1,
+                        index: int = 0, split_heads: bool = True):
     """Fill a ring from a prompt's keys/values (B, Hkv, S, hd), in place.
 
     Position p lands in slot p % span: a prompt longer than the ring keeps
     its last ``span`` positions, rolled into place; a shorter one is
     zero-padded.  int mode calibrates one per-tensor scale per layer on
-    what the ring holds (pads included, as in the reference).
+    what the ring holds (pads included, as in the reference), over every
+    rank's rows when partitioned, and over every rank's heads where the
+    ranks hold some each (``split_heads``).  ``parts`` > 1: the cache
+    holds slots ``[index * n, (index + 1) * n)`` of a ``parts * n``-slot
+    ring (partitioned by column: every rank holds every head).
     """
-    span = cache["k"].shape[2]
+    span = cache["k"].shape[2] * parts
     s_in = k.shape[2]
     if s_in >= span:
         shift = (s_in - span) % span
@@ -327,9 +334,13 @@ def _ring_write_prefill(cache, k, v, mode, qcfg):
     if mode == "int":
         kv4 = qcfg.kv_bits == 4
         qmax = 7.0 if kv4 else 127.0
-        # per tensor: over every rank's heads and rows when partitioned
-        ksc = partition.tensor_max(ks_.abs()).to(torch.float32) / qmax
-        vsc = partition.tensor_max(vs_.abs()).to(torch.float32) / qmax
+        grid = partition.tensor_max if split_heads else partition.rows_max
+        ksc = grid(ks_.abs()).to(torch.float32) / qmax
+        vsc = grid(vs_.abs()).to(torch.float32) / qmax
+    if parts > 1:
+        n = cache["k"].shape[2]
+        ks_, vs_ = (t.narrow(2, index * n, n) for t in (ks_, vs_))
+    if mode == "int":
         cache["k"].copy_(_ring_codes(ks_, ksc, kv4))
         cache["v"].copy_(_ring_codes(vs_, vsc, kv4))
         cache["k_scale"].copy_(ksc)
@@ -340,13 +351,18 @@ def _ring_write_prefill(cache, k, v, mode, qcfg):
     return cache
 
 
-def _ring_write_decode(cache, k1, v1, pos, mode):
+def _ring_write_decode(cache, k1, v1, pos, mode, parts: int = 1,
+                       index: int = 0):
     """Write one decoded key/value (B, Hkv, hd) into slot ``pos % span`` on
     the ring's prefill scale, in place (``pos`` a 0-d device tensor); the
     ring's dtype says how codes are stored (uint8: int4 nibbles).
     Returns the slot -> position map of the written ring (negative =
-    unwritten): ``pos - ((slot - j) mod span)``, a floor-mod."""
-    span = cache["k"].shape[2]
+    unwritten): ``pos - ((slot - j) mod span)``, a floor-mod.  ``parts``
+    > 1 (:func:`_ring_write_prefill`): only the rank that holds the slot
+    writes it (no host sync: the others write back what they hold), and
+    the map is of the rank's slots."""
+    n = cache["k"].shape[2]
+    span = n * parts
     slot = torch.remainder(pos, span)
     if mode == "int":
         kv4 = cache["k"].dtype == torch.uint8
@@ -354,11 +370,16 @@ def _ring_write_decode(cache, k1, v1, pos, mode):
         vq = _ring_codes(v1, cache["v_scale"], kv4)
     else:
         kq, vq = k1, v1
-    idx = slot.reshape(1).long()
-    cache["k"].index_copy_(2, idx, kq[:, :, None].to(cache["k"].dtype))
-    cache["v"].index_copy_(2, idx, vq[:, :, None].to(cache["v"].dtype))
-    j = torch.arange(span, dtype=torch.int32, device=pos.device)
-    return pos - torch.remainder(slot - j, span)
+    kq, vq = (t[:, :, None].to(cache["k"].dtype) for t in (kq, vq))
+    local = slot - index * n
+    idx = local.clamp(0, n - 1).reshape(1).long()
+    if parts > 1:
+        own = (local >= 0) & (local < n)
+        kq = torch.where(own, kq, cache["k"].index_select(2, idx))
+        vq = torch.where(own, vq, cache["v"].index_select(2, idx))
+    cache["k"].index_copy_(2, idx, kq)
+    cache["v"].index_copy_(2, idx, vq)
+    return ring_positions(pos, span, index * n, n)
 
 
 # ---------------------------------------------------------------------------
@@ -518,24 +539,55 @@ def _paged_write_prefill(cache, k, v, positions, lengths, page_table, mode,
     return cache
 
 
+def _ring_split_decode(q, k, v, spec, qcfg, pos, k_positions, part):
+    """A decode step over a ring split by slot range over the model ranks
+    (``k``, ``v``, ``k_positions``: this rank's slots; ``q`` every head).
+    Where the kernel runs by stages, the exchanges between them are the
+    partitioned program's (``dispatch.maybe_staged_decode``); elsewhere
+    the ranks all-gather the ring's codes (bytes) and attend the whole
+    ring as one rank does.  Either way the result is one rank's, bit for
+    bit."""
+    from repro_torch.kernels.dispatch import maybe_staged_decode
+    out = maybe_staged_decode(
+        q, k, v, spec, qcfg, pos, k_positions, parts=part.m, index=part.j,
+        gather=lambda t: part.gather(t, ("model",), dim=1), reduce=part.sum)
+    if out is not None:
+        return out
+    whole = [part.gather(t.q if isinstance(t, QTensor) else t, ("model",),
+                         dim=2) for t in (k, v)]
+    k, v = (QTensor(w, t.scale, t.bits) if isinstance(t, QTensor) else w
+            for w, t in zip(whole, (k, v)))
+    return attention(q, k, v, spec, qcfg, q_offset=pos,
+                     k_positions=ring_positions(pos, k.shape[2]))
+
+
 def _attn_mixer(x, p, cfg: LMConfig, kind: str, positions, cache, decode,
                 page_table=None, lengths=None, prefix_len: int = 0,
                 seq: bool = False):
-    # the heads this rank holds (all of them unless partitioned)
+    # Partitioned by column (partition.split_plan): each rank's column
+    # products are all-gathered (bytes: exact), so every model rank holds
+    # every head, attends them all, keeps its slots of the ring, and feeds
+    # its K slice of the output to wo.  Else the heads this rank holds (all
+    # of them unless partitioned).
     hd = cfg.hd
-    hq = partition.out_features(p["wq"]) // hd
-    hkv = partition.out_features(p["wk"]) // hd
+    cols = partition.attn_columns(cfg)
+    q_cols = partition.out_features(p["wq"])
     qcfg = cfg.quant
-    x = partition.model_input(x, hq < cfg.n_heads, seq)
+    x = partition.model_input(x, q_cols < cfg.n_heads * hd, seq)
     b, s, _ = x.shape
+    part = partition.active()
 
-    def split(y, h):
-        y = shard(y, "batch", None, "model")
-        return y.reshape(b, s, h, hd).transpose(1, 2)
+    def proj(w):
+        y = shard(dense(x, w, qcfg), "batch", None, "model")
+        if cols:
+            y = part.gather(y, ("model",), dim=-1)
+        return y.reshape(b, s, -1, hd).transpose(1, 2)
 
-    q = split(dense(x, p["wq"], qcfg), hq)
-    k = split(dense(x, p["wk"], qcfg), hkv)
-    v = split(dense(x, p["wv"], qcfg), hkv)
+    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    hq = q.shape[1]
+    # the rank's slot range of the ring, unless it holds the whole ring
+    ring = {"parts": part.m, "index": part.j} if cols and cache is not None \
+        and partition.RING_WHOLE not in cache else {}
     q = apply_rope(q, positions, theta=cfg.rope_theta,
                    rotary_frac=cfg.rotary_frac)
     k = apply_rope(k, positions, theta=cfg.rope_theta,
@@ -586,24 +638,31 @@ def _attn_mixer(x, p, cfg: LMConfig, kind: str, positions, cache, decode,
         # stored (int4 nibbles stay packed for the kernel).
         pos = positions[0, 0]
         k_positions = _ring_write_decode(cache, k[:, :, 0], v[:, :, 0], pos,
-                                         mode)
+                                         mode, **ring)
         if mode == "int":
             k_all = QTensor(cache["k"], cache["k_scale"], qcfg.kv_bits)
             v_all = QTensor(cache["v"], cache["v_scale"], qcfg.kv_bits)
         else:
             k_all, v_all = cache["k"], cache["v"]
-        out = attention(q, k_all, v_all, spec, qcfg, q_offset=pos,
-                        k_positions=k_positions)
+        if ring:
+            out = _ring_split_decode(q, k_all, v_all, spec, qcfg, pos,
+                                     k_positions, part)
+        else:
+            out = attention(q, k_all, v_all, spec, qcfg, q_offset=pos,
+                            k_positions=k_positions)
     else:
         # Prompt positions are arange(S): a static zero offset, so prompt
         # prefill can take the fused kernel.
         out = attention(q, k, v, spec, qcfg,
                         q_offset=positions[0, 0] if decode else 0)
         if cache is not None:
-            _ring_write_prefill(cache, k, v, mode, qcfg)
+            _ring_write_prefill(cache, k, v, mode, qcfg, **ring,
+                                split_heads=spec.split_heads)
     out = out.transpose(1, 2).reshape(b, s, hq * hd)
-    return dense(out, p["wo"], qcfg, tp="row", k_split=hq < cfg.n_heads,
-                 seq=seq)
+    if cols:                      # this rank's K slice of wo
+        out = part.take(out, ("model",), dim=-1)
+    return dense(out, p["wo"], qcfg, tp="row",
+                 k_split=q_cols < cfg.n_heads * hd, seq=seq)
 
 
 def _norm(x, p, cfg: LMConfig, seq: bool):

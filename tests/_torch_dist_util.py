@@ -2159,8 +2159,9 @@ def sp_train_job(rank, ref_path):
     ``lm_loss`` and the rank's gradients (summed over the batch axes)
     without and with seq_tp, each on its own fake-quant codes; past two
     model ranks also the codes that differ between the two runs
-    (``chip_smoke.code_flips``) and the seq_tp run on the codes of the
-    run without it (``chip_smoke.FakeQuantTap``).  Then, once
+    (``chip_smoke.code_flips``, in all and call by call) and the seq_tp
+    run on the codes of the run without it (``chip_smoke.FakeQuantTap``).
+    Then, once
     ``jaxsptrain`` has written ``ref_path``, its tree and batch under
     seq_tp on each mesh: on the reference's codes (:class:`BlockReplay`;
     every code the rank's own would have taken otherwise at a rounding
@@ -2200,6 +2201,8 @@ def sp_train_job(rank, ref_path):
             own = run(True, "sp")
             if shape[1] > 2:
                 out[f"{key}/flips"] = torch.tensor(code_flips(base, own))
+                out[f"{key}/flips_by_call"] = torch.tensor(
+                    [code_flips([a], [b]) for a, b in zip(base, own)])
                 run(True, "replay", base)
 
     # the reference's seq_tp train cell (jaxsptrain, beside these ranks)
@@ -2228,6 +2231,101 @@ def sp_train_job(rank, ref_path):
                 train.model_loss(cfg), local, batch, shards=shards)
             out[f"jax/{m}/own/loss"] = loss
             out.update(flat(grads, f"jax/{m}/own/grads/"))
+    return out
+
+
+# attention split by column (tests/test_torch_partition_attn_split.py):
+# the kv-2 SMOKE configs on (data 1, model 4), a ring of 1024 slots (256 a
+# rank: one chunk of the ring kernel's, so the card's staged ring, which
+# the dry run counts on meta), int8 weights and ring; and a fake-mode train
+# step of ChatGLM3's
+ATTN_SPLIT_ARCHS = ("chatglm3-6b", "qwen2.5-32b")
+ATTN_SPLIT_MESH, ATTN_SPLIT_MAX_LEN = (1, 4), 1024
+ATTN_SPLIT_TRAIN = "chatglm3-6b"
+
+
+def attn_split_quant(backend=None):
+    from repro_torch.core.api import QuantConfig
+    return QuantConfig(**part_quant("w8", 8), backend=backend)
+
+
+def attn_split_train_config():
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.core.api import QuantConfig
+    return smoke_config(ATTN_SPLIT_TRAIN).replace(quant=QuantConfig(
+        w_bits=4, a_bits=8, attn_bits=7, mode="fake"))
+
+
+def attn_split_job(rank, ref):
+    """This rank's part of tests/test_torch_partition_attn_split.py on
+    (data 1, model 4): each ATTN_SPLIT_ARCHS config's prefill and greedy
+    ring steps on both backends over a 1024-slot ring (the rank's tree from
+    ``partition.build_params``, seed 0; logits, fed tokens, its cache
+    shard, the dispatch counts, and the bytes one more decode step sends);
+    JAX's prefill cache carried into the rank's shard and decoded; and a
+    fake-mode train step's loss and gradients."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import partition
+    from repro_torch.distributed.sharding import Rules, use_rules
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+
+    toks = _tensors(ref, "tokens")["tokens"]
+    mesh = make_mesh(ATTN_SPLIT_MESH)
+    layout = partition.Layout.of(mesh, ("data",))
+    rules = Rules(batch=("data",), mesh=mesh, partitioned=True)
+    out = {}
+    for arch in ATTN_SPLIT_ARCHS:
+        for backend in ("cuda", "torch"):
+            cfg = smoke_config(arch).replace(quant=attn_split_quant(backend))
+            local = partition.build_params(cfg, seed=0, layout=layout,
+                                           device="cpu")
+            key = f"{arch}/{backend}"
+            dispatch.reset_stats()
+            with use_rules(rules):
+                logits, fed, cache = greedy(local, toks, cfg,
+                                            max_len=ATTN_SPLIT_MAX_LEN)
+                out[f"{key}/decode"] = torch.tensor(
+                    dispatch.STATS[f"attention_decode_{backend}"])
+                out.update(flat(cache, f"{key}/cache/"))
+                col.reset_wire()
+                lm.decode_step(local, fed[-1], tree_lib.tree_map(
+                    torch.clone, cache), cfg)
+            out.update({f"{key}/logits": logits, f"{key}/fed": fed,
+                        f"{key}/wire": torch.tensor(
+                            [col.WIRE["all_reduce"], col.WIRE["all_gather"],
+                             col.WIRE["reduce_scatter"]])})
+    # JAX's prefill cache, carried into the rank's slot shard
+    cfg = smoke_config("qwen2.5-32b").replace(quant=attn_split_quant())
+    local = partition.partition_params(_tree(ref, "jax/params"), cfg,
+                                       layout)
+    cache = interop.to_torch_shard(unflat(ref, "jax/cache"), cfg, layout,
+                                   "cpu")
+    with use_rules(rules):
+        logits, fed = greedy_from(local, cache,
+                                  torch.from_numpy(ref["jax/tok"]), cfg)
+    out.update({"fromjax/logits": logits, "fromjax/fed": fed})
+    # a fake-mode train step
+    cfg = attn_split_train_config()
+    layout = partition.Layout.of(mesh, ("data",), fsdp=True)
+    local = partition.build_params(cfg, seed=0, layout=layout, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in train_batch(
+        "attn-split", cfg).items()}
+    with use_rules(Rules(batch=("data",), mesh=mesh, partitioned=True,
+                         expert_fsdp=True)):
+        loss, _, grads = train.value_and_grad(
+            train.model_loss(cfg), local, batch,
+            shards=partition.opt_shards(local, cfg))
+    out["train/loss"] = loss
+    out.update(flat(grads, "train/grads/"))
+    out[f"layout/{mesh_tag(ATTN_SPLIT_MESH)}"] = torch.tensor(
+        [layout.index(("data",)), layout.index(("model",))])
     return out
 
 
@@ -2300,6 +2398,8 @@ def rank_main(job, rank, world, store, ref_path, out_dir):
             out = shard_jax_job(rank, ref)
         elif job == "dryrun":
             out = dryrun_job(rank)
+        elif job == "attnsplit":
+            out = attn_split_job(rank, ref)
         elif job == "sp":
             sys.path.insert(0, ROOT)          # chip_smoke's sp_wire_counts
             out = sp_job(rank, ref)

@@ -7,9 +7,9 @@ nibble-packed int4 weights), for every rank of (model 2), (model 4) and
 
 - ``partition_params`` / ``gather_params`` round-trip bit for bit, and
   every local shape is the reference's shard shape (JAX's ``param_specs``,
-  ``filter_mesh_axes`` and ``enforce_divisible``), except where the head
-  rule keeps a layer's attention whole (kv_heads % m != 0: the kv-2 SMOKE
-  configs at model 4, where JAX's wk shard would cut inside a head);
+  ``filter_mesh_axes`` and ``enforce_divisible``), attention included:
+  where kv_heads % m != 0 (the kv-2 SMOKE configs at model 4) it splits
+  by column, JAX's wk shard cutting inside a head;
 - ``build_params`` builds the same values one layer at a time: its
   unpartitioned tree is the whole of its partitioned ones;
 - a partitioned tree without partitioned rules raises;
@@ -19,7 +19,7 @@ nibble-packed int4 weights), for every rank of (model 2), (model 4) and
 
 Over gloo, four ranks (``tests/_torch_dist_util.py partition``, a
 ``file://`` store, every join under a timeout) serve the SMOKE configs of
-Qwen2.5 (kv 2: split at model 2, whole at model 4), Yi, Llama-4-Scout
+Qwen2.5 (kv 2: by head at model 2, by column at model 4), Yi, Llama-4-Scout
 (top-1 plus a shared expert) and Phi-3.5-MoE (top-2) at kv 8 and 4 on the
 (data, model) meshes (1, 4), (2, 2) and (4, 1), on the ``cuda`` backend
 (the kernels' plain versions on the CPU) and, on (2, 2), the ``torch``
@@ -31,7 +31,8 @@ unsharded ``prefill`` / ``decode_step``.  Held:
 
 - every rank's logits at every step, the fed tokens and the gathered ring
   caches (codes, scales, ``pos``) bitwise equal to the one-rank run; each
-  rank's cache shard by KV head and row; every row-parallel product
+  rank's cache shard by row and by KV head (by slot where attention splits
+  by column); every row-parallel product
   through the int32 accumulator path and no dispatch on the other
   backend;
 - the one-rank greedy tokens equal to JAX's up to the first step where
@@ -48,7 +49,7 @@ unsharded ``prefill`` / ``decode_step``.  Held:
   ``moe_a2a`` run partitioned: ``tests/test_torch_partition_shard_bodies.py``),
   and no ``_row_codes`` copy of a row-parallel weight on any local tree;
 - the local trees equal to ``distribute_tensor(...).to_local()`` on every
-  leaf the head rule leaves as ``param_specs`` says.
+  leaf.
 """
 import itertools
 import os
@@ -173,43 +174,60 @@ def test_partition_round_trip_and_shard_shapes(arch, weights, sizes):
     cfg = _cfg(arch, weights)
     jspecs = _jax_specs(jtree, sizes)
     heads = partition.split_plan(cfg, sizes["model"])["heads"]
-    parts, whole = [], 0
+    parts, inside = [], 0
     for layout in _layouts(sizes):
         loc = partition.partition_params(tree, cfg, layout)
         for (keys, leaf), (_, g) in zip(tree_lib.leaves_with_keys(loc),
                                         tree_lib.leaves_with_keys(tree)):
             want = _shard_shape(g.shape, jspecs[keys], sizes)
-            if "attn" in keys and not heads:
-                assert tuple(leaf.shape) == tuple(g.shape), keys
-                whole += want != tuple(g.shape)
-            else:
-                assert tuple(leaf.shape) == want, (keys, jspecs[keys])
+            assert tuple(leaf.shape) == want, (keys, jspecs[keys])
+            inside += keys[-2] == "wk" and keys[-1] == "w_q" and \
+                want[-2] % cfg.hd > 0
         parts.append((layout, loc))
-    # kv 2 (Qwen2.5, Yi, ChatGLM3 SMOKE) keeps attention whole at model 4,
-    # where JAX's shards differ
-    assert bool(whole) == (not heads) == (cfg.kv_heads % sizes["model"] > 0)
+    # kv 2 (Qwen2.5, Yi, ChatGLM3 SMOKE) splits attention by column at
+    # model 4, a rank's wk rows cutting inside a head, as JAX's shards do
+    assert bool(inside) == (heads == "columns") == \
+        (cfg.kv_heads % sizes["model"] > 0)
     _equal_trees(partition.gather_params(parts, cfg), tree)
 
 
 def test_head_rule_keeps_chatglm3_attention_whole_at_model_4():
-    """JAX's wk shard at model 4 is half a head (32 columns over 4 ranks,
-    head_dim 16); the port keeps the layer's attention whole instead."""
+    """The layout that replaced the whole-attention rule at model 4
+    (ChatGLM3's kv 2): attention by column.  JAX's wk shard is half a head
+    (32 columns over 4 ranks, head_dim 16), and so is rank 3's: wq, wk,
+    wv and their biases by output rows, wo by K, each the rank's block of
+    the whole tree's; the ring by slot, a quarter of the slots and every
+    KV head (whole, marked, where 4 does not divide its slots)."""
     jtree = _jax_tree("chatglm3-6b", "w8")
     cfg = _cfg("chatglm3-6b", "w8")
     sizes = {"model": 4}
     spec = _jax_specs(jtree, sizes)[("units", "b0", "attn", "wk", "w_q")]
     wk = jtree["units"]["b0"]["attn"]["wk"]["w_q"]
     assert _shard_shape(wk.shape, spec, sizes)[1] < cfg.hd
-    loc = partition.partition_params(interop.to_torch(jtree, "cpu"), cfg,
-                                     partition.Layout.make(sizes, {"model":
-                                                                   3}))
-    attn = loc["units"]["b0"]["attn"]
-    assert partition.out_features(attn["wk"]) == cfg.kv_heads * cfg.hd
-    assert partition.out_features(attn["wq"]) == cfg.n_heads * cfg.hd
-    assert attn["wo"]["w_q"].shape[-1] == cfg.n_heads * cfg.hd
+    assert partition.split_plan(cfg, 4)["heads"] == "columns"
+    assert partition.split_plan(cfg, 2)["heads"] == "heads"
+    tree = interop.to_torch(jtree, "cpu")
+    layout = partition.Layout.make(sizes, {"model": 3})
+    loc = partition.partition_params(tree, cfg, layout)
+    attn, whole = loc["units"]["b0"]["attn"], tree["units"]["b0"]["attn"]
+    q, kv = cfg.n_heads * cfg.hd, cfg.kv_heads * cfg.hd
+    assert partition.out_features(attn["wk"]) == kv // 4 < cfg.hd
+    assert partition.out_features(attn["wq"]) == q // 4
+    assert torch.equal(attn["wk"]["w_q"], whole["wk"]["w_q"][:, 3 * kv // 4:])
+    assert torch.equal(attn["wv"]["b"], whole["wv"]["b"][:, 3 * kv // 4:])
+    assert torch.equal(attn["wo"]["w_q"],
+                       whole["wo"]["w_q"][..., 3 * q // 4:])
     assert partition.local_kv_heads(cfg, 4) == cfg.kv_heads
     assert partition.out_features(loc["units"]["b0"]["ffn"]["up"]) == \
         cfg.d_ff // 4
+    cache = partition.init_cache(cfg, 4, 40, layout, device="cpu")
+    assert tuple(cache["units"]["b0"]["k"].shape) == \
+        (cfg.n_layers, 4, cfg.kv_heads, 10, cfg.hd)
+    # 42 slots do not split over 4: the ring stays whole, marked
+    odd = partition.init_cache(cfg, 4, 42, layout, device="cpu")
+    assert odd["units"]["b0"]["k"].shape[3] == 42
+    assert partition.RING_WHOLE in odd["units"]["b0"]
+    assert partition.RING_WHOLE not in cache["units"]["b0"]
 
 
 @pytest.mark.parametrize("sizes", SIZES[1:],
@@ -383,6 +401,8 @@ def test_partitioned_ring_is_bitwise_the_one_rank_run(runs, case):
         k0 = parts[-1][1]["units"]["b0"]["k"]
         assert k0.shape[1] == util.PART_BATCH // mesh[0]
         assert k0.shape[2] == partition.local_kv_heads(cfg, mesh[1])
+        cols = partition.split_plan(cfg, mesh[1])["heads"] == "columns"
+        assert k0.shape[3] == util.PART_MAX_LEN // (mesh[1] if cols else 1)
         # every row-parallel product on the int32 path; nothing on the
         # other backend
         assert r[f"{key}/acc"] == _row_products(cfg) * (1 + util.PART_STEPS)
@@ -453,7 +473,5 @@ def test_partitioned_runs_leave_no_row_codes_copy(runs):
 def test_local_trees_are_dtensor_shards(runs, arch, mesh):
     for r in runs[0]:
         same, checked, total = r[f"dtensor/{arch}/{util.mesh_tag(mesh)}"]
-        assert same == checked
-        # all but the attention leaves where the head rule keeps them whole
-        cut = smoke_config(arch).kv_heads % mesh[1] > 0
-        assert (checked < total) == cut and checked > total // 2
+        # every leaf, attention's where it splits by column too
+        assert same == checked == total
